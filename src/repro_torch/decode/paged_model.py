@@ -1,0 +1,239 @@
+"""Paged decode forward passes: chunked prefill and the K-token greedy
+decode loop, over a ``Model`` or a ``SemanticModel``.
+
+``make_prefill_chunk_fn``  one call commits up to ``chunk`` prompt tokens
+                    per prefilling lane directly into the paged pool: per
+                    layer the chunk's K/V scatter to their block slots, then
+                    the queries attend through the block table over the
+                    cached prefix and the in-chunk causal triangle
+                    (``paged_prefill_attention``).
+``make_decode_fn``  K greedy decode steps per dispatch: a Python loop with
+                    argmax on the device; the caller reads the K tokens back
+                    once.  Per-lane ``remaining`` masks retire lanes
+                    mid-loop (writes route to the null block, lengths
+                    freeze).
+``paged_decode_logits``  one paged decode step (``paged_decode_attention``).
+
+Where the JAX package ``lax.scan``-ned the superblock stack, this loops
+over ``N_sb``; where it ``jax.vmap``-ed a ``SemanticModel``'s branches, every
+tensor carries a leading branch dim G (G = 1 for ``Model``) and one kernel
+launch per layer serves all branches.  The branches' vocab shards merge in
+the JAX order (``(1, 0, 2)`` transpose).  The pool is updated in place
+(``index_put_``) and returned.  int8 pools quantize on write and dequantize
+in the kernels' registers.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.decode.paged_cache import (chunk_write_slots, quantize_kv,
+                                            write_slots)
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+from repro_torch.kernels.paged_prefill_attention import \
+    paged_prefill_attention
+from repro_torch.models import layers as L
+from repro_torch.models.model import SemanticModel
+
+
+def supports_paged_decode(model) -> bool:
+    """Paged decode needs pure global-attention mixers."""
+    return getattr(model, "supports_single_step_prefill", False)
+
+
+def _grouped_pool(model, pool: Dict) -> Dict:
+    """Pool leaves with a leading branch dim (views; writes reach ``pool``)."""
+    if isinstance(model, SemanticModel):
+        return pool
+    return {pos: {k: v.unsqueeze(0) for k, v in e.items()}
+            for pos, e in pool.items()}
+
+
+def _sb_pool(gpool: Dict, n: int) -> Dict:
+    return {pos: {k: v[:, n] for k, v in e.items()} for pos, e in gpool.items()}
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [G, B, S, D] @ w [G, D, E] -> [G, B, S, E]."""
+    g, b, s, d = x.shape
+    return (x.reshape(g, b * s, d) @ w).reshape(g, b, s, -1)
+
+
+def _scatter_kv(pool: Dict, k, v, wb, wo) -> Dict:
+    """Write new K/V [G, B, (C,) K, hd] into their (wb, wo) slots in place,
+    quantizing on write when the pool carries int8 code + scale leaves.
+    Per-token scales make each slot a function of its own K/V vector, so
+    chunk prefill, decode steps and COW copies commit identical bytes."""
+    wb, wo = wb.long(), wo.long()
+    if "k_scale" in pool:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        pool["k"][:, wb, wo] = kq
+        pool["k_scale"][:, wb, wo] = ks
+        pool["v"][:, wb, wo] = vq
+        pool["v_scale"][:, wb, wo] = vs
+    else:
+        pool["k"][:, wb, wo] = k.to(pool["k"].dtype)
+        pool["v"][:, wb, wo] = v.to(pool["v"].dtype)
+    return pool
+
+
+def _qkv(params, x, cfg: ArchConfig, positions):
+    g, b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _proj(x, params["wq"]).reshape(g, b, s, h, hd)
+    k = _proj(x, params["wk"]).reshape(g, b, s, kv, hd)
+    v = _proj(x, params["wv"]).reshape(g, b, s, kv, hd)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _paged_attn(params, x, cfg: ArchConfig, *, positions, pool, block_tables,
+                valid_lens, wb, wo):
+    """One-token GQA attention against the paged pool: scatter the new K/V
+    into the (wb, wo) write slots, then attend through the block table."""
+    g, b, s, _ = x.shape                    # s == 1
+    q, k, v = _qkv(params, x, cfg, positions)
+    _scatter_kv(pool, k[:, :, 0], v[:, :, 0], wb, wo)
+    out = paged_decode_attention(
+        q[:, :, 0].contiguous(), pool["k"], pool["v"], block_tables,
+        valid_lens, k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
+        softcap=cfg.attn_softcap)
+    return _proj(out.reshape(g, b, s, -1), params["wo"])
+
+
+def _paged_chunk_attn(params, x, cfg: ArchConfig, *, positions, pool,
+                      block_tables, wb, wo):
+    """Chunk GQA attention against the paged pool: scatter the chunk's K/V,
+    then attend with the absolute-position causal mask."""
+    g, b, s, _ = x.shape                    # s == chunk
+    q, k, v = _qkv(params, x, cfg, positions)
+    _scatter_kv(pool, k, v, wb, wo)
+    out = paged_prefill_attention(
+        q.contiguous(), pool["k"], pool["v"], block_tables, positions,
+        k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
+        softcap=cfg.attn_softcap)
+    return _proj(out.reshape(g, b, s, -1), params["wo"])
+
+
+def _stack_body(cfg: ArchConfig, h, sb_params, sb_pool, attn_fn):
+    """One superblock of the paged forward; ``attn_fn(blk_params, hn,
+    sb_pool_entry)`` returns the mixer output.  h: [G, B, S, d]."""
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
+        if mixer != "attn":
+            raise ValueError("paged decode requires global attention")
+        blk = sb_params[f"pos{i}"]
+        hn = L.norm_apply(blk["mix_norm"], h, cfg)
+        out = attn_fn(blk["mix"], hn, sb_pool[f"pos{i}"])
+        if cfg.post_norms:
+            out = L.norm_apply(blk["mix_post_norm"], out, cfg)
+        h = h + out
+        if ffn != "none":
+            hn = L.norm_apply(blk["ffn_norm"], h, cfg)
+            g, b, s, d = hn.shape
+            out = L.mlp_apply(blk["ffn"], hn.reshape(g, b * s, d),
+                              cfg).reshape(g, b, s, d)
+            if cfg.post_norms:
+                out = L.norm_apply(blk["ffn_post_norm"], out, cfg)
+            h = h + out
+    return h
+
+
+def _run_stack(model, pool, x, attn_fn):
+    cfg = model.branch_cfg
+    _, _, sbs = model.grouped_views()
+    gpool = _grouped_pool(model, pool)
+    for n, sb_params in enumerate(sbs):
+        x = _stack_body(cfg, x, sb_params, _sb_pool(gpool, n), attn_fn)
+    return x
+
+
+def _head(model, x):
+    """Final norm + unembed of x [G, B, d] -> merged [B, vocab] f32."""
+    cfg = model.branch_cfg
+    emb, fnorm, _ = model.grouped_views()
+    x = L.norm_apply(fnorm, x, cfg)
+    logits = L.unembed_apply(emb, x, cfg)               # [G, B, V/G]
+    if isinstance(model, SemanticModel):
+        return model._merge_logits(logits)
+    return logits[0]
+
+
+def _block_size(pool: Dict) -> int:
+    return next(iter(next(iter(pool.values())).values())).shape[-3]
+
+
+@torch.no_grad()
+def paged_decode_logits(model, pool, tokens, block_tables, lengths, active):
+    """One paged decode step.  tokens: [B, 1]; lengths: [B] tokens already
+    in cache (the new token's position); active: [B] bool.  Returns
+    ([B, vocab] f32 logits, pool)."""
+    cfg = model.branch_cfg
+    emb, _, _ = model.grouped_views()
+    x = L.embed_apply(emb, tokens, cfg)                # [G, B, 1, d]
+    positions = lengths[:, None]
+    wb, wo = write_slots(lengths, block_tables, active, _block_size(pool))
+    valid_lens = (lengths + active.int()).int()
+    attn = lambda p, hn, entry: _paged_attn(
+        p, hn, cfg, positions=positions, pool=entry,
+        block_tables=block_tables, valid_lens=valid_lens, wb=wb, wo=wo)
+    x = _run_stack(model, pool, x, attn)
+    return _head(model, x[:, :, -1]), pool
+
+
+@torch.no_grad()
+def paged_chunk_logits(model, pool, tokens, starts, n_tok, block_tables):
+    """Chunked prefill: commit ``tokens`` [B, C] at absolute positions
+    ``starts + [0..C)`` into the pool and return the [B, vocab] logits at
+    each lane's last valid chunk position.  Padded token slots (>= n_tok)
+    write to the null block and their outputs are never read."""
+    cfg = model.branch_cfg
+    emb, _, _ = model.grouped_views()
+    b, c = tokens.shape
+    x = L.embed_apply(emb, tokens, cfg)                # [G, B, C, d]
+    ar = torch.arange(c, device=tokens.device)
+    positions = (starts[:, None] + ar[None, :]).int()
+    wb, wo = chunk_write_slots(starts, n_tok, block_tables,
+                               _block_size(pool), c)
+    attn = lambda p, hn, entry: _paged_chunk_attn(
+        p, hn, cfg, positions=positions, pool=entry,
+        block_tables=block_tables, wb=wb, wo=wo)
+    x = _run_stack(model, pool, x, attn)
+    idx = (n_tok.long() - 1).clamp(0, c - 1)
+    last = x[:, torch.arange(b, device=x.device), idx]  # [G, B, d]
+    return _head(model, last), pool
+
+
+# ---------------------------------------------------------------- factories
+def make_prefill_chunk_fn(model):
+    """(pool, toks [W, C], starts [W], n_tok [W], block_tables [W, NB]) ->
+    ([W, vocab] last-valid-position logits, pool)."""
+    def chunk(pool, toks, starts, n_tok, block_tables):
+        return paged_chunk_logits(model, pool, toks, starts, n_tok,
+                                  block_tables)
+    return chunk
+
+
+def make_decode_fn(model, *, scan_tokens: int):
+    """K = ``scan_tokens`` greedy decode steps for every active lane.
+
+    (pool, tok [B, 1], block_tables [B, NB], lengths [B], remaining [B]) ->
+    (pool, tok', lengths', remaining', toks [B, K]), all on the device.
+    A lane with remaining == 0 is inactive for the rest of the loop
+    (null-block writes, frozen length, frozen token)."""
+    def decode(pool, tok, block_tables, lengths, remaining):
+        steps = []
+        for _ in range(scan_tokens):
+            active = remaining > 0
+            logits, pool = paged_decode_logits(model, pool, tok, block_tables,
+                                               lengths, active)
+            nxt = torch.argmax(logits, dim=-1).int()
+            tok = torch.where(active, nxt, tok[:, 0])[:, None]
+            lengths = lengths + active.int()
+            remaining = remaining - active.int()
+            steps.append(nxt)
+        return pool, tok, lengths, remaining, torch.stack(steps, dim=1)
+    return decode

@@ -1,0 +1,131 @@
+"""Argument checks and the ctypes launch shared by the two paged-attention
+wrappers (``csrc/paged_attention.cu``).  CUDA tensors only: the wrappers
+route CPU tensors to their plain versions before reaching this module."""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+HEAD_DIMS = (32, 64)
+
+_I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
+    ctypes.c_void_p
+_ARGTYPES = {
+    "paged_decode_attention_launch":
+        [_I, _I, _I] + [_P] * 8 + [_I] * 6 + [_LL, _LL, _F, _F, _P],
+    "paged_prefill_attention_launch":
+        [_I, _I, _I] + [_P] * 8 + [_I] * 7 + [_LL, _LL, _F, _F, _P],
+}
+
+
+def _fn(name: str):
+    lib = _build.load("paged_attention")
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _inner_contiguous(t: torch.Tensor) -> bool:
+    """True when every dim but the leading (branch) one is dense row-major."""
+    expect = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _lead(t, n: int):
+    """Add the leading branch dim when the caller passed a single branch."""
+    return t if t is None or t.dim() == n else t.unsqueeze(0)
+
+
+def launch(name: str, q, k_pool, v_pool, block_tables, qpos, *, k_scale,
+           v_scale, softcap: float, chunk: bool):
+    """Check the arguments and launch one kernel on the current stream.
+
+    ``q``: [G, B, (C,) H, hd] contiguous, f32 or bf16; ``k/v_pool``:
+    [G, P, bs, K, hd] with dense inner dims (a leading-dim stride is fine),
+    q's dtype or int8 with f32 ``k/v_scale`` [G, P, bs, K]; ``block_tables``
+    [B, NB] int32; ``qpos`` int32 lengths [B] (decode) or positions [B, C]
+    (prefill).  Returns ``out`` shaped like ``q``."""
+    k_pool, v_pool = _lead(k_pool, 5), _lead(v_pool, 5)
+    k_scale, v_scale = _lead(k_scale, 4), _lead(v_scale, 4)
+    dev = q.device
+    tensors = [q, k_pool, v_pool, block_tables, qpos]
+    quantized = k_scale is not None
+    if (v_scale is not None) != quantized:
+        raise ValueError("k_scale and v_scale come together")
+    if quantized:
+        tensors += [k_scale, v_scale]
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    g, b = q.shape[0], q.shape[1]
+    c = q.shape[2] if chunk else 1
+    h, hd = q.shape[-2], q.shape[-1]
+    gp, p_blocks, bs, kh, hd_p = k_pool.shape
+    if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
+        raise ValueError(f"{name}: q must be contiguous f32/bf16, got "
+                         f"{q.dtype}")
+    if hd not in HEAD_DIMS or hd_p != hd:
+        raise ValueError(f"{name}: head dim {hd} (pool {hd_p}); the kernel "
+                         f"takes {HEAD_DIMS}")
+    if gp != g or h % kh:
+        raise ValueError(f"{name}: {g} query branches vs {gp} pool branches, "
+                         f"{h} heads vs {kh} kv heads")
+    if v_pool.shape != k_pool.shape or v_pool.stride() != k_pool.stride():
+        raise ValueError(f"{name}: k/v pools differ in shape or strides")
+    want_kv = torch.int8 if quantized else q.dtype
+    if k_pool.dtype != want_kv or v_pool.dtype != want_kv:
+        raise ValueError(f"{name}: pool dtype {k_pool.dtype}, expected "
+                         f"{want_kv} for q {q.dtype}")
+    if not _inner_contiguous(k_pool):
+        raise ValueError(f"{name}: pool inner dims must be dense")
+    item = k_pool.element_size()
+    if (k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16
+            or (g > 1 and k_pool.stride(0) * item % 16)):
+        raise ValueError(f"{name}: pools must be 16-byte aligned")
+    scale_gstride = 0
+    if quantized:
+        for s in (k_scale, v_scale):
+            if (s.dtype != torch.float32 or tuple(s.shape) != (
+                    g, p_blocks, bs, kh) or not _inner_contiguous(s)):
+                raise ValueError(f"{name}: scales must be f32 [G, P, bs, K] "
+                                 "with dense inner dims")
+        if v_scale.stride() != k_scale.stride():
+            raise ValueError(f"{name}: k/v scales differ in strides")
+        scale_gstride = k_scale.stride(0) if g > 1 else 0
+    nb = block_tables.shape[1]
+    want_pos = (b, c) if chunk else (b,)
+    for t, shape in ((block_tables, (b, nb)), (qpos, want_pos)):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: index tensors must be contiguous int32 "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    row_tiles = -(-(h // kh) * c // (32 if chunk else 4))
+    if kh > 65535 or g * row_tiles > 65535:
+        raise ValueError(f"{name}: grid too large")
+    shape_args = [g, b, c, h, kh, bs, nb] if chunk else [g, b, h, kh, bs, nb]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _fn(name)(
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], hd,
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
+            block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(),
+            *shape_args, k_pool.stride(0) if g > 1 else 0, scale_gstride,
+            1.0 / math.sqrt(hd), float(softcap), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with CUDA error {rc}")
+    return out

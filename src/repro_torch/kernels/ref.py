@@ -1,0 +1,82 @@
+"""Plain PyTorch oracles for the paged-attention kernels (the allclose
+targets), one to one with the jnp versions of the JAX package.
+
+Each gathers the block table into a dense cache and runs a masked softmax in
+float32; the result is cast back to q's dtype.  Masked scores are -1e30, as
+in the jnp versions, so a row with no valid key averages over every gathered
+slot (callers never read such rows).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _repeat_heads(x, rep: int):
+    """[..., K, hd] -> [..., K*rep, hd] (kv head k serves query heads
+    k*rep .. k*rep+rep-1)."""
+    return x if rep == 1 else torch.repeat_interleave(x, rep, dim=-2)
+
+
+def decode_attention_ref(q, k_cache, v_cache, length, *, softcap=0.0):
+    """q: [B, H, hd]; k/v_cache: [B, L, K, hd]; length: [B] valid slots."""
+    b, h, hd = q.shape
+    L, kh = k_cache.shape[1], k_cache.shape[2]
+    k = _repeat_heads(k_cache, h // kh).float()
+    v = _repeat_heads(v_cache, h // kh).float()
+    s = torch.einsum("bhd,blhd->bhl", q.float(), k) / math.sqrt(hd)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    valid = torch.arange(L, device=q.device)[None, None, :] \
+        < length.to(q.device)[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhl,blhd->bhd", p, v).to(q.dtype)
+
+
+def dequant_pool_ref(pool, scale):
+    """Dequantize an int8 KV pool [P, bs, K, hd] with per-token-slot scales
+    [P, bs, K].  Identity for ``scale=None`` (float pools)."""
+    if scale is None:
+        return pool
+    return pool.float() * scale[..., None]
+
+
+def _gather(pool, scale, block_tables):
+    """[P, bs, K, hd] pool -> dense [B, NB*bs, K, hd] through the table."""
+    d = dequant_pool_ref(pool, scale)[block_tables.long()]
+    b, nb, bs, kh, hd = d.shape
+    return d.reshape(b, nb * bs, kh, hd)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                               k_scale=None, v_scale=None, softcap=0.0):
+    """Dense-gather oracle for the paged decode kernel.  q: [B, H, hd];
+    k/v_pool: [P, bs, K, hd]; block_tables: [B, NB]; lengths: [B]."""
+    k = _gather(k_pool, k_scale, block_tables)
+    v = _gather(v_pool, v_scale, block_tables)
+    return decode_attention_ref(q, k, v, lengths, softcap=softcap)
+
+
+def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, positions, *,
+                                k_scale=None, v_scale=None, softcap=0.0):
+    """Chunked-prefill oracle.  q: [B, C, H, hd] at absolute ``positions``
+    [B, C]; the pools already hold the chunk's K/V.  The causal rule
+    ``kpos <= qpos`` covers the cached prefix and the in-chunk triangle."""
+    kd = _gather(k_pool, k_scale, block_tables)
+    vd = _gather(v_pool, v_scale, block_tables)
+    h, kh = q.shape[2], kd.shape[2]
+    kd = _repeat_heads(kd, h // kh).float()
+    vd = _repeat_heads(vd, h // kh).float()
+    hd = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kd) / math.sqrt(hd)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(kd.shape[1], device=q.device)[None, None, None, :]
+    mask = kpos <= positions.to(q.device)[:, None, :, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vd).to(q.dtype)

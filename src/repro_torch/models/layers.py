@@ -1,0 +1,119 @@
+"""Core layers of the paged serving path: init helpers, norms, rotary
+embeddings, dense MLPs, embedding and unembedding.
+
+Functions over plain tensors and dicts of tensors (an ``nn.ParameterDict``
+indexes the same way), mirroring ``repro.models.layers``.  Weights may carry
+leading batch dims (the superblock stack, the semantic split's branches);
+callers slice them before use, so these functions see one layer's weights
+with at most a leading branch dim that lines up with the activations'.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+
+def torch_dtype(cfg: ArchConfig) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+def dense_init(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Fill ``w`` [..., d_in, d_out] in place with N(0, 1/d_in), the
+    distribution of the JAX ``dense_init`` (not its draws)."""
+    z = torch.randn(w.shape, generator=generator, device=w.device)
+    w.copy_(z / math.sqrt(w.shape[-2]))
+
+
+def norm_shapes(cfg: ArchConfig, d: Optional[int] = None) -> dict:
+    d = d or cfg.d_model
+    if cfg.norm_type == "layernorm":
+        return {"w": (d,), "b": (d,)}
+    return {"w": (d,)}
+
+
+def _align(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Broadcast a [..., d] weight against x [..., T, d] sharing leading
+    (branch) dims: insert the missing middle dims."""
+    extra = x.dim() - w.dim()
+    return w.reshape(w.shape[:-1] + (1,) * extra + w.shape[-1:])
+
+
+def norm_apply(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """LayerNorm or RMSNorm in f32, cast back to x's dtype."""
+    xf = x.float()
+    w = _align(params["w"], x).float()
+    if cfg.norm_type == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * w + _align(params["b"], x).float()
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + cfg.norm_eps) * w
+    return out.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, hd]; positions: [..., seq] (broadcastable).
+    Split-halves rotation, computed in f32 and cast back."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions[..., :, None].float() * freqs       # [..., seq, hd/2]
+    angles = angles[..., :, None, :]                       # [..., seq, 1, hd/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_shapes(cfg: ArchConfig) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type == "swiglu":
+        return {"wg": (d, ff), "wu": (d, ff), "wd": (ff, d)}
+    return {"wu": (d, ff), "wd": (ff, d)}
+
+
+def mlp_apply(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x [..., T, d] @ weights [..., d, f] (matching leading dims)."""
+    if "wg" in params:
+        return (F.silu(x @ params["wg"]) * (x @ params["wu"])) @ params["wd"]
+    return F.gelu(x @ params["wu"], approximate="tanh") @ params["wd"]
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0:
+        return torch.tanh(logits / cap) * cap
+    return logits
+
+
+def embed_apply(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """tok [..., V, d] gathered at ``tokens`` -> [..., *tokens.shape, d].
+    Ids past the table clamp to its last row, as a JAX gather does (a
+    semantic branch embeds full-vocab ids with its vocab shard)."""
+    tok = params["tok"]
+    idx = tokens.long().clamp(0, tok.shape[-2] - 1)
+    x = tok[..., idx, :]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def unembed_apply(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x [..., T, d] -> f32 logits [..., T, vocab] with the final softcap."""
+    w = params["tok"].transpose(-1, -2) if cfg.tie_embeddings \
+        else params["head"]
+    logits = x @ w.to(x.dtype)
+    return softcap(logits.float(), cfg.final_softcap)

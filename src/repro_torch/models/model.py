@@ -1,0 +1,187 @@
+"""Model facade of the paged serving path: ``build_model(cfg)`` ->
+``Model`` (one branch) or ``SemanticModel`` (the paper's semantic split).
+
+Both are ``nn.Module``s whose parameter names follow the JAX param pytree
+paths (``embed.tok``, ``blocks.pos0.mix.wq``, ``final_norm.w``, ...).
+Superblock leaves stay stacked ``[N_sb, ...]`` as in JAX, and
+``SemanticModel`` carries a leading branch dim ``[Bb, ...]`` on every leaf
+where the JAX package ``jax.vmap``-ed a single-branch model.  Parameters
+never require grad; weights are random draws from an explicit
+``torch.Generator`` or loaded in place (``repro_torch.bridge``).
+
+This slice serves decoder-only stacks of global attention with dense (or
+no) FFNs; other mixers, MoE FFNs and modality frontends raise.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    for mixer, ffn in cfg.pattern:
+        if mixer != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: mixer {mixer!r} is ported in a later slice "
+                "(legacy gang path and the rest of the zoo)")
+        if ffn == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: the MoE FFN (moe_apply) is ported in the next "
+                "slice")
+        if ffn not in ("dense", "none"):
+            raise ValueError(ffn)
+    if cfg.is_encdec or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: enc-dec and modality frontends come in a later "
+            "slice")
+
+
+def _block_shapes(cfg: ArchConfig, ffn: str) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {"mix_norm": L.norm_shapes(cfg),
+         "mix": {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
+                 "wo": (h * hd, d)}}
+    if cfg.post_norms:
+        p["mix_post_norm"] = L.norm_shapes(cfg)
+    if ffn == "dense":
+        p["ffn_norm"] = L.norm_shapes(cfg)
+        p["ffn"] = L.mlp_shapes(cfg)
+        if cfg.post_norms:
+            p["ffn_post_norm"] = L.norm_shapes(cfg)
+    return p
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """Nested dict of leaf shapes in the JAX param-tree layout (one branch;
+    block leaves carry the leading ``N_sb`` dim)."""
+    n = cfg.n_superblocks
+    lead = lambda t: {k: lead(v) for k, v in t.items()} \
+        if isinstance(t, dict) else (n,) + t
+    embed = {"tok": (cfg.vocab_size, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        embed["head"] = (cfg.d_model, cfg.vocab_size)
+    blocks = {f"pos{i}": lead(_block_shapes(cfg, ffn))
+              for i, (_, ffn) in enumerate(cfg.pattern)}
+    return {"embed": embed, "blocks": blocks,
+            "final_norm": L.norm_shapes(cfg)}
+
+
+def _build(tree: dict, lead: tuple, dtype, device) -> nn.Module:
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, dict)}
+    subs = {k: v for k, v in tree.items() if isinstance(v, dict)}
+    if leaves and subs:
+        raise ValueError("a param node holds either leaves or subtrees")
+    if leaves:
+        return nn.ParameterDict({
+            k: nn.Parameter(torch.empty(lead + tuple(s), dtype=dtype,
+                                        device=device), requires_grad=False)
+            for k, s in leaves.items()})
+    return nn.ModuleDict({k: _build(v, lead, dtype, device)
+                          for k, v in subs.items()})
+
+
+class _PagedLM(nn.Module):
+    """Shared parameter tree + pool factory; ``n_branches`` leading dim
+    (absent for the single-branch ``Model``)."""
+
+    def __init__(self, cfg: ArchConfig, branch_cfg: ArchConfig,
+                 branch_lead: tuple, device):
+        super().__init__()
+        _check_supported(branch_cfg)
+        self.cfg = cfg
+        self.branch_cfg = branch_cfg
+        self._lead = branch_lead
+        dtype = L.torch_dtype(cfg)
+        tree = param_shapes(branch_cfg)
+        self.embed = _build(tree["embed"], branch_lead, dtype, device)
+        self.blocks = _build(tree["blocks"], branch_lead, dtype, device)
+        self.final_norm = _build(tree["final_norm"], branch_lead, dtype,
+                                 device)
+        self._views: Optional[tuple] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["tok"].device
+
+    @property
+    def supports_single_step_prefill(self) -> bool:
+        return all(m == "attn" for m, _ in self.branch_cfg.pattern)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> "_PagedLM":
+        """Random weights with the JAX init's distributions: dense
+        N(0, 1/d_in), token table N(0, 0.02^2), norm scale 1 and bias 0."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if "norm" in name:
+                p.fill_(1.0 if leaf == "w" else 0.0)
+            elif leaf == "tok":
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=p.device) * 0.02)
+            else:
+                L.dense_init(p, generator)
+        return self
+
+    def grouped_views(self):
+        """(embed, final_norm, per-superblock params) with a leading branch
+        dim G on every leaf (G = 1 for ``Model``): views into the
+        parameters, built once (weights change in place only)."""
+        if self._views is None:
+            g = (lambda t: t) if self._lead else (lambda t: t.unsqueeze(0))
+            emb = {k: g(v) for k, v in self.embed.items()}
+            fnorm = {k: g(v) for k, v in self.final_norm.items()}
+            sbs: List[dict] = []
+            for n in range(self.branch_cfg.n_superblocks):
+                sbs.append({pos: {name: {k: g(v)[:, n] for k, v in sub.items()}
+                                  for name, sub in blk.items()}
+                            for pos, blk in self.blocks.items()})
+            self._views = (emb, fnorm, sbs)
+        return self._views
+
+    def init_cache(self, num_blocks: int, block_size: int) -> Dict:
+        """Paged KV pool in the reference layout: ``{"pos<i>": {"k", "v"}}``
+        with leaves [(Bb,) N_sb, P, bs, K, hd] in ``cfg.dtype``."""
+        c = self.branch_cfg
+        shape = self._lead + (c.n_superblocks, num_blocks, block_size,
+                              c.n_kv_heads, c.hd)
+        kw = dict(dtype=L.torch_dtype(self.cfg), device=self.device)
+        return {f"pos{i}": {"k": torch.zeros(shape, **kw),
+                            "v": torch.zeros(shape, **kw)}
+                for i in range(len(c.pattern))}
+
+
+class Model(_PagedLM):
+    """Single-branch model (n_branches == 1)."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None):
+        if cfg.n_branches != 1:
+            raise ValueError("Model takes a single-branch config")
+        super().__init__(cfg, cfg, (), device)
+
+
+class SemanticModel(_PagedLM):
+    """The paper's semantic split: Bb independent block-diagonal branches,
+    each a full-depth model of width d/Bb over a vocab shard; the only
+    cross-branch op is the final logit concat."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None):
+        if cfg.n_branches < 2:
+            raise ValueError("SemanticModel takes a multi-branch config")
+        super().__init__(cfg, cfg.replace(n_branches=1), (cfg.n_branches,),
+                         device)
+
+    @staticmethod
+    def _merge_logits(logits: torch.Tensor) -> torch.Tensor:
+        """[Bb, batch, vocab/Bb] -> [batch, vocab], branch-major shards."""
+        bb, b, v = logits.shape
+        return logits.permute(1, 0, 2).reshape(b, bb * v)
+
+
+def build_model(cfg: ArchConfig, *, device=None):
+    return SemanticModel(cfg, device=device) if cfg.n_branches > 1 \
+        else Model(cfg, device=device)

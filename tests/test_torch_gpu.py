@@ -1,0 +1,140 @@
+"""Port tests that need the card: the hand-written CUDA kernels against
+their plain PyTorch versions, and the paged serving path on CUDA against
+the same path on the CPU.  Every test is marked ``gpu`` and skips without a
+CUDA device (a CUDA kernel has no CPU mode).  This file imports neither jax
+nor the JAX package, so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.decode.paged_cache import quantize_kv  # noqa: E402
+from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,  # noqa: E402
+                                PlacementEngine, Request, TorchBackend)
+from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
+    paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
+    paged_prefill_attention, paged_prefill_attention_plain)
+
+pytestmark = pytest.mark.gpu
+
+# f32: summation order; bf16: one bf16 rounding of outputs ~1; int8 with
+# f32 queries: the same dequantized products in another order
+TOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 1e-3}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(dev, kind, *, g, b=4, h=8, kh=4, hd=64, bs=16, nb=6, c=40):
+    """Pools with a branch dim, tables aliasing the first two blocks, a
+    length-0 pad row with a null table, and chunk positions that run past
+    the table for the last lane."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    qdt = torch.bfloat16 if kind == "bf16" else torch.float32
+    p_blocks = 1 + b * nb
+    kf = torch.randn(g, p_blocks, bs, kh, hd, generator=gen, device=dev)
+    vf = torch.randn(g, p_blocks, bs, kh, hd, generator=gen, device=dev)
+    rng = np.random.default_rng(5)
+    tables = rng.permutation(np.arange(1, p_blocks)).reshape(b, nb)
+    tables[1:, :2] = tables[1, :2]
+    tables[0] = 0
+    lengths = np.asarray([0] + list(rng.integers(1, nb * bs + 1, b - 1)))
+    starts = np.minimum(rng.integers(0, nb * bs, b), nb * bs - 8)
+    case = dict(
+        tables=torch.tensor(tables, dtype=torch.int32, device=dev),
+        lengths=torch.tensor(lengths, dtype=torch.int32, device=dev),
+        positions=torch.tensor(starts[:, None] + np.arange(c),
+                               dtype=torch.int32, device=dev),
+        q=torch.randn(g, b, h, hd, generator=gen, device=dev).to(qdt),
+        qc=torch.randn(g, b, c, h, hd, generator=gen, device=dev).to(qdt))
+    if kind == "int8":
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+        case.update(k=k, v=v, kw=dict(k_scale=ks, v_scale=vs))
+    else:
+        case.update(k=kf.to(qdt), v=vf.to(qdt), kw={})
+    return case
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("g", [1, 2], ids=["one", "branches"])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_kernels_match_plain(dev, kind, g, hd):
+    cs = _case(dev, kind, g=g, hd=hd)
+    sq = (lambda t: t[0]) if g == 1 else (lambda t: t)
+    kw = {k: sq(v) for k, v in cs["kw"].items()}
+    args = (sq(cs["k"]), sq(cs["v"]), cs["tables"])
+    before = (paged_decode_attention.launches,
+              paged_prefill_attention.launches)
+    for kern, plain, q, pos in (
+            (paged_decode_attention, paged_decode_attention_plain,
+             sq(cs["q"]), cs["lengths"]),
+            (paged_prefill_attention, paged_prefill_attention_plain,
+             sq(cs["qc"]), cs["positions"])):
+        got = kern(q, *args, pos, **kw)
+        want = plain(q, *args, pos, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == q.dtype
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[kind], rtol=TOL[kind])
+    assert (paged_decode_attention.launches,
+            paged_prefill_attention.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    # the pad row (length 0) is exactly zero
+    out = paged_decode_attention(sq(cs["q"]), *args, cs["lengths"], **kw)
+    assert bool((out[..., 0, :, :] == 0).all())
+
+
+def test_kernel_rejects_what_it_cannot_take(dev):
+    cs = _case(dev, "f32", g=1)
+    with pytest.raises(ValueError, match="pool dtype"):
+        paged_decode_attention(cs["q"][0], cs["k"][0].half(),
+                               cs["v"][0].half(), cs["tables"],
+                               cs["lengths"])
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(cs["q"][0], cs["k"][0], cs["v"][0],
+                               cs["tables"].long(), cs["lengths"])
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("arm", [LAYER, SEMANTIC], ids=["layer", "semantic"])
+def test_backend_on_cuda_matches_cpu(dev, arm, kv):
+    """The same f32 weights serve the same tokens through the kernels on
+    the card and through the plain versions on the CPU."""
+    cfg = get_config("stablelm-1.6b").reduced().replace(
+        d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
+        vocab_size=256)
+    outs = []
+    for device in ("cpu", dev):
+        tb = TorchBackend(cfg, cache_len=64, max_batch=4, block_size=8,
+                          scan_tokens=4, prefill_chunk=16, kv_dtype=kv,
+                          arms=(arm,), device=device)
+        if outs:
+            with torch.no_grad():
+                for p, q in zip(tb.models[arm].parameters(),
+                                cpu_model.parameters()):
+                    p.copy_(q)
+        cpu_model = tb.models[arm]
+        rng = np.random.default_rng(3)
+        head = rng.integers(0, cfg.vocab_size, 19)
+        reqs = [Request(rid=i, app_id=0, sla_s=5.0, max_new=6 + i,
+                        tokens=np.concatenate([head, rng.integers(
+                            0, cfg.vocab_size, 3 + 2 * i)]).astype(np.int32))
+                for i in range(5)]
+        eng = PlacementEngine(FixedPolicy(arm, placement=None), tb)
+        eng.submit(reqs[:2])
+        eng.drain()
+        eng.submit(reqs[2:])
+        eng.drain()
+        outs.append([r.output for r in reqs])
+        assert eng.summary()["prefix_hit_rate"] > 0
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
