@@ -6,32 +6,54 @@ Needs one CUDA card and the CUDA toolkit; exits non-zero (printing no
 result) without them or outside a checkout of the repository.  Phases, each
 raising on failure:
 
-1. build    every hand-written kernel from ``src/repro_torch/kernels/csrc``.
-2. kernels  each kernel against its plain PyTorch version on the same CUDA
-            tensors at the full-width shapes of stablelm-1.6b (H = K = 32,
-            hd = 64, bs = 16; decode B = 8, prefill C = 128; ragged lengths
-            up to 1024, blocks aliased across lanes, a length-0 pad row;
-            f32, bf16 and int8 pools), with kernel, plain and library
+1. build    every hand-written kernel from ``src/repro_torch/kernels/csrc``
+            (one ``nvcc`` per source, all started together).
+2. serve    full-width models through ``PlacementEngine(MABPolicy(
+            bandit="ucb"))`` and ``TorchBackend`` on both arms, 128-512-token
+            prompts from 3 shared-prefix families: stablelm-1.6b in bf16
+            (24 requests), with int8 KV (9), with ``weight_quant="int8"``
+            (9) and with ``weight_quant="int4"`` over int8 KV (6); then
+            qwen2-moe-a2.7b (MoE FFN, hd 128) with ``weight_quant="int8"``
+            (8 requests, 16-32 new tokens).  On the short serves the
+            bandit's first two decisions are pinned to one arm each, so both
+            arms' kernels run.  Before each serve the launch counters are
+            zeroed; after it they must equal one paged launch per layer and
+            four ``quant_matmul`` launches per layer (0 without
+            ``weight_quant``) per prefill chunk and per decode step on each
+            arm: the semantic arm's two branches share a launch.
+3. model    after the bf16, int8-weight and MoE serves: the served models'
+            bf16 logits are finite, and an f32 copy of each arm (its
+            projections quantized as the served ones, to the same codes)
+            gives the same logits through the kernels as through the plain
+            versions on a small input (1e-3 of the largest logit).
+            qwen2-moe's f32 copy at full depth (57 GB) would not fit beside
+            the served model: it is built at full width from the first two
+            superblocks' weights.
+4. kernels  each paged-attention kernel against its plain PyTorch version on
+            the same CUDA tensors at the full-width shapes of stablelm-1.6b
+            (H = K = 32, hd = 64) and of qwen2-moe-a2.7b (H = K = 16,
+            hd = 128): bs = 16, decode B = 8, prefill C = 128, ragged
+            lengths up to 1024, blocks aliased across lanes, a length-0 pad
+            row; f32, bf16 and int8 pools.  Kernel, plain and library
             (``scaled_dot_product_attention`` on the pre-gathered dense
-            cache, a yardstick the port never calls) times and the bound.
-3. serve    full-width stablelm-1.6b in bf16 through ``PlacementEngine(
-            MABPolicy(bandit="ucb"))`` and ``TorchBackend`` on both arms:
-            24 requests over 3 apps, 128-512-token prompts from 3
-            shared-prefix families, 32-64 new tokens.  The kernels' launch
-            counters are zeroed just before and read just after, and must
-            equal 24 launches per prefill chunk and per decode step (one per
-            layer; the semantic arm's two branches fold into one launch).
-4. int8     a shorter serve with ``kv_dtype="int8"``.
-5. model    the served models' bf16 logits are finite; an f32 copy of each
-            arm gives the same logits through the kernels as through the
-            plain versions on a small input (1e-3 of the largest logit).
+            cache, a yardstick the port never calls) device times from
+            ``torch.profiler``, the kernel's CUDA-event time per call
+            (host launch work included), and the bound.
+5. quant    ``quant_matmul`` against ``quant_matmul_plain``: int8 and int4
+            codes, f32 and bf16 x, the LAYER shape (G = 1, D = E = 2048) and
+            the SEMANTIC one (G = 2, D = E = 1024), T = 1, 8, 200 and 1024,
+            groups of 128 and of 32; timed as above at T = 8 (decode) and
+            T = 1024 (prefill) beside ``torch.matmul`` on the weight
+            dequantized beforehand (a yardstick the port never calls).
 
-The last lines are one JSON object per kernel line, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+Every backend is freed before the next one is built.  The last lines are
+one JSON object per kernel line, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -50,7 +72,10 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12,        # dense tensor-core bf16
               torch.float32: 67e12}          # f32 outside the tensor cores
 TOL = {"f32": 1e-4, "bf16": 2e-2, "int8-f32q": 1e-3, "int8-bf16q": 2e-2}
-N_LAYERS = 24
+# quant GEMM, as |kernel - plain| <= tol * (1 + |plain|): f32 x the JAX
+# kernel test's 2e-4 (tests/test_quant.py), bf16 x the 2e-2 above
+QTOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+PAGED_HEADS = ((32, 32, 64), (16, 16, 128))  # (H, K, hd): stablelm, qwen2-moe
 
 
 def log(msg: str) -> None:
@@ -64,9 +89,25 @@ def gpu_name_and_limit() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def ptxas_spills(report: pathlib.Path):
+    """(number of kernels, [(kernel, spill line)]) from an ``nvcc -Xptxas
+    -v`` report: the kernels whose registers spilled to local memory."""
+    kernels, spills, fn = 0, [], None
+    for line in report.read_text().splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+            kernels += 1
+        elif "spill stores" in line and fn is not None:
+            if not line.strip().split(",")[1].strip().startswith("0 bytes"):
+                spills.append((fn, line.strip()))
+            fn = None
+    return kernels, spills
+
+
 def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     """Median over ``rounds`` of the mean per-call time of ``reps`` calls,
-    from CUDA events, after a warm-up call."""
+    from CUDA events, after a warm-up call.  For a call shorter than its
+    host-side launch work this reads the host's enqueue rate."""
     fn()
     torch.cuda.synchronize()
     out = []
@@ -82,15 +123,45 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device busy time per call: the time of the CUDA kernels that
+    ``reps`` calls launch, summed by ``torch.profiler`` (gaps between
+    launches excluded), over ``reps``, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us > 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / 1e3 / reps
+
+
+def timings(kern, plain, library) -> dict:
+    """A kernel row's times: device time per call of the kernel, its plain
+    version and the library yardstick, and the kernel's CUDA-event time
+    per call (``call_ms``, which includes the wrapper's host work when that
+    is the longer)."""
+    return dict(ms=device_ms(kern), call_ms=time_ms(kern),
+                plain_ms=device_ms(plain, reps=5),
+                library_ms=device_ms(library))
+
+
 # ------------------------------------------------------------------ kernels
-def kernel_case(dev, *, kv: str, qdt, seed: int = 0):
+def kernel_case(dev, *, kv: str, qdt, h: int, kh: int, hd: int,
+                seed: int = 0):
     """Full-width paged inputs: 8 lanes over a 513-block pool, ragged
     lengths up to 1024 with a length-0 pad row (null table), lanes 1-3
     aliasing lane 1's first 8 blocks, and one prefill lane whose chunk
     runs past the table."""
     from repro_torch.decode.paged_cache import quantize_kv
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, h, kh, hd, bs, nb, c = 8, 32, 32, 64, 16, 64, 128
+    b, bs, nb, c = 8, 16, 64, 128
     p_blocks = 1 + b * nb
     kf = torch.randn(p_blocks, bs, kh, hd, generator=g, device=dev)
     vf = torch.randn(p_blocks, bs, kh, hd, generator=g, device=dev)
@@ -195,8 +266,9 @@ def kernel_phase(dev):
          "src/repro/kernels/paged_prefill_attention.py:35"))
     for name, kern, plain, qkey, pkey, chunk, replaces in specs:
         per = {}
-        for label, kv, qdt in cases:
-            cs = kernel_case(dev, kv=kv, qdt=qdt)
+        for (h, kh, hd), (label, kv, qdt) in (
+                (heads, case) for heads in PAGED_HEADS for case in cases):
+            cs = kernel_case(dev, kv=kv, qdt=qdt, h=h, kh=kh, hd=hd)
             args = (cs[qkey], cs["k"], cs["v"], cs["tables"], cs[pkey])
             kw = dict(k_scale=cs["k_scale"], v_scale=cs["v_scale"])
             got = kern(*args, **kw)
@@ -209,14 +281,15 @@ def kernel_phase(dev):
             if not chunk and bool((got[0] != 0).any()):
                 raise AssertionError(f"{name} [{label}]: pad row not 0")
             bnd, by = bound(cs, chunk=chunk)
-            row = dict(max_abs_err=err, tol=TOL[label],
-                       ms=time_ms(lambda: kern(*args, **kw)),
-                       plain_ms=time_ms(lambda: plain(*args, **kw), reps=3),
-                       library_ms=time_ms(library_call(cs, chunk=chunk)),
-                       bound_ms=bnd, bound_by=by)
-            per[label] = row
-            log(f"[kernels] {name} {label}: max_abs_err={err:.3g} "
-                f"(tol {TOL[label]}) kernel {row['ms']:.4f} ms, plain "
+            row = dict(max_abs_err=err, tol=TOL[label], bound_ms=bnd,
+                       bound_by=by, **timings(
+                           lambda: kern(*args, **kw),
+                           lambda: plain(*args, **kw),
+                           library_call(cs, chunk=chunk)))
+            per[f"hd{hd}/{label}"] = row
+            log(f"[kernels] {name} hd{hd} {label}: max_abs_err={err:.3g} "
+                f"(tol {TOL[label]}) kernel {row['ms']:.4f} ms (call "
+                f"{row['call_ms']:.4f}), plain "
                 f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
                 f"ms, bound {bnd:.4f} ms ({by})")
             del cs, got, want
@@ -224,12 +297,80 @@ def kernel_phase(dev):
     return results
 
 
+# -------------------------------------------------------------------- quant
+QUANT_SHAPES = (("layer", 1, 2048, 2048), ("semantic", 2, 1024, 1024))
+
+
+def quant_bound(x, q, scales):
+    """(bound_ms, bound_by): codes, scales, x and the output each moved
+    once over the memory rate, against 2 G T D E flops over the peak for
+    x's type."""
+    g, t, d = x.shape
+    e = scales.shape[-1]
+    nbytes = q.numel() + scales.numel() * 4 \
+        + (x.numel() + g * t * e) * x.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * g * t * d * e / PEAK_FLOPS[x.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def quant_phase(dev):
+    """``quant_matmul`` against its plain version over bit widths, x types,
+    both arms' shapes, ragged and tiny T and two group sizes; timed at the
+    main path's decode and prefill T."""
+    from repro_torch.kernels import quant_matmul as Q
+    gen = torch.Generator(device=dev).manual_seed(7)
+    checked, per = 0, {}
+    for arm, g, d, e in QUANT_SHAPES:
+        w = torch.randn(g, d, e, generator=gen, device=dev) / math.sqrt(d)
+        for bits, group in ((8, 128), (4, 128), (8, 32), (4, 32)):
+            q, sc = Q.quantize_blockwise(w, bits=bits, group=group)
+            for xdt in (torch.float32, torch.bfloat16):
+                for t in (1, 8, 200, 1024):
+                    x = torch.randn(g, t, d, generator=gen,
+                                    device=dev).to(xdt)
+                    got = Q.quant_matmul(x, q, sc)
+                    want = Q.quant_matmul_plain(x, q, sc)
+                    torch.cuda.synchronize()
+                    diff = (got.float() - want.float()).abs()
+                    err = float(diff.max())
+                    ok = bool((diff <= QTOL[xdt] * (
+                        1 + want.float().abs())).all())
+                    if got.shape != (g, t, e) or not ok \
+                            or not math.isfinite(err):
+                        raise AssertionError(
+                            f"quant_matmul {arm} int{bits} g{group} {xdt} "
+                            f"T={t}: max |kernel - plain| {err} beyond "
+                            f"{QTOL[xdt]} (1 + |plain|)")
+                    checked += 1
+                    if group != 128 or t not in (8, 1024):
+                        continue
+                    wdq = Q.dequantize_blockwise(q, sc, bits=bits).to(xdt)
+                    bnd, by = quant_bound(x, q, sc)
+                    row = dict(max_abs_err=err, tol=QTOL[xdt], bound_ms=bnd,
+                               bound_by=by, **timings(
+                                   lambda: Q.quant_matmul(x, q, sc),
+                                   lambda: Q.quant_matmul_plain(x, q, sc),
+                                   lambda: torch.matmul(x, wdq)))
+                    label = f"{arm}/int{bits}/{str(xdt)[6:]}/T{t}"
+                    per[label] = row
+                    log(f"[quant] {label}: max_abs_err={err:.3g} kernel "
+                        f"{row['ms']:.4f} ms (call {row['call_ms']:.4f}), "
+                        f"plain {row['plain_ms']:.4f} "
+                        f"ms, matmul {row['library_ms']:.4f} ms, bound "
+                        f"{bnd:.4f} ms ({by})")
+                    del wdq
+    log(f"[quant] {checked} shapes match the plain version")
+    return dict(replaces="src/repro/kernels/quant_matmul.py:106",
+                checked=checked, per_dtype=per)
+
+
 # -------------------------------------------------------------------- serve
-def make_requests(vocab: int, n: int, seed: int):
+def make_requests(vocab: int, n: int, seed: int, max_new=(32, 65)):
     """``n`` requests over 3 apps: prompts of 128-512 tokens whose heads
     (100, 150 and 230 tokens: not block multiples, so hits end in a
-    copy-on-write block) come from 3 families, 32-64 new tokens, SLAs from
-    tight to loose."""
+    copy-on-write block) come from 3 families, ``max_new`` new tokens drawn
+    from [lo, hi), SLAs from tight to loose."""
     from repro_torch.engine import Request
     rng = np.random.default_rng(seed)
     heads = [rng.integers(0, vocab, n_h).astype(np.int32)
@@ -243,30 +384,68 @@ def make_requests(vocab: int, n: int, seed: int):
             rid=rid, app_id=int(rng.integers(0, 3)),
             tokens=np.concatenate([heads[fam], tail]).astype(np.int32),
             sla_s=float(rng.choice([0.5, 2.0, 8.0, 30.0])),
-            max_new=int(rng.integers(32, 65))))
+            max_new=int(rng.integers(*max_new))))
     return reqs
 
 
-def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int):
-    from repro_torch.engine import (MABPolicy, PlacementEngine,
-                                    TorchBackend)
+def _counters():
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
     from repro_torch.kernels.paged_prefill_attention import \
         paged_prefill_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    return {"paged_decode_attention": paged_decode_attention,
+            "paged_prefill_attention": paged_prefill_attention,
+            "quant_matmul": quant_matmul}
+
+
+def _every_arm_first(policy, arms):
+    """Wrap a ``MABPolicy`` so that its first decisions visit each of
+    ``arms`` once (the bandit still picks every context, observes every
+    outcome and decides everything after): a short load then reaches every
+    arm's kernels, which UCB's own explore-first rule only guarantees per
+    context."""
+    todo = list(arms)
+    decide_batch = policy.decide_batch
+
+    def pinned(requests):
+        out = list(decide_batch(requests))
+        for i in range(len(out)):
+            if not todo:
+                break
+            out[i] = todo.pop(0)
+        return out
+    policy.decide_batch = pinned
+    policy.decide = lambda r: pinned([r])[0]
+    return policy
+
+
+def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
+                weight_quant=None, max_new=(32, 65),
+                every_arm_first: bool = False):
+    from repro_torch.engine import (LAYER, SEMANTIC, MABPolicy,
+                                    PlacementEngine, TorchBackend)
     from repro_torch.obs import Tracer, set_tracer
+    tag = f"{cfg.name} kv={kv_dtype} weights={weight_quant or cfg.dtype}"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     backend = TorchBackend(cfg, cache_len=1024, max_batch=8, block_size=16,
-                           prefill_chunk=128, kv_dtype=kv_dtype, device=dev)
-    eng = PlacementEngine(MABPolicy(bandit="ucb"), backend)
+                           prefill_chunk=128, kv_dtype=kv_dtype,
+                           weight_quant=weight_quant, device=dev)
+    policy = MABPolicy(bandit="ucb")
+    if every_arm_first:
+        policy = _every_arm_first(policy, (LAYER, SEMANTIC))
+    eng = PlacementEngine(policy, backend)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    reqs = make_requests(cfg.vocab_size, n_requests, seed=1)
+    reqs = make_requests(cfg.vocab_size, n_requests, seed=1,
+                         max_new=max_new)
     per_wave = -(-n_requests // waves)
     tracer = Tracer()
     old = set_tracer(tracer)
-    paged_decode_attention.launches = 0
-    paged_prefill_attention.launches = 0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     try:
         for w in range(waves):
@@ -276,8 +455,7 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int):
     finally:
         set_tracer(old)
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention": paged_decode_attention.launches,
-                "paged_prefill_attention": paged_prefill_attention.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     summary = eng.summary()
 
     for r in reqs:
@@ -299,17 +477,23 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int):
                 steps["prefill"] += n
             elif kind == "decode":
                 steps["decode"] += n * int(shape.split("x")[1])
-    want = {"paged_prefill_attention": N_LAYERS * steps["prefill"],
-            "paged_decode_attention": N_LAYERS * steps["decode"]}
+    layers = cfg.n_layers
+    want = {"paged_prefill_attention": layers * steps["prefill"],
+            "paged_decode_attention": layers * steps["decode"],
+            "quant_matmul": 4 * layers * (steps["prefill"] + steps["decode"])
+            if weight_quant else 0}
     for k in launches:
-        if not launches[k] > 0 or launches[k] != want[k]:
-            raise AssertionError(f"{k}: {launches[k]} launches, dispatches "
-                                 f"imply {want[k]}")
+        if launches[k] != want[k] or (want[k] == 0) != (
+                k == "quant_matmul" and not weight_quant):
+            raise AssertionError(f"[{tag}] {k}: {launches[k]} launches, "
+                                 f"dispatches imply {want[k]}")
     scans = tracer.events("decode_scan")
     decode_s = sum(e[4] for e in scans) / 1e6
     tokens = int(sum(r.max_new for r in reqs))
-    out = dict(kv_dtype=kv_dtype, requests=n_requests, tokens=tokens,
-               wall_s=wall, setup_s=setup_s, tokens_per_s=tokens / wall,
+    m = backend.extra_metrics()
+    out = dict(model=cfg.name, kv_dtype=kv_dtype, weight_quant=weight_quant,
+               requests=n_requests, tokens=tokens, wall_s=wall,
+               setup_s=setup_s, tokens_per_s=tokens / wall,
                decode_dispatches=summary["decode_dispatches"],
                prefill_chunks=summary["prefill_chunks"],
                decode_steps=steps["decode"],
@@ -318,26 +502,49 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int):
                cow_copies=summary["cow_copies"],
                preemptions=summary["preemptions"],
                per_mode=summary["per_mode"], launches=launches,
+               weight_quant_max_err=m.get("weight_quant_max_err"),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                ttft_p50=summary.get("ttft_p50"),
                response_p50=summary.get("response_p50"))
-    log(f"[serve {kv_dtype}] {json.dumps(out)}")
+    log(f"[serve {tag}] {json.dumps(out)}")
     return backend, out
 
 
 # -------------------------------------------------------------------- model
-def model_phase(dev, backend):
+def _f32_copy(dev, model, superblocks):
+    """An f32 copy of ``model`` (its first ``superblocks`` superblocks, or
+    all of them)."""
+    from repro_torch.models.model import build_model
+    cfg = model.cfg.replace(dtype="float32")
+    if superblocks:
+        cfg = cfg.replace(n_layers=len(cfg.pattern) * superblocks)
+    f32 = build_model(cfg, device=dev)
+    src = dict(model.named_parameters())
+    sb_dim = len(model._lead)              # [(Bb,) N_sb, ...]
+    with torch.no_grad():
+        for name, p32 in f32.named_parameters():
+            p = src[name]
+            if name.startswith("blocks."):
+                p = p.narrow(sb_dim, 0, p32.shape[sb_dim])
+            p32.copy_(p.float())
+    return f32
+
+
+def model_phase(dev, backend, *, superblocks=None):
     """bf16 logits of the served models are finite; f32 copies give the
-    same logits through the kernels and through the plain versions."""
+    same logits through the kernels and through the plain versions.  A
+    quantized arm's f32 copy is quantized the same way: its codes equal the
+    served model's, since bf16 values are exact in f32."""
     from repro_torch.decode import paged_model as PM
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention_plain
     from repro_torch.kernels.paged_prefill_attention import \
         paged_prefill_attention_plain
-    from repro_torch.models.model import build_model
+    from repro_torch.kernels.quant_matmul import quant_matmul_plain
     rng = np.random.default_rng(3)
+    bits = int(backend.weight_quant[3:]) if backend.weight_quant else None
     out = {}
     for arm, model in sorted(backend.models.items()):
-        cfg = model.cfg
         vocab = backend.cfg.vocab_size
         toks = torch.from_numpy(rng.integers(0, vocab, (2, 128))
                                 .astype(np.int32)).to(dev)
@@ -346,42 +553,69 @@ def model_phase(dev, backend):
         starts = torch.zeros(2, dtype=torch.int32, device=dev)
         n_tok = torch.tensor([100, 60], dtype=torch.int32, device=dev)
 
-        def run(m):
+        def run(m, params):
             pool = m.init_cache(17, 16)
             lc, _ = PM.paged_chunk_logits(m, pool, toks, starts, n_tok,
-                                          tables)
+                                          tables, params)
             tok = lc.argmax(-1).int()[:, None]
             ld, _ = PM.paged_decode_logits(m, pool, tok, tables, n_tok,
                                            torch.ones(2, dtype=torch.bool,
-                                                      device=dev))
+                                                      device=dev), params)
             return torch.cat([lc, ld])
 
-        served = run(model)
+        served_params = backend._paged[arm].params
+        served = run(model, served_params)
         if served.shape != (4, vocab) or not bool(served.isfinite().all()):
             raise AssertionError(f"arm {arm}: bf16 logits not finite")
-        f32 = build_model(cfg.replace(dtype="float32"), device=dev)
-        with torch.no_grad():
-            for p32, p in zip(f32.parameters(), model.parameters()):
-                p32.copy_(p.float())
-        kern = run(f32)
-        saved = PM.paged_decode_attention, PM.paged_prefill_attention
+        f32 = _f32_copy(dev, model, superblocks)
+        params = f32.grouped_views()
+        if bits:
+            params, _ = PM.quantize_attn_params(params, bits)
+            for name in PM.ATTN_PROJ:
+                a = params[2][0]["pos0"]["mix"][name]["q"]
+                b = served_params[2][0]["pos0"]["mix"][name]["q"]
+                if not torch.equal(a, b):
+                    raise AssertionError(f"arm {arm}: f32 copy's {name} "
+                                         "codes differ from the served ones")
+        kern = run(f32, params)
+        saved = (PM.paged_decode_attention, PM.paged_prefill_attention,
+                 PM.quant_matmul)
         PM.paged_decode_attention = paged_decode_attention_plain
         PM.paged_prefill_attention = paged_prefill_attention_plain
+        PM.quant_matmul = quant_matmul_plain
         try:
-            ref = run(f32)
+            ref = run(f32, params)
         finally:
-            PM.paged_decode_attention, PM.paged_prefill_attention = saved
+            (PM.paged_decode_attention, PM.paged_prefill_attention,
+             PM.quant_matmul) = saved
         rel = float((kern - ref).abs().max() / ref.abs().max())
         if not rel <= 1e-3:
             raise AssertionError(f"arm {arm}: f32 kernel vs plain logits "
                                  f"differ by {rel} of the largest")
-        out[arm] = dict(rel_err_f32=rel, argmax_equal=bool(
-            (kern.argmax(-1) == ref.argmax(-1)).all()))
-        log(f"[model] arm {arm}: bf16 logits finite; f32 kernel vs plain "
-            f"max diff {rel:.3g} of max |logit|")
-        del f32
+        out[arm] = dict(rel_err_f32=rel, superblocks=f32.cfg.n_superblocks,
+                        argmax_equal=bool(
+                            (kern.argmax(-1) == ref.argmax(-1)).all()))
+        log(f"[model] {backend.cfg.name} arm {arm} weights="
+            f"{backend.weight_quant or 'bf16'}: bf16 logits finite; f32 "
+            f"({f32.cfg.n_superblocks} superblocks) kernel vs plain max diff "
+            f"{rel:.3g} of max |logit|")
+        del f32, params
         torch.cuda.empty_cache()
     return out
+
+
+def serve_and_check(dev, cfg, *, model_check: bool = False,
+                    superblocks=None, **kw):
+    """A serve phase, then (``model_check``) the model phase on its
+    backend; the backend is freed before returning, so the next one has
+    the card's memory."""
+    backend, serve = serve_phase(dev, cfg, **kw)
+    model = model_phase(dev, backend, superblocks=superblocks) \
+        if model_check else None
+    del backend
+    gc.collect()          # the backend and its schedulers hold cycles
+    torch.cuda.empty_cache()
+    return serve, model
 
 
 def main(argv=None) -> int:
@@ -395,6 +629,7 @@ def main(argv=None) -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -406,37 +641,59 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     for name, path in libs.items():
-        log(f"[build] {name}: {path.name} in {build_s:.1f} s")
-        log(path.with_suffix(".ptxas.txt").read_text().strip()[-2000:])
+        kernels, spills = ptxas_spills(path.with_suffix(".ptxas.txt"))
+        log(f"[build] {name}: {path.name} in {build_s:.1f} s, {kernels} "
+            f"kernels, spills in {len(spills)}")
+        for fn, line in spills:
+            log(f"[build]   {fn}: {line}")
 
+    stablelm = get_config("stablelm-1.6b")
+    serves, models = {}, {}
+    serves["bf16"], models["bf16"] = serve_and_check(
+        dev, stablelm, kv_dtype="f32", n_requests=24, waves=4,
+        model_check=True)
+    short = dict(every_arm_first=True)
+    serves["int8_kv"], _ = serve_and_check(
+        dev, stablelm, kv_dtype="int8", n_requests=9, waves=3, **short)
+    serves["int8_weights"], models["int8_weights"] = serve_and_check(
+        dev, stablelm, kv_dtype="f32", weight_quant="int8", n_requests=9,
+        waves=3, model_check=True, **short)
+    serves["int4_weights_int8_kv"], _ = serve_and_check(
+        dev, stablelm, kv_dtype="int8", weight_quant="int4", n_requests=6,
+        waves=3, **short)
+    serves["moe_int8_weights"], models["moe_int8_weights"] = \
+        serve_and_check(dev, get_config("qwen2-moe-a2.7b"), kv_dtype="f32",
+                        weight_quant="int8", n_requests=8, waves=4,
+                        max_new=(16, 33), model_check=True, superblocks=2,
+                        **short)
+    # the timed kernel phases run last: the profiler they use may leave
+    # launch overhead behind, which the serves would otherwise absorb
     kernels = kernel_phase(dev)
-    cfg = get_config("stablelm-1.6b")
-    backend, serve = serve_phase(dev, cfg, kv_dtype="f32", n_requests=24,
-                                 waves=4)
-    model = model_phase(dev, backend)
-    del backend
-    torch.cuda.empty_cache()
-    backend8, serve8 = serve_phase(dev, cfg, kv_dtype="int8", n_requests=9,
-                                   waves=3)
-    del backend8
-    torch.cuda.empty_cache()
+    kernels["quant_matmul"] = quant_phase(dev)
 
     line = []
-    for name in ("paged_decode_attention", "paged_prefill_attention"):
-        main_row = kernels[name]["per_dtype"]["bf16"]
+    main_rows = {"paged_decode_attention": "hd64/bf16",
+                 "paged_prefill_attention": "hd64/bf16",
+                 "quant_matmul": "layer/int8/bfloat16/T8"}
+    for name, label in main_rows.items():
+        row = kernels[name]["per_dtype"][label]
+        src = "quant_matmul.cu" if name == "quant_matmul" \
+            else "paged_attention.cu"
         line.append(dict(
             name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/paged_attention.cu",
+            source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=kernels[name]["replaces"],
-            launches=serve["launches"][name],
-            max_abs_err=main_row["max_abs_err"], ms=main_row["ms"],
-            plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"]))
+            launches=sum(s["launches"][name] for s in serves.values()),
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    total_s = time.perf_counter() - t_start
+    log(f"[done] {total_s:.1f} s")
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(dict(
-            card=card, build_s=build_s, kernels=kernels, serve=serve,
-            serve_int8=serve8, model=model), indent=1))
+            card=card, build_s=build_s, total_s=total_s, kernels=kernels,
+            serves=serves, models=models), indent=1))
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

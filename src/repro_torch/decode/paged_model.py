@@ -21,6 +21,12 @@ launch per layer serves all branches.  The branches' vocab shards merge in
 the JAX order (``(1, 0, 2)`` transpose).  The pool is updated in place
 (``index_put_``) and returned.  int8 pools quantize on write and dequantize
 in the kernels' registers.
+
+Every forward takes an optional ``params``: the model's grouped views
+(``model.grouped_views()``, the default) or a copy whose attention
+projections :func:`quantize_attn_params` replaced by ``{"q", "scale"}``
+dicts; those route the four attention matmuls through ``quant_matmul``.
+MoE FFNs go through ``moe_apply``.
 """
 from __future__ import annotations
 
@@ -34,8 +40,14 @@ from repro_torch.decode.paged_cache import (chunk_write_slots, quantize_kv,
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill_attention import \
     paged_prefill_attention
+from repro_torch.kernels.quant_matmul import (dequantize_blockwise,
+                                              quant_matmul, quantize_blockwise)
 from repro_torch.models import layers as L
 from repro_torch.models.model import SemanticModel
+from repro_torch.models.moe import moe_apply
+
+#: the serving-side projection weights eligible for blockwise quantization
+ATTN_PROJ = ("wq", "wk", "wv", "wo")
 
 
 def supports_paged_decode(model) -> bool:
@@ -55,10 +67,52 @@ def _sb_pool(gpool: Dict, n: int) -> Dict:
     return {pos: {k: v[:, n] for k, v in e.items()} for pos, e in gpool.items()}
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [G, B, S, D] @ w [G, D, E] -> [G, B, S, E]."""
+@torch.no_grad()
+def quantize_attn_params(params, bits: int):
+    """Serving-side blockwise weight quantization of the attention
+    projections (wq/wk/wv/wo) in every superblock of ``params`` (grouped
+    views, as ``model.grouped_views()`` returns them).
+
+    Returns ``(new_params, telemetry)``: a NEW views tuple (the model's
+    float parameters are untouched) whose projection leaves are
+    ``{"q", "scale"}`` dicts consumed by :func:`_proj`, plus the max / mean
+    absolute dequantization error over all quantized weights.  Norms,
+    embeddings and FFN weights keep their dtype."""
+    err_max, err_sum, err_n = 0.0, 0.0, 0
+    new_sbs = []
+    for sb in params[2]:
+        new_sb = {}
+        for pos, blk in sb.items():
+            mix = dict(blk["mix"])
+            for name in ATTN_PROJ:
+                w = mix[name]
+                q, s = quantize_blockwise(w, bits=bits)
+                err = (dequantize_blockwise(q, s, bits=bits) - w.float()).abs()
+                err_max = max(err_max, float(err.max()))
+                err_sum += float(err.sum(dtype=torch.float64))
+                err_n += err.numel()
+                mix[name] = {"q": q, "scale": s}
+            new_sb[pos] = {**blk, "mix": mix}
+        new_sbs.append(new_sb)
+    tele = {
+        "weight_quant_bits": bits,
+        "weight_quant_max_err": round(err_max, 6),
+        "weight_quant_mean_err": round(err_sum / max(err_n, 1), 6),
+    }
+    return (params[0], params[1], new_sbs), tele
+
+
+def _proj(x: torch.Tensor, w) -> torch.Tensor:
+    """x [G, B, S, D] @ w -> [G, B, S, E].  ``w`` is a float [G, D, E] or a
+    quantized ``{"q", "scale"}`` dict, routed through ``quant_matmul`` with
+    x in the [G, B*S, D] layout, so the branches share one launch."""
     g, b, s, d = x.shape
-    return (x.reshape(g, b * s, d) @ w).reshape(g, b, s, -1)
+    xf = x.reshape(g, b * s, d)
+    if isinstance(w, dict):
+        out = quant_matmul(xf.contiguous(), w["q"], w["scale"])
+    else:
+        out = xf @ w
+    return out.reshape(g, b, s, -1)
 
 
 def _scatter_kv(pool: Dict, k, v, wb, wo) -> Dict:
@@ -134,27 +188,28 @@ def _stack_body(cfg: ArchConfig, h, sb_params, sb_pool, attn_fn):
         if ffn != "none":
             hn = L.norm_apply(blk["ffn_norm"], h, cfg)
             g, b, s, d = hn.shape
-            out = L.mlp_apply(blk["ffn"], hn.reshape(g, b * s, d),
-                              cfg).reshape(g, b, s, d)
+            ffn_fn = L.mlp_apply if ffn == "dense" else moe_apply
+            out = ffn_fn(blk["ffn"], hn.reshape(g, b * s, d),
+                         cfg).reshape(g, b, s, d)
             if cfg.post_norms:
                 out = L.norm_apply(blk["ffn_post_norm"], out, cfg)
             h = h + out
     return h
 
 
-def _run_stack(model, pool, x, attn_fn):
+def _run_stack(model, params, pool, x, attn_fn):
     cfg = model.branch_cfg
-    _, _, sbs = model.grouped_views()
+    _, _, sbs = params
     gpool = _grouped_pool(model, pool)
     for n, sb_params in enumerate(sbs):
         x = _stack_body(cfg, x, sb_params, _sb_pool(gpool, n), attn_fn)
     return x
 
 
-def _head(model, x):
+def _head(model, params, x):
     """Final norm + unembed of x [G, B, d] -> merged [B, vocab] f32."""
     cfg = model.branch_cfg
-    emb, fnorm, _ = model.grouped_views()
+    emb, fnorm, _ = params
     x = L.norm_apply(fnorm, x, cfg)
     logits = L.unembed_apply(emb, x, cfg)               # [G, B, V/G]
     if isinstance(model, SemanticModel):
@@ -167,12 +222,14 @@ def _block_size(pool: Dict) -> int:
 
 
 @torch.no_grad()
-def paged_decode_logits(model, pool, tokens, block_tables, lengths, active):
+def paged_decode_logits(model, pool, tokens, block_tables, lengths, active,
+                        params=None):
     """One paged decode step.  tokens: [B, 1]; lengths: [B] tokens already
     in cache (the new token's position); active: [B] bool.  Returns
     ([B, vocab] f32 logits, pool)."""
     cfg = model.branch_cfg
-    emb, _, _ = model.grouped_views()
+    params = params or model.grouped_views()
+    emb = params[0]
     x = L.embed_apply(emb, tokens, cfg)                # [G, B, 1, d]
     positions = lengths[:, None]
     wb, wo = write_slots(lengths, block_tables, active, _block_size(pool))
@@ -180,18 +237,20 @@ def paged_decode_logits(model, pool, tokens, block_tables, lengths, active):
     attn = lambda p, hn, entry: _paged_attn(
         p, hn, cfg, positions=positions, pool=entry,
         block_tables=block_tables, valid_lens=valid_lens, wb=wb, wo=wo)
-    x = _run_stack(model, pool, x, attn)
-    return _head(model, x[:, :, -1]), pool
+    x = _run_stack(model, params, pool, x, attn)
+    return _head(model, params, x[:, :, -1]), pool
 
 
 @torch.no_grad()
-def paged_chunk_logits(model, pool, tokens, starts, n_tok, block_tables):
+def paged_chunk_logits(model, pool, tokens, starts, n_tok, block_tables,
+                       params=None):
     """Chunked prefill: commit ``tokens`` [B, C] at absolute positions
     ``starts + [0..C)`` into the pool and return the [B, vocab] logits at
     each lane's last valid chunk position.  Padded token slots (>= n_tok)
     write to the null block and their outputs are never read."""
     cfg = model.branch_cfg
-    emb, _, _ = model.grouped_views()
+    params = params or model.grouped_views()
+    emb = params[0]
     b, c = tokens.shape
     x = L.embed_apply(emb, tokens, cfg)                # [G, B, C, d]
     ar = torch.arange(c, device=tokens.device)
@@ -201,23 +260,23 @@ def paged_chunk_logits(model, pool, tokens, starts, n_tok, block_tables):
     attn = lambda p, hn, entry: _paged_chunk_attn(
         p, hn, cfg, positions=positions, pool=entry,
         block_tables=block_tables, wb=wb, wo=wo)
-    x = _run_stack(model, pool, x, attn)
+    x = _run_stack(model, params, pool, x, attn)
     idx = (n_tok.long() - 1).clamp(0, c - 1)
     last = x[:, torch.arange(b, device=x.device), idx]  # [G, B, d]
-    return _head(model, last), pool
+    return _head(model, params, last), pool
 
 
 # ---------------------------------------------------------------- factories
-def make_prefill_chunk_fn(model):
+def make_prefill_chunk_fn(model, params=None):
     """(pool, toks [W, C], starts [W], n_tok [W], block_tables [W, NB]) ->
     ([W, vocab] last-valid-position logits, pool)."""
     def chunk(pool, toks, starts, n_tok, block_tables):
         return paged_chunk_logits(model, pool, toks, starts, n_tok,
-                                  block_tables)
+                                  block_tables, params)
     return chunk
 
 
-def make_decode_fn(model, *, scan_tokens: int):
+def make_decode_fn(model, *, scan_tokens: int, params=None):
     """K = ``scan_tokens`` greedy decode steps for every active lane.
 
     (pool, tok [B, 1], block_tables [B, NB], lengths [B], remaining [B]) ->
@@ -229,7 +288,7 @@ def make_decode_fn(model, *, scan_tokens: int):
         for _ in range(scan_tokens):
             active = remaining > 0
             logits, pool = paged_decode_logits(model, pool, tok, block_tables,
-                                               lengths, active)
+                                               lengths, active, params)
             nxt = torch.argmax(logits, dim=-1).int()
             tok = torch.where(active, nxt, tok[:, 0])[:, None]
             lengths = lengths + active.int()

@@ -22,7 +22,9 @@ per bucket under the same names as the JAX scheduler.
 
 This slice ports the colocated role.  Tensors live on ``device``; block
 tables, lengths and budgets stay host-side numpy and cross to the device
-once per call.
+once per call.  ``weight_quant`` ("int8" / "int4") serves from a private
+blockwise-quantized copy of the attention projections, made at
+construction; the model's float parameters stay untouched.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from repro_torch.decode.paged_cache import (NULL_BLOCK, BlockAllocator,
                                             pool_block_bytes, quantize_pool)
 from repro_torch.decode.paged_model import (make_decode_fn,
                                             make_prefill_chunk_fn,
+                                            quantize_attn_params,
                                             supports_paged_decode)
 from repro_torch.engine.types import next_pow2
 from repro_torch.obs import annotation, get_tracer
@@ -83,6 +86,9 @@ class PagedArmScheduler:
         "kv_block_bytes": "gauge",
         "kv_block_bytes_f32": "gauge",
         "kv_capacity_x": "gauge",
+        "weight_quant_bits": "gauge",
+        "weight_quant_max_err": "gauge",
+        "weight_quant_mean_err": "gauge",
     }
 
     def __init__(self, model, *, n_lanes: int, cache_len: int,
@@ -90,18 +96,31 @@ class PagedArmScheduler:
                  scan_tokens: int = 8, util_floor: float = 0.5,
                  prefill_chunk: int = 32, prefix_sharing: bool = True,
                  watermark: float = 0.0, kv_dtype: str = "f32",
-                 clock=None):
+                 weight_quant: Optional[str] = None, clock=None):
         if not supports_paged_decode(model):
             raise ValueError("model does not support paged decode "
                              "(needs pure global-attention mixers)")
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
                              f"got {kv_dtype!r}")
+        if weight_quant not in (None, "int8", "int4"):
+            raise ValueError(f"weight_quant must be None, 'int8' or 'int4', "
+                             f"got {weight_quant!r}")
         self.model = model
         self.device = model.device
         self.clock = clock
         self.track = ("paged", f"colocated@{self.device}")
         self.kv_dtype = kv_dtype
+        self.weight_quant = weight_quant
+        self.quant_telemetry: Dict[str, float] = {}
+        params = model.grouped_views()
+        if weight_quant is not None:
+            # a PRIVATE quantized copy of the attention projections: the
+            # model's float parameters stay untouched (other arms and the
+            # caller may share them)
+            params, self.quant_telemetry = quantize_attn_params(
+                params, int(weight_quant[3:]))
+        self.params = params
         self.n_lanes = n_lanes
         self.block_size = block_size
         self.scan_tokens = scan_tokens
@@ -411,7 +430,8 @@ class PagedArmScheduler:
             n_tok[row] = k
             bt[row] = self.block_tables[li]
         fn = self._get_built("prefill", (w, c),
-                             lambda: make_prefill_chunk_fn(self.model))
+                             lambda: make_prefill_chunk_fn(self.model,
+                                                           self.params))
         tr = get_tracer()
         with tr.span("prefill_chunk", track=self.track, wave=len(pf),
                      chunk=c), annotation(f"prefill:{w}x{c}"):
@@ -457,7 +477,8 @@ class PagedArmScheduler:
         k_eff = self._scan_bucket(self.remaining[act])
         fn = self._get_built(
             "decode", (w, k_eff),
-            lambda: make_decode_fn(self.model, scan_tokens=k_eff))
+            lambda: make_decode_fn(self.model, scan_tokens=k_eff,
+                                   params=self.params))
         # pad rows are inactive: null tables, zero budget, length 0
         bt = np.full((w, self.max_blocks), NULL_BLOCK, np.int32)
         lengths = np.zeros(w, np.int32)
@@ -529,5 +550,6 @@ class PagedArmScheduler:
             # effective-capacity multiplier: KV blocks per byte vs f32
             "kv_capacity_x": round(
                 self.kv_block_bytes_f32 / max(self.kv_block_bytes, 1), 4),
+            **self.quant_telemetry,
             **{f"compile_{k}": v for k, v in self.compile_stats.items()},
         }

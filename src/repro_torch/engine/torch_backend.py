@@ -13,6 +13,8 @@ declared kinds.
 
 ``kv_dtype="f32"`` keeps the pool in ``cfg.dtype`` (bf16 at full width);
 ``"int8"`` stores codes with one f32 scale per token slot and kv head.
+``weight_quant="int8"|"int4"`` has each arm's scheduler serve from a
+blockwise-quantized copy of its attention projections (``quant_matmul``).
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; asking for the
 card where there is none raises.  Knobs of later slices raise
 ``NotImplementedError``.
@@ -67,11 +69,11 @@ class TorchBackend:
             raise ValueError(f"decode={decode!r}; expected auto|paged|legacy")
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype={kv_dtype!r}; expected f32|int8")
+        if weight_quant not in (None, "int8", "int4"):
+            raise ValueError(f"weight_quant={weight_quant!r}; "
+                             "expected None|int8|int4")
         if decode == "legacy":
             _not_ported("decode", decode, "the legacy gang-path slice")
-        if weight_quant is not None:
-            _not_ported("weight_quant", weight_quant,
-                        "the next slice (quant_matmul)")
         if fleet is not None:
             _not_ported("fleet", fleet, "the disaggregation slice")
         if faults is not None:
@@ -92,6 +94,7 @@ class TorchBackend:
         self.prefix_sharing = prefix_sharing
         self.watermark = watermark
         self.kv_dtype = kv_dtype
+        self.weight_quant = weight_quant
         self.models: Dict[int, object] = {}
         self._paged: Dict[int, PagedArmScheduler] = {}
         self._ttfts: List[float] = []
@@ -121,7 +124,8 @@ class TorchBackend:
             block_size=self.block_size, num_blocks=self.num_blocks,
             scan_tokens=self.scan_tokens, prefill_chunk=self.prefill_chunk,
             prefix_sharing=self.prefix_sharing, watermark=self.watermark,
-            kv_dtype=self.kv_dtype, clock=lambda: self.now)
+            kv_dtype=self.kv_dtype, weight_quant=self.weight_quant,
+            clock=lambda: self.now)
         sched.track = (f"arm{arm}:{ARM_MODES[arm]}", sched.track[1])
         self.models[arm] = model
         self._paged[arm] = sched

@@ -23,7 +23,9 @@
 // positions, so each K/V token is read once per kv head and row tile.  A CTA
 // reads its own block ids from the table (TPU scalar prefetch supplied them)
 // and walks logical positions [0, min(NB*bs, max qpos + 1)) in tiles of
-// TILE tokens with f32 online-softmax state (max, sum, acc) per row.
+// TILE tokens with f32 online-softmax state (max, sum, acc) per row.  Head
+// dims 32, 64 and 128 are instantiated; TILE is 32 tokens, or 16 where the
+// static shared-memory arrays would pass 48 KB (prefill at head dim 128).
 //
 // Bound.  Decode reads every live K/V byte once per step and does ~4 flops
 // per byte of bf16 K/V: it is bound by device-memory bytes.  The design
@@ -39,8 +41,20 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int TILE = 32;          // key/value tokens per smem tile
 constexpr float NEG_INF = -1e30f;
+constexpr int STATIC_SMEM = 48 * 1024;   // the static shared-memory limit
+
+// Static shared memory of one CTA (the arrays declared in the kernel).
+__host__ __device__ constexpr int smem_bytes(int hd, int rows, int tile) {
+  return 4 * (rows * (hd + 1) + tile * (hd + 1) + tile * hd +
+              rows * (tile + 1) + rows + 1);
+}
+
+// Key/value tokens per smem tile: 32, or 16 where 32 would not fit the
+// static limit (prefill's 32 query rows at head dim 128: 53.8 KB vs 35.3).
+__host__ __device__ constexpr int tile_for(int hd, int rows) {
+  return smem_bytes(hd, rows, 32) <= STATIC_SMEM ? 32 : 16;
+}
 
 enum Dtype { F32 = 0, BF16 = 1, I8 = 2 };
 
@@ -57,8 +71,9 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
 }
 
 // ROWS query rows per CTA; THREADS / ROWS threads share a row (a power of
-// two <= 32, so a row's threads are one aligned segment of a warp).
-template <typename QT, typename KVT, int HD, int ROWS>
+// two <= 32, so a row's threads are one aligned segment of a warp); TILE
+// key/value tokens per shared-memory tile.
+template <typename QT, typename KVT, int HD, int ROWS, int TILE>
 __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
     const QT* __restrict__ q, const KVT* __restrict__ k_pool,
     const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
@@ -74,6 +89,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   constexpr int VPR = HD / VEC;         // 16-byte loads per token row
   static_assert(TPR <= 32 && 32 % TPR == 0, "row threads must tile a warp");
   static_assert(TILE % TPR == 0 && HD % TPR == 0 && HD % VEC == 0, "shape");
+  static_assert(smem_bytes(HD, ROWS, TILE) <= STATIC_SMEM, "static smem");
 
   __shared__ float Qs[ROWS][HD + 1];
   __shared__ float Ks[TILE][HD + 1];
@@ -226,7 +242,8 @@ int launch_typed(int hd, dim3 grid, cudaStream_t stream, const void* q,
                  long long pool_gstride, long long scale_gstride, float scale,
                  float softcap) {
 #define PA_LAUNCH(HDV)                                                       \
-  paged_attention_kernel<QT, KVT, HDV, ROWS><<<grid, THREADS, 0, stream>>>(  \
+  paged_attention_kernel<QT, KVT, HDV, ROWS, tile_for(HDV, ROWS)>           \
+      <<<grid, THREADS, 0, stream>>>(                                        \
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),            \
       static_cast<const KVT*>(v_pool), k_scale, v_scale, block_tables,       \
       qpos_src, qpos_offset, static_cast<QT*>(out), B, C, H, K, bs, NB,      \
@@ -234,6 +251,7 @@ int launch_typed(int hd, dim3 grid, cudaStream_t stream, const void* q,
   switch (hd) {
     case 32: PA_LAUNCH(32); break;
     case 64: PA_LAUNCH(64); break;
+    case 128: PA_LAUNCH(128); break;
     default: return -1;
   }
 #undef PA_LAUNCH

@@ -1,10 +1,11 @@
-"""Plain PyTorch oracles for the paged-attention kernels (the allclose
-targets), one to one with the jnp versions of the JAX package.
+"""Plain PyTorch oracles for the paged-attention and quant GEMM kernels
+(the allclose targets), one to one with the jnp versions of the JAX
+package.
 
-Each gathers the block table into a dense cache and runs a masked softmax in
-float32; the result is cast back to q's dtype.  Masked scores are -1e30, as
-in the jnp versions, so a row with no valid key averages over every gathered
-slot (callers never read such rows).
+Each attention oracle gathers the block table into a dense cache and runs
+a masked softmax in float32; the result is cast back to q's dtype.  Masked
+scores are -1e30, as in the jnp versions, so a row with no valid key
+averages over every gathered slot (callers never read such rows).
 """
 from __future__ import annotations
 
@@ -80,3 +81,15 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, block_tables, positions, *,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vd).to(q.dtype)
+
+
+def quant_matmul_ref(x, q, scales, *, bits=None):
+    """Dequantize-then-matmul oracle for the blockwise quant GEMM kernel:
+    x [..., T, D] @ dequant(q, scales) [..., D, E] in f32, cast to x's
+    dtype."""
+    from repro_torch.kernels.quant_matmul import (dequantize_blockwise,
+                                                  infer_bits)
+    if bits is None:
+        bits = infer_bits(x.shape[-1], q)
+    w = dequantize_blockwise(q, scales, bits=bits)
+    return (x.float() @ w).to(x.dtype)

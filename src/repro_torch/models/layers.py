@@ -22,6 +22,13 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
 
 
+def normal_init(w: torch.Tensor, generator: torch.Generator,
+                std: float) -> None:
+    """Fill ``w`` in place with N(0, std^2), drawn in f32."""
+    z = torch.randn(w.shape, generator=generator, device=w.device)
+    w.copy_(z * std)
+
+
 def dense_init(w: torch.Tensor, generator: torch.Generator) -> None:
     """Fill ``w`` [..., d_in, d_out] in place with N(0, 1/d_in), the
     distribution of the JAX ``dense_init`` (not its draws)."""
@@ -78,15 +85,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp_shapes(cfg: ArchConfig) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_shapes(cfg: ArchConfig, d_ff: Optional[int] = None,
+               lead: tuple = ()) -> dict:
+    """Leaf shapes of a dense MLP of hidden width ``d_ff`` (default
+    ``cfg.d_ff``), with ``lead`` dims in front (an expert dim), as
+    ``mlp_init(key, cfg, d_ff=...)`` (vmapped over experts) lays them out."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_type == "swiglu":
-        return {"wg": (d, ff), "wu": (d, ff), "wd": (ff, d)}
-    return {"wu": (d, ff), "wd": (ff, d)}
+        shapes = {"wg": (d, ff), "wu": (d, ff), "wd": (ff, d)}
+    else:
+        shapes = {"wu": (d, ff), "wd": (ff, d)}
+    return {k: tuple(lead) + v for k, v in shapes.items()}
 
 
 def mlp_apply(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x [..., T, d] @ weights [..., d, f] (matching leading dims)."""
+    """x [..., T, d] @ weights [..., d, f] (matching leading dims: a branch
+    dim, an expert dim); the hidden width is the weights'."""
     if "wg" in params:
         return (F.silu(x @ params["wg"]) * (x @ params["wu"])) @ params["wd"]
     return F.gelu(x @ params["wu"], approximate="tanh") @ params["wd"]

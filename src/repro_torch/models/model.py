@@ -2,15 +2,16 @@
 ``Model`` (one branch) or ``SemanticModel`` (the paper's semantic split).
 
 Both are ``nn.Module``s whose parameter names follow the JAX param pytree
-paths (``embed.tok``, ``blocks.pos0.mix.wq``, ``final_norm.w``, ...).
+paths (``embed.tok``, ``blocks.pos0.mix.wq``, ``blocks.pos0.ffn.router``,
+``final_norm.w``, ...).
 Superblock leaves stay stacked ``[N_sb, ...]`` as in JAX, and
 ``SemanticModel`` carries a leading branch dim ``[Bb, ...]`` on every leaf
 where the JAX package ``jax.vmap``-ed a single-branch model.  Parameters
 never require grad; weights are random draws from an explicit
 ``torch.Generator`` or loaded in place (``repro_torch.bridge``).
 
-This slice serves decoder-only stacks of global attention with dense (or
-no) FFNs; other mixers, MoE FFNs and modality frontends raise.
+This slice serves decoder-only stacks of global attention with dense, MoE
+or no FFNs; other mixers and modality frontends raise.
 """
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_shapes
+
+#: elements drawn per ``torch.randn`` call in ``reset_parameters``: bounds
+#: the f32 temporaries of a large leaf (qwen2-moe's [24, 60, 2048, 1408]
+#: expert leaf would otherwise take 2 x 16.6 GB in f32)
+INIT_CHUNK = 1 << 28
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -29,11 +36,7 @@ def _check_supported(cfg: ArchConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: mixer {mixer!r} is ported in a later slice "
                 "(legacy gang path and the rest of the zoo)")
-        if ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE FFN (moe_apply) is ported in the next "
-                "slice")
-        if ffn not in ("dense", "none"):
+        if ffn not in ("dense", "moe", "none"):
             raise ValueError(ffn)
     if cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(
@@ -48,9 +51,9 @@ def _block_shapes(cfg: ArchConfig, ffn: str) -> dict:
                  "wo": (h * hd, d)}}
     if cfg.post_norms:
         p["mix_post_norm"] = L.norm_shapes(cfg)
-    if ffn == "dense":
+    if ffn != "none":
         p["ffn_norm"] = L.norm_shapes(cfg)
-        p["ffn"] = L.mlp_shapes(cfg)
+        p["ffn"] = L.mlp_shapes(cfg) if ffn == "dense" else moe_shapes(cfg)
         if cfg.post_norms:
             p["ffn_post_norm"] = L.norm_shapes(cfg)
     return p
@@ -71,18 +74,36 @@ def param_shapes(cfg: ArchConfig) -> dict:
             "final_norm": L.norm_shapes(cfg)}
 
 
-def _build(tree: dict, lead: tuple, dtype, device) -> nn.Module:
-    leaves = {k: v for k, v in tree.items() if not isinstance(v, dict)}
-    subs = {k: v for k, v in tree.items() if isinstance(v, dict)}
-    if leaves and subs:
-        raise ValueError("a param node holds either leaves or subtrees")
-    if leaves:
-        return nn.ParameterDict({
-            k: nn.Parameter(torch.empty(lead + tuple(s), dtype=dtype,
-                                        device=device), requires_grad=False)
-            for k, s in leaves.items()})
-    return nn.ModuleDict({k: _build(v, lead, dtype, device)
-                          for k, v in subs.items()})
+class ParamTree(nn.Module):
+    """One node of the parameter tree: leaves are parameters, subtrees are
+    child nodes (a MoE node holds both: ``router`` beside ``experts``).  It
+    indexes and iterates like a dict, so parameter names are the JAX tree
+    paths."""
+
+    def __init__(self, tree: dict, lead: tuple, dtype, device):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v, lead, dtype, device))
+            else:
+                self.register_parameter(k, nn.Parameter(
+                    torch.empty(lead + tuple(v), dtype=dtype, device=device),
+                    requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def keys(self) -> List[str]:
+        return [*self._parameters, *self._modules]
+
+    def items(self):
+        return [(k, self[k]) for k in self.keys()]
+
+
+def _view_tree(node: ParamTree, fn) -> dict:
+    """Plain nested dict of ``fn(leaf)`` over a parameter subtree."""
+    return {k: _view_tree(v, fn) if isinstance(v, ParamTree) else fn(v)
+            for k, v in node.items()}
 
 
 class _PagedLM(nn.Module):
@@ -98,10 +119,10 @@ class _PagedLM(nn.Module):
         self._lead = branch_lead
         dtype = L.torch_dtype(cfg)
         tree = param_shapes(branch_cfg)
-        self.embed = _build(tree["embed"], branch_lead, dtype, device)
-        self.blocks = _build(tree["blocks"], branch_lead, dtype, device)
-        self.final_norm = _build(tree["final_norm"], branch_lead, dtype,
-                                 device)
+        self.embed = ParamTree(tree["embed"], branch_lead, dtype, device)
+        self.blocks = ParamTree(tree["blocks"], branch_lead, dtype, device)
+        self.final_norm = ParamTree(tree["final_norm"], branch_lead, dtype,
+                                    device)
         self._views: Optional[tuple] = None
 
     @property
@@ -115,16 +136,21 @@ class _PagedLM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "_PagedLM":
         """Random weights with the JAX init's distributions: dense
-        N(0, 1/d_in), token table N(0, 0.02^2), norm scale 1 and bias 0."""
+        N(0, 1/d_in), token table N(0, 0.02^2), norm scale 1 and bias 0.
+        Large leaves are drawn a slab of leading-dim rows at a time (at most
+        ``INIT_CHUNK`` elements), so the f32 temporaries stay bounded."""
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if "norm" in name:
                 p.fill_(1.0 if leaf == "w" else 0.0)
-            elif leaf == "tok":
-                p.copy_(torch.randn(p.shape, generator=generator,
-                                    device=p.device) * 0.02)
-            else:
-                L.dense_init(p, generator)
+                continue
+            rows = p.view(-1, *p.shape[-2:])
+            step = max(1, INIT_CHUNK // rows[0].numel())
+            for r0 in range(0, rows.shape[0], step):
+                if leaf == "tok":
+                    L.normal_init(rows[r0:r0 + step], generator, 0.02)
+                else:
+                    L.dense_init(rows[r0:r0 + step], generator)
         return self
 
     def grouped_views(self):
@@ -135,11 +161,9 @@ class _PagedLM(nn.Module):
             g = (lambda t: t) if self._lead else (lambda t: t.unsqueeze(0))
             emb = {k: g(v) for k, v in self.embed.items()}
             fnorm = {k: g(v) for k, v in self.final_norm.items()}
-            sbs: List[dict] = []
-            for n in range(self.branch_cfg.n_superblocks):
-                sbs.append({pos: {name: {k: g(v)[:, n] for k, v in sub.items()}
-                                  for name, sub in blk.items()}
-                            for pos, blk in self.blocks.items()})
+            sbs: List[dict] = [
+                _view_tree(self.blocks, lambda v, n=n: g(v)[:, n])
+                for n in range(self.branch_cfg.n_superblocks)]
             self._views = (emb, fnorm, sbs)
         return self._views
 

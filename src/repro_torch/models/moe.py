@@ -1,0 +1,102 @@
+"""Mixture-of-Experts FFN with sort-based capacity dispatch, on the paged
+serving path.
+
+Mirrors ``repro.models.moe`` (``moe_init``'s layout, ``router_topk`` and
+``_moe_apply_dense``) with a leading branch dim G on tokens and weights:
+each branch routes its own tokens, which is what ``jax.vmap`` over a
+``SemanticModel``'s branches did.  The expert product over the [E, C, d]
+buffer is a batched ``torch.matmul``, as the JAX package leaves it to XLA
+(``vmap(mlp_apply)``, outside any Pallas kernel).
+
+Capacity couples the tokens of a call: ``cap = max(k, ceil(T k cf / E))``
+counts every row of the call (inactive decode lanes and padded prefill slots
+too), and assignments past an expert's capacity drop.  Empty slots point at
+token 0 with weight 0, as in JAX.  The whole dispatch stays on the device
+(no data-dependent shapes, so no host sync).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+
+def moe_shapes(cfg: ArchConfig) -> dict:
+    """Leaf shapes of ``moe_init``: ``router`` [d, E], ``experts`` MLPs with
+    a leading E, and a ``shared`` MLP of width ``n_shared * d_ff``."""
+    m = cfg.moe
+    eff = m.d_ff or cfg.d_ff
+    p = {"router": (cfg.d_model, m.n_experts),
+         "experts": L.mlp_shapes(cfg, eff, (m.n_experts,))}
+    if m.n_shared:
+        p["shared"] = L.mlp_shapes(cfg, m.n_shared * eff)
+    return p
+
+
+def router_topk(logits: torch.Tensor, top_k: int):
+    """Top-k routing weights: softmax over the selected logits in f32.
+    Equal logits take the lower expert index first, as ``jax.lax.top_k``
+    does (bf16 router logits tie often): a stable descending sort, then the
+    first k."""
+    w, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return torch.softmax(w[..., :top_k].float(), dim=-1), idx[..., :top_k]
+
+
+def moe_apply(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x [G, T, d] -> [G, T, d], each branch routed on its own.  The
+    load-balance loss is a training term and is not computed (the JAX
+    serving path drops it too)."""
+    if cfg.expert_parallel_axis:
+        raise NotImplementedError(
+            "expert-parallel MoE (_moe_apply_ep) and load_balance_loss are "
+            "ported with the training slice")
+    return _moe_apply_dense(params, x, cfg)
+
+
+def _moe_apply_dense(params, x: torch.Tensor, cfg: ArchConfig):
+    m = cfg.moe
+    g, t, d = x.shape
+    n_e, k = m.n_experts, m.top_k
+    dev = x.device
+    logits = x @ params["router"]                            # [G, T, E]
+    weights, idx = router_topk(logits, k)                    # [G, T, k]
+    cap = int(max(k, math.ceil(t * k * m.capacity_factor / n_e)))
+
+    # ---- sort-based dispatch into [G*E, C] slots.  Branch b's expert e is
+    # slot row b*E + e and its token j row b*T + j of xt, so one stable sort
+    # orders every branch exactly as its own sort would.
+    flat_e = (idx + n_e * torch.arange(g, device=dev)[:, None, None]) \
+        .reshape(-1)                                         # [G*T*k]
+    flat_w = weights.reshape(-1)
+    flat_tok = torch.arange(g * t, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, sw, st = flat_e[order], flat_w[order], flat_tok[order]
+    # position within its expert's group = rank - first rank of the expert
+    first = torch.searchsorted(se, torch.arange(g * n_e, device=dev))
+    pos = torch.arange(se.numel(), device=dev) - first[se]
+    keep = pos < cap
+    # dropped assignments land in a spare row that is cut off afterwards
+    # (JAX's out-of-range index with mode="drop")
+    slot_e = torch.where(keep, se, g * n_e)
+    slot_p = torch.where(keep, pos, 0)
+    buf_tok = torch.zeros(g * n_e + 1, cap, dtype=torch.long, device=dev)
+    buf_w = torch.zeros(g * n_e + 1, cap, dtype=flat_w.dtype, device=dev)
+    buf_tok[slot_e, slot_p] = torch.where(keep, st, 0)
+    buf_w[slot_e, slot_p] = torch.where(keep, sw, 0.0)
+    buf_tok, buf_w = buf_tok[:-1], buf_w[:-1]
+
+    # ---- expert compute: batched matmul over [G, E, C, d]
+    xt = x.reshape(g * t, d)
+    ex = xt[buf_tok].reshape(g, n_e, cap, d)
+    ey = L.mlp_apply(params["experts"], ex, cfg).reshape(-1, d)
+
+    # ---- combine back (weights cast to the activations' dtype, as in JAX)
+    out = torch.zeros_like(xt).index_add_(
+        0, buf_tok.reshape(-1), ey * buf_w.reshape(-1, 1).to(ey.dtype))
+    out = out.reshape(g, t, d)
+    if m.n_shared:
+        out = out + L.mlp_apply(params["shared"], x, cfg)
+    return out

@@ -148,7 +148,7 @@ def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(weight_quant="int8"), dict(fleet="disagg"), dict(faults=object()),
+    dict(fleet="disagg"), dict(faults=object()),
     dict(decode="legacy"), dict(load_shed=True), dict(jit_cache={})])
 def test_unported_knobs_raise(tiny_cfg, knob):
     with pytest.raises(NotImplementedError):
@@ -156,10 +156,17 @@ def test_unported_knobs_raise(tiny_cfg, knob):
 
 
 def test_moe_config_raises():
+    """MoE FFNs are served; only expert parallelism (a training-mesh
+    option) raises, once a forward reaches the MoE FFN."""
     from repro_torch.configs.base import get_config
-    cfg = get_config("qwen2-moe-a2.7b").reduced()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TorchBackend(cfg, device="cpu", arms=(LAYER,))
+    cfg = get_config("qwen2-moe-a2.7b").reduced().replace(
+        expert_parallel_axis="model")
+    tb = TorchBackend(cfg, device="cpu", arms=(LAYER,), cache_len=32)
+    eng = PlacementEngine(FixedPolicy(LAYER, placement=None), tb)
+    eng.submit([Request(rid=0, app_id=0, sla_s=5.0, max_new=2,
+                        tokens=np.arange(5, dtype=np.int32))])
+    with pytest.raises(NotImplementedError, match="expert-parallel MoE"):
+        eng.drain()
 
 
 # ------------------------------------------------------------- import rules

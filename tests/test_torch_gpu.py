@@ -1,6 +1,7 @@
-"""Port tests that need the card: the hand-written CUDA kernels against
+"""Port tests that need the card: the hand-written CUDA kernels (paged
+attention at head dims 32, 64 and 128; the int8/int4 quant GEMM) against
 their plain PyTorch versions, and the paged serving path on CUDA against
-the same path on the CPU.  Every test is marked ``gpu`` and skips without a
+the same path on the CPU, with and without weight quantization and MoE.  Every test is marked ``gpu`` and skips without a
 CUDA device (a CUDA kernel has no CPU mode).  This file imports neither jax
 nor the JAX package, so it runs where only PyTorch is installed:
 
@@ -13,12 +14,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.decode.paged_cache import quantize_kv  # noqa: E402
+from repro_torch.decode.paged_model import quantize_attn_params  # noqa: E402
 from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,  # noqa: E402
                                 PlacementEngine, Request, TorchBackend)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
     paged_prefill_attention, paged_prefill_attention_plain)
+from repro_torch.kernels.quant_matmul import (  # noqa: E402
+    quant_matmul, quant_matmul_plain, quantize_blockwise)
 
 pytestmark = pytest.mark.gpu
 
@@ -66,7 +70,7 @@ def _case(dev, kind, *, g, b=4, h=8, kh=4, hd=64, bs=16, nb=6, c=40):
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("g", [1, 2], ids=["one", "branches"])
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 def test_kernels_match_plain(dev, kind, g, hd):
     cs = _case(dev, kind, g=g, hd=hd)
     sq = (lambda t: t[0]) if g == 1 else (lambda t: t)
@@ -104,24 +108,75 @@ def test_kernel_rejects_what_it_cannot_take(dev):
                                cs["tables"].long(), cs["lengths"])
 
 
-@pytest.mark.parametrize("kv", ["f32", "int8"])
-@pytest.mark.parametrize("arm", [LAYER, SEMANTIC], ids=["layer", "semantic"])
-def test_backend_on_cuda_matches_cpu(dev, arm, kv):
-    """The same f32 weights serve the same tokens through the kernels on
-    the card and through the plain versions on the CPU."""
-    cfg = get_config("stablelm-1.6b").reduced().replace(
+# f32 x: the JAX kernel test's 2e-4 (another summation order); bf16 x: one
+# bf16 rounding of outputs of order 1, held as |a - b| <= 2e-2 (1 + |b|)
+QTOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("g", [1, 2], ids=["one", "branches"])
+@pytest.mark.parametrize("t,d,e", [(1, 256, 96), (8, 2048, 2048),
+                                   (8, 1152, 2048), (200, 1024, 1024),
+                                   (37, 64, 40)])
+def test_quant_matmul_matches_plain(dev, xdt, bits, g, t, d, e):
+    gen = torch.Generator(device=dev).manual_seed(t + d)
+    w = torch.randn(g, d, e, generator=gen, device=dev) / d ** 0.5
+    q, s = quantize_blockwise(w, bits=bits)
+    x = torch.randn(g, t, d, generator=gen, device=dev).to(xdt)
+    before = quant_matmul.launches
+    sq = (lambda a: a[0]) if g == 1 else (lambda a: a)
+    got = quant_matmul(sq(x), sq(q), sq(s))
+    want = quant_matmul_plain(sq(x), sq(q), sq(s))
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert got.shape == want.shape and got.dtype == xdt
+    torch.testing.assert_close(got.float(), want.float(), atol=QTOL[xdt],
+                               rtol=QTOL[xdt])
+
+
+def test_quant_matmul_rejects_what_it_cannot_take(dev):
+    q, s = quantize_blockwise(torch.randn(64, 32, device=dev), bits=8)
+    with pytest.raises(ValueError, match="f32/bf16"):
+        quant_matmul(torch.randn(4, 64, device=dev).half(), q, s)
+    with pytest.raises(ValueError, match="line up"):
+        quant_matmul(torch.randn(4, 64, device=dev), q, s[:, :16])
+
+
+def _small(name):
+    if name == "qwen2-moe-a2.7b":
+        return get_config(name).reduced()
+    return get_config("stablelm-1.6b").reduced().replace(
         d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
         vocab_size=256)
+
+
+@pytest.mark.parametrize("name,kv,wq", [
+    ("stablelm-1.6b", "f32", None), ("stablelm-1.6b", "int8", None),
+    ("qwen2-moe-a2.7b", "f32", "int8"), ("qwen2-moe-a2.7b", "int8", "int4")],
+    ids=["f32", "int8", "moe-wq8", "moe-wq4-int8"])
+@pytest.mark.parametrize("arm", [LAYER, SEMANTIC], ids=["layer", "semantic"])
+def test_backend_on_cuda_matches_cpu(dev, arm, name, kv, wq):
+    """The same f32 weights serve the same tokens through the kernels on
+    the card and through the plain versions on the CPU."""
+    cfg = _small(name)
     outs = []
     for device in ("cpu", dev):
         tb = TorchBackend(cfg, cache_len=64, max_batch=4, block_size=8,
                           scan_tokens=4, prefill_chunk=16, kv_dtype=kv,
-                          arms=(arm,), device=device)
+                          weight_quant=wq, arms=(arm,), device=device)
         if outs:
             with torch.no_grad():
                 for p, q in zip(tb.models[arm].parameters(),
                                 cpu_model.parameters()):
                     p.copy_(q)
+            if wq is not None:
+                # the scheduler quantized its private copy at construction,
+                # from the weights just overwritten: quantize it again
+                sched = tb._paged[arm]
+                sched.params, sched.quant_telemetry = quantize_attn_params(
+                    tb.models[arm].grouped_views(), int(wq[3:]))
         cpu_model = tb.models[arm]
         rng = np.random.default_rng(3)
         head = rng.integers(0, cfg.vocab_size, 19)

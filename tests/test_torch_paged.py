@@ -180,11 +180,14 @@ def _setup(cfg, arm, kv, seed=3, num_blocks=17, bs=4):
 @pytest.mark.parametrize("kv", ["f32", "int8"])
 @pytest.mark.parametrize("arm", ["layer", "semantic"])
 def test_paged_forwards_match_jax(tiny_cfg, arm, kv):
+    check_paged_forwards(tiny_cfg, arm, kv, 1e-4 if kv == "f32" else 1e-3)
+
+
+def check_paged_forwards(tiny_cfg, arm, kv, tol):
     """Two prefill chunks (ragged lanes, an idle lane), then a K=4 decode
     loop with mixed budgets and a pad row: chunk logits and teacher-forced
-    decode logits to tolerance, then the decode loop's tokens, lengths and
+    decode logits to ``tol``, then the decode loop's tokens, lengths and
     budgets exactly."""
-    tol = 1e-4 if kv == "f32" else 1e-3
     jmodel, params, jpool, tmodel, tpool = _setup(tiny_cfg, arm, kv)
     rng = np.random.default_rng(7)
     vocab = tiny_cfg.vocab_size

@@ -20,6 +20,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.decode import PagedArmScheduler as JSched  # noqa: E402
+from repro.decode.paged_model import quantize_attn_params  # noqa: E402
+from repro.kernels.quant_matmul import dequantize_blockwise  # noqa: E402
 from repro.engine import Request as JRequest  # noqa: E402
 from repro.models.model import build_model as jbuild  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -29,6 +31,9 @@ from repro_torch.engine.types import Request as TRequest  # noqa: E402
 from test_torch_paged import np_tree, port_cfg  # noqa: E402
 
 MARGIN = 1e-3
+#: one unit of the 6th decimal the weight_quant error gauges round to (plus
+#: the float slack of a difference of two rounded decimals)
+QUANT_ERR_TOL = 1e-6 * (1 + 1e-6)
 
 
 def _pump(sched, queue, max_steps=300):
@@ -72,9 +77,24 @@ def _min_margin(jmodel, params, lanes):
     return min(gaps)
 
 
+def _dequantized(params, bits: int):
+    """``params`` with each attention projection replaced by its blockwise
+    dequantization: the weights a ``weight_quant`` scheduler serves with
+    (its CPU path dequantizes, then multiplies in f32)."""
+    qp, _ = quantize_attn_params(params, bits)
+    blocks = {pos: {**blk, "mix": {
+        k: dequantize_blockwise(v["q"], v["scale"], bits=bits)
+        if isinstance(v, dict) else v for k, v in blk["mix"].items()}}
+        for pos, blk in qp["blocks"].items()}
+    return {**qp, "blocks": blocks}
+
+
 def _run_both(cfg, arm, seed, kw, script):
     """Run ``script(sched, mk_req)`` on a JAX and a port scheduler; return
-    the two (lanes by rid, stats) pairs, checking the JAX margins."""
+    the two (lanes by rid, stats) pairs, checking the JAX margins (with the
+    dequantized projections when ``kw`` asks for ``weight_quant``).  The
+    weight_quant error gauges are sums in another order, rounded to 6
+    decimals: they may differ by one unit of the last one."""
     jmodel, params, tmodel = _arm_models(cfg, arm, seed)
     results = []
     for side in ("jax", "torch"):
@@ -87,13 +107,18 @@ def _run_both(cfg, arm, seed, kw, script):
         lanes = script(sched, mk)
         results.append(({l.req.rid: l for l in lanes}, sched.stats()))
     (jl, js), (tl, ts) = results
-    assert _min_margin(jmodel, params, jl.values()) > MARGIN
+    mparams = params if kw.get("weight_quant") is None else \
+        _dequantized(params, int(kw["weight_quant"][3:]))
+    assert _min_margin(jmodel, mparams, jl.values()) > MARGIN
     assert sorted(jl) == sorted(tl)
     for rid in jl:
         assert tl[rid].out == jl[rid].out, f"request {rid}"
         assert tl[rid].preemptions == jl[rid].preemptions
     for key, val in js.items():
         if key in ("re_executions", "recovered"):      # fault plane: later
+            continue
+        if key in ("weight_quant_max_err", "weight_quant_mean_err"):
+            assert ts[key] == pytest.approx(val, abs=QUANT_ERR_TOL), key
             continue
         assert ts[key] == val, key
     return jl, js
