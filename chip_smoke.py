@@ -45,6 +45,25 @@ raising on failure:
             groups of 128 and of 32; timed as above at T = 8 (decode) and
             T = 1024 (prefill) beside ``torch.matmul`` on the weight
             dequantized beforehand (a yardstick the port never calls).
+6. train    the training launcher ``repro_torch.launch.train.main`` at the
+            full width of stablelm-1.6b in f32 (B 2, S 2048, remat): fsdp
+            for 6 steps, then semantic (two branches) for 4.  The flash
+            counter is zeroed before each run and must read 48 per step
+            after it (24 layers: the forward, and remat's recompute in the
+            backward; the backward itself is the plain chunked attention).
+            Every loss is finite and the first within 1 of ln(vocab) (the
+            init gives unit-variance logits: ln V + 1/2 expected).  Step ms,
+            tokens/s and peak memory are reported.  Then one fsdp
+            ``value_and_grad`` at full width through the kernel and through
+            ``flash_attention_plain`` patched into ``models.attention``:
+            loss to rel 1e-5, each gradient leaf to 1e-4 of its largest.
+7. flash    the flash-attention kernel against ``flash_attention_plain`` at
+            the main path's shapes (LAYER: B 2, H = K = 32; SEMANTIC: two
+            branches x B 2, H = K = 16; hd 64, S 2048, causal), an hd-128
+            GQA case with window 1024 and softcap 50 (H 32, K 16) and an
+            Sq = 1024 < Sk = 2048 case, f32 (1e-4) and bf16 (2e-2); timed as
+            above beside ``scaled_dot_product_attention`` where it computes
+            the same function (no window, no softcap).
 
 Every backend is freed before the next one is built.  The last lines are
 one JSON object per kernel line, the card's name and power limit, and
@@ -123,23 +142,33 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
     """Device busy time per call: the time of the CUDA kernels that
     ``reps`` calls launch, summed by ``torch.profiler`` (gaps between
-    launches excluded), over ``reps``, after a warm-up call."""
+    launches excluded), over ``reps``, after a warm-up call.  Every call
+    launches the same kernels, so a profile whose kernel count is not a
+    positive multiple of ``reps`` lost device records (the tracer
+    occasionally delivers none, or part, of them): it is taken again, up
+    to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us > 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / 1e3 / reps
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        us = sum(e.self_device_time_total for e in kernels)
+        n = sum(e.count for e in kernels)
+        if us > 0 and n >= reps and n % reps == 0:
+            return us / 1e3 / reps
+        log(f"[profiler] {n} device records for {reps} calls (try "
+            f"{attempt} of {tries})")
+    raise AssertionError("the profiler lost device records on every try")
 
 
 def timings(kern, plain, library) -> dict:
@@ -618,6 +647,172 @@ def serve_and_check(dev, cfg, *, model_check: bool = False,
     return serve, model
 
 
+# -------------------------------------------------------------------- flash
+# (label, N, Sq, Sk, H, K, hd, causal, window, softcap)
+FLASH_CASES = (
+    ("layer", 2, 2048, 2048, 32, 32, 64, True, 0, 0.0),
+    ("semantic", 4, 2048, 2048, 16, 16, 64, True, 0, 0.0),
+    ("gqa-hd128-window-softcap", 2, 2048, 2048, 32, 16, 128, True, 1024,
+     50.0),
+    ("sq1024-sk2048", 2, 1024, 2048, 32, 32, 64, True, 0, 0.0),
+)
+
+
+def flash_bound(q, k, *, causal, window):
+    """(bound_ms, bound_by): q, k, v and out each moved once over the memory
+    rate, against 4 hd flops (QK^T and PV) per unmasked (query, key) pair
+    of this call over the peak for q's type."""
+    n, sq, h, hd = q.shape
+    sk = k.shape[1]
+    qpos = np.arange(sq) + sk - sq
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq)
+    pairs = float(np.maximum(hi - lo, 0).sum()) * n * h
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * hd * pairs / PEAK_FLOPS[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_phase(dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(17)
+    per = {}
+    for label, n, sq, sk, h, kh, hd, causal, window, cap in FLASH_CASES:
+        for dt, tol in ((torch.float32, TOL["f32"]),
+                        (torch.bfloat16, TOL["bf16"])):
+            q = torch.randn(n, sq, h, hd, generator=gen, device=dev).to(dt)
+            k, v = (torch.randn(n, sk, kh, hd, generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            opts = dict(causal=causal, window=window, softcap=cap)
+            got = FA.flash_attention(q, k, v, **opts)
+            want = FA.flash_attention_plain(q, k, v, **opts)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            name = f"{label}/{str(dt)[6:]}"
+            if got.shape != q.shape or not math.isfinite(err) or err > tol:
+                raise AssertionError(f"flash_attention [{name}]: max |kernel"
+                                     f" - plain| {err} > {tol}")
+            library = None
+            if not window and not cap and h == kh:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                kpos = torch.arange(sk, device=dev)
+                mask = kpos[None, :] <= (torch.arange(sq, device=dev)
+                                         + sk - sq)[:, None]
+                library = (lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)) if sq == sk else (
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask))
+            bnd, by = flash_bound(q, k, causal=causal, window=window)
+            row = dict(max_abs_err=err, tol=tol, bound_ms=bnd, bound_by=by,
+                       ms=device_ms(lambda: FA.flash_attention(q, k, v,
+                                                               **opts)),
+                       call_ms=time_ms(lambda: FA.flash_attention(q, k, v,
+                                                                  **opts)),
+                       plain_ms=device_ms(lambda: FA.flash_attention_plain(
+                           q, k, v, **opts), reps=3),
+                       library_ms=device_ms(library) if library else None)
+            per[name] = row
+            lib = "n/a" if library is None else f"{row['library_ms']:.4f} ms"
+            log(f"[flash] {name}: max_abs_err={err:.3g} (tol {tol}) kernel "
+                f"{row['ms']:.4f} ms (call {row['call_ms']:.4f}), plain "
+                f"{row['plain_ms']:.4f} ms, sdpa {lib}, bound {bnd:.4f} ms "
+                f"({by})")
+            del q, k, v, got, want
+    return dict(replaces="src/repro/kernels/flash_attention.py:25",
+                per_dtype=per)
+
+
+# -------------------------------------------------------------------- train
+TRAIN_RUNS = (("fsdp", 6), ("semantic", 4))
+TRAIN_SHAPE = dict(seq_len=2048, batch=2)
+
+
+def train_phase(dev, cfg):
+    """The training launcher at full width on both modes, each run's flash
+    launches counted; then the kernel-vs-plain ``value_and_grad`` check."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train as TR
+    runs = {}
+    ln_vocab = math.log(cfg.vocab_size)
+    for mode, steps in TRAIN_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        flash_attention.launches = 0
+        losses = TR.main(
+            ["--arch", cfg.name, "--mode", mode, "--steps", str(steps),
+             "--seq-len", str(TRAIN_SHAPE["seq_len"]), "--batch",
+             str(TRAIN_SHAPE["batch"]), "--log-every", "1"],
+            on_step=lambda i, loss, s: step_s.append(s))
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        want = 2 * cfg.n_layers * steps
+        if launches != want:
+            raise AssertionError(f"[train {mode}] {launches} flash launches,"
+                                 f" {steps} steps of {cfg.n_layers} layers "
+                                 f"with remat imply {want}")
+        if not all(math.isfinite(x) for x in losses) or \
+                abs(losses[0] - ln_vocab) > 1.0:
+            raise AssertionError(f"[train {mode}] losses {losses}: not "
+                                 f"finite or first not within 1 of ln V = "
+                                 f"{ln_vocab:.3f}")
+        steady = statistics.median(step_s[1:])
+        tokens = TRAIN_SHAPE["seq_len"] * TRAIN_SHAPE["batch"]
+        runs[mode] = dict(steps=steps, losses=losses, step_s=step_s,
+                          step_ms=1e3 * steady, tokens_per_s=tokens / steady,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          flash_launches=launches,
+                          launches_per_step=launches / steps)
+        log(f"[train {mode}] {json.dumps(runs[mode])}")
+    runs["kernel_vs_plain"] = grad_check(dev, cfg)
+    return runs
+
+
+def grad_check(dev, cfg):
+    """One full-width fsdp ``value_and_grad`` through the kernel and one
+    through ``flash_attention_plain`` patched into ``models.attention``,
+    from the same weights and batch."""
+    from repro_torch.data.pipeline import batches_for
+    from repro_torch.dist import api as A
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import attention as MA
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cfg.replace(dtype="float32")
+    runner = A.build_runner(cfg, "fsdp", device=dev)
+    tree = runner.init(seed=0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches_for(
+        cfg, seq_len=TRAIN_SHAPE["seq_len"],
+        global_batch=TRAIN_SHAPE["batch"])).items()}
+    loss_k, grads_k = runner.value_and_grad(tree, batch, remat=True)
+    grads_k = A.tree_leaves(grads_k)
+    saved = MA.flash_attention
+    MA.flash_attention = flash_attention_plain
+    try:
+        loss_p, grads_p = runner.value_and_grad(tree, batch, remat=True)
+    finally:
+        MA.flash_attention = saved
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    worst = 0.0
+    for gk, gp in zip(grads_k, A.tree_leaves(grads_p)):
+        worst = max(worst, float((gk - gp).abs().max()
+                                 / gp.abs().max().clamp_min(1e-30)))
+    del grads_k, grads_p, tree, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not rel_loss <= 1e-5 or not worst <= 1e-4:
+        raise AssertionError(f"[train] kernel vs plain: loss rel {rel_loss}"
+                             f", worst grad leaf {worst} of its max")
+    out = dict(loss_kernel=loss_k, loss_plain=loss_p, rel_loss=rel_loss,
+               worst_grad_rel=worst)
+    log(f"[train] kernel vs plain value_and_grad: {json.dumps(out)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -666,24 +861,31 @@ def main(argv=None) -> int:
                         weight_quant="int8", n_requests=8, waves=4,
                         max_new=(16, 33), model_check=True, superblocks=2,
                         **short)
+    train = train_phase(dev, stablelm)
     # the timed kernel phases run last: the profiler they use may leave
     # launch overhead behind, which the serves would otherwise absorb
     kernels = kernel_phase(dev)
     kernels["quant_matmul"] = quant_phase(dev)
+    kernels["flash_attention"] = flash_phase(dev)
 
     line = []
     main_rows = {"paged_decode_attention": "hd64/bf16",
                  "paged_prefill_attention": "hd64/bf16",
-                 "quant_matmul": "layer/int8/bfloat16/T8"}
+                 "quant_matmul": "layer/int8/bfloat16/T8",
+                 "flash_attention": "layer/float32"}
+    sources = {"quant_matmul": "quant_matmul.cu",
+               "flash_attention": "flash_attention.cu"}
     for name, label in main_rows.items():
         row = kernels[name]["per_dtype"][label]
-        src = "quant_matmul.cu" if name == "quant_matmul" \
-            else "paged_attention.cu"
+        src = sources.get(name, "paged_attention.cu")
+        launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS) \
+            if name == "flash_attention" else \
+            sum(s["launches"][name] for s in serves.values())
         line.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=kernels[name]["replaces"],
-            launches=sum(s["launches"][name] for s in serves.values()),
+            launches=launches,
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
@@ -693,7 +895,7 @@ def main(argv=None) -> int:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(dict(
             card=card, build_s=build_s, total_s=total_s, kernels=kernels,
-            serves=serves, models=models), indent=1))
+            serves=serves, models=models, train=train), indent=1))
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

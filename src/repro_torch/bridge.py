@@ -1,6 +1,7 @@
-"""Bridge from JAX param and pool pytrees, already converted to numpy
-arrays by the caller, to the port's modules and pools.  Only tests use it:
-it lets both packages run on the same weights.
+"""Bridge between JAX pytrees, already converted to numpy arrays by the
+caller, and the port's modules, pools, parameter trees and optimizer
+state, in both directions.  Only tests use it: it lets both packages run
+on the same weights and carry training state across.
 
 A JAX param tree is a nested dict whose paths are the port's parameter
 names (``embed.tok``, ``blocks.pos0.mix.wq`` ...); a ``SemanticModel``'s
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import build_model
+from repro_torch.optim.adamw import AdamWState
 
 
 def _tensor(a, dtype=None, device="cpu") -> torch.Tensor:
@@ -49,3 +51,35 @@ def pool_from_numpy(tree: Dict, *, device="cpu") -> Dict:
     """A numpy pool pytree ({"pos<i>": {"k", "v"[, scales]}}) as tensors."""
     return {k: pool_from_numpy(v, device=device) if isinstance(v, dict)
             else _tensor(v, device=device) for k, v in tree.items()}
+
+
+def tree_to_numpy(tree) -> Dict:
+    """A tree of tensors (``param_tree()``, gradients, AdamW moments) as a
+    numpy tree of the same paths."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def tree_from_numpy(tree, *, dtype=None, device="cpu") -> Dict:
+    """A numpy tree as tensors (``dtype``: keep each leaf's by default)."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, dtype=dtype, device=device)
+                for k, v in tree.items()}
+    return _tensor(tree, dtype, device)
+
+
+def opt_state_from_numpy(state, *, device="cpu") -> AdamWState:
+    """A JAX ``AdamWState`` whose leaves are numpy arrays (anything with
+    ``step``, ``m`` and ``v``) as the port's."""
+    return AdamWState(int(np.asarray(state.step)),
+                      tree_from_numpy(state.m, device=device),
+                      tree_from_numpy(state.v, device=device))
+
+
+def opt_state_to_numpy(state: AdamWState):
+    """The port's ``AdamWState`` as ``(step, m, v)`` numpy leaves, in the
+    order ``repro.optim.adamw.AdamWState(*...)`` takes them."""
+    return (np.asarray(state.step, np.int32), tree_to_numpy(state.m),
+            tree_to_numpy(state.v))

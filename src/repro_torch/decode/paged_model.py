@@ -188,9 +188,10 @@ def _stack_body(cfg: ArchConfig, h, sb_params, sb_pool, attn_fn):
         if ffn != "none":
             hn = L.norm_apply(blk["ffn_norm"], h, cfg)
             g, b, s, d = hn.shape
-            ffn_fn = L.mlp_apply if ffn == "dense" else moe_apply
-            out = ffn_fn(blk["ffn"], hn.reshape(g, b * s, d),
-                         cfg).reshape(g, b, s, d)
+            hf = hn.reshape(g, b * s, d)
+            out = L.mlp_apply(blk["ffn"], hf, cfg) if ffn == "dense" \
+                else moe_apply(blk["ffn"], hf, cfg)[0]    # aux: training only
+            out = out.reshape(g, b, s, d)
             if cfg.post_norms:
                 out = L.norm_apply(blk["ffn_post_norm"], out, cfg)
             h = h + out

@@ -1,0 +1,198 @@
+"""Runner API of the training path on one device: one runner per split
+mode, as ``repro.dist.api``.
+
+``build_runner(cfg, mode, mesh)`` returns a runner for one of
+
+- ``"fsdp"``      unsplit baseline: the full model.
+- ``"semantic"``  the paper's SEMANTIC split: B independent block-diagonal
+                  branches (``cfg.semantic(B)``, B = 2 on one device, as
+                  ``max(2, model)`` gives on a 1 x 1 mesh), run side by side
+                  along a leading branch dim.
+- ``"pipeline"``  the paper's LAYER split, ``schedule="gspmd"``: the
+                  microbatched loss with gradient accumulation
+                  (``repro_torch.dist.pipeline``).
+
+On one device the three modes are the JAX package's math without its
+sharding specs.  Every runner exposes ``init``, ``loss`` and
+``value_and_grad``; ``make_train_step`` closes over a runner.  Parameter
+and gradient trees are nested dicts in the JAX param-tree layout
+(``Model.param_tree()``).  A mesh other than 1 x 1, the explicit pipeline
+schedules (gpipe, 1f1b) and expert parallelism raise
+``NotImplementedError``: they come with the multi-device training slice
+(FSDP over ``torch.distributed``, the stage graph, all-to-all MoE).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import pipeline as PL
+from repro_torch.models.model import build_model
+from repro_torch.optim.adamw import adamw_update, tree_leaves
+
+MODES = ("fsdp", "semantic", "pipeline")
+_LATER = "is ported with the multi-device training slice"
+
+
+def parse_mesh(mesh) -> tuple:
+    """A (data, model) mesh shape from ``"1,1"`` or a tuple; only 1 x 1
+    runs here."""
+    dims = tuple(int(x) for x in mesh.split(",")) if isinstance(mesh, str) \
+        else tuple(mesh)
+    if any(d != 1 for d in dims):
+        raise NotImplementedError(f"mesh {dims}: training on several "
+                                  f"devices {_LATER}")
+    return dims
+
+
+def tree_unflatten(tree, leaves):
+    """A tree shaped like ``tree`` whose leaves, in order, are ``leaves``."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            return {k: rebuild(v) for k, v in t.items()}
+        return next(it)
+    return rebuild(tree)
+
+
+class BaseRunner:
+    """Shared runner plumbing; subclasses fix the loss schedule.  The
+    model is built on the meta device (its methods need only its config);
+    ``init`` builds the parameters on ``device``."""
+
+    mode: str = ""
+
+    def __init__(self, cfg: ArchConfig, mesh=(1, 1), *, device="cuda"):
+        self.mesh = parse_mesh(mesh)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.model = build_model(cfg, device="meta")
+
+    # ------------------------------------------------------------ lifecycle
+    def init(self, seed: int = 0):
+        """Random parameters (the JAX init's distributions, drawn from a
+        ``torch.Generator`` seeded with ``seed``) on the runner's device,
+        with grad enabled; returns their tree."""
+        self.model = build_model(self.cfg, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.model.reset_parameters(gen).requires_grad_(True)
+        return self.model.param_tree()
+
+    def loss(self, params, batch, *, remat: bool = False):
+        return self.model.loss_chunked(params, batch, remat=remat)
+
+    def value_and_grad(self, params, batch, *, remat: bool = False):
+        """(loss, grads): grads is a tree of the params' paths."""
+        leaves = tree_leaves(params)
+        loss = self.loss(params, batch, remat=remat)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+        return loss.detach(), tree_unflatten(params, grads)
+
+
+class FSDPRunner(BaseRunner):
+    mode = "fsdp"
+
+
+class SemanticRunner(BaseRunner):
+    """SEMANTIC split: B branches of width d/B run independently; the only
+    cross-branch op is the final vocab-shard concat."""
+
+    mode = "semantic"
+
+    def __init__(self, cfg: ArchConfig, mesh=(1, 1), *,
+                 n_branches: Optional[int] = None, device="cuda"):
+        n_b = n_branches or max(2, parse_mesh(mesh)[-1])
+        super().__init__(cfg.semantic(n_b), mesh, device=device)
+
+
+class PipelineRunner(BaseRunner):
+    """LAYER split under ``schedule="gspmd"``: the microbatched loss, its
+    gradients accumulated a microbatch at a time."""
+
+    mode = "pipeline"
+
+    def __init__(self, cfg: ArchConfig, mesh=(1, 1), *,
+                 n_microbatches: Optional[int] = None,
+                 expert_parallel: bool = False, schedule: str = "gspmd",
+                 memory_budget: Optional[int] = None, device="cuda"):
+        if schedule not in PL.SCHEDULES:
+            raise ValueError(
+                f"unknown schedule {schedule!r}; expected one of "
+                f"{PL.SCHEDULES}")
+        if schedule != "gspmd":
+            raise NotImplementedError(
+                f"the explicit {schedule} stage-graph schedule {_LATER}")
+        if expert_parallel:
+            raise NotImplementedError(f"expert parallelism {_LATER}")
+        super().__init__(cfg, mesh, device=device)
+        self.n_microbatches = n_microbatches
+        self.schedule = schedule
+        self.memory_budget = memory_budget
+        self.n_stages = self.mesh[-1]
+
+    def _resolve(self, batch) -> int:
+        return PL.resolve_microbatches(batch["tokens"].shape[0],
+                                       self.n_microbatches, self.n_stages)
+
+    def loss(self, params, batch, *, remat: bool = False):
+        return PL.microbatch_loss(self.model, params, batch,
+                                  self._resolve(batch), remat=remat)
+
+    def value_and_grad(self, params, batch, *, remat: bool = False):
+        m = self._resolve(batch)
+        if m <= 1:
+            return super().value_and_grad(params, batch, remat=remat)
+        loss, grads = PL.microbatch_value_and_grad(
+            self.model, params, tree_leaves(params), batch, m, remat=remat)
+        return loss, tree_unflatten(params, grads)
+
+    def schedule_stats(self, batch_size: int, seq_len: int) -> dict:
+        """The schedule's accounting; under ``gspmd`` there is no tick
+        table to report."""
+        return {"mode": self.mode, "schedule": self.schedule,
+                "n_stages": self.n_stages,
+                "n_microbatches": PL.resolve_microbatches(
+                    batch_size, self.n_microbatches, self.n_stages),
+                "memory_budget": self.memory_budget,
+                "expert_parallel": False}
+
+
+def build_runner(cfg: ArchConfig, mode: str, mesh=(1, 1), *,
+                 n_microbatches: Optional[int] = None,
+                 expert_parallel: bool = False,
+                 n_branches: Optional[int] = None,
+                 schedule: str = "gspmd",
+                 memory_budget: Optional[int] = None, device="cuda"):
+    """Construct the runner for one split mode (see the module docstring);
+    the arguments are the JAX ``build_runner``'s that apply on one
+    device, plus ``device``."""
+    if mode == "fsdp":
+        return FSDPRunner(cfg, mesh, device=device)
+    if mode == "semantic":
+        return SemanticRunner(cfg, mesh, n_branches=n_branches, device=device)
+    if mode == "pipeline":
+        return PipelineRunner(cfg, mesh, n_microbatches=n_microbatches,
+                              expert_parallel=expert_parallel,
+                              schedule=schedule, memory_budget=memory_budget,
+                              device=device)
+    raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+
+
+def make_train_step(runner, *, lr: float = 3e-4, remat: bool = False,
+                    weight_decay: float = 0.1, clip_norm: float = 1.0):
+    """(params, opt, batch) -> (params, opt, loss): grads from
+    ``runner.value_and_grad``, then an AdamW step (in place)."""
+
+    def step(params, opt, batch):
+        loss, grads = runner.value_and_grad(params, batch, remat=remat)
+        params, opt = adamw_update(grads, opt, params, lr=lr,
+                                   weight_decay=weight_decay,
+                                   clip_norm=clip_norm)
+        return params, opt, loss
+
+    return step

@@ -1,11 +1,11 @@
-"""Plain PyTorch oracles for the paged-attention and quant GEMM kernels
-(the allclose targets), one to one with the jnp versions of the JAX
-package.
+"""Plain PyTorch oracles for the flash-attention, paged-attention and quant
+GEMM kernels (the allclose targets), one to one with the jnp versions of
+the JAX package.
 
-Each attention oracle gathers the block table into a dense cache and runs
-a masked softmax in float32; the result is cast back to q's dtype.  Masked
-scores are -1e30, as in the jnp versions, so a row with no valid key
-averages over every gathered slot (callers never read such rows).
+Each attention oracle runs a masked softmax in float32 (the paged ones over
+the block table gathered into a dense cache); the result is cast back to
+q's dtype.  Masked scores are -1e30, as in the jnp versions, so a row with
+no valid key averages over every key (callers never read such rows).
 """
 from __future__ import annotations
 
@@ -20,6 +20,28 @@ def _repeat_heads(x, rep: int):
     """[..., K, hd] -> [..., K*rep, hd] (kv head k serves query heads
     k*rep .. k*rep+rep-1)."""
     return x if rep == 1 else torch.repeat_interleave(x, rep, dim=-2)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Dense oracle of the flash-attention kernel.  q: [B, Sq, H, hd];
+    k, v: [B, Sk, K, hd]; queries at positions Sk - Sq .. Sk - 1."""
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    k = _repeat_heads(k, h // kh).float()
+    v = _repeat_heads(v, h // kh).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(hd)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > (qpos - window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, length, *, softcap=0.0):

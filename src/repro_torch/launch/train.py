@@ -1,0 +1,110 @@
+"""Training launcher of the port (``repro.launch.train`` on one device).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+        --mode fsdp --steps 6 --seq-len 2048 --batch 2
+
+Runs on the card unless ``--device cpu``; the config is cast to float32, the
+step runs with remat at a constant ``--lr`` (the JAX launcher builds a cosine
+schedule it never uses, and so does this one), and the data is the
+synthetic pipeline with seed 0.  At ``--seq-len`` >= 2048 every attention
+layer goes through the flash kernel.  ``main(argv)`` returns the losses.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.checkpoint import save
+from repro_torch.configs.base import get_config
+from repro_torch.data.pipeline import batches_for
+from repro_torch.dist import api as A
+from repro_torch.optim.adamw import adamw_init, cosine_schedule
+
+
+def main(argv=None, *, on_step=None):
+    """Train and return the per-step losses.  ``on_step(step, loss,
+    seconds)``, if given, is called after each step with its wall time
+    (the loss is read back, so the step has finished on the device)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--mode", default="fsdp",
+                    choices=["fsdp", "semantic", "pipeline"])
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--mesh", default="1,1",
+                    help="only 1,1 runs in this slice")
+    ap.add_argument("--schedule", default="gspmd",
+                    choices=["gspmd", "gpipe", "1f1b"],
+                    help="pipeline mode: only gspmd (the microbatched loss) "
+                         "runs on one device")
+    ap.add_argument("--n-microbatches", type=int, default=0,
+                    help="pipeline microbatch count (0: mesh 'model' size)")
+    ap.add_argument("--memory-budget", type=int, default=0,
+                    help="gpipe: cap on saved in-flight microbatches "
+                         "(0: unbounded)")
+    ap.add_argument("--expert-parallel", action="store_true",
+                    help="MoE: shard experts over 'model' (several devices)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale variant of the arch")
+    ap.add_argument("--d-model", type=int, default=0,
+                    help="override d_model (with --reduced)")
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+        if args.d_model:
+            cfg = cfg.replace(d_model=args.d_model)
+    cfg = cfg.replace(dtype="float32")
+
+    runner = A.build_runner(
+        cfg, args.mode, args.mesh,
+        n_microbatches=args.n_microbatches or None,
+        schedule=args.schedule if args.mode == "pipeline" else "gspmd",
+        memory_budget=args.memory_budget or None,
+        expert_parallel=args.expert_parallel, device=args.device)
+    rcfg = runner.cfg
+    if args.mode == "pipeline":
+        print("schedule:", runner.schedule_stats(args.batch, args.seq_len),
+              flush=True)
+    params = runner.init(seed=0)
+    opt = adamw_init(params)
+
+    # built and never used, as in the JAX launcher: the step runs at --lr
+    sched = cosine_schedule(  # noqa: F841
+        args.lr, warmup=max(args.steps // 20, 1), total=args.steps)
+    step_fn = A.make_train_step(runner, lr=args.lr, remat=True)
+
+    data = batches_for(rcfg, seq_len=args.seq_len, global_batch=args.batch)
+    dev = runner.device
+    losses = []
+    t0 = time.time()
+    for step in range(args.steps):
+        ts = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+        params, opt, loss = step_fn(params, opt, batch)
+        losses.append(float(loss))
+        if on_step is not None:
+            on_step(step, losses[-1], time.perf_counter() - ts)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            dt = time.time() - t0
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"({dt / (step + 1):.2f}s/step)", flush=True)
+    if args.ckpt:
+        save(f"{args.ckpt}/step_{args.steps}.npz", params, step=args.steps)
+        print(f"checkpoint -> {args.ckpt}/step_{args.steps}.npz")
+    print(f"first-10 mean {np.mean(losses[:10]):.4f} -> "
+          f"last-10 mean {np.mean(losses[-10:]):.4f}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

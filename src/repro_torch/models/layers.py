@@ -1,8 +1,9 @@
-"""Core layers of the paged serving path: init helpers, norms, rotary
-embeddings, dense MLPs, embedding and unembedding.
+"""Core layers of the paged serving and training paths: init helpers,
+norms, rotary embeddings, full-sequence GQA attention, dense MLPs,
+embedding and unembedding.
 
-Functions over plain tensors and dicts of tensors (an ``nn.ParameterDict``
-indexes the same way), mirroring ``repro.models.layers``.  Weights may carry
+Functions over plain tensors and dicts of tensors (a ``ParamTree`` indexes
+the same way), mirroring ``repro.models.layers``.  Weights may carry
 leading batch dims (the superblock stack, the semantic split's branches);
 callers slice them before use, so these functions see one layer's weights
 with at most a leading branch dim that lines up with the activations'.
@@ -85,6 +86,88 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[..., S, K, hd] -> [..., S, K*n_rep, hd] (kv head k serves query
+    heads k*n_rep .. k*n_rep+n_rep-1)."""
+    if n_rep == 1:
+        return x
+    return torch.repeat_interleave(x, n_rep, dim=-2)
+
+
+def sdpa(q, k, v, mask, *, softcap: float = 0.0) -> torch.Tensor:
+    """q: [..., Sq, H, hd]; k, v: [..., Sk, H, hd]; mask broadcastable to
+    [..., H, Sq, Sk].  Dense scaled-dot-product attention: f32 scores,
+    masked to -1e30, probabilities cast to v's dtype."""
+    hd = q.shape[-1]
+    logits = torch.einsum("...qhd,...khd->...hqk", q.float(),
+                          k.float()) / math.sqrt(hd)
+    logits = _softcap(logits, softcap)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("...hqk,...khd->...qhd", probs.to(v.dtype), v)
+
+
+def causal_mask(sq: int, sk: int, *, window: int = 0,
+                device=None) -> torch.Tensor:
+    """[1, 1, sq, sk] boolean mask; queries at positions sk-sq .. sk-1."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > (qpos - window)
+    return m[None, None]
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [(G,) B, S, D] @ w [(G,) D, E] -> [(G,) B, S, E]: B and S fold into
+    one row dim, so a branch dim on both lines up."""
+    return (x.flatten(-3, -2) @ w).unflatten(-2, x.shape[-3:-1])
+
+
+def attn_apply(params, x, cfg: ArchConfig, *, positions, window: int = 0,
+               kv_cache=None, cache_index=None, kv_override=None,
+               cache_axis=None):
+    """GQA self-attention over the full sequence (training).  x: [(G,) B,
+    S, d] with weights [(G,) d, e]; positions: [1, S].  Returns
+    ``(out, None)`` (no cache), as the JAX ``attn_apply`` returns
+    ``(out, new_cache)``.
+
+    At ``S >= 2048`` it goes through :func:`repro_torch.models.attention.
+    attention` (the flash kernel forward, a chunked recompute backward), the
+    branches folded into its batch dim; below, dense ``sdpa`` with the
+    causal mask.  The dense-cache branch (the legacy gang path),
+    ``kv_override`` (cross-attention) and the length-sharded cache
+    (flash-decoding) come with later slices."""
+    if kv_cache is not None or cache_axis is not None:
+        raise NotImplementedError(
+            "attn_apply with a dense KV cache (the legacy gang path and "
+            "flash-decoding) is ported in a later slice")
+    if kv_override is not None:
+        raise NotImplementedError(
+            "cross-attention (kv_override, enc-dec) is ported in a later "
+            "slice")
+    b, s = x.shape[-3], x.shape[-2]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _dense(x, params["wq"]).unflatten(-1, (h, hd))
+    k = _dense(x, params["wk"]).unflatten(-1, (kv, hd))
+    v = _dense(x, params["wv"]).unflatten(-1, (kv, hd))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if s >= 2048:
+        from repro_torch.models.attention import attention
+        out = attention(q.reshape(-1, s, h, hd), k.reshape(-1, s, kv, hd),
+                        v.reshape(-1, s, kv, hd), causal=cfg.causal,
+                        window=window, softcap=cfg.attn_softcap)
+    else:
+        mask = causal_mask(s, s, window=window, device=x.device) \
+            if cfg.causal else torch.ones(1, 1, s, s, dtype=torch.bool,
+                                          device=x.device)
+        out = sdpa(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv), mask,
+                   softcap=cfg.attn_softcap)
+    out = out.reshape(x.shape[:-1] + (h * hd,))
+    return _dense(out, params["wo"]), None
+
+
 def mlp_shapes(cfg: ArchConfig, d_ff: Optional[int] = None,
                lead: tuple = ()) -> dict:
     """Leaf shapes of a dense MLP of hidden width ``d_ff`` (default
@@ -106,7 +189,7 @@ def mlp_apply(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return F.gelu(x @ params["wu"], approximate="tanh") @ params["wd"]
 
 
-def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if cap and cap > 0:
         return torch.tanh(logits / cap) * cap
     return logits
@@ -115,10 +198,14 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
 def embed_apply(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """tok [..., V, d] gathered at ``tokens`` -> [..., *tokens.shape, d].
     Ids past the table clamp to its last row, as a JAX gather does (a
-    semantic branch embeds full-vocab ids with its vocab shard)."""
+    semantic branch embeds full-vocab ids with its vocab shard), and, as in
+    JAX, such an id sends no gradient to the row it read."""
     tok = params["tok"]
-    idx = tokens.long().clamp(0, tok.shape[-2] - 1)
+    ids = tokens.long()
+    idx = ids.clamp(0, tok.shape[-2] - 1)
     x = tok[..., idx, :]
+    if x.requires_grad:
+        x = torch.where((ids == idx)[..., None], x, x.detach())
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -130,4 +217,4 @@ def unembed_apply(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     w = params["tok"].transpose(-1, -2) if cfg.tie_embeddings \
         else params["head"]
     logits = x @ w.to(x.dtype)
-    return softcap(logits.float(), cfg.final_softcap)
+    return _softcap(logits.float(), cfg.final_softcap)

@@ -1,17 +1,23 @@
-"""Model facade of the paged serving path: ``build_model(cfg)`` ->
-``Model`` (one branch) or ``SemanticModel`` (the paper's semantic split).
+"""Model facade of the paged serving and training paths:
+``build_model(cfg)`` -> ``Model`` (one branch) or ``SemanticModel`` (the
+paper's semantic split).
 
 Both are ``nn.Module``s whose parameter names follow the JAX param pytree
 paths (``embed.tok``, ``blocks.pos0.mix.wq``, ``blocks.pos0.ffn.router``,
 ``final_norm.w``, ...).
 Superblock leaves stay stacked ``[N_sb, ...]`` as in JAX, and
 ``SemanticModel`` carries a leading branch dim ``[Bb, ...]`` on every leaf
-where the JAX package ``jax.vmap``-ed a single-branch model.  Parameters
-never require grad; weights are random draws from an explicit
-``torch.Generator`` or loaded in place (``repro_torch.bridge``).
+where the JAX package ``jax.vmap``-ed a single-branch model.  Weights are
+random draws from an explicit ``torch.Generator`` or loaded in place
+(``repro_torch.bridge``).
 
-This slice serves decoder-only stacks of global attention with dense, MoE
-or no FFNs; other mixers and modality frontends raise.
+The training surface follows the JAX ``Model``: ``hidden``,
+``chunk_logits``, ``forward``, ``loss`` and ``loss_chunked`` take an
+explicit ``params`` tree (``param_tree()``: nested dicts of the parameters
+in the JAX layout), so gradients come back as a tree of the same paths.
+
+This slice runs decoder-only stacks of global attention with dense, MoE or
+no FFNs; other mixers and modality frontends raise.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.moe import moe_shapes
 
 #: elements drawn per ``torch.randn`` call in ``reset_parameters``: bounds
@@ -74,11 +81,41 @@ def param_shapes(cfg: ArchConfig) -> dict:
             "final_norm": L.norm_shapes(cfg)}
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean (or ``mask``-weighted) token cross-entropy in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+    return -ll.mean()
+
+
+def _chunked_ce(model, params, h: torch.Tensor, labels: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+    """CE over sequence chunks of the final hidden states, never holding
+    [B, S, vocab] logits.  ``h``: [B, S, d] (or [Bb, B, S, d] for semantic
+    models: ``model.chunk_logits`` merges branches per chunk).  The last
+    chunk may be short (the JAX version pads it with ignored positions)."""
+    seq_axis = h.dim() - 2
+    s = h.shape[seq_axis]
+    chunk = min(chunk, s)
+    total = h.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk):
+        logits = model.chunk_logits(params, h.narrow(seq_axis, c0, min(
+            chunk, s - c0)))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        lc = labels[:, c0:c0 + chunk].long()
+        total = total - torch.gather(logp, -1, lc[..., None]).sum()
+    return total / (labels.shape[0] * s)
+
+
 class ParamTree(nn.Module):
     """One node of the parameter tree: leaves are parameters, subtrees are
     child nodes (a MoE node holds both: ``router`` beside ``experts``).  It
     indexes and iterates like a dict, so parameter names are the JAX tree
-    paths."""
+    paths.  Parameters are created without grad (serving); training turns
+    it on with ``requires_grad_()``."""
 
     def __init__(self, tree: dict, lead: tuple, dtype, device):
         super().__init__()
@@ -107,8 +144,8 @@ def _view_tree(node: ParamTree, fn) -> dict:
 
 
 class _PagedLM(nn.Module):
-    """Shared parameter tree + pool factory; ``n_branches`` leading dim
-    (absent for the single-branch ``Model``)."""
+    """Shared parameter tree, pool factory and training forward;
+    ``n_branches`` leading dim (absent for the single-branch ``Model``)."""
 
     def __init__(self, cfg: ArchConfig, branch_cfg: ArchConfig,
                  branch_lead: tuple, device):
@@ -167,6 +204,53 @@ class _PagedLM(nn.Module):
             self._views = (emb, fnorm, sbs)
         return self._views
 
+    def param_tree(self) -> Dict:
+        """The parameters as nested dicts in the JAX param-tree layout
+        (the leaves are the ``nn.Parameter``s themselves)."""
+        return {k: _view_tree(getattr(self, k), lambda p: p)
+                for k in ("embed", "blocks", "final_norm")}
+
+    # ------------------------------------------------------------ training
+    def _grouped(self, params) -> Dict:
+        """``params`` with a leading branch dim G on every leaf (G = 1 for
+        ``Model``)."""
+        if self._lead:
+            return params
+        g = lambda t: {k: g(v) for k, v in t.items()} \
+            if isinstance(t, dict) else t.unsqueeze(0)
+        return g(params)
+
+    def _hidden_grouped(self, params, batch, *, remat: bool):
+        """[G, B, S, d] final hidden states and the per-branch aux [G]."""
+        cfg = self.branch_cfg
+        p = self._grouped(params)
+        tokens = batch["tokens"]
+        x = L.embed_apply(p["embed"], tokens, cfg)          # [G, B, S, d]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        x, aux = T.stack_apply(p["blocks"], x, cfg, positions=pos,
+                               remat=remat)
+        return L.norm_apply(p["final_norm"], x, cfg), aux
+
+    def forward(self, params, batch, *, remat: bool = False):
+        """Full-sequence forward.  Returns (logits, aux).  Materializes the
+        full [B, S, vocab] logits: small scale only; training uses
+        ``loss_chunked``."""
+        h, aux = self.hidden(params, batch, remat=remat)
+        return self.chunk_logits(params, h), aux
+
+    def loss(self, params, batch, *, remat: bool = False):
+        logits, aux = self.forward(params, batch, remat=remat)
+        mask = batch.get("loss_mask")
+        return cross_entropy(logits, batch["labels"], mask) + 0.01 * aux
+
+    def loss_chunked(self, params, batch, *, chunk: int = 512,
+                     remat: bool = False):
+        """Cross-entropy over sequence chunks of the unembedding; never
+        materializes [B, S, vocab]."""
+        h, aux = self.hidden(params, batch, remat=remat)
+        return _chunked_ce(self, params, h, batch["labels"], chunk) \
+            + 0.01 * aux
+
     def init_cache(self, num_blocks: int, block_size: int) -> Dict:
         """Paged KV pool in the reference layout: ``{"pos<i>": {"k", "v"}}``
         with leaves [(Bb,) N_sb, P, bs, K, hd] in ``cfg.dtype``."""
@@ -187,6 +271,15 @@ class Model(_PagedLM):
             raise ValueError("Model takes a single-branch config")
         super().__init__(cfg, cfg, (), device)
 
+    def hidden(self, params, batch, *, remat: bool = False):
+        """Final hidden states (pre-unembed).  Returns (h [B, S, d], aux)."""
+        h, aux = self._hidden_grouped(params, batch, remat=remat)
+        return h[0], aux[0]
+
+    def chunk_logits(self, params, h):
+        """Unembed a [B, C, d] chunk of hidden states -> [B, C, vocab]."""
+        return L.unembed_apply(params["embed"], h, self.cfg)
+
 
 class SemanticModel(_PagedLM):
     """The paper's semantic split: Bb independent block-diagonal branches,
@@ -201,9 +294,21 @@ class SemanticModel(_PagedLM):
 
     @staticmethod
     def _merge_logits(logits: torch.Tensor) -> torch.Tensor:
-        """[Bb, batch, vocab/Bb] -> [batch, vocab], branch-major shards."""
-        bb, b, v = logits.shape
-        return logits.permute(1, 0, 2).reshape(b, bb * v)
+        """[Bb, batch, (seq,) vocab/Bb] -> [batch, (seq,) vocab],
+        branch-major shards."""
+        return logits.movedim(0, -2).flatten(-2)
+
+    def hidden(self, params, batch, *, remat: bool = False):
+        """Per-branch hidden states [Bb, B, S, d_branch] and the aux terms
+        summed over branches."""
+        h, aux = self._hidden_grouped(params, batch, remat=remat)
+        return h, aux.sum()
+
+    def chunk_logits(self, params, h):
+        """h: [Bb, B, C, d_b] -> merged [B, C, vocab]."""
+        logits = L.unembed_apply(params["embed"], h.flatten(1, 2),
+                                 self.branch_cfg)       # [Bb, B*C, V/Bb]
+        return self._merge_logits(logits.unflatten(1, h.shape[1:3]))
 
 
 def build_model(cfg: ArchConfig, *, device=None):

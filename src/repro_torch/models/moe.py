@@ -1,8 +1,9 @@
 """Mixture-of-Experts FFN with sort-based capacity dispatch, on the paged
-serving path.
+serving and training paths.
 
-Mirrors ``repro.models.moe`` (``moe_init``'s layout, ``router_topk`` and
-``_moe_apply_dense``) with a leading branch dim G on tokens and weights:
+Mirrors ``repro.models.moe`` (``moe_init``'s layout, ``router_topk``,
+``load_balance_loss`` and ``_moe_apply_dense``) with a leading branch dim G
+on tokens and weights:
 each branch routes its own tokens, which is what ``jax.vmap`` over a
 ``SemanticModel``'s branches did.  The expert product over the [E, C, d]
 buffer is a batched ``torch.matmul``, as the JAX package leaves it to XLA
@@ -45,14 +46,25 @@ def router_topk(logits: torch.Tensor, top_k: int):
     return torch.softmax(w[..., :top_k].float(), dim=-1), idx[..., :top_k]
 
 
-def moe_apply(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x [G, T, d] -> [G, T, d], each branch routed on its own.  The
-    load-balance loss is a training term and is not computed (the JAX
-    serving path drops it too)."""
+def load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary load-balance loss per branch: logits [G, T, E],
+    idx [G, T, k] -> [G]."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    me = probs.mean(dim=-2)
+    ce = torch.nn.functional.one_hot(idx[..., 0], n_experts).float() \
+        .mean(dim=-2)                                   # primary expert
+    return n_experts * (me * ce).sum(dim=-1)
+
+
+def moe_apply(params, x: torch.Tensor, cfg: ArchConfig):
+    """x [G, T, d] -> ([G, T, d], aux [G]), each branch routed on its own;
+    aux is the branch's load-balance loss (a training term: the serving
+    path drops it, as the JAX one does)."""
     if cfg.expert_parallel_axis:
         raise NotImplementedError(
-            "expert-parallel MoE (_moe_apply_ep) and load_balance_loss are "
-            "ported with the training slice")
+            "expert-parallel MoE (_moe_apply_ep) is ported with the "
+            "multi-device training slice")
     return _moe_apply_dense(params, x, cfg)
 
 
@@ -63,6 +75,7 @@ def _moe_apply_dense(params, x: torch.Tensor, cfg: ArchConfig):
     dev = x.device
     logits = x @ params["router"]                            # [G, T, E]
     weights, idx = router_topk(logits, k)                    # [G, T, k]
+    aux = load_balance_loss(logits, idx, n_e)
     cap = int(max(k, math.ceil(t * k * m.capacity_factor / n_e)))
 
     # ---- sort-based dispatch into [G*E, C] slots.  Branch b's expert e is
@@ -99,4 +112,4 @@ def _moe_apply_dense(params, x: torch.Tensor, cfg: ArchConfig):
     out = out.reshape(g, t, d)
     if m.n_shared:
         out = out + L.mlp_apply(params["shared"], x, cfg)
-    return out
+    return out, aux

@@ -1,8 +1,10 @@
 """Port tests that need the card: the hand-written CUDA kernels (paged
-attention at head dims 32, 64 and 128; the int8/int4 quant GEMM) against
-their plain PyTorch versions, and the paged serving path on CUDA against
-the same path on the CPU, with and without weight quantization and MoE.  Every test is marked ``gpu`` and skips without a
-CUDA device (a CUDA kernel has no CPU mode).  This file imports neither jax
+attention at head dims 32, 64 and 128; the int8/int4 quant GEMM; the flash
+attention forward) against their plain PyTorch versions, the paged serving
+path on CUDA against the same path on the CPU, with and without weight
+quantization and MoE, and a training step (flash forward, chunked
+backward) on CUDA against the CPU.  Every test is marked ``gpu`` and skips
+without a CUDA device (a CUDA kernel has no CPU mode).  This file imports neither jax
 nor the JAX package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -193,3 +195,129 @@ def test_backend_on_cuda_matches_cpu(dev, arm, name, kv, wq):
         assert eng.summary()["prefix_hit_rate"] > 0
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------- flash attention
+FLASH_CASES = [
+    # (n, sq, sk, h, kh, hd, causal, window, softcap)
+    (2, 256, 256, 4, 4, 32, True, 0, 0.0),
+    (2, 256, 256, 8, 2, 64, True, 0, 0.0),          # GQA 4:1
+    (1, 128, 384, 4, 1, 128, True, 0, 0.0),         # MQA, Sq < Sk
+    (2, 300, 300, 4, 2, 64, True, 100, 30.0),       # window + softcap
+    (1, 200, 333, 4, 2, 128, False, 0, 0.0),        # non-causal, ragged
+    (3, 77, 77, 2, 2, 32, True, 16, 0.0),           # ragged, tiny window
+]
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_matches_plain(dev, kind, case):
+    """The kernel against ``flash_attention_plain`` on the same CUDA
+    tensors: f32 1e-4 (summation order), bf16 2e-2 (one bf16 rounding of
+    the outputs), with strided (non-contiguous) q, k and v."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    n, sq, sk, h, kh, hd, causal, window, softcap = case
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(11)
+    # q, k, v as slices of one projection output, as a fused qkv would be
+    qkv = torch.randn(n, sk, h + 2 * kh, hd, generator=gen,
+                      device=dev).to(dt)
+    q, k, v = qkv[:, sk - sq:, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    before = flash_attention.launches
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_attention(q, k, v, **opts)
+    want = flash_attention_plain(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dt
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[kind], err
+
+
+def test_flash_attention_branches_share_a_launch(dev):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v = (torch.randn(2, 3, 130, 4, 64, generator=gen, device=dev)
+               for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=50)
+    assert flash_attention.launches == before + 1
+    want = torch.stack([flash_attention_plain(q[i], k[i], v[i], window=50)
+                        for i in range(2)])
+    assert float((got - want).abs().max()) <= TOL["f32"]
+
+
+def test_flash_attention_rejects_what_it_cannot_take(dev):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(1, 64, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(torch.randn(1, 64, 2, 48, device=dev),
+                        *(torch.randn(1, 64, 2, 48, device=dev),) * 2)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_attention(q, q[:, :32], q[:, :32])
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="dense"):
+        flash_attention(q, q, torch.randn(1, 64, 2, 128, device=dev)[..., ::2])
+
+
+def test_attention_backward_through_kernel_matches_plain(dev):
+    """``models.attention.attention`` on the card (kernel forward, chunked
+    recompute backward) against plain autograd through
+    ``flash_attention_plain``: outputs and q/k/v grads to 1e-4 (f32)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.attention import attention
+    gen = torch.Generator(device=dev).manual_seed(13)
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    q0, k0, v0 = mk(2, 2048, 4, 64), mk(2, 2048, 2, 64), mk(2, 2048, 2, 64)
+    w = mk(2, 2048, 4, 64)
+    grads = []
+    for fn in (attention, flash_attention_plain):
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        out = fn(q, k, v, window=700, softcap=30.0)
+        (out * w).sum().backward()
+        grads.append([out.detach(), q.grad, k.grad, v.grad])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4 * (1 + float(b.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["fsdp", "semantic"])
+def test_train_step_on_cuda_matches_cpu(dev, mode):
+    """Reduced stablelm at S = 2048 (the flash path): one runner
+    ``value_and_grad`` on the card and on the CPU from the same weights;
+    loss to rel 1e-5, grads to 1e-4 of each leaf's largest; the kernel is
+    launched twice per layer with remat (forward and recompute)."""
+    from repro_torch import bridge
+    from repro_torch.dist import api as A
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = get_config("stablelm-1.6b").reduced().replace(dtype="float32")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (1, 2049)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for device in ("cpu", dev):
+        r = A.build_runner(cfg, mode, device=device)
+        tree = r.init(seed=0)
+        if out:
+            bridge.load_params(r.model, out[0][2])
+        before = flash_attention.launches
+        loss, grads = r.value_and_grad(
+            tree, {k: torch.from_numpy(v).to(device) for k, v in
+                   batch.items()}, remat=True)
+        if device != "cpu":
+            assert flash_attention.launches - before == 2 * cfg.n_layers
+        out.append((float(loss), bridge.tree_to_numpy(grads),
+                    bridge.tree_to_numpy(tree)))
+    (l0, g0, _), (l1, g1, _) = out
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+
+    def close(a, b):
+        if isinstance(a, dict):
+            for k in a:
+                close(a[k], b[k])
+            return
+        assert np.abs(a - b).max() <= 1e-4 * (1 + np.abs(a).max())
+    close(g0, g1)

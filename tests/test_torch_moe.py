@@ -1,8 +1,8 @@
 """Port MoE FFN against the JAX package.
 
-``moe_apply`` is held to ``repro.models.moe._moe_apply_dense`` on the same
-weights and tokens (f32, 1e-5: the same products in another summation
-order): with capacity drops, with a router whose logits tie (``lax.top_k``
+``moe_apply`` and its load-balance term are held to
+``repro.models.moe._moe_apply_dense`` on the same weights and tokens (f32,
+1e-5: the same products in another summation order): with capacity drops, with a router whose logits tie (``lax.top_k``
 takes the lower expert first, and so must the port), and per branch on the
 semantic split (JAX ``vmap``s the branches; the port routes each branch on
 its own inside one call).  Then the paged forwards and the scheduler of
@@ -53,14 +53,16 @@ def test_moe_apply_matches_jax(case):
         params["router"] = jnp.asarray(r)
     rng = np.random.default_rng(5)
     x = rng.normal(size=(g, 3, 6, cfg.d_model)).astype(np.float32)
-    want = jax.vmap(lambda p, xb: jmoe._moe_apply_dense(p, xb, cfg)[0])(
+    want, want_aux = jax.vmap(
+        lambda p, xb: jmoe._moe_apply_dense(p, xb, cfg))(
         params, jnp.asarray(x))
     tparams = jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
                            np_tree(params))
-    got = tmoe.moe_apply(tparams, torch.from_numpy(x).reshape(g, 18, -1),
-                         port_cfg(cfg))
+    got, aux = tmoe.moe_apply(tparams, torch.from_numpy(x).reshape(g, 18, -1),
+                              port_cfg(cfg))
     np.testing.assert_allclose(got.reshape(x.shape).numpy(),
                                np.asarray(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(aux.numpy(), np.asarray(want_aux), rtol=1e-5)
     if case == "ties":
         logits = torch.from_numpy(x[0].reshape(18, -1)) @ tparams["router"][0]
         _, idx = tmoe.router_topk(logits, cfg.moe.top_k)
