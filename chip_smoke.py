@@ -64,6 +64,22 @@ raising on failure:
             Sq = 1024 < Sk = 2048 case, f32 (1e-4) and bf16 (2e-2); timed as
             above beside ``scaled_dot_product_attention`` where it computes
             the same function (no window, no softcap).
+8. ops      the kernel-op layer ``repro_torch.kernels.ops`` at full widths:
+            ``block_diag_matmul`` (stablelm-1.6b ``.semantic(2)`` branch MLP
+            up and down at T 8, 200 and 2048), ``moe_gmm`` (qwen2-moe-a2.7b,
+            60 experts x capacity 171), ``ssm_scan`` (jamba-1.5-large's
+            mixer, [1, 2048, 16384, 16] f32) and ``decode_attention`` (B 8,
+            L 4096, ragged lengths with a 0; stablelm-1.6b and a gemma2-27b
+            layer), f32 and bf16; flash and quant once each.  The launch
+            counters are zeroed before each op call and must read 1 for its
+            kernel and 0 for the others; with ``use_kernels(False)`` no
+            launch and the oracle's result.  Kernel vs plain within tol (1 +
+            |plain|) (``QTOL``), decode within tol times the largest |plain|
+            of each output row; the decode check must also reject the plain
+            output with each long row's first 256-slot piece dropped, and
+            both readings are reported.  The four new kernels are timed as
+            above beside ``torch.bmm`` or masked SDPA where one call
+            computes the same function.
 
 Every backend is freed before the next one is built.  The last lines are
 one JSON object per kernel line, the card's name and power limit, and
@@ -91,8 +107,10 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12,        # dense tensor-core bf16
               torch.float32: 67e12}          # f32 outside the tensor cores
 TOL = {"f32": 1e-4, "bf16": 2e-2, "int8-f32q": 1e-3, "int8-bf16q": 2e-2}
-# quant GEMM, as |kernel - plain| <= tol * (1 + |plain|): f32 x the JAX
-# kernel test's 2e-4 (tests/test_quant.py), bf16 x the 2e-2 above
+# quant GEMM and the op layer's kernels, as |kernel - plain| <= tol (1 +
+# |plain|) (decode: tol times its row's max |plain|, see ``ops_limit``):
+# f32 the JAX quant kernel test's 2e-4 (tests/test_quant.py), bf16 the 2e-2
+# above
 QTOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 PAGED_HEADS = ((32, 32, 64), (16, 16, 128))  # (H, K, hd): stablelm, qwen2-moe
 
@@ -143,13 +161,16 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
 
 
 def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
-    """Device busy time per call: the time of the CUDA kernels that
-    ``reps`` calls launch, summed by ``torch.profiler`` (gaps between
-    launches excluded), over ``reps``, after a warm-up call.  Every call
-    launches the same kernels, so a profile whose kernel count is not a
-    positive multiple of ``reps`` lost device records (the tracer
-    occasionally delivers none, or part, of them): it is taken again, up
-    to ``tries`` times."""
+    """Device busy time per call, from ``torch.profiler`` over ``reps``
+    calls after a warm-up call (gaps between launches excluded): for each
+    CUDA kernel the calls launch, its mean time per record times its
+    launches per call (its record count over ``reps``, rounded), summed.
+    The tracer on the card sometimes loses device records (all, part, or
+    one in every profile of a case); a kernel's mean stays right
+    when a few of its records are lost, so a profile is taken again, up to
+    ``tries`` times, only when a kernel's count is more than one record,
+    or a tenth of ``reps``, off a positive multiple of ``reps``.  With
+    every record there this is the kernels' total time over ``reps``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -161,13 +182,17 @@ def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.is_user_annotation]
-        us = sum(e.self_device_time_total for e in kernels)
-        n = sum(e.count for e in kernels)
-        if us > 0 and n >= reps and n % reps == 0:
-            return us / 1e3 / reps
-        log(f"[profiler] {n} device records for {reps} calls (try "
-            f"{attempt} of {tries})")
+                   and not e.is_user_annotation and e.count > 0]
+        per_call = [round(e.count / reps) for e in kernels]
+        if kernels and all(
+                k >= 1 and abs(e.count - k * reps) <= max(1, reps // 10)
+                for e, k in zip(kernels, per_call)):
+            us = sum(e.self_device_time_total / e.count * k
+                     for e, k in zip(kernels, per_call))
+            if us > 0:
+                return us / 1e3
+        log(f"[profiler] {[e.count for e in kernels]} device records per "
+            f"kernel for {reps} calls (try {attempt} of {tries})")
     raise AssertionError("the profiler lost device records on every try")
 
 
@@ -179,6 +204,13 @@ def timings(kern, plain, library) -> dict:
     return dict(ms=device_ms(kern), call_ms=time_ms(kern),
                 plain_ms=device_ms(plain, reps=5),
                 library_ms=device_ms(library))
+
+
+def _bound(nbytes, flops, dt):
+    """(bound_ms, bound_by) from the bytes moved once and the flops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ------------------------------------------------------------------ kernels
@@ -250,9 +282,7 @@ def bound(case, *, chunk: bool):
         + tables.nbytes + (case["positions"] if chunk
                            else case["lengths"]).numel() * 4
     flops = 4.0 * h * hd * float(keys)           # QK^T and PV
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, flops, q.dtype)
 
 
 def library_call(case, *, chunk: bool):
@@ -338,9 +368,7 @@ def quant_bound(x, q, scales):
     e = scales.shape[-1]
     nbytes = q.numel() + scales.numel() * 4 \
         + (x.numel() + g * t * e) * x.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * g * t * d * e / PEAK_FLOPS[x.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, 2.0 * g * t * d * e, x.dtype)
 
 
 def quant_phase(dev):
@@ -669,9 +697,7 @@ def flash_bound(q, k, *, causal, window):
     lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq)
     pairs = float(np.maximum(hi - lo, 0).sum()) * n * h
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4.0 * hd * pairs / PEAK_FLOPS[q.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, 4.0 * hd * pairs, q.dtype)
 
 
 def flash_phase(dev):
@@ -722,6 +748,252 @@ def flash_phase(dev):
             del q, k, v, got, want
     return dict(replaces="src/repro/kernels/flash_attention.py:25",
                 per_dtype=per)
+
+
+# ---------------------------------------------------------------------- ops
+OPS_KERNELS = ("block_diag_matmul", "moe_gmm", "ssm_scan",
+               "decode_attention")
+OPS_REPLACES = {
+    "block_diag_matmul": "src/repro/kernels/block_diag_matmul.py:21",
+    "moe_gmm": "src/repro/kernels/moe_gmm.py:19",
+    "ssm_scan": "src/repro/kernels/ssm_scan.py:22",
+    "decode_attention": "src/repro/kernels/decode_attention.py:23"}
+DECODE_B, DECODE_L = 8, 4096
+DECODE_LENGTHS = (4096, 1, 0, 2049, 3000, 517, 4095, 1234)
+DECODE_PIECE = 256                  # slots per CTA (csrc/decode_attention.cu)
+
+
+def ops_limit(want, dt, rows: bool = False):
+    """The largest |kernel - plain| each element may show: tol (1 +
+    |plain|), or with ``rows`` tol times the largest |plain| of the
+    element's last-dim row.  Decode needs the second: its outputs are
+    softmax averages over up to L slots, |plain| ~ (e / L)^0.5 ~ 0.03 at
+    L 4096, so tol (1 + |plain|) would pass a kernel that drops a piece."""
+    mag = want.float().abs()
+    if rows:
+        return QTOL[dt] * mag.amax(-1, keepdim=True)
+    return QTOL[dt] * (1 + mag)
+
+
+def _op_wrappers():
+    """Every wrapper the op layer reaches, by name."""
+    from repro_torch.kernels.block_diag_matmul import block_diag_matmul
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    return {"block_diag_matmul": block_diag_matmul, "moe_gmm": moe_gmm,
+            "ssm_scan": ssm_scan, "decode_attention": decode_attention,
+            "flash_attention": flash_attention, "quant_matmul": quant_matmul}
+
+
+def ops_cases(dev):
+    """The op layer's cases at full widths of the repo's configs, one at a
+    time (inputs freed between them): dicts with the kernel's name, a
+    label, the op's arguments, the plain version and oracle, the bound and
+    the library yardstick (or None)."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import block_diag_matmul as BDM
+    from repro_torch.kernels import decode_attention as DEC
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gmm as GMM
+    from repro_torch.kernels import quant_matmul as Q
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as SCAN
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+
+    def gemm(name, mod, label, g, m, k, n, dt):
+        x = rnd(g, m, k).to(dt)
+        w = (rnd(g, k, n) / math.sqrt(k)).to(dt)
+        size = x.element_size()
+        return dict(kernel=name, label=f"{label}/{str(dt)[6:]}", dt=dt,
+                    args=(x, w), kw={}, plain=getattr(mod, f"{name}_plain"),
+                    oracle=getattr(ref, f"{name}_ref"),
+                    bound=_bound((g * m * k + g * k * n + g * m * n) * size,
+                                 2.0 * g * m * k * n, dt),
+                    library=lambda: torch.bmm(x, w))
+
+    sem = get_config("stablelm-1.6b").semantic(2)
+    for t in (8, 2048, 200):
+        for proj, k, n in (("up", sem.d_model, sem.d_ff),
+                           ("down", sem.d_ff, sem.d_model)):
+            for dt in (torch.float32, torch.bfloat16):
+                yield gemm("block_diag_matmul", BDM, f"{proj}/T{t}", 2, t, k,
+                           n, dt)
+    moe_cfg = get_config("qwen2-moe-a2.7b")
+    m = moe_cfg.moe
+    seq = 2048
+    cap = int(max(m.top_k, math.ceil(seq * m.top_k * m.capacity_factor
+                                     / m.n_experts)))
+    for proj, k, n in (("gate_up", moe_cfg.d_model, m.d_ff),
+                       ("down", m.d_ff, moe_cfg.d_model)):
+        for dt in (torch.float32, torch.bfloat16):
+            yield gemm("moe_gmm", GMM, f"{proj}/C{cap}", m.n_experts, cap, k,
+                       n, dt)
+
+    jamba = get_config("jamba-1.5-large-398b")
+    shape = (1, 2048, jamba.ssm_expand * jamba.d_model, jamba.ssm_d_state)
+    a = 0.7 + 0.299 * torch.rand(shape, generator=gen, device=dev)
+    b = rnd(*shape)
+    yield dict(kernel="ssm_scan", label="jamba/float32", dt=torch.float32,
+               args=(a, b), kw={}, plain=SCAN.ssm_scan_plain,
+               oracle=ref.ssm_scan_ref, plain_reps=2,
+               bound=_bound(3 * a.numel() * 4, 2.0 * a.numel(),
+                            torch.float32), library=None)
+    del a, b
+
+    length = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    for cfg_name in ("stablelm-1.6b", "gemma2-27b"):
+        cfg = get_config(cfg_name)
+        h, kh = cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.head_dim or cfg.d_model // h
+        cap_s = cfg.attn_softcap
+        for dt in (torch.float32, torch.bfloat16):
+            q = rnd(DECODE_B, h, hd).to(dt)
+            k = rnd(DECODE_B, DECODE_L, kh, hd).to(dt)
+            v = rnd(DECODE_B, DECODE_L, kh, hd).to(dt)
+            size = q.element_size()
+            keys = sum(DECODE_LENGTHS)
+            library = None
+            if not cap_s and h == kh:
+                kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+                kpos = torch.arange(DECODE_L, device=dev)
+                mask = (kpos[None, :] < length[:, None]) \
+                    | (length == 0)[:, None]
+                library = (lambda q=q, kt=kt, vt=vt, mask=mask:
+                           F.scaled_dot_product_attention(
+                               q[:, :, None], kt, vt,
+                               attn_mask=mask[:, None, None, :]))
+            long = (length > DECODE_PIECE)[:, None, None]
+            cut = (length - DECODE_PIECE).clamp(min=0)
+            # a kernel that drops each long row's first piece
+            fault = (lambda q=q, k=k, v=v, cut=cut, long=long, cap_s=cap_s:
+                     (DEC.decode_attention_plain(
+                         q, k[:, DECODE_PIECE:], v[:, DECODE_PIECE:], cut,
+                         softcap=cap_s), long))
+            yield dict(kernel="decode_attention",
+                       label=f"{cfg_name}/{str(dt)[6:]}", dt=dt,
+                       args=(q, k, v, length), kw=dict(softcap=cap_s),
+                       plain=DEC.decode_attention_plain,
+                       oracle=ref.decode_attention_ref, zero_rows=length == 0,
+                       row_limit=True, fault=fault,
+                       bound=_bound(keys * 2 * kh * hd * size
+                                    + 2 * q.numel() * size
+                                    + length.numel() * 4,
+                                    4.0 * h * hd * keys, dt),
+                       library=library)
+            del q, k, v, library, fault
+
+    # the two ops whose kernels earlier phases time: wiring only
+    qf = rnd(2, 2048, 32, 64).to(torch.bfloat16)
+    yield dict(kernel="flash_attention", label="layer/bfloat16",
+               dt=torch.bfloat16, args=(qf, qf, qf), kw={},
+               plain=FA.flash_attention_plain, oracle=ref.flash_attention_ref)
+    del qf
+    codes, scales = Q.quantize_blockwise(rnd(2048, 2048) / math.sqrt(2048))
+    yield dict(kernel="quant_matmul", label="layer/int8/bfloat16/T8",
+               dt=torch.bfloat16,
+               args=(rnd(8, 2048).to(torch.bfloat16), codes, scales), kw={},
+               plain=Q.quant_matmul_plain, oracle=ref.quant_matmul_ref)
+
+
+def ops_phase(dev):
+    """Each case through ``repro_torch.kernels.ops``: one counted launch,
+    the plain version's result, no launch and the oracle's result with the
+    switch off; the four new kernels timed."""
+    from repro_torch.kernels import ops
+    wrappers = _op_wrappers()
+    results = {name: dict(replaces=OPS_REPLACES.get(name), launches=0,
+                          per_dtype={}) for name in wrappers}
+    for case in ops_cases(dev):
+        name, label, dt = case["kernel"], case["label"], case["dt"]
+        op = getattr(ops, name)
+        args, kw = case["args"], case["kw"]
+        tag = f"{name} [{label}]"
+        for fn in wrappers.values():
+            fn.launches = 0
+        got = op(*args, **kw)                    # the op layer's main path
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        if launches != {k: int(k == name) for k in wrappers}:
+            raise AssertionError(f"{tag}: launches {launches}")
+        results[name]["launches"] += launches[name]
+        want = case["plain"](*args, **kw)
+        torch.cuda.synchronize()
+        rows = case.get("row_limit", False)
+        rule = f"{QTOL[dt]} " + ("max|plain| of its row" if rows
+                                 else "(1 + |plain|)")
+        limit = ops_limit(want, dt, rows)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not bool(got.isfinite().all()) or not bool(
+                    (diff <= limit).all()):
+            raise AssertionError(f"{tag}: max |kernel - plain| {err} beyond "
+                                 f"{rule}")
+        if "zero_rows" in case and bool((got[case["zero_rows"]] != 0).any()):
+            raise AssertionError(f"{tag}: a length-0 row is not 0")
+        row = dict(max_abs_err=err, tol=QTOL[dt], rule=rule)
+        if "fault" in case:
+            # the same check on a faulty output must fail in every lane the
+            # fault touches: the least, over those lanes, of the lane's
+            # largest |fault - plain| / limit
+            bad, where = case["fault"]()
+            off = (bad.float() - want.float()).abs()
+            lanes = where.flatten()
+            worst = float((off / limit.clamp(min=1e-30)).amax((1, 2))[
+                lanes].min())
+            # the same reading under tol (1 + |plain|), for the record
+            loose = float((off / ops_limit(want, dt)).amax((1, 2))[
+                lanes].min())
+            row.update(err_over_limit=float((diff / limit.clamp(
+                min=1e-30)).max()), fault_over_limit=worst,
+                fault_over_loose_limit=loose)
+            if worst <= 1:
+                raise AssertionError(f"{tag}: the check passes a lane that "
+                                     f"drops a piece ({worst:.3g} of its "
+                                     "limit)")
+            log(f"[ops] {tag}: kernel at {row['err_over_limit']:.3g} of its "
+                f"limit; a lane with its first piece dropped reads at least "
+                f"{worst:.3g} of it ({loose:.3g} of tol (1 + |plain|))")
+            del bad, where, off
+        del diff, want, limit
+        ops.use_kernels(False)
+        try:
+            off = op(*args, **kw)
+        finally:
+            ops.use_kernels(True)
+        if wrappers[name].launches != 1:
+            raise AssertionError(f"{tag}: a launch with use_kernels(False)")
+        if not torch.equal(off, case["oracle"](*args, **kw)):
+            raise AssertionError(f"{tag}: use_kernels(False) is not the "
+                                 "oracle's result")
+        del off
+        if name in OPS_KERNELS:
+            bnd, by = case["bound"]
+            lib = case["library"]
+            row.update(
+                bound_ms=bnd, bound_by=by,
+                ms=device_ms(lambda: op(*args, **kw)),
+                call_ms=time_ms(lambda: op(*args, **kw)),
+                plain_ms=device_ms(lambda: case["plain"](*args, **kw),
+                                   reps=case.get("plain_reps", 5)),
+                library_ms=None if lib is None else device_ms(lib))
+            libs = "—" if lib is None else f"{row['library_ms']:.4f} ms"
+            log(f"[ops] {tag}: max_abs_err={err:.3g} kernel "
+                f"{row['ms']:.4f} ms (call {row['call_ms']:.4f}), plain "
+                f"{row['plain_ms']:.4f} ms, library {libs}, bound {bnd:.4f} "
+                f"ms ({by})")
+        else:
+            log(f"[ops] {tag}: one launch, max_abs_err={err:.3g}")
+        results[name]["per_dtype"][label] = row
+        del got, args, case
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
 
 
 # -------------------------------------------------------------------- train
@@ -867,20 +1139,34 @@ def main(argv=None) -> int:
     kernels = kernel_phase(dev)
     kernels["quant_matmul"] = quant_phase(dev)
     kernels["flash_attention"] = flash_phase(dev)
+    op_layer = ops_phase(dev)
+    for name in OPS_KERNELS:
+        kernels[name] = op_layer[name]
 
     line = []
     main_rows = {"paged_decode_attention": "hd64/bf16",
                  "paged_prefill_attention": "hd64/bf16",
                  "quant_matmul": "layer/int8/bfloat16/T8",
-                 "flash_attention": "layer/float32"}
+                 "flash_attention": "layer/float32",
+                 "block_diag_matmul": "up/T2048/bfloat16",
+                 "moe_gmm": "gate_up/C171/bfloat16",
+                 "ssm_scan": "jamba/float32",
+                 "decode_attention": "stablelm-1.6b/bfloat16"}
     sources = {"quant_matmul": "quant_matmul.cu",
-               "flash_attention": "flash_attention.cu"}
+               "flash_attention": "flash_attention.cu",
+               "block_diag_matmul": "grouped_matmul.cu",
+               "moe_gmm": "grouped_matmul.cu",
+               "ssm_scan": "ssm_scan.cu",
+               "decode_attention": "decode_attention.cu"}
     for name, label in main_rows.items():
         row = kernels[name]["per_dtype"][label]
         src = sources.get(name, "paged_attention.cu")
-        launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS) \
-            if name == "flash_attention" else \
-            sum(s["launches"][name] for s in serves.values())
+        if name in OPS_KERNELS:
+            launches = kernels[name]["launches"]
+        elif name == "flash_attention":
+            launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS)
+        else:
+            launches = sum(s["launches"][name] for s in serves.values())
         line.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
@@ -895,7 +1181,8 @@ def main(argv=None) -> int:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(dict(
             card=card, build_s=build_s, total_s=total_s, kernels=kernels,
-            serves=serves, models=models, train=train), indent=1))
+            op_layer=op_layer, serves=serves, models=models, train=train),
+            indent=1))
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_SMS: Dict[int, int] = {}        # device index -> SM count
 
 
 def nvcc_path() -> str:
@@ -89,3 +90,12 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def sm_count(dev) -> int:
+    """Streaming multiprocessors of CUDA device ``dev`` (cached)."""
+    import torch
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]

@@ -19,7 +19,6 @@ CTAS_PER_SM = 2
 
 
 _FN = []                 # the bound C entry point, once loaded
-_SMS = {}                # device index -> SM count
 
 
 def _fn():
@@ -30,13 +29,6 @@ def _fn():
         fn.restype = ctypes.c_int
         _FN.append(fn)
     return _FN[0]
-
-
-def _sm_count(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
 
 
 def split_count(g: int, t: int, e: int, n_groups: int, n_sm: int) -> int:
@@ -92,7 +84,7 @@ def launch(x: torch.Tensor, q: torch.Tensor,
     out = torch.empty((g, t, e), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    splits = split_count(g, t, e, n_g, _sm_count(dev))
+    splits = split_count(g, t, e, n_g, _build.sm_count(dev))
     if g * splits > 65535 or -(-t // DECODE_BT) > 65535:
         raise ValueError(f"{name}: grid too large")
     partial = torch.empty((splits, g, t, e), dtype=torch.float32,

@@ -1,0 +1,42 @@
+"""Block-diagonal (semantic-split) matmul: Hopper kernel, wrapper and plain
+version.
+
+Replaces the Pallas TPU kernel ``block_diag_matmul``
+(src/repro/kernels/block_diag_matmul.py, ``_bdm_kernel``): a semantic split
+turns a weight matrix into Bb independent diagonal blocks, and branch b's
+``x[b] @ w[b]`` is computed alone, at 1/Bb of the dense product's flops.
+The CUDA kernel is the grouped GEMM of ``csrc/grouped_matmul.cu`` (shared
+with ``moe_gmm``): register-tiled f32 products on CUDA cores, x and w read
+through their strides, ragged shapes masked.  At decode-sized T it is bound
+by the bytes of w, at prefill-sized T by f32 arithmetic.  The TPU kernel's
+block knobs (``block_t/e/d``, tiles for the MXU) are not carried: the
+kernel picks its own tiles and takes shapes the TPU asserts refuse.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._gemm_launch import launch
+
+
+#: the kernel's function in plain PyTorch (the CPU path, and the kernel's
+#: yardstick on the card) is the oracle itself: an f32 einsum, cast to x's dtype
+block_diag_matmul_plain = ref.block_diag_matmul_ref
+
+
+def block_diag_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [Bb, T, d_b] @ w [Bb, d_b, e_b] -> [Bb, T, e_b] in x's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (and
+    count the launch in ``block_diag_matmul.launches``) or raise."""
+    if x.device.type == "cpu":
+        return block_diag_matmul_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_diag_matmul: no kernel for {x.device}")
+    out = launch(x, w, "block_diag_matmul")
+    block_diag_matmul.launches += 1
+    return out
+
+
+block_diag_matmul.launches = 0

@@ -1,6 +1,5 @@
-"""Plain PyTorch oracles for the flash-attention, paged-attention and quant
-GEMM kernels (the allclose targets), one to one with the jnp versions of
-the JAX package.
+"""Plain PyTorch oracles for every kernel (the allclose targets), one to one
+with the jnp versions of the JAX package (``repro.kernels.ref``).
 
 Each attention oracle runs a masked softmax in float32 (the paged ones over
 the block table gathered into a dense cache); the result is cast back to
@@ -42,6 +41,44 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def block_diag_matmul_ref(x, w):
+    """Per-branch product: x [Bb, T, d] @ w [Bb, d, e] in f32, cast to x's
+    dtype."""
+    return torch.einsum("btd,bde->bte", x.float(), w.float()).to(x.dtype)
+
+
+def block_diag_dense_ref(x, w):
+    """The dense equivalent: one [T, Bb*d] @ [Bb*d, Bb*e] product against
+    the block-diagonal embedding of w."""
+    bb, t, d = x.shape
+    e = w.shape[2]
+    big = torch.zeros(bb * d, bb * e, dtype=torch.float32, device=x.device)
+    for i in range(bb):
+        big[i * d:(i + 1) * d, i * e:(i + 1) * e] = w[i].float()
+    xf = x.transpose(0, 1).reshape(t, bb * d).float()
+    out = xf @ big
+    return out.reshape(t, bb, e).transpose(0, 1).to(x.dtype)
+
+
+def moe_gmm_ref(x, w):
+    """Per-expert product: x [E, C, d] @ w [E, d, f] in f32, cast to x's
+    dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def ssm_scan_ref(a, b):
+    """h_t = a_t h_{t-1} + b_t along axis 1 of [B, S, D, N], the state in
+    f32 from h_{-1} = 0, the output in a's dtype (a loop over S, as the
+    jnp version's ``lax.scan``)."""
+    h = torch.zeros(a.shape[:1] + a.shape[2:], dtype=torch.float32,
+                    device=a.device)
+    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + b[:, t].float()
+        out[:, t] = h
+    return out
 
 
 def decode_attention_ref(q, k_cache, v_cache, length, *, softcap=0.0):

@@ -1,6 +1,7 @@
 """Port tests that need the card: the hand-written CUDA kernels (paged
 attention at head dims 32, 64 and 128; the int8/int4 quant GEMM; the flash
-attention forward) against their plain PyTorch versions, the paged serving
+attention forward; the kernel-op layer's decode attention, grouped GEMM and
+scan) against their plain PyTorch versions, the paged serving
 path on CUDA against the same path on the CPU, with and without weight
 quantization and MoE, and a training step (flash forward, chunked
 backward) on CUDA against the CPU.  Every test is marked ``gpu`` and skips
@@ -321,3 +322,197 @@ def test_train_step_on_cuda_matches_cpu(dev, mode):
             return
         assert np.abs(a - b).max() <= 1e-4 * (1 + np.abs(a).max())
     close(g0, g1)
+
+
+# ------------------------------------------------------ the kernel-op layer
+# |kernel - plain| <= tol (1 + |plain|): f32 another summation order, bf16
+# one bf16 rounding of the outputs
+OPS_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _limit(want, dt, rows=False):
+    """tol (1 + |plain|); with ``rows`` tol times the largest |plain| of
+    each last-dim row.  Decode takes the second: its outputs are softmax
+    averages over many slots, far below 1, where tol (1 + |plain|) would
+    pass a kernel that drops a 256-slot piece."""
+    mag = want.float().abs()
+    return OPS_TOL[dt] * (mag.amax(-1, keepdim=True) if rows else 1 + mag)
+
+
+def _within(got, want, dt, rows=False):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= _limit(want, dt, rows)).all()), float(diff.max())
+
+
+GEMM_CASES = [
+    # (G, M, K, N, x sliced from a wider buffer)
+    (2, 8, 1024, 640, False),        # decode rows: skinny tile, split K
+    (3, 5, 70, 33, False),           # ragged everywhere, odd N (scalar w)
+    (2, 200, 96, 130, True),         # 128-row tiles, strided x
+    (4, 171, 128, 72, False),        # MoE capacity: 64-row tiles
+    (1, 40, 48, 256, True),          # 64-row tiles, split K
+    (2, 130, 37, 64, False),         # ragged contraction
+    (1, 1, 1, 1, False),
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GEMM_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("op", ["block_diag_matmul", "moe_gmm"])
+def test_grouped_matmul_matches_plain(dev, op, case, dt):
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{op}")
+    kern, plain = getattr(mod, op), getattr(mod, f"{op}_plain")
+    g, m, k, n, strided = case
+    gen = torch.Generator(device=dev).manual_seed(m + k)
+    x = torch.randn(g, m, k + (8 if strided else 0), generator=gen,
+                    device=dev).to(dt)[..., :k]
+    w = (torch.randn(g, k, n, generator=gen, device=dev) / k ** 0.5).to(dt)
+    before = kern.launches
+    got = kern(x, w)
+    want = plain(x, w)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _within(got, want, dt)
+
+
+DECODE_CASES = [
+    # (B, H, K, L, hd, softcap, lengths): one split (L <= 256) and several
+    (3, 4, 4, 96, 64, 0.0, (96, 0, 1)),
+    (3, 8, 2, 600, 128, 50.0, (600, 0, 257)),     # GQA 4, three splits
+    (2, 6, 2, 300, 32, 0.0, (1, 300)),            # GQA 3: head groups of 1
+    (2, 16, 1, 513, 64, 30.0, (513, 256)),        # GQA 16: two groups of 8
+    (2, 4, 2, 40, 128, 0.0, (0, 0)),
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: "-".join(map(str, c[:6])))
+def test_decode_attention_matches_plain(dev, case, dt):
+    """The kernel against its plain version on the same CUDA tensors, K and
+    V read as strided halves of one fused [B, L, 2K, hd] cache; length-0
+    rows exactly 0.  The same check rejects, in every lane longer than a
+    piece, the plain output with the lane's first 256 slots dropped."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    b, h, kh, L, hd, cap, lens = case
+    gen = torch.Generator(device=dev).manual_seed(L + hd)
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(dt)
+    kv = torch.randn(b, L, 2 * kh, hd, generator=gen, device=dev).to(dt)
+    k, v = kv[:, :, :kh], kv[:, :, kh:]
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, length, softcap=cap)
+    want = decode_attention_plain(q, k, v, length, softcap=cap)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    _within(got, want, dt, rows=True)
+    assert bool((got[length == 0] == 0).all())
+    long = length > 256
+    if bool(long.any()):
+        bad = decode_attention_plain(q, k[:, 256:], v[:, 256:],
+                                     (length - 256).clamp(min=0),
+                                     softcap=cap)
+        over = ((bad.float() - want.float()).abs()
+                > _limit(want, dt, rows=True)).flatten(1).any(1)
+        assert bool(over[long].all())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 37, 3, 5), (1, 100, 16, 8),
+                                   (3, 1, 4, 4)])
+def test_ssm_scan_matches_plain(dev, shape, dt):
+    """Each step a rounded multiply then a rounded add, as the plain loop:
+    the kernel equals it bit for bit."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+    gen = torch.Generator(device=dev).manual_seed(shape[1])
+    a = (0.7 + 0.299 * torch.rand(shape, generator=gen, device=dev)).to(dt)
+    b = torch.randn(shape, generator=gen, device=dev).to(dt)
+    before = ssm_scan.launches
+    got = ssm_scan(a, b)
+    want = ssm_scan_plain(a, b)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    assert got.dtype == dt and torch.equal(got, want)
+
+
+def test_ops_launch_once_per_call(dev):
+    """Every op of ``repro_torch.kernels.ops`` on CUDA tensors launches its
+    kernel once; with ``use_kernels(False)`` none, and the oracle's
+    result."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.block_diag_matmul import block_diag_matmul
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    gen = torch.Generator(device=dev).manual_seed(21)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    qz, sz = quantize_blockwise(r(64, 32), bits=8)
+    calls = [
+        (flash_attention, ops.flash_attention, ref.flash_attention_ref,
+         (r(1, 64, 2, 64), r(1, 64, 2, 64), r(1, 64, 2, 64))),
+        (block_diag_matmul, ops.block_diag_matmul, ref.block_diag_matmul_ref,
+         (r(2, 8, 64), r(2, 64, 32))),
+        (moe_gmm, ops.moe_gmm, ref.moe_gmm_ref, (r(3, 20, 64), r(3, 64, 16))),
+        (ssm_scan, ops.ssm_scan, ref.ssm_scan_ref,
+         (r(1, 9, 4, 4).sigmoid(), r(1, 9, 4, 4))),
+        (decode_attention, ops.decode_attention, ref.decode_attention_ref,
+         (r(2, 4, 64), r(2, 32, 2, 64), r(2, 32, 2, 64),
+          torch.tensor([32, 5], dtype=torch.int32, device=dev))),
+        (quant_matmul, ops.quant_matmul, ref.quant_matmul_ref,
+         (r(4, 64), qz, sz)),
+    ]
+    for wrapper, op, oracle, args in calls:
+        before = wrapper.launches
+        op(*args)
+        assert wrapper.launches == before + 1, op.__name__
+        ops.use_kernels(False)
+        try:
+            off = op(*args)
+        finally:
+            ops.use_kernels(True)
+        assert wrapper.launches == before + 1, op.__name__
+        assert torch.equal(off, oracle(*args)), op.__name__
+
+
+def test_op_kernels_reject_what_they_cannot_take(dev):
+    from repro_torch.kernels.block_diag_matmul import block_diag_matmul
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    x, w = torch.randn(2, 8, 16, device=dev), torch.randn(2, 16, 4, device=dev)
+    with pytest.raises(ValueError, match="dtypes"):
+        block_diag_matmul(x.half(), w.half())
+    with pytest.raises(ValueError, match="dtypes"):
+        moe_gmm(x, w.bfloat16())
+    with pytest.raises(ValueError, match="tensors on"):
+        moe_gmm(x, w.cpu())
+    with pytest.raises(ValueError, match="dense"):
+        block_diag_matmul(x, torch.randn(2, 16, 8, device=dev)[..., ::2])
+    with pytest.raises(ValueError, match="G, M, K"):
+        block_diag_matmul(x, torch.randn(2, 15, 4, device=dev))
+    a = torch.rand(1, 8, 4, 4, device=dev)
+    with pytest.raises(ValueError, match="dtypes"):
+        ssm_scan(a, a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan(a.transpose(2, 3), a.transpose(2, 3))
+    with pytest.raises(ValueError, match="tensors on"):
+        ssm_scan(a, a.cpu())
+    q, kv = torch.randn(2, 4, 64, device=dev), \
+        torch.randn(2, 16, 2, 64, device=dev)
+    length = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention(q[..., :48], kv[..., :48], kv[..., :48], length)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q, kv, kv, length.long())
+    with pytest.raises(ValueError, match="tensors on"):
+        decode_attention(q, kv, kv, length.cpu())
+    with pytest.raises(ValueError, match="dtypes"):
+        decode_attention(q, kv.bfloat16(), kv.bfloat16(), length)
