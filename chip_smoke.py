@@ -20,7 +20,8 @@ raising on failure:
             zeroed; after it they must equal one paged launch per layer and
             four ``quant_matmul`` launches per layer (0 without
             ``weight_quant``) per prefill chunk and per decode step on each
-            arm: the semantic arm's two branches share a launch.
+            arm: the semantic arm's two branches share a launch.  Every
+            prefill launch must take the tensor-core path (bf16 models).
 3. model    after the bf16, int8-weight and MoE serves: the served models'
             bf16 logits are finite, and an f32 copy of each arm (its
             projections quantized as the served ones, to the same codes)
@@ -34,7 +35,13 @@ raising on failure:
             (H = K = 32, hd = 64) and of qwen2-moe-a2.7b (H = K = 16,
             hd = 128): bs = 16, decode B = 8, prefill C = 128, ragged
             lengths up to 1024, blocks aliased across lanes, a length-0 pad
-            row; f32, bf16 and int8 pools.  Kernel, plain and library
+            row; f32, bf16 and int8 pools.  Each launch must take its path
+            (bf16-q prefill: the tensor-core kernel; f32-q prefill and
+            decode: the CUDA-core one).  Kernel vs plain within tol times
+            each output row's max |plain| (``paged_limit``); the same check
+            must reject, in every query row with more than 256 keys, the
+            plain output with the row's first 64-token K/V tile left out;
+            both readings are reported.  Kernel, plain and library
             (``scaled_dot_product_attention`` on the pre-gathered dense
             cache, a yardstick the port never calls) device times from
             ``torch.profiler``, the kernel's CUDA-event time per call
@@ -72,7 +79,10 @@ raising on failure:
             L 4096, ragged lengths with a 0; stablelm-1.6b and a gemma2-27b
             layer), f32 and bf16; flash and quant once each.  The launch
             counters are zeroed before each op call and must read 1 for its
-            kernel and 0 for the others; with ``use_kernels(False)`` no
+            kernel and 0 for the others, and every grouped-GEMM call must
+            take its path (bf16 with M > 32: the tensor-core tile; f32: the
+            CUDA-core tile; M <= 32: the skinny tile); with
+            ``use_kernels(False)`` no
             launch and the oracle's result.  Kernel vs plain within tol (1 +
             |plain|) (``QTOL``), decode within tol times the largest |plain|
             of each output row; the decode check must also reject the plain
@@ -309,7 +319,36 @@ def library_call(case, *, chunk: bool):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
+def paged_limit(want, tol):
+    """The largest |kernel - plain| each element of a paged kernel's output
+    may show: tol times the largest |plain| of its output (head) row.  The
+    outputs are softmax averages over up to 1024 keys, |plain| ~ 0.03-0.1,
+    so an absolute tol would pass a kernel that drops a K/V tile."""
+    return tol * want.float().abs().amax(-1, keepdim=True)
+
+
+PAGED_DROP = 64          # tokens of the fault's dropped K/V tile
+PAGED_LONG = 256         # rows with more keys than this must reject it
+
+
+def paged_fault(plain, args, kw, case, *, chunk: bool):
+    """The plain output with each row's first ``PAGED_DROP`` keys left out
+    (the table shifted by that many blocks, positions or lengths by as many
+    tokens), and the query rows (lanes for decode, (lane, position) for
+    prefill) with more than ``PAGED_LONG`` keys, where the check must reject
+    it."""
+    tables = case["tables"]
+    bs, nb = case["k"].shape[1], tables.shape[1]
+    drop = PAGED_DROP // bs
+    q, _, _, _, qpos = args
+    bad = plain(q, case["k"], case["v"], tables[:, drop:].contiguous(),
+                qpos - PAGED_DROP, **kw)
+    keys = (qpos + 1).clamp(max=nb * bs) if chunk else qpos
+    return bad, keys > PAGED_LONG
+
+
 def kernel_phase(dev):
+    from repro_torch.kernels import _paged_launch as PL
     from repro_torch.kernels import paged_decode_attention as D
     from repro_torch.kernels import paged_prefill_attention as P
     results = {}
@@ -330,28 +369,58 @@ def kernel_phase(dev):
             cs = kernel_case(dev, kv=kv, qdt=qdt, h=h, kh=kh, hd=hd)
             args = (cs[qkey], cs["k"], cs["v"], cs["tables"], cs[pkey])
             kw = dict(k_scale=cs["k_scale"], v_scale=cs["v_scale"])
+            paths = dict(PL.PATH_LAUNCHES)
             got = kern(*args, **kw)
+            torch.cuda.synchronize()
+            path = [k for k in paths if PL.PATH_LAUNCHES[k] != paths[k]]
+            want_path = "decode_simt" if not chunk else (
+                "prefill_mma" if qdt == torch.bfloat16 else "prefill_simt")
+            if path != [want_path]:
+                raise AssertionError(f"{name} [{label}]: launched {path}, "
+                                     f"not {want_path}")
             want = plain(*args, **kw)
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            if not math.isfinite(err) or err > TOL[label]:
-                raise AssertionError(f"{name} [{label}]: max |kernel - "
-                                     f"plain| {err} > {TOL[label]}")
+            tag = f"{name} hd{hd} [{label}]"
+            limit = paged_limit(want, TOL[label])
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if not bool(got.isfinite().all()) or not bool(
+                    (diff <= limit).all()):
+                raise AssertionError(f"{tag}: max |kernel - plain| {err} "
+                                     f"beyond {TOL[label]} max|plain| of "
+                                     "its row")
             if not chunk and bool((got[0] != 0).any()):
-                raise AssertionError(f"{name} [{label}]: pad row not 0")
+                raise AssertionError(f"{tag}: pad row not 0")
+            # the same check on the plain output with each long row's first
+            # tile dropped must fail in every such row: the least, over
+            # those rows, of the row's largest |fault - plain| / limit
+            bad, long = paged_fault(plain, args, kw, cs, chunk=chunk)
+            ratio = (bad.float() - want.float()).abs() / limit.clamp(
+                min=1e-30)
+            worst = float(ratio.amax((-2, -1))[long].min())
+            del bad, ratio
+            if worst <= 1:
+                raise AssertionError(f"{tag}: the check passes a row with "
+                                     f"its first tile dropped ({worst:.3g}"
+                                     " of its limit)")
             bnd, by = bound(cs, chunk=chunk)
-            row = dict(max_abs_err=err, tol=TOL[label], bound_ms=bnd,
-                       bound_by=by, **timings(
+            row = dict(max_abs_err=err, tol=TOL[label], path=want_path,
+                       err_over_limit=float((diff / limit.clamp(
+                           min=1e-30)).max()),
+                       fault_over_limit=worst, long_rows=int(long.sum()),
+                       bound_ms=bnd, bound_by=by, **timings(
                            lambda: kern(*args, **kw),
                            lambda: plain(*args, **kw),
                            library_call(cs, chunk=chunk)))
             per[f"hd{hd}/{label}"] = row
-            log(f"[kernels] {name} hd{hd} {label}: max_abs_err={err:.3g} "
-                f"(tol {TOL[label]}) kernel {row['ms']:.4f} ms (call "
-                f"{row['call_ms']:.4f}), plain "
-                f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
-                f"ms, bound {bnd:.4f} ms ({by})")
-            del cs, got, want
+            log(f"[kernels] {name} hd{hd} {label} ({want_path}): "
+                f"max_abs_err={err:.3g}, {row['err_over_limit']:.3g} of "
+                f"{TOL[label]} max|plain| per row; a row with its first "
+                f"{PAGED_DROP} keys dropped reads >= {worst:.3g} of it "
+                f"({row['long_rows']} rows); kernel {row['ms']:.4f} ms (call"
+                f" {row['call_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+                f"sdpa {row['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by})")
+            del cs, got, want, diff, limit
         results[name] = dict(replaces=replaces, per_dtype=per)
     return results
 
@@ -500,9 +569,11 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
     per_wave = -(-n_requests // waves)
     tracer = Tracer()
     old = set_tracer(tracer)
+    from repro_torch.kernels import _paged_launch as PL
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    paths0 = dict(PL.PATH_LAUNCHES)
     t0 = time.perf_counter()
     try:
         for w in range(waves):
@@ -513,6 +584,7 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
         set_tracer(old)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    paths = {k: PL.PATH_LAUNCHES[k] - paths0[k] for k in paths0}
     summary = eng.summary()
 
     for r in reqs:
@@ -544,8 +616,16 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
                 k == "quant_matmul" and not weight_quant):
             raise AssertionError(f"[{tag}] {k}: {launches[k]} launches, "
                                  f"dispatches imply {want[k]}")
+    # the served models are bf16: every prefill chunk on the tensor cores
+    want_paths = {"prefill_mma": want["paged_prefill_attention"],
+                  "prefill_simt": 0,
+                  "decode_simt": want["paged_decode_attention"]}
+    if cfg.dtype != "bfloat16" or paths != want_paths:
+        raise AssertionError(f"[{tag}] paged launches by path {paths}, "
+                             f"expected {want_paths}")
     scans = tracer.events("decode_scan")
     decode_s = sum(e[4] for e in scans) / 1e6
+    prefill_s = sum(e[4] for e in tracer.events("prefill_chunk")) / 1e6
     tokens = int(sum(r.max_new for r in reqs))
     m = backend.extra_metrics()
     out = dict(model=cfg.name, kv_dtype=kv_dtype, weight_quant=weight_quant,
@@ -555,10 +635,14 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
                prefill_chunks=summary["prefill_chunks"],
                decode_steps=steps["decode"],
                decode_ms_per_step=1e3 * decode_s / max(steps["decode"], 1),
+               prefill_ms_per_chunk=1e3 * prefill_s / max(steps["prefill"],
+                                                          1),
+               prefill_share=prefill_s / wall,
                prefix_hit_rate=summary["prefix_hit_rate"],
                cow_copies=summary["cow_copies"],
                preemptions=summary["preemptions"],
                per_mode=summary["per_mode"], launches=launches,
+               paged_paths=paths,
                weight_quant_max_err=m.get("weight_quant_max_err"),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                ttft_p50=summary.get("ttft_p50"),
@@ -904,6 +988,7 @@ def ops_phase(dev):
     """Each case through ``repro_torch.kernels.ops``: one counted launch,
     the plain version's result, no launch and the oracle's result with the
     switch off; the four new kernels timed."""
+    from repro_torch.kernels import _gemm_launch as GL
     from repro_torch.kernels import ops
     wrappers = _op_wrappers()
     results = {name: dict(replaces=OPS_REPLACES.get(name), launches=0,
@@ -915,11 +1000,20 @@ def ops_phase(dev):
         tag = f"{name} [{label}]"
         for fn in wrappers.values():
             fn.launches = 0
+        paths0 = dict(GL.PATH_LAUNCHES)
         got = op(*args, **kw)                    # the op layer's main path
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in wrappers.items()}
         if launches != {k: int(k == name) for k in wrappers}:
             raise AssertionError(f"{tag}: launches {launches}")
+        path = [k for k in paths0 if GL.PATH_LAUNCHES[k] != paths0[k]]
+        if name in ("block_diag_matmul", "moe_gmm"):
+            m = args[0].shape[1]
+            want_path = "skinny" if m <= GL.SKINNY_M else (
+                "wgmma" if dt == torch.bfloat16 else "tiled")
+            if path != [want_path]:
+                raise AssertionError(f"{tag}: took {path}, not "
+                                     f"{want_path}")
         results[name]["launches"] += launches[name]
         want = case["plain"](*args, **kw)
         torch.cuda.synchronize()
@@ -937,6 +1031,8 @@ def ops_phase(dev):
         if "zero_rows" in case and bool((got[case["zero_rows"]] != 0).any()):
             raise AssertionError(f"{tag}: a length-0 row is not 0")
         row = dict(max_abs_err=err, tol=QTOL[dt], rule=rule)
+        if path:
+            row["path"] = path[0]
         if "fault" in case:
             # the same check on a faulty output must fail in every lane the
             # fault touches: the least, over those lanes, of the lane's
@@ -1144,6 +1240,8 @@ def main(argv=None) -> int:
         kernels[name] = op_layer[name]
 
     line = []
+    main_paths = {"paged_prefill_attention": "prefill_mma",
+                  "block_diag_matmul": "wgmma", "moe_gmm": "wgmma"}
     main_rows = {"paged_decode_attention": "hd64/bf16",
                  "paged_prefill_attention": "hd64/bf16",
                  "quant_matmul": "layer/int8/bfloat16/T8",
@@ -1160,6 +1258,8 @@ def main(argv=None) -> int:
                "decode_attention": "decode_attention.cu"}
     for name, label in main_rows.items():
         row = kernels[name]["per_dtype"][label]
+        if row.get("path") != main_paths.get(name, row.get("path")):
+            raise AssertionError(f"{name} [{label}] took {row.get('path')}")
         src = sources.get(name, "paged_attention.cu")
         if name in OPS_KERNELS:
             launches = kernels[name]["launches"]

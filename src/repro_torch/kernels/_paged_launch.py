@@ -1,6 +1,7 @@
-"""Argument checks and the ctypes launch shared by the two paged-attention
-wrappers (``csrc/paged_attention.cu``).  CUDA tensors only: the wrappers
-route CPU tensors to their plain versions before reaching this module."""
+"""Argument checks, path choice and the ctypes launch shared by the two
+paged-attention wrappers (``csrc/paged_attention.cu``).  :func:`launch`
+takes CUDA tensors only: the wrappers route CPU tensors to their plain
+versions before reaching it."""
 from __future__ import annotations
 
 import ctypes
@@ -12,6 +13,14 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (32, 64, 128)
+
+#: query rows per CTA of each path (csrc/paged_attention.cu)
+PATH_ROWS = {"prefill_mma": 64, "prefill_simt": 32, "decode_simt": 4}
+#: launches by path since import: the bf16-q prefill on tensor cores
+#: (``prefill_mma``), the f32-q prefill and every decode step on CUDA cores
+#: (``prefill_simt``, ``decode_simt``), so a run can show which path its
+#: calls took
+PATH_LAUNCHES = {path: 0 for path in PATH_ROWS}
 
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
@@ -29,6 +38,14 @@ def _fn(name: str):
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def path_for(q_dtype, chunk: bool) -> str:
+    """The kernel a launch takes, from q's dtype alone: a bf16-q prefill
+    chunk runs on the tensor cores, any other launch on the CUDA cores."""
+    if not chunk:
+        return "decode_simt"
+    return "prefill_mma" if q_dtype == torch.bfloat16 else "prefill_simt"
 
 
 def _inner_contiguous(t: torch.Tensor) -> bool:
@@ -112,7 +129,8 @@ def launch(name: str, q, k_pool, v_pool, block_tables, qpos, *, k_scale,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    row_tiles = -(-(h // kh) * c // (32 if chunk else 4))
+    path = path_for(q.dtype, chunk)
+    row_tiles = -(-(h // kh) * c // PATH_ROWS[path])
     if kh > 65535 or g * row_tiles > 65535:
         raise ValueError(f"{name}: grid too large")
     shape_args = [g, b, c, h, kh, bs, nb] if chunk else [g, b, h, kh, bs, nb]
@@ -127,5 +145,7 @@ def launch(name: str, q, k_pool, v_pool, block_tables, qpos, *, k_scale,
             *shape_args, k_pool.stride(0) if g > 1 else 0, scale_gstride,
             1.0 / math.sqrt(hd), float(softcap), stream)
     if rc != 0:
-        raise RuntimeError(f"{name} failed with CUDA error {rc}")
+        raise RuntimeError(f"{name} failed with CUDA error {rc} on the "
+                           f"{path} path")
+    PATH_LAUNCHES[path] += 1
     return out

@@ -6,11 +6,13 @@ Replaces the Pallas TPU kernel ``block_diag_matmul``
 turns a weight matrix into Bb independent diagonal blocks, and branch b's
 ``x[b] @ w[b]`` is computed alone, at 1/Bb of the dense product's flops.
 The CUDA kernel is the grouped GEMM of ``csrc/grouped_matmul.cu`` (shared
-with ``moe_gmm``): register-tiled f32 products on CUDA cores, x and w read
-through their strides, ragged shapes masked.  At decode-sized T it is bound
-by the bytes of w, at prefill-sized T by f32 arithmetic.  The TPU kernel's
-block knobs (``block_t/e/d``, tiles for the MXU) are not carried: the
-kernel picks its own tiles and takes shapes the TPU asserts refuse.
+with ``moe_gmm``), x and w read through their strides, ragged shapes
+masked: bf16 at prefill-sized T on the tensor cores (``wgmma`` fed by TMA,
+bound by bf16 tensor-core arithmetic), f32 on register-tiled CUDA-core
+products (bound by f32 arithmetic), decode-sized T in an 8-row tile (bound
+by the bytes of w); ``_gemm_launch.path_for`` states the rule.  The TPU
+kernel's block knobs (``block_t/e/d``, tiles for the MXU) are not carried:
+the kernel picks its own tiles and takes shapes the TPU asserts refuse.
 """
 from __future__ import annotations
 

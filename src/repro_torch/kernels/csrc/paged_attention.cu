@@ -6,34 +6,56 @@
 //   paged_prefill_attention  src/repro/kernels/paged_prefill_attention.py
 //                            (_chunk_kernel, pallas_call at :132)
 //
-// Both are one kernel here.  A decode step is a prefill chunk of one token
-// whose query sits at position ``length - 1``: the key rule ``kpos <= qpos``
-// then equals the decode mask ``kpos < length``, and a length-0 pad row
-// (qpos = -1) walks no key and writes acc / max(l, 1e-20) = 0.
+// Layout (every path).  The pools stay in the reference layout
+// [P, bs, K, hd] (token stride K*hd, scale stride K), read through strides:
+// no per-call transpose of the pool.  A leading branch dim (the semantic
+// split's branches, each with its own pool) is a stride, so one launch
+// serves every branch.  q and out are [G, B, C, H, hd]; block tables
+// [B, NB] and positions are shared by the branches.  Grid: one CTA per
+// (lane, kv head, branch x tile of query rows); the rows of a CTA are the
+// rep = H/K query heads of its kv head times the chunk positions, so each
+// K/V token is read once per kv head and row tile.  A CTA reads its own
+// block ids from the table (TPU scalar prefetch supplied them) and walks
+// logical positions [0, min(NB*bs, max qpos + 1)) with f32 online-softmax
+// state (max, sum, acc) per row; the key rule is kpos <= qpos, softcap
+// before the mask, and a row with no valid key writes acc / max(l, 1e-20)
+// = 0.  Head dims 32, 64 and 128 are instantiated.
 //
-// Layout.  The pools stay in the reference layout [P, bs, K, hd] (token
-// stride K*hd, scale stride K), read through strides: no per-call transpose
-// of the pool.  A leading branch dim (the semantic split's branches, each
-// with its own pool) is a stride, so one launch serves every branch.  q and
-// out are [G, B, C, H, hd]; block tables [B, NB] and positions are shared by
-// the branches.
+// Two kernels, picked by the entry point from q's dtype alone:
 //
-// Grid.  One CTA per (lane, kv head, branch x tile of query rows).  The rows
-// of a CTA are the rep = H/K query heads of its kv head times the chunk
-// positions, so each K/V token is read once per kv head and row tile.  A CTA
-// reads its own block ids from the table (TPU scalar prefetch supplied them)
-// and walks logical positions [0, min(NB*bs, max qpos + 1)) in tiles of
-// TILE tokens with f32 online-softmax state (max, sum, acc) per row.  Head
-// dims 32, 64 and 128 are instantiated; TILE is 32 tokens, or 16 where the
-// static shared-memory arrays would pass 48 KB (prefill at head dim 128).
+//   paged_attention_kernel (CUDA cores): every decode step (f32 and bf16
+//   q) and the f32-q prefill.  A decode step is a prefill chunk of one
+//   token whose query sits at position length - 1: the key rule then
+//   equals the decode mask kpos < length, and a length-0 pad row (qpos =
+//   -1) walks no key and writes 0.  Four rows per CTA for decode, 32 for
+//   prefill; K/V tiles of 32 tokens (16 where the static shared-memory
+//   arrays would pass 48 KB) are read with 16-byte vector loads,
+//   dequantized (int8, with the slot's f32 scale) into f32 shared memory
+//   and consumed by scalar f32 dot products.  Decode reads every live K/V
+//   byte once per step at ~4 flops per byte of bf16: bound by
+//   device-memory bytes, which this kernel reads once per kv head.  The
+//   f32 prefill stays on CUDA cores: tensor cores would mean TF32 and
+//   change the reference's numerics.
 //
-// Bound.  Decode reads every live K/V byte once per step and does ~4 flops
-// per byte of bf16 K/V: it is bound by device-memory bytes.  The design
-// reads each token row with 16-byte vector loads (dequantizing int8 in
-// registers with the slot's f32 scale) and keeps scores, probabilities and
-// the accumulator on chip.  Prefill chunks of 128 queries are bound by the
-// CUDA-core f32 arithmetic of this simple tiling; tensor-core (wgmma) tiles,
-// TMA, split-K over long caches and CUDA graphs are later work.
+//   paged_prefill_mma_kernel (tensor cores): the bf16-q prefill, over bf16
+//   or int8 pools.  A 128-token chunk does ~32 flops per K/V byte per row
+//   tile, so CUDA-core f32 arithmetic bounded the first kernel at ~90x the
+//   byte bound; this one runs the two products on bf16 tensor cores
+//   (mma.sync m16n8k16, f32 accumulation) and is bound by the K/V bytes
+//   and the softmax.  64 query rows per CTA, one warp per 16 rows.  K/V
+//   tiles of 64 tokens are gathered through the block table with 16-byte
+//   cp.async copies (zero fill past the walk) into a 2-stage ring in
+//   dynamic shared memory, so the next tile's copies overlap this tile's
+//   math; rows are padded by 16 bytes so ldmatrix reads are free of bank
+//   conflicts.  Q fragments stay in registers for the whole walk.  S =
+//   QK^T stays in registers (K through ldmatrix), is scaled, softcapped
+//   and masked there; the online softmax keeps f32 m, l and acc per row
+//   (quad shuffles); P is rounded to bf16 in registers and fed straight
+//   back as the A operand of P.V (V through ldmatrix.trans).  int8 pools:
+//   the codes are exact in bf16, so each tile's codes are widened to bf16
+//   codes in shared memory and go to the tensor cores as they are; the K
+//   scale of each slot multiplies its score column, and the V scale of
+//   each slot multiplies its column of P before the rounding to bf16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -275,13 +297,427 @@ int launch(int q_dtype, int kv_dtype, int hd, const void* q,
       scale_gstride, scale, softcap
   if (q_dtype == F32 && kv_dtype == F32)
     return launch_typed<float, float, ROWS>(PA_ARGS);
-  if (q_dtype == BF16 && kv_dtype == BF16)
-    return launch_typed<__nv_bfloat16, __nv_bfloat16, ROWS>(PA_ARGS);
   if (q_dtype == F32 && kv_dtype == I8)
     return launch_typed<float, int8_t, ROWS>(PA_ARGS);
-  if (q_dtype == BF16 && kv_dtype == I8)
-    return launch_typed<__nv_bfloat16, int8_t, ROWS>(PA_ARGS);
+  if constexpr (ROWS == 4) {   // a bf16-q prefill takes prefill_mma
+    if (q_dtype == BF16 && kv_dtype == BF16)
+      return launch_typed<__nv_bfloat16, __nv_bfloat16, ROWS>(PA_ARGS);
+    if (q_dtype == BF16 && kv_dtype == I8)
+      return launch_typed<__nv_bfloat16, int8_t, ROWS>(PA_ARGS);
+  }
 #undef PA_ARGS
+  return -2;
+}
+
+
+// ------------------------------------------------ tensor-core prefill
+constexpr int MMA_ROWS = 64;    // query rows per CTA (4 warps x 16)
+constexpr int MMA_TILE = 64;    // key/value tokens per tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, f32) += a (16 x 16 bf16, row-major fragment) @ b (16 x 8 bf16,
+// column-major fragment b0, b1).
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Dynamic shared memory of one CTA, in bytes from its start: Q (bf16,
+// rows padded by 16 bytes), two stages of the staged K and V tiles (as
+// they are in the pool: bf16, or int8 codes plus the slots' f32 K and V
+// scales), for int8 the K and V tiles widened to bf16, and the rows'
+// positions.
+template <typename KVT, int HD>
+struct PrefillSmem {
+  static constexpr bool Q8 = sizeof(KVT) == 1;
+  static constexpr int LD = HD + 8;                  // bf16 row stride
+  static constexpr int ROW_RAW = Q8 ? HD + 16 : 2 * LD;   // staged row bytes
+  static constexpr int Q_BYTES = MMA_ROWS * LD * 2;
+  static constexpr int TILE_BF = MMA_TILE * LD * 2;
+  static constexpr int TILE_RAW = MMA_TILE * ROW_RAW;
+  static constexpr int SCALES = Q8 ? 2 * MMA_TILE * 4 : 0;
+  static constexpr int STAGE = 2 * TILE_RAW + SCALES;
+  static constexpr int CONV = Q8 ? 2 * TILE_BF : 0;
+  static constexpr int QPOS = Q_BYTES + 2 * STAGE + CONV;
+  static constexpr int BYTES = QPOS + MMA_ROWS * 4;
+};
+
+template <typename KVT, int HD>
+__global__ void __launch_bounds__(THREADS) paged_prefill_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ k_pool,
+    const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ block_tables,
+    const int* __restrict__ positions, __nv_bfloat16* __restrict__ out,
+    int B, int C, int H, int K, int bs, int NB, int n_row_tiles,
+    long long pool_gstride, long long scale_gstride, float scale,
+    float softcap) {
+  using L = PrefillSmem<KVT, HD>;
+  constexpr bool Q8 = L::Q8;
+  constexpr int LD = L::LD;
+  constexpr int CPR = HD * (int)sizeof(KVT) / 16;  // 16-byte chunks per row
+  constexpr int EPC = 16 / (int)sizeof(KVT);       // elements per chunk
+  static_assert(THREADS == 128 && MMA_ROWS == 64 && MMA_TILE == 64, "tiles");
+  static_assert(HD % 16 == 0 && L::Q_BYTES % 16 == 0 && L::STAGE % 16 == 0,
+                "alignment");
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  uint8_t* stages = smem + L::Q_BYTES;
+  __nv_bfloat16* conv =
+      reinterpret_cast<__nv_bfloat16*>(stages + 2 * L::STAGE);
+  int* qpos_s = reinterpret_cast<int*>(smem + L::QPOS);
+  __shared__ int kv_len_s;
+
+  const int rep = H / K;
+  const int n_rows = rep * C;
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int g = blockIdx.z / n_row_tiles;
+  const int row0 = (blockIdx.z % n_row_tiles) * MMA_ROWS;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // query rows (row = c * rep + r -> head kvh * rep + r), as given: the
+  // f32 scores are scaled
+  for (int i = tid; i < MMA_ROWS * HD; i += THREADS) {
+    const int rl = i / HD, d = i % HD, row = row0 + rl;
+    __nv_bfloat16 v = __float2bfloat16(0.f);
+    if (row < n_rows) {
+      const int c = row / rep, h = kvh * rep + row % rep;
+      v = q[(((long long)g * B + b) * C + c) * H * HD + (long long)h * HD +
+            d];
+    }
+    Qs[rl * LD + d] = v;
+  }
+  if (tid < MMA_ROWS) {
+    const int row = row0 + tid;
+    qpos_s[tid] = row < n_rows ? positions[b * C + row / rep] : -1;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    int m = max(qpos_s[tid], qpos_s[tid + 32]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (tid == 0) kv_len_s = min(m + 1, NB * bs);   // clip to the table
+  }
+  __syncthreads();
+
+  const int kv_len = kv_len_s;
+  const int n_tiles = (kv_len + MMA_TILE - 1) / MMA_TILE;
+  const int* table = block_tables + (long long)b * NB;
+  const KVT* kp = k_pool + g * pool_gstride;
+  const KVT* vp = v_pool + g * pool_gstride;
+
+  // the copies of tile ``it`` into stage it % 2, as one cp.async group
+  auto issue = [&](int it) {
+    uint8_t* st = stages + (it & 1) * L::STAGE;
+    const int t0 = it * MMA_TILE;
+    for (int v = tid; v < MMA_TILE * CPR; v += THREADS) {
+      const int t = v / CPR, ch = v % CPR, kpos = t0 + t;
+      const bool ok = kpos < kv_len;
+      long long off = 0;
+      if (ok) {
+        const long long slot =
+            (long long)table[kpos / bs] * bs + kpos % bs;
+        off = (slot * K + kvh) * HD + ch * EPC;
+      }
+      uint8_t* dst = st + t * L::ROW_RAW + ch * 16;
+      cp_async16(dst, kp + off, ok);
+      cp_async16(dst + L::TILE_RAW, vp + off, ok);
+    }
+    if constexpr (Q8) {
+      if (tid < MMA_TILE) {
+        const int kpos = t0 + tid;
+        const bool ok = kpos < kv_len;
+        long long si = 0;
+        if (ok)
+          si = ((long long)table[kpos / bs] * bs + kpos % bs) * K + kvh;
+        float* sc = reinterpret_cast<float*>(st + 2 * L::TILE_RAW);
+        cp_async4(sc + tid, k_scale + g * scale_gstride + si, ok);
+        cp_async4(sc + MMA_TILE + tid, v_scale + g * scale_gstride + si, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // this warp's 16 query rows as A fragments, for the whole walk
+  uint32_t qf[HD / 16][4];
+  {
+    const int mi = lane / 8;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldmatrix_x4(qf[kk], Qs + (warp * 16 + (mi & 1) * 8 + lane % 8) * LD +
+                              kk * 16 + (mi >> 1) * 8);
+  }
+  // fragment rows of this thread: r and r + 8 of the warp's 16
+  const int qp[2] = {qpos_s[warp * 16 + lane / 4],
+                     qpos_s[warp * 16 + lane / 4 + 8]};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) issue(0);
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      issue(it + 1);          // in flight while this tile is consumed
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    uint8_t* st = stages + (it & 1) * L::STAGE;
+    const __nv_bfloat16* Kt;
+    const __nv_bfloat16* Vt;
+    const float* ks_t = nullptr;
+    const float* vs_t = nullptr;
+    if constexpr (Q8) {
+      // widen the codes to bf16 (exact), 16 codes per thread and step
+      for (int v = tid; v < 2 * MMA_TILE * (HD / 16); v += THREADS) {
+        const int kv = v / (MMA_TILE * (HD / 16));
+        const int r = v % (MMA_TILE * (HD / 16));
+        const int t = r / (HD / 16), ch = r % (HD / 16);
+        const int4 raw = *reinterpret_cast<const int4*>(
+            st + kv * L::TILE_RAW + t * L::ROW_RAW + ch * 16);
+        const int8_t* c8 = reinterpret_cast<const int8_t*>(&raw);
+        uint32_t wv[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          wv[e] = pack_bf16(static_cast<float>(c8[2 * e]),
+                            static_cast<float>(c8[2 * e + 1]));
+        uint4* dst = reinterpret_cast<uint4*>(
+            conv + kv * MMA_TILE * LD + t * LD + ch * 16);
+        dst[0] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+        dst[1] = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+      }
+      __syncthreads();
+      Kt = conv;
+      Vt = conv + MMA_TILE * LD;
+      ks_t = reinterpret_cast<const float*>(st + 2 * L::TILE_RAW);
+      vs_t = ks_t + MMA_TILE;
+    } else {
+      Kt = reinterpret_cast<const __nv_bfloat16*>(st);
+      Vt = reinterpret_cast<const __nv_bfloat16*>(st + L::TILE_RAW);
+    }
+
+    // ---- S = Q K^T: 16 rows x 64 tokens per warp, in registers
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    {
+      const int mi = lane / 8;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, Kt + (nt * 16 + (mi >> 1) * 8 + lane % 8) * LD +
+                              kk * 16 + (mi & 1) * 8);
+          mma_bf16(s[2 * nt], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * nt + 1], qf[kk], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // ---- scale, K scale, softcap, mask; online softmax per row
+    const int t0 = it * MMA_TILE;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tok = 8 * j + 2 * (lane % 4) + (e & 1), kpos = t0 + tok;
+        float x = s[j][e] * scale;
+        if constexpr (Q8) x *= ks_t[tok];
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        const bool ok = kpos <= qp[e >> 1] && kpos < kv_len;
+        x = ok ? x : __uint_as_float(0xff800000u);   // -inf: p = 0
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = mx[h];
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float m_new = fmaxf(m_run[h], m);       // finite: >= NEG_INF
+      alpha[h] = exp2f((m_run[h] - m_new) * LOG2E);
+      m_run[h] = m_new;
+      l_run[h] *= alpha[h];
+    }
+    // P, rounded to bf16 as the A fragments of P V (int8: times the V
+    // scale of its slot first); l sums the unrounded, unscaled P
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f((s[j][e] - m_run[e >> 1]) * LOG2E);
+        l_run[e >> 1] += p[e];
+        if constexpr (Q8) p[e] *= vs_t[8 * j + 2 * (lane % 4) + (e & 1)];
+      }
+      pa[j / 2][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // ---- acc += P V (V through ldmatrix.trans)
+    {
+      const int mi = lane / 8;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int nd = 0; nd < HD / 16; ++nd) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, Vt + (kk * 16 + (mi & 1) * 8 + lane % 8) * LD +
+                                    nd * 16 + (mi >> 1) * 8);
+          mma_bf16(o[2 * nd], pa[kk], vb[0], vb[1]);
+          mma_bf16(o[2 * nd + 1], pa[kk], vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();   // the next copies overwrite this stage
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + warp * 16 + lane / 4 + 8 * h;
+    if (row >= n_rows) continue;
+    const int c = row / rep, hh = kvh * rep + row % rep;
+    __nv_bfloat16* op = out + (((long long)g * B + b) * C + c) * H * HD +
+                        (long long)hh * HD + 2 * (lane % 4);
+    const float inv = 1.f / fmaxf(l_run[h], 1e-20f);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+          __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
+  }
+}
+
+template <typename KVT, int HD>
+int launch_prefill_mma(dim3 grid, cudaStream_t st, const void* q,
+                       const void* k_pool, const void* v_pool,
+                       const float* k_scale, const float* v_scale,
+                       const int* block_tables, const int* positions,
+                       void* out, int B, int C, int H, int K, int bs, int NB,
+                       int n_row_tiles, long long pool_gstride,
+                       long long scale_gstride, float scale, float softcap) {
+  constexpr int smem = PrefillSmem<KVT, HD>::BYTES;
+  // once per instantiation and device
+  static unsigned long long configured = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return -5;
+  if (!(configured >> dev & 1ull)) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        paged_prefill_mma_kernel<KVT, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    configured |= 1ull << dev;
+  }
+  paged_prefill_mma_kernel<KVT, HD><<<grid, THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KVT*>(k_pool),
+      static_cast<const KVT*>(v_pool), k_scale, v_scale, block_tables,
+      positions, static_cast<__nv_bfloat16*>(out), B, C, H, K, bs, NB,
+      n_row_tiles, pool_gstride, scale_gstride, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16-q prefill on the tensor cores, over bf16 or int8 pools.
+int prefill_mma(int kv_dtype, int hd, const void* q, const void* k_pool,
+                const void* v_pool, const float* k_scale,
+                const float* v_scale, const int* block_tables,
+                const int* positions, void* out, int G, int B, int C, int H,
+                int K, int bs, int NB, long long pool_gstride,
+                long long scale_gstride, float scale, float softcap,
+                void* stream) {
+  const int n_row_tiles = ((H / K) * C + MMA_ROWS - 1) / MMA_ROWS;
+  const dim3 grid(B, K, G * n_row_tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PM_ARGS                                                            \
+  grid, st, q, k_pool, v_pool, k_scale, v_scale, block_tables, positions,  \
+      out, B, C, H, K, bs, NB, n_row_tiles, pool_gstride, scale_gstride,   \
+      scale, softcap
+#define PM_HD(KVT)                                         \
+  switch (hd) {                                            \
+    case 32: return launch_prefill_mma<KVT, 32>(PM_ARGS);   \
+    case 64: return launch_prefill_mma<KVT, 64>(PM_ARGS);   \
+    case 128: return launch_prefill_mma<KVT, 128>(PM_ARGS); \
+    default: return -1;                                    \
+  }
+  if (kv_dtype == BF16) PM_HD(__nv_bfloat16)
+  if (kv_dtype == I8) PM_HD(int8_t)
+#undef PM_HD
+#undef PM_ARGS
   return -2;
 }
 
@@ -302,13 +738,20 @@ extern "C" int paged_decode_attention_launch(
                    NB, pool_gstride, scale_gstride, scale, softcap, stream);
 }
 
-// Prefill: q/out [G, B, C, H, hd]; positions [B, C]; 32 query rows per CTA.
+// Prefill: q/out [G, B, C, H, hd]; positions [B, C].  bf16 q takes the
+// tensor-core kernel (64 query rows per CTA, bf16 or int8 pools); f32 q the
+// CUDA-core kernel (32 rows per CTA, f32 or int8 pools).  Returns as the
+// decode entry, or -5 when the current device cannot be read.
 extern "C" int paged_prefill_attention_launch(
     int q_dtype, int kv_dtype, int hd, const void* q, const void* k_pool,
     const void* v_pool, const float* k_scale, const float* v_scale,
     const int* block_tables, const int* positions, void* out, int G, int B,
     int C, int H, int K, int bs, int NB, long long pool_gstride,
     long long scale_gstride, float scale, float softcap, void* stream) {
+  if (q_dtype == BF16)
+    return prefill_mma(kv_dtype, hd, q, k_pool, v_pool, k_scale, v_scale,
+                       block_tables, positions, out, G, B, C, H, K, bs, NB,
+                       pool_gstride, scale_gstride, scale, softcap, stream);
   return launch<32>(q_dtype, kv_dtype, hd, q, k_pool, v_pool, k_scale,
                     v_scale, block_tables, positions, 0, out, G, B, C, H, K,
                     bs, NB, pool_gstride, scale_gstride, scale, softcap,

@@ -5,11 +5,13 @@ Replaces the Pallas TPU kernel ``moe_gmm`` (src/repro/kernels/moe_gmm.py,
 ``_gmm_kernel``): after the sort-based dispatch, tokens sit in a
 capacity-padded [E, C, d] buffer and expert e applies its own [d, f]
 weight.  The CUDA kernel is the grouped GEMM of ``csrc/grouped_matmul.cu``
-(shared with ``block_diag_matmul``); at a 2048-token sequence's capacity
-(C = 171 for 60 experts) it takes 64-row tiles, so the padding to the tile
-stays small.  In bf16 the bytes of the expert weights bound it, in f32 the
-CUDA-core arithmetic.  The TPU kernel's block knobs (``block_c/f/d``) are
-not carried; any C, d and f are taken.
+(shared with ``block_diag_matmul``).  In bf16 it runs on the tensor cores
+(``wgmma`` fed by TMA): at a 2048-token sequence's capacity (C = 171 for 60
+experts) one CTA of three 64-row warpgroups covers an expert's rows, so
+each weight tile is read from device memory once, and the bytes of the
+expert weights bound it.  In f32 it runs on CUDA cores in 64-row tiles
+(little padding at C 171), bound by f32 arithmetic.  The TPU kernel's
+block knobs (``block_c/f/d``) are not carried; any C, d and f are taken.
 """
 from __future__ import annotations
 

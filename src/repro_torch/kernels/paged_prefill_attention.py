@@ -3,17 +3,22 @@ version.
 
 Replaces the Pallas TPU kernel ``paged_prefill_attention``
 (src/repro/kernels/paged_prefill_attention.py, ``_chunk_kernel``).  The CUDA
-kernel lives in ``csrc/paged_attention.cu``: one CTA per (lane, kv head,
-branch x tile of 32 query rows), walking the block table only up to the
-tile's last position with f32 online-softmax state, and the absolute causal
-rule ``kpos <= qpos`` covering the cached prefix and the in-chunk triangle.
-At a 128-token chunk it is bound by its CUDA-core f32 arithmetic (score and
-P·V products of this simple tiling), not by the K/V bytes it reads once per
-row tile; tensor-core tiles are later work.  Padded query slots (positions
-past a lane's ``n_tok``) may reach past the table: the walk is clipped to NB
+kernels live in ``csrc/paged_attention.cu``: one CTA per (lane, kv head,
+branch x tile of query rows), walking the block table only up to the tile's
+last position with f32 online-softmax state, and the absolute causal rule
+``kpos <= qpos`` covering the cached prefix and the in-chunk triangle.  A
+bf16 q (over bf16 or int8 pools) takes the tensor-core kernel: 64 query rows
+per CTA, 64-token K/V tiles gathered with ``cp.async`` into a 2-stage ring,
+both products on bf16 ``mma.sync`` with f32 accumulation, P rounded to bf16
+for P·V (:func:`paged_prefill_attention_emulated` walks the same tiles in
+plain PyTorch).  An f32 q keeps the CUDA-core kernel (32 rows per CTA, f32
+products: tensor cores would mean TF32).  Padded query slots (positions past
+a lane's ``n_tok``) may reach past the table: the walk is clipped to NB
 blocks, and their rows are never read by the caller.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -35,6 +40,77 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, block_tables, positions,
     return ref.paged_prefill_attention_ref(q, k_pool, v_pool, block_tables,
                                            positions, k_scale=k_scale,
                                            v_scale=v_scale, softcap=softcap)
+
+
+#: query rows per CTA and K/V tokens per tile of the tensor-core kernel
+MMA_ROWS = MMA_TILE = 64
+
+
+def paged_prefill_attention_emulated(q, k_pool, v_pool, block_tables,
+                                     positions, *, k_scale=None,
+                                     v_scale=None, softcap=0.0):
+    """The tensor-core kernel's numerics in plain PyTorch, for bf16 q: for
+    each lane and tile of ``MMA_ROWS`` query rows of a kv head (row = c *
+    rep + r), ``MMA_TILE``-token K/V tiles walked through the table up to
+    the tile's last position (clipped to NB blocks), f32 scores scaled (and,
+    for int8 pools, times each slot's K scale), softcapped and masked; f32
+    running max, sum and accumulator; P times each slot's V scale (int8)
+    rounded to bf16 before P·V, the sum over the unrounded P.  Shapes as
+    :func:`paged_prefill_attention`."""
+    if q.dim() == 5:
+        return torch.stack([paged_prefill_attention_emulated(
+            q[i], k_pool[i], v_pool[i], block_tables, positions,
+            k_scale=None if k_scale is None else k_scale[i],
+            v_scale=None if v_scale is None else v_scale[i],
+            softcap=softcap) for i in range(q.shape[0])])
+    b, c, h, hd = q.shape
+    _, bs, kh, _ = k_pool.shape
+    rep, nb = h // kh, block_tables.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    rows = c * rep
+    qg = q.reshape(b, c, kh, rep, hd).transpose(1, 2).reshape(
+        b, kh, rows, hd).float()
+    qpos = positions.long().repeat_interleave(rep, dim=1)       # [B, rows]
+    kflat = k_pool.reshape(-1, kh, hd)
+    vflat = v_pool.reshape(-1, kh, hd)
+    out = torch.zeros(b, kh, rows, hd, dtype=torch.float32, device=q.device)
+    for lane in range(b):
+        table = block_tables[lane].long()
+        for r0 in range(0, rows, MMA_ROWS):
+            qt = qg[lane, :, r0:r0 + MMA_ROWS]
+            qp = qpos[lane, r0:r0 + MMA_ROWS]
+            kv_len = min(int(qp.max()) + 1, nb * bs)
+            m = torch.full(qt.shape[:2], ref.NEG_INF, device=q.device)
+            l = torch.zeros(qt.shape[:2], device=q.device)
+            acc = torch.zeros(qt.shape, device=q.device)
+            for t0 in range(0, kv_len, MMA_TILE):
+                kpos = torch.arange(t0, t0 + MMA_TILE, device=q.device)
+                valid = kpos < kv_len
+                slot = table[kpos.clamp(max=kv_len - 1) // bs] * bs + kpos % bs
+                zero = (~valid)[:, None, None]
+                kt = kflat[slot].float().masked_fill(zero, 0)   # [T, K, hd]
+                vt = vflat[slot].float().masked_fill(zero, 0)
+                s = torch.einsum("krd,tkd->krt", qt, kt) * scale
+                if k_scale is not None:
+                    s = s * k_scale.reshape(-1, kh)[slot].T[:, None, :]
+                if softcap:
+                    s = torch.tanh(s / softcap) * softcap
+                ok = (kpos[None, :] <= qp[:, None]) & valid[None, :]
+                s = s.masked_fill(~ok, float("-inf"))
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                if v_scale is not None:
+                    p = p * v_scale.reshape(-1, kh)[slot].T[:, None, :]
+                pb = p.to(torch.bfloat16).float()
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "krt,tkd->krd", pb, vt)
+                m = m_new
+            out[lane, :, r0:r0 + MMA_ROWS] = acc / l.clamp(
+                min=1e-20)[..., None]
+    return out.reshape(b, kh, c, rep, hd).transpose(1, 2).reshape(
+        b, c, h, hd).to(q.dtype)
 
 
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, positions, *,

@@ -20,6 +20,7 @@ from repro_torch.decode.paged_cache import quantize_kv  # noqa: E402
 from repro_torch.decode.paged_model import quantize_attn_params  # noqa: E402
 from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,  # noqa: E402
                                 PlacementEngine, Request, TorchBackend)
+from repro_torch.kernels import _gemm_launch, _paged_launch  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
@@ -30,8 +31,20 @@ from repro_torch.kernels.quant_matmul import (  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 # f32: summation order; bf16: one bf16 rounding of outputs ~1; int8 with
-# f32 queries: the same dequantized products in another order
+# f32 queries: the same dequantized products in another order.  Each held
+# as tol times the largest |plain| of the output row: attention outputs are
+# softmax averages, far below 1 over long rows
 TOL = {"f32": 1e-4, "bf16": 2e-2, "int8": 1e-3}
+
+
+def _row_limit(want, tol):
+    """tol times the largest |plain| of each output (last-dim) row."""
+    return tol * want.float().abs().amax(-1, keepdim=True)
+
+
+def _within_rows(got, want, tol):
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= _row_limit(want, tol)).all()), float(diff.max())
 
 
 @pytest.fixture
@@ -81,6 +94,7 @@ def test_kernels_match_plain(dev, kind, g, hd):
     args = (sq(cs["k"]), sq(cs["v"]), cs["tables"])
     before = (paged_decode_attention.launches,
               paged_prefill_attention.launches)
+    paths = dict(_paged_launch.PATH_LAUNCHES)
     for kern, plain, q, pos in (
             (paged_decode_attention, paged_decode_attention_plain,
              sq(cs["q"]), cs["lengths"]),
@@ -90,14 +104,76 @@ def test_kernels_match_plain(dev, kind, g, hd):
         want = plain(q, *args, pos, **kw)
         torch.cuda.synchronize()
         assert got.shape == q.shape and got.dtype == q.dtype
-        torch.testing.assert_close(got.float(), want.float(),
-                                   atol=TOL[kind], rtol=TOL[kind])
+        _within_rows(got, want, TOL[kind])
     assert (paged_decode_attention.launches,
             paged_prefill_attention.launches) == (before[0] + 1,
                                                   before[1] + 1)
+    prefill = "prefill_mma" if kind == "bf16" else "prefill_simt"
+    paths["decode_simt"] += 1
+    paths[prefill] += 1
+    assert _paged_launch.PATH_LAUNCHES == paths
     # the pad row (length 0) is exactly zero
     out = paged_decode_attention(sq(cs["q"]), *args, cs["lengths"], **kw)
     assert bool((out[..., 0, :, :] == 0).all())
+
+
+def _prefill_edge_case(dev, kind, *, hd, c, g=2, b=4, h=32, kh=8, bs=16,
+                       nb=24):
+    """GQA 4 over two branches with bf16 q: lane 0 a length-0 row (null
+    table, positions from 0), lanes 1-3 alias lane 1's first four blocks,
+    lane 1's rows pass 256 keys, lane 3's chunk runs past the table."""
+    gen = torch.Generator(device=dev).manual_seed(hd + c)
+    p_blocks = 1 + b * nb
+    kf = torch.randn(g, p_blocks, bs, kh, hd, generator=gen, device=dev)
+    vf = torch.randn(g, p_blocks, bs, kh, hd, generator=gen, device=dev)
+    rng = np.random.default_rng(hd + c)
+    tables = rng.permutation(np.arange(1, p_blocks)).reshape(b, nb)
+    tables[2:, :4] = tables[1, :4]
+    tables[0] = 0
+    starts = np.asarray([0, 300, 100, nb * bs - c // 2])
+    case = dict(
+        tables=torch.tensor(tables, dtype=torch.int32, device=dev),
+        positions=torch.tensor(starts[:, None] + np.arange(c),
+                               dtype=torch.int32, device=dev),
+        q=torch.randn(g, b, c, h, hd, generator=gen,
+                      device=dev).to(torch.bfloat16))
+    if kind == "int8":
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+        case.update(k=k, v=v, kw=dict(k_scale=ks, v_scale=vs))
+    else:
+        case.update(k=kf.to(torch.bfloat16), v=vf.to(torch.bfloat16), kw={})
+    return case
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("c", [1, 33, 64, 128])
+def test_prefill_tensor_core_path_edges(dev, kind, hd, c):
+    """The bf16-q prefill takes the tensor-core kernel and matches its
+    plain version within 2e-2 of each output row's max |plain|; the same
+    check rejects, in every query row with more than 256 keys, the plain
+    output with the row's first 64-token K/V tile left out."""
+    cs = _prefill_edge_case(dev, kind, hd=hd, c=c)
+    args = (cs["q"], cs["k"], cs["v"], cs["tables"], cs["positions"])
+    before = dict(_paged_launch.PATH_LAUNCHES)
+    got = paged_prefill_attention(*args, **cs["kw"])
+    want = paged_prefill_attention_plain(*args, **cs["kw"])
+    torch.cuda.synchronize()
+    before["prefill_mma"] += 1
+    assert _paged_launch.PATH_LAUNCHES == before
+    assert got.shape == cs["q"].shape and got.dtype == torch.bfloat16
+    _within_rows(got, want, TOL["bf16"])
+    nb, bs = cs["tables"].shape[1], cs["k"].shape[2]
+    keys = (cs["positions"] + 1).clamp(max=nb * bs)            # [B, C]
+    long = keys > 256
+    if bool(long.any()):
+        drop = 64 // bs
+        bad = paged_prefill_attention_plain(
+            cs["q"], cs["k"], cs["v"], cs["tables"][:, drop:].contiguous(),
+            cs["positions"] - 64, **cs["kw"])
+        over = ((bad.float() - want.float()).abs()
+                > _row_limit(want, TOL["bf16"])).any(-1).any(-1)  # [G, B, C]
+        assert bool(over[:, long].all())
 
 
 def test_kernel_rejects_what_it_cannot_take(dev):
@@ -376,6 +452,60 @@ def test_grouped_matmul_matches_plain(dev, op, case, dt):
     want = plain(x, w)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
+    _within(got, want, dt)
+
+
+@pytest.mark.parametrize("m", [33, 64, 65, 171, 200, 2048])
+@pytest.mark.parametrize("k", [64, 72, 200])
+def test_grouped_matmul_tensor_core_path_edges(dev, m, k):
+    """bf16 with M > 32 and aligned strides takes the wgmma tile: N = 200
+    (not a multiple of the 128-column tile), ragged K, x strided for odd
+    M, moe_gmm and block_diag_matmul in turn."""
+    import importlib
+    op = "moe_gmm" if m % 2 else "block_diag_matmul"
+    mod = importlib.import_module(f"repro_torch.kernels.{op}")
+    kern, plain = getattr(mod, op), getattr(mod, f"{op}_plain")
+    gen = torch.Generator(device=dev).manual_seed(m + k)
+    dt = torch.bfloat16
+    x = torch.randn(2, m, k + 8 * (m % 2), generator=gen,
+                    device=dev).to(dt)[..., :k]
+    w = (torch.randn(2, k, 200, generator=gen, device=dev) / k ** 0.5).to(dt)
+    assert _gemm_launch.path_for(x, w) == "wgmma"
+    before = dict(_gemm_launch.PATH_LAUNCHES)
+    got = kern(x, w)
+    want = plain(x, w)
+    torch.cuda.synchronize()
+    before["wgmma"] += 1
+    assert _gemm_launch.PATH_LAUNCHES == before
+    _within(got, want, dt)
+
+
+@pytest.mark.parametrize("case", [
+    # (G, M, K, N, how x is cut, path)
+    (2, 200, 70, 64, "dense", "tiled"),       # row stride 140 B
+    (2, 171, 64, 96, "offset", "tiled"),      # pointer 2 B past alignment
+    (3, 100, 64, 40, "f32", "tiled"),         # f32 stays on CUDA cores
+    (2, 20, 64, 200, "dense", "skinny"),      # decode rows
+    (1, 64, 2048, 128, "dense", "wgmma"),     # one tile: split K
+])
+def test_grouped_matmul_path_rule(dev, case):
+    """Calls the tensor-core tile cannot take keep the CUDA-core paths
+    (decided before the launch) and still match the plain version."""
+    from repro_torch.kernels.block_diag_matmul import (
+        block_diag_matmul, block_diag_matmul_plain)
+    g, m, k, n, cut, path = case
+    dt = torch.float32 if cut == "f32" else torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn(g, m, k + 1, generator=gen, device=dev).to(dt)
+    x = x[..., 1:] if cut == "offset" else x[..., :k].contiguous()
+    w = (torch.randn(g, k, n, generator=gen, device=dev) / k ** 0.5).to(dt)
+    assert _gemm_launch.path_for(x, w) == path
+    before = dict(_gemm_launch.PATH_LAUNCHES)
+    got = block_diag_matmul(x, w)
+    want = block_diag_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    before[path] += 1
+    assert _gemm_launch.PATH_LAUNCHES == before
     _within(got, want, dt)
 
 
