@@ -21,7 +21,9 @@ raising on failure:
             four ``quant_matmul`` launches per layer (0 without
             ``weight_quant``) per prefill chunk and per decode step on each
             arm: the semantic arm's two branches share a launch.  Every
-            prefill launch must take the tensor-core path (bf16 models).
+            prefill launch must take the tensor-core path (bf16 models),
+            every decode launch ``decode_split``, and every ``quant_matmul``
+            launch its tensor-core path by the step's rows.
 3. model    after the bf16, int8-weight and MoE serves: the served models'
             bf16 logits are finite, and an f32 copy of each arm (its
             projections quantized as the served ones, to the same codes)
@@ -36,8 +38,9 @@ raising on failure:
             hd = 128): bs = 16, decode B = 8, prefill C = 128, ragged
             lengths up to 1024, blocks aliased across lanes, a length-0 pad
             row; f32, bf16 and int8 pools.  Each launch must take its path
-            (bf16-q prefill: the tensor-core kernel; f32-q prefill and
-            decode: the CUDA-core one).  Kernel vs plain within tol times
+            (bf16-q prefill: the tensor-core kernel; f32-q prefill: the
+            CUDA-core one; decode: ``decode_split``, one CUDA kernel per
+            call by the profiler's count).  Kernel vs plain within tol times
             each output row's max |plain| (``paged_limit``); the same check
             must reject, in every query row with more than 256 keys, the
             plain output with the row's first 64-token K/V tile left out;
@@ -49,9 +52,14 @@ raising on failure:
 5. quant    ``quant_matmul`` against ``quant_matmul_plain``: int8 and int4
             codes, f32 and bf16 x, the LAYER shape (G = 1, D = E = 2048) and
             the SEMANTIC one (G = 2, D = E = 1024), T = 1, 8, 200 and 1024,
-            groups of 128 and of 32; timed as above at T = 8 (decode) and
-            T = 1024 (prefill) beside ``torch.matmul`` on the weight
-            dequantized beforehand (a yardstick the port never calls).
+            groups of 128 and of 32, within tol (1 + |plain|) (``QTOL``);
+            each call on its path (bf16: ``mma_skinny`` for T <= 32,
+            ``mma_tile`` above; f32: ``simt``), and the same check must
+            reject, in every output row, the plain output with the last
+            group of each split left out (``quant_fault``).  Timed as above
+            at T = 8 (decode) and T = 1024 (prefill) beside ``torch.matmul``
+            on the weight dequantized beforehand (a yardstick the port never
+            calls); a tensor-core call is one CUDA kernel.
 6. train    the training launcher ``repro_torch.launch.train.main`` at the
             full width of stablelm-1.6b in f32 (B 2, S 2048, remat): fsdp
             for 6 steps, then semantic (two branches) for 4.  The flash
@@ -170,7 +178,7 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
-def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
+def device_profile(fn, reps: int = 20, tries: int = 5):
     """Device busy time per call, from ``torch.profiler`` over ``reps``
     calls after a warm-up call (gaps between launches excluded): for each
     CUDA kernel the calls launch, its mean time per record times its
@@ -180,7 +188,8 @@ def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
     when a few of its records are lost, so a profile is taken again, up to
     ``tries`` times, only when a kernel's count is more than one record,
     or a tenth of ``reps``, off a positive multiple of ``reps``.  With
-    every record there this is the kernels' total time over ``reps``."""
+    every record there this is the kernels' total time over ``reps``.
+    Returns (ms per call, CUDA kernels per call)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -200,18 +209,25 @@ def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
             us = sum(e.self_device_time_total / e.count * k
                      for e, k in zip(kernels, per_call))
             if us > 0:
-                return us / 1e3
+                return us / 1e3, sum(per_call)
         log(f"[profiler] {[e.count for e in kernels]} device records per "
             f"kernel for {reps} calls (try {attempt} of {tries})")
     raise AssertionError("the profiler lost device records on every try")
 
 
+def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
+    """Device busy time per call (:func:`device_profile`)."""
+    return device_profile(fn, reps, tries)[0]
+
+
 def timings(kern, plain, library) -> dict:
     """A kernel row's times: device time per call of the kernel, its plain
-    version and the library yardstick, and the kernel's CUDA-event time
-    per call (``call_ms``, which includes the wrapper's host work when that
-    is the longer)."""
-    return dict(ms=device_ms(kern), call_ms=time_ms(kern),
+    version and the library yardstick, the kernel's CUDA-event time per
+    call (``call_ms``, which includes the wrapper's host work when that is
+    the longer), and the CUDA kernels one call of the kernel launches
+    (``kernels_per_call``, from the profiler)."""
+    ms, per_call = device_profile(kern)
+    return dict(ms=ms, kernels_per_call=per_call, call_ms=time_ms(kern),
                 plain_ms=device_ms(plain, reps=5),
                 library_ms=device_ms(library))
 
@@ -373,8 +389,7 @@ def kernel_phase(dev):
             got = kern(*args, **kw)
             torch.cuda.synchronize()
             path = [k for k in paths if PL.PATH_LAUNCHES[k] != paths[k]]
-            want_path = "decode_simt" if not chunk else (
-                "prefill_mma" if qdt == torch.bfloat16 else "prefill_simt")
+            want_path = PL.path_for(qdt, chunk)
             if path != [want_path]:
                 raise AssertionError(f"{name} [{label}]: launched {path}, "
                                      f"not {want_path}")
@@ -412,8 +427,22 @@ def kernel_phase(dev):
                            lambda: kern(*args, **kw),
                            lambda: plain(*args, **kw),
                            library_call(cs, chunk=chunk)))
+            if not chunk:
+                hg, rt, pieces, piece = PL.decode_plan(
+                    h=h, kh=kh, hd=hd, kv_item=cs["k"].element_size(),
+                    b=cs["q"].shape[0], g=1, nb=cs["tables"].shape[1],
+                    bs=cs["k"].shape[1],
+                    n_sm=torch.cuda.get_device_properties(
+                        dev).multi_processor_count)
+                row.update(pieces=pieces, piece=piece, kv_heads_per_cta=hg)
+                if row["kernels_per_call"] != 1:
+                    raise AssertionError(f"{tag}: {row['kernels_per_call']} "
+                                         "CUDA kernels per call, not 1")
             per[f"hd{hd}/{label}"] = row
-            log(f"[kernels] {name} hd{hd} {label} ({want_path}): "
+            log(f"[kernels] {name} hd{hd} {label} ({want_path}, "
+                f"{row['kernels_per_call']} kernel(s) per call"
+                + (f", {row['pieces']} pieces of {row['piece']}" if not chunk
+                   else "") + "): "
                 f"max_abs_err={err:.3g}, {row['err_over_limit']:.3g} of "
                 f"{TOL[label]} max|plain| per row; a row with its first "
                 f"{PAGED_DROP} keys dropped reads >= {worst:.3g} of it "
@@ -440,55 +469,106 @@ def quant_bound(x, q, scales):
     return _bound(nbytes, 2.0 * g * t * d * e, x.dtype)
 
 
+def quant_fault(x, q, sc, dropped):
+    """The plain output with the groups ``dropped`` left out of the
+    contraction (their x columns zeroed), as a kernel that skips them
+    would give."""
+    from repro_torch.kernels import quant_matmul as Q
+    group = x.shape[-1] // sc.shape[1]
+    xd = x.clone()
+    for gi in dropped:
+        xd[..., gi * group:(gi + 1) * group] = 0
+    return Q.quant_matmul_plain(xd, q, sc)
+
+
 def quant_phase(dev):
     """``quant_matmul`` against its plain version over bit widths, x types,
-    both arms' shapes, ragged and tiny T and two group sizes; timed at the
-    main path's decode and prefill T."""
+    both arms' shapes, ragged and tiny T and two group sizes, each call on
+    its path; the same check must reject the plain output with the last
+    group of each split left out, in every output row; timed at the main
+    path's decode and prefill T."""
+    from repro_torch.kernels import _quant_launch as QL
     from repro_torch.kernels import quant_matmul as Q
     gen = torch.Generator(device=dev).manual_seed(7)
-    checked, per = 0, {}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    checked, per, fault_min = 0, {}, math.inf
     for arm, g, d, e in QUANT_SHAPES:
         w = torch.randn(g, d, e, generator=gen, device=dev) / math.sqrt(d)
         for bits, group in ((8, 128), (4, 128), (8, 32), (4, 32)):
             q, sc = Q.quantize_blockwise(w, bits=bits, group=group)
+            n_g = sc.shape[1]
             for xdt in (torch.float32, torch.bfloat16):
                 for t in (1, 8, 200, 1024):
                     x = torch.randn(g, t, d, generator=gen,
                                     device=dev).to(xdt)
+                    tag = f"quant_matmul {arm} int{bits} g{group} {xdt} T={t}"
+                    paths0 = dict(QL.PATH_LAUNCHES)
                     got = Q.quant_matmul(x, q, sc)
                     want = Q.quant_matmul_plain(x, q, sc)
                     torch.cuda.synchronize()
+                    path = [k for k in paths0
+                            if QL.PATH_LAUNCHES[k] != paths0[k]]
+                    want_path = QL.path_for(xdt, t, d, e, group, bits)
+                    if path != [want_path]:
+                        raise AssertionError(f"{tag}: took {path}, not "
+                                             f"{want_path}")
+                    limit = QTOL[xdt] * (1 + want.float().abs())
                     diff = (got.float() - want.float()).abs()
                     err = float(diff.max())
-                    ok = bool((diff <= QTOL[xdt] * (
-                        1 + want.float().abs())).all())
-                    if got.shape != (g, t, e) or not ok \
-                            or not math.isfinite(err):
+                    if got.shape != (g, t, e) or not bool(
+                            (diff <= limit).all()) or not math.isfinite(err):
                         raise AssertionError(
-                            f"quant_matmul {arm} int{bits} g{group} {xdt} "
-                            f"T={t}: max |kernel - plain| {err} beyond "
+                            f"{tag}: max |kernel - plain| {err} beyond "
                             f"{QTOL[xdt]} (1 + |plain|)")
+                    # the last group of each split (of the whole walk when
+                    # the call does not split) left out must fail the same
+                    # check in every output row
+                    if want_path == "simt":
+                        splits = QL.split_count(g, t, e, n_g, n_sm)
+                        per_split = -(-n_g // splits)
+                    else:
+                        _, splits, per_split = QL.mma_plan(g, t, e, n_g,
+                                                           n_sm)
+                    dropped = [min(n_g, (i + 1) * per_split) - 1
+                               for i in range(splits)]
+                    bad = quant_fault(x, q, sc, dropped)
+                    ratio = float(((bad.float() - want.float()).abs()
+                                   / limit).amax(-1).min())
+                    del bad
+                    if ratio <= 1:
+                        raise AssertionError(f"{tag}: the check passes a row "
+                                             f"with groups {dropped} dropped "
+                                             f"({ratio:.3g} of its limit)")
+                    fault_min = min(fault_min, ratio)
                     checked += 1
                     if group != 128 or t not in (8, 1024):
                         continue
                     wdq = Q.dequantize_blockwise(q, sc, bits=bits).to(xdt)
                     bnd, by = quant_bound(x, q, sc)
                     row = dict(max_abs_err=err, tol=QTOL[xdt], bound_ms=bnd,
-                               bound_by=by, **timings(
+                               bound_by=by, path=want_path, splits=splits,
+                               fault_over_limit=ratio, **timings(
                                    lambda: Q.quant_matmul(x, q, sc),
                                    lambda: Q.quant_matmul_plain(x, q, sc),
                                    lambda: torch.matmul(x, wdq)))
+                    if want_path != "simt" and row["kernels_per_call"] != 1:
+                        raise AssertionError(f"{tag}: {row['kernels_per_call']}"
+                                             " CUDA kernels per call, not 1")
                     label = f"{arm}/int{bits}/{str(xdt)[6:]}/T{t}"
                     per[label] = row
-                    log(f"[quant] {label}: max_abs_err={err:.3g} kernel "
+                    log(f"[quant] {label} ({want_path}, {splits} split(s), "
+                        f"{row['kernels_per_call']} kernel(s) per call): "
+                        f"max_abs_err={err:.3g}, dropped groups read "
+                        f">= {ratio:.3g} of the limit; kernel "
                         f"{row['ms']:.4f} ms (call {row['call_ms']:.4f}), "
                         f"plain {row['plain_ms']:.4f} "
                         f"ms, matmul {row['library_ms']:.4f} ms, bound "
                         f"{bnd:.4f} ms ({by})")
                     del wdq
-    log(f"[quant] {checked} shapes match the plain version")
+    log(f"[quant] {checked} shapes match the plain version and reject the "
+        f"dropped groups (>= {fault_min:.3g} of the limit in every row)")
     return dict(replaces="src/repro/kernels/quant_matmul.py:106",
-                checked=checked, per_dtype=per)
+                checked=checked, fault_over_limit=fault_min, per_dtype=per)
 
 
 # -------------------------------------------------------------------- serve
@@ -570,10 +650,12 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
     tracer = Tracer()
     old = set_tracer(tracer)
     from repro_torch.kernels import _paged_launch as PL
+    from repro_torch.kernels import _quant_launch as QL
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
     paths0 = dict(PL.PATH_LAUNCHES)
+    qpaths0 = dict(QL.PATH_LAUNCHES)
     t0 = time.perf_counter()
     try:
         for w in range(waves):
@@ -585,6 +667,7 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     paths = {k: PL.PATH_LAUNCHES[k] - paths0[k] for k in paths0}
+    qpaths = {k: QL.PATH_LAUNCHES[k] - qpaths0[k] for k in qpaths0}
     summary = eng.summary()
 
     for r in reqs:
@@ -598,14 +681,26 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
         raise AssertionError(f"arms served: {summary['per_mode']}")
     if not summary["prefix_hit_rate"] > 0:
         raise AssertionError("no prefix-cache hits")
+    # steps by kind, and the projections' rows (T) per step: a prefill
+    # bucket "prefill:WxC" runs T = W C rows, a decode bucket "decode:WxK"
+    # K steps of T = W rows
     steps = {"prefill": 0, "decode": 0}
+    qwant = dict.fromkeys(qpaths, 0)
     for s in backend._paged.values():
         for bucket, n in s.buckets.items():
             kind, shape = bucket.split(":")
+            if kind not in ("prefill", "decode"):
+                continue
+            w, c = (int(v) for v in shape.split("x"))
             if kind == "prefill":
                 steps["prefill"] += n
-            elif kind == "decode":
-                steps["decode"] += n * int(shape.split("x")[1])
+                t, calls = w * c, n
+            else:
+                steps["decode"] += n * c
+                t, calls = w, n * c
+            if weight_quant:      # bf16 x, widths that are multiples of 128
+                qwant["mma_skinny" if t <= QL.DECODE_T else "mma_tile"] += \
+                    4 * cfg.n_layers * calls
     layers = cfg.n_layers
     want = {"paged_prefill_attention": layers * steps["prefill"],
             "paged_decode_attention": layers * steps["decode"],
@@ -616,13 +711,17 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
                 k == "quant_matmul" and not weight_quant):
             raise AssertionError(f"[{tag}] {k}: {launches[k]} launches, "
                                  f"dispatches imply {want[k]}")
-    # the served models are bf16: every prefill chunk on the tensor cores
+    # the served models are bf16: every prefill chunk on the tensor cores,
+    # every decode step split; every projection on the tensor cores
     want_paths = {"prefill_mma": want["paged_prefill_attention"],
                   "prefill_simt": 0,
-                  "decode_simt": want["paged_decode_attention"]}
+                  "decode_split": want["paged_decode_attention"]}
     if cfg.dtype != "bfloat16" or paths != want_paths:
         raise AssertionError(f"[{tag}] paged launches by path {paths}, "
                              f"expected {want_paths}")
+    if qpaths != qwant:
+        raise AssertionError(f"[{tag}] quant_matmul launches by path "
+                             f"{qpaths}, expected {qwant}")
     scans = tracer.events("decode_scan")
     decode_s = sum(e[4] for e in scans) / 1e6
     prefill_s = sum(e[4] for e in tracer.events("prefill_chunk")) / 1e6
@@ -642,7 +741,7 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
                cow_copies=summary["cow_copies"],
                preemptions=summary["preemptions"],
                per_mode=summary["per_mode"], launches=launches,
-               paged_paths=paths,
+               paged_paths=paths, quant_paths=qpaths,
                weight_quant_max_err=m.get("weight_quant_max_err"),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                ttft_p50=summary.get("ttft_p50"),
@@ -1240,7 +1339,9 @@ def main(argv=None) -> int:
         kernels[name] = op_layer[name]
 
     line = []
-    main_paths = {"paged_prefill_attention": "prefill_mma",
+    main_paths = {"paged_decode_attention": "decode_split",
+                  "paged_prefill_attention": "prefill_mma",
+                  "quant_matmul": "mma_skinny",
                   "block_diag_matmul": "wgmma", "moe_gmm": "wgmma"}
     main_rows = {"paged_decode_attention": "hd64/bf16",
                  "paged_prefill_attention": "hd64/bf16",

@@ -1,12 +1,16 @@
 """Where a decode step of the PyTorch port spends its time on the card.
 
-    python3 scripts/profile_torch_serve.py [--steps 16] [--out trace.json]
+    python3 scripts/profile_torch_serve.py [--steps 16] [--arm 0|1]
+        [--weight-quant none|int8|int4] [--kv bf16|int8] [--out trace.json]
 
-Builds full-width stablelm-1.6b (bf16) on one arm, seats 8 lanes with
-512-token prompts, then runs ``--steps`` single-token decode dispatches
+Builds full-width stablelm-1.6b (bf16) on one arm, its attention
+projections in bf16 or quantized (``--weight-quant``, served through
+``quant_matmul``) and its KV pool in bf16 or int8 (``--kv``), seats 8 lanes
+with 512-token prompts, then runs ``--steps`` single-token decode dispatches
 under ``torch.profiler``: prints the host wall time per step, the device
-busy time per step (sum of CUDA kernel time), and the CUDA kernels and
-host ops ranked by their own total time.  Needs a CUDA device.
+busy time per step (sum of CUDA kernel time), the CUDA kernels per step,
+and the CUDA kernels and host ops ranked by their own total time.  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -27,6 +31,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--arm", type=int, default=0, help="0 layer, 1 semantic")
+    ap.add_argument("--weight-quant", default="none",
+                    choices=("none", "int8", "int4"))
+    ap.add_argument("--kv", default="bf16", choices=("bf16", "int8"),
+                    help="KV pool: the model's dtype (bf16) or int8")
     ap.add_argument("--out", default=None, help="Chrome trace path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -38,8 +46,11 @@ def main(argv=None) -> int:
     from repro_torch.engine import Request, TorchBackend
 
     cfg = get_config("stablelm-1.6b")
+    wq = None if args.weight_quant == "none" else args.weight_quant
     tb = TorchBackend(cfg, cache_len=1024, max_batch=8, block_size=16,
-                      prefill_chunk=128, scan_tokens=1, arms=(args.arm,))
+                      prefill_chunk=128, scan_tokens=1, arms=(args.arm,),
+                      kv_dtype="int8" if args.kv == "int8" else "f32",
+                      weight_quant=wq)
     sched = tb._paged[args.arm]
     rng = np.random.default_rng(0)
     q = []
@@ -66,7 +77,8 @@ def main(argv=None) -> int:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     n_kernels = sum(e.count for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"arm {args.arm}: {args.steps} decode steps, 8 lanes at "
+    print(f"arm {args.arm}, weights {args.weight_quant}, kv {args.kv}: "
+          f"{args.steps} decode steps, 8 lanes at "
           f"~{512 + 3 + args.steps // 2} tokens")
     print(f"host wall per step: {1e3 * wall / args.steps:.3f} ms")
     print(f"device busy per step: {dev_us / 1e3 / args.steps:.3f} ms "

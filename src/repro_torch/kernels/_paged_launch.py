@@ -14,19 +14,23 @@ from repro_torch.kernels import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (32, 64, 128)
 
-#: query rows per CTA of each path (csrc/paged_attention.cu)
-PATH_ROWS = {"prefill_mma": 64, "prefill_simt": 32, "decode_simt": 4}
+#: query rows per CTA of each prefill path (csrc/paged_attention.cu)
+PREFILL_ROWS = {"prefill_mma": 64, "prefill_simt": 32}
 #: launches by path since import: the bf16-q prefill on tensor cores
-#: (``prefill_mma``), the f32-q prefill and every decode step on CUDA cores
-#: (``prefill_simt``, ``decode_simt``), so a run can show which path its
-#: calls took
-PATH_LAUNCHES = {path: 0 for path in PATH_ROWS}
+#: (``prefill_mma``), the f32-q prefill on CUDA cores (``prefill_simt``) and
+#: every decode step (``decode_split``: the lanes' lengths split over the
+#: CTAs of a cluster), so a run can show which path its calls took
+PATH_LAUNCHES = {"prefill_mma": 0, "prefill_simt": 0, "decode_split": 0}
+#: decode_split: query rows per CTA at most, pieces (CTAs of one cluster)
+#: at most, the CTAs per SM a call aims for before it splits the walk, and
+#: warps per CTA
+DECODE_ROWS, MAX_PIECES, DECODE_CTAS_PER_SM, DECODE_WARPS = 8, 8, 2, 4
 
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
 _ARGTYPES = {
     "paged_decode_attention_launch":
-        [_I, _I, _I] + [_P] * 8 + [_I] * 6 + [_LL, _LL, _F, _F, _P],
+        [_I, _I, _I] + [_P] * 8 + [_I] * 10 + [_LL, _LL, _F, _F, _P],
     "paged_prefill_attention_launch":
         [_I, _I, _I] + [_P] * 8 + [_I] * 7 + [_LL, _LL, _F, _F, _P],
 }
@@ -41,11 +45,55 @@ def _fn(name: str):
 
 
 def path_for(q_dtype, chunk: bool) -> str:
-    """The kernel a launch takes, from q's dtype alone: a bf16-q prefill
-    chunk runs on the tensor cores, any other launch on the CUDA cores."""
+    """The kernel a launch takes, from q's dtype alone: every decode step
+    takes ``decode_split``; a bf16-q prefill chunk runs on the tensor cores,
+    an f32-q one on the CUDA cores."""
     if not chunk:
-        return "decode_simt"
+        return "decode_split"
     return "prefill_mma" if q_dtype == torch.bfloat16 else "prefill_simt"
+
+
+def decode_plan(*, h: int, kh: int, hd: int, kv_item: int, b: int, g: int,
+                nb: int, bs: int, n_sm: int):
+    """(hg, rt, pieces, piece) of a ``decode_split`` launch.
+
+    ``rt``: query heads per kv head in a CTA, the largest of 8, 4, 2, 1
+    dividing rep = H / K.  A load is VEC elements (:func:`load_elements`),
+    so a kv head's row is ``hd / VEC`` lanes.  ``hg``: kv heads
+    per CTA, the largest power of two dividing K with hg * hd / VEC <= 32
+    lanes and hg * rt <= ``DECODE_ROWS``.  The table's NB * bs tokens are
+    cut into ``pieces`` (<= ``MAX_PIECES``, enough for about
+    ``DECODE_CTAS_PER_SM`` CTAs per SM) of ``piece`` tokens, a whole number
+    of blocks, every piece non-empty."""
+    rep = h // kh
+    rt = next(r for r in (8, 4, 2, 1) if rep % r == 0)
+    lanes = hd // load_elements(kv_item)
+    hg = 1
+    while kh % (2 * hg) == 0 and 2 * hg * lanes <= 32 \
+            and 2 * hg * rt <= DECODE_ROWS:
+        hg *= 2
+    ctas = (kh // hg) * (rep // rt) * b * g
+    want = max(1, min(MAX_PIECES, nb, -(-DECODE_CTAS_PER_SM * n_sm // ctas)))
+    piece = max(1, -(-nb // want)) * bs
+    return hg, rt, max(1, -(-nb * bs // piece)), piece
+
+
+def load_elements(kv_item: int) -> int:
+    """Pool elements per load of a ``decode_split`` lane (csrc ``KvLoad``):
+    16 bytes of f32 or bf16, 8 int8 codes."""
+    return 4 if kv_item == 4 else 8
+
+
+def tokens_in_flight(rt: int) -> int:
+    """Tokens each ``decode_split`` token group loads at once (csrc ``U``):
+    8, or 4 when a CTA carries 4 or 8 query heads per kv head."""
+    return 8 if rt <= 2 else 4
+
+
+def token_groups(hg: int, hd: int, kv_item: int) -> int:
+    """Token groups of a ``decode_split`` CTA (``DECODE_WARPS`` warps of 32
+    lanes, a token row taking hg * hd / VEC lanes)."""
+    return DECODE_WARPS * 32 // (hg * hd // load_elements(kv_item))
 
 
 def _inner_contiguous(t: torch.Tensor) -> bool:
@@ -130,10 +178,18 @@ def launch(name: str, q, k_pool, v_pool, block_tables, qpos, *, k_scale,
     if out.numel() == 0:
         return out
     path = path_for(q.dtype, chunk)
-    row_tiles = -(-(h // kh) * c // PATH_ROWS[path])
-    if kh > 65535 or g * row_tiles > 65535:
-        raise ValueError(f"{name}: grid too large")
-    shape_args = [g, b, c, h, kh, bs, nb] if chunk else [g, b, h, kh, bs, nb]
+    if chunk:
+        row_tiles = -(-(h // kh) * c // PREFILL_ROWS[path])
+        if kh > 65535 or g * row_tiles > 65535:
+            raise ValueError(f"{name}: grid too large")
+        shape_args = [g, b, c, h, kh, bs, nb]
+    else:
+        hg, rt, pieces, piece = decode_plan(
+            h=h, kh=kh, hd=hd, kv_item=item, b=b, g=g, nb=nb, bs=bs,
+            n_sm=_build.sm_count(dev))
+        if (kh // hg) * (h // kh // rt) > 65535 or g * b > 65535:
+            raise ValueError(f"{name}: grid too large")
+        shape_args = [g, b, h, kh, bs, nb, hg, rt, pieces, piece]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _fn(name)(

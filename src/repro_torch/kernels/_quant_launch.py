@@ -1,6 +1,8 @@
-"""Argument checks and the ctypes launch of the quant GEMM kernel
-(``csrc/quant_matmul.cu``).  CUDA tensors only: the wrapper routes CPU
-tensors to the plain version before reaching this module."""
+"""Argument checks, path and split choice, and the ctypes launch of the quant
+GEMM kernel (``csrc/quant_matmul.cu``).  :func:`launch` takes CUDA tensors
+only: the wrapper routes CPU tensors to the plain version before reaching
+this module.  :func:`path_for`, :func:`mma_plan` and :func:`split_count`
+are pure Python."""
 from __future__ import annotations
 
 import ctypes
@@ -11,28 +13,78 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _I, _P = ctypes.c_int, ctypes.c_void_p
-#: the kernel's decode-sized tile (csrc/quant_matmul.cu): T <= DECODE_T
-#: takes BT x BE = 8 x 32 output tiles and may split its groups over CTAs
+_ARGTYPES = {
+    "quant_matmul_launch": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 6 + [_P],
+    "quant_matmul_mma_launch": [_I, _I, _P, _P, _P, _P] + [_I] * 7 + [_P],
+}
+#: rows at or below which a call is decode-sized: the simt path's 8 x 32
+#: tile that may split its groups, and the tensor-core ``mma_skinny`` path
 DECODE_T, DECODE_BT, DECODE_BE = 32, 8, 32
-#: CTAs per SM a decode-sized call aims for when it splits its groups
+#: CTAs per SM a decode-sized simt call aims for when it splits its groups
 CTAS_PER_SM = 2
+#: output columns per CTA of the tensor-core paths
+MMA_BE = 128
+#: output rows per CTA of ``mma_tile`` (128, or 64 where 128-row tiles
+#: would leave more than half the SMs idle), and the splits of one cluster
+MMA_TILE_T, MMA_TILE_T_SMALL, MAX_SPLITS = 128, 64, 8
+#: launches by path since import (``mma_skinny`` / ``mma_tile``: bf16 x on
+#: the tensor cores, T <= 32 / T > 32; ``simt``: CUDA-core f32 FMAs), so a
+#: run can show which path its calls took
+PATH_LAUNCHES = {"mma_skinny": 0, "mma_tile": 0, "simt": 0}
+_FNS = {}
 
 
-_FN = []                 # the bound C entry point, once loaded
-
-
-def _fn():
-    if not _FN:
-        fn = _build.load("quant_matmul").quant_matmul_launch
-        fn.argtypes = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P]
+def _fn(name: str):
+    if name not in _FNS:
+        fn = getattr(_build.load("quant_matmul"), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _FN.append(fn)
-    return _FN[0]
+        _FNS[name] = fn
+    return _FNS[name]
+
+
+def path_for(x_dtype, t: int, d: int, e: int, group: int, bits: int,
+             aligned: bool = True) -> str:
+    """The path a call takes, from dtype, shape and alignment alone: bf16 x
+    runs on the tensor cores (``mma_skinny`` for T <= 32, ``mma_tile``
+    above) when a group is whole steps of 16 stored code rows (group a
+    multiple of 16 for int8, of 32 for int4, at most 128) and its copies
+    can be 16-byte ``cp.async`` (E % 16 == 0, D % 8 == 0, ``aligned``
+    pointers); every other call (f32 x, and bf16 shapes the tensor-core
+    paths cannot take) keeps the CUDA-core ``simt`` path."""
+    step = 32 if bits == 4 else 16
+    if x_dtype == torch.bfloat16 and aligned and group <= 128 \
+            and group % step == 0 and e % 16 == 0 and d % 8 == 0:
+        return "mma_skinny" if t <= DECODE_T else "mma_tile"
+    return "simt"
+
+
+def skinny_rows(t: int) -> int:
+    """Rows per CTA of ``mma_skinny``: T padded to 8, 16 or 32."""
+    return next(n for n in (8, 16, 32) if t <= n)
+
+
+def mma_plan(g: int, t: int, e: int, n_groups: int, n_sm: int):
+    """(tile_rows, splits, groups_per_split) of a tensor-core call.  At
+    decode-sized T the groups are split over up to ``MAX_SPLITS`` CTAs of a
+    cluster, enough for about one CTA per SM; splits cover the groups in
+    order, every split non-empty.  ``mma_tile`` does not split: 128-row
+    tiles, or 64 when 128-row tiles give fewer CTAs than half the SMs (on
+    an H100, ``scripts/time_quant_decode_plans.py``: T 200 at E 2048, 32
+    CTAs, runs about a quarter faster on 64-row tiles; T 1024, 128 CTAs,
+    about 40% slower)."""
+    tiles = -(-e // MMA_BE) * g
+    if t > DECODE_T:
+        rows = MMA_TILE_T if 2 * -(-t // MMA_TILE_T) * tiles >= n_sm \
+            else MMA_TILE_T_SMALL
+        return rows, 1, n_groups
+    want = max(1, min(n_groups, MAX_SPLITS, -(-n_sm // tiles)))
+    per = -(-n_groups // want)
+    return skinny_rows(t), -(-n_groups // per), per
 
 
 def split_count(g: int, t: int, e: int, n_groups: int, n_sm: int) -> int:
-    """Group splits for a call: 1 at prefill-sized T; at decode-sized T
+    """Group splits of a simt call: 1 at prefill-sized T; at decode-sized T
     enough to give ~``CTAS_PER_SM`` CTAs per SM, every split non-empty."""
     if t > DECODE_T:
         return 1
@@ -42,13 +94,19 @@ def split_count(g: int, t: int, e: int, n_groups: int, n_sm: int) -> int:
     return -(-n_groups // per)
 
 
+def _aligned16(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
 def launch(x: torch.Tensor, q: torch.Tensor,
            scales: torch.Tensor) -> torch.Tensor:
-    """Check the arguments and launch one kernel on the current stream.
+    """Check the arguments and launch one kernel on the current stream (the
+    simt path's decode-sized split adds its ordered reduce).
 
     ``x``: [G, T, D] contiguous f32/bf16; ``q``: int8 [G, D, E] or
     nibble-packed [G, D/2, E]; ``scales``: f32 [G, D/g, E]; all contiguous
-    on x's device.  Returns [G, T, E] in x's dtype."""
+    on x's device.  Returns [G, T, E] in x's dtype.  The path is
+    :func:`path_for`'s, counted in ``PATH_LAUNCHES``."""
     name = "quant_matmul"
     dev = x.device
     for t in (q, scales):
@@ -84,17 +142,35 @@ def launch(x: torch.Tensor, q: torch.Tensor,
     out = torch.empty((g, t, e), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    splits = split_count(g, t, e, n_g, _build.sm_count(dev))
-    if g * splits > 65535 or -(-t // DECODE_BT) > 65535:
-        raise ValueError(f"{name}: grid too large")
-    partial = torch.empty((splits, g, t, e), dtype=torch.float32,
-                          device=dev) if splits > 1 else None
+    path = path_for(x.dtype, t, d, e, group, bits,
+                    _aligned16(x, q, scales, out))
+    n_sm = _build.sm_count(dev)
+    partial = None
+    if path == "simt":
+        splits = split_count(g, t, e, n_g, n_sm)
+        if g * splits > 65535 or -(-t // DECODE_BT) > 65535:
+            raise ValueError(f"{name}: grid too large")
+        if splits > 1:
+            partial = torch.empty((splits, g, t, e), dtype=torch.float32,
+                                  device=dev)
+    else:
+        rows_per, splits, per = mma_plan(g, t, e, n_g, n_sm)
+        if g * -(-t // rows_per) > 65535:
+            raise ValueError(f"{name}: grid too large")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _fn()(_DTYPE_CODE[x.dtype], bits, x.data_ptr(), q.data_ptr(),
-                   scales.data_ptr(), out.data_ptr(),
-                   None if partial is None else partial.data_ptr(), splits,
-                   g, t, d, e, group, stream)
+        if path == "simt":
+            rc = _fn("quant_matmul_launch")(
+                _DTYPE_CODE[x.dtype], bits, x.data_ptr(), q.data_ptr(),
+                scales.data_ptr(), out.data_ptr(),
+                None if partial is None else partial.data_ptr(), splits, g,
+                t, d, e, group, stream)
+        else:
+            rc = _fn("quant_matmul_mma_launch")(
+                bits, rows_per, x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), splits, per, g, t, d, e, group, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} failed with CUDA error {rc}")
+        raise RuntimeError(f"{name} failed with CUDA error {rc} on the "
+                           f"{path} path")
+    PATH_LAUNCHES[path] += 1
     return out

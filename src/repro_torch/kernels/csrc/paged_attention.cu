@@ -10,36 +10,49 @@
 // [P, bs, K, hd] (token stride K*hd, scale stride K), read through strides:
 // no per-call transpose of the pool.  A leading branch dim (the semantic
 // split's branches, each with its own pool) is a stride, so one launch
-// serves every branch.  q and out are [G, B, C, H, hd]; block tables
-// [B, NB] and positions are shared by the branches.  Grid: one CTA per
-// (lane, kv head, branch x tile of query rows); the rows of a CTA are the
-// rep = H/K query heads of its kv head times the chunk positions, so each
-// K/V token is read once per kv head and row tile.  A CTA reads its own
-// block ids from the table (TPU scalar prefetch supplied them) and walks
-// logical positions [0, min(NB*bs, max qpos + 1)) with f32 online-softmax
-// state (max, sum, acc) per row; the key rule is kpos <= qpos, softcap
-// before the mask, and a row with no valid key writes acc / max(l, 1e-20)
-// = 0.  Head dims 32, 64 and 128 are instantiated.
+// serves every branch.  q and out are [G, B, (C,) H, hd]; block tables
+// [B, NB] and positions or lengths are shared by the branches.  A CTA
+// reads its own block ids from the table (TPU scalar prefetch supplied
+// them) and keeps f32 online-softmax state (max, sum, acc) per query row;
+// softcap comes before the mask, and a row with no valid key writes
+// acc / max(l, 1e-20) = 0.  Head dims 32, 64 and 128 are instantiated.
 //
-// Two kernels, picked by the entry point from q's dtype alone:
+// Three kernels, picked by the entry points from q's dtype alone:
 //
-//   paged_attention_kernel (CUDA cores): every decode step (f32 and bf16
-//   q) and the f32-q prefill.  A decode step is a prefill chunk of one
-//   token whose query sits at position length - 1: the key rule then
-//   equals the decode mask kpos < length, and a length-0 pad row (qpos =
-//   -1) walks no key and writes 0.  Four rows per CTA for decode, 32 for
-//   prefill; K/V tiles of 32 tokens (16 where the static shared-memory
-//   arrays would pass 48 KB) are read with 16-byte vector loads,
-//   dequantized (int8, with the slot's f32 scale) into f32 shared memory
-//   and consumed by scalar f32 dot products.  Decode reads every live K/V
-//   byte once per step at ~4 flops per byte of bf16: bound by
-//   device-memory bytes, which this kernel reads once per kv head.  The
-//   f32 prefill stays on CUDA cores: tensor cores would mean TF32 and
-//   change the reference's numerics.
+//   paged_decode_split_kernel (decode, CUDA cores; path decode_split):
+//   every decode step, f32 or bf16 q over pools in q's dtype or int8.  One
+//   query per lane at ~1 flop per byte of bf16 K/V: bound by the bytes of
+//   the live K/V, which it reads once.  The rep <= 4 query heads of a kv
+//   head give the tensor cores nothing to do, so the design is about
+//   bytes in flight (decode_attention.cu's, carried through the table):
+//   a CTA takes HG kv heads of one lane and RT query heads of each, so no
+//   warp holds an empty row at rep = 1 and a token's K (V) row for the HG
+//   heads is one contiguous read of HG * hd elements, spread as 16-byte
+//   (int8: 8-byte) loads over HG * hd / VEC lanes.  The lane's live length
+//   is cut into pieces over the CTAs of a thread-block cluster; inside a
+//   CTA, token groups keep their own state over the tokens they visit,
+//   four or eight tokens' loads in flight, block ids staged once per block in shared
+//   memory, slots past the length never read.  int8 codes are scaled in
+//   registers (the K scale on the score, the V scale on p).  Token groups
+//   merge by warp shuffles and then in shared memory; pieces merge after a
+//   cluster barrier, each rank combining a slice of the outputs over ranks
+//   0, 1, ... in order through distributed shared memory (deterministic,
+//   one launch).  A length-0 lane reads nothing and writes 0.
+//
+//   paged_attention_kernel (f32-q prefill, CUDA cores; prefill_simt): 32
+//   query rows per CTA (the rep = H/K query heads of its kv head times the
+//   chunk positions, so each K/V token is read once per kv head and row
+//   tile), walking logical positions [0, min(NB*bs, max qpos + 1)) with
+//   the key rule kpos <= qpos.  K/V tiles of 32 tokens (16 where the static
+//   shared-memory arrays would pass 48 KB) are read with 16-byte vector
+//   loads, dequantized (int8, with the slot's f32 scale) into f32 shared
+//   memory and consumed by scalar f32 dot products.  It stays on CUDA
+//   cores: tensor cores would mean TF32 and change the reference's
+//   numerics.
 //
 //   paged_prefill_mma_kernel (tensor cores): the bf16-q prefill, over bf16
 //   or int8 pools.  A 128-token chunk does ~32 flops per K/V byte per row
-//   tile, so CUDA-core f32 arithmetic bounded the first kernel at ~90x the
+//   tile, so CUDA-core f32 arithmetic bounded the CUDA-core kernel at ~90x the
 //   byte bound; this one runs the two products on bf16 tensor cores
 //   (mma.sync m16n8k16, f32 accumulation) and is bound by the K/V bytes
 //   and the softmax.  64 query rows per CTA, one warp per 16 rows.  K/V
@@ -56,9 +69,14 @@
 //   codes in shared memory and go to the tensor cores as they are; the K
 //   scale of each slot multiplies its score column, and the V scale of
 //   each slot multiplies its column of P before the rounding to bf16.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -100,7 +118,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
     const QT* __restrict__ q, const KVT* __restrict__ k_pool,
     const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ block_tables,
-    const int* __restrict__ qpos_src, int qpos_offset, QT* __restrict__ out,
+    const int* __restrict__ qpos_src, QT* __restrict__ out,
     int B, int C, int H, int K, int bs, int NB, int n_row_tiles,
     long long pool_gstride, long long scale_gstride, float scale,
     float softcap) {
@@ -141,8 +159,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   }
   if (tid < ROWS) {
     const int row = row0 + tid;
-    qpos_s[tid] = row < n_rows ? qpos_src[b * C + row / rep] + qpos_offset
-                               : -1;
+    qpos_s[tid] = row < n_rows ? qpos_src[b * C + row / rep] : -1;
   }
   __syncthreads();
   if (tid == 0) {
@@ -259,7 +276,7 @@ template <typename QT, typename KVT, int ROWS>
 int launch_typed(int hd, dim3 grid, cudaStream_t stream, const void* q,
                  const void* k_pool, const void* v_pool, const float* k_scale,
                  const float* v_scale, const int* block_tables,
-                 const int* qpos_src, int qpos_offset, void* out, int B, int C,
+                 const int* qpos_src, void* out, int B, int C,
                  int H, int K, int bs, int NB, int n_row_tiles,
                  long long pool_gstride, long long scale_gstride, float scale,
                  float softcap) {
@@ -268,7 +285,7 @@ int launch_typed(int hd, dim3 grid, cudaStream_t stream, const void* q,
       <<<grid, THREADS, 0, stream>>>(                                        \
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),            \
       static_cast<const KVT*>(v_pool), k_scale, v_scale, block_tables,       \
-      qpos_src, qpos_offset, static_cast<QT*>(out), B, C, H, K, bs, NB,      \
+      qpos_src, static_cast<QT*>(out), B, C, H, K, bs, NB,                   \
       n_row_tiles, pool_gstride, scale_gstride, scale, softcap)
   switch (hd) {
     case 32: PA_LAUNCH(32); break;
@@ -280,31 +297,28 @@ int launch_typed(int hd, dim3 grid, cudaStream_t stream, const void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int ROWS>
-int launch(int q_dtype, int kv_dtype, int hd, const void* q,
-           const void* k_pool, const void* v_pool, const float* k_scale,
-           const float* v_scale, const int* block_tables, const int* qpos_src,
-           int qpos_offset, void* out, int G, int B, int C, int H, int K,
-           int bs, int NB, long long pool_gstride, long long scale_gstride,
-           float scale, float softcap, void* stream) {
+constexpr int SIMT_ROWS = 32;   // query rows per CTA of the f32-q prefill
+
+// f32-q prefill on the CUDA cores, over f32 or int8 pools.
+int prefill_simt(int kv_dtype, int hd, const void* q, const void* k_pool,
+                 const void* v_pool, const float* k_scale,
+                 const float* v_scale, const int* block_tables,
+                 const int* positions, void* out, int G, int B, int C, int H,
+                 int K, int bs, int NB, long long pool_gstride,
+                 long long scale_gstride, float scale, float softcap,
+                 void* stream) {
   const int n_rows = (H / K) * C;
-  const int n_row_tiles = (n_rows + ROWS - 1) / ROWS;
+  const int n_row_tiles = (n_rows + SIMT_ROWS - 1) / SIMT_ROWS;
   const dim3 grid(B, K, G * n_row_tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PA_ARGS                                                              \
-  hd, grid, st, q, k_pool, v_pool, k_scale, v_scale, block_tables, qpos_src, \
-      qpos_offset, out, B, C, H, K, bs, NB, n_row_tiles, pool_gstride,       \
-      scale_gstride, scale, softcap
-  if (q_dtype == F32 && kv_dtype == F32)
-    return launch_typed<float, float, ROWS>(PA_ARGS);
-  if (q_dtype == F32 && kv_dtype == I8)
-    return launch_typed<float, int8_t, ROWS>(PA_ARGS);
-  if constexpr (ROWS == 4) {   // a bf16-q prefill takes prefill_mma
-    if (q_dtype == BF16 && kv_dtype == BF16)
-      return launch_typed<__nv_bfloat16, __nv_bfloat16, ROWS>(PA_ARGS);
-    if (q_dtype == BF16 && kv_dtype == I8)
-      return launch_typed<__nv_bfloat16, int8_t, ROWS>(PA_ARGS);
-  }
+  hd, grid, st, q, k_pool, v_pool, k_scale, v_scale, block_tables, positions, \
+      out, B, C, H, K, bs, NB, n_row_tiles, pool_gstride, scale_gstride,     \
+      scale, softcap
+  if (kv_dtype == F32)
+    return launch_typed<float, float, SIMT_ROWS>(PA_ARGS);
+  if (kv_dtype == I8)
+    return launch_typed<float, int8_t, SIMT_ROWS>(PA_ARGS);
 #undef PA_ARGS
   return -2;
 }
@@ -721,27 +735,367 @@ int prefill_mma(int kv_dtype, int hd, const void* q, const void* k_pool,
   return -2;
 }
 
+// ------------------------------------------------------- split decode
+constexpr int DS_WARPS = 4;   // eight lengthen the merges more than the walk
+constexpr int DS_THREADS = 32 * DS_WARPS;
+constexpr int DS_ROWS = 8;         // query rows per CTA, at most
+constexpr int DS_WINDOW = 64;      // block ids staged in shared memory at once
+constexpr int DS_MAX_PIECES = 8;   // CTAs of a cluster (the portable limit)
+
+// One load of VEC pool elements: 16 bytes of f32 or bf16, 8 of int8 codes
+// (16 codes per lane would halve the CTAs without shortening a CTA's walk).
+template <typename KVT>
+struct KvLoad {
+  static constexpr int VEC = sizeof(KVT) == 4 ? 4 : 8;
+  using type = typename std::conditional<sizeof(KVT) == 1, uint2,
+                                         uint4>::type;
+};
+
+template <typename KVT, int VEC, typename R>
+__device__ __forceinline__ void widen(const R& r, float (&f)[VEC]) {
+  const KVT* e = reinterpret_cast<const KVT*>(&r);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) f[i] = to_f32(e[i]);
+}
+
+// Online-softmax state (m, l, acc) merged with another one, in f32.
+template <int VEC>
+__device__ __forceinline__ void merge_state(float& m, float& l,
+                                            float (&acc)[VEC], float mo,
+                                            float lo, const float (&ao)[VEC]) {
+  const float mn = fmaxf(m, mo);
+  const float c = expf(m - mn), co = expf(mo - mn);
+  l = l * c + lo * co;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = acc[e] * c + ao[e] * co;
+  m = mn;
+}
+
+// Grid: x = pieces of the lanes' length (the CTAs of one cluster), y = kv
+// head groups x query-head groups, z = branch x lane.  A CTA takes HG kv
+// heads of its lane and RT query heads of each (HG * RT <= 8 rows): a
+// token's K (and V) row for the HG heads is HG * hd contiguous elements,
+// read as one VEC-element load (KvLoad) by each of LPT = HG * hd / VEC
+// lanes, so a warp holds 32 / LPT token groups and the CTA's four warps
+// NG = 4 * 32 / LPT.  Each group keeps its own online-softmax state over
+// the tokens it visits (base + u * NG + group), U tokens' loads in flight
+// (8, or 4 for RT >= 4 to bound the registers).
+template <typename QT, typename KVT, int HD, int RT>
+__global__ void __launch_bounds__(DS_THREADS) paged_decode_split_kernel(
+    const QT* __restrict__ q, const KVT* __restrict__ k_pool,
+    const KVT* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ block_tables,
+    const int* __restrict__ lengths, QT* __restrict__ out, int B, int H,
+    int K, int bs, int NB, int HG, int piece, long long pool_gstride,
+    long long scale_gstride, float scale, float softcap) {
+  constexpr int VEC = KvLoad<KVT>::VEC;
+  using LoadT = typename KvLoad<KVT>::type;
+  constexpr int CPH = HD / VEC;    // lanes per head row
+  constexpr int U = RT <= 2 ? 8 : 4;   // tokens per group in flight
+  static_assert(CPH <= 32 && 32 % CPH == 0 && RT <= DS_ROWS, "shape");
+
+  __shared__ float sm_m[DS_WARPS][DS_ROWS], sm_l[DS_WARPS][DS_ROWS];
+  __shared__ float sm_acc[DS_WARPS][DS_ROWS][HD];
+  __shared__ float pc_m[DS_ROWS], pc_l[DS_ROWS];
+  __shared__ float pc_acc[DS_ROWS][HD];
+  __shared__ int blk_s[DS_WINDOW];
+
+  const int pieces = gridDim.x, pi = blockIdx.x;
+  const int rep = H / K, rgroups = rep / RT;
+  const int kv0 = (blockIdx.y / rgroups) * HG;
+  const int r0 = (blockIdx.y % rgroups) * RT;
+  const int b = blockIdx.z % B, g = blockIdx.z / B;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lpt = HG * CPH;        // lanes per token (a power of two)
+  const int tpw = 32 / lpt;        // token groups per warp
+  const int ng = DS_WARPS * tpw;
+  const int sub = lane % lpt, gid = warp * tpw + lane / lpt;
+  const int hl = sub / CPH, d0 = (sub % CPH) * VEC;
+  const int kvh = kv0 + hl;
+  const int len = min(max(lengths[b], 0), NB * bs);
+  const int t_begin = pi * piece, t_end = min(len, t_begin + piece);
+  const KVT* kp = k_pool + g * pool_gstride;
+  const KVT* vp = v_pool + g * pool_gstride;
+  const float* ksc = k_scale ? k_scale + g * scale_gstride : nullptr;
+  const float* vsc = v_scale ? v_scale + g * scale_gstride : nullptr;
+  const int* table = block_tables + (long long)b * NB;
+
+  float qv[RT][VEC];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const QT* qr = q + (((long long)g * B + b) * H + kvh * rep + r0 + r) * HD +
+                   d0;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qv[r][e] = to_f32(qr[e]) * scale;
+  }
+  float m[RT], l[RT], acc[RT][VEC];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+  }
+
+  // The trip counts are the same for every thread (shuffles below take
+  // the whole warp); a token past the window's end is masked.
+  for (int w0 = t_begin; w0 < t_end; w0 += DS_WINDOW * bs) {
+    const int w1 = min(t_end, w0 + DS_WINDOW * bs);
+    __syncthreads();               // the previous window's ids are read
+    for (int i = tid; i < (w1 - w0 + bs - 1) / bs; i += DS_THREADS)
+      blk_s[i] = table[w0 / bs + i];
+    __syncthreads();
+    for (int base = w0; base < w1; base += ng * U) {
+      LoadT kr[U], vr[U];
+      float ks[U], vs[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = base + u * ng + gid;
+        ks[u] = vs[u] = 1.f;
+        if (t < w1) {
+          const long long slot =
+              (long long)blk_s[(t - w0) / bs] * bs + t % bs;
+          const long long off = (slot * K + kvh) * HD + d0;
+          kr[u] = *reinterpret_cast<const LoadT*>(kp + off);
+          vr[u] = *reinterpret_cast<const LoadT*>(vp + off);
+          if (ksc) {
+            ks[u] = ksc[slot * K + kvh];
+            vs[u] = vsc[slot * K + kvh];
+          }
+        } else {
+          kr[u] = vr[u] = LoadT{};
+        }
+      }
+      float s[U][RT];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[VEC];
+        widen<KVT, VEC>(kr[u], kf);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) dot = fmaf(qv[r][e], kf[e], dot);
+#pragma unroll
+          for (int o = CPH / 2; o > 0; o >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          dot *= ks[u];
+          if (softcap > 0.f) dot = tanhf(dot / softcap) * softcap;
+          s[u][r] = base + u * ng + gid < w1 ? dot : NEG_INF;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][r]);
+        const float alpha = expf(m[r] - mx);
+        l[r] *= alpha;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[r][e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (base + u * ng + gid >= w1) continue;
+          const float p = expf(s[u][r] - mx);
+          const float pv = p * vs[u];
+          float vf[VEC];
+          widen<KVT, VEC>(vr[u], vf);
+          l[r] += p;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(pv, vf[e], acc[r][e]);
+        }
+        m[r] = mx;
+      }
+    }
+  }
+
+  // ---- merge the warp's token groups (butterfly: every lane ends with the
+  // same state), then the warps in order
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    for (int o = lpt; o < 32; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+      float ao[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        ao[e] = __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+      merge_state<VEC>(m[r], l[r], acc[r], mo, lo, ao);
+    }
+    if (lane < lpt) {
+      const int row = hl * RT + r;
+      if (d0 == 0) {
+        sm_m[warp][row] = m[r];
+        sm_l[warp][row] = l[r];
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sm_acc[warp][row][d0 + e] = acc[r][e];
+    }
+  }
+  __syncthreads();
+  const int rows = HG * RT;
+  for (int i = tid; i < rows * HD; i += DS_THREADS) {
+    const int row = i / HD, d = i % HD;
+    float mx = NEG_INF, ls = 0.f, a = 0.f;
+    for (int w = 0; w < DS_WARPS; ++w) {
+      const float mw = sm_m[w][row];
+      const float mn = fmaxf(mx, mw);
+      const float c = expf(mx - mn), cw = expf(mw - mn);
+      ls = ls * c + sm_l[w][row] * cw;
+      a = a * c + sm_acc[w][row][d] * cw;
+      mx = mn;
+    }
+    pc_acc[row][d] = a;
+    if (d == 0) {
+      pc_m[row] = mx;
+      pc_l[row] = ls;
+    }
+  }
+
+  // ---- merge the pieces in rank order (one CTA: its own state) and write;
+  // each rank takes a slice of the rows x HD outputs
+  cg::cluster_group cluster = cg::this_cluster();
+  if (pieces > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  const int rank = pieces > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const int total = rows * HD, per = (total + pieces - 1) / pieces;
+  const int i_end = min(total, (rank + 1) * per);
+  for (int i = rank * per + tid; i < i_end; i += DS_THREADS) {
+    const int row = i / HD, d = i % HD;
+    // every piece's state loaded before any is merged (unrolled and
+    // predicated: the remote loads are in flight together), then merged in
+    // rank order
+    float mp[DS_MAX_PIECES], lp[DS_MAX_PIECES], ap[DS_MAX_PIECES];
+#pragma unroll
+    for (int p = 0; p < DS_MAX_PIECES; ++p) {
+      if (p < pieces) {
+        const float* pm = pieces > 1 ? cluster.map_shared_rank(pc_m, p) : pc_m;
+        const float* pl = pieces > 1 ? cluster.map_shared_rank(pc_l, p) : pc_l;
+        const float* pa = pieces > 1
+            ? cluster.map_shared_rank(&pc_acc[0][0], p) : &pc_acc[0][0];
+        mp[p] = pm[row];
+        lp[p] = pl[row];
+        ap[p] = pa[row * HD + d];
+      }
+    }
+    float mx = NEG_INF, ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int p = 0; p < DS_MAX_PIECES; ++p) {
+      if (p < pieces) {
+        const float mn = fmaxf(mx, mp[p]);
+        const float c = expf(mx - mn), cp = expf(mp[p] - mn);
+        ls = ls * c + lp[p] * cp;
+        a = a * c + ap[p] * cp;
+        mx = mn;
+      }
+    }
+    const int h = (kv0 + row / RT) * rep + r0 + row % RT;
+    store_as(out + (((long long)g * B + b) * H + h) * HD + d,
+             a / fmaxf(ls, 1e-20f));
+  }
+  if (pieces > 1) cluster.sync();  // peers' states stay until read
+}
+
+template <typename QT, typename KVT, int HD, int RT>
+int launch_decode_split(const void* q, const void* k_pool, const void* v_pool,
+                        const float* k_scale, const float* v_scale,
+                        const int* block_tables, const int* lengths,
+                        void* out, int G, int B, int H, int K, int bs,
+                        int NB, int HG, int pieces, int piece,
+                        long long pool_gstride, long long scale_gstride,
+                        float scale, float softcap, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pieces, (K / HG) * (H / K / RT), G * B);
+  cfg.blockDim = dim3(DS_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pieces;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, paged_decode_split_kernel<QT, KVT, HD, RT>,
+      static_cast<const QT*>(q), static_cast<const KVT*>(k_pool),
+      static_cast<const KVT*>(v_pool), k_scale, v_scale, block_tables,
+      lengths, static_cast<QT*>(out), B, H, K, bs, NB, HG, piece,
+      pool_gstride, scale_gstride, scale, softcap);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename QT, typename KVT>
+int decode_split_typed(int hd, int rt, const void* q, const void* k_pool,
+                       const void* v_pool, const float* k_scale,
+                       const float* v_scale, const int* block_tables,
+                       const int* lengths, void* out, int G, int B, int H,
+                       int K, int bs, int NB, int HG, int pieces, int piece,
+                       long long pool_gstride, long long scale_gstride,
+                       float scale, float softcap, cudaStream_t st) {
+#define DS_ARGS q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, \
+                out, G, B, H, K, bs, NB, HG, pieces, piece, pool_gstride,   \
+                scale_gstride, scale, softcap, st
+#define DS_RT(HDV)                                                       \
+  switch (rt) {                                                          \
+    case 1: return launch_decode_split<QT, KVT, HDV, 1>(DS_ARGS);        \
+    case 2: return launch_decode_split<QT, KVT, HDV, 2>(DS_ARGS);        \
+    case 4: return launch_decode_split<QT, KVT, HDV, 4>(DS_ARGS);        \
+    case 8: return launch_decode_split<QT, KVT, HDV, 8>(DS_ARGS);        \
+    default: return -3;                                                  \
+  }
+  switch (hd) {
+    case 32: DS_RT(32)
+    case 64: DS_RT(64)
+    case 128: DS_RT(128)
+  }
+#undef DS_RT
+#undef DS_ARGS
+  return -1;
+}
+
 }  // namespace
 
-// Decode: q/out [G, B, H, hd]; lengths [B]; four query rows per CTA (one
-// warp per row: a GQA group of up to four heads shares one CTA).
-// Returns cudaGetLastError() after the launch, or -1 / -2 for an
-// unsupported head dim / dtype pair.
+// Decode (path decode_split): q/out [G, B, H, hd]; lengths [B].  A CTA
+// takes ``hg`` kv heads (a power of two dividing K) and ``rt`` query heads
+// of each (1, 2, 4 or 8 dividing H / K; hg * rt <= 8); the lanes' lengths
+// are cut into ``pieces`` (<= 8, the CTAs of one cluster) of ``piece``
+// tokens (a multiple of bs), merged inside the launch.  Returns
+// cudaGetLastError() after the launch, -1 / -2 / -3 for an unsupported
+// head dim / dtype pair / head grouping or piece count.
 extern "C" int paged_decode_attention_launch(
     int q_dtype, int kv_dtype, int hd, const void* q, const void* k_pool,
     const void* v_pool, const float* k_scale, const float* v_scale,
     const int* block_tables, const int* lengths, void* out, int G, int B,
-    int H, int K, int bs, int NB, long long pool_gstride,
-    long long scale_gstride, float scale, float softcap, void* stream) {
-  return launch<4>(q_dtype, kv_dtype, hd, q, k_pool, v_pool, k_scale,
-                   v_scale, block_tables, lengths, -1, out, G, B, 1, H, K, bs,
-                   NB, pool_gstride, scale_gstride, scale, softcap, stream);
+    int H, int K, int bs, int NB, int hg, int rt, int pieces, int piece,
+    long long pool_gstride, long long scale_gstride, float scale,
+    float softcap, void* stream) {
+  if (pieces < 1 || pieces > DS_MAX_PIECES || hg < 1 || hg * rt > DS_ROWS ||
+      K % hg || (H / K) % rt || piece % bs)
+    return -3;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DS_ARGS hd, rt, q, k_pool, v_pool, k_scale, v_scale, block_tables,  \
+                lengths, out, G, B, H, K, bs, NB, hg, pieces, piece,        \
+                pool_gstride, scale_gstride, scale, softcap, st
+  if (q_dtype == F32 && kv_dtype == F32)
+    return decode_split_typed<float, float>(DS_ARGS);
+  if (q_dtype == F32 && kv_dtype == I8)
+    return decode_split_typed<float, int8_t>(DS_ARGS);
+  if (q_dtype == BF16 && kv_dtype == BF16)
+    return decode_split_typed<__nv_bfloat16, __nv_bfloat16>(DS_ARGS);
+  if (q_dtype == BF16 && kv_dtype == I8)
+    return decode_split_typed<__nv_bfloat16, int8_t>(DS_ARGS);
+#undef DS_ARGS
+  return -2;
 }
 
 // Prefill: q/out [G, B, C, H, hd]; positions [B, C].  bf16 q takes the
 // tensor-core kernel (64 query rows per CTA, bf16 or int8 pools); f32 q the
-// CUDA-core kernel (32 rows per CTA, f32 or int8 pools).  Returns as the
-// decode entry, or -5 when the current device cannot be read.
+// CUDA-core kernel (32 rows per CTA, f32 or int8 pools).  Returns
+// cudaGetLastError() after the launch, -1 / -2 for an unsupported head dim
+// / dtype pair, or -5 when the current device cannot be read.
 extern "C" int paged_prefill_attention_launch(
     int q_dtype, int kv_dtype, int hd, const void* q, const void* k_pool,
     const void* v_pool, const float* k_scale, const float* v_scale,
@@ -752,8 +1106,9 @@ extern "C" int paged_prefill_attention_launch(
     return prefill_mma(kv_dtype, hd, q, k_pool, v_pool, k_scale, v_scale,
                        block_tables, positions, out, G, B, C, H, K, bs, NB,
                        pool_gstride, scale_gstride, scale, softcap, stream);
-  return launch<32>(q_dtype, kv_dtype, hd, q, k_pool, v_pool, k_scale,
-                    v_scale, block_tables, positions, 0, out, G, B, C, H, K,
-                    bs, NB, pool_gstride, scale_gstride, scale, softcap,
-                    stream);
+  if (q_dtype == F32)
+    return prefill_simt(kv_dtype, hd, q, k_pool, v_pool, k_scale, v_scale,
+                        block_tables, positions, out, G, B, C, H, K, bs, NB,
+                        pool_gstride, scale_gstride, scale, softcap, stream);
+  return -2;
 }

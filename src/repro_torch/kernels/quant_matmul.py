@@ -11,11 +11,16 @@ codes per int8 byte within a group: the low nibble holds rows
 extension is two int8 shifts (``(p << 4) >> 4`` and ``p >> 4``).
 
 The CUDA kernel lives in ``csrc/quant_matmul.cu``: it walks the contraction
-one group slab at a time, takes each slab's product on the integer codes in
-f32 and scales it once into an f32 accumulator, so the weight is never
-dequantized to memory.  At decode (8 rows) it is bound by the bytes of
-codes it reads; at a 1024-row prefill by its f32 CUDA-core arithmetic.  A
-leading branch dim G (the semantic split's branches) folds into the grid.
+one group at a time, takes each group's product on the integer codes with
+f32 accumulation and scales it once into an f32 accumulator, so the weight
+is never dequantized to memory.  bf16 x runs on the tensor cores (``mma.sync``
+m16n8k16, the codes widened to bf16, exact): ``mma_skinny`` at decode-sized
+T (<= 32, bound by the code bytes; the groups split over the CTAs of a
+cluster and merged in the same launch) and ``mma_tile`` above (128 x 128
+tiles, bound by tensor-core operations at a 1024-row prefill);
+:func:`quant_matmul_emulated` walks the same steps in plain PyTorch.  f32 x
+keeps CUDA-core f32 FMAs (``simt``: no TF32).  A leading branch dim G (the
+semantic split's branches) folds into the grid.
 """
 from __future__ import annotations
 
@@ -97,6 +102,71 @@ def quant_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     x's dtype.  Shapes as :func:`quant_matmul`."""
     return ref.quant_matmul_ref(x, q, scales,
                                 bits=infer_bits(x.shape[-1], q))
+
+
+def _group_codes(q: torch.Tensor, gi: int, group: int,
+                 bits: int) -> torch.Tensor:
+    """Group ``gi``'s codes [G, group, E] as f32, contraction rows in order,
+    by the kernel's index arithmetic: int8 stored row ``gi*group + p`` is
+    contraction row ``gi*group + p``; int4 stored row ``gi*group/2 + p``
+    holds contraction row ``gi*group + p`` in its low nibble and
+    ``gi*group + group/2 + p`` in its high nibble."""
+    if bits == 8:
+        return q[:, gi * group:(gi + 1) * group].float()
+    span = group // 2
+    raw = q[:, gi * span:(gi + 1) * span]
+    out = torch.empty((q.shape[0], group, q.shape[2]), dtype=torch.float32,
+                      device=q.device)
+    p = torch.arange(span, device=q.device)
+    out[:, p] = ((raw << 4) >> 4).float()          # low nibbles: rows p
+    out[:, span + p] = (raw >> 4).float()           # high: rows group/2 + p
+    return out
+
+
+def quant_matmul_emulated(x: torch.Tensor, q: torch.Tensor,
+                          scales: torch.Tensor, *, n_sm: int = 132,
+                          drop_group=None) -> torch.Tensor:
+    """The tensor-core paths' numerics in plain PyTorch (bf16 x): the split
+    of the groups that ``_quant_launch.mma_plan`` gives for ``n_sm`` SMs,
+    each split walking its groups in order; each group's product on the
+    codes summed over its k16 steps in the kernel's order in f32 (bf16 x
+    bf16 products are exact in f32), scaled by the group's per-column scale
+    into the split's f32 accumulator; the splits added in order from 0, and
+    one cast to x's dtype.  ``drop_group`` (a group index or a set of
+    them) leaves those groups out, as a faulty kernel would: the checks
+    must reject it.
+    Shapes as :func:`quant_matmul`."""
+    from repro_torch.kernels._quant_launch import mma_plan
+    lead = x.dim() == 3
+    if not lead:
+        x, q, scales = x[None], q[None], scales[None]
+    g, t, d = x.shape
+    n_g, e = scales.shape[1], scales.shape[2]
+    group, bits = d // n_g, infer_bits(d, q)
+    drop = set() if drop_group is None else (
+        {drop_group} if isinstance(drop_group, int) else set(drop_group))
+    _, splits, per = mma_plan(g, t, e, n_g, n_sm)
+    span = group // 2 if bits == 4 else group
+    # the k16 steps in the kernel's order: per 16 stored rows p0, rows p0..
+    # (int4: the low nibbles) and then, for int4, rows group/2 + p0..
+    steps = [k for p0 in range(0, span, 16)
+             for k in ((p0, span + p0) if bits == 4 else (p0,))]
+    out = torch.zeros((g, t, e), dtype=torch.float32, device=x.device)
+    for s in range(splits):
+        acc = torch.zeros_like(out)
+        for gi in range(s * per, min(n_g, (s + 1) * per)):
+            if gi in drop:
+                continue
+            w = _group_codes(q, gi, group, bits)
+            part = torch.zeros_like(out)
+            for k0 in steps:
+                part += torch.bmm(
+                    x[:, :, gi * group + k0:gi * group + k0 + 16].float(),
+                    w[:, k0:k0 + 16])
+            acc += part * scales[:, gi][:, None, :]
+        out = out + acc
+    out = out.to(x.dtype)
+    return out if lead else out[0]
 
 
 def quant_matmul(x: torch.Tensor, q: torch.Tensor,

@@ -20,7 +20,8 @@ from repro_torch.decode.paged_cache import quantize_kv  # noqa: E402
 from repro_torch.decode.paged_model import quantize_attn_params  # noqa: E402
 from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,  # noqa: E402
                                 PlacementEngine, Request, TorchBackend)
-from repro_torch.kernels import _gemm_launch, _paged_launch  # noqa: E402
+from repro_torch.kernels import (_gemm_launch, _paged_launch,  # noqa: E402
+                                 _quant_launch)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
@@ -45,6 +46,28 @@ def _row_limit(want, tol):
 def _within_rows(got, want, tol):
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= _row_limit(want, tol)).all()), float(diff.max())
+
+
+def _kernels_per_call(fn, reps=10, tries=5):
+    """CUDA kernels one call of ``fn`` launches, from the profiler: each
+    kernel's record count over ``reps`` calls, rounded (the tracer may lose
+    a record; a profile with a count more than one off is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        counts = [e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.count > 0]
+        per = [round(c / reps) for c in counts]
+        if counts and all(k >= 1 and abs(c - k * reps) <= 1
+                          for c, k in zip(counts, per)):
+            return sum(per)
+    raise AssertionError(f"the profiler lost records: {counts}")
 
 
 @pytest.fixture
@@ -109,7 +132,7 @@ def test_kernels_match_plain(dev, kind, g, hd):
             paged_prefill_attention.launches) == (before[0] + 1,
                                                   before[1] + 1)
     prefill = "prefill_mma" if kind == "bf16" else "prefill_simt"
-    paths["decode_simt"] += 1
+    paths["decode_split"] += 1
     paths[prefill] += 1
     assert _paged_launch.PATH_LAUNCHES == paths
     # the pad row (length 0) is exactly zero
@@ -176,6 +199,61 @@ def test_prefill_tensor_core_path_edges(dev, kind, hd, c):
         assert bool(over[:, long].all())
 
 
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("heads", [(32, 32), (8, 2)], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_decode_split_edges(dev, kind, hd, heads, softcap):
+    """Every decode step takes decode_split, one CUDA kernel per call, over
+    two branches: lengths 0 (null table), 1, bs, a piece boundary - 1, at
+    and + 1, the full table, blocks aliased across lanes; within tol of
+    each output row's max |plain|, the pad lane exactly 0, and the check
+    rejects the plain output with each long lane's first 64-token tile
+    left out."""
+    h, kh = heads
+    b, bs, nb, g = 8, 16, 40, 2
+    qdt = torch.bfloat16 if kind == "bf16" else torch.float32
+    item = {"f32": 4, "bf16": 2, "int8": 1}[kind]
+    _, _, _, piece = _paged_launch.decode_plan(
+        h=h, kh=kh, hd=hd, kv_item=item, b=b, g=g, nb=nb, bs=bs,
+        n_sm=torch.cuda.get_device_properties(dev).multi_processor_count)
+    gen = torch.Generator(device=dev).manual_seed(hd + h)
+    p_blocks = 1 + b * nb
+    kf = torch.randn(g, p_blocks, bs, kh, hd, generator=gen, device=dev)
+    vf = torch.randn(g, p_blocks, bs, kh, hd, generator=gen, device=dev)
+    rng = np.random.default_rng(hd)
+    tables = rng.permutation(np.arange(1, p_blocks)).reshape(b, nb)
+    tables[2:, :3] = tables[1, :3]
+    tables[0] = 0
+    lengths = [0, 1, bs, piece - 1, piece, piece + 1, nb * bs, 300]
+    tables = torch.tensor(tables, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn(g, b, h, hd, generator=gen, device=dev).to(qdt)
+    if kind == "int8":
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v, kw = kf.to(qdt), vf.to(qdt), {}
+    kw["softcap"] = softcap
+    paths = dict(_paged_launch.PATH_LAUNCHES)
+    got = paged_decode_attention(q, k, v, tables, lengths, **kw)
+    want = paged_decode_attention_plain(q, k, v, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    paths["decode_split"] += 1
+    assert _paged_launch.PATH_LAUNCHES == paths
+    assert got.shape == q.shape and got.dtype == qdt
+    _within_rows(got, want, TOL[kind])
+    assert bool((got[:, 0] == 0).all())
+    assert _kernels_per_call(
+        lambda: paged_decode_attention(q, k, v, tables, lengths, **kw)) == 1
+    long = lengths > 256
+    bad = paged_decode_attention_plain(q, k, v, tables[:, 64 // bs:]
+                                       .contiguous(), lengths - 64, **kw)
+    over = ((bad.float() - want.float()).abs()
+            > _row_limit(want, TOL[kind])).any(-1).any(-1)     # [G, B]
+    assert bool(over[:, long].all())
+
+
 def test_kernel_rejects_what_it_cannot_take(dev):
     cs = _case(dev, "f32", g=1)
     with pytest.raises(ValueError, match="pool dtype"):
@@ -206,13 +284,54 @@ def test_quant_matmul_matches_plain(dev, xdt, bits, g, t, d, e):
     x = torch.randn(g, t, d, generator=gen, device=dev).to(xdt)
     before = quant_matmul.launches
     sq = (lambda a: a[0]) if g == 1 else (lambda a: a)
+    paths = dict(_quant_launch.PATH_LAUNCHES)
     got = quant_matmul(sq(x), sq(q), sq(s))
     want = quant_matmul_plain(sq(x), sq(q), sq(s))
     torch.cuda.synchronize()
     assert quant_matmul.launches == before + 1
+    paths[_quant_launch.path_for(xdt, t, d, e, d // s.shape[1], bits)] += 1
+    assert _quant_launch.PATH_LAUNCHES == paths
     assert got.shape == want.shape and got.dtype == xdt
     torch.testing.assert_close(got.float(), want.float(), atol=QTOL[xdt],
                                rtol=QTOL[xdt])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("group", [32, 128])
+@pytest.mark.parametrize("g", [1, 2], ids=["one", "branches"])
+@pytest.mark.parametrize("t", [1, 8, 17, 32, 33, 200])
+def test_quant_matmul_tensor_core_edges(dev, bits, group, g, t):
+    """bf16 x takes the tensor-core paths (T <= 32: mma_skinny, its groups
+    split over a cluster; above: mma_tile), one CUDA kernel per call, at E
+    = 208 (not a multiple of the 128-column tile) and ragged T, within
+    2e-2 (1 + |plain|); the same check rejects the plain output with the
+    last group of each split left out, in every output row."""
+    d, e = 512, 208
+    gen = torch.Generator(device=dev).manual_seed(t + group + bits)
+    w = torch.randn(g, d, e, generator=gen, device=dev) / d ** 0.5
+    q, s = quantize_blockwise(w, bits=bits, group=group)
+    x = torch.randn(g, t, d, generator=gen, device=dev).bfloat16()
+    path = "mma_skinny" if t <= 32 else "mma_tile"
+    assert _quant_launch.path_for(x.dtype, t, d, e, group, bits) == path
+    paths = dict(_quant_launch.PATH_LAUNCHES)
+    got = quant_matmul(x, q, s)
+    want = quant_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    paths[path] += 1
+    assert _quant_launch.PATH_LAUNCHES == paths
+    limit = QTOL[torch.bfloat16] * (1 + want.float().abs())
+    assert bool(((got.float() - want.float()).abs() <= limit).all())
+    assert _kernels_per_call(lambda: quant_matmul(x, q, s)) == 1
+    n_g = d // group
+    _, splits, per = _quant_launch.mma_plan(
+        g, t, e, n_g, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    xd = x.clone()
+    for i in range(splits):
+        gi = min(n_g, (i + 1) * per) - 1
+        xd[..., gi * group:(gi + 1) * group] = 0
+    bad = quant_matmul_plain(xd, q, s)
+    assert bool(((bad.float() - want.float()).abs() > limit).any(-1).all())
 
 
 def test_quant_matmul_rejects_what_it_cannot_take(dev):

@@ -15,6 +15,19 @@ rules that pick each launch's path.
   scale on P); held as |emulated - plain| <= 2e-2 times each output row's
   max |plain|, and the same check must reject the plain output with the
   first 64-token tile of every row longer than 256 keys left out.
+- ``quant_matmul``'s tensor-core paths
+  (``quant_matmul.quant_matmul_emulated``): the kernel's split of the groups
+  (``_quant_launch.mma_plan``), each group's k16 steps summed in f32 on the
+  codes (int4 rows by the kernel's nibble arithmetic), scaled once per
+  group, the splits added in order; held as |emulated - plain| <= 2e-2 (1 +
+  |plain|), and the same check must reject the output with a group or a
+  whole split left out, in every output row.
+- ``paged_decode_attention``'s ``decode_split`` kernel
+  (``paged_decode_attention.paged_decode_attention_emulated``): pieces of
+  the table (``_paged_launch.decode_plan``), token groups each with f32
+  max, sum and accumulator, the groups and then the pieces merged in
+  order; held as the prefill is, the check rejecting the output with a
+  piece left out in every lane it touches.
 
 The same numpy inputs go to both packages.
 """
@@ -26,12 +39,17 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.decode.paged_cache import quantize_kv  # noqa: E402
-from repro_torch.kernels import _gemm_launch, _paged_launch  # noqa: E402
+from repro_torch.kernels import (_gemm_launch, _paged_launch,  # noqa: E402
+                                 _quant_launch)
 from repro_torch.kernels.block_diag_matmul import \
     block_diag_matmul_plain  # noqa: E402
 from repro_torch.kernels.moe_gmm import moe_gmm_plain  # noqa: E402
+from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
+    paged_decode_attention_emulated, paged_decode_attention_plain)
 from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
     paged_prefill_attention_emulated, paged_prefill_attention_plain)
+from repro_torch.kernels.quant_matmul import (  # noqa: E402
+    quant_matmul_emulated, quant_matmul_plain, quantize_blockwise)
 
 #: the chip check's bf16 tolerance (``chip_smoke.QTOL`` / ``TOL``)
 TOL = 2e-2
@@ -108,8 +126,8 @@ def test_gemm_path_rule(cut, path):
 @pytest.mark.parametrize("dt,chunk,path", [
     (torch.bfloat16, True, "prefill_mma"),
     (torch.float32, True, "prefill_simt"),
-    (torch.bfloat16, False, "decode_simt"),
-    (torch.float32, False, "decode_simt")])
+    (torch.bfloat16, False, "decode_split"),
+    (torch.float32, False, "decode_split")])
 def test_paged_path_rule(dt, chunk, path):
     assert _paged_launch.path_for(dt, chunk) == path
 
@@ -176,3 +194,174 @@ def test_prefill_emulation_matches_plain_and_jax(kind, hd, c, g, softcap):
         cs["positions"] - 64, **kw))
     over = (np.abs(bad - want) > _row_limit(want)).any((-2, -1))  # [G,B,C]
     assert long.any() and over[:, long].all()
+
+
+# ---------------------------------------------------------- quant GEMM
+def _quant_case(*, g, t, bits, group, d=256, e=208):
+    rng = np.random.default_rng(t + group + bits + g)
+    w = torch.from_numpy(rng.standard_normal((g, d, e), np.float32)
+                         / np.sqrt(d))
+    q, s = quantize_blockwise(w, bits=bits, group=group)
+    x = torch.from_numpy(rng.standard_normal((g, t, d), np.float32)) \
+        .bfloat16()
+    return x, q, s
+
+
+def _quant_limit(want):
+    return TOL * (1 + np.abs(want))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("group", [32, 128])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("t", [1, 8, 33, 200])
+def test_quant_emulation_matches_plain_and_jax(bits, group, g, t):
+    """E = 208 is not a multiple of the 128-column tile; T 1 and 8 split the
+    groups (mma_skinny), 33 and 200 do not (mma_tile)."""
+    x, q, s = _quant_case(g=g, t=t, bits=bits, group=group)
+    got = quant_matmul_emulated(x, q, s)
+    assert got.shape == (g, t, 208) and got.dtype == torch.bfloat16
+    want = _np(quant_matmul_plain(x, q, s))
+    oracle = np.stack([np.asarray(jref.quant_matmul_ref(
+        _jnp(x[i]), jnp.asarray(q[i].numpy()), jnp.asarray(s[i].numpy()),
+        bits=bits), np.float32) for i in range(g)])
+    for ref_out in (want, oracle):
+        diff = np.abs(_np(got) - ref_out)
+        assert (diff <= _quant_limit(ref_out)).all(), diff.max()
+    # a kernel that skips the last group, or the last split, fails the same
+    # check in every output row
+    n_g = 256 // group
+    _, splits, per = _quant_launch.mma_plan(g, t, 208, n_g, 132)
+    last = range((splits - 1) * per, n_g)
+    for drop in ({n_g - 1}, set(last)):
+        bad = _np(quant_matmul_emulated(x, q, s, drop_group=drop))
+        assert (np.abs(bad - want) > _quant_limit(want)).any(-1).all()
+
+
+@pytest.mark.parametrize("g,t,e,n_g", [
+    (1, 8, 2048, 16), (2, 8, 1024, 8), (1, 1, 2048, 64), (2, 32, 96, 3),
+    (1, 17, 208, 1), (3, 8, 16, 5), (1, 33, 2048, 16), (2, 1024, 1024, 8)])
+def test_quant_mma_plan_covers_every_group_once(g, t, e, n_g):
+    rows, splits, per = _quant_launch.mma_plan(g, t, e, n_g, 132)
+    assert 1 <= splits <= _quant_launch.MAX_SPLITS
+    spans = [range(i * per, min(n_g, (i + 1) * per)) for i in range(splits)]
+    assert all(len(r) > 0 for r in spans)
+    assert [gi for r in spans for gi in r] == list(range(n_g))
+    if t > _quant_launch.DECODE_T:
+        # 128-row tiles unless they leave more than half of 132 SMs idle
+        assert splits == 1 and rows == {(1, 33): 64, (2, 1024): 128}[(g, t)]
+    else:
+        assert rows in (8, 16, 32) and t <= rows and (rows == 8 or 2 * t > rows)
+    if (g, t, e) == (1, 8, 2048):                  # LAYER decode
+        assert (splits, per) == (8, 2)
+
+
+@pytest.mark.parametrize("xdt,t,d,e,group,bits,aligned,path", [
+    (torch.bfloat16, 8, 2048, 2048, 128, 8, True, "mma_skinny"),
+    (torch.bfloat16, 32, 2048, 2048, 128, 4, True, "mma_skinny"),
+    (torch.bfloat16, 33, 2048, 2048, 128, 8, True, "mma_tile"),
+    (torch.bfloat16, 1024, 1024, 1024, 32, 4, True, "mma_tile"),
+    (torch.bfloat16, 8, 64, 48, 16, 8, True, "mma_skinny"),
+    (torch.float32, 8, 2048, 2048, 128, 8, True, "simt"),
+    (torch.float32, 1024, 2048, 2048, 128, 4, True, "simt"),
+    (torch.bfloat16, 8, 64, 40, 64, 8, True, "simt"),        # E % 16
+    (torch.bfloat16, 8, 64, 48, 8, 8, True, "simt"),         # group < 16
+    (torch.bfloat16, 8, 64, 48, 16, 4, True, "simt"),        # int4: < 32
+    (torch.bfloat16, 8, 96, 48, 24, 8, True, "simt"),        # group % 16
+    (torch.bfloat16, 64, 96, 48, 48, 8, True, "mma_tile"),   # group 48
+    (torch.bfloat16, 8, 512, 48, 256, 8, True, "simt"),      # group > 128
+    (torch.bfloat16, 8, 2048, 2048, 128, 8, False, "simt"),  # a pointer
+])
+def test_quant_path_rule(xdt, t, d, e, group, bits, aligned, path):
+    assert _quant_launch.path_for(xdt, t, d, e, group, bits,
+                                  aligned) == path
+
+
+# -------------------------------------------------------- paged decode
+def _decode_case(kind, *, hd, h, kh, g, b=8, bs=16, nb=24):
+    """Lane 0 has length 0 (null table); lanes 1-3 alias lane 1's first
+    three blocks; lengths 1, bs, a piece boundary - 1, at and + 1, and the
+    full table."""
+    rng = np.random.default_rng(hd + h + g)
+    p_blocks = 1 + b * nb
+    kf = torch.from_numpy(rng.standard_normal((g, p_blocks, bs, kh, hd),
+                                              np.float32))
+    vf = torch.from_numpy(rng.standard_normal((g, p_blocks, bs, kh, hd),
+                                              np.float32))
+    tables = rng.permutation(np.arange(1, p_blocks)).reshape(b, nb)
+    tables[2:4, :3] = tables[1, :3]
+    tables[0] = 0
+    item = {"f32": 4, "bf16": 2, "int8": 1}[kind]
+    _, _, pieces, piece = _paged_launch.decode_plan(
+        h=h, kh=kh, hd=hd, kv_item=item, b=b, g=1, nb=nb, bs=bs, n_sm=132)
+    assert pieces > 1
+    lengths = [0, 1, bs, piece - 1, piece, piece + 1, nb * bs, 300]
+    qdt = torch.bfloat16 if kind == "bf16" else torch.float32
+    case = dict(
+        q=torch.from_numpy(rng.standard_normal((g, b, h, hd), np.float32))
+        .to(qdt), tables=torch.from_numpy(tables.astype(np.int32)),
+        lengths=torch.tensor(lengths, dtype=torch.int32), piece=piece)
+    if kind == "int8":
+        (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
+        case.update(k=k, v=v, kw=dict(k_scale=ks, v_scale=vs))
+    else:
+        case.update(k=kf.to(qdt), v=vf.to(qdt), kw={})
+    return case
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("heads,g,softcap", [((8, 8), 1, 0.0),
+                                             ((8, 2), 2, 30.0)])
+def test_decode_emulation_matches_plain_and_jax(kind, hd, heads, g,
+                                                softcap):
+    h, kh = heads
+    cs = _decode_case(kind, hd=hd, h=h, kh=kh, g=g)
+    args = (cs["q"], cs["k"], cs["v"], cs["tables"], cs["lengths"])
+    kw = dict(cs["kw"], softcap=softcap)
+    got = _np(paged_decode_attention_emulated(*args, **kw))
+    want = _np(paged_decode_attention_plain(*args, **kw))
+    assert got.shape == tuple(cs["q"].shape)
+    oracle = np.stack([np.asarray(jref.paged_decode_attention_ref(
+        _jnp(cs["q"][i]), _jnp(cs["k"][i]), _jnp(cs["v"][i]),
+        _jnp(cs["tables"]), _jnp(cs["lengths"]),
+        **{n: _jnp(s[i]) for n, s in cs["kw"].items()}, softcap=softcap),
+        np.float32) for i in range(g)])
+    # the JAX oracle averages every key of a length-0 lane; the kernel and
+    # the plain version write 0 there
+    oracle[:, 0] = 0
+    tol = {"f32": 1e-4, "bf16": TOL, "int8": 1e-3}[kind]
+    for ref_out in (want, oracle):
+        diff = np.abs(got - ref_out)
+        assert (diff <= tol * np.abs(ref_out).max(-1, keepdims=True)).all(), \
+            diff.max()
+    assert (got[:, 0] == 0).all()
+    # a kernel that skips a piece fails the check in every lane that piece
+    # holds keys of
+    lengths = cs["lengths"].numpy()
+    for drop in (0, 1):
+        bad = _np(paged_decode_attention_emulated(*args, drop_piece=drop,
+                                                  **kw))
+        hit = lengths > drop * cs["piece"]
+        over = (np.abs(bad - want) > tol * np.abs(want).max(
+            -1, keepdims=True)).any((-2, -1))                 # [G, B]
+        assert hit.any() and over[:, hit].all() and not over[:, ~hit].any()
+
+
+@pytest.mark.parametrize("h,kh,hd,item", [
+    (32, 32, 64, 2), (16, 16, 128, 2), (32, 32, 64, 1), (16, 16, 128, 4),
+    (8, 2, 32, 4), (6, 2, 32, 2), (32, 1, 64, 2), (12, 3, 64, 1)])
+@pytest.mark.parametrize("nb,b", [(64, 8), (1, 1), (300, 2)])
+def test_decode_plan(h, kh, hd, item, nb, b):
+    """Heads per CTA fit a warp and eight rows; the pieces are whole blocks,
+    at most eight (one cluster), each non-empty, and cover the table."""
+    bs = 16
+    hg, rt, pieces, piece = _paged_launch.decode_plan(
+        h=h, kh=kh, hd=hd, kv_item=item, b=b, g=1, nb=nb, bs=bs, n_sm=132)
+    vec = _paged_launch.load_elements(item)
+    assert kh % hg == 0 and (h // kh) % rt == 0 and hg & (hg - 1) == 0
+    assert hg * hd // vec <= 32 and hg * rt <= _paged_launch.DECODE_ROWS
+    assert 1 <= pieces <= _paged_launch.MAX_PIECES and piece % bs == 0
+    assert (pieces - 1) * piece < nb * bs <= pieces * piece
+    if (h, kh, hd, item, nb, b) == (32, 32, 64, 2, 64, 8):   # stablelm bf16
+        assert (hg, rt, pieces, piece) == (4, 1, 5, 208)
