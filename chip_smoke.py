@@ -41,7 +41,7 @@ raising on failure:
             (bf16-q prefill: the tensor-core kernel; f32-q prefill: the
             CUDA-core one; decode: ``decode_split``, one CUDA kernel per
             call by the profiler's count).  Kernel vs plain within tol times
-            each output row's max |plain| (``paged_limit``); the same check
+            each output row's max |plain| (``row_limit``); the same check
             must reject, in every query row with more than 256 keys, the
             plain output with the row's first 64-token K/V tile left out;
             both readings are reported.  Kernel, plain and library
@@ -76,9 +76,15 @@ raising on failure:
             the main path's shapes (LAYER: B 2, H = K = 32; SEMANTIC: two
             branches x B 2, H = K = 16; hd 64, S 2048, causal), an hd-128
             GQA case with window 1024 and softcap 50 (H 32, K 16) and an
-            Sq = 1024 < Sk = 2048 case, f32 (1e-4) and bf16 (2e-2); timed as
-            above beside ``scaled_dot_product_attention`` where it computes
-            the same function (no window, no softcap).
+            Sq = 1024 < Sk = 2048 case, f32 and bf16, within tol (f32 1e-4,
+            bf16 1e-2: ``FLASH_TOL``) times each output row's max |plain|
+            (``row_limit``);
+            the same check must reject, by at least 3x in every query row at
+            position >= 256, the plain output with the row's first 64
+            attended keys left out (``flash_fault``); both readings are
+            reported.  Timed as above beside
+            ``scaled_dot_product_attention`` where it computes the same
+            function (no window, no softcap).
 8. ops      the kernel-op layer ``repro_torch.kernels.ops`` at full widths:
             ``block_diag_matmul`` (stablelm-1.6b ``.semantic(2)`` branch MLP
             up and down at T 8, 200 and 2048), ``moe_gmm`` (qwen2-moe-a2.7b,
@@ -335,11 +341,12 @@ def library_call(case, *, chunk: bool):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def paged_limit(want, tol):
-    """The largest |kernel - plain| each element of a paged kernel's output
-    may show: tol times the largest |plain| of its output (head) row.  The
-    outputs are softmax averages over up to 1024 keys, |plain| ~ 0.03-0.1,
-    so an absolute tol would pass a kernel that drops a K/V tile."""
+def row_limit(want, tol):
+    """The largest |kernel - plain| each element of an attention kernel's
+    output may show: tol times the largest |plain| of its output (head) row.
+    The outputs are softmax averages over up to 2048 keys, |plain| ~
+    0.03-0.13, so an absolute tol would pass a kernel that drops a K/V
+    tile."""
     return tol * want.float().abs().amax(-1, keepdim=True)
 
 
@@ -396,7 +403,7 @@ def kernel_phase(dev):
             want = plain(*args, **kw)
             torch.cuda.synchronize()
             tag = f"{name} hd{hd} [{label}]"
-            limit = paged_limit(want, TOL[label])
+            limit = row_limit(want, TOL[label])
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
             if not bool(got.isfinite().all()) or not bool(
@@ -883,14 +890,41 @@ def flash_bound(q, k, *, causal, window):
     return _bound(nbytes, 4.0 * hd * pairs, q.dtype)
 
 
+# flash within tol times each output row's max |plain|: f32 the summation
+# order; bf16 1e-2, not the paged checks' 2e-2: at S 2048 the dropped tile
+# moves the longest rows by as little as 2.0x a 2e-2 limit (plain outputs
+# of this phase's inputs, computed on the CPU), against 1 ulp of the
+# output (~0.004 of the row's max) that the kernel's rounding may cost
+FLASH_TOL = {torch.float32: TOL["f32"], torch.bfloat16: 1e-2}
+FLASH_DROP = 64          # keys of the fault's dropped tile
+FLASH_LONG = 256         # rows at this position or later must reject it
+FLASH_MIN_RATIO = 3.0    # ... by at least this multiple of their limit
+
+
+def flash_fault(plain, q, k, v, *, causal, window, softcap):
+    """The plain output with each row's first ``FLASH_DROP`` attended keys
+    left out (keys 0.. of a row whose window does not bind, else the first
+    keys of its window), and the query rows at position >= ``FLASH_LONG``,
+    where the check must reject it."""
+    sq, sk = q.shape[1], k.shape[1]
+    qpos = torch.arange(sq, device=q.device) + sk - sq
+    opts = dict(causal=causal, softcap=softcap)
+    bad = plain(q, k[:, FLASH_DROP:], v[:, FLASH_DROP:], window=window,
+                **opts)
+    if window:
+        slid = plain(q, k, v, window=window - FLASH_DROP, **opts)
+        binds = (qpos - window + 1 > 0)[None, :, None, None]
+        bad = torch.where(binds, slid, bad)
+    return bad, qpos >= FLASH_LONG
+
+
 def flash_phase(dev):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(17)
     per = {}
     for label, n, sq, sk, h, kh, hd, causal, window, cap in FLASH_CASES:
-        for dt, tol in ((torch.float32, TOL["f32"]),
-                        (torch.bfloat16, TOL["bf16"])):
+        for dt, tol in FLASH_TOL.items():
             q = torch.randn(n, sq, h, hd, generator=gen, device=dev).to(dt)
             k, v = (torch.randn(n, sk, kh, hd, generator=gen,
                                 device=dev).to(dt) for _ in range(2))
@@ -898,11 +932,28 @@ def flash_phase(dev):
             got = FA.flash_attention(q, k, v, **opts)
             want = FA.flash_attention_plain(q, k, v, **opts)
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            name = f"{label}/{str(dt)[6:]}"
-            if got.shape != q.shape or not math.isfinite(err) or err > tol:
-                raise AssertionError(f"flash_attention [{name}]: max |kernel"
-                                     f" - plain| {err} > {tol}")
+            name = f"flash_attention [{label}/{str(dt)[6:]}]"
+            limit = row_limit(want, tol)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if got.shape != q.shape or not bool(got.isfinite().all()) or \
+                    not bool((diff <= limit).all()):
+                raise AssertionError(f"{name}: max |kernel - plain| {err} "
+                                     f"beyond {tol} max|plain| of its row")
+            # the same check on the plain output with each long row's first
+            # tile dropped must fail in every such row, by FLASH_MIN_RATIO:
+            # the least, over those rows, of the row's largest
+            # |fault - plain| / limit
+            bad, long = flash_fault(FA.flash_attention_plain, q, k, v,
+                                    **opts)
+            ratio = (bad.float() - want.float()).abs() / limit.clamp(
+                min=1e-30)
+            worst = float(ratio.amax(-1)[:, long].min())
+            del bad, ratio
+            if worst < FLASH_MIN_RATIO:
+                raise AssertionError(f"{name}: the check rejects a row with "
+                                     f"its first tile dropped by only "
+                                     f"{worst:.3g}x its limit")
             library = None
             if not window and not cap and h == kh:
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -914,7 +965,11 @@ def flash_phase(dev):
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask))
             bnd, by = flash_bound(q, k, causal=causal, window=window)
-            row = dict(max_abs_err=err, tol=tol, bound_ms=bnd, bound_by=by,
+            row = dict(max_abs_err=err, tol=tol,
+                       err_over_limit=float((diff / limit.clamp(
+                           min=1e-30)).max()),
+                       fault_over_limit=worst, long_rows=int(long.sum()),
+                       bound_ms=bnd, bound_by=by,
                        ms=device_ms(lambda: FA.flash_attention(q, k, v,
                                                                **opts)),
                        call_ms=time_ms(lambda: FA.flash_attention(q, k, v,
@@ -922,13 +977,16 @@ def flash_phase(dev):
                        plain_ms=device_ms(lambda: FA.flash_attention_plain(
                            q, k, v, **opts), reps=3),
                        library_ms=device_ms(library) if library else None)
-            per[name] = row
+            per[f"{label}/{str(dt)[6:]}"] = row
             lib = "n/a" if library is None else f"{row['library_ms']:.4f} ms"
-            log(f"[flash] {name}: max_abs_err={err:.3g} (tol {tol}) kernel "
+            log(f"[flash] {name}: max_abs_err={err:.3g}, "
+                f"{row['err_over_limit']:.3g} of {tol} max|plain| per row; "
+                f"a row with its first {FLASH_DROP} keys dropped reads >= "
+                f"{worst:.3g} of it ({row['long_rows']} rows); kernel "
                 f"{row['ms']:.4f} ms (call {row['call_ms']:.4f}), plain "
                 f"{row['plain_ms']:.4f} ms, sdpa {lib}, bound {bnd:.4f} ms "
                 f"({by})")
-            del q, k, v, got, want
+            del q, k, v, got, want, diff, limit
     return dict(replaces="src/repro/kernels/flash_attention.py:25",
                 per_dtype=per)
 

@@ -405,13 +405,19 @@ FLASH_CASES = [
 ]
 
 
+# flash within tol times each output row's max |plain| (as chip_smoke.py's
+# FLASH_TOL): f32 the summation order, bf16 1e-2 (at S 2048 a 2e-2 limit
+# rejects a dropped 64-key tile by as little as 2x in the longest rows)
+FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("case", FLASH_CASES,
                          ids=lambda c: "-".join(map(str, c)))
 def test_flash_attention_matches_plain(dev, kind, case):
     """The kernel against ``flash_attention_plain`` on the same CUDA
-    tensors: f32 1e-4 (summation order), bf16 2e-2 (one bf16 rounding of
-    the outputs), with strided (non-contiguous) q, k and v."""
+    tensors, within ``FLASH_TOL`` of each output row's max |plain|, with
+    strided (non-contiguous) q, k and v."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     n, sq, sk, h, kh, hd, causal, window, softcap = case
@@ -428,8 +434,7 @@ def test_flash_attention_matches_plain(dev, kind, case):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.shape == q.shape and got.dtype == dt
-    err = float((got.float() - want.float()).abs().max())
-    assert err <= TOL[kind], err
+    _within_rows(got, want, FLASH_TOL[kind])
 
 
 def test_flash_attention_branches_share_a_launch(dev):
@@ -443,7 +448,7 @@ def test_flash_attention_branches_share_a_launch(dev):
     assert flash_attention.launches == before + 1
     want = torch.stack([flash_attention_plain(q[i], k[i], v[i], window=50)
                         for i in range(2)])
-    assert float((got - want).abs().max()) <= TOL["f32"]
+    _within_rows(got, want, FLASH_TOL["f32"])
 
 
 def test_flash_attention_rejects_what_it_cannot_take(dev):
