@@ -65,18 +65,21 @@ raising on failure:
             for 6 steps, then semantic (two branches) for 4.  The flash
             counter is zeroed before each run and must read 48 per step
             after it (24 layers: the forward, and remat's recompute in the
-            backward; the backward itself is the plain chunked attention).
+            backward; the backward itself is the plain chunked attention),
+            every launch on the f32 CUDA-core path (``simt``).
             Every loss is finite and the first within 1 of ln(vocab) (the
             init gives unit-variance logits: ln V + 1/2 expected).  Step ms,
             tokens/s and peak memory are reported.  Then one fsdp
             ``value_and_grad`` at full width through the kernel and through
             ``flash_attention_plain`` patched into ``models.attention``:
             loss to rel 1e-5, each gradient leaf to 1e-4 of its largest.
-7. flash    the flash-attention kernel against ``flash_attention_plain`` at
-            the main path's shapes (LAYER: B 2, H = K = 32; SEMANTIC: two
+7. flash    the flash-attention kernels against ``flash_attention_plain``
+            at the main path's shapes (LAYER: B 2, H = K = 32; SEMANTIC: two
             branches x B 2, H = K = 16; hd 64, S 2048, causal), an hd-128
             GQA case with window 1024 and softcap 50 (H 32, K 16) and an
-            Sq = 1024 < Sk = 2048 case, f32 and bf16, within tol (f32 1e-4,
+            Sq = 1024 < Sk = 2048 case, f32 (the CUDA-core path, ``simt``)
+            and bf16 (the tensor-core path, ``mma``; each row's path is
+            asserted, one CUDA kernel per call), within tol (f32 1e-4,
             bf16 1e-2: ``FLASH_TOL``) times each output row's max |plain|
             (``row_limit``);
             the same check must reject, by at least 3x in every query row at
@@ -91,11 +94,12 @@ raising on failure:
             60 experts x capacity 171), ``ssm_scan`` (jamba-1.5-large's
             mixer, [1, 2048, 16384, 16] f32) and ``decode_attention`` (B 8,
             L 4096, ragged lengths with a 0; stablelm-1.6b and a gemma2-27b
-            layer), f32 and bf16; flash and quant once each.  The launch
-            counters are zeroed before each op call and must read 1 for its
-            kernel and 0 for the others, and every grouped-GEMM call must
-            take its path (bf16 with M > 32: the tensor-core tile; f32: the
-            CUDA-core tile; M <= 32: the skinny tile); with
+            layer), f32 and bf16; flash (bf16: the tensor-core path) and
+            quant once each.  The launch counters are zeroed before each op
+            call and must read 1 for its kernel and 0 for the others, and
+            every grouped-GEMM call must take its path (bf16 with M > 32:
+            the tensor-core tile; f32: the CUDA-core tile; M <= 32: the
+            skinny tile); with
             ``use_kernels(False)`` no
             launch and the oracle's result.  Kernel vs plain within tol (1 +
             |plain|) (``QTOL``), decode within tol times the largest |plain|
@@ -920,6 +924,7 @@ def flash_fault(plain, q, k, v, *, causal, window, softcap):
 
 def flash_phase(dev):
     import torch.nn.functional as F
+    from repro_torch.kernels import _flash_launch as FL
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(17)
     per = {}
@@ -929,10 +934,15 @@ def flash_phase(dev):
             k, v = (torch.randn(n, sk, kh, hd, generator=gen,
                                 device=dev).to(dt) for _ in range(2))
             opts = dict(causal=causal, window=window, softcap=cap)
+            paths = dict(FL.PATH_LAUNCHES)
             got = FA.flash_attention(q, k, v, **opts)
             want = FA.flash_attention_plain(q, k, v, **opts)
             torch.cuda.synchronize()
             name = f"flash_attention [{label}/{str(dt)[6:]}]"
+            path = [p for p in paths if FL.PATH_LAUNCHES[p] != paths[p]]
+            if path != [FL.path_for(dt)]:
+                raise AssertionError(f"{name}: launched {path}, not "
+                                     f"{FL.path_for(dt)}")
             limit = row_limit(want, tol)
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
@@ -965,13 +975,18 @@ def flash_phase(dev):
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask))
             bnd, by = flash_bound(q, k, causal=causal, window=window)
-            row = dict(max_abs_err=err, tol=tol,
+            ms, per_call = device_profile(
+                lambda: FA.flash_attention(q, k, v, **opts))
+            if per_call != 1:
+                raise AssertionError(f"{name}: {per_call} CUDA kernels per "
+                                     "call, not 1")
+            row = dict(max_abs_err=err, tol=tol, path=path[0],
+                       tile=FL.mma_tile(hd) if path[0] == "mma" else None,
                        err_over_limit=float((diff / limit.clamp(
                            min=1e-30)).max()),
                        fault_over_limit=worst, long_rows=int(long.sum()),
-                       bound_ms=bnd, bound_by=by,
-                       ms=device_ms(lambda: FA.flash_attention(q, k, v,
-                                                               **opts)),
+                       bound_ms=bnd, bound_by=by, ms=ms,
+                       kernels_per_call=per_call,
                        call_ms=time_ms(lambda: FA.flash_attention(q, k, v,
                                                                   **opts)),
                        plain_ms=device_ms(lambda: FA.flash_attention_plain(
@@ -979,7 +994,7 @@ def flash_phase(dev):
                        library_ms=device_ms(library) if library else None)
             per[f"{label}/{str(dt)[6:]}"] = row
             lib = "n/a" if library is None else f"{row['library_ms']:.4f} ms"
-            log(f"[flash] {name}: max_abs_err={err:.3g}, "
+            log(f"[flash] {name} ({path[0]}): max_abs_err={err:.3g}, "
                 f"{row['err_over_limit']:.3g} of {tol} max|plain| per row; "
                 f"a row with its first {FLASH_DROP} keys dropped reads >= "
                 f"{worst:.3g} of it ({row['long_rows']} rows); kernel "
@@ -1145,6 +1160,7 @@ def ops_phase(dev):
     """Each case through ``repro_torch.kernels.ops``: one counted launch,
     the plain version's result, no launch and the oracle's result with the
     switch off; the four new kernels timed."""
+    from repro_torch.kernels import _flash_launch as FL
     from repro_torch.kernels import _gemm_launch as GL
     from repro_torch.kernels import ops
     wrappers = _op_wrappers()
@@ -1158,12 +1174,18 @@ def ops_phase(dev):
         for fn in wrappers.values():
             fn.launches = 0
         paths0 = dict(GL.PATH_LAUNCHES)
+        flash0 = dict(FL.PATH_LAUNCHES)
         got = op(*args, **kw)                    # the op layer's main path
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in wrappers.items()}
         if launches != {k: int(k == name) for k in wrappers}:
             raise AssertionError(f"{tag}: launches {launches}")
         path = [k for k in paths0 if GL.PATH_LAUNCHES[k] != paths0[k]]
+        if name == "flash_attention":
+            path = [k for k in flash0 if FL.PATH_LAUNCHES[k] != flash0[k]]
+            if path != [FL.path_for(dt)]:
+                raise AssertionError(f"{tag}: took {path}, not "
+                                     f"{FL.path_for(dt)}")
         if name in ("block_diag_matmul", "moe_gmm"):
             m = args[0].shape[1]
             want_path = "skinny" if m <= GL.SKINNY_M else (
@@ -1257,6 +1279,7 @@ TRAIN_SHAPE = dict(seq_len=2048, batch=2)
 def train_phase(dev, cfg):
     """The training launcher at full width on both modes, each run's flash
     launches counted; then the kernel-vs-plain ``value_and_grad`` check."""
+    from repro_torch.kernels import _flash_launch as FL
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import train as TR
     runs = {}
@@ -1267,6 +1290,7 @@ def train_phase(dev, cfg):
         torch.cuda.reset_peak_memory_stats()
         step_s = []
         flash_attention.launches = 0
+        paths = dict(FL.PATH_LAUNCHES)
         losses = TR.main(
             ["--arch", cfg.name, "--mode", mode, "--steps", str(steps),
              "--seq-len", str(TRAIN_SHAPE["seq_len"]), "--batch",
@@ -1279,6 +1303,10 @@ def train_phase(dev, cfg):
             raise AssertionError(f"[train {mode}] {launches} flash launches,"
                                  f" {steps} steps of {cfg.n_layers} layers "
                                  f"with remat imply {want}")
+        by_path = {p: FL.PATH_LAUNCHES[p] - paths[p] for p in paths}
+        if by_path != {"mma": 0, "simt": launches}:
+            raise AssertionError(f"[train {mode}] flash launches by path "
+                                 f"{by_path}: f32 takes the CUDA-core path")
         if not all(math.isfinite(x) for x in losses) or \
                 abs(losses[0] - ln_vocab) > 1.0:
             raise AssertionError(f"[train {mode}] losses {losses}: not "
@@ -1290,6 +1318,7 @@ def train_phase(dev, cfg):
                           step_ms=1e3 * steady, tokens_per_s=tokens / steady,
                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                           flash_launches=launches,
+                          flash_launches_by_path=by_path,
                           launches_per_step=launches / steps)
         log(f"[train {mode}] {json.dumps(runs[mode])}")
     runs["kernel_vs_plain"] = grad_check(dev, cfg)
@@ -1400,7 +1429,13 @@ def main(argv=None) -> int:
     main_paths = {"paged_decode_attention": "decode_split",
                   "paged_prefill_attention": "prefill_mma",
                   "quant_matmul": "mma_skinny",
+                  "flash_attention": "simt",
                   "block_diag_matmul": "wgmma", "moe_gmm": "wgmma"}
+    for label, row in kernels["flash_attention"]["per_dtype"].items():
+        want_path = "mma" if label.endswith("bfloat16") else "simt"
+        if row["path"] != want_path:
+            raise AssertionError(f"flash_attention [{label}] took "
+                                 f"{row['path']}, not {want_path}")
     main_rows = {"paged_decode_attention": "hd64/bf16",
                  "paged_prefill_attention": "hd64/bf16",
                  "quant_matmul": "layer/int8/bfloat16/T8",

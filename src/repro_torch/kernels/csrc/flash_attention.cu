@@ -8,9 +8,9 @@
 // head), accumulated in f32 and written in q's type.  Queries sit at the END
 // of the key range (query i has position Sk - Sq + i); the causal rule is
 // kpos <= qpos, the sliding window keeps kpos > qpos - window, and the
-// softcap is cap * tanh(s / cap).  GQA: query head h reads kv head
-// h / (H / KH).  Any Sq <= Sk: ragged edges are masked here, so neither
-// length has to divide a tile.
+// softcap is cap * tanh(s / cap), taken after the 1/sqrt(hd) scale.  GQA:
+// query head h reads kv head h / (H / KH).  Any Sq <= Sk: ragged edges are
+// masked here, so neither length has to divide a tile.
 //
 // Layout.  q [N, Sq, H, hd], k/v [N, Sk, KH, hd] are read in place through
 // their batch, sequence and head strides (the head dim is dense): no
@@ -19,326 +19,749 @@
 // times the batch), so one launch serves every branch.  out is a dense
 // [N, Sq, H, hd].
 //
-// Grid.  One CTA per (query tile of 64 rows, head, batch): the TPU kernel's
-// grid, with its whole-Sk VMEM block replaced by a loop over key tiles of BK
-// tokens staged in shared memory.  Query tiles are scheduled latest first, so
-// the longest causal walks start first.  A tile walks only the key tiles that
-// hold an unmasked key for one of its rows: up to the causal frontier of its
-// last row (the TPU kernel's n_k_eff) and, with a window, from the window
-// start of its first row.  Online softmax state (max, sum, acc) per row lives
-// in registers.
+// The walk (both paths; _flash_launch.flash_plan is its Python mirror).
+// One CTA per (head, batch, query tile), the query tiles scheduled latest
+// first (the slowest grid dim, reversed), so the longest causal walks start
+// first.  A tile walks, in order, the 64-token key tiles that hold an
+// unmasked key for one of its rows: up to the causal frontier of its last
+// row, from the window start of its first row.  A key tile needs a mask
+// only if it crosses Sk, the causal frontier of the tile's first row or the
+// window edge of its last; the others take an unmasked branch.  A warp
+// skips a masked tile that holds no unmasked key for any of its rows, and
+// a warp whose rows all lie past Sq skips every tile.  K/V tiles arrive
+// through a cp.async ring (zero fill past Sk; rows past Sq are zero
+// queries), one CTA barrier per tile: after it, the next tile's copy is
+// issued into the stage every warp has finished with, and runs under this
+// tile's math.  Online-softmax state per row (max and sum in f32, in the
+// log2 domain) lives in registers.
 //
-// Threads.  128 threads as a 16 x 8 grid; thread (ty, tx) owns query rows
-// 4ty..4ty+3.  For the scores it owns key columns tx + 8j (register tile 4 x
-// BK/8, read as float4 along hd from row-padded shared tiles, conflict-free
-// for K); for the output it owns dims 4tx + 32jj .. +3 (register tile 4 x
-// hd/8).  A row's eight threads are eight adjacent lanes of one warp, so the
-// row max and sum are three shuffles and P passes from scores to the PV
-// product through shared memory under a warp barrier.
+// bf16 (flash_attention_kernel_mma): tensor cores.  16 query rows per warp,
+// 4 or 8 warps; Q fragments loaded once by ldmatrix; S = Q K^T by mma.sync
+// m16n8k16 (bf16 in, f32 accumulate) into registers; row max and sum by
+// quad shuffles; P rounded to bf16 in registers is the A operand of P V,
+// with V through ldmatrix.trans; the row sum is over the unrounded P.  A
+// 3-stage ring (2 at hd 128).  At the main path's shape (B 2, S 2048,
+// H = K = 32, hd 64, causal) the work is ~3.4e10 flops against ~67 MB:
+// bound by the tensor cores (0.035 ms at 989 TFLOP/s, the bytes 0.020
+// ms), so the design keeps
+// the mma pipe fed (no shared-memory round trip for S or P, copies
+// overlapped) and runs the exponentials of one warp beside another warp's
+// mma.
 //
-// Bound.  At the main path's shape (B 2, S 2048, H = K = 32, hd 64, f32,
-// causal) the work is ~3.4e10 flops against ~67 MB of q, k, v and out: at
-// 67 TFLOP/s f32 outside the tensor cores the arithmetic bound (~0.51 ms)
-// is ~13x the byte bound (~0.04 ms at 3.35 TB/s).  This kernel runs on CUDA
-// cores in f32 (bf16 inputs are widened on load); its design answer to the
-// arithmetic bound is register tiling (~10 FMAs per shared-memory vector
-// load) and skipping masked key tiles.  Tensor-core (mma/wgmma) tiles, TMA
-// and a backward kernel are later work.
+// f32 (flash_attention_kernel_simt): CUDA cores, f32 arithmetic (tensor
+// cores would mean TF32, a precision decision).  128 query rows per CTA of
+// 8 warps, a warp owning 16 rows; for the scores lane l owns keys l and
+// l + 32 of the tile, for the output dims l * hd/32 ...  Q, and P, are read
+// at one address per warp (broadcast), K from a 16-byte-chunk swizzled
+// tile (conflict-free), V along the lane; per 4-deep step a warp issues
+// 18 shared loads for 128 FMAs, so the FMA pipe, not shared memory, sets
+// the pace.  P goes through shared memory in two 32-key halves (a warp's
+// own rows, under __syncwarp), which keeps the CTA at 113 KB at hd 64: two
+// CTAs of 8 warps per SM.  A 2-stage ring.  The work is bound by f32
+// operations (0.51 ms at 67 TFLOP/s on the main shape).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int BQ = 64;                 // query rows per CTA
-constexpr float NEG_INF = -1e30f;
-
-// Key tokens per shared-memory tile: 64, or 32 at head dim 128 (two CTAs
-// then fit one SM's shared memory).
-__host__ __device__ constexpr int key_tile(int hd) { return hd >= 128 ? 32 : 64; }
-
-// Dynamic shared memory of one CTA: Q [BQ][hd+4], K [BK][hd+4], V [BK][hd],
-// P [BQ][BK+4] in f32 (row pads keep float4 rows aligned and spread banks).
-__host__ __device__ constexpr int smem_bytes(int hd) {
-  return 4 * (BQ * (hd + 4) + key_tile(hd) * (hd + 4) + key_tile(hd) * hd +
-              BQ * (key_tile(hd) + 4));
-}
+constexpr int BK = 64;                  // key tokens per tile, both paths
+constexpr float NEG_INF = -1e30f;       // running-max floor: never NaN
+constexpr float LOG2E = 1.4426950408889634f;
 
 enum Dtype { F32 = 0, BF16 = 1 };
 
-// 16 bytes of T at p (16-byte aligned) as f32.
-__device__ __forceinline__ void load16(const float* p, float* f) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  int Sq, Sk, H, KH;
+  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
+  int causal, window;
+  float scale, softcap;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int Sq, int Sk, int H, int KH, long long qsb,
-    long long qss, long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, int causal, int window,
-    float scale, float softcap) {
-  constexpr int BK = key_tile(HD);
-  constexpr int QS = HD + 4;           // row stride of Q and K tiles
-  constexpr int PS = BK + 4;           // row stride of the P tile
-  constexpr int CPT = BK / 8;          // score columns per thread
-  constexpr int DPT = HD / 32;         // float4 output groups per thread
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int LPR = HD / VEC;        // 16-byte loads per row
-  static_assert(HD % 32 == 0 && BK % 8 == 0 && BK % 4 == 0, "shape");
+// 16 bytes global -> shared, asynchronously; zeros where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BQ * QS;
-  float* Vs = Ks + BK * QS;
-  float* Ps = Vs + BK * HD;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
 
-  const int qt = gridDim.x - 1 - blockIdx.x;   // latest query tiles first
-  const int h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int kvh = h / (H / KH);
-  const int q0 = qt * BQ;
-  const int q_off = Sk - Sq;
-  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
 
-  // ---- Q tile -> smem in f32, pre-scaled (rows past Sq are zero)
-  const T* qb = q + b * qsb + (long long)h * qsh;
-  for (int i = tid; i < BQ * LPR; i += THREADS) {
-    const int r = i / LPR, d0 = (i % LPR) * VEC;
-    float f[VEC];
-    if (q0 + r < Sq) {
-      load16(qb + (long long)(q0 + r) * qss + d0, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) Qs[r * QS + d0 + e] = f[e] * scale;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, f32) += a (16 x 16 bf16, row-major fragment) @ b (16 x 8 bf16,
+// column-major fragment b0, b1).
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The key tiles [kt_begin, kt_end) a query tile walks; qa / qb are the
+// positions of its first and last row (rows past Sq excluded).
+struct Walk {
+  int kt_begin, kt_end, qa, qb;
+};
+
+__device__ __forceinline__ Walk walk_of(const Args& a, int q0, int rows) {
+  const int q_off = a.Sk - a.Sq;
+  Walk w;
+  w.qa = q_off + q0;
+  w.qb = q_off + min(q0 + rows, a.Sq) - 1;
+  const int k_end = a.causal ? min(a.Sk, w.qb + 1) : a.Sk;
+  const int k_begin = a.window > 0 ? max(0, w.qa - a.window + 1) : 0;
+  w.kt_begin = k_begin / BK;
+  w.kt_end = (k_end + BK - 1) / BK;
+  return w;
+}
+
+// True when the tile at key k0 holds a masked (query, key) pair for rows
+// qa..qb: it crosses Sk, the causal frontier of the first row or the
+// window edge of the last.
+__device__ __forceinline__ bool tile_masked(const Args& a, int k0, int qa,
+                                            int qb) {
+  return k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > qa) ||
+         (a.window > 0 && k0 <= qb - a.window);
+}
+
+// True when no key of the tile at k0 is unmasked for rows qa..qb.
+__device__ __forceinline__ bool tile_dead(const Args& a, int k0, int qa,
+                                          int qb) {
+  return (a.causal && k0 > qb) ||
+         (a.window > 0 && k0 + BK - 1 <= qa - a.window);
+}
+
+__device__ __forceinline__ bool key_ok(const Args& a, int kpos, int qpos) {
+  return kpos < a.Sk && (!a.causal || kpos <= qpos) &&
+         (a.window <= 0 || kpos > qpos - a.window);
+}
+
+// The score the softmax sees, in the log2 domain, as x * c: without a
+// softcap x is the raw q.k and c = log2(e) / sqrt(hd), so the max runs on
+// raw scores and p = 2^(x c - m) is one FFMA and one ex2; with a softcap
+// x = cap log2(e) tanh(q.k / (sqrt(hd) cap)) and c = 1.
+struct Logit {
+  float mul, cap_mul, c;
+  bool cap;
+  __device__ __forceinline__ explicit Logit(const Args& a)
+      : mul(a.scale / a.softcap),
+        cap_mul(a.softcap * LOG2E),
+        c(a.softcap > 0.f ? 1.f : a.scale * LOG2E),
+        cap(a.softcap > 0.f) {}
+  // x from the raw score, with a softcap (without one x is the score)
+  __device__ __forceinline__ float capped(float s) const {
+    return cap_mul * tanhf(s * mul);
   }
+};
 
-  // ---- the key tiles holding an unmasked key for some row of this tile
-  const int last_row = min(q0 + BQ, Sq) - 1;
-  const int k_end = causal ? min(Sk, q_off + last_row + 1) : Sk;
-  const int k_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
-  const int kt_begin = k_begin / BK;
-  const int kt_end = (k_end + BK - 1) / BK;
+// 2^x (ex2.approx: 2 ulp, -inf -> 0).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  int qpos[4];
-  float m_run[4], l_run[4], acc[4][4 * DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qpos[i] = q_off + q0 + ty * 4 + i;
-    m_run[i] = NEG_INF;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * DPT; ++c) acc[i][c] = 0.f;
-  }
+// ------------------------------------------------------ bf16: tensor cores
+// A CTA of WARPS warps, each owning MT m16 tiles (16 MT query rows): with
+// MT = 2 every K and V fragment a warp reads from shared memory feeds two
+// mma, which halves the shared-memory reads per mma.
+//
+// Dynamic shared memory of one CTA, in bf16 elements: Q, then the ring's
+// stages of K and V (rows padded by 16 bytes).  3 stages; 2 at hd 128,
+// where 3 would leave one CTA per SM.
+template <int HD, int WARPS, int MT>
+struct MmaSmem {
+  static constexpr int STAGES = HD >= 128 ? 2 : 3;
+  static constexpr int LD = HD + 8;          // bf16 row stride
+  static constexpr int ROWS = 16 * MT * WARPS;
+  static constexpr int Q_ELEMS = ROWS * LD;
+  static constexpr int TILE = BK * LD;
+  static constexpr int STAGE = 2 * TILE;     // K then V
+  static constexpr int BYTES = 2 * (Q_ELEMS + STAGES * STAGE);
+};
 
-  const T* kb = k + b * ksb + (long long)kvh * ksh;
-  const T* vb = v + b * vsb + (long long)kvh * vsh;
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // Q is staged / the last tile's K, V reads are done
-    for (int i = tid; i < BK * LPR; i += THREADS) {
-      const int t = i / LPR, d0 = (i % LPR) * VEC;
-      float kf[VEC], vf[VEC];
-      if (k0 + t < Sk) {
-        load16(kb + (long long)(k0 + t) * kss + d0, kf);
-        load16(vb + (long long)(k0 + t) * vss + d0, vf);
-      } else {
+// One key tile for one warp: S = Q K^T (Q's fragments read from shared
+// memory each tile, which leaves their registers to the accumulators),
+// online softmax, O += P V.  Element e of s[t][j]: row lane/4 + 8 (e >> 1)
+// of m tile t, token 8j + 2 (lane % 4) + (e & 1).
+template <int HD, int MT, bool MASK>
+__device__ __forceinline__ void mma_tile(
+    const Args& a, const __nv_bfloat16* Qw, const __nv_bfloat16* Kt,
+    const __nv_bfloat16* Vt, int LD, int k0, const int (&qp)[MT][2],
+    int lane, float (&m_run)[MT][2], float (&l_run)[MT][2],
+    float (&o)[MT][HD / 8][4]) {
+  const int mi = lane / 8;
+  float s[MT][BK / 8][4];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.f;
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      s[t][j][0] = s[t][j][1] = s[t][j][2] = s[t][j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t qf[MT][4];
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+      ldmatrix_x4(qf[t], Qw + (16 * t + (mi & 1) * 8 + lane % 8) * LD +
+                             kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+    for (int nt = 0; nt < BK / 16; ++nt) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, Kt + (nt * 16 + (mi >> 1) * 8 + lane % 8) * LD +
+                          kk * 16 + (mi & 1) * 8);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        mma_bf16(s[t][2 * nt], qf[t], kb[0], kb[1]);
+        mma_bf16(s[t][2 * nt + 1], qf[t], kb[2], kb[3]);
       }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        Ks[t * QS + d0 + e] = kf[e];
-        Vs[t * HD + d0 + e] = vf[e];
-      }
     }
-    __syncthreads();
-
-    // ---- scores: s[i][j] = q[4ty+i] . k[tx+8j]
-    float s[4][CPT];
+  }
+  const Logit logit(a);
+  if (logit.cap) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int t = 0; t < MT; ++t)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qa[4], ka[CPT];
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * QS + d]);
+        for (int e = 0; e < 4; ++e) s[t][j][e] = logit.capped(s[t][j][e]);
+  }
+  float alpha[MT][2];
+  uint32_t pa[MT][BK / 16][4];   // P rounded to bf16: the A fragments of P V
 #pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        ka[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 8 * j) * QS + d]);
+  for (int t = 0; t < MT; ++t) {
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          float a = s[i][j];
-          a = fmaf(qa[i].x, ka[j].x, a);
-          a = fmaf(qa[i].y, ka[j].y, a);
-          a = fmaf(qa[i].z, ka[j].z, a);
-          a = fmaf(qa[i].w, ka[j].w, a);
-          s[i][j] = a;
+      for (int e = 0; e < 4; ++e) {
+        float x = s[t][j][e];
+        if constexpr (MASK) {
+          const int kpos = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          if (!key_ok(a, kpos, qp[t][e >> 1]))
+            x = __uint_as_float(0xff800000u);
         }
-    }
-
-    // ---- softcap, masks, online-softmax update; P -> smem
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bool ok[CPT];
-      float mloc = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        float x = s[i][j];
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        ok[j] = kpos < Sk && (!causal || kpos <= qpos[i]) &&
-                (window <= 0 || kpos > qpos[i] - window);
-        s[i][j] = x;
-        if (ok[j]) mloc = fmaxf(mloc, x);
+        s[t][j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1)
-        mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, o, 8));
-      const float m_new = fmaxf(m_run[i], mloc);
-      float lsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty * 4 + i) * PS + tx + 8 * j] = p;
-        lsum += p;
-      }
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1)
-        lsum += __shfl_xor_sync(0xffffffffu, lsum, o, 8);
-      const float alpha = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha + lsum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * DPT; ++c) acc[i][c] *= alpha;
     }
-    __syncwarp();   // a row's P comes from the eight lanes that read it
+    float neg_m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = mx[r];
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float m_new = fmaxf(m_run[t][r], m * logit.c);  // >= NEG_INF
+      alpha[t][r] = exp2_fast(m_run[t][r] - m_new);
+      m_run[t][r] = m_new;
+      neg_m[r] = -m_new;
+      l_run[t][r] *= alpha[t][r];
+    }
+    // l sums the unrounded P
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2_fast(fmaf(s[t][j][e], logit.c, neg_m[e >> 1]));
+        l_run[t][e >> 1] += p[e];
+      }
+      pa[t][j / 2][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[t][j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[t][j][0] *= alpha[t][0];
+      o[t][j][1] *= alpha[t][0];
+      o[t][j][2] *= alpha[t][1];
+      o[t][j][3] *= alpha[t][1];
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int nd = 0; nd < HD / 16; ++nd) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, Vt + (kk * 16 + (mi & 1) * 8 + lane % 8) * LD +
+                                nd * 16 + (mi >> 1) * 8);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        mma_bf16(o[t][2 * nd], pa[t][kk], vb[0], vb[1]);
+        mma_bf16(o[t][2 * nd + 1], pa[t][kk], vb[2], vb[3]);
+      }
+    }
+  }
+}
 
-    // ---- acc[i][.] += P[4ty+i][t] * V[t][4tx + 32jj ..]
-#pragma unroll 2
-    for (int t = 0; t < BK; t += 4) {
-      float4 pa[4];
+// Registers are capped for 16 warps per SM at hd <= 64 with one m tile a
+// warp (8 left the softmax's latency exposed), 12 with two, else 8.
+template <int HD, int WARPS, int MT>
+__global__ void __launch_bounds__(
+    32 * WARPS, HD > 64 || MT == 2 ? 8 / WARPS : 16 / WARPS)
+    flash_attention_kernel_mma(const Args a) {
+  using L = MmaSmem<HD, WARPS, MT>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int LD = L::LD;
+  constexpr int ROWS = L::ROWS;
+  constexpr int WROWS = 16 * MT;            // query rows per warp
+  constexpr int THREADS = 32 * WARPS;
+  constexpr int CPR = HD / 8;               // 16-byte chunks per row
+  static_assert(HD % 16 == 0 && (L::Q_ELEMS * 2) % 16 == 0 &&
+                    (L::STAGE * 2) % 16 == 0,
+                "alignment");
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* stages = Qs + L::Q_ELEMS;
+
+  const int h = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;   // latest first
+  const int kvh = h / (a.H / a.KH);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const Walk w = walk_of(a, q0, ROWS);
+  const int n_tiles = w.kt_end - w.kt_begin;
+
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) +
+                            b * a.qsb + (long long)h * a.qsh;
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) +
+                            b * a.ksb + (long long)kvh * a.ksh;
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) +
+                            b * a.vsb + (long long)kvh * a.vsh;
+
+  // Q rows (zero past Sq), in the first copy group
+  for (int i = tid; i < ROWS * CPR; i += THREADS) {
+    const int r = i / CPR, ch = i % CPR;
+    const bool ok = q0 + r < a.Sq;
+    cp_async16(Qs + r * LD + ch * 8,
+               qb + (ok ? (long long)(q0 + r) * a.qss : 0) + ch * 8, ok);
+  }
+  // the copies of walk step it into stage it % STAGES, one group
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      __nv_bfloat16* st = stages + (it % STAGES) * L::STAGE;
+      const int k0 = (w.kt_begin + it) * BK;
+      for (int i = tid; i < BK * CPR; i += THREADS) {
+        const int t = i / CPR, ch = i % CPR;
+        const bool ok = k0 + t < a.Sk;
+        const long long row = ok ? k0 + t : 0;
+        cp_async16(st + t * LD + ch * 8, kb + row * a.kss + ch * 8, ok);
+        cp_async16(st + L::TILE + t * LD + ch * 8, vb + row * a.vss + ch * 8,
+                   ok);
+      }
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(&Ps[(ty * 4 + i) * PS + t]);
+  for (int it = 0; it < STAGES - 1; ++it) issue(it);
+
+  const int row_w = q0 + warp * WROWS;        // this warp's first row
+  const bool idle = row_w >= a.Sq;            // every row past Sq
+  const int qa_w = a.Sk - a.Sq + row_w;       // its first and last position
+  const int qb_w = qa_w + WROWS - 1;
+  const __nv_bfloat16* Qw = Qs + warp * WROWS * LD;
+  int qp[MT][2];
+  float o[MT][HD / 8][4], m_run[MT][2], l_run[MT][2];
 #pragma unroll
-      for (int tt = 0; tt < 4; ++tt) {
+  for (int t = 0; t < MT; ++t) {
 #pragma unroll
-        for (int jj = 0; jj < DPT; ++jj) {
+    for (int r = 0; r < 2; ++r) {
+      qp[t][r] = qa_w + 16 * t + lane / 4 + 8 * r;
+      m_run[t][r] = NEG_INF;
+      l_run[t][r] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      o[t][j][0] = o[t][j][1] = o[t][j][2] = o[t][j][3] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<STAGES - 2>();   // step it (and Q) landed
+    __syncthreads();               // ... for every thread; step it - 1 is
+                                   // done with, so its stage refills
+    issue(it + STAGES - 1);
+    if (idle) continue;
+    const __nv_bfloat16* Kt = stages + (it % STAGES) * L::STAGE;
+    const __nv_bfloat16* Vt = Kt + L::TILE;
+    const int k0 = (w.kt_begin + it) * BK;
+    if (!tile_masked(a, k0, w.qa, w.qb)) {
+      mma_tile<HD, MT, false>(a, Qw, Kt, Vt, LD, k0, qp, lane, m_run, l_run,
+                              o);
+    } else if (!tile_dead(a, k0, qa_w, qb_w)) {
+      mma_tile<HD, MT, true>(a, Qw, Kt, Vt, LD, k0, qp, lane, m_run, l_run,
+                             o);
+    }
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[t][r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = row_w + 16 * t + lane / 4 + 8 * r;
+      if (row >= a.Sq) continue;
+      __nv_bfloat16* op = out + ((b * a.Sq + row) * a.H + h) * (long long)HD +
+                          2 * (lane % 4);
+      const float inv = 1.f / fmaxf(l, 1e-20f);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+            o[t][j][2 * r] * inv, o[t][j][2 * r + 1] * inv);
+    }
+  }
+}
+
+// --------------------------------------------------------- f32: CUDA cores
+// 8 warps, 16 query rows each.  A warp's lanes are 4 row groups (rg = lane
+// / 8) x 8 column lanes (cl = lane % 8): a thread owns rows rg + 4j (j < 4)
+// of its warp's 16, keys cl + 8i (i < 8) of the tile, and dims 4 cl + 32u
+// .. +3 (u < hd/32) of the output.  Each shared load then has at most 8
+// distinct 16-byte addresses (two wavefronts), and a 4-deep step of the
+// scores issues 12 loads (24 wavefronts) for 128 FMAs.
+constexpr int SIMT_WARPS = 8;
+constexpr int SIMT_THREADS = 32 * SIMT_WARPS;
+constexpr int SIMT_ROWS = 16 * SIMT_WARPS;   // query rows per CTA
+constexpr int PQ = 16;                       // keys per P pass
+constexpr int PS = PQ + 8;                   // P row stride: conflict-free
+
+// Dynamic shared memory of one CTA, in floats: Q, two stages of K and V
+// (Q's and K's 16-byte chunk c of row r at c ^ (r & 7)), each warp's P
+// pass.  108 KB at hd 64: two CTAs of 8 warps per SM.
+template <int HD>
+struct SimtSmem {
+  static constexpr int Q = SIMT_ROWS * HD;
+  static constexpr int TILE = BK * HD;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int P = SIMT_WARPS * 16 * PS;
+  static constexpr int BYTES = 4 * (Q + 2 * STAGE + P);
+};
+
+// One key tile for one warp (the layout above): scores, online softmax,
+// then O += P V in four passes of 16 keys through the warp's P rows.
+template <int HD, bool MASK>
+__device__ __forceinline__ void simt_tile(
+    const Args& a, const float* Qw, const float* Kt, const float* Vt,
+    float* Pw, int k0, int qa_w, int rg, int cl, float (&m_run)[4],
+    float (&l_run)[4], float (&acc)[4][HD / 8]) {
+  constexpr int U = HD / 32;                 // float4 groups per thread
+  float s[4][8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[j][i] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < HD / 4; ++c) {
+    float4 qv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = rg + 4 * j;              // (r & 7) == (4j + rg) & 7
+      qv[j] = *reinterpret_cast<const float4*>(Qw + r * HD +
+                                               4 * (c ^ (r & 7)));
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = cl + 8 * i;              // t & 7 == cl
+      const float4 kv =
+          *reinterpret_cast<const float4*>(Kt + t * HD + 4 * (c ^ cl));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[j][i];
+        x = fmaf(qv[j].x, kv.x, x);
+        x = fmaf(qv[j].y, kv.y, x);
+        x = fmaf(qv[j].z, kv.z, x);
+        x = fmaf(qv[j].w, kv.w, x);
+        s[j][i] = x;
+      }
+    }
+  }
+  const Logit logit(a);
+  if (logit.cap) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[j][i] = logit.capped(s[j][i]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float m = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float x = s[j][i];
+      if constexpr (MASK) {
+        if (!key_ok(a, k0 + cl + 8 * i, qa_w + rg + 4 * j))
+          x = __uint_as_float(0xff800000u);
+      }
+      s[j][i] = x;
+      m = fmaxf(m, x);
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)    // the row's 8 lanes
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const float m_new = fmaxf(m_run[j], m * logit.c);  // finite: >= NEG_INF
+    const float alpha = exp2_fast(m_run[j] - m_new);
+    m_run[j] = m_new;
+    float l = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s[j][i] = exp2_fast(fmaf(s[j][i], logit.c, -m_new));
+      l += s[j][i];
+    }
+    l_run[j] = l_run[j] * alpha + l;         // this lane's keys only
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d) acc[j][d] *= alpha;
+  }
+#pragma unroll
+  for (int pass = 0; pass < BK / PQ; ++pass) {
+    __syncwarp();                            // the last pass's reads done
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {            // keys cl, cl + 8 of the pass
+      Pw[(rg + 4 * j) * PS + cl] = s[j][2 * pass];
+      Pw[(rg + 4 * j) * PS + cl + 8] = s[j][2 * pass + 1];
+    }
+    __syncwarp();
+    const float* vp = Vt + pass * PQ * HD + 4 * cl;
+#pragma unroll
+    for (int t4 = 0; t4 < PQ; t4 += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pv[j] = *reinterpret_cast<const float4*>(Pw + (rg + 4 * j) * PS + t4);
+#pragma unroll
+      for (int u4 = 0; u4 < 4; ++u4) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
           const float4 vv = *reinterpret_cast<const float4*>(
-              &Vs[(t + tt) * HD + tx * 4 + 32 * jj]);
+              vp + (t4 + u4) * HD + 32 * u);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = tt == 0 ? pa[i].x : tt == 1 ? pa[i].y
-                          : tt == 2 ? pa[i].z : pa[i].w;
-            acc[i][4 * jj + 0] = fmaf(p, vv.x, acc[i][4 * jj + 0]);
-            acc[i][4 * jj + 1] = fmaf(p, vv.y, acc[i][4 * jj + 1]);
-            acc[i][4 * jj + 2] = fmaf(p, vv.z, acc[i][4 * jj + 2]);
-            acc[i][4 * jj + 3] = fmaf(p, vv.w, acc[i][4 * jj + 3]);
+          for (int j = 0; j < 4; ++j) {
+            const float p = u4 == 0 ? pv[j].x : u4 == 1 ? pv[j].y
+                          : u4 == 2 ? pv[j].z : pv[j].w;
+            acc[j][4 * u + 0] = fmaf(p, vv.x, acc[j][4 * u + 0]);
+            acc[j][4 * u + 1] = fmaf(p, vv.y, acc[j][4 * u + 1]);
+            acc[j][4 * u + 2] = fmaf(p, vv.z, acc[j][4 * u + 2]);
+            acc[j][4 * u + 3] = fmaf(p, vv.w, acc[j][4 * u + 3]);
           }
         }
       }
     }
   }
+}
 
-  // ---- out = acc / max(l, 1e-20), dense [N, Sq, H, hd]
+template <int HD>
+__global__ void __launch_bounds__(SIMT_THREADS, HD <= 64 ? 2 : 1)
+    flash_attention_kernel_simt(const Args a) {
+  using L = SimtSmem<HD>;
+  constexpr int CPR = HD / 4;                // 16-byte chunks per row
+  static_assert(HD % 32 == 0 && CPR >= 8, "head dim");
+  extern __shared__ __align__(16) float fsmem[];
+  float* Qs = fsmem;
+  float* stages = Qs + L::Q;
+  float* Ps = stages + 2 * L::STAGE;
+
+  const int h = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * SIMT_ROWS;   // latest first
+  const int kvh = h / (a.H / a.KH);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 8, cl = lane % 8;
+  const Walk w = walk_of(a, q0, SIMT_ROWS);
+  const int n_tiles = w.kt_end - w.kt_begin;
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.qsb +
+                    (long long)h * a.qsh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ksb +
+                    (long long)kvh * a.ksh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vsb +
+                    (long long)kvh * a.vsh;
+
+  for (int i = tid; i < SIMT_ROWS * CPR; i += SIMT_THREADS) {
+    const int r = i / CPR, ch = i % CPR;
+    const bool ok = q0 + r < a.Sq;
+    cp_async16(Qs + r * HD + 4 * (ch ^ (r & 7)),
+               qb + (ok ? (long long)(q0 + r) * a.qss : 0) + 4 * ch, ok);
+  }
+  // the copies of walk step it into stage it % 2, one group
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      float* st = stages + (it & 1) * L::STAGE;
+      const int k0 = (w.kt_begin + it) * BK;
+      for (int i = tid; i < BK * CPR; i += SIMT_THREADS) {
+        const int t = i / CPR, ch = i % CPR;
+        const bool ok = k0 + t < a.Sk;
+        const long long row = ok ? k0 + t : 0;
+        cp_async16(st + t * HD + 4 * (ch ^ (t & 7)),
+                   kb + row * a.kss + 4 * ch, ok);
+        cp_async16(st + L::TILE + t * HD + 4 * ch, vb + row * a.vss + 4 * ch,
+                   ok);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const int row_w = q0 + warp * 16;
+  const bool idle = row_w >= a.Sq;
+  const int qa_w = a.Sk - a.Sq + row_w;
+  const float* Qw = Qs + warp * 16 * HD;
+  float* Pw = Ps + warp * 16 * PS;
+  float m_run[4], l_run[4], acc[4][HD / 8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    T* o = out + ((b * Sq + row) * H + h) * (long long)HD;
-    const float denom = fmaxf(l_run[i], 1e-20f);
+  for (int j = 0; j < 4; ++j) {
+    m_run[j] = NEG_INF;
+    l_run[j] = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < DPT; ++jj)
+    for (int d = 0; d < HD / 8; ++d) acc[j][d] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();      // step it (and Q) landed
+    __syncthreads();         // ... for every thread; step it - 1 is done
+    issue(it + 1);           // with, so its stage refills under this math
+    if (idle) continue;
+    const float* Kt = stages + (it & 1) * L::STAGE;
+    const float* Vt = Kt + L::TILE;
+    const int k0 = (w.kt_begin + it) * BK;
+    if (!tile_masked(a, k0, w.qa, w.qb)) {
+      simt_tile<HD, false>(a, Qw, Kt, Vt, Pw, k0, qa_w, rg, cl, m_run, l_run,
+                           acc);
+    } else if (!tile_dead(a, k0, qa_w, qa_w + 15)) {
+      simt_tile<HD, true>(a, Qw, Kt, Vt, Pw, k0, qa_w, rg, cl, m_run, l_run,
+                          acc);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = static_cast<float*>(a.out);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store_as(o + tx * 4 + 32 * jj + e, acc[i][4 * jj + e] / denom);
+  for (int j = 0; j < 4; ++j) {
+    float l = l_run[j];
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    const int row = row_w + rg + 4 * j;
+    if (row >= a.Sq) continue;
+    float* op = out + ((b * a.Sq + row) * a.H + h) * (long long)HD + 4 * cl;
+    const float inv = 1.f / fmaxf(l, 1e-20f);
+#pragma unroll
+    for (int u = 0; u < HD / 32; ++u)
+      *reinterpret_cast<float4*>(op + 32 * u) =
+          make_float4(acc[j][4 * u] * inv, acc[j][4 * u + 1] * inv,
+                      acc[j][4 * u + 2] * inv, acc[j][4 * u + 3] * inv);
   }
 }
 
-template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int N,
-              int Sq, int Sk, int H, int KH, const long long* qst,
-              const long long* kst, const long long* vst, int causal,
-              int window, float scale, float softcap, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T, HD>;
-  constexpr int SMEM = smem_bytes(HD);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, H, N);
-  kern<<<grid, THREADS, SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KH, qst[0],
-      qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2], causal,
-      window, scale, softcap);
+// ----------------------------------------------------------------- launch
+// Sets the kernel's dynamic shared memory once per device, then launches.
+template <typename K>
+int launch(K kern, int smem, dim3 grid, int threads, const Args& a,
+           cudaStream_t st, unsigned long long& configured) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return -5;
+  if (!(configured >> dev & 1ull)) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    configured |= 1ull << dev;
+  }
+  kern<<<grid, threads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_typed(int hd, const void* q, const void* k, const void* v,
-                 void* out, int N, int Sq, int Sk, int H, int KH,
-                 const long long* qst, const long long* kst,
-                 const long long* vst, int causal, int window, float scale,
-                 float softcap, cudaStream_t stream) {
-#define FA_LAUNCH(HDV)                                                    \
-  return launch_hd<T, HDV>(q, k, v, out, N, Sq, Sk, H, KH, qst, kst, vst, \
-                           causal, window, scale, softcap, stream)
-  switch (hd) {
-    case 32: FA_LAUNCH(32);
-    case 64: FA_LAUNCH(64);
-    case 128: FA_LAUNCH(128);
-    default: return -1;
+template <int HD, int WARPS, int MT>
+int launch_mma(const Args& a, int N, cudaStream_t st) {
+  static unsigned long long configured = 0;
+  constexpr int ROWS = 16 * MT * WARPS;
+  const dim3 grid(a.H, N, (a.Sq + ROWS - 1) / ROWS);
+  return launch(flash_attention_kernel_mma<HD, WARPS, MT>,
+                MmaSmem<HD, WARPS, MT>::BYTES, grid, 32 * WARPS, a, st,
+                configured);
+}
+
+template <int HD>
+int launch_simt(const Args& a, int N, cudaStream_t st) {
+  static unsigned long long configured = 0;
+  const dim3 grid(a.H, N, (a.Sq + SIMT_ROWS - 1) / SIMT_ROWS);
+  return launch(flash_attention_kernel_simt<HD>, SimtSmem<HD>::BYTES, grid,
+                SIMT_THREADS, a, st, configured);
+}
+
+// tile: the bf16 CTA shape, 0 = 4 warps x 16 rows, 1 = 8 x 16, 2 = 4 x 32
+template <int HD>
+int launch_hd(int dtype, int tile, const Args& a, int N, cudaStream_t st) {
+  if (dtype == F32) return launch_simt<HD>(a, N, st);
+  if (dtype != BF16) return -2;
+  switch (tile) {
+    case 0: return launch_mma<HD, 4, 1>(a, N, st);
+    case 1: return launch_mma<HD, 8, 1>(a, N, st);
+    case 2: return launch_mma<HD, 4, 2>(a, N, st);
+    default: return -3;
   }
-#undef FA_LAUNCH
 }
 
 }  // namespace
 
 // q [N, Sq, H, hd], k/v [N, Sk, KH, hd] with element strides (batch, seq,
 // head) in q_strides / k_strides / v_strides and a dense head dim; out a
-// dense [N, Sq, H, hd] of the same type.  Returns cudaGetLastError() after
-// the launch, or -1 / -2 for an unsupported head dim / dtype.
+// dense [N, Sq, H, hd] of the same type.  f32 runs on the CUDA cores, bf16
+// on the tensor cores with CTA shape ``tile`` (launch_hd).  Returns
+// cudaGetLastError() after the launch, or -1 / -2 / -3 for an unsupported
+// head dim / dtype / tile.
 extern "C" int flash_attention_launch(
-    int dtype, int hd, const void* q, const void* k, const void* v, void* out,
-    int N, int Sq, int Sk, int H, int KH, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, int causal, int window, float scale,
-    float softcap, void* stream) {
-  const long long qst[3] = {qsb, qss, qsh};
-  const long long kst[3] = {ksb, kss, ksh};
-  const long long vst[3] = {vsb, vss, vsh};
+    int dtype, int hd, int tile, const void* q, const void* k,
+    const void* v, void* out, int N, int Sq, int Sk, int H, int KH,
+    long long qsb, long long qss, long long qsh, long long ksb,
+    long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, int causal, int window, float scale, float softcap,
+    void* stream) {
+  const Args a{q,   k,   v,   out, Sq,  Sk,  H,   KH,     qsb,    qss, qsh,
+               ksb, kss, ksh, vsb, vss, vsh, causal, window, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == F32)
-    return launch_typed<float>(hd, q, k, v, out, N, Sq, Sk, H, KH, qst, kst,
-                               vst, causal, window, scale, softcap, st);
-  if (dtype == BF16)
-    return launch_typed<__nv_bfloat16>(hd, q, k, v, out, N, Sq, Sk, H, KH,
-                                       qst, kst, vst, causal, window, scale,
-                                       softcap, st);
-  return -2;
+  switch (hd) {
+    case 32: return launch_hd<32>(dtype, tile, a, N, st);
+    case 64: return launch_hd<64>(dtype, tile, a, N, st);
+    case 128: return launch_hd<128>(dtype, tile, a, N, st);
+    default: return -1;
+  }
 }

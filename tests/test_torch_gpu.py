@@ -402,12 +402,15 @@ FLASH_CASES = [
     (2, 300, 300, 4, 2, 64, True, 100, 30.0),       # window + softcap
     (1, 200, 333, 4, 2, 128, False, 0, 0.0),        # non-causal, ragged
     (3, 77, 77, 2, 2, 32, True, 16, 0.0),           # ragged, tiny window
+    # long walks over both branches (interior tiles unmasked)
+    (1, 1024, 1024, 4, 2, 64, True, 0, 0.0),
+    (1, 1000, 1500, 4, 4, 128, True, 0, 0.0),
+    (1, 1024, 1024, 2, 1, 64, True, 300, 0.0),
 ]
-
-
 # flash within tol times each output row's max |plain| (as chip_smoke.py's
-# FLASH_TOL): f32 the summation order, bf16 1e-2 (at S 2048 a 2e-2 limit
-# rejects a dropped 64-key tile by as little as 2x in the longest rows)
+# FLASH_TOL): f32 the summation order, bf16 1e-2 (one ulp of a bf16 output
+# is at most 2^-7 of its row's max; at S 2048 a 2e-2 limit rejects a
+# dropped 64-key tile by as little as 2x in the longest rows)
 FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
 
 
@@ -417,7 +420,11 @@ FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
 def test_flash_attention_matches_plain(dev, kind, case):
     """The kernel against ``flash_attention_plain`` on the same CUDA
     tensors, within ``FLASH_TOL`` of each output row's max |plain|, with
-    strided (non-contiguous) q, k and v."""
+    strided (non-contiguous) q, k and v; bf16 on the tensor-core path, f32
+    on the CUDA-core path, one CUDA kernel per call.  On the long cases the
+    check must also reject the plain output with each row's first 64 keys
+    left out, in every row at position >= 256."""
+    from repro_torch.kernels import _flash_launch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     n, sq, sk, h, kh, hd, causal, window, softcap = case
@@ -428,27 +435,59 @@ def test_flash_attention_matches_plain(dev, kind, case):
                       device=dev).to(dt)
     q, k, v = qkv[:, sk - sq:, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
     before = flash_attention.launches
+    paths = dict(_flash_launch.PATH_LAUNCHES)
     opts = dict(causal=causal, window=window, softcap=softcap)
     got = flash_attention(q, k, v, **opts)
     want = flash_attention_plain(q, k, v, **opts)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    paths["mma" if kind == "bf16" else "simt"] += 1
+    assert _flash_launch.PATH_LAUNCHES == paths
     assert got.shape == q.shape and got.dtype == dt
     _within_rows(got, want, FLASH_TOL[kind])
+    assert _kernels_per_call(lambda: flash_attention(q, k, v, **opts)) == 1
+    if sq >= 1000 and not window:
+        bad = flash_attention_plain(q, k[:, 64:], v[:, 64:], **opts)
+        long = torch.arange(sq, device=dev) + sk - sq >= 256
+        over = ((bad.float() - want.float()).abs()
+                > _row_limit(want, FLASH_TOL[kind])).any(-1)    # [N, Sq, H]
+        assert bool(over[:, long].all())
+
+
+@pytest.mark.parametrize("tile", ["w4x16", "w8x16", "w4x32"])
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 3, 4, 7)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_every_mma_tile(dev, tile, case):
+    """Each CTA shape of the bf16 kernel, forced, within ``FLASH_TOL`` of
+    each output row's max |plain| (the launcher picks one per head dim)."""
+    from repro_torch.kernels import _flash_launch
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    n, sq, sk, h, kh, hd, causal, window, softcap = case
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q = torch.randn(n, sq, h, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(n, sk, kh, hd, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    got = _flash_launch.launch(q, k, v, tile=tile, **opts)
+    want = flash_attention_plain(q, k, v, **opts)
+    _within_rows(got, want, FLASH_TOL["bf16"])
 
 
 def test_flash_attention_branches_share_a_launch(dev):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     gen = torch.Generator(device=dev).manual_seed(12)
-    q, k, v = (torch.randn(2, 3, 130, 4, 64, generator=gen, device=dev)
-               for _ in range(3))
-    before = flash_attention.launches
-    got = flash_attention(q, k, v, window=50)
-    assert flash_attention.launches == before + 1
-    want = torch.stack([flash_attention_plain(q[i], k[i], v[i], window=50)
-                        for i in range(2)])
-    _within_rows(got, want, FLASH_TOL["f32"])
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(2, 3, 130, 4, 64, generator=gen,
+                               device=dev).to(dt) for _ in range(3))
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, window=50)
+        assert flash_attention.launches == before + 1
+        want = torch.stack([flash_attention_plain(q[i], k[i], v[i],
+                                                  window=50)
+                            for i in range(2)])
+        _within_rows(got, want, FLASH_TOL["bf16" if dt == torch.bfloat16
+                                          else "f32"])
 
 
 def test_flash_attention_rejects_what_it_cannot_take(dev):
