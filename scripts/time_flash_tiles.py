@@ -1,8 +1,8 @@
-"""Time the flash-attention forward's bf16 tensor-core kernel in each of
-its CTA shapes (``_flash_launch.MMA_TILES``: 4 warps x 16 query rows, 8 x
-16, 4 x 32) at ``chip_smoke.py``'s flash shapes, so the launcher's choice
-(``_flash_launch.mma_tile``) rests on a measurement; the f32 CUDA-core
-kernel (one shape) is timed beside them.
+"""Time the flash-attention forward's two bf16 tensor-core kernels
+(``_flash_launch.MMA_TILES``: mma.sync on 4 warps x 32 query rows, wgmma on
+2 warpgroups x 64) at ``chip_smoke.py``'s flash shapes, so the launcher's
+choice (``_flash_launch.mma_tile``) rests on a measurement; the f32
+CUDA-core kernel (one shape) is timed beside them.
 
     PYTHONPATH=src python scripts/time_flash_tiles.py [--out tiles.json]
 
@@ -50,7 +50,9 @@ def main(argv=None) -> int:
             opts = dict(causal=causal, window=window, softcap=cap)
             want = flash_attention_plain(q, k, v, **opts)
             path = FL.path_for(dt)
-            choices = tuple(FL.MMA_TILES) if path == "mma" else (None,)
+            choices = tuple(t for t in FL.MMA_TILES
+                            if hd >= 64 or t != "wg2x64") \
+                if path == "mma" else (None,)
             variants = [(f"{path}/{t}" if t else path, lambda t=t: FL.launch(
                 q, k, v, tile=t, **opts)) for t in choices]
             for name, run in variants:

@@ -18,9 +18,10 @@ HEAD_DIMS = (32, 64, 128)
 
 #: key tokens per tile (both paths)
 KEY_TILE = 64
-#: the bf16 kernel's CTA shapes (warps x query rows per warp): its code in
-#: ``csrc/flash_attention.cu`` and its query rows per CTA
-MMA_TILES = {"w4x16": (0, 64), "w8x16": (1, 128), "w4x32": (2, 128)}
+#: the bf16 kernels: mma.sync on 4 warps of 32 query rows, wgmma on two
+#: warpgroups of 64 rows (hd 64, 128); their code in
+#: ``csrc/flash_attention.cu`` and their query rows per CTA
+MMA_TILES = {"w4x32": (0, 128), "wg2x64": (1, 128)}
 #: query rows per CTA of the f32 kernel
 SIMT_ROWS = 128
 #: launches by path since import, so a run can show which path its calls
@@ -52,10 +53,10 @@ def path_for(dtype) -> str:
 
 
 def mma_tile(hd: int) -> str:
-    """The bf16 kernel's CTA shape at head dim ``hd``: 4 warps of two m16
-    tiles (two mma per K/V fragment read); at hd 128 their accumulators
-    would spill, so 4 warps of one."""
-    return "w4x16" if hd > 64 else "w4x32"
+    """The bf16 kernel the launcher takes at head dim ``hd``: wgmma (the
+    faster on the card, ``scripts/time_flash_tiles.py``) where its 128-byte
+    rows fit, at hd 64 and 128; mma.sync at hd 32."""
+    return "wg2x64" if hd >= 64 else "w4x32"
 
 
 def tile_rows(dtype, hd: int) -> int:
@@ -137,7 +138,7 @@ def launch(q, k, v, *, causal: bool, window: int, softcap: float,
                              "16-byte aligned")
     path = path_for(q.dtype)
     tile = mma_tile(hd) if tile is None else tile
-    if tile not in MMA_TILES:
+    if tile not in MMA_TILES or (tile == "wg2x64" and hd < 64):
         raise ValueError(f"{name}: tile {tile}; the kernel takes "
                          f"{tuple(MMA_TILES)}")
     code, rows = MMA_TILES[tile] if path == "mma" else (0, SIMT_ROWS)

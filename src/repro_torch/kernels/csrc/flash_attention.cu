@@ -26,39 +26,41 @@
 // unmasked key for one of its rows: up to the causal frontier of its last
 // row, from the window start of its first row.  A key tile needs a mask
 // only if it crosses Sk, the causal frontier of the tile's first row or the
-// window edge of its last; the others take an unmasked branch.  A warp
-// skips a masked tile that holds no unmasked key for any of its rows, and
-// a warp whose rows all lie past Sq skips every tile.  K/V tiles arrive
-// through a cp.async ring (zero fill past Sk; rows past Sq are zero
-// queries), one CTA barrier per tile: after it, the next tile's copy is
-// issued into the stage every warp has finished with, and runs under this
-// tile's math.  Online-softmax state per row (max and sum in f32, in the
-// log2 domain) lives in registers.
+// window edge of its last; the others take an unmasked branch.  A warp (a
+// warpgroup under wgmma) skips a masked tile that holds no unmasked key for
+// any of its rows, and one whose rows all lie past Sq skips every tile.
+// K/V tiles arrive through a cp.async ring (zero fill past Sk; rows past Sq
+// are zero queries), one CTA barrier per tile: after it, the next tile's
+// copy is issued into the stage every warp has finished with, and runs
+// under this tile's math.  Online-softmax state per row (max and sum in
+// f32, in the log2 domain) lives in registers.
 //
-// bf16 (flash_attention_kernel_mma): tensor cores.  16 query rows per warp,
-// 4 or 8 warps; Q fragments loaded once by ldmatrix; S = Q K^T by mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) into registers; row max and sum by
-// quad shuffles; P rounded to bf16 in registers is the A operand of P V,
-// with V through ldmatrix.trans; the row sum is over the unrounded P.  A
-// 3-stage ring (2 at hd 128).  At the main path's shape (B 2, S 2048,
-// H = K = 32, hd 64, causal) the work is ~3.4e10 flops against ~67 MB:
-// bound by the tensor cores (0.035 ms at 989 TFLOP/s, the bytes 0.020
-// ms), so the design keeps
-// the mma pipe fed (no shared-memory round trip for S or P, copies
-// overlapped) and runs the exponentials of one warp beside another warp's
-// mma.
+// bf16: tensor cores, bound by them at the main path's shape (B 2, S 2048,
+// H = K = 32, hd 64, causal: ~3.4e10 flops against ~67 MB, 0.035 ms at
+// 989 TFLOP/s against 0.020 ms for the bytes).  So S and P never leave
+// registers, the copies overlap the math, and the exponentials of one warp
+// run beside another's products.  Row max and sum by quad shuffles; P
+// rounded to bf16 is the A operand of P V; the row sum is over the
+// unrounded P.  Two kernels (scripts/time_flash_tiles.py times each shape):
+// - flash_attention_kernel_wgmma (hd 64, 128): two warpgroups of 64 rows;
+//   S = Q K^T and P V by wgmma.mma_async, Q, K and V read by the tensor
+//   cores from 128-byte-swizzled shared memory, P from registers.
+// - flash_attention_kernel_mma (hd 32): mma.sync m16n8k16 on 4 warps of 32
+//   query rows (two m16 tiles, so each K and V fragment read by ldmatrix
+//   feeds two mma), V through ldmatrix.trans.
+// A 3-stage ring (2 at hd 128, where 3 would leave one CTA per SM).
 //
 // f32 (flash_attention_kernel_simt): CUDA cores, f32 arithmetic (tensor
-// cores would mean TF32, a precision decision).  128 query rows per CTA of
-// 8 warps, a warp owning 16 rows; for the scores lane l owns keys l and
-// l + 32 of the tile, for the output dims l * hd/32 ...  Q, and P, are read
-// at one address per warp (broadcast), K from a 16-byte-chunk swizzled
-// tile (conflict-free), V along the lane; per 4-deep step a warp issues
-// 18 shared loads for 128 FMAs, so the FMA pipe, not shared memory, sets
-// the pace.  P goes through shared memory in two 32-key halves (a warp's
-// own rows, under __syncwarp), which keeps the CTA at 113 KB at hd 64: two
-// CTAs of 8 warps per SM.  A 2-stage ring.  The work is bound by f32
-// operations (0.51 ms at 67 TFLOP/s on the main shape).
+// cores would mean TF32, a precision decision), bound by f32 operations
+// (0.51 ms at 67 TFLOP/s on the main shape).  128 query rows per CTA of 8
+// warps, 16 rows a warp; a thread owns 4 rows x 8 keys of the scores and
+// 4 rows x hd/8 dims of the output.  A warp's 128-bit shared load takes two
+// wavefronts at best (8 or fewer distinct addresses) and four beyond, so
+// every load here has at most 8, and a 4-deep step of the scores issues 12
+// loads (24 wavefronts) for 128 FMAs per thread: the FMA pipe, not shared
+// memory, sets the pace.  P goes through shared memory in four passes of
+// 16 keys (a warp's own rows, under __syncwarp), which keeps the CTA at
+// 108 KB at hd 64: two CTAs of 8 warps per SM.  A 2-stage ring.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -201,19 +203,79 @@ __device__ __forceinline__ float exp2_fast(float x) {
   return y;
 }
 
+// Online softmax of one m16 tile's scores s (the mma C layout: element e
+// of s[j] is row lane/4 + 8 (e >> 1), token 8j + 2 (lane % 4) + (e & 1)):
+// softcap, mask (MASK), the rows' max by quad shuffles, the running max and
+// sum updated; returns P rounded to bf16 as the A fragments of P V (pa) and
+// the factors (alpha) that rescale the rows' accumulators.  l sums the
+// unrounded P.
+template <bool MASK>
+__device__ __forceinline__ void softmax16(
+    const Args& a, float (&s)[BK / 8][4], int k0, const int (&qp)[2],
+    int lane, float (&m_run)[2], float (&l_run)[2],
+    uint32_t (&pa)[BK / 16][4], float (&alpha)[2]) {
+  const Logit logit(a);
+  if (logit.cap) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = logit.capped(s[j][e]);
+  }
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (MASK) {
+        const int kpos = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+        if (!key_ok(a, kpos, qp[e >> 1]))
+          s[j][e] = __uint_as_float(0xff800000u);
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  }
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = mx[r];
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float m_new = fmaxf(m_run[r], m * logit.c);  // finite: >= NEG_INF
+    alpha[r] = exp2_fast(m_run[r] - m_new);
+    m_run[r] = m_new;
+    neg_m[r] = -m_new;
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = exp2_fast(fmaf(s[j][e], logit.c, neg_m[e >> 1]));
+      l_run[e >> 1] += p[e];
+    }
+    pa[j / 2][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+    pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+}
+
 // ------------------------------------------------------ bf16: tensor cores
-// A CTA of WARPS warps, each owning MT m16 tiles (16 MT query rows): with
-// MT = 2 every K and V fragment a warp reads from shared memory feeds two
-// mma, which halves the shared-memory reads per mma.
+// A CTA of 4 warps, each owning MT = 2 m16 tiles (32 query rows): every K
+// and V fragment a warp reads from shared memory feeds two mma, which
+// halves the shared-memory reads per mma (faster on the card than 4 or 8
+// warps of one m16 tile, 255 registers against 128).
 //
 // Dynamic shared memory of one CTA, in bf16 elements: Q, then the ring's
 // stages of K and V (rows padded by 16 bytes).  3 stages; 2 at hd 128,
 // where 3 would leave one CTA per SM.
-template <int HD, int WARPS, int MT>
+constexpr int MMA_WARPS = 4;
+constexpr int MT = 2;                        // m16 tiles per warp
+
+template <int HD>
 struct MmaSmem {
   static constexpr int STAGES = HD >= 128 ? 2 : 3;
   static constexpr int LD = HD + 8;          // bf16 row stride
-  static constexpr int ROWS = 16 * MT * WARPS;
+  static constexpr int ROWS = 16 * MT * MMA_WARPS;
   static constexpr int Q_ELEMS = ROWS * LD;
   static constexpr int TILE = BK * LD;
   static constexpr int STAGE = 2 * TILE;     // K then V
@@ -224,7 +286,7 @@ struct MmaSmem {
 // memory each tile, which leaves their registers to the accumulators),
 // online softmax, O += P V.  Element e of s[t][j]: row lane/4 + 8 (e >> 1)
 // of m tile t, token 8j + 2 (lane % 4) + (e & 1).
-template <int HD, int MT, bool MASK>
+template <int HD, bool MASK>
 __device__ __forceinline__ void mma_tile(
     const Args& a, const __nv_bfloat16* Qw, const __nv_bfloat16* Kt,
     const __nv_bfloat16* Vt, int LD, int k0, const int (&qp)[MT][2],
@@ -256,64 +318,18 @@ __device__ __forceinline__ void mma_tile(
       }
     }
   }
-  const Logit logit(a);
-  if (logit.cap) {
-#pragma unroll
-    for (int t = 0; t < MT; ++t)
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[t][j][e] = logit.capped(s[t][j][e]);
-  }
-  float alpha[MT][2];
   uint32_t pa[MT][BK / 16][4];   // P rounded to bf16: the A fragments of P V
 #pragma unroll
   for (int t = 0; t < MT; ++t) {
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[t][j][e];
-        if constexpr (MASK) {
-          const int kpos = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
-          if (!key_ok(a, kpos, qp[t][e >> 1]))
-            x = __uint_as_float(0xff800000u);
-        }
-        s[t][j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float neg_m[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float m = mx[r];
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      const float m_new = fmaxf(m_run[t][r], m * logit.c);  // >= NEG_INF
-      alpha[t][r] = exp2_fast(m_run[t][r] - m_new);
-      m_run[t][r] = m_new;
-      neg_m[r] = -m_new;
-      l_run[t][r] *= alpha[t][r];
-    }
-    // l sums the unrounded P
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = exp2_fast(fmaf(s[t][j][e], logit.c, neg_m[e >> 1]));
-        l_run[t][e >> 1] += p[e];
-      }
-      pa[t][j / 2][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-      pa[t][j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
+    float alpha[2];
+    softmax16<MASK>(a, s[t], k0, qp[t], lane, m_run[t], l_run[t], pa[t],
+                    alpha);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
-      o[t][j][0] *= alpha[t][0];
-      o[t][j][1] *= alpha[t][0];
-      o[t][j][2] *= alpha[t][1];
-      o[t][j][3] *= alpha[t][1];
+      o[t][j][0] *= alpha[0];
+      o[t][j][1] *= alpha[0];
+      o[t][j][2] *= alpha[1];
+      o[t][j][3] *= alpha[1];
     }
   }
 #pragma unroll
@@ -332,18 +348,16 @@ __device__ __forceinline__ void mma_tile(
   }
 }
 
-// Registers are capped for 16 warps per SM at hd <= 64 with one m tile a
-// warp (8 left the softmax's latency exposed), 12 with two, else 8.
-template <int HD, int WARPS, int MT>
-__global__ void __launch_bounds__(
-    32 * WARPS, HD > 64 || MT == 2 ? 8 / WARPS : 16 / WARPS)
+// Two CTAs per SM (255 registers a thread).
+template <int HD>
+__global__ void __launch_bounds__(32 * MMA_WARPS, 2)
     flash_attention_kernel_mma(const Args a) {
-  using L = MmaSmem<HD, WARPS, MT>;
+  using L = MmaSmem<HD>;
   constexpr int STAGES = L::STAGES;
   constexpr int LD = L::LD;
   constexpr int ROWS = L::ROWS;
   constexpr int WROWS = 16 * MT;            // query rows per warp
-  constexpr int THREADS = 32 * WARPS;
+  constexpr int THREADS = 32 * MMA_WARPS;
   constexpr int CPR = HD / 8;               // 16-byte chunks per row
   static_assert(HD % 16 == 0 && (L::Q_ELEMS * 2) % 16 == 0 &&
                     (L::STAGE * 2) % 16 == 0,
@@ -423,10 +437,10 @@ __global__ void __launch_bounds__(
     const __nv_bfloat16* Vt = Kt + L::TILE;
     const int k0 = (w.kt_begin + it) * BK;
     if (!tile_masked(a, k0, w.qa, w.qb)) {
-      mma_tile<HD, MT, false>(a, Qw, Kt, Vt, LD, k0, qp, lane, m_run, l_run,
+      mma_tile<HD, false>(a, Qw, Kt, Vt, LD, k0, qp, lane, m_run, l_run,
                               o);
     } else if (!tile_dead(a, k0, qa_w, qb_w)) {
-      mma_tile<HD, MT, true>(a, Qw, Kt, Vt, LD, k0, qp, lane, m_run, l_run,
+      mma_tile<HD, true>(a, Qw, Kt, Vt, LD, k0, qp, lane, m_run, l_run,
                              o);
     }
   }
@@ -450,6 +464,252 @@ __global__ void __launch_bounds__(
         *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
             o[t][j][2 * r] * inv, o[t][j][2 * r + 1] * inv);
     }
+  }
+}
+
+// ------------------------------------------------- bf16: warpgroup mma
+// hd 64 and 128.  Two warpgroups of 64 query rows; S = Q K^T by
+// wgmma.mma_async m64n64k16 with Q and K read by the tensor cores straight
+// from shared memory (K-major), P V (m64n{hd}k16) with P from registers
+// (the S accumulator's layout is the A fragments', as for mma.sync) and V
+// N-major through the transpose bit: no ldmatrix at all.  Q and the ring's
+// K and V tiles are kept as hd/64 blocks of 64 columns, each of rows of 128
+// bytes in 1024-byte atoms of the 128-byte swizzle (16-byte chunk c of row
+// r at c ^ (r & 7)), written by cp.async.
+constexpr int WG_ROWS = 128;                 // two warpgroups
+constexpr int WG_THREADS = 256;
+
+// 3 stages; 2 at hd 128, so that two CTAs fit an SM.
+template <int HD>
+struct WgSmem {                              // in bytes
+  static constexpr int STAGES = HD >= 128 ? 2 : 3;
+  static constexpr int Q_BLOCK = WG_ROWS * 128;   // 64 columns of Q
+  static constexpr int KV_BLOCK = BK * 128;       // 64 columns of K or V
+  static constexpr int TILE = HD / 64 * KV_BLOCK;
+  static constexpr int Q = HD / 64 * Q_BLOCK;
+  // Q, the ring, and slack to align it all to the swizzle's 1024 bytes
+  static constexpr int BYTES = Q + STAGES * 2 * TILE + 1024;
+};
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+#define WG_D32(B)                                                            \
+  "+f"(d[B + 0]), "+f"(d[B + 1]), "+f"(d[B + 2]), "+f"(d[B + 3]),           \
+      "+f"(d[B + 4]), "+f"(d[B + 5]), "+f"(d[B + 6]), "+f"(d[B + 7]),       \
+      "+f"(d[B + 8]), "+f"(d[B + 9]), "+f"(d[B + 10]), "+f"(d[B + 11]),     \
+      "+f"(d[B + 12]), "+f"(d[B + 13]), "+f"(d[B + 14]), "+f"(d[B + 15]),   \
+      "+f"(d[B + 16]), "+f"(d[B + 17]), "+f"(d[B + 18]), "+f"(d[B + 19]),   \
+      "+f"(d[B + 20]), "+f"(d[B + 21]), "+f"(d[B + 22]), "+f"(d[B + 23]),   \
+      "+f"(d[B + 24]), "+f"(d[B + 25]), "+f"(d[B + 26]), "+f"(d[B + 27]),   \
+      "+f"(d[B + 28]), "+f"(d[B + 29]), "+f"(d[B + 30]), "+f"(d[B + 31])
+#define WG_D32_TEXT                                                  \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31"
+#define WG_D64_TEXT                                                          \
+  WG_D32_TEXT ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
+              "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+              "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d = (acc ? d : 0) + A (64 x 16, K-major, desc da) @ B (16 x 64, K-major,
+// desc db): one warpgroup, bf16 -> f32.
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_D32_TEXT
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d += A (64 x 16 from registers: each warp its 16 rows as mma.sync A
+// fragments) @ B (16 x N, N-major through the transpose bit, desc db).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_D32_TEXT
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 128, "wgmma n");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_D64_TEXT
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_D32(0), WG_D32(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+#undef WG_D32
+#undef WG_D32_TEXT
+#undef WG_D64_TEXT
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// One key tile for one warpgroup.
+template <int HD, bool MASK>
+__device__ __forceinline__ void wgmma_tile(
+    const Args& a, const uint8_t* Qg, const uint8_t* Kt, const uint8_t* Vt,
+    int k0, const int (&qp)[2], int lane, float (&m_run)[2],
+    float (&l_run)[2], float (&o)[HD / 8][4]) {
+  using L = WgSmem<HD>;
+  float s[BK / 8][4];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {   // k step: 32 bytes along a row
+    const int blk = kk / 4, col = kk % 4 * 32;
+    wgmma_ss(&s[0][0], sw128_desc(Qg + blk * L::Q_BLOCK + col, 16, 1024),
+             sw128_desc(Kt + blk * L::KV_BLOCK + col, 16, 1024), kk);
+  }
+  wgmma_wait();
+  fence_acc(s);
+  uint32_t pa[BK / 16][4];
+  float alpha[2];
+  softmax16<MASK>(a, s, k0, qp, lane, m_run, l_run, pa, alpha);
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+  fence_acc(o);
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+  // k step: 16 rows of V (LBO: the next 64-column block)
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<HD>(&o[0][0], pa[kk],
+                 sw128_desc(Vt + kk * 2048, L::KV_BLOCK, 1024));
+  wgmma_wait();
+  fence_acc(o);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+    flash_attention_kernel_wgmma(const Args a) {
+  using L = WgSmem<HD>;
+  constexpr int WG_STAGES = L::STAGES;
+  constexpr int CPR = HD / 8;               // 16-byte chunks per row
+  extern __shared__ uint8_t wg_raw[];
+  uint8_t* Qs = wg_raw + ((1024 - (smem_u32(wg_raw) & 1023)) & 1023);
+  uint8_t* stages = Qs + L::Q;
+
+  const int h = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * WG_ROWS;   // latest first
+  const int kvh = h / (a.H / a.KH);
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4;
+  const int lane = tid % 32;
+  const Walk w = walk_of(a, q0, WG_ROWS);
+  const int n_tiles = w.kt_end - w.kt_begin;
+
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) +
+                            b * a.qsb + (long long)h * a.qsh;
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) +
+                            b * a.ksb + (long long)kvh * a.ksh;
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) +
+                            b * a.vsb + (long long)kvh * a.vsh;
+
+  // 16-byte chunk ch of row r: block ch / 8, swizzled chunk in the block
+  auto at = [](int r, int ch, int block_bytes) {
+    return ch / 8 * block_bytes + r * 128 + 16 * ((ch % 8) ^ (r & 7));
+  };
+  for (int i = tid; i < WG_ROWS * CPR; i += WG_THREADS) {
+    const int r = i / CPR, ch = i % CPR;
+    const bool ok = q0 + r < a.Sq;
+    cp_async16(Qs + at(r, ch, L::Q_BLOCK),
+               qb + (ok ? (long long)(q0 + r) * a.qss : 0) + ch * 8, ok);
+  }
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      uint8_t* st = stages + (it % WG_STAGES) * 2 * L::TILE;
+      const int k0 = (w.kt_begin + it) * BK;
+      for (int i = tid; i < BK * CPR; i += WG_THREADS) {
+        const int t = i / CPR, ch = i % CPR;
+        const bool ok = k0 + t < a.Sk;
+        const long long row = ok ? k0 + t : 0;
+        const int off = at(t, ch, L::KV_BLOCK);
+        cp_async16(st + off, kb + row * a.kss + ch * 8, ok);
+        cp_async16(st + L::TILE + off, vb + row * a.vss + ch * 8, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int it = 0; it < WG_STAGES - 1; ++it) issue(it);
+
+  const int row_g = q0 + wg * 64;              // this warpgroup's first row
+  const bool idle = row_g >= a.Sq;
+  const int qa_g = a.Sk - a.Sq + row_g;
+  const int qp[2] = {qa_g + warp * 16 + lane / 4,
+                     qa_g + warp * 16 + lane / 4 + 8};
+  const uint8_t* Qg = Qs + wg * 64 * 128;
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<WG_STAGES - 2>();   // step it (and Q) landed
+    // the tensor cores read shared memory through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();                  // step it - 1 is done with, so its
+    issue(it + WG_STAGES - 1);        // stage refills under this math
+    if (idle) continue;
+    const uint8_t* Kt = stages + (it % WG_STAGES) * 2 * L::TILE;
+    const int k0 = (w.kt_begin + it) * BK;
+    if (!tile_masked(a, k0, w.qa, w.qb)) {
+      wgmma_tile<HD, false>(a, Qg, Kt, Kt + L::TILE, k0, qp, lane, m_run,
+                            l_run, o);
+    } else if (!tile_dead(a, k0, qa_g, qa_g + 63)) {
+      wgmma_tile<HD, true>(a, Qg, Kt, Kt + L::TILE, k0, qp, lane, m_run,
+                           l_run, o);
+    }
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row_g + warp * 16 + lane / 4 + 8 * r;
+    if (row >= a.Sq) continue;
+    __nv_bfloat16* op = out + ((b * a.Sq + row) * a.H + h) * (long long)HD +
+                        2 * (lane % 4);
+    const float inv = 1.f / fmaxf(l, 1e-20f);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
   }
 }
 
@@ -709,14 +969,13 @@ int launch(K kern, int smem, dim3 grid, int threads, const Args& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, int WARPS, int MT>
+template <int HD>
 int launch_mma(const Args& a, int N, cudaStream_t st) {
   static unsigned long long configured = 0;
-  constexpr int ROWS = 16 * MT * WARPS;
+  constexpr int ROWS = MmaSmem<HD>::ROWS;
   const dim3 grid(a.H, N, (a.Sq + ROWS - 1) / ROWS);
-  return launch(flash_attention_kernel_mma<HD, WARPS, MT>,
-                MmaSmem<HD, WARPS, MT>::BYTES, grid, 32 * WARPS, a, st,
-                configured);
+  return launch(flash_attention_kernel_mma<HD>, MmaSmem<HD>::BYTES, grid,
+                32 * MMA_WARPS, a, st, configured);
 }
 
 template <int HD>
@@ -727,17 +986,25 @@ int launch_simt(const Args& a, int N, cudaStream_t st) {
                 SIMT_THREADS, a, st, configured);
 }
 
-// tile: the bf16 CTA shape, 0 = 4 warps x 16 rows, 1 = 8 x 16, 2 = 4 x 32
+template <int HD>
+int launch_wgmma(const Args& a, int N, cudaStream_t st) {
+  static unsigned long long configured = 0;
+  const dim3 grid(a.H, N, (a.Sq + WG_ROWS - 1) / WG_ROWS);
+  return launch(flash_attention_kernel_wgmma<HD>, WgSmem<HD>::BYTES, grid,
+                WG_THREADS, a, st, configured);
+}
+
+// tile: the bf16 kernel, 0 = mma.sync on 4 warps x 32 rows, 1 = wgmma on
+// 2 warpgroups (hd 64, 128)
 template <int HD>
 int launch_hd(int dtype, int tile, const Args& a, int N, cudaStream_t st) {
   if (dtype == F32) return launch_simt<HD>(a, N, st);
   if (dtype != BF16) return -2;
-  switch (tile) {
-    case 0: return launch_mma<HD, 4, 1>(a, N, st);
-    case 1: return launch_mma<HD, 8, 1>(a, N, st);
-    case 2: return launch_mma<HD, 4, 2>(a, N, st);
-    default: return -3;
+  if (tile == 0) return launch_mma<HD>(a, N, st);
+  if constexpr (HD >= 64) {
+    if (tile == 1) return launch_wgmma<HD>(a, N, st);
   }
+  return -3;
 }
 
 }  // namespace

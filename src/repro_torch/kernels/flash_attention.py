@@ -9,10 +9,10 @@ the key range, fully masked key blocks skipped.  The CUDA kernels live in
 the 64-token key tiles that ``_flash_launch.flash_plan`` gives (masks only
 on the tiles crossing the causal frontier, the window edge or Sk) through
 a ``cp.async`` ring, online softmax in f32, q/k/v read in the [B, S, H, hd]
-layout through strides.  bf16 runs on the tensor cores (``mma.sync``, P
-rounded to bf16 for P·V), f32 on the CUDA cores in f32 (tensor cores would
-mean TF32); :func:`flash_attention_emulated` walks the same tiles in plain
-PyTorch.  Forward only: ``repro_torch.models.attention`` wraps it with a
+layout through strides.  bf16 runs on the tensor cores (``wgmma`` at hd
+64, ``mma.sync`` at hd 32 and 128; P rounded to bf16 for P·V), f32 on the
+CUDA cores in f32 (tensor cores would mean TF32);
+:func:`flash_attention_emulated` walks the same tiles in plain PyTorch.  Forward only: ``repro_torch.models.attention`` wraps it with a
 recomputing backward, as the JAX package does.
 """
 from __future__ import annotations

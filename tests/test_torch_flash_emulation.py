@@ -126,10 +126,12 @@ def test_flash_plan_covers_each_unmasked_pair_once(seed):
         assert (seen[ok] == 1).all() and seen.max() <= 1
 
 
-@pytest.mark.parametrize("dt,hd,path,rows", [
-    (torch.bfloat16, 32, "mma", 128), (torch.bfloat16, 64, "mma", 128),
-    (torch.bfloat16, 128, "mma", 64), (torch.float32, 64, "simt", 128),
-    (torch.float32, 128, "simt", 128)])
-def test_flash_path_rule(dt, hd, path, rows):
+@pytest.mark.parametrize("dt,hd,path,tile", [
+    (torch.bfloat16, 32, "mma", "w4x32"), (torch.bfloat16, 64, "mma", "wg2x64"),
+    (torch.bfloat16, 128, "mma", "wg2x64"), (torch.float32, 64, "simt", None),
+    (torch.float32, 128, "simt", None)])
+def test_flash_path_rule(dt, hd, path, tile):
     assert _flash_launch.path_for(dt) == path
-    assert _flash_launch.tile_rows(dt, hd) == rows
+    if tile:
+        assert _flash_launch.mma_tile(hd) == tile
+    assert _flash_launch.tile_rows(dt, hd) == 128

@@ -454,12 +454,14 @@ def test_flash_attention_matches_plain(dev, kind, case):
         assert bool(over[:, long].all())
 
 
-@pytest.mark.parametrize("tile", ["w4x16", "w8x16", "w4x32"])
-@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (1, 3, 4, 7)],
-                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("tile,case", [
+    (tile, FLASH_CASES[i]) for i in (1, 3, 4, 6, 7, 8)
+    for tile in ("w4x32", "wg2x64")
+    if FLASH_CASES[i][5] >= 64 or tile != "wg2x64"],
+    ids=lambda c: c if isinstance(c, str) else "-".join(map(str, c)))
 def test_flash_attention_every_mma_tile(dev, tile, case):
-    """Each CTA shape of the bf16 kernel, forced, within ``FLASH_TOL`` of
-    each output row's max |plain| (the launcher picks one per head dim)."""
+    """Each bf16 kernel, forced, within ``FLASH_TOL`` of each output row's
+    max |plain| (the launcher picks one per head dim)."""
     from repro_torch.kernels import _flash_launch
     from repro_torch.kernels.flash_attention import flash_attention_plain
     n, sq, sk, h, kh, hd, causal, window, softcap = case
