@@ -80,12 +80,11 @@ raising on failure:
             Sq = 1024 < Sk = 2048 case, f32 (the CUDA-core path, ``simt``)
             and bf16 (the tensor-core path, ``mma``; each row's path is
             asserted, one CUDA kernel per call), within tol (f32 1e-4,
-            bf16 1e-2: ``FLASH_TOL``) times each output row's max |plain|
-            (``row_limit``);
-            the same check must reject, by at least 3x in every query row at
-            position >= 256, the plain output with the row's first 64
-            attended keys left out (``flash_fault``); both readings are
-            reported.  Timed as above beside
+            bf16 1e-2: ``flash_attention.FLASH_TOL``) times each output
+            row's max |plain| (``row_limit``); the same check must reject,
+            by at least 3x in every query row at position >= 256, the plain
+            output with the row's first 64 attended keys left out
+            (``flash_fault``); both readings are reported.  Timed as above beside
             ``scaled_dot_product_attention`` where it computes the same
             function (no window, no softcap).
 8. ops      the kernel-op layer ``repro_torch.kernels.ops`` at full widths:
@@ -894,12 +893,9 @@ def flash_bound(q, k, *, causal, window):
     return _bound(nbytes, 4.0 * hd * pairs, q.dtype)
 
 
-# flash within tol times each output row's max |plain|: f32 the summation
-# order; bf16 1e-2, not the paged checks' 2e-2: at S 2048 the dropped tile
-# moves the longest rows by as little as 2.0x a 2e-2 limit (plain outputs
-# of this phase's inputs, computed on the CPU), against 1 ulp of the
-# output (~0.004 of the row's max) that the kernel's rounding may cost
-FLASH_TOL = {torch.float32: TOL["f32"], torch.bfloat16: 1e-2}
+# flash within ``flash_attention.FLASH_TOL`` times each output row's max
+# |plain| (bf16 1e-2, not the paged checks' 2e-2, which rejects the fault
+# below by as little as 1.9x at S 2048)
 FLASH_DROP = 64          # keys of the fault's dropped tile
 FLASH_LONG = 256         # rows at this position or later must reject it
 FLASH_MIN_RATIO = 3.0    # ... by at least this multiple of their limit
@@ -929,7 +925,7 @@ def flash_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(17)
     per = {}
     for label, n, sq, sk, h, kh, hd, causal, window, cap in FLASH_CASES:
-        for dt, tol in FLASH_TOL.items():
+        for dt, tol in FA.FLASH_TOL.items():
             q = torch.randn(n, sq, h, hd, generator=gen, device=dev).to(dt)
             k, v = (torch.randn(n, sk, kh, hd, generator=gen,
                                 device=dev).to(dt) for _ in range(2))
@@ -981,7 +977,6 @@ def flash_phase(dev):
                 raise AssertionError(f"{name}: {per_call} CUDA kernels per "
                                      "call, not 1")
             row = dict(max_abs_err=err, tol=tol, path=path[0],
-                       tile=FL.mma_tile(hd) if path[0] == "mma" else None,
                        err_over_limit=float((diff / limit.clamp(
                            min=1e-30)).max()),
                        fault_over_limit=worst, long_rows=int(long.sum()),

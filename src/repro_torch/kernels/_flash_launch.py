@@ -16,21 +16,16 @@ from repro_torch.kernels import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 
-#: key tokens per tile (both paths)
+#: key tokens per tile and query rows per CTA (every kernel)
 KEY_TILE = 64
-#: the bf16 kernels: mma.sync on 4 warps of 32 query rows, wgmma on two
-#: warpgroups of 64 rows (hd 64, 128); their code in
-#: ``csrc/flash_attention.cu`` and their query rows per CTA
-MMA_TILES = {"w4x32": (0, 128), "wg2x64": (1, 128)}
-#: query rows per CTA of the f32 kernel
-SIMT_ROWS = 128
+QUERY_TILE = 128
 #: launches by path since import, so a run can show which path its calls
 #: took
 PATH_LAUNCHES = {"mma": 0, "simt": 0}
 
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
-_ARGTYPES = [_I, _I, _I] + [_P] * 4 + [_I] * 5 + [_LL] * 9 + \
+_ARGTYPES = [_I, _I] + [_P] * 4 + [_I] * 5 + [_LL] * 9 + \
     [_I, _I, _F, _F, _P]
 
 
@@ -48,45 +43,32 @@ class QueryTile(NamedTuple):
 
 def path_for(dtype) -> str:
     """The kernel a launch takes, from the dtype alone: bf16 on the tensor
-    cores, f32 on the CUDA cores."""
+    cores (``wgmma`` at hd 64 and 128, ``mma.sync`` at hd 32, chosen in
+    ``csrc/flash_attention.cu``), f32 on the CUDA cores."""
     return "mma" if dtype == torch.bfloat16 else "simt"
 
 
-def mma_tile(hd: int) -> str:
-    """The bf16 kernel the launcher takes at head dim ``hd``: wgmma (the
-    faster on the card, ``scripts/time_flash_tiles.py``) where its 128-byte
-    rows fit, at hd 64 and 128; mma.sync at hd 32."""
-    return "wg2x64" if hd >= 64 else "w4x32"
-
-
-def tile_rows(dtype, hd: int) -> int:
-    """Query rows per CTA of the kernel a launch takes."""
-    if path_for(dtype) == "mma":
-        return MMA_TILES[mma_tile(hd)][1]
-    return SIMT_ROWS
-
-
-def flash_plan(sq: int, sk: int, *, causal: bool, window: int,
-               rows: int, keys: int = KEY_TILE) -> List[QueryTile]:
+def flash_plan(sq: int, sk: int, *, causal: bool,
+               window: int) -> List[QueryTile]:
     """The kernels' walk (``csrc/flash_attention.cu``, ``walk_of`` and
     ``tile_masked``) for queries at positions sk - sq .. sk - 1: query tiles
-    of ``rows`` rows; each walks the key tiles from the one holding its
+    of ``QUERY_TILE`` rows; each walks the key tiles from the one holding its
     first row's window start (0 without a window) up to the one holding
     its last row's causal frontier (the last key without ``causal``); a
     walked tile needs a mask when it crosses sk, the causal frontier of the
     tile's first row or the window edge of its last row."""
     plan = []
     off = sk - sq
-    for q0 in range(0, sq, rows):
-        q1 = min(q0 + rows, sq)
+    for q0 in range(0, sq, QUERY_TILE):
+        q1 = min(q0 + QUERY_TILE, sq)
         qa, qb = off + q0, off + q1 - 1
         k_end = min(sk, qb + 1) if causal else sk
         k_begin = max(0, qa - window + 1) if window > 0 else 0
-        kt0, kt1 = k_begin // keys, -(-k_end // keys)
+        kt0, kt1 = k_begin // KEY_TILE, -(-k_end // KEY_TILE)
         masked = tuple(
-            k0 + keys > sk or (causal and k0 + keys - 1 > qa)
+            k0 + KEY_TILE > sk or (causal and k0 + KEY_TILE - 1 > qa)
             or (window > 0 and k0 <= qb - window)
-            for k0 in range(kt0 * keys, kt1 * keys, keys))
+            for k0 in range(kt0 * KEY_TILE, kt1 * KEY_TILE, KEY_TILE))
         plan.append(QueryTile(q0, q1, kt0, kt1, masked))
     return plan
 
@@ -98,13 +80,11 @@ def _fn():
     return fn
 
 
-def launch(q, k, v, *, causal: bool, window: int, softcap: float,
-           tile: str | None = None):
+def launch(q, k, v, *, causal: bool, window: int, softcap: float):
     """q [N, Sq, H, hd], k/v [N, Sk, KH, hd] on one CUDA device, one of f32
     or bf16, with a dense head dim and 16-byte aligned rows (any batch,
     sequence and head strides).  Returns a dense [N, Sq, H, hd] in q's
-    dtype.  ``tile`` forces the bf16 kernel's CTA shape (a key of
-    ``MMA_TILES``; default :func:`mma_tile`), for timing."""
+    dtype."""
     name = "flash_attention"
     dev = q.device
     for t in (k, v):
@@ -136,13 +116,7 @@ def launch(q, k, v, *, causal: bool, window: int, softcap: float,
                 s * item % 16 for s in t.stride()[:3]):
             raise ValueError(f"{name}: the head dim must be dense and rows "
                              "16-byte aligned")
-    path = path_for(q.dtype)
-    tile = mma_tile(hd) if tile is None else tile
-    if tile not in MMA_TILES or (tile == "wg2x64" and hd < 64):
-        raise ValueError(f"{name}: tile {tile}; the kernel takes "
-                         f"{tuple(MMA_TILES)}")
-    code, rows = MMA_TILES[tile] if path == "mma" else (0, SIMT_ROWS)
-    if n > 65535 or -(-sq // rows) > 65535:
+    if n > 65535 or -(-sq // QUERY_TILE) > 65535:
         raise ValueError(f"{name}: grid too large")
     out = torch.empty((n, sq, h, hd), dtype=q.dtype, device=dev)
     if out.numel() == 0:
@@ -150,11 +124,12 @@ def launch(q, k, v, *, causal: bool, window: int, softcap: float,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _fn()(
-            _DTYPE_CODE[q.dtype], hd, code, q.data_ptr(), k.data_ptr(),
+            _DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), n, sq, sk, h, kh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
             float(softcap), stream)
+    path = path_for(q.dtype)
     if rc != 0:
         raise RuntimeError(f"{name} failed with CUDA error {rc} on the "
                            f"{path} path")

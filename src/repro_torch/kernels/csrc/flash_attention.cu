@@ -41,14 +41,16 @@
 // registers, the copies overlap the math, and the exponentials of one warp
 // run beside another's products.  Row max and sum by quad shuffles; P
 // rounded to bf16 is the A operand of P V; the row sum is over the
-// unrounded P.  Two kernels (scripts/time_flash_tiles.py times each shape):
+// unrounded P.  One kernel per head dim, chosen here from hd alone (the
+// faster on the card where both fit; PERF.md has the comparison):
 // - flash_attention_kernel_wgmma (hd 64, 128): two warpgroups of 64 rows;
 //   S = Q K^T and P V by wgmma.mma_async, Q, K and V read by the tensor
 //   cores from 128-byte-swizzled shared memory, P from registers.
 // - flash_attention_kernel_mma (hd 32): mma.sync m16n8k16 on 4 warps of 32
 //   query rows (two m16 tiles, so each K and V fragment read by ldmatrix
 //   feeds two mma), V through ldmatrix.trans.
-// A 3-stage ring (2 at hd 128, where 3 would leave one CTA per SM).
+// A 3-stage ring (2 under wgmma at hd 128, where 3 would leave one CTA per
+// SM).
 //
 // f32 (flash_attention_kernel_simt): CUDA cores, f32 arithmetic (tensor
 // cores would mean TF32, a precision decision), bound by f32 operations
@@ -68,6 +70,7 @@
 namespace {
 
 constexpr int BK = 64;                  // key tokens per tile, both paths
+constexpr int BQ = 128;                 // query rows per CTA, every kernel
 constexpr float NEG_INF = -1e30f;       // running-max floor: never NaN
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -260,22 +263,23 @@ __device__ __forceinline__ void softmax16(
 }
 
 // ------------------------------------------------------ bf16: tensor cores
-// A CTA of 4 warps, each owning MT = 2 m16 tiles (32 query rows): every K
-// and V fragment a warp reads from shared memory feeds two mma, which
-// halves the shared-memory reads per mma (faster on the card than 4 or 8
-// warps of one m16 tile, 255 registers against 128).
+// hd 32 only (wgmma takes hd 64 and 128).  A CTA of 4 warps, each owning
+// MT = 2 m16 tiles (32 query rows): every K and V fragment a warp reads
+// from shared memory feeds two mma, which halves the shared-memory reads
+// per mma (faster on the card than 4 or 8 warps of one m16 tile, 255
+// registers against 128).
 //
 // Dynamic shared memory of one CTA, in bf16 elements: Q, then the ring's
-// stages of K and V (rows padded by 16 bytes).  3 stages; 2 at hd 128,
-// where 3 would leave one CTA per SM.
+// 3 stages of K and V (rows padded by 16 bytes).
 constexpr int MMA_WARPS = 4;
 constexpr int MT = 2;                        // m16 tiles per warp
 
 template <int HD>
 struct MmaSmem {
-  static constexpr int STAGES = HD >= 128 ? 2 : 3;
+  static constexpr int STAGES = 3;
   static constexpr int LD = HD + 8;          // bf16 row stride
-  static constexpr int ROWS = 16 * MT * MMA_WARPS;
+  static constexpr int ROWS = BQ;
+  static_assert(16 * MT * MMA_WARPS == BQ, "a warp's rows");
   static constexpr int Q_ELEMS = ROWS * LD;
   static constexpr int TILE = BK * LD;
   static constexpr int STAGE = 2 * TILE;     // K then V
@@ -476,7 +480,7 @@ __global__ void __launch_bounds__(32 * MMA_WARPS, 2)
 // K and V tiles are kept as hd/64 blocks of 64 columns, each of rows of 128
 // bytes in 1024-byte atoms of the 128-byte swizzle (16-byte chunk c of row
 // r at c ^ (r & 7)), written by cp.async.
-constexpr int WG_ROWS = 128;                 // two warpgroups
+constexpr int WG_ROWS = BQ;                  // two warpgroups of 64
 constexpr int WG_THREADS = 256;
 
 // 3 stages; 2 at hd 128, so that two CTAs fit an SM.
@@ -722,7 +726,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
 // scores issues 12 loads (24 wavefronts) for 128 FMAs.
 constexpr int SIMT_WARPS = 8;
 constexpr int SIMT_THREADS = 32 * SIMT_WARPS;
-constexpr int SIMT_ROWS = 16 * SIMT_WARPS;   // query rows per CTA
+constexpr int SIMT_ROWS = BQ;                // query rows per CTA
+static_assert(16 * SIMT_WARPS == BQ, "a warp's rows");
 constexpr int PQ = 16;                       // keys per P pass
 constexpr int PS = PQ + 8;                   // P row stride: conflict-free
 
@@ -994,17 +999,17 @@ int launch_wgmma(const Args& a, int N, cudaStream_t st) {
                 WG_THREADS, a, st, configured);
 }
 
-// tile: the bf16 kernel, 0 = mma.sync on 4 warps x 32 rows, 1 = wgmma on
-// 2 warpgroups (hd 64, 128)
+// bf16: mma.sync at hd 32, wgmma at hd 64 and 128 (the 128-byte rows of
+// its swizzle need 64 columns)
 template <int HD>
-int launch_hd(int dtype, int tile, const Args& a, int N, cudaStream_t st) {
+int launch_hd(int dtype, const Args& a, int N, cudaStream_t st) {
   if (dtype == F32) return launch_simt<HD>(a, N, st);
   if (dtype != BF16) return -2;
-  if (tile == 0) return launch_mma<HD>(a, N, st);
-  if constexpr (HD >= 64) {
-    if (tile == 1) return launch_wgmma<HD>(a, N, st);
+  if constexpr (HD == 32) {
+    return launch_mma<HD>(a, N, st);
+  } else {
+    return launch_wgmma<HD>(a, N, st);
   }
-  return -3;
 }
 
 }  // namespace
@@ -1012,11 +1017,10 @@ int launch_hd(int dtype, int tile, const Args& a, int N, cudaStream_t st) {
 // q [N, Sq, H, hd], k/v [N, Sk, KH, hd] with element strides (batch, seq,
 // head) in q_strides / k_strides / v_strides and a dense head dim; out a
 // dense [N, Sq, H, hd] of the same type.  f32 runs on the CUDA cores, bf16
-// on the tensor cores with CTA shape ``tile`` (launch_hd).  Returns
-// cudaGetLastError() after the launch, or -1 / -2 / -3 for an unsupported
-// head dim / dtype / tile.
+// on the tensor cores (launch_hd).  Returns cudaGetLastError() after the
+// launch, or -1 / -2 for an unsupported head dim / dtype.
 extern "C" int flash_attention_launch(
-    int dtype, int hd, int tile, const void* q, const void* k,
+    int dtype, int hd, const void* q, const void* k,
     const void* v, void* out, int N, int Sq, int Sk, int H, int KH,
     long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss,
@@ -1026,9 +1030,9 @@ extern "C" int flash_attention_launch(
                ksb, kss, ksh, vsb, vss, vsh, causal, window, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch_hd<32>(dtype, tile, a, N, st);
-    case 64: return launch_hd<64>(dtype, tile, a, N, st);
-    case 128: return launch_hd<128>(dtype, tile, a, N, st);
+    case 32: return launch_hd<32>(dtype, a, N, st);
+    case 64: return launch_hd<64>(dtype, a, N, st);
+    case 128: return launch_hd<128>(dtype, a, N, st);
     default: return -1;
   }
 }

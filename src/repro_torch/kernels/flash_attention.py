@@ -9,11 +9,12 @@ the key range, fully masked key blocks skipped.  The CUDA kernels live in
 the 64-token key tiles that ``_flash_launch.flash_plan`` gives (masks only
 on the tiles crossing the causal frontier, the window edge or Sk) through
 a ``cp.async`` ring, online softmax in f32, q/k/v read in the [B, S, H, hd]
-layout through strides.  bf16 runs on the tensor cores (``wgmma`` at hd
-64, ``mma.sync`` at hd 32 and 128; P rounded to bf16 for P·V), f32 on the
+layout through strides.  bf16 runs on the tensor cores (``wgmma`` at hd 64
+and 128, ``mma.sync`` at hd 32; P rounded to bf16 for P·V), f32 on the
 CUDA cores in f32 (tensor cores would mean TF32);
-:func:`flash_attention_emulated` walks the same tiles in plain PyTorch.  Forward only: ``repro_torch.models.attention`` wraps it with a
-recomputing backward, as the JAX package does.
+:func:`flash_attention_emulated` walks the same tiles in plain PyTorch.
+Forward only: ``repro_torch.models.attention`` wraps it with a recomputing
+backward, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -21,10 +22,15 @@ import math
 
 import torch
 
-from repro_torch.kernels._flash_launch import (KEY_TILE, flash_plan, launch,
-                                               tile_rows)
+from repro_torch.kernels._flash_launch import KEY_TILE, flash_plan, launch
 
 NEG_INF = -1e30
+#: the kernels' check (the GPU tests, ``chip_smoke.py``, the emulation's
+#: tests): |kernel - plain| <= tol times the max |plain| of each output
+#: (head) row.  f32: the summation order.  bf16: one ulp of a bf16 output
+#: is at most 2^-7 of its row's max, and at S 2048 a 64-key tile dropped
+#: from the longest rows moves them by as little as 2x a 2e-2 limit
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 #: query rows per step of the plain version (bounds its [.., rows, Sk]
 #: score temporaries)
 PLAIN_Q_ROWS = 512
@@ -70,10 +76,10 @@ def flash_attention_emulated(q, k, v, *, causal: bool = True,
                              window: int = 0, softcap: float = 0.0,
                              drop_tile=None):
     """The kernels' numerics in plain PyTorch: for each batch and head, the
-    query tiles of :func:`_flash_launch.flash_plan` (the rows of the kernel
-    q's dtype and head dim take), each walking its ``KEY_TILE``-token key tiles in order (keys past
-    Sk as zeros); f32 scores scaled by 1/sqrt(hd), then
-    softcapped; the mask applied only on the tiles the plan marks; f32
+    query tiles of :func:`_flash_launch.flash_plan`, each walking its
+    ``KEY_TILE``-token key tiles in order (keys past Sk as zeros); f32
+    scores scaled by 1/sqrt(hd), then softcapped; the mask applied only on
+    the tiles the plan marks; f32
     running max, sum and accumulator; for bf16, P rounded to bf16 before
     P·V, the sum over the unrounded P; one cast at the end.  ``drop_tile``
     (an index into each query tile's walk, -1 the last) leaves that tile
@@ -84,9 +90,8 @@ def flash_attention_emulated(q, k, v, *, causal: bool = True,
     sk, kh = kf.shape[1], kf.shape[2]
     rep = h // kh
     scale = 1.0 / math.sqrt(hd)
-    rows = tile_rows(q.dtype, hd)
     bf16_p = q.dtype == torch.bfloat16
-    plan = flash_plan(sq, sk, causal=causal, window=window, rows=rows)
+    plan = flash_plan(sq, sk, causal=causal, window=window)
     # [N, H, S, hd] in f32, keys zero-padded to whole tiles
     pad = -(-sk // KEY_TILE) * KEY_TILE - sk
     qh = qf.float().transpose(1, 2)

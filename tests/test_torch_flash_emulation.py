@@ -5,11 +5,9 @@ numerics (``flash_attention.flash_attention_emulated``), held to
 ``flash_attention_plain`` and to the JAX package's oracle
 (``repro.kernels.ref.flash_attention_ref``) on the same numpy inputs.
 
-The limit is the chip check's (``chip_smoke.FLASH_TOL``): tol times each
-output row's max |plain|, f32 1e-4 (summation order), bf16 1e-2 (one ulp
-of a bf16 output is at most 2^-7 of the row's max; at S 2048 the dropped
-tile moves the longest rows by as little as 4% of it).  The same check
-must reject the emulation with one walked key tile left out.
+The limit is the kernels' own (``flash_attention.FLASH_TOL``, as on the
+card): tol times each output row's max |plain|, f32 1e-4, bf16 1e-2.  The
+same check must reject the emulation with one walked key tile left out.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +18,10 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _flash_launch  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_emulated, flash_attention_plain)
+    FLASH_TOL, flash_attention_emulated, flash_attention_plain)
 
-FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 KT = _flash_launch.KEY_TILE
+QT = _flash_launch.QUERY_TILE
 
 
 def _np(t):
@@ -97,7 +95,7 @@ def test_flash_emulation_matches_plain_and_jax(dt, case):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_flash_plan_covers_each_unmasked_pair_once(seed):
-    """Over random (Sq, Sk, causal, window, rows): the walked tiles cover
+    """Over random (Sq, Sk, causal, window): the walked tiles cover
     every unmasked (query, key) pair exactly once, and each holds one; a
     tile is marked for a mask exactly when it holds a masked pair (keys
     past Sk count as masked)."""
@@ -107,11 +105,8 @@ def test_flash_plan_covers_each_unmasked_pair_once(seed):
         sq = int(rng.integers(1, sk + 1))
         causal = bool(rng.integers(2))
         window = int(rng.choice([0, 0, 1, 17, 64, 100, 300]))
-        rows = int(rng.choice([r for _, r in
-                               _flash_launch.MMA_TILES.values()]))
-        plan = _flash_launch.flash_plan(sq, sk, causal=causal, window=window,
-                                        rows=rows)
-        assert [t.q0 for t in plan] == list(range(0, sq, rows))
+        plan = _flash_launch.flash_plan(sq, sk, causal=causal, window=window)
+        assert [t.q0 for t in plan] == list(range(0, sq, QT))
         assert plan[-1].q1 == sq
         ok = np.zeros((sq, -(-sk // KT) * KT), bool)
         ok[:, :sk] = _allowed(sq, sk, causal, window)
@@ -126,12 +121,15 @@ def test_flash_plan_covers_each_unmasked_pair_once(seed):
         assert (seen[ok] == 1).all() and seen.max() <= 1
 
 
-@pytest.mark.parametrize("dt,hd,path,tile", [
-    (torch.bfloat16, 32, "mma", "w4x32"), (torch.bfloat16, 64, "mma", "wg2x64"),
-    (torch.bfloat16, 128, "mma", "wg2x64"), (torch.float32, 64, "simt", None),
-    (torch.float32, 128, "simt", None)])
-def test_flash_path_rule(dt, hd, path, tile):
+@pytest.mark.parametrize("hd", _flash_launch.HEAD_DIMS)
+@pytest.mark.parametrize("dt,path", [(torch.bfloat16, "mma"),
+                                     (torch.float32, "simt")],
+                         ids=["bf16", "f32"])
+def test_flash_path_rule(dt, path, hd):
+    """bf16 on the tensor cores, f32 on the CUDA cores, at every head dim;
+    every path walks query tiles of ``QUERY_TILE`` rows."""
     assert _flash_launch.path_for(dt) == path
-    if tile:
-        assert _flash_launch.mma_tile(hd) == tile
-    assert _flash_launch.tile_rows(dt, hd) == 128
+    sq = 3 * QT - 5
+    plan = _flash_launch.flash_plan(sq, sq + hd, causal=True, window=0)
+    assert [(t.q0, t.q1) for t in plan] == [(0, QT), (QT, 2 * QT),
+                                            (2 * QT, sq)]

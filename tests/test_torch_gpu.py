@@ -22,6 +22,7 @@ from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,  # noqa: E402
                                 PlacementEngine, Request, TorchBackend)
 from repro_torch.kernels import (_gemm_launch, _paged_launch,  # noqa: E402
                                  _quant_launch)
+from repro_torch.kernels.flash_attention import FLASH_TOL  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
@@ -407,11 +408,6 @@ FLASH_CASES = [
     (1, 1000, 1500, 4, 4, 128, True, 0, 0.0),
     (1, 1024, 1024, 2, 1, 64, True, 300, 0.0),
 ]
-# flash within tol times each output row's max |plain| (as chip_smoke.py's
-# FLASH_TOL): f32 the summation order, bf16 1e-2 (one ulp of a bf16 output
-# is at most 2^-7 of its row's max; at S 2048 a 2e-2 limit rejects a
-# dropped 64-key tile by as little as 2x in the longest rows)
-FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
@@ -444,35 +440,14 @@ def test_flash_attention_matches_plain(dev, kind, case):
     paths["mma" if kind == "bf16" else "simt"] += 1
     assert _flash_launch.PATH_LAUNCHES == paths
     assert got.shape == q.shape and got.dtype == dt
-    _within_rows(got, want, FLASH_TOL[kind])
+    _within_rows(got, want, FLASH_TOL[dt])
     assert _kernels_per_call(lambda: flash_attention(q, k, v, **opts)) == 1
     if sq >= 1000 and not window:
         bad = flash_attention_plain(q, k[:, 64:], v[:, 64:], **opts)
         long = torch.arange(sq, device=dev) + sk - sq >= 256
         over = ((bad.float() - want.float()).abs()
-                > _row_limit(want, FLASH_TOL[kind])).any(-1)    # [N, Sq, H]
+                > _row_limit(want, FLASH_TOL[dt])).any(-1)      # [N, Sq, H]
         assert bool(over[:, long].all())
-
-
-@pytest.mark.parametrize("tile,case", [
-    (tile, FLASH_CASES[i]) for i in (1, 3, 4, 6, 7, 8)
-    for tile in ("w4x32", "wg2x64")
-    if FLASH_CASES[i][5] >= 64 or tile != "wg2x64"],
-    ids=lambda c: c if isinstance(c, str) else "-".join(map(str, c)))
-def test_flash_attention_every_mma_tile(dev, tile, case):
-    """Each bf16 kernel, forced, within ``FLASH_TOL`` of each output row's
-    max |plain| (the launcher picks one per head dim)."""
-    from repro_torch.kernels import _flash_launch
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    n, sq, sk, h, kh, hd, causal, window, softcap = case
-    gen = torch.Generator(device=dev).manual_seed(14)
-    q = torch.randn(n, sq, h, hd, generator=gen, device=dev).bfloat16()
-    k, v = (torch.randn(n, sk, kh, hd, generator=gen, device=dev).bfloat16()
-            for _ in range(2))
-    opts = dict(causal=causal, window=window, softcap=softcap)
-    got = _flash_launch.launch(q, k, v, tile=tile, **opts)
-    want = flash_attention_plain(q, k, v, **opts)
-    _within_rows(got, want, FLASH_TOL["bf16"])
 
 
 def test_flash_attention_branches_share_a_launch(dev):
@@ -488,8 +463,7 @@ def test_flash_attention_branches_share_a_launch(dev):
         want = torch.stack([flash_attention_plain(q[i], k[i], v[i],
                                                   window=50)
                             for i in range(2)])
-        _within_rows(got, want, FLASH_TOL["bf16" if dt == torch.bfloat16
-                                          else "f32"])
+        _within_rows(got, want, FLASH_TOL[dt])
 
 
 def test_flash_attention_rejects_what_it_cannot_take(dev):
