@@ -108,7 +108,42 @@ raising on failure:
             above beside ``torch.bmm`` or masked SDPA where one call
             computes the same function.
 
-Every backend is freed before the next one is built.  The last lines are
+9. disagg   ``TorchBackend(fleet="disagg")`` at the full width of
+            stablelm-1.6b (cache 1024, blocks of 16, prefill chunks of 128):
+            each arm a prefill worker and a decode worker joined by a
+            ``CacheStore``, ``MABPolicy(bandit="ucb")`` with every arm
+            served first, 8 lanes, 9 requests of the smoke load in 3
+            waves, once with bf16 pools and once with int8 pools.  Every
+            request completes with its tokens; blocks ship and
+            ``transfer_bytes`` is blocks x block bytes; decode calls
+            overlap ship waves; both pools and the store unwind.  Launches
+            are counted by worker: the paged prefill kernel (tensor-core
+            path) only inside the prefill workers' chunk calls and paged
+            decode (``decode_split``) only inside the decode workers' calls,
+            one a layer a step.  Every wave's shipped blocks are compared,
+            byte for byte on every leaf (int8 codes and scales too), with
+            their source blocks.  Reports tokens/s, decode ms per step,
+            ship waves, each wave's transfer time from CUDA events beside
+            its bound (its bytes read and written at 3.35 TB/s) and
+            ``ship_overlap_frac``.
+10. disagg_parity  ``FixedPolicy`` on each arm at one lane, 4 requests
+            with distinct random prompts, colocated and then disagg on the
+            same seed's weights: every call has the same shapes in both
+            runs, so every token stream must be equal.
+11. chaos   the disagg fleet (bf16 pools, LAYER) under the six-fault plan
+            of tests/test_faults.py (``CHAOS_PLAN``) against a clean twin:
+            every request completes, nothing is shed or failed, the six
+            faults fire (by kind as planned), retries, re-executions and
+            recoveries happen, both pools unwind; the recovery latency and
+            the share of streams equal to the twin's are reported (a
+            re-executed prefill can run at other shapes than the clean one,
+            so that share is not gated).  Then a colocated run with
+            ``load_shed=True`` and half the SLAs expired on arrival: some
+            requests are shed, none of them served, and completed + shed +
+            failed = requests.
+
+Phases 9-11 run after the serves, before training.  Every backend is freed
+before the next one is built.  The last lines are
 one JSON object per kernel line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -732,7 +767,9 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
     if qpaths != qwant:
         raise AssertionError(f"[{tag}] quant_matmul launches by path "
                              f"{qpaths}, expected {qwant}")
-    scans = tracer.events("decode_scan")
+    # a decode step's host time: the call's enqueue and the read of its
+    # results (``finish_dispatch``)
+    scans = tracer.events("decode_scan") + tracer.events("decode_read")
     decode_s = sum(e[4] for e in scans) / 1e6
     prefill_s = sum(e[4] for e in tracer.events("prefill_chunk")) / 1e6
     tokens = int(sum(r.max_new for r in reqs))
@@ -758,6 +795,389 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
                response_p50=summary.get("response_p50"))
     log(f"[serve {tag}] {json.dumps(out)}")
     return backend, out
+
+
+# ------------------------------------------------------------------ disagg
+SERVE_SHAPE = dict(cache_len=1024, block_size=16, prefill_chunk=128)
+#: tests/test_faults.py's six-fault plan: (step, kind, fields)
+CHAOS_PLAN = ((2.0, "ship_drop", {}),
+              (3.0, "arm_blackout", dict(target=0, duration=3.0)),
+              (6.0, "ship_delay", dict(magnitude=0.3)),
+              (7.0, "ship_dup", {}),
+              (8.0, "dispatch_error", dict(count=2)),
+              (9.0, "ship_drop", {}))
+
+
+def _free():
+    """Release what the caller has just deleted: backends and their
+    schedulers hold cycles."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _check_unwound(backend, tag):
+    for arm, (pf, dc, store) in backend._disagg.items():
+        if pf.alloc.used_blocks or dc.alloc.used_blocks or store.backlog:
+            raise AssertionError(
+                f"[{tag}] arm {arm}: pools not unwound (prefill "
+                f"{pf.alloc.used_blocks}, decode {dc.alloc.used_blocks} "
+                f"blocks used, store backlog {store.backlog})")
+
+
+def _bucket_steps(sched, kind):
+    """Model steps a scheduler ran of ``kind``: prefill chunks, or decode
+    calls times their loop length."""
+    n = 0
+    for bucket, calls in sched.buckets.items():
+        k, shape = bucket.split(":")
+        if k == kind:
+            n += calls * (int(shape.split("x")[1]) if k == "decode" else 1)
+    return n
+
+
+def _instrument_store(store, waves):
+    """Wrap ``store._transfer``: CUDA events around each wave's transfer
+    and, enqueued after it, a device-side comparison of every shipped
+    block with its source block (each leaf, codes and scales), read once
+    the run is over so the ship stays asynchronous."""
+    from repro_torch.decode.cache_store import _index
+    from repro_torch.decode.paged_cache import _leaves, gather_blocks
+    transfer = store._transfer
+
+    def timed(src_ids, dst_ids):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        transfer(src_ids, dst_ids)
+        end.record()
+        dev = store.dst.device
+        a = gather_blocks(store.src.pool,
+                          _index(np.asarray(src_ids, np.int64), dev))
+        b = gather_blocks(store.dst.pool,
+                          _index(np.asarray(dst_ids, np.int64), dev))
+        # bitwise: each leaf's bytes compared as bytes
+        same = torch.stack([(x.view(torch.uint8) == y.view(torch.uint8))
+                            .all() for (_, x), (_, y) in zip(_leaves(a),
+                                                             _leaves(b))])
+        waves.append(dict(blocks=len(src_ids), start=start, end=end,
+                          same=same.all(), leaves=len(same)))
+    store._transfer = timed
+
+
+def _by_role(backend, role_launches):
+    """Count the paged launches made inside each arm's prefill worker's
+    chunk calls and inside its decode worker's decode calls."""
+    for pf, dc, _ in backend._disagg.values():
+        _count_by_role(pf, dc, role_launches)
+
+
+def _new_roles():
+    zero = dict.fromkeys(_counters(), 0)
+    return {"prefill": dict(zero), "decode": dict(zero)}
+
+
+def _with_colocated(role, launches):
+    """``role`` plus the launches made outside any fleet worker."""
+    return dict(role, colocated={
+        k: n - role["prefill"][k] - role["decode"][k]
+        for k, n in launches.items()})
+
+
+def _count_by_role(pf, dc, role_launches):
+    """Count paged launches made inside the prefill worker's chunk calls
+    and inside the decode worker's decode calls."""
+    counters = _counters()
+
+    def wrap(sched, name, role):
+        call = getattr(sched, name)
+
+        def counted(*a, **kw):
+            before = {k: fn.launches for k, fn in counters.items()}
+            try:
+                return call(*a, **kw)
+            finally:
+                for k, fn in counters.items():
+                    role_launches[role][k] += fn.launches - before[k]
+        setattr(sched, name, counted)
+    wrap(pf, "prefill_step", "prefill")
+    wrap(dc, "dispatch_async", "decode")
+
+
+def disagg_phase(dev, cfg, *, kv_dtype: str, n_requests: int = 9,
+                 waves: int = 3):
+    """``TorchBackend(fleet="disagg")``: each arm a prefill worker and a
+    decode worker joined by a ``CacheStore``, MAB-routed, every arm served
+    first, under the smoke load."""
+    from repro_torch.engine import (LAYER, SEMANTIC, MABPolicy,
+                                    PlacementEngine, TorchBackend)
+    from repro_torch.kernels import _paged_launch as PL
+    from repro_torch.obs import Tracer, set_tracer
+    tag = f"disagg {cfg.name} kv={kv_dtype}"
+    backend = TorchBackend(cfg, max_batch=8, kv_dtype=kv_dtype,
+                           fleet="disagg", device=dev, **SERVE_SHAPE)
+    eng = PlacementEngine(_every_arm_first(MABPolicy(bandit="ucb"),
+                                           (LAYER, SEMANTIC)), backend)
+    reqs = make_requests(cfg.vocab_size, n_requests, seed=1)
+    per_wave = -(-n_requests // waves)
+    ship = {arm: [] for arm in backend._disagg}
+    zero = dict.fromkeys(_counters(), 0)
+    role = _new_roles()
+    _by_role(backend, role)
+    for arm, (_, _, store) in backend._disagg.items():
+        _instrument_store(store, ship[arm])
+    tracer = Tracer()
+    old = set_tracer(tracer)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    paths0 = dict(PL.PATH_LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for w in range(waves):
+            eng.submit(reqs[w * per_wave:(w + 1) * per_wave])
+            eng.drain()
+        torch.cuda.synchronize()
+    finally:
+        set_tracer(old)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    paths = {k: PL.PATH_LAUNCHES[k] - paths0[k] for k in paths0}
+    m = eng.summary()
+
+    for r in reqs:
+        if r.output is None or r.output.shape != (r.max_new,):
+            raise AssertionError(f"[{tag}] request {r.rid}: output "
+                                 f"{None if r.output is None else r.output.shape}"
+                                 f", wanted {r.max_new} tokens")
+    if m["completed"] != n_requests or set(m["per_mode"]) != {
+            "layer", "semantic"}:
+        raise AssertionError(f"[{tag}] completed {m['completed']}, arms "
+                             f"{m['per_mode']}")
+    if not m["blocks_shipped"] > 0:
+        raise AssertionError(f"[{tag}] no block shipped")
+    if m["transfer_bytes"] != m["blocks_shipped"] * m["kv_block_bytes"]:
+        raise AssertionError(f"[{tag}] transfer_bytes {m['transfer_bytes']}"
+                             f" != {m['blocks_shipped']} x "
+                             f"{m['kv_block_bytes']}")
+    if not m["overlap_steps"] > 0:
+        raise AssertionError(f"[{tag}] no decode call overlapped a ship")
+    _check_unwound(backend, tag)
+    # the prefill kernel ran on the prefill workers only, the decode kernel
+    # on the decode workers only, one launch a layer a step
+    layers = cfg.n_layers
+    pf_steps = sum(_bucket_steps(pf, "prefill")
+                   for pf, _, _ in backend._disagg.values())
+    dc_steps = sum(_bucket_steps(dc, "decode")
+                   for _, dc, _ in backend._disagg.values())
+    if any(_bucket_steps(pf, "decode") or _bucket_steps(dc, "prefill")
+           for pf, dc, _ in backend._disagg.values()):
+        raise AssertionError(f"[{tag}] a worker ran the other role's calls")
+    want_role = {
+        "prefill": dict(zero, paged_prefill_attention=layers * pf_steps),
+        "decode": dict(zero, paged_decode_attention=layers * dc_steps)}
+    if role != want_role or not pf_steps or not dc_steps:
+        raise AssertionError(f"[{tag}] launches by role {role}, expected "
+                             f"{want_role}")
+    want_paths = {"prefill_mma": layers * pf_steps, "prefill_simt": 0,
+                  "decode_split": layers * dc_steps}
+    if paths != want_paths or launches != {
+            k: role["prefill"][k] + role["decode"][k] for k in zero}:
+        raise AssertionError(f"[{tag}] paged launches {launches} by path "
+                             f"{paths}, expected {want_paths}")
+    # every wave's shipped blocks equal their source blocks, bit for bit
+    all_waves = [w for ws in ship.values() for w in ws]
+    if not all_waves or not all(bool(w["same"]) for w in all_waves):
+        raise AssertionError(f"[{tag}] shipped blocks differ from their "
+                             "source blocks")
+    if sum(w["blocks"] for w in all_waves) != m["blocks_shipped"]:
+        raise AssertionError(f"[{tag}] waves moved "
+                             f"{sum(w['blocks'] for w in all_waves)} blocks"
+                             f", store counted {m['blocks_shipped']}")
+    wave_ms = [w["start"].elapsed_time(w["end"]) for w in all_waves]
+    wave_bytes = [w["blocks"] * m["kv_block_bytes"] for w in all_waves]
+    # the least time: each shipped byte read once and written once
+    bound_ms = [2 * b / HBM_BYTES_PER_S * 1e3 for b in wave_bytes]
+    dec = tracer.events("decode_scan") + tracer.events("decode_read")
+    decode_s = sum(e[4] for e in dec) / 1e6
+    tokens = int(sum(r.max_new for r in reqs))
+    out = dict(model=cfg.name, kv_dtype=kv_dtype, requests=n_requests,
+               tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+               decode_steps=dc_steps, prefill_chunks=pf_steps,
+               decode_ms_per_step=1e3 * decode_s / max(dc_steps, 1),
+               ship_waves=len(all_waves),
+               waves_checked=len(all_waves),
+               leaves_per_wave=all_waves[0]["leaves"],
+               blocks_shipped=m["blocks_shipped"],
+               transfer_bytes=m["transfer_bytes"],
+               ship_skipped_blocks=m["ship_skipped_blocks"],
+               ship_ms_per_wave=statistics.mean(wave_ms),
+               ship_ms_max=max(wave_ms),
+               ship_bytes_per_wave=statistics.mean(wave_bytes),
+               ship_bound_ms_per_wave=statistics.mean(bound_ms),
+               ship_gb_per_s=2 * sum(wave_bytes) / sum(wave_ms) / 1e6,
+               ship_overlap_frac=m.get("ship_overlap_frac"),
+               overlap_steps=m["overlap_steps"],
+               ship_latency_p50=m.get("ship_latency_p50"),
+               prefix_hit_rate=m["prefix_hit_rate"],
+               decode_spills=m["decode_spills"],
+               per_mode=m["per_mode"], launches=launches, paths=paths,
+               launches_by_role=role, ttft_p50=m.get("ttft_p50"))
+    log(f"[{tag}] {json.dumps(out)}")
+    del backend, eng
+    _free()
+    return out
+
+
+def _parity_requests(vocab, n=4, seed=4):
+    """``n`` requests with distinct random prompts (no shared prefix), one
+    SLA (deadlines in submit order), 8-16 new tokens."""
+    from repro_torch.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, app_id=i % 3, sla_s=60.0,
+                    tokens=rng.integers(0, vocab, int(rng.integers(128, 513)))
+                    .astype(np.int32), max_new=int(rng.integers(8, 17)))
+            for i in range(n)]
+
+
+def disagg_parity_phase(dev, cfg):
+    """``FixedPolicy`` on each arm at one lane, colocated then disagg on
+    the same seed's weights: every call has the same shapes in both runs,
+    so every token stream must be equal."""
+    from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,
+                                    PlacementEngine, TorchBackend)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    role = _new_roles()
+    out = {}
+    for arm, name in ((LAYER, "layer"), (SEMANTIC, "semantic")):
+        streams = {}
+        for fleet in (None, "disagg"):
+            backend = TorchBackend(cfg, max_batch=1, arms=(arm,),
+                                   fleet=fleet, device=dev, **SERVE_SHAPE)
+            _by_role(backend, role)
+            eng = PlacementEngine(FixedPolicy(arm, placement=None), backend)
+            reqs = _parity_requests(cfg.vocab_size)
+            eng.submit(reqs)
+            eng.drain()
+            if eng.summary()["completed"] != len(reqs):
+                raise AssertionError(f"[disagg_parity {name} {fleet}] "
+                                     "requests lost")
+            streams[fleet] = [r.output for r in reqs]
+            shipped = eng.summary().get("blocks_shipped")
+            if fleet:
+                _check_unwound(backend, f"disagg_parity {name}")
+            del backend, eng
+            _free()
+        equal = [bool(np.array_equal(a, b))
+                 for a, b in zip(streams[None], streams["disagg"])]
+        if not all(equal):
+            raise AssertionError(f"[disagg_parity {name}] colocated and "
+                                 f"disagg streams differ: {equal}")
+        out[name] = dict(requests=len(equal), streams_equal=sum(equal),
+                         blocks_shipped=shipped)
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    by = out["launches_by_role"] = _with_colocated(role, out["launches"])
+    pre, dec = "paged_prefill_attention", "paged_decode_attention"
+    if not (by["prefill"][pre] and by["decode"][dec] and by["colocated"][pre]
+            and by["colocated"][dec]) or by["prefill"][dec] \
+            or by["decode"][pre]:
+        raise AssertionError(f"[disagg_parity] launches by role {by}")
+    log(f"[disagg_parity {cfg.name}] {json.dumps(out)}")
+    return out
+
+
+def chaos_phase(dev, cfg, n_requests: int = 6):
+    """The disagg fleet (bf16 pools, LAYER) under the six-fault plan
+    against a clean twin, then a colocated run with load shedding."""
+    from repro_torch.engine import (LAYER, FixedPolicy, PlacementEngine,
+                                    Request, TorchBackend)
+    from repro_torch.faults import Fault, FaultPlan
+    plan = FaultPlan([Fault(at=at, kind=kind, **kw)
+                      for at, kind, kw in CHAOS_PLAN], seed=7)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    role = _new_roles()
+    runs = {}
+    for name, faults in (("clean", None), ("chaos", plan)):
+        backend = TorchBackend(cfg, max_batch=4, arms=(LAYER,),
+                               fleet="disagg", ship_timeout_s=0.05,
+                               max_ship_retries=8, faults=faults, device=dev,
+                               **SERVE_SHAPE)
+        _by_role(backend, role)
+        eng = PlacementEngine(FixedPolicy(LAYER, placement=None), backend)
+        reqs = make_requests(cfg.vocab_size, n_requests, seed=2,
+                             max_new=(16, 33))
+        t0 = time.perf_counter()
+        eng.submit(reqs)
+        eng.drain()
+        torch.cuda.synchronize()
+        m = eng.summary()
+        m["wall_s"] = time.perf_counter() - t0
+        if m["completed"] != n_requests or m.get("shed", 0) or \
+                m.get("failed", 0):
+            raise AssertionError(f"[chaos {name}] completed "
+                                 f"{m['completed']}, shed {m.get('shed')}, "
+                                 f"failed {m.get('failed')}")
+        _check_unwound(backend, f"chaos {name}")
+        runs[name] = (m, [r.output for r in reqs])
+        del backend, eng
+        _free()
+    m, chaos_out = runs["chaos"]
+    kinds = {f"fault_{k}": n for k, n in plan.counts().items()}
+    got = {k: m.get(k) for k in kinds}
+    if m.get("faults_injected") != len(plan) or got != kinds:
+        raise AssertionError(f"[chaos] injected {m.get('faults_injected')} "
+                             f"{got}, planned {kinds}")
+    if not (m["retries"] > 0 and m["re_executions"] >= 1
+            and m["recovered"] >= 1):
+        raise AssertionError(f"[chaos] retries {m['retries']}, re_executions"
+                             f" {m['re_executions']}, recovered "
+                             f"{m['recovered']}")
+    equal = [bool(np.array_equal(a, b))
+             for a, b in zip(runs["clean"][1], chaos_out)]
+
+    # colocated, load shedding on: half the SLAs expire on arrival
+    backend = TorchBackend(cfg, max_batch=4, arms=(LAYER,), load_shed=True,
+                           device=dev, **SERVE_SHAPE)
+    eng = PlacementEngine(FixedPolicy(LAYER, placement=None), backend)
+    reqs = make_requests(cfg.vocab_size, n_requests, seed=3,
+                         max_new=(8, 17))
+    for r in reqs:
+        r.arrival_s, r.sla_s = 0.0, 1e-6 if r.rid % 2 else 60.0
+    eng.submit(reqs)
+    eng.drain()
+    sm = eng.summary()
+    shed = sm.get("shed", 0)
+    if not shed > 0 or sm["completed"] + shed + sm.get("failed", 0) != \
+            n_requests or any(r.output is not None for r in reqs
+                              if r.rid % 2):
+        raise AssertionError(f"[load_shed] completed {sm['completed']}, "
+                             f"shed {shed}, failed {sm.get('failed')}")
+    del backend, eng
+    _free()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    out = dict(requests=n_requests,
+               faults_injected=m["faults_injected"], by_kind=got,
+               retries=m["retries"], re_executions=m["re_executions"],
+               recovered=m["recovered"],
+               ship_requeues=m.get("ship_requeues"),
+               ship_stale_marks=m.get("ship_stale_marks"),
+               recovery_latency_p50=m.get("recovery_latency_p50"),
+               recovery_latency_p99=m.get("recovery_latency_p99"),
+               streams_equal_clean=sum(equal),
+               streams_equal_share=sum(equal) / len(equal),
+               wall_s_clean=runs["clean"][0]["wall_s"],
+               wall_s_chaos=m["wall_s"],
+               load_shed=dict(requests=n_requests,
+                              completed=sm["completed"], shed=shed,
+                              failed=sm.get("failed", 0)),
+               launches=launches,
+               launches_by_role=_with_colocated(role, launches))
+    log(f"[chaos {cfg.name}] {json.dumps(out)}")
+    return out
 
 
 # -------------------------------------------------------------------- model
@@ -863,8 +1283,7 @@ def serve_and_check(dev, cfg, *, model_check: bool = False,
     model = model_phase(dev, backend, superblocks=superblocks) \
         if model_check else None
     del backend
-    gc.collect()          # the backend and its schedulers hold cycles
-    torch.cuda.empty_cache()
+    _free()
     return serve, model
 
 
@@ -1410,6 +1829,10 @@ def main(argv=None) -> int:
                         weight_quant="int8", n_requests=8, waves=4,
                         max_new=(16, 33), model_check=True, superblocks=2,
                         **short)
+    fleet = {f"disagg_{kv}": disagg_phase(dev, stablelm, kv_dtype=kv)
+             for kv in ("f32", "int8")}
+    fleet["disagg_parity"] = disagg_parity_phase(dev, stablelm)
+    fleet["chaos"] = chaos_phase(dev, stablelm)
     train = train_phase(dev, stablelm)
     # the timed kernel phases run last: the profiler they use may leave
     # launch overhead behind, which the serves would otherwise absorb
@@ -1455,7 +1878,8 @@ def main(argv=None) -> int:
         elif name == "flash_attention":
             launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS)
         else:
-            launches = sum(s["launches"][name] for s in serves.values())
+            launches = sum(s["launches"][name] for s in serves.values()) \
+                + sum(f["launches"][name] for f in fleet.values())
         line.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
@@ -1470,7 +1894,8 @@ def main(argv=None) -> int:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(dict(
             card=card, build_s=build_s, total_s=total_s, kernels=kernels,
-            op_layer=op_layer, serves=serves, models=models, train=train),
+            op_layer=op_layer, serves=serves, models=models, fleet=fleet,
+            train=train),
             indent=1))
     print(json.dumps({"kernels": line}))
     print(card)

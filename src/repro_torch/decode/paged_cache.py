@@ -369,6 +369,14 @@ def pool_block_bytes(pool: Dict) -> int:
     return total
 
 
+def _at(path, ids: torch.Tensor):
+    """Index of physical blocks ``ids`` in the leaf at ``path``: scale
+    leaves ([..., P, bs, K]) have their physical axis at -3, KV leaves at
+    -4."""
+    tail = 2 if path[-1].endswith("_scale") else 3
+    return (Ellipsis, ids) + (slice(None),) * tail
+
+
 def copy_blocks(pool: Dict, src: torch.Tensor, dst: torch.Tensor) -> Dict:
     """Copy physical blocks ``dst[i] := src[i]`` in every pool leaf, in
     place — the copy-on-write resolve for a partially matched block.
@@ -376,10 +384,37 @@ def copy_blocks(pool: Dict, src: torch.Tensor, dst: torch.Tensor) -> Dict:
     bit-exactly and their scale leaves ride along (no requantization)."""
     src, dst = src.long(), dst.long()
     for path, leaf in _leaves(pool):
-        if path[-1].endswith("_scale"):
-            leaf[..., dst, :, :] = leaf[..., src, :, :]
-        else:
-            leaf[..., dst, :, :, :] = leaf[..., src, :, :, :]
+        leaf[_at(path, dst)] = leaf[_at(path, src)]
+    return pool
+
+
+def gather_blocks(pool: Dict, ids: torch.Tensor) -> Dict:
+    """The payload of physical blocks ``ids`` [n] from every pool leaf — the
+    wire format of a cache-store shipment: a dict with the pool's structure
+    whose leaves have the physical axis replaced by ``n``.  int8 code
+    leaves and their ``_scale`` leaves are extracted verbatim, so a shipped
+    quantized block is never requantized in flight."""
+    ids = ids.long()
+    out: Dict = {}
+    for path, leaf in _leaves(pool):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf[_at(path, ids)]
+    return out
+
+
+def scatter_blocks(pool: Dict, payload: Dict, ids: torch.Tensor) -> Dict:
+    """Write a :func:`gather_blocks` payload into physical blocks ``ids`` of
+    ``pool``, in place — the receiver half of a shipment.  Padded entries
+    point at the null block (whose contents are garbage by design), so one
+    unconditional scatter serves any pow2-bucketed wave width."""
+    ids = ids.long()
+    for path, leaf in _leaves(pool):
+        src = payload
+        for k in path:
+            src = src[k]
+        leaf[_at(path, ids)] = src
     return pool
 
 

@@ -12,7 +12,10 @@ The host logic is the JAX package's ``repro.decode.scheduler`` as it is:
   * ``prefill_step`` commits ONE chunk of uncached prompt tokens per
     prefilling lane — one call across the wave.
   * ``dispatch``     runs one K-token decode call across the decoding lanes
-    and retires lanes whose budget is spent.
+    and retires lanes whose budget is spent.  It is ``dispatch_async``
+    (enqueue the call, no host read) followed by ``finish_dispatch`` (one
+    read of the results), so a disaggregated backend can ship blocks while
+    the decode call runs on the card.
 
 Spilled lanes re-enter through ``try_join``; their re-prefill hits the
 prefix cache.  Calls are built once per bucket — prefill on (pow2 wave
@@ -20,11 +23,17 @@ width, chunk), decode on (pow2 lane width, pow2 loop length), COW on the
 pow2 pair count — and ``compile_stats`` / ``buckets`` count hits and misses
 per bucket under the same names as the JAX scheduler.
 
-This slice ports the colocated role.  Tensors live on ``device``; block
-tables, lengths and budgets stay host-side numpy and cross to the device
-once per call.  ``weight_quant`` ("int8" / "int4") serves from a private
-blockwise-quantized copy of the attention projections, made at
-construction; the model's float parameters stay untouched.
+``role=`` splits the step loop for a disaggregated fleet: a ``"prefill"``
+worker detaches lanes that have their first token for the cache store to
+ship (``take_ready`` / ``finish_shipped``), a ``"decode"`` worker seats the
+shipped lanes (``admit_shipped``).  The fault responses (``spill_all``,
+``evacuate``, ``evict_latest``, ``reset_for_reexec``) and the recovery
+counters are the reference's.  Tensors live on the model's device, and
+every call is enqueued on its current CUDA stream; block tables, lengths
+and budgets stay host-side numpy and cross to the device once per call.
+``weight_quant`` ("int8" / "int4") serves from a private blockwise-quantized
+copy of the attention projections, made at construction; the model's float
+parameters stay untouched.
 """
 from __future__ import annotations
 
@@ -43,7 +52,7 @@ from repro_torch.decode.paged_model import (make_decode_fn,
                                             quantize_attn_params,
                                             supports_paged_decode)
 from repro_torch.engine.types import next_pow2
-from repro_torch.obs import annotation, get_tracer
+from repro_torch.obs import Histogram, annotation, get_tracer
 
 
 @dataclass
@@ -56,6 +65,7 @@ class Lane:
     out: List[int] = field(default_factory=list)
     n_shared: int = 0            # leading block-table entries from the index
     preemptions: int = 0
+    committed: int = 0           # cache slots filled when detached for ship
     first_tok_t: float = 0.0     # wall-clock of the first generated token
 
     @property
@@ -96,10 +106,14 @@ class PagedArmScheduler:
                  scan_tokens: int = 8, util_floor: float = 0.5,
                  prefill_chunk: int = 32, prefix_sharing: bool = True,
                  watermark: float = 0.0, kv_dtype: str = "f32",
-                 weight_quant: Optional[str] = None, clock=None):
+                 weight_quant: Optional[str] = None,
+                 role: str = "colocated", clock=None):
         if not supports_paged_decode(model):
             raise ValueError("model does not support paged decode "
                              "(needs pure global-attention mixers)")
+        if role not in ("colocated", "prefill", "decode"):
+            raise ValueError(f"role must be 'colocated', 'prefill' or "
+                             f"'decode', got {role!r}")
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype must be 'f32' or 'int8', "
                              f"got {kv_dtype!r}")
@@ -107,9 +121,10 @@ class PagedArmScheduler:
             raise ValueError(f"weight_quant must be None, 'int8' or 'int4', "
                              f"got {weight_quant!r}")
         self.model = model
+        self.role = role
         self.device = model.device
         self.clock = clock
-        self.track = ("paged", f"colocated@{self.device}")
+        self.track = ("paged", f"{role}@{self.device}")
         self.kv_dtype = kv_dtype
         self.weight_quant = weight_quant
         self.quant_telemetry: Dict[str, float] = {}
@@ -152,6 +167,7 @@ class PagedArmScheduler:
         self.lanes: List[Optional[Lane]] = [None] * n_lanes
         self._resume: list = []       # (deadline, seq, lane) heap of spills
         self._rseq = 0
+        self._ready: List[Lane] = []  # prefill role: detached, ship-ready
 
         # built-call cache, keyed (kind,) + shape bucket
         self._built: Dict[tuple, object] = {}
@@ -169,6 +185,12 @@ class PagedArmScheduler:
         self.cow_copies = 0
         self.preemptions = 0
         self.spilled_blocks = 0
+        # fault recovery: full re-executions forced on this scheduler's
+        # lanes (blackout evacuations, backpressure evictions), disrupted
+        # requests re-admitted here, and the fault -> re-admission latency
+        self.re_executions = 0
+        self.recovered = 0
+        self.recovery_latency = Histogram()
         self.compile_stats: Dict[str, int] = {}
         self.buckets: Dict[str, int] = {}
 
@@ -180,7 +202,12 @@ class PagedArmScheduler:
         return self.max_blocks * self.block_size
 
     def validate(self, req) -> None:
-        need = len(req.tokens) + max(int(req.max_new), 1) - 1
+        # a prefill worker holds the prompt (and ships it before the first
+        # decode write); the decode side needs the full final length
+        if self.role == "prefill":
+            need = len(req.tokens)
+        else:
+            need = len(req.tokens) + max(int(req.max_new), 1) - 1
         if need > self.max_tokens_per_seq():
             raise ValueError(
                 f"request {req.rid}: {need} cache slots exceed the per-lane "
@@ -197,11 +224,15 @@ class PagedArmScheduler:
 
     @property
     def backlog(self) -> int:
-        """Seated lanes + spilled lanes awaiting resume."""
-        return self.n_active + len(self._resume)
+        """Seated lanes + spilled lanes awaiting resume + ship-ready."""
+        return self.n_active + len(self._resume) + len(self._ready)
+
+    def has_free_lane(self) -> bool:
+        return any(l is None for l in self.lanes)
 
     def earliest_deadline(self) -> Optional[float]:
         live = [l.deadline for l in self.lanes if l is not None]
+        live += [l.deadline for l in self._ready]
         if self._resume:
             live.append(self._resume[0][0])
         return min(live) if live else None
@@ -284,12 +315,87 @@ class PagedArmScheduler:
                 return
             self._preempt(max(victims)[1], now)
 
+    # ---------------------------------------------------- fault recovery
+    def _observe_recovery(self, lane: Lane, now: float) -> None:
+        """A fault-disrupted request just re-seated: close its recovery arc
+        (fault stamp -> re-admission) and clear the stamp."""
+        req = lane.req
+        if req.fault_t <= 0.0:
+            return
+        self.recovery_latency.observe(max(now - req.fault_t, 0.0))
+        self.recovered += 1
+        req.fault_t = 0.0
+        get_tracer().instant("recovery", track=self.track, req=req.rid)
+
+    @staticmethod
+    def reset_for_reexec(lane: Lane) -> None:
+        """Host-side reset to pre-prefill state: the request re-executes
+        from scratch (deterministic argmax decode -> the same tokens)."""
+        lane.out = []
+        lane.blocks = []
+        lane.n_shared = 0
+        lane.committed = 0
+        lane.first_tok_t = 0.0
+
+    def spill_all(self, now: float, fault_t: Optional[float] = None) -> int:
+        """Blackout response for a colocated/prefill scheduler: preempt every
+        seated lane through the ordinary spill path (blocks park in the
+        prefix cache, lanes queue for resume).  Returns the number
+        spilled."""
+        seated = [li for li, l in enumerate(self.lanes) if l is not None]
+        for li in seated:
+            if fault_t is not None:
+                self.lanes[li].req.fault_t = fault_t
+            self._preempt(li, now)
+        return len(seated)
+
+    def evacuate(self, now: float,
+                 fault_t: Optional[float] = None) -> List[Lane]:
+        """Blackout response for a decode scheduler: seated lanes cannot
+        resume here (they seat via ``admit_shipped``), so each is fully
+        reset for re-execution — full blocks stay matchable, making the
+        re-ship a receiver-side prefix hit — and the caller requeues them."""
+        out: List[Lane] = []
+        for li, lane in enumerate(self.lanes):
+            if lane is None:
+                continue
+            self._release(li, register=True)
+            self.reset_for_reexec(lane)
+            if fault_t is not None:
+                lane.req.fault_t = fault_t
+            self.re_executions += 1
+            out.append(lane)
+        return out
+
+    def evict_latest(self, deadline: float, now: float) -> Optional[Lane]:
+        """Ship-backpressure preemption: reset the seated lane with the
+        LATEST deadline strictly later than ``deadline`` so a more urgent
+        shipment can seat or allocate.  The victim re-executes from prefill
+        (its blocks stay matchable).  Returns it for requeue, or None if
+        every seated lane is at least as urgent."""
+        victims = [(l.deadline, li) for li, l in enumerate(self.lanes)
+                   if l is not None and l.deadline > deadline]
+        if not victims:
+            return None
+        li = max(victims)[1]
+        lane = self.lanes[li]
+        self._release(li, register=True)
+        self.reset_for_reexec(lane)
+        self.preemptions += 1
+        self.re_executions += 1
+        get_tracer().instant("decode_spill", track=self.track,
+                             req=lane.req.rid)
+        return lane
+
     # -------------------------------------------------------------- joins
     def try_join(self, queue: list, now: float) -> None:
         """Admit the most urgent queued/spilled candidates into free lanes:
         shared cached heads, at most one copy-on-write block each, private
         blocks for the rest, spilling later-deadline lanes under pressure.
         No model call happens here."""
+        if self.role == "decode":
+            raise RuntimeError("decode-role scheduler seats lanes via "
+                               "admit_shipped, not try_join")
         if not (queue or self._resume):
             return
         free = [i for i, l in enumerate(self.lanes) if l is None]
@@ -322,8 +428,13 @@ class PagedArmScheduler:
                 lane = Lane(req=req, enq=enq, join_t=now, blocks=[])
             req = lane.req
             seq_toks = lane.history()
-            total_need = self.alloc.blocks_for(
-                len(req.tokens) + max(int(req.max_new), 1) - 1)
+            if self.role == "prefill":
+                # prompt slots only: the first decode write happens on the
+                # receiver, after the blocks ship
+                total_need = self.alloc.blocks_for(len(seq_toks))
+            else:
+                total_need = self.alloc.blocks_for(
+                    len(req.tokens) + max(int(req.max_new), 1) - 1)
             shared: List[int] = []
             cow = None
             if self.prefix_sharing:
@@ -375,6 +486,7 @@ class PagedArmScheduler:
             self.prefix_query_tokens += len(seq_toks)
             tr.instant("seat", req=req.rid, cached=covered,
                        resumed=use_resume)
+            self._observe_recovery(lane, now)
             admitted += 1
 
         self._flush_cow(cow_pairs)
@@ -458,21 +570,91 @@ class PagedArmScheduler:
                 self._release(li, register=True)
                 retired.append(lane)
                 tr.instant("retire", track=self.track, req=lane.req.rid)
+            elif self.role == "prefill":
+                # detach for shipping: the lane keeps its block references,
+                # the seat frees for the next prefill wave; the cache store
+                # ships the blocks and calls ``finish_shipped``
+                lane.committed = int(self.lengths[li])
+                self._detach(li)
+                self._ready.append(lane)
             else:
                 self.remaining[li] = budget
                 self.last_tok[li] = first[row]
         return retired
 
+    # ----------------------------------------------------- ship / receive
+    def _detach(self, li: int) -> None:
+        """Clear seat ``li`` WITHOUT dropping the lane's block references
+        (contrast ``_release``)."""
+        self.lanes[li] = None
+        self.block_tables[li] = NULL_BLOCK
+        self.lengths[li] = 0
+        self.prefill_left[li] = 0
+        self.remaining[li] = 0
+
+    def take_ready(self) -> List[Lane]:
+        """Drain the ship-ready lanes a prefill worker has detached."""
+        out, self._ready = self._ready, []
+        return out
+
+    def finish_shipped(self, lane: Lane) -> None:
+        """Source-side epilogue of a shipment: register the lane's full
+        blocks in this worker's prefix index (later same-head prompts skip
+        their re-prefill), then drop the block references."""
+        if self.prefix_sharing and lane.committed >= self.block_size:
+            self.index.insert(lane.history()[:lane.committed], lane.blocks,
+                              self.alloc)
+        if lane.blocks:
+            self.alloc.free(lane.blocks[::-1])
+        lane.blocks = []
+        lane.n_shared = 0
+
+    def admit_shipped(self, lane: Lane, now: float) -> None:
+        """Seat an arrived shipment in a free decode lane.  ``lane.blocks``
+        already names local blocks (the cache store rewrote the table on
+        receive), so decoding resumes from the first generated token at
+        position ``committed``, as the colocated path would."""
+        if self.role != "decode":
+            raise RuntimeError("admit_shipped on a non-decode scheduler")
+        li = next(i for i, l in enumerate(self.lanes) if l is None)
+        if self.prefix_sharing and lane.committed >= self.block_size:
+            # shipped blocks become cached prefix HERE: the next same-head
+            # request hits the receiver's index and skips the transfer
+            self.index.insert(lane.history()[:lane.committed], lane.blocks,
+                              self.alloc)
+        self.lanes[li] = lane
+        row = np.full(self.max_blocks, NULL_BLOCK, np.int32)
+        row[:len(lane.blocks)] = lane.blocks
+        self.block_tables[li] = row
+        self.lengths[li] = lane.committed
+        self.prefill_left[li] = 0
+        self.remaining[li] = int(lane.req.max_new) - len(lane.out)
+        self.last_tok[li] = lane.out[-1]
+        self.joined += 1
+        get_tracer().instant("admit_shipped", track=self.track,
+                             req=lane.req.rid, blocks=len(lane.blocks))
+        self._observe_recovery(lane, now)
+
     # ------------------------------------------------------------ dispatch
     def dispatch(self, now: float) -> List[Lane]:
         """One K-token decode call across the decoding lanes; retire
-        finished lanes.  Active lanes compact into a pow2-width dispatch and
-        the loop length buckets to the budgets (``_scan_bucket``).  The K
-        tokens come back to the host in one read.  Returns retired lanes."""
+        finished lanes.  Returns the retired lanes."""
+        return self.finish_dispatch(self.dispatch_async(now), now)
+
+    def dispatch_async(self, now: float) -> Optional[dict]:
+        """Enqueue one K-token decode call and return WITHOUT reading its
+        results: the pending record holds the output tensors and the host
+        state ``finish_dispatch`` needs.  None when no lane is decoding.
+
+        Active lanes compact into a pow2-width call and the loop length
+        buckets to the budgets (``_scan_bucket``).  ``self.pool`` is rebound
+        to the call's output at once, so work enqueued before
+        ``finish_dispatch`` (a cache-store ship wave) runs after the decode
+        writes: one stream orders them."""
         act = np.nonzero(self.remaining > 0)[0]
         n_act = len(act)
         if n_act == 0:
-            return []
+            return None
         w = next_pow2(n_act)
         k_eff = self._scan_bucket(self.remaining[act])
         fn = self._get_built(
@@ -495,11 +677,31 @@ class PagedArmScheduler:
             self.pool, tok_o, lengths_o, remaining_o, toks = fn(
                 self.pool, self._dev(tok[:, None]), self._dev(bt),
                 self._dev(lengths), self._dev(remaining))
-            host = torch.cat([toks, tok_o, lengths_o[:, None],
-                              remaining_o[:, None]], dim=1).cpu().numpy()
         self.decode_dispatches += 1
         self.lane_steps += w * k_eff
         self._active_frac_sum += n_act / w
+        return {
+            "act": act, "k_eff": k_eff, "old_remaining": old_remaining,
+            # lane identity per active row: a row writes back only if its
+            # slot still holds the SAME lane (evict_latest can free a slot,
+            # and admit_shipped re-seat it, while the call runs)
+            "lanes": [self.lanes[i] for i in act],
+            "out": torch.cat([toks, tok_o, lengths_o[:, None],
+                              remaining_o[:, None]], dim=1),
+        }
+
+    def finish_dispatch(self, pending: Optional[dict],
+                        now: float) -> List[Lane]:
+        """Read a ``dispatch_async`` record's results in one host copy,
+        write back lane state and retire finished lanes."""
+        if pending is None:
+            return []
+        act, k_eff = pending["act"], pending["k_eff"]
+        old_remaining = pending["old_remaining"]
+        # the host waits here for the decode call: its own span, so a
+        # decode step's time is the enqueue (``decode_scan``) plus this
+        with get_tracer().span("decode_read", track=self.track):
+            host = pending["out"].cpu().numpy()
         toks = host[:, :k_eff]
         tok_o = host[:, k_eff]
         lengths_o = host[:, k_eff + 1]
@@ -508,7 +710,13 @@ class PagedArmScheduler:
         tr = get_tracer()
         retired: List[Lane] = []
         for row, i in enumerate(act):
-            lane = self.lanes[i]
+            lane = pending["lanes"][row]
+            if self.lanes[i] is not lane:
+                # evicted mid-flight (ship backpressure): its tokens are
+                # discarded — the lane re-executes from prefill, and its
+                # stale writes to reallocated blocks were overwritten by
+                # the later-enqueued ship scatter
+                continue
             self.last_tok[i] = tok_o[row]
             self.lengths[i] = lengths_o[row]
             self.remaining[i] = remaining_o[row]
@@ -545,6 +753,8 @@ class PagedArmScheduler:
             "cow_copies": self.cow_copies,
             "preemptions": self.preemptions,
             "spilled_blocks": self.spilled_blocks,
+            "re_executions": self.re_executions,
+            "recovered": self.recovered,
             "kv_block_bytes": self.kv_block_bytes,
             "kv_block_bytes_f32": self.kv_block_bytes_f32,
             # effective-capacity multiplier: KV blocks per byte vs f32

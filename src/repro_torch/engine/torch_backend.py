@@ -15,9 +15,17 @@ declared kinds.
 ``"int8"`` stores codes with one f32 scale per token slot and kv head.
 ``weight_quant="int8"|"int4"`` has each arm's scheduler serve from a
 blockwise-quantized copy of its attention projections (``quant_matmul``).
-Runs on ``cuda`` unless the caller passes ``device="cpu"``; asking for the
-card where there is none raises.  Knobs of later slices raise
-``NotImplementedError``.
+
+``fleet="disagg"`` gives each arm a prefill worker and a decode worker,
+each with its own pool, joined by a ``CacheStore`` that ships finished
+prompts' KV blocks; both workers share the arm's model and device
+(``fleet_devices`` may name only that device).  ``faults=`` takes a
+``repro_torch.faults.FaultPlan`` fired on the step counter: arm blackouts,
+dropped / duplicated / delayed ship waves and transient dispatch errors
+(retried with backoff under a per-arm circuit breaker).  ``load_shed``
+drops queued requests whose deadline has passed.  Runs on ``cuda`` unless
+the caller passes ``device="cpu"``; asking for the card where there is
+none raises.  Knobs of later slices raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,11 +37,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.decode.cache_store import CacheStore
 from repro_torch.decode.scheduler import PagedArmScheduler
 from repro_torch.engine.types import (COMPRESSED, LAYER, SEMANTIC, Outcome,
                                       Request, accuracy_for)
+from repro_torch.faults import (ARM_BLACKOUT, FaultInjector,
+                                TransientDispatchError)
 from repro_torch.models.model import Model, SemanticModel
-from repro_torch.obs import get_tracer, merge_stat_dicts
+from repro_torch.obs import Histogram, get_tracer, merge_stat_dicts
 
 ARM_MODES = {LAYER: "pipeline", SEMANTIC: "semantic", COMPRESSED: "fsdp"}
 SEMANTIC_BRANCHES = 2
@@ -53,6 +64,10 @@ def _not_ported(name: str, value, later: str) -> None:
     raise NotImplementedError(f"{name}={value!r} is ported in {later}")
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
 class TorchBackend:
     def __init__(self, cfg: ArchConfig, *, cache_len: int = 128,
                  max_batch: int = 8, seed: int = 0,
@@ -62,11 +77,18 @@ class TorchBackend:
                  prefill_chunk: int = 32, prefix_sharing: bool = True,
                  watermark: float = 0.0, kv_dtype: str = "f32",
                  weight_quant: Optional[str] = None,
-                 fleet: Optional[str] = None, faults=None,
+                 fleet: Optional[str] = None, fleet_devices=None,
+                 ship_timeout_s: float = 30.0, faults=None,
+                 max_retries: int = 3, breaker_cooldown: int = 8,
+                 max_ship_retries: Optional[int] = None,
                  load_shed: bool = False, jit_cache: Optional[dict] = None,
                  device="cuda"):
         if decode not in ("auto", "paged", "legacy"):
             raise ValueError(f"decode={decode!r}; expected auto|paged|legacy")
+        if fleet not in (None, "disagg"):
+            raise ValueError(f"fleet={fleet!r}; expected None|'disagg'")
+        if fleet is not None and decode == "legacy":
+            raise ValueError("fleet='disagg' needs the paged decode path")
         if kv_dtype not in ("f32", "int8"):
             raise ValueError(f"kv_dtype={kv_dtype!r}; expected f32|int8")
         if weight_quant not in (None, "int8", "int4"):
@@ -74,14 +96,14 @@ class TorchBackend:
                              "expected None|int8|int4")
         if decode == "legacy":
             _not_ported("decode", decode, "the legacy gang-path slice")
-        if fleet is not None:
-            _not_ported("fleet", fleet, "the disaggregation slice")
-        if faults is not None:
-            _not_ported("faults", "<plan>", "the faults/routing slice")
-        if load_shed:
-            _not_ported("load_shed", load_shed, "the faults/routing slice")
         if jit_cache is not None:
             _not_ported("jit_cache", "<dict>", "the fleet slice")
+        if fleet_devices and not all(
+                _same_device(torch.device(d), torch.device(device))
+                for d in fleet_devices):
+            _not_ported("fleet_devices", [str(d) for d in fleet_devices],
+                        "the multi-device slice (a fleet on this backend "
+                        "shares its one device)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cache_len = cache_len
@@ -95,8 +117,28 @@ class TorchBackend:
         self.watermark = watermark
         self.kv_dtype = kv_dtype
         self.weight_quant = weight_quant
+        self.fleet = fleet
+        self.ship_timeout_s = ship_timeout_s
+        # --- fault plane -------------------------------------------------
+        # the fault clock is the STEP COUNTER, not wall time: a seeded plan
+        # fires at the same points of the request stream on every run
+        self._injector = FaultInjector(faults) if faults is not None else None
+        self._fault_step = 0
+        self.max_retries = max_retries
+        self.breaker_cooldown = breaker_cooldown
+        self.max_ship_retries = max_ship_retries
+        self.load_shed = load_shed
+        self._blackout: Dict[int, int] = {}       # arm -> step it re-opens
+        self._breaker: Dict[int, int] = {}        # arm -> step it re-closes
+        self._backoff: Dict[tuple, int] = {}      # (arm, site) -> retry step
+        self._consec_err: Dict[tuple, int] = {}
+        self.dispatch_retries = 0
+        self.breaker_trips = 0
+        self.shed_count = 0
+        self._failures: List[Outcome] = []        # retry budget exhausted
         self.models: Dict[int, object] = {}
         self._paged: Dict[int, PagedArmScheduler] = {}
+        self._disagg: Dict[int, tuple] = {}   # arm -> (pf, dc, CacheStore)
         self._ttfts: List[float] = []
         # (abs_deadline, seq, enqueue_t, request) heaps per arm
         self._queues: Dict[int, list] = {}
@@ -119,16 +161,34 @@ class TorchBackend:
         # every arm draws from the same seed, as JaxBackend's init key
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         model.reset_parameters(gen)
-        sched = PagedArmScheduler(
-            model, n_lanes=self.max_batch, cache_len=self.cache_len,
-            block_size=self.block_size, num_blocks=self.num_blocks,
-            scan_tokens=self.scan_tokens, prefill_chunk=self.prefill_chunk,
-            prefix_sharing=self.prefix_sharing, watermark=self.watermark,
-            kv_dtype=self.kv_dtype, weight_quant=self.weight_quant,
-            clock=lambda: self.now)
-        sched.track = (f"arm{arm}:{ARM_MODES[arm]}", sched.track[1])
+        kw = dict(n_lanes=self.max_batch, cache_len=self.cache_len,
+                  block_size=self.block_size, num_blocks=self.num_blocks,
+                  scan_tokens=self.scan_tokens,
+                  prefill_chunk=self.prefill_chunk,
+                  prefix_sharing=self.prefix_sharing,
+                  watermark=self.watermark, kv_dtype=self.kv_dtype,
+                  weight_quant=self.weight_quant, clock=lambda: self.now)
+        label = f"arm{arm}:{ARM_MODES[arm]}"
+        if self.fleet == "disagg":
+            pf = PagedArmScheduler(model, role="prefill", **kw)
+            dc = PagedArmScheduler(model, role="decode", **kw)
+            store = CacheStore(
+                pf, dc, timeout_s=self.ship_timeout_s,
+                on_requeue=lambda lane, a=arm: self._requeue(a, lane),
+                max_ship_retries=self.max_ship_retries,
+                on_fail=lambda lane, a=arm: self._fail(a, lane),
+                injector=self._injector)
+            # trace tracks: one process row per arm, the prefill / ship /
+            # decode workers as its threads
+            pf.track = (label, pf.track[1])
+            dc.track = (label, dc.track[1])
+            store.track = (label, "ship")
+            self._disagg[arm] = (pf, dc, store)
+        else:
+            sched = PagedArmScheduler(model, **kw)
+            sched.track = (label, sched.track[1])
+            self._paged[arm] = sched
         self.models[arm] = model
-        self._paged[arm] = sched
         self._queues[arm] = []
 
     # ------------------------------------------------------------- lifecycle
@@ -136,13 +196,26 @@ class TorchBackend:
     def now(self) -> float:
         return time.perf_counter() - self._t0
 
+    def _all_scheds(self):
+        yield from self._paged.values()
+        for pf, dc, _ in self._disagg.values():
+            yield pf
+            yield dc
+
     def pending(self) -> int:
         queued = sum(len(q) for q in self._queues.values())
-        return queued + sum(s.backlog for s in self._paged.values())
+        in_flight = sum(s.backlog for s in self._all_scheds())
+        in_flight += sum(st.backlog for _, _, st in self._disagg.values())
+        return queued + in_flight
 
     def submit(self, req: Request) -> None:
         self._ensure_arm(req.decision)
-        self._paged[req.decision].validate(req)
+        if req.decision in self._paged:
+            self._paged[req.decision].validate(req)
+        else:
+            pf, dc, _ = self._disagg[req.decision]
+            pf.validate(req)      # the prompt must fit the prefill worker
+            dc.validate(req)      # ... and prompt + decode the decode worker
         enq = self.now
         deadline = (req.arrival_s if req.arrival_s is not None else enq) \
             + req.sla_s
@@ -152,20 +225,138 @@ class TorchBackend:
         get_tracer().instant("place", req=req.rid, arm=req.decision,
                              mode=ARM_MODES[req.decision])
 
+    def _requeue(self, arm: int, lane) -> None:
+        """A timed-out, aborted or evicted shipment's request goes back onto
+        the arm queue for a fresh prefill (which hits the prefill worker's
+        prefix cache)."""
+        heapq.heappush(self._queues[arm],
+                       (lane.deadline, self._seq, lane.enq, lane.req))
+        self._seq += 1
+
+    def _fail(self, arm: int, lane) -> None:
+        """Terminal failure (ship retry budget exhausted): the request
+        leaves with a failed Outcome, never a silent hang."""
+        req = lane.req
+        now = self.now
+        self._failures.append(Outcome(
+            request=req, decision=arm, latency_s=now - lane.enq,
+            queue_wait_s=now - lane.enq, accuracy=0.0, finish_s=now,
+            failed=True))
+        get_tracer().instant("request_failed", req=req.rid, arm=arm)
+
+    def _take_failures(self) -> List[Outcome]:
+        out, self._failures = self._failures, []
+        return out
+
+    # ----------------------------------------------------------- fault plane
+    def _arm_available(self, arm: int) -> bool:
+        return self._blackout.get(arm, 0) <= self._fault_step \
+            and self._breaker.get(arm, 0) <= self._fault_step
+
+    def _apply_faults(self) -> None:
+        """Fire the plan's due faults on the step-counter clock.  Only arm
+        blackouts act here (ship and dispatch faults are charge pools the
+        hot paths drain; host faults belong to a simulator)."""
+        tr = get_tracer()
+        for f in self._injector.advance(self._fault_step):
+            if f.kind != ARM_BLACKOUT:
+                continue
+            targets = [f.target] if f.target >= 0 else list(self.models)
+            for arm in targets:
+                if arm not in self.models:
+                    continue
+                self._blackout[arm] = self._fault_step \
+                    + max(int(f.duration), 1)
+                tr.instant("fault_injected", kind=ARM_BLACKOUT, arm=arm,
+                           until_step=self._blackout[arm])
+                self._black_out_arm(arm)
+
+    def _black_out_arm(self, arm: int) -> None:
+        """The arm's pool is gone for the window: colocated lanes spill
+        through the preempt/resume path; a disagg fleet spills its prefill
+        lanes, fails every in-flight shipment and resets seated decode
+        lanes for re-execution."""
+        now = self.now
+        if arm in self._paged:
+            self._paged[arm].spill_all(now, fault_t=now)
+        else:
+            pf, dc, store = self._disagg[arm]
+            pf.spill_all(now, fault_t=now)
+            store.abort_inflight(now)
+            for lane in dc.evacuate(now, fault_t=now):
+                self._requeue(arm, lane)
+
+    def _dispatch_ok(self, arm: int, site: str) -> bool:
+        """Gate one prefill/decode dispatch.  An injected transient error
+        is raised before any pool state changes and absorbed here: the
+        retry is the next step's attempt, backed off exponentially; more
+        than ``max_retries`` consecutive errors trip the arm's circuit
+        breaker for ``breaker_cooldown`` steps."""
+        key = (arm, site)
+        if self._backoff.get(key, 0) > self._fault_step:
+            return False
+        try:
+            if self._injector is not None and \
+                    self._injector.take_dispatch_error(arm, site):
+                raise TransientDispatchError(f"arm {arm} {site} dispatch")
+        except TransientDispatchError:
+            tr = get_tracer()
+            tr.instant("fault_injected", kind="dispatch_error", arm=arm,
+                       site=site)
+            n = self._consec_err.get(key, 0) + 1
+            self._consec_err[key] = n
+            if n > self.max_retries:
+                self._breaker[arm] = self._fault_step + self.breaker_cooldown
+                self._consec_err[key] = 0
+                self.breaker_trips += 1
+                tr.instant("breaker_open", arm=arm,
+                           until_step=self._breaker[arm])
+            else:
+                self.dispatch_retries += 1
+                self._backoff[key] = self._fault_step + 2 ** (n - 1)
+            return False
+        self._consec_err[key] = 0
+        return True
+
+    def _shed_expired(self) -> List[Outcome]:
+        """Deadline-aware load shedding: queued requests whose deadline
+        has passed leave with a ``shed`` Outcome.  Only queued (never
+        in-flight) work sheds, and only past-deadline work."""
+        now = self.now
+        tr = get_tracer()
+        outs: List[Outcome] = []
+        for arm, q in self._queues.items():
+            while q and q[0][0] <= now:
+                _, _, enq, req = heapq.heappop(q)
+                base = req.arrival_s if req.arrival_s is not None else enq
+                outs.append(Outcome(
+                    request=req, decision=arm, latency_s=now - base,
+                    queue_wait_s=now - base, accuracy=0.0, finish_s=now,
+                    shed=True))
+                self.shed_count += 1
+                tr.instant("shed", req=req.rid, arm=arm)
+        return outs
+
     # --------------------------------------------------------------- serving
     def _arm_urgency(self, arm: int) -> Optional[float]:
-        """Earliest deadline this arm owes: queue head or in-flight lane."""
+        """Earliest deadline this arm owes: queue head, in-flight lane or
+        shipment."""
         cand = []
         if self._queues[arm]:
             cand.append(self._queues[arm][0][0])
-        d = self._paged[arm].earliest_deadline()
-        if d is not None:
-            cand.append(d)
+        if arm in self._paged:
+            owing = (self._paged[arm],)
+        else:
+            owing = self._disagg[arm]
+        for d in (o.earliest_deadline() for o in owing):
+            if d is not None:
+                cand.append(d)
         return min(cand) if cand else None
 
     def _pick_arm(self) -> Optional[int]:
         live = [(u, arm) for arm in self._queues
-                if (u := self._arm_urgency(arm)) is not None]
+                if self._arm_available(arm)
+                and (u := self._arm_urgency(arm)) is not None]
         return min(live)[1] if live else None
 
     def _outcome(self, req: Request, arm: int, enq: float, exec_start: float,
@@ -180,8 +371,8 @@ class TorchBackend:
 
     @property
     def prefill_calls(self) -> int:
-        """Chunked-prefill calls across the arms."""
-        return sum(s.prefill_chunks for s in self._paged.values())
+        """Chunked-prefill calls across the arms and workers."""
+        return sum(s.prefill_chunks for s in self._all_scheds())
 
     def _lane_outcome(self, lane, arm: int, finish: float) -> Outcome:
         """Stamp a retired lane's Outcome, including time-to-first-token
@@ -200,34 +391,116 @@ class TorchBackend:
         call, so their response time does not absorb it."""
         sched = self._paged[arm]
         sched.try_join(self._queues[arm], self.now)
-        done = sched.prefill_step(self.now)
+        done = sched.prefill_step(self.now) \
+            if self._dispatch_ok(arm, "prefill") else []
         prefill_finish = self.now
         outcomes = [self._lane_outcome(lane, arm, prefill_finish)
                     for lane in done]
-        retired = sched.dispatch(self.now)
+        retired = sched.dispatch(self.now) \
+            if self._dispatch_ok(arm, "decode") else []
         finish = self.now
         outcomes += [self._lane_outcome(lane, arm, finish)
                      for lane in retired]
         return outcomes
 
+    def _step_disagg(self, arm: int) -> List[Outcome]:
+        """One step of the arm's prefill -> decode fleet: the prefill worker
+        seats queued requests and commits one chunk wave; the decode call
+        is enqueued; the ship-ready lanes go through the cache store
+        (receiver blocks, one gather/scatter, the ledger) and completed
+        arrivals seat into free decode lanes while that call runs; then
+        its results are read.  The ship's scatter is enqueued after the
+        decode call on the same stream, so a lane evicted by backpressure
+        mid-call has its reused blocks rewritten after its last write, and
+        ``finish_dispatch`` skips its row."""
+        pf, dc, store = self._disagg[arm]
+        pf.try_join(self._queues[arm], self.now)
+        done = pf.prefill_step(self.now) \
+            if self._dispatch_ok(arm, "prefill") else []
+        prefill_finish = self.now
+        # max_new == 1 retires at the prefill worker: nothing to ship
+        outcomes = [self._lane_outcome(lane, arm, prefill_finish)
+                    for lane in done]
+        pending = dc.dispatch_async(self.now) \
+            if self._dispatch_ok(arm, "decode") else None
+        t0 = self.now
+        store.ship(pf.take_ready(), self.now)
+        store.poll(self.now)
+        t1 = self.now
+        retired = dc.finish_dispatch(pending, self.now)
+        finish = self.now
+        if pending is not None:
+            # hidden: ship/poll host work done while the decode call was in
+            # flight; exposed: the blocking read of its results
+            store.note_overlap(t1 - t0, finish - t1)
+        outcomes += [self._lane_outcome(lane, arm, finish)
+                     for lane in retired]
+        return outcomes
+
     def step(self, policy=None) -> List[Outcome]:
+        # the fault clock ticks on every step, idle ones included, so
+        # blackout windows and breaker cooldowns close under drain
+        self._fault_step += 1
+        pre: List[Outcome] = []
+        if self._injector is not None:
+            self._apply_faults()
+        if self.load_shed:
+            pre = self._shed_expired()
         arm = self._pick_arm()
         if arm is None:
-            return []
+            return pre + self._take_failures()
         with get_tracer().span("step", arm=arm) as sp:
-            out = self._step_paged(arm)
+            out = self._step_disagg(arm) if arm in self._disagg \
+                else self._step_paged(arm)
             sp.set(retired=len(out))
-        return out
+        return pre + out + self._take_failures()
 
     # --------------------------------------------------------------- metrics
     def extra_metrics(self) -> dict:
         m = {"prefill_calls": self.prefill_calls}
-        scheds = list(self._paged.values())
+        scheds = list(self._all_scheds())
         if scheds:
-            # counters sum across arms, per-pool gauges take the max, and
-            # ratios recompute from the merged counters
+            # counters sum across arms and workers, per-pool gauges take
+            # the max, and ratios recompute from the merged counters (a
+            # disagg fleet's batch_occupancy is its decode lanes')
             m.update(merge_stat_dicts((s.stats() for s in scheds),
                                       kinds=PagedArmScheduler.STAT_KINDS))
+        if self._disagg:
+            stores = [st for _, _, st in self._disagg.values()]
+            m.update(merge_stat_dicts(s.stats() for s in stores))
+            hid = m.get("overlap_hidden_s", 0.0)
+            exp = m.get("overlap_exposed_s", 0.0)
+            if hid + exp > 0:
+                # share of ship + read host time hidden behind the
+                # in-flight decode call
+                m["ship_overlap_frac"] = round(hid / (hid + exp), 4)
+            ship = Histogram()
+            for s in stores:
+                ship.merge(s.ship_latency)
+            if ship.n:
+                for q in (50, 95, 99):
+                    m[f"ship_latency_p{q}"] = round(ship.percentile(q), 6)
         if self._ttfts:
             m["ttft_s"] = round(float(np.mean(self._ttfts)), 6)
+        # fault / recovery plane: injected counts, retries (dispatch
+        # backoffs + re-opened shipments), full re-executions (evacuations,
+        # evictions + expired-shipment requeues), fault -> re-admission
+        # latency across all schedulers
+        if self._injector is not None:
+            m.update(self._injector.stats())
+        m["retries"] = self.dispatch_retries + m.get("ship_retries", 0)
+        m["re_executions"] = m.get("re_executions", 0) \
+            + m.get("ship_requeues", 0)
+        if self.dispatch_retries:
+            m["dispatch_retries"] = self.dispatch_retries
+        if self.breaker_trips:
+            m["breaker_trips"] = self.breaker_trips
+        if self.shed_count:
+            m["shed"] = self.shed_count
+        rec = Histogram()
+        for s in scheds:
+            rec.merge(s.recovery_latency)
+        if rec.n:
+            for q in (50, 95, 99):
+                m[f"recovery_latency_p{q}"] = round(rec.percentile(q), 6)
         return m

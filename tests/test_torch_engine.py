@@ -148,8 +148,8 @@ def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(fleet="disagg"), dict(faults=object()),
-    dict(decode="legacy"), dict(load_shed=True), dict(jit_cache={})])
+    dict(decode="legacy"), dict(jit_cache={}),
+    dict(fleet="disagg", fleet_devices=("cpu", "cuda:1"))])
 def test_unported_knobs_raise(tiny_cfg, knob):
     with pytest.raises(NotImplementedError):
         TorchBackend(port_cfg(tiny_cfg), device="cpu", **knob)
