@@ -141,8 +141,27 @@ raising on failure:
             ``load_shed=True`` and half the SLAs expired on arrival: some
             requests are shed, none of them served, and completed + shed +
             failed = requests.
+12. fleet   ``FleetBackend`` of 4 replicas of full-width stablelm-1.6b on
+            the one card (LAYER, bf16 pools, cache 1024, blocks of 16,
+            chunks of 128, 8 lanes, pools of 257 blocks: half of full
+            capacity), replicas sharing one model and one built-call
+            cache.  A shared-prefix trace (8 families: a 256-token head
+            plus a 16-128-token tail, 16-32 new tokens; 24 requests in 4
+            waves) runs a warm and a measured pass under
+            ``PrefixAwareRouter(fleet.board)``, then again on a fresh fleet
+            under ``RandomPlacement(3)``.  Every request completes; after
+            every step the board equals the union of the replicas'
+            ``PrefixIndex`` chains; the paged launches summed over the
+            replicas equal one a layer per prefill chunk (tensor-core path)
+            and per decode step (``decode_split``); each bucket is built
+            once fleet-wide; the routed measured pass's prefix hit rate is
+            above the random one's; every replica's pool unwinds.  Reports
+            tokens/s and decode ms per step per pass, the hit rate,
+            ``routed_per_replica``, sync deltas, tracked hashes, the
+            router's expected overlap, place ms per request, response p50
+            and p99 and peak memory.
 
-Phases 9-11 run after the serves, before training.  Every backend is freed
+Phases 9-12 run after the serves, before training.  Every backend is freed
 before the next one is built.  The last lines are
 one JSON object per kernel line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -816,6 +835,12 @@ def _free():
 
 
 def _check_unwound(backend, tag):
+    for arm, sched in backend._paged.items():
+        if sched.alloc.used_blocks or sched.backlog:
+            raise AssertionError(
+                f"[{tag}] arm {arm}: pool not unwound "
+                f"({sched.alloc.used_blocks} blocks used, backlog "
+                f"{sched.backlog})")
     for arm, (pf, dc, store) in backend._disagg.items():
         if pf.alloc.used_blocks or dc.alloc.used_blocks or store.backlog:
             raise AssertionError(
@@ -1177,6 +1202,232 @@ def chaos_phase(dev, cfg, n_requests: int = 6):
                launches=launches,
                launches_by_role=_with_colocated(role, launches))
     log(f"[chaos {cfg.name}] {json.dumps(out)}")
+    return out
+
+
+# -------------------------------------------------------------------- fleet
+FLEET_REPLICAS = 4
+FLEET_FAMILIES = 8
+FLEET_HEAD = 256                   # tokens: 16 blocks of 16
+#: half of full capacity (1 + 8 lanes x 64 blocks), as the benchmarks size
+#: a replica's pool: one replica caches only a few families' heads beside
+#: its working set
+FLEET_BLOCKS = 1 + 4 * 64
+
+
+def fleet_requests(vocab: int, *, n: int, seed: int, rid0: int):
+    """``n`` requests over ``FLEET_FAMILIES`` families: one family's
+    ``FLEET_HEAD``-token head (the same heads on every call) plus a fresh
+    16-128-token tail, 16-32 new tokens."""
+    from repro_torch.engine import Request
+    heads = np.random.default_rng(100).integers(
+        0, vocab, (FLEET_FAMILIES, FLEET_HEAD)).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        fam = int(rng.integers(FLEET_FAMILIES))
+        tail = rng.integers(0, vocab, int(rng.integers(16, 129)))
+        reqs.append(Request(
+            rid=rid0 + i, app_id=int(rng.integers(0, 3)), sla_s=30.0,
+            tokens=np.concatenate([heads[fam], tail]).astype(np.int32),
+            max_new=int(rng.integers(16, 33))))
+    return reqs
+
+
+def _board_mirrors_indexes(fleet) -> bool:
+    """The sync invariant: the board holds exactly the union of every
+    replica's index chains (with multiplicity)."""
+    for i, rep in enumerate(fleet.replicas):
+        want = sorted(s.index._chain_hash((parent, chunk))
+                      for s in rep._all_scheds()
+                      for parent, kids in s.index._children.items()
+                      for chunk in kids)
+        got = sorted(h for h, owners in fleet.board._owners.items()
+                     for _ in range(owners.get(i, 0)))
+        if got != want:
+            return False
+    return True
+
+
+def _fleet_counts(fleet):
+    """Cumulative fleet counters a pass is measured by."""
+    m = fleet.extra_metrics()
+    scheds = [s for rep in fleet.replicas for s in rep._all_scheds()]
+    return dict(
+        hit=m.get("prefix_hit_tokens", 0), query=m.get("prefix_query_tokens",
+                                                        0),
+        routed=fleet.routed_per_replica.copy(), place_s=fleet.place_time_s,
+        prefill=sum(_bucket_steps(s, "prefill") for s in scheds),
+        decode=sum(_bucket_steps(s, "decode") for s in scheds))
+
+
+def _fleet_pass(fleet, policy, reqs, waves: int):
+    """One pass of ``reqs`` in ``waves``: each wave submitted, then one
+    fleet step; then steps until the fleet is empty.  The board is held to
+    the replicas' indexes after every step (that check's time is left out
+    of the pass's wall time)."""
+    from repro_torch.engine import PlacementEngine
+    from repro_torch.obs import Tracer, set_tracer
+    eng = PlacementEngine(policy, fleet)
+    per_wave = -(-len(reqs) // waves)
+    before = _fleet_counts(fleet)
+    steps, check_s = 0, 0.0
+    tracer = Tracer()
+    old = set_tracer(tracer)
+    t0 = time.perf_counter()
+    try:
+        for w in range(waves + 2000):
+            if w < waves:
+                eng.submit(reqs[w * per_wave:(w + 1) * per_wave])
+            elif not fleet.pending():
+                break
+            eng.step()
+            steps += 1
+            c0 = time.perf_counter()
+            if not _board_mirrors_indexes(fleet):
+                raise AssertionError(f"[fleet] step {steps}: the board "
+                                     "does not mirror the replicas' indexes")
+            check_s += time.perf_counter() - c0
+        torch.cuda.synchronize()
+    finally:
+        set_tracer(old)
+    wall = time.perf_counter() - t0 - check_s
+    after = _fleet_counts(fleet)
+    if fleet.pending():
+        raise AssertionError(f"[fleet] {fleet.pending()} requests still in "
+                             "flight")
+    m = eng.summary()
+    for r in reqs:
+        if r.output is None or r.output.shape != (r.max_new,):
+            raise AssertionError(f"[fleet] request {r.rid}: output "
+                                 f"{None if r.output is None else r.output.shape}"
+                                 f", wanted {r.max_new} tokens")
+    if m["completed"] != len(reqs):
+        raise AssertionError(f"[fleet] completed {m['completed']} of "
+                             f"{len(reqs)}")
+    dec = tracer.events("decode_scan") + tracer.events("decode_read")
+    decode_steps = after["decode"] - before["decode"]
+    query = after["query"] - before["query"]
+    tokens = int(sum(r.max_new for r in reqs))
+    routed = after["routed"] - before["routed"]
+    return dict(
+        requests=len(reqs), tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall, fleet_steps=steps,
+        board_check_s=check_s,
+        prefill_chunks=after["prefill"] - before["prefill"],
+        decode_steps=decode_steps,
+        decode_ms_per_step=1e3 * sum(e[4] for e in dec) / 1e6
+        / max(decode_steps, 1),
+        prefix_hit_rate=(after["hit"] - before["hit"]) / max(query, 1),
+        routed_per_replica=[int(n) for n in routed],
+        place_ms_per_request=1e3 * (after["place_s"] - before["place_s"])
+        / max(int(routed.sum()), 1),
+        response_p50=m.get("response_p50"),
+        response_p99=m.get("response_p99"))
+
+
+def _fleet_run(dev, cfg, name: str, n_requests: int, waves: int, steps):
+    """One fleet under one placement: build, warm pass, measured pass,
+    then the unwind and shared-cache checks.  Adds the replicas' prefill
+    and decode steps to ``steps``; the fleet is freed on return."""
+    from repro_torch.engine import (LAYER, FixedPolicy, FleetBackend,
+                                    PrefixAwareRouter)
+    from repro_torch.sched.baselines import RandomPlacement
+    tag = f"fleet {name}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fleet = FleetBackend(cfg, n_replicas=FLEET_REPLICAS, arms=(LAYER,),
+                         max_batch=8, num_blocks=FLEET_BLOCKS,
+                         prefix_sharing=True, device=dev, **SERVE_SHAPE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    placement = PrefixAwareRouter(fleet.board) if name == "routed" \
+        else RandomPlacement(3)
+    policy = FixedPolicy(LAYER, placement=placement)
+    passes = {}
+    for i, label in enumerate(("warm", "measured")):
+        reqs = fleet_requests(cfg.vocab_size, n=n_requests, seed=20 + i,
+                              rid0=i * n_requests)
+        passes[label] = _fleet_pass(fleet, policy, reqs, waves)
+    for rep in fleet.replicas:
+        _check_unwound(rep, tag)
+    # the shared built-call cache: each bucket built (a miss) on one
+    # replica only, and served from the cache everywhere else
+    scheds = [s for rep in fleet.replicas for s in rep._all_scheds()]
+    shared = fleet.jit_cache[LAYER]
+    if any(rep.models[LAYER] is not shared["model"]
+           for rep in fleet.replicas):
+        raise AssertionError(f"[{tag}] replicas hold their own models")
+    builds = {}
+    for kind in ("prefill", "decode", "cow"):
+        built = sum(1 for k in shared
+                    if isinstance(k, tuple) and k[0] == kind)
+        missed = sum(s.compile_stats.get(f"{kind}_misses", 0)
+                     for s in scheds)
+        if missed != built:
+            raise AssertionError(f"[{tag}] {kind}: {missed} misses over "
+                                 f"the replicas, {built} buckets")
+        builds[kind] = dict(buckets=built, hits=sum(
+            s.compile_stats.get(f"{kind}_hits", 0) for s in scheds))
+    for s in scheds:
+        steps["prefill"] += _bucket_steps(s, "prefill")
+        steps["decode"] += _bucket_steps(s, "decode")
+    m = fleet.extra_metrics()
+    out = dict(passes, setup_s=setup_s, builds=builds,
+               replicas_serving=int((fleet.routed_per_replica > 0).sum()),
+               sync_deltas=m["sync_deltas"],
+               tracked_hashes=m["tracked_hashes"],
+               route_expected_overlap=m.get("route_expected_overlap"),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[{tag} {cfg.name}] {json.dumps(out)}")
+    return out
+
+
+def fleet_phase(dev, cfg, *, n_requests: int = 24, waves: int = 4):
+    """``FleetBackend`` of ``FLEET_REPLICAS`` full-width replicas on the
+    one card, LAYER arm, half-capacity pools: a warm and a measured pass of
+    the shared-prefix trace under ``PrefixAwareRouter(fleet.board)``, then
+    the same on a fresh fleet under ``RandomPlacement``.  Gates: every
+    request completes; the board mirrors the indexes after every step; one
+    paged launch a layer per prefill chunk and per decode step summed over
+    the replicas, each on its path; every bucket built once fleet-wide;
+    the routed measured pass's hit rate above the random one's; every
+    pool unwinds."""
+    from repro_torch.kernels import _paged_launch as PL
+    t0 = time.perf_counter()
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    paths0 = dict(PL.PATH_LAUNCHES)
+    steps = {"prefill": 0, "decode": 0}
+    out = {}
+    for name in ("routed", "random"):
+        out[name] = _fleet_run(dev, cfg, name, n_requests, waves, steps)
+        _free()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    paths = {k: PL.PATH_LAUNCHES[k] - paths0[k] for k in paths0}
+    layers = cfg.n_layers
+    want = {"paged_prefill_attention": layers * steps["prefill"],
+            "paged_decode_attention": layers * steps["decode"],
+            "quant_matmul": 0}
+    want_paths = {"prefill_mma": want["paged_prefill_attention"],
+                  "prefill_simt": 0,
+                  "decode_split": want["paged_decode_attention"]}
+    if launches != want or paths != want_paths or not (
+            steps["prefill"] and steps["decode"]):
+        raise AssertionError(f"[fleet] paged launches {launches} by path "
+                             f"{paths}, the replicas' steps imply {want}")
+    routed = out["routed"]["measured"]["prefix_hit_rate"]
+    blind = out["random"]["measured"]["prefix_hit_rate"]
+    if not routed > blind:
+        raise AssertionError(f"[fleet] routed hit rate {routed} is not "
+                             f"above random's {blind}")
+    if out["routed"]["replicas_serving"] < 2:
+        raise AssertionError("[fleet] the router used one replica")
+    out.update(launches=launches, paths=paths, replicas=FLEET_REPLICAS,
+               num_blocks=FLEET_BLOCKS, phase_s=time.perf_counter() - t0)
+    log(f"[fleet {cfg.name}] launches {json.dumps(launches)}, phase "
+        f"{out['phase_s']:.1f} s")
     return out
 
 
@@ -1833,6 +2084,7 @@ def main(argv=None) -> int:
              for kv in ("f32", "int8")}
     fleet["disagg_parity"] = disagg_parity_phase(dev, stablelm)
     fleet["chaos"] = chaos_phase(dev, stablelm)
+    fleet["fleet"] = fleet_phase(dev, stablelm)
     train = train_phase(dev, stablelm)
     # the timed kernel phases run last: the profiler they use may leave
     # launch overhead behind, which the serves would otherwise absorb

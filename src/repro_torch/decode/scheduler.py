@@ -33,7 +33,9 @@ every call is enqueued on its current CUDA stream; block tables, lengths
 and budgets stay host-side numpy and cross to the device once per call.
 ``weight_quant`` ("int8" / "int4") serves from a private blockwise-quantized
 copy of the attention projections, made at construction; the model's float
-parameters stay untouched.
+parameters stay untouched.  ``jit_cache`` is a built-call dict shared by
+schedulers of one model (a fleet's replicas of an arm): each bucket is built
+once across them, and they share the quantized copy the calls close over.
 """
 from __future__ import annotations
 
@@ -107,7 +109,8 @@ class PagedArmScheduler:
                  prefill_chunk: int = 32, prefix_sharing: bool = True,
                  watermark: float = 0.0, kv_dtype: str = "f32",
                  weight_quant: Optional[str] = None,
-                 role: str = "colocated", clock=None):
+                 role: str = "colocated", clock=None,
+                 jit_cache: Optional[dict] = None):
         if not supports_paged_decode(model):
             raise ValueError("model does not support paged decode "
                              "(needs pure global-attention mixers)")
@@ -128,13 +131,22 @@ class PagedArmScheduler:
         self.kv_dtype = kv_dtype
         self.weight_quant = weight_quant
         self.quant_telemetry: Dict[str, float] = {}
+        # built-call cache, keyed (kind,) + shape bucket; a shared one
+        # holds calls that close over another scheduler's params, so the
+        # sharers must serve one model
+        self._built: Dict[tuple, object] = \
+            jit_cache if jit_cache is not None else {}
         params = model.grouped_views()
         if weight_quant is not None:
             # a PRIVATE quantized copy of the attention projections: the
             # model's float parameters stay untouched (other arms and the
-            # caller may share them)
-            params, self.quant_telemetry = quantize_attn_params(
-                params, int(weight_quant[3:]))
+            # caller may share them); one copy per built-call cache
+            key = ("quant_params", weight_quant)
+            if key not in self._built:
+                self._built[key] = quantize_attn_params(
+                    params, int(weight_quant[3:]))
+            params, telemetry = self._built[key]
+            self.quant_telemetry = dict(telemetry)
         self.params = params
         self.n_lanes = n_lanes
         self.block_size = block_size
@@ -168,9 +180,6 @@ class PagedArmScheduler:
         self._resume: list = []       # (deadline, seq, lane) heap of spills
         self._rseq = 0
         self._ready: List[Lane] = []  # prefill role: detached, ship-ready
-
-        # built-call cache, keyed (kind,) + shape bucket
-        self._built: Dict[tuple, object] = {}
 
         # instrumentation
         self.join_waves = 0

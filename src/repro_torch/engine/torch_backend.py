@@ -23,9 +23,14 @@ prompts' KV blocks; both workers share the arm's model and device
 ``repro_torch.faults.FaultPlan`` fired on the step counter: arm blackouts,
 dropped / duplicated / delayed ship waves and transient dispatch errors
 (retried with backoff under a per-arm circuit breaker).  ``load_shed``
-drops queued requests whose deadline has passed.  Runs on ``cuda`` unless
-the caller passes ``device="cpu"``; asking for the card where there is
-none raises.  Knobs of later slices raise ``NotImplementedError``.
+drops queued requests whose deadline has passed.  ``jit_cache`` is the
+built-call cache a fleet's replicas share (``{arm: dict}``): replicas of
+one arm share that arm's model, kept in its dict, as well as its built
+calls, so every bucket is built once fleet-wide and the weights are held
+once (every replica draws the same seed, as ``JaxBackend``'s do).  Runs on
+``cuda`` unless the caller passes ``device="cpu"``; asking for the card
+where there is none raises.  Knobs of later slices raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -69,6 +74,11 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 class TorchBackend:
+    # the reference's legacy gang-path counters, read by a fleet's merged
+    # metrics; the paged path never runs the gang path
+    batches = 0
+    decode_steps = 0
+
     def __init__(self, cfg: ArchConfig, *, cache_len: int = 128,
                  max_batch: int = 8, seed: int = 0,
                  arms=(LAYER, SEMANTIC), decode: str = "auto",
@@ -96,8 +106,6 @@ class TorchBackend:
                              "expected None|int8|int4")
         if decode == "legacy":
             _not_ported("decode", decode, "the legacy gang-path slice")
-        if jit_cache is not None:
-            _not_ported("jit_cache", "<dict>", "the fleet slice")
         if fleet_devices and not all(
                 _same_device(torch.device(d), torch.device(device))
                 for d in fleet_devices):
@@ -119,6 +127,7 @@ class TorchBackend:
         self.weight_quant = weight_quant
         self.fleet = fleet
         self.ship_timeout_s = ship_timeout_s
+        self._jit_cache = jit_cache
         # --- fault plane -------------------------------------------------
         # the fault clock is the STEP COUNTER, not wall time: a seeded plan
         # fires at the same points of the request stream on every run
@@ -155,19 +164,27 @@ class TorchBackend:
         if arm not in ARM_MODES:
             raise ValueError(f"unknown split decision {arm!r}; expected one "
                              f"of {sorted(ARM_MODES)}")
-        model = SemanticModel(self.cfg.semantic(SEMANTIC_BRANCHES),
-                              device=self.device) if arm == SEMANTIC \
-            else Model(self.cfg, device=self.device)
-        # every arm draws from the same seed, as JaxBackend's init key
-        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        model.reset_parameters(gen)
+        shared = self._jit_cache.setdefault(arm, {}) \
+            if self._jit_cache is not None else None
+        model = shared.get("model") if shared is not None else None
+        if model is None:
+            model = SemanticModel(self.cfg.semantic(SEMANTIC_BRANCHES),
+                                  device=self.device) if arm == SEMANTIC \
+                else Model(self.cfg, device=self.device)
+            # every arm draws from the same seed, as JaxBackend's init key
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.seed + 1)
+            model.reset_parameters(gen)
+            if shared is not None:
+                shared["model"] = model
         kw = dict(n_lanes=self.max_batch, cache_len=self.cache_len,
                   block_size=self.block_size, num_blocks=self.num_blocks,
                   scan_tokens=self.scan_tokens,
                   prefill_chunk=self.prefill_chunk,
                   prefix_sharing=self.prefix_sharing,
                   watermark=self.watermark, kv_dtype=self.kv_dtype,
-                  weight_quant=self.weight_quant, clock=lambda: self.now)
+                  weight_quant=self.weight_quant, clock=lambda: self.now,
+                  jit_cache=shared)
         label = f"arm{arm}:{ARM_MODES[arm]}"
         if self.fleet == "disagg":
             pf = PagedArmScheduler(model, role="prefill", **kw)

@@ -148,7 +148,7 @@ def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(decode="legacy"), dict(jit_cache={}),
+    dict(decode="legacy"),
     dict(fleet="disagg", fleet_devices=("cpu", "cuda:1"))])
 def test_unported_knobs_raise(tiny_cfg, knob):
     with pytest.raises(NotImplementedError):
