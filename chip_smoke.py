@@ -89,7 +89,9 @@ raising on failure:
             function (no window, no softcap).
 8. ops      the kernel-op layer ``repro_torch.kernels.ops`` at full widths:
             ``block_diag_matmul`` (stablelm-1.6b ``.semantic(2)`` branch MLP
-            up and down at T 8, 200 and 2048), ``moe_gmm`` (qwen2-moe-a2.7b,
+            up and down at T 8, 200 and 2048; xlstm-125m's mLSTM
+            projection, 4 heads of 384 at T 8, the row the kernels line
+            reports), ``moe_gmm`` (qwen2-moe-a2.7b,
             60 experts x capacity 171), ``ssm_scan`` (jamba-1.5-large's
             mixer, [1, 2048, 16384, 16] f32) and ``decode_attention`` (B 8,
             L 4096, ragged lengths with a 0; stablelm-1.6b and a gemma2-27b
@@ -161,8 +163,50 @@ raising on failure:
             router's expected overlap, place ms per request, response p50
             and p99 and peak memory.
 
-Phases 9-12 run after the serves, before training.  Every backend is freed
-before the next one is built.  The last lines are
+13. legacy  the gang path (``TorchBackend(decode="legacy")``) at the full
+            width and depth of stablelm-1.6b, bf16, both arms, cache 1024,
+            8 lanes, ``MABPolicy(bandit="ucb")`` with every arm served
+            first: 9 requests (random 64-256-token prompts, 32-64 new
+            tokens) in 3 waves.  The launch counters are zeroed just
+            before and read just after: ``decode_attention`` must read one
+            launch per layer per decode step (the semantic arm's branches
+            folded into one call).  Then ``gang_model_check`` at the
+            phase's shape (8 lanes, cache 1024): the served bf16 logits are
+            finite, and an f32 copy of each arm gives the same logits (a
+            264-token prefill, so the kernel merges two 256-slot pieces,
+            and 8 teacher-forced decode steps) through the kernel as
+            through ``decode_attention_plain``, within 4 times the plain
+            run's own response to a one-ulp weight nudge or 1e-5 of the
+            largest |logit|, whichever is larger.
+14. recurrent  xlstm-125m at full width and depth, ``decode="auto"`` (its
+            mixers take the gang path, prompts prefilled token by token),
+            ``bandit="thompson"``, 9 requests (16-48-token prompts, 16-32
+            new) in 3 waves: three ``block_diag_matmul`` launches per mLSTM
+            layer per decode step, every one on the skinny tile; the same
+            model check with ``block_diag_matmul_plain`` (a 24-token
+            prompt; 8 lanes, so the mLSTM projections run at T 8).
+15. window  gemma2-27b at full width cut to 2 superblocks (hd 128, GQA
+            2:1, softcap 50, final softcap 30, the ``attn_local`` layers'
+            ring caches), ``decode="auto"``, ``bandit="egreedy"``, 6
+            requests in 3 waves; launches and model check as above.  Then
+            ``decode_attention`` on a wrapped ring at the full window (L =
+            W = 4096, every slot valid), f32 and bf16, against its plain
+            version within tol times each row's max |plain|.
+16. zoo     whisper-base (full, 1500 stub frames), internvl2-26b (full
+            width, 2 superblocks, 256 stub patches), jamba-1.5-large's
+            Mamba mixer (d 8192, d_inner 16384) and xlstm-125m's mLSTM and
+            sLSTM mixers: in f32, 64 teacher-forced decode steps on the
+            dense caches equal the full-sequence forward within 1e-3 of its
+            largest |value|; in bf16 both are finite.  internvl's decode,
+            like the reference's, takes no image prefix: it is held to the
+            text-only forward, and the 256-patch forward to its shape and
+            finiteness.
+
+Phases 9-16 run after the serves, before training.  The ``kernels`` line
+counts ``decode_attention`` launches from the ops, ``legacy`` and
+``window`` phases and ``block_diag_matmul`` launches from the ops and
+``recurrent`` phases.  Every backend is freed before the next one is
+built.  The last lines are
 one JSON object per kernel line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1475,7 +1519,7 @@ def model_phase(dev, backend, *, superblocks=None):
         n_tok = torch.tensor([100, 60], dtype=torch.int32, device=dev)
 
         def run(m, params):
-            pool = m.init_cache(17, 16)
+            pool = m.init_pool(17, 16)
             lc, _ = PM.paged_chunk_logits(m, pool, toks, starts, n_tok,
                                           tables, params)
             tok = lc.argmax(-1).int()[:, None]
@@ -1536,6 +1580,396 @@ def serve_and_check(dev, cfg, *, model_check: bool = False,
     del backend
     _free()
     return serve, model
+
+
+# ------------------------------------------------------------ gang path
+GANG_SHAPE = dict(cache_len=1024, max_batch=8)
+#: mLSTM layers run three ``block_diag_matmul`` launches a step (q, k, v)
+BDM_PER_MLSTM = 3
+
+
+def gang_requests(vocab: int, n: int, seed: int, plen=(16, 49),
+                  max_new=(16, 33)):
+    """``n`` requests over 3 apps with random prompts of ``plen`` tokens
+    and ``max_new`` new tokens, SLAs from tight to loose."""
+    from repro_torch.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=rid, app_id=int(rng.integers(0, 3)),
+                    tokens=rng.integers(0, vocab, int(rng.integers(*plen)))
+                    .astype(np.int32),
+                    sla_s=float(rng.choice([0.5, 2.0, 8.0, 30.0])),
+                    max_new=int(rng.integers(*max_new)))
+            for rid in range(n)]
+
+
+def _gang_counters():
+    from repro_torch.kernels.block_diag_matmul import block_diag_matmul
+    from repro_torch.kernels.decode_attention import decode_attention
+    return {"decode_attention": decode_attention,
+            "block_diag_matmul": block_diag_matmul}
+
+
+def gang_phase(dev, cfg, *, tag: str, decode: str, bandit: str, reqs,
+               waves: int):
+    """Serve ``reqs`` in ``waves`` through ``MABPolicy(bandit)`` (every arm
+    served first) and ``TorchBackend(decode=...)`` on both arms, all on the
+    gang path.  The launch counters are zeroed just before and read just
+    after: ``decode_attention`` must read one launch per attention layer
+    per decode step (the semantic arm's branches share it) and
+    ``block_diag_matmul`` three per mLSTM layer per step, every one on the
+    skinny tile.  Returns (backend, report)."""
+    from repro_torch.engine import (LAYER, SEMANTIC, MABPolicy,
+                                    PlacementEngine, TorchBackend)
+    from repro_torch.kernels import _gemm_launch as GL
+    from repro_torch.obs import Tracer, set_tracer
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend = TorchBackend(cfg, decode=decode, device=dev, **GANG_SHAPE)
+    eng = PlacementEngine(_every_arm_first(MABPolicy(bandit=bandit),
+                                           (LAYER, SEMANTIC)), backend)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if backend._paged or backend._disagg:
+        raise AssertionError(f"[{tag}] an arm took the paged path")
+    counters = _gang_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    paths0 = dict(GL.PATH_LAUNCHES)
+    tracer = Tracer()
+    old = set_tracer(tracer)
+    per_wave = -(-len(reqs) // waves)
+    t0 = time.perf_counter()
+    try:
+        for w in range(waves):
+            eng.submit(reqs[w * per_wave:(w + 1) * per_wave])
+            eng.drain()
+        torch.cuda.synchronize()
+    finally:
+        set_tracer(old)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    paths = {k: GL.PATH_LAUNCHES[k] - paths0[k] for k in paths0}
+    summary = eng.summary()
+    for r in reqs:
+        if r.output is None or r.output.shape != (r.max_new,):
+            raise AssertionError(f"[{tag}] request {r.rid}: output "
+                                 f"{None if r.output is None else r.output.shape}")
+    if summary["completed"] != len(reqs):
+        raise AssertionError(f"[{tag}] completed {summary['completed']}")
+    if set(summary["per_mode"]) != {"layer", "semantic"}:
+        raise AssertionError(f"[{tag}] arms served: {summary['per_mode']}")
+    steps = backend.decode_steps
+    mixers = [m for m, _ in cfg.pattern] * cfg.n_superblocks
+    n_attn = sum(m in ("attn", "attn_local") for m in mixers)
+    n_mlstm = sum(m == "mlstm" for m in mixers)
+    want = {"decode_attention": n_attn * steps,
+            "block_diag_matmul": BDM_PER_MLSTM * n_mlstm * steps}
+    if launches != want or steps == 0:
+        raise AssertionError(f"[{tag}] launches {launches}, {steps} decode "
+                             f"steps imply {want}")
+    want_paths = dict.fromkeys(paths, 0)
+    want_paths["skinny"] = want["block_diag_matmul"]
+    if paths != want_paths:
+        raise AssertionError(f"[{tag}] block_diag_matmul launches by path "
+                             f"{paths}, expected {want_paths}")
+    dec = tracer.events("legacy_decode")
+    dec_steps = sum(e[5]["steps"] for e in dec)
+    decode_s = sum(e[4] for e in dec) / 1e6
+    prefill_s = sum(e[4] for e in tracer.events("legacy_prefill")) / 1e6
+    tokens = int(sum(r.max_new for r in reqs))
+    m = backend.extra_metrics()
+    out = dict(model=cfg.name, decode=decode, bandit=bandit,
+               requests=len(reqs), tokens=tokens, wall_s=wall,
+               setup_s=setup_s, tokens_per_s=tokens / wall,
+               batches=m["batches"], decode_steps=steps,
+               prefill_calls=m["prefill_calls"],
+               decode_ms_per_step=1e3 * decode_s / max(dec_steps, 1),
+               prefill_s=prefill_s, prefill_share=prefill_s / wall,
+               batch_occupancy=m.get("batch_occupancy"),
+               bucket_misses=m.get("prefill_bucket_misses"),
+               per_mode=summary["per_mode"], launches=launches,
+               bdm_paths=paths,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               response_p50=summary.get("response_p50"))
+    log(f"[{tag}] {json.dumps(out)}")
+    return backend, out
+
+
+def _plain_gang_kernels():
+    """Context: the gang path's kernels swapped for their plain versions."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.kernels.block_diag_matmul import block_diag_matmul_plain
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.models import layers as ML
+    from repro_torch.models import xlstm as MX
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(ML, "decode_attention",
+                                          decode_attention_plain))
+    stack.enter_context(mock.patch.object(MX, "block_diag_matmul",
+                                          block_diag_matmul_plain))
+    return stack
+
+
+#: one f32 ulp: the model check's nudge scales every weight by 1 + ULP
+ULP = 2.0 ** -23
+#: the model check's gate on f32 kernel-vs-plain logits, as a share of the
+#: largest |logit|: GANG_NOISE times the plain run's own response to the
+#: one-ulp nudge, or GANG_REL where that is larger
+GANG_REL, GANG_NOISE = 1e-5, 4.0
+
+
+def gang_model_check(dev, backend, *, steps: int = 8):
+    """bf16 logits of the served models are finite; an f32 copy of each
+    arm gives the same logits through the gang path's kernels as through
+    their plain versions, within ``GANG_NOISE`` times ``nudge_rel`` or
+    ``GANG_REL`` of the largest |logit|, whichever is larger, at the
+    phase's own shape: ``backend.max_batch`` lanes (the semantic arm's branches fold
+    into the kernels' batch) on a fresh ``backend.cache_len`` dense cache,
+    a prompt of ``DECODE_PIECE + 8`` tokens on models with attention
+    layers (so ``decode_attention`` merges two pieces) and 24 on the
+    others (token by token where the model has no single-step prefill),
+    then ``steps`` decode steps, every run fed the same random tokens
+    (teacher-forced: a greedy feed would let one near-tied argmax send
+    the two runs down different streams).  ``nudge_rel``: how far the
+    plain run itself moves when every f32 weight is scaled by 1 + one
+    ulp."""
+    rng = np.random.default_rng(3)
+    cfg = backend.cfg
+    b, cache_len = backend.max_batch, backend.cache_len
+    has_attn = any(m in ("attn", "attn_local") for m, _ in cfg.pattern)
+    plen = DECODE_PIECE + 8 if has_attn else 24
+    if plen + steps > cache_len:
+        raise AssertionError(f"cache {cache_len} < {plen + steps}")
+    out = {}
+    for arm, model in sorted(backend.models.items()):
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, plen + steps)).astype(np.int32)).to(dev)
+
+        def run(m):
+            cache = m.init_cache(b, cache_len)
+            logits = []
+            if m.supports_single_step_prefill:
+                lg, cache = m.prefill_cache(None, cache, toks[:, :plen])
+            else:
+                for i in range(plen):
+                    lg, cache = m.decode_step(None, cache, toks[:, i:i + 1],
+                                              i)
+                    lg = lg[:, -1]
+            logits.append(lg)
+            for i in range(plen, plen + steps):
+                lg, cache = m.decode_step(None, cache, toks[:, i:i + 1], i)
+                logits.append(lg[:, -1])
+            return torch.stack(logits, 1)
+
+        served = run(model)
+        if not bool(served.isfinite().all()):
+            raise AssertionError(f"arm {arm}: bf16 logits not finite")
+        f32 = _f32_copy(dev, model, None)
+        kern = run(f32)
+        with _plain_gang_kernels():
+            ref = run(f32)
+            with torch.no_grad():
+                for p in f32.parameters():
+                    p.mul_(1 + ULP)
+            nudged = run(f32)
+        top = ref.abs().max()
+        by_step = ((kern - ref).abs().amax(dim=(0, 2)) / top).tolist()
+        rel = max(by_step)
+        nudge_rel = float((nudged - ref).abs().max() / top)
+        gate = max(GANG_REL, GANG_NOISE * nudge_rel)
+        out[arm] = dict(rel_err_f32=rel, rel_by_step=by_step,
+                        nudge_rel=nudge_rel, gate=gate, lanes=b, prompt=plen,
+                        cache_len=cache_len,
+                        superblocks=f32.cfg.n_superblocks,
+                        argmax_equal=bool((kern.argmax(-1)
+                                           == ref.argmax(-1)).all()))
+        log(f"[gang model] {cfg.name} arm {arm}: bf16 logits finite; f32 "
+            f"({f32.cfg.n_superblocks} superblocks, {b} lanes, prompt "
+            f"{plen}, cache {cache_len}) kernel vs plain max diff {rel:.3g}"
+            f" of max |logit|; plain vs plain on weights one ulp up "
+            f"{nudge_rel:.3g}; gate {gate:.3g}")
+        if not rel <= gate:
+            raise AssertionError(f"arm {arm}: f32 kernel vs plain logits "
+                                 f"differ by {rel} of the largest, over "
+                                 f"the gate {gate}")
+        del f32
+        torch.cuda.empty_cache()
+    return out
+
+
+def gang_and_check(dev, cfg, **kw):
+    """A gang phase, then its model check; the backend is freed after.
+    ``phase_s``: the wall time of both, setup included."""
+    t0 = time.perf_counter()
+    backend, serve = gang_phase(dev, cfg, **kw)
+    model = gang_model_check(dev, backend)
+    del backend
+    _free()
+    serve["phase_s"] = time.perf_counter() - t0
+    return serve, model
+
+
+def window_kernel_check(dev, cfg):
+    """``decode_attention`` on a wrapped ring at the config's full local
+    window (L = W, every slot valid: ``length = W``), bf16 and f32, the
+    GQA ratio, hd and softcap of the config, held to its plain version
+    within tol times each output row's max |plain|."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    w = cfg.sliding_window
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(8, cfg.n_heads, cfg.hd, generator=gen,
+                        device=dev).to(dt)
+        k = torch.randn(8, w, cfg.n_kv_heads, cfg.hd, generator=gen,
+                        device=dev).to(dt)
+        v = torch.randn(8, w, cfg.n_kv_heads, cfg.hd, generator=gen,
+                        device=dev).to(dt)
+        length = torch.full((8,), w, dtype=torch.int32, device=dev)
+        got = decode_attention(q, k, v, length, softcap=cfg.attn_softcap)
+        want = decode_attention_plain(q, k, v, length,
+                                      softcap=cfg.attn_softcap)
+        diff = (got.float() - want.float()).abs()
+        limit = ops_limit(want, dt, rows=True)
+        err = float(diff.max())
+        if not bool((diff <= limit).all()):
+            raise AssertionError(f"[window] decode_attention at L = W = {w}"
+                                 f" ({dt}): max |kernel - plain| {err} "
+                                 "beyond tol x the row's max |plain|")
+        out[str(dt)[6:]] = dict(max_abs_err=err, tol=QTOL[dt],
+                                err_over_limit=float(
+                                    (diff / limit.clamp(min=1e-30)).max()))
+        log(f"[window] decode_attention ring L = W = {w}, softcap "
+            f"{cfg.attn_softcap}, {str(dt)[6:]}: max_abs_err={err:.3g}")
+    return out
+
+
+ZOO_STEPS = 64
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _decode_vs_forward(model, batch, *, enc: bool):
+    """Teacher-forced decode of ``batch["tokens"]`` [B, ZOO_STEPS] on a
+    dense cache against the model's full-sequence forward: the largest
+    |difference| over the largest |forward logit|."""
+    toks = batch["tokens"]
+    full, _ = model.forward(model.param_tree(), batch)
+    cache = model.init_cache(toks.shape[0], toks.shape[1])
+    outs = []
+    for i in range(toks.shape[1]):
+        lg, cache = model.decode_step(None, cache, toks[:, i:i + 1], i,
+                                      batch=batch if enc else None)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, 1)
+    return full, dec, float((dec.float() - full.float()).abs().max()
+                            / full.float().abs().max())
+
+
+def _zoo_model(dev, name, *, superblocks, dtype):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(name).replace(dtype=dtype)
+    if superblocks:
+        cfg = cfg.replace(n_layers=len(cfg.pattern) * superblocks)
+    with torch.no_grad():
+        m = build_model(cfg, device=dev).reset_parameters(
+            torch.Generator(device=dev).manual_seed(5))
+    return cfg, m
+
+
+def zoo_phase(dev):
+    """whisper-base (full, 1500 stub frames), internvl2-26b (full width, 2
+    superblocks, 256 stub patches), jamba-1.5-large's Mamba mixer (d 8192)
+    and xlstm-125m's mLSTM and sLSTM mixers: in f32, ZOO_STEPS
+    teacher-forced decode steps equal the full-sequence forward within
+    1e-3 of its largest |value|; in bf16 the same outputs are finite.
+    internvl's decode takes no image prefix (the reference's does not
+    either), so its decode is held to the text-only forward and its
+    256-patch forward is checked for shape and finiteness."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm as MS
+    from repro_torch.models import xlstm as MX
+    from repro_torch.models.model import ParamTree, init_leaf
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for name, sbs in (("whisper-base", None), ("internvl2-26b", 2)):
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            cfg, m = _zoo_model(dev, name, superblocks=sbs, dtype=dtype)
+            fe = cfg.frontend
+            toks = torch.randint(0, cfg.vocab_size, (2, ZOO_STEPS),
+                                 generator=gen, device=dev)
+            emb = torch.randn(2, fe.n_tokens, fe.d_frontend, generator=gen,
+                              device=dev).to(_DTYPES[dtype])
+            with torch.no_grad():
+                if cfg.is_encdec:
+                    batch = {"tokens": toks, "audio_embeds": emb}
+                else:
+                    vis, _ = m.forward(m.param_tree(), {
+                        "tokens": toks, "image_embeds": emb})
+                    if vis.shape != (2, ZOO_STEPS, cfg.vocab_size) or not \
+                            bool(vis.isfinite().all()):
+                        raise AssertionError(f"[zoo] {name} {dtype}: the "
+                                             "256-patch forward")
+                    batch = {"tokens": toks,
+                             "image_embeds": emb[:, :0]}
+                full, dec, rel = _decode_vs_forward(m, batch,
+                                                    enc=cfg.is_encdec)
+            finite = bool(full.isfinite().all() and dec.isfinite().all())
+            if not finite or (dtype == "float32" and not rel <= 1e-3):
+                raise AssertionError(f"[zoo] {name} {dtype}: decode vs "
+                                     f"forward {rel}, finite {finite}")
+            out[f"{name}/{dtype}"] = dict(decode_vs_forward=rel,
+                                          finite=finite,
+                                          s=time.perf_counter() - t0)
+            log(f"[zoo] {name} {dtype}: decode vs forward {rel:.3g} of max "
+                f"|logit| over {ZOO_STEPS} steps, finite")
+            del m, full, dec
+            _free()
+    mixers = (("mamba", "jamba-1.5-large-398b", MS.mamba_shapes,
+               MS.mamba_apply, MS.mamba_init_state),
+              ("mlstm", "xlstm-125m", MX.mlstm_shapes, MX.mlstm_apply,
+               MX.mlstm_init_state),
+              ("slstm", "xlstm-125m", MX.slstm_shapes, MX.slstm_apply,
+               MX.slstm_init_state))
+    for kind, name, shapes, apply, init_state in mixers:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            cfg = get_config(name).replace(dtype=dtype)
+            dt = _DTYPES[dtype]
+            params = ParamTree(shapes(cfg), (1,), dt, dev)
+            for leaf, p in params.named_parameters():
+                init_leaf(leaf, p, gen)
+            x = torch.randn(1, 2, ZOO_STEPS, cfg.d_model, generator=gen,
+                            device=dev).to(dt)
+            with torch.no_grad():
+                full, _ = apply(params, x, cfg)
+                state = init_state(cfg, 2, dt, (1,), dev) if kind == "mamba" \
+                    else init_state(cfg, 2, (1,), dev)
+                outs = []
+                for i in range(ZOO_STEPS):
+                    y, state = apply(params, x[:, :, i:i + 1], cfg,
+                                     state=state)
+                    outs.append(y)
+                dec = torch.cat(outs, 2)
+            rel = float((dec.float() - full.float()).abs().max()
+                        / full.float().abs().max())
+            finite = bool(full.isfinite().all() and dec.isfinite().all())
+            if not finite or (dtype == "float32" and not rel <= 1e-3):
+                raise AssertionError(f"[zoo] {kind} mixer of {name} {dtype}:"
+                                     f" decode vs forward {rel}, finite "
+                                     f"{finite}")
+            out[f"{kind}/{dtype}"] = dict(decode_vs_forward=rel,
+                                          finite=finite,
+                                          s=time.perf_counter() - t0)
+            log(f"[zoo] {kind} mixer of {name} (d {cfg.d_model}) {dtype}: "
+                f"decode vs forward {rel:.3g} of max |y| over {ZOO_STEPS} "
+                "steps, finite")
+            del params, x, full, dec, state
+            _free()
+    return out
 
 
 # -------------------------------------------------------------------- flash
@@ -1744,6 +2178,13 @@ def ops_cases(dev):
             for dt in (torch.float32, torch.bfloat16):
                 yield gemm("block_diag_matmul", BDM, f"{proj}/T{t}", 2, t, k,
                            n, dt)
+    # the gang path's caller: xlstm-125m's mLSTM q/k/v projection, one
+    # block per head, T = the decode step's 8 lanes
+    xl = get_config("xlstm-125m")
+    hd = xl.ssm_expand * xl.d_model // xl.n_heads
+    for dt in (torch.float32, torch.bfloat16):
+        yield gemm("block_diag_matmul", BDM, "mlstm/T8", xl.n_heads, 8, hd,
+                   hd, dt)
     moe_cfg = get_config("qwen2-moe-a2.7b")
     m = moe_cfg.moe
     seq = 2048
@@ -2085,6 +2526,28 @@ def main(argv=None) -> int:
     fleet["disagg_parity"] = disagg_parity_phase(dev, stablelm)
     fleet["chaos"] = chaos_phase(dev, stablelm)
     fleet["fleet"] = fleet_phase(dev, stablelm)
+    gang, gang_models = {}, {}
+    gang["legacy"], gang_models["legacy"] = gang_and_check(
+        dev, stablelm, tag="legacy", decode="legacy", bandit="ucb", waves=3,
+        reqs=gang_requests(stablelm.vocab_size, 9, seed=2, plen=(64, 257),
+                           max_new=(32, 65)))
+    xlstm = get_config("xlstm-125m")
+    gang["recurrent"], gang_models["recurrent"] = gang_and_check(
+        dev, xlstm, tag="recurrent", decode="auto", bandit="thompson",
+        waves=3, reqs=gang_requests(xlstm.vocab_size, 9, seed=3))
+    gemma2 = get_config("gemma2-27b")
+    gemma2 = gemma2.replace(n_layers=2 * len(gemma2.pattern))
+    gang["window"], gang_models["window"] = gang_and_check(
+        dev, gemma2, tag="window", decode="auto", bandit="egreedy", waves=3,
+        reqs=gang_requests(gemma2.vocab_size, 6, seed=4, plen=(16, 33),
+                           max_new=(8, 17)))
+    gang["window"]["ring_kernel"] = window_kernel_check(dev, gemma2)
+    t0 = time.perf_counter()
+    zoo = zoo_phase(dev)
+    zoo["phase_s"] = time.perf_counter() - t0
+    log(f"[gang] phase seconds: " + json.dumps(
+        {**{k: g["phase_s"] for k, g in gang.items()},
+         "zoo": zoo["phase_s"]}))
     train = train_phase(dev, stablelm)
     # the timed kernel phases run last: the profiler they use may leave
     # launch overhead behind, which the serves would otherwise absorb
@@ -2100,7 +2563,7 @@ def main(argv=None) -> int:
                   "paged_prefill_attention": "prefill_mma",
                   "quant_matmul": "mma_skinny",
                   "flash_attention": "simt",
-                  "block_diag_matmul": "wgmma", "moe_gmm": "wgmma"}
+                  "block_diag_matmul": "skinny", "moe_gmm": "wgmma"}
     for label, row in kernels["flash_attention"]["per_dtype"].items():
         want_path = "mma" if label.endswith("bfloat16") else "simt"
         if row["path"] != want_path:
@@ -2110,7 +2573,7 @@ def main(argv=None) -> int:
                  "paged_prefill_attention": "hd64/bf16",
                  "quant_matmul": "layer/int8/bfloat16/T8",
                  "flash_attention": "layer/float32",
-                 "block_diag_matmul": "up/T2048/bfloat16",
+                 "block_diag_matmul": "mlstm/T8/bfloat16",
                  "moe_gmm": "gate_up/C171/bfloat16",
                  "ssm_scan": "jamba/float32",
                  "decode_attention": "stablelm-1.6b/bfloat16"}
@@ -2126,7 +2589,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} [{label}] took {row.get('path')}")
         src = sources.get(name, "paged_attention.cu")
         if name in OPS_KERNELS:
-            launches = kernels[name]["launches"]
+            launches = kernels[name]["launches"] + sum(
+                g["launches"].get(name, 0) for g in gang.values())
         elif name == "flash_attention":
             launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS)
         else:
@@ -2147,7 +2611,7 @@ def main(argv=None) -> int:
         pathlib.Path(args.out).write_text(json.dumps(dict(
             card=card, build_s=build_s, total_s=total_s, kernels=kernels,
             op_layer=op_layer, serves=serves, models=models, fleet=fleet,
-            train=train),
+            gang=gang, gang_models=gang_models, zoo=zoo, train=train),
             indent=1))
     print(json.dumps({"kernels": line}))
     print(card)

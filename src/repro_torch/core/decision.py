@@ -9,7 +9,10 @@ For workload ``w_t`` of application class ``a`` with deadline ``SLA_w``:
      MAB, and (for layer-split runs) updates E_a.
 
 Functional over an ``EngineState`` as ``repro.core.decision`` is, in numpy
-float32.  UCB needs no random key, so the state carries none.
+float32.  Where the reference carries a JAX key and splits it once per
+decision, the state carries a ``numpy.random.Generator`` seeded from the
+engine's seed, which the sampling bandits draw from (in place) once per
+decision; UCB draws nothing.
 """
 from __future__ import annotations
 
@@ -25,8 +28,9 @@ F32 = np.float32
 
 
 class EngineState(NamedTuple):
-    bandit: mab.UCBState      # per-app stacked state ([n_apps, ...])
+    bandit: tuple             # per-app stacked bandit state ([n_apps, ...])
     ema: EMAState
+    rng: np.random.Generator  # the sampling bandits' draws
 
 
 class SplitDecisionEngine:
@@ -39,17 +43,17 @@ class SplitDecisionEngine:
         self._init, self._select, self._update = mab.bandit_fns(bandit)
         self._bandit_kw = bandit_kw
 
-    def init(self) -> EngineState:
+    def init(self, seed: int = 0) -> EngineState:
         one = self._init(self.n_ctx, **self._bandit_kw)
-        stacked = mab.UCBState(*(np.broadcast_to(
+        stacked = type(one)(*(np.broadcast_to(
             x, (self.n_apps,) + np.shape(x)).astype(F32) for x in one))
         ema = ema_init(self.n_apps, decay=self.ema_decay)
         if self.ema_init_values is not None:
             ema = ema._replace(value=np.asarray(self.ema_init_values, F32))
-        return EngineState(stacked, ema)
+        return EngineState(stacked, ema, np.random.default_rng(seed))
 
-    def _app_bandit(self, state: EngineState, app: int) -> mab.UCBState:
-        return mab.UCBState(*(x[app] for x in state.bandit))
+    def _app_bandit(self, state: EngineState, app: int):
+        return type(state.bandit)(*(x[app] for x in state.bandit))
 
     def _context(self, state: EngineState, app: int, sla) -> int:
         ea = ema_get(state.ema, app)
@@ -61,16 +65,20 @@ class SplitDecisionEngine:
         """Returns (decision, context, state).  decision: 0=layer,
         1=semantic."""
         ctx = self._context(state, app, sla)
-        return self._select(self._app_bandit(state, app), ctx), ctx, state
+        arm = self._select(self._app_bandit(state, app), ctx, state.rng)
+        return arm, ctx, state
 
     def decide_many(self, state: EngineState, apps, slas, valid):
-        """A wave of decisions, equal to successive ``decide`` calls (UCB
-        reads are pure).  Rows with ``valid`` False carry garbage arms the
-        caller drops.  Returns (arms [N], ctxs [N], state)."""
+        """A wave of decisions, equal to successive ``decide`` calls: one
+        select (and so one draw) per real row, in order.  Rows with
+        ``valid`` False draw nothing, as the reference's padded steps leave
+        its key untouched, and carry arm 0, which the caller drops.
+        Returns (arms [N], ctxs [N], state)."""
         arms, ctxs = [], []
         for app, sla, ok in zip(apps, slas, valid):
             ctx = self._context(state, int(app), sla)
-            arms.append(self._select(self._app_bandit(state, int(app)), ctx))
+            arms.append(self._select(self._app_bandit(state, int(app)), ctx,
+                                     state.rng) if ok else 0)
             ctxs.append(ctx)
         return np.asarray(arms), np.asarray(ctxs), state
 
@@ -87,4 +95,4 @@ class SplitDecisionEngine:
         # E_a tracks LAYER-split execution times only (paper §III-B)
         ema = ema_update(state.ema, app, response_time) \
             if arm == mab.LAYER else state.ema
-        return EngineState(mab.UCBState(*bandit), ema)
+        return EngineState(type(state.bandit)(*bandit), ema, state.rng)

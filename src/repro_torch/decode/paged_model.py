@@ -212,10 +212,7 @@ def _head(model, params, x):
     cfg = model.branch_cfg
     emb, fnorm, _ = params
     x = L.norm_apply(fnorm, x, cfg)
-    logits = L.unembed_apply(emb, x, cfg)               # [G, B, V/G]
-    if isinstance(model, SemanticModel):
-        return model._merge_logits(logits)
-    return logits[0]
+    return model._merge(L.unembed_apply(emb, x, cfg))   # from [G, B, V/G]
 
 
 def _block_size(pool: Dict) -> int:

@@ -163,7 +163,7 @@ class PagedArmScheduler:
         self.alloc = BlockAllocator(
             num_blocks, block_size,
             on_evict=lambda blk, key: self.index.drop(key))
-        self.pool = model.init_cache(num_blocks, block_size)
+        self.pool = model.init_pool(num_blocks, block_size)
         self.kv_block_bytes_f32 = pool_block_bytes(self.pool)
         if kv_dtype == "int8":
             # int8 codes + one f32 scale per (token slot, kv head)

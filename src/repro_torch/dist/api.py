@@ -14,7 +14,11 @@ mode, as ``repro.dist.api``.
 
 On one device the three modes are the JAX package's math without its
 sharding specs.  Every runner exposes ``init``, ``loss`` and
-``value_and_grad``; ``make_train_step`` closes over a runner.  Parameter
+``value_and_grad``, and the serving surface of the gang path:
+``prefill_step``, ``init_cache``, ``supports_batched_prefill``,
+``prefill_into_cache`` and ``serve_step`` (``params`` None there: the
+runner's own weights).  ``make_train_step`` and ``make_serve_step`` close
+over a runner.  Parameter
 and gradient trees are nested dicts in the JAX param-tree layout
 (``Model.param_tree()``).  A mesh other than 1 x 1, the explicit pipeline
 schedules (gpipe, 1f1b) and expert parallelism raise
@@ -92,6 +96,39 @@ class BaseRunner:
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
         return loss.detach(), tree_unflatten(params, grads)
+
+    # -------------------------------------------------------------- serving
+    def prefill_step(self, params, batch):
+        """Full-prompt forward; returns [B, S, vocab] logits."""
+        with torch.no_grad():
+            logits, _ = self.model.forward(params, batch)
+        return logits
+
+    def init_cache(self, batch_size: int, cache_len: int,
+                   window_override: Optional[int] = None):
+        """Dense decode caches on the runner's device (after ``init``)."""
+        return self.model.init_cache(batch_size, cache_len, window_override)
+
+    @property
+    def supports_batched_prefill(self) -> bool:
+        """True when the model can prefill its KV cache in one step."""
+        return self.model.supports_single_step_prefill
+
+    def prefill_into_cache(self, params, cache, tokens, *,
+                           cache_index: int = 0, lengths=None):
+        """Whole-prompt prefill into the decode cache.  tokens: [B, S].
+        Returns ([B, vocab] last-token logits, cache)."""
+        return self.model.prefill_cache(params, cache, tokens,
+                                        cache_index=cache_index,
+                                        lengths=lengths)
+
+    def serve_step(self, params, cache, batch, cache_index: int, *,
+                   window_override: Optional[int] = None):
+        """One-token decode; returns ([B, vocab] logits, cache)."""
+        logits, cache = self.model.decode_step(
+            params, cache, batch["tokens"], cache_index, batch=batch,
+            window_override=window_override)
+        return logits[:, -1], cache
 
 
 class FSDPRunner(BaseRunner):
@@ -194,5 +231,15 @@ def make_train_step(runner, *, lr: float = 3e-4, remat: bool = False,
                                    weight_decay=weight_decay,
                                    clip_norm=clip_norm)
         return params, opt, loss
+
+    return step
+
+
+def make_serve_step(runner, *, window_override: Optional[int] = None):
+    """(params, cache, batch, cache_index) -> (logits, cache)."""
+
+    def step(params, cache, batch, cache_index):
+        return runner.serve_step(params, cache, batch, cache_index,
+                                 window_override=window_override)
 
     return step

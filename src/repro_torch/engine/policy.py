@@ -54,8 +54,8 @@ class MABPolicy(_PlacementMixin):
 
     ``ema_init_values="profile"`` warm-starts E_a from the published per-app
     latency profiles; ``None`` uses the engine's default init; a list passes
-    through verbatim.  ``seed`` keys the sampling bandits of a later slice;
-    UCB draws nothing.
+    through verbatim.  ``seed`` seeds the generator the sampling bandits
+    (``thompson``, ``egreedy``) draw from; UCB draws nothing.
     """
 
     def __init__(self, n_apps: Optional[int] = None, *, bandit: str = "ucb",
@@ -72,7 +72,7 @@ class MABPolicy(_PlacementMixin):
                                           n_ctx=n_ctx,
                                           ema_init_values=ema_init_values,
                                           **bandit_kw)
-        self.state = self.engine.init()
+        self.state = self.engine.init(seed)
         self.placement = placement if placement is not None \
             else LeastLoadedPlacement()
 

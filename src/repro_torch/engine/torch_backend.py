@@ -1,15 +1,34 @@
-"""TorchBackend — the paged serving path of ``repro.engine.jax_backend`` on
-PyTorch, as an ExecutionBackend.
+"""TorchBackend — ``repro.engine.jax_backend`` on PyTorch, as an
+ExecutionBackend.
 
-One ``PagedArmScheduler`` per split arm, each over its own model and paged
-KV pool on one device: LAYER -> ``Model(cfg)``, SEMANTIC ->
-``SemanticModel(cfg.semantic(2))`` (what the JAX ``SemanticRunner`` builds
-on a 1x1 mesh), COMPRESSED -> ``Model(cfg)``.  Each step picks the arm that
-owes the earliest deadline and runs one scheduler step on it: EDF joins
-with prefix-cache hits and copy-on-write, one chunked-prefill call, one
-K-token decode call, immediate retirement.  Latency is queue wait +
-execution; ``extra_metrics`` merges the schedulers' counters under their
-declared kinds.
+Each split arm has its own model on one device: LAYER -> ``Model(cfg)``,
+SEMANTIC -> ``SemanticModel(cfg.semantic(2))`` (what the JAX
+``SemanticRunner`` builds on a 1x1 mesh), COMPRESSED -> ``Model(cfg)``.
+Each step picks the arm that owes the earliest deadline and runs one step
+of one of two decode paths on it:
+
+  * **paged** (``decode="auto"`` on pure global-attention models, or
+    ``"paged"``): a ``PagedArmScheduler`` over a paged KV pool — EDF joins
+    with prefix-cache hits and copy-on-write, one chunked-prefill call, one
+    K-token decode call, immediate retirement.
+  * **legacy** (``decode="legacy"``, and ``"auto"`` on recurrent mixers
+    and local-window ring buffers; enc-dec and VLM models land here too,
+    but, as in the reference, the backend passes them no frame or patch
+    inputs, so they serve at the model level only): rigid EDF gang
+    batches — up to ``max_batch`` requests, prompts right-padded to the
+    batch's longest, the batch padded to a power of two, one dense cache of
+    ``cache_len``; one whole-prompt prefill (token by token for models
+    without single-step prefill), then one decode step per token until the
+    batch's longest request is done (the reference's teacher-forced-pad
+    semantics: a shorter prompt's first token comes from the padded last
+    column).  Each decode step runs the ``decode_attention`` kernel per
+    attention layer and, in mLSTM layers, ``block_diag_matmul`` per
+    projection.
+
+Latency is queue wait + execution; ``extra_metrics`` merges the
+schedulers' counters under their declared kinds, and reports the gang
+path's ``batches``, ``decode_steps``, prefill bucket hits and misses and
+occupancy as the reference does.
 
 ``kv_dtype="f32"`` keeps the pool in ``cfg.dtype`` (bf16 at full width);
 ``"int8"`` stores codes with one f32 scale per token slot and kv head.
@@ -45,10 +64,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.decode.cache_store import CacheStore
 from repro_torch.decode.scheduler import PagedArmScheduler
 from repro_torch.engine.types import (COMPRESSED, LAYER, SEMANTIC, Outcome,
-                                      Request, accuracy_for)
+                                      Request, accuracy_for, next_pow2)
 from repro_torch.faults import (ARM_BLACKOUT, FaultInjector,
                                 TransientDispatchError)
-from repro_torch.models.model import Model, SemanticModel
+from repro_torch.models.model import (Model, SemanticModel,
+                                      supports_single_step_prefill)
 from repro_torch.obs import Histogram, get_tracer, merge_stat_dicts
 
 ARM_MODES = {LAYER: "pipeline", SEMANTIC: "semantic", COMPRESSED: "fsdp"}
@@ -74,11 +94,6 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 class TorchBackend:
-    # the reference's legacy gang-path counters, read by a fleet's merged
-    # metrics; the paged path never runs the gang path
-    batches = 0
-    decode_steps = 0
-
     def __init__(self, cfg: ArchConfig, *, cache_len: int = 128,
                  max_batch: int = 8, seed: int = 0,
                  arms=(LAYER, SEMANTIC), decode: str = "auto",
@@ -104,8 +119,6 @@ class TorchBackend:
         if weight_quant not in (None, "int8", "int4"):
             raise ValueError(f"weight_quant={weight_quant!r}; "
                              "expected None|int8|int4")
-        if decode == "legacy":
-            _not_ported("decode", decode, "the legacy gang-path slice")
         if fleet_devices and not all(
                 _same_device(torch.device(d), torch.device(device))
                 for d in fleet_devices):
@@ -116,6 +129,7 @@ class TorchBackend:
         self.device = resolve_device(device)
         self.cache_len = cache_len
         self.max_batch = max_batch
+        self.decode = decode
         self.seed = seed
         self.scan_tokens = scan_tokens
         self.block_size = min(block_size, cache_len)
@@ -153,6 +167,14 @@ class TorchBackend:
         self._queues: Dict[int, list] = {}
         self._seq = 0
         self._t0 = time.perf_counter()
+        # the gang path's instrumentation
+        self._legacy_prefills = 0
+        self.decode_steps = 0                 # gang-path decode calls
+        self.batches = 0                      # gang batches
+        self._legacy_buckets: Dict[tuple, int] = {}   # (arm, b, plen) -> n
+        # gang occupancy: useful decode tokens / (padded lanes x steps)
+        self._legacy_useful = 0
+        self._legacy_lane_steps = 0
         for arm in arms:
             self._ensure_arm(arm)
 
@@ -164,6 +186,17 @@ class TorchBackend:
         if arm not in ARM_MODES:
             raise ValueError(f"unknown split decision {arm!r}; expected one "
                              f"of {sorted(ARM_MODES)}")
+        paged_ok = supports_single_step_prefill(self.cfg)
+        # reject before registering: a half-registered arm would let a
+        # retried submit fall through to the gang path silently
+        if self.decode == "paged" and not paged_ok:
+            raise ValueError(
+                f"decode='paged' but arm {arm} (mode {ARM_MODES[arm]}) has "
+                "recurrent mixers; use decode='auto' for a legacy fallback")
+        if self.fleet is not None and not paged_ok:
+            raise ValueError(
+                f"fleet='disagg' but arm {arm} (mode {ARM_MODES[arm]}) has "
+                "recurrent mixers — block shipping needs the paged path")
         shared = self._jit_cache.setdefault(arm, {}) \
             if self._jit_cache is not None else None
         model = shared.get("model") if shared is not None else None
@@ -177,6 +210,10 @@ class TorchBackend:
             model.reset_parameters(gen)
             if shared is not None:
                 shared["model"] = model
+        self.models[arm] = model
+        self._queues[arm] = []
+        if self.decode == "legacy" or not paged_ok:
+            return                            # the gang path: no scheduler
         kw = dict(n_lanes=self.max_batch, cache_len=self.cache_len,
                   block_size=self.block_size, num_blocks=self.num_blocks,
                   scan_tokens=self.scan_tokens,
@@ -205,8 +242,6 @@ class TorchBackend:
             sched = PagedArmScheduler(model, **kw)
             sched.track = (label, sched.track[1])
             self._paged[arm] = sched
-        self.models[arm] = model
-        self._queues[arm] = []
 
     # ------------------------------------------------------------- lifecycle
     @property
@@ -229,7 +264,7 @@ class TorchBackend:
         self._ensure_arm(req.decision)
         if req.decision in self._paged:
             self._paged[req.decision].validate(req)
-        else:
+        elif req.decision in self._disagg:
             pf, dc, _ = self._disagg[req.decision]
             pf.validate(req)      # the prompt must fit the prefill worker
             dc.validate(req)      # ... and prompt + decode the decode worker
@@ -296,7 +331,7 @@ class TorchBackend:
         now = self.now
         if arm in self._paged:
             self._paged[arm].spill_all(now, fault_t=now)
-        else:
+        elif arm in self._disagg:
             pf, dc, store = self._disagg[arm]
             pf.spill_all(now, fault_t=now)
             store.abort_inflight(now)
@@ -361,10 +396,8 @@ class TorchBackend:
         cand = []
         if self._queues[arm]:
             cand.append(self._queues[arm][0][0])
-        if arm in self._paged:
-            owing = (self._paged[arm],)
-        else:
-            owing = self._disagg[arm]
+        owing = (self._paged[arm],) if arm in self._paged \
+            else self._disagg.get(arm, ())
         for d in (o.earliest_deadline() for o in owing):
             if d is not None:
                 cand.append(d)
@@ -388,8 +421,10 @@ class TorchBackend:
 
     @property
     def prefill_calls(self) -> int:
-        """Chunked-prefill calls across the arms and workers."""
-        return sum(s.prefill_chunks for s in self._all_scheds())
+        """Batched prefill calls: gang-path prefills + chunked-prefill calls
+        across the arms and workers."""
+        return self._legacy_prefills + sum(s.prefill_chunks
+                                           for s in self._all_scheds())
 
     def _lane_outcome(self, lane, arm: int, finish: float) -> Outcome:
         """Stamp a retired lane's Outcome, including time-to-first-token
@@ -454,6 +489,72 @@ class TorchBackend:
                      for lane in retired]
         return outcomes
 
+    # ---------------------------------------------------- legacy gang path
+    def _form_batch(self, arm: int) -> list:
+        """Pop up to max_batch most urgent requests from the arm's heap."""
+        q = self._queues[arm]
+        return [heapq.heappop(q) for _ in range(min(self.max_batch, len(q)))]
+
+    def _generate(self, arm: int, batch_tokens: np.ndarray,
+                  max_new: int) -> np.ndarray:
+        """One prefill (a whole-prompt call, or a per-token decode loop for
+        models without single-step prefill) and ``max_new - 1`` decode
+        steps on a fresh dense cache; greedy tokens stay on the device
+        until the batch's one read."""
+        model = self.models[arm]
+        b, plen = batch_tokens.shape
+        key = (arm, b, plen)
+        self._legacy_buckets[key] = self._legacy_buckets.get(key, 0) + 1
+        tr = get_tracer()
+        cache = model.init_cache(b, self.cache_len)
+        toks = torch.from_numpy(batch_tokens).to(self.device)
+        with tr.span("legacy_prefill", arm=arm, b=b, plen=plen):
+            if model.supports_single_step_prefill:
+                logits, cache = model.prefill_cache(None, cache, toks)
+                self._legacy_prefills += 1
+            else:
+                for i in range(plen):
+                    logits, cache = model.decode_step(
+                        None, cache, toks[:, i:i + 1], i)
+                    logits = logits[:, -1]
+                    self.decode_steps += 1
+        tok = logits.argmax(-1)[:, None].int()
+        out = [tok]
+        with tr.span("legacy_decode", arm=arm, b=b, steps=max_new - 1):
+            for i in range(plen, plen + max_new - 1):
+                logits, cache = model.decode_step(None, cache, tok, i)
+                self.decode_steps += 1
+                tok = logits[:, -1].argmax(-1)[:, None].int()
+                out.append(tok)
+            return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+
+    def _step_legacy(self, arm: int) -> List[Outcome]:
+        picked = self._form_batch(arm)
+        if not picked:
+            return []
+        exec_start = self.now
+        reqs = [p[3] for p in picked]
+        enqs = [p[2] for p in picked]
+        max_new = max(r.max_new for r in reqs)
+        # the sequence pads only to the batch's longest prompt, whose last
+        # token the prefill's last position is (shorter requests keep the
+        # teacher-forced-pad semantics of a shared cache index); the batch
+        # pads to a power of two to bound the buckets
+        plen = max(len(r.tokens) for r in reqs)
+        b = next_pow2(len(reqs))
+        toks = np.zeros((b, plen), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, :len(r.tokens)] = r.tokens
+        out = self._generate(arm, toks, max_new)
+        finish = self.now
+        self.batches += 1
+        # gang occupancy: every lane decodes to the batch's longest request
+        self._legacy_useful += sum(r.max_new - 1 for r in reqs)
+        self._legacy_lane_steps += b * (max_new - 1)
+        return [self._outcome(r, arm, enq, exec_start, out[i, :r.max_new],
+                              finish)
+                for i, (r, enq) in enumerate(zip(reqs, enqs))]
+
     def step(self, policy=None) -> List[Outcome]:
         # the fault clock ticks on every step, idle ones included, so
         # blackout windows and breaker cooldowns close under drain
@@ -467,14 +568,26 @@ class TorchBackend:
         if arm is None:
             return pre + self._take_failures()
         with get_tracer().span("step", arm=arm) as sp:
-            out = self._step_disagg(arm) if arm in self._disagg \
-                else self._step_paged(arm)
+            if arm in self._disagg:
+                out = self._step_disagg(arm)
+            elif arm in self._paged:
+                out = self._step_paged(arm)
+            else:
+                out = self._step_legacy(arm)
             sp.set(retired=len(out))
         return pre + out + self._take_failures()
 
     # --------------------------------------------------------------- metrics
     def extra_metrics(self) -> dict:
-        m = {"prefill_calls": self.prefill_calls}
+        m = {"batches": self.batches, "prefill_calls": self.prefill_calls,
+             "decode_steps": self.decode_steps}
+        if self._legacy_buckets:
+            calls = sum(self._legacy_buckets.values())
+            m["prefill_bucket_misses"] = len(self._legacy_buckets)
+            m["prefill_bucket_hits"] = calls - len(self._legacy_buckets)
+            m["prefill_buckets"] = {
+                f"arm{a}:b{b}xs{s}": n
+                for (a, b, s), n in sorted(self._legacy_buckets.items())}
         scheds = list(self._all_scheds())
         if scheds:
             # counters sum across arms and workers, per-pool gauges take
@@ -482,6 +595,9 @@ class TorchBackend:
             # disagg fleet's batch_occupancy is its decode lanes')
             m.update(merge_stat_dicts((s.stats() for s in scheds),
                                       kinds=PagedArmScheduler.STAT_KINDS))
+        elif self._legacy_lane_steps:
+            m["batch_occupancy"] = round(
+                self._legacy_useful / self._legacy_lane_steps, 4)
         if self._disagg:
             stores = [st for _, _, st in self._disagg.values()]
             m.update(merge_stat_dicts(s.stats() for s in stores))

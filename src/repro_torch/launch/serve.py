@@ -1,11 +1,14 @@
 """Serving launcher: the placement engine over a chosen architecture (MAB
-policy + TorchBackend with EDF continuous batching on the paged path).
+policy + TorchBackend: EDF continuous batching on the paged path, or the
+gang path for recurrent, local-window, enc-dec and VLM models).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --batches 8 --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+        --bandit thompson
 
-``--no-reduced`` serves the full model; ``--device cpu`` runs the plain
-PyTorch path without a card.
+``--bandit`` is ucb, thompson or egreedy; ``--no-reduced`` serves the full
+model; ``--device cpu`` runs the plain PyTorch path without a card.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import json
 import numpy as np
 
 from repro_torch.configs.base import get_config
+from repro_torch.core.mab import BANDITS
 from repro_torch.engine import (MABPolicy, PlacementEngine, Request,
                                 TorchBackend)
 
@@ -30,7 +34,7 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
-    ap.add_argument("--bandit", default="ucb")
+    ap.add_argument("--bandit", default="ucb", choices=sorted(BANDITS))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):

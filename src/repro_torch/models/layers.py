@@ -1,6 +1,6 @@
-"""Core layers of the paged serving and training paths: init helpers,
-norms, rotary embeddings, full-sequence GQA attention, dense MLPs,
-embedding and unembedding.
+"""Core layers of the serving and training paths: init helpers, norms,
+rotary embeddings, GQA attention (full-sequence, over a dense KV cache with
+ring buffers, and cross-attention), dense MLPs, embedding and unembedding.
 
 Functions over plain tensors and dicts of tensors (a ``ParamTree`` indexes
 the same way), mirroring ``repro.models.layers``.  Weights may carry
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention import decode_attention
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -124,48 +125,107 @@ def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.flatten(-3, -2) @ w).unflatten(-2, x.shape[-3:-1])
 
 
+def _cache_attend(q, k, v, kv_cache, cache_index: int, window: int,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """Write this call's k/v [..., S, K, hd] into the dense cache (in
+    place) and attend q [..., S, H, hd] over it.
+
+    The write starts at ``cache_index`` (``cache_index % W`` in a ring
+    buffer of window W), clamped to ``L - S`` as ``lax.dynamic_update_slice``
+    clamps its start.  A decode step (S = 1) runs the ``decode_attention``
+    kernel over the first ``min(cache_index + 1, W)`` slots of every lane
+    (the reference's mask: ``kpos <= cache_index``, or the whole ring once
+    it has wrapped), the leading dims folded into its batch; a prefill into
+    the cache (S > 1) is the masked dense ``sdpa``, as the reference
+    computes it outside any kernel."""
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    s, h, hd = q.shape[-3], q.shape[-2], q.shape[-1]
+    L, kv = ck.shape[-3], ck.shape[-2]
+    W = min(window, L) if window else L
+    slot = cache_index % W if window else cache_index
+    slot = min(max(slot, 0), L - s)
+    ck.narrow(-3, slot, s).copy_(k)
+    cv.narrow(-3, slot, s).copy_(v)
+    if s == 1:
+        lanes = q.shape[:-3].numel()
+        length = torch.full((lanes,), min(cache_index + 1, W),
+                            dtype=torch.int32, device=q.device)
+        out = decode_attention(q.reshape(lanes, h, hd),
+                               ck.reshape(lanes, L, kv, hd),
+                               cv.reshape(lanes, L, kv, hd), length,
+                               softcap=cfg.attn_softcap)
+        return out.reshape(q.shape)
+    kpos = torch.arange(L, device=q.device)[None, :]
+    qpos = (cache_index + torch.arange(s, device=q.device))[:, None]
+    valid = kpos < W if window and cache_index >= W else kpos <= qpos
+    return sdpa(q, _repeat_kv(ck, h // kv), _repeat_kv(cv, h // kv),
+                valid[None, None], softcap=cfg.attn_softcap)
+
+
 def attn_apply(params, x, cfg: ArchConfig, *, positions, window: int = 0,
                kv_cache=None, cache_index=None, kv_override=None,
                cache_axis=None):
-    """GQA self-attention over the full sequence (training).  x: [(G,) B,
-    S, d] with weights [(G,) d, e]; positions: [1, S].  Returns
-    ``(out, None)`` (no cache), as the JAX ``attn_apply`` returns
-    ``(out, new_cache)``.
+    """GQA attention.  x: [(G,) B, S, d] with weights [(G,) d, e];
+    positions: [1, S].  Returns ``(out, cache)``, as the JAX ``attn_apply``
+    returns ``(out, new_cache)``.
 
-    At ``S >= 2048`` it goes through :func:`repro_torch.models.attention.
-    attention` (the flash kernel forward, a chunked recompute backward), the
-    branches folded into its batch dim; below, dense ``sdpa`` with the
-    causal mask.  The dense-cache branch (the legacy gang path),
-    ``kv_override`` (cross-attention) and the length-sharded cache
-    (flash-decoding) come with later slices."""
-    if kv_cache is not None or cache_axis is not None:
+    - Training / full prefill (``kv_cache`` None): causal self-attention
+      over the sequence.  At ``S >= 2048`` through :func:`repro_torch.
+      models.attention.attention` (the flash kernel forward, a chunked
+      recompute backward), the branches folded into its batch dim; below,
+      dense ``sdpa`` with the causal mask.
+    - Dense cache (the legacy gang path): ``kv_cache = {"k", "v"}`` with
+      leaves [(G,) B, L, K, hd], written in place at the Python int
+      ``cache_index`` (see :func:`_cache_attend`); the returned cache is
+      the same dict.
+    - Cross-attention: ``kv_override = (k, v)``, the encoder's K/V
+      [(G,) B, S_enc, K, hd]; no RoPE, every key visible.
+
+    The length-sharded cache (flash-decoding, ``cache_axis``) comes with
+    the multi-device slice."""
+    if cache_axis is not None:
         raise NotImplementedError(
-            "attn_apply with a dense KV cache (the legacy gang path and "
-            "flash-decoding) is ported in a later slice")
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override, enc-dec) is ported in a later "
-            "slice")
-    b, s = x.shape[-3], x.shape[-2]
+            "attn_apply over a length-sharded cache (flash-decoding) is "
+            "ported with the multi-device slice")
+    s = x.shape[-2]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _dense(x, params["wq"]).unflatten(-1, (h, hd))
-    k = _dense(x, params["wk"]).unflatten(-1, (kv, hd))
-    v = _dense(x, params["wv"]).unflatten(-1, (kv, hd))
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if s >= 2048:
-        from repro_torch.models.attention import attention
-        out = attention(q.reshape(-1, s, h, hd), k.reshape(-1, s, kv, hd),
-                        v.reshape(-1, s, kv, hd), causal=cfg.causal,
-                        window=window, softcap=cfg.attn_softcap)
-    else:
-        mask = causal_mask(s, s, window=window, device=x.device) \
-            if cfg.causal else torch.ones(1, 1, s, s, dtype=torch.bool,
-                                          device=x.device)
-        out = sdpa(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv), mask,
+    if kv_override is not None:
+        k, v = kv_override
+        mask = torch.ones(1, 1, s, k.shape[-3], dtype=torch.bool,
+                          device=x.device)
+        out = sdpa(q, _repeat_kv(k, h // k.shape[-2]),
+                   _repeat_kv(v, h // v.shape[-2]), mask,
                    softcap=cfg.attn_softcap)
+    else:
+        k = _dense(x, params["wk"]).unflatten(-1, (kv, hd))
+        v = _dense(x, params["wv"]).unflatten(-1, (kv, hd))
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_cache is not None:
+            out = _cache_attend(q, k, v, kv_cache, cache_index, window, cfg)
+        elif s >= 2048:
+            from repro_torch.models.attention import attention
+            out = attention(q.reshape(-1, s, h, hd),
+                            k.reshape(-1, s, kv, hd),
+                            v.reshape(-1, s, kv, hd), causal=cfg.causal,
+                            window=window, softcap=cfg.attn_softcap)
+        else:
+            mask = causal_mask(s, s, window=window, device=x.device) \
+                if cfg.causal else torch.ones(1, 1, s, s, dtype=torch.bool,
+                                              device=x.device)
+            out = sdpa(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
+                       mask, softcap=cfg.attn_softcap)
     out = out.reshape(x.shape[:-1] + (h * hd,))
-    return _dense(out, params["wo"]), None
+    return _dense(out, params["wo"]), kv_cache
+
+
+def cross_kv(params, enc_out: torch.Tensor, cfg: ArchConfig):
+    """The encoder's K, V for cross-attention (computed once per request):
+    enc_out [(G,) B, S_enc, d] -> two [(G,) B, S_enc, K, hd]."""
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    return (_dense(enc_out, params["wk"]).unflatten(-1, (kv, hd)),
+            _dense(enc_out, params["wv"]).unflatten(-1, (kv, hd)))
 
 
 def mlp_shapes(cfg: ArchConfig, d_ff: Optional[int] = None,

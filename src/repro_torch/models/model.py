@@ -1,6 +1,10 @@
-"""Model facade of the paged serving and training paths:
-``build_model(cfg)`` -> ``Model`` (one branch) or ``SemanticModel`` (the
-paper's semantic split).
+"""Model facade of the serving and training paths: ``build_model(cfg)`` ->
+``Model`` (one branch) or ``SemanticModel`` (the paper's semantic split),
+for every config of the zoo: decoder-only stacks of global or local
+attention, Mamba and xLSTM mixers with dense, MoE or no FFNs, the enc-dec
+whisper (an encoder over stubbed audio frames, cross-attention in every
+decoder block) and the VLM internvl (stubbed patch embeddings projected
+into prefix slots).
 
 Both are ``nn.Module``s whose parameter names follow the JAX param pytree
 paths (``embed.tok``, ``blocks.pos0.mix.wq``, ``blocks.pos0.ffn.router``,
@@ -16,8 +20,16 @@ The training surface follows the JAX ``Model``: ``hidden``,
 explicit ``params`` tree (``param_tree()``: nested dicts of the parameters
 in the JAX layout), so gradients come back as a tree of the same paths.
 
-This slice runs decoder-only stacks of global attention with dense, MoE or
-no FFNs; other mixers and modality frontends raise.
+The dense-cache surface of the legacy gang path follows it too:
+``init_cache(batch_size, cache_len, window_override=)``,
+``prefill_cache(params, cache, tokens, lengths=)`` and
+``decode_step(params, cache, tokens, cache_index, enc_kv=, batch=,
+window_override=)``.  ``params`` may be None there (the model's own
+parameters, through views built once).  A dense cache's leaves are laid out
+superblock-major in memory behind the JAX layout [(Bb,) N_sb, B, ...], so
+one layer's slice of every branch is one strided tensor the
+``decode_attention`` kernel reads directly; steps write the cache in place
+and return it.  The paged serving path's pool comes from ``init_pool``.
 """
 from __future__ import annotations
 
@@ -30,34 +42,83 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.moe import moe_shapes
+from repro_torch.models.ssm import mamba_shapes
+from repro_torch.models.xlstm import mlstm_shapes, slstm_shapes
 
 #: elements drawn per ``torch.randn`` call in ``reset_parameters``: bounds
 #: the f32 temporaries of a large leaf (qwen2-moe's [24, 60, 2048, 1408]
 #: expert leaf would otherwise take 2 x 16.6 GB in f32)
 INIT_CHUNK = 1 << 28
+#: leaves kept in f32 whatever the model's dtype (Mamba's, as in JAX)
+F32_LEAVES = ("A_log", "D")
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    for mixer, ffn in cfg.pattern:
-        if mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {mixer!r} is ported in a later slice "
-                "(legacy gang path and the rest of the zoo)")
-        if ffn not in ("dense", "moe", "none"):
-            raise ValueError(ffn)
-    if cfg.is_encdec or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: enc-dec and modality frontends come in a later "
-            "slice")
+def encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The whisper encoder's config: bidirectional attention + dense FFN
+    blocks, ``n_enc_layers`` deep."""
+    return cfg.replace(causal=False, n_layers=cfg.n_enc_layers,
+                       pattern=(("attn", "dense"),))
 
 
-def _block_shapes(cfg: ArchConfig, ffn: str) -> dict:
+def supports_single_step_prefill(cfg: ArchConfig) -> bool:
+    """Whole-prompt cache prefill needs pure global-attention mixers:
+    recurrent state and local-window ring buffers update at S = 1 only,
+    and enc-dec / VLM inputs need their frontends."""
+    return (all(m == "attn" for m, _ in cfg.pattern)
+            and not cfg.is_encdec and cfg.frontend is None)
+
+
+def _attn_shapes(cfg: ArchConfig) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    p = {"mix_norm": L.norm_shapes(cfg),
-         "mix": {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
-                 "wo": (h * hd, d)}}
+    return {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
+            "wo": (h * hd, d)}
+
+
+@torch.no_grad()
+def init_leaf(name: str, p: torch.Tensor, generator: torch.Generator):
+    """Fill parameter ``name`` with the JAX init's distribution: dense
+    N(0, 1/d_in) (the mLSTM's per-head blocks N(0, 1/hd)), token table
+    N(0, 0.02^2), Mamba's conv N(0, 0.1^2), ``A_log`` log(1..d_state),
+    norm and ``D`` scales 1, biases 0.  A large leaf is drawn a slab of
+    leading-dim rows at a time (at most ``INIT_CHUNK`` elements), so the
+    f32 temporaries stay bounded."""
+    leaf = name.rsplit(".", 1)[-1]
+    if "norm" in name or leaf in ("gn_w", "D"):
+        p.fill_(0.0 if leaf == "b" else 1.0)
+    elif leaf in ("conv_b", "dt_bias"):
+        p.zero_()
+    elif leaf == "A_log":
+        p.copy_(torch.log(torch.arange(1, p.shape[-1] + 1,
+                                       dtype=torch.float32,
+                                       device=p.device)).expand_as(p))
+    else:
+        rows = p.view(-1, *p.shape[-2:])
+        step = max(1, INIT_CHUNK // rows[0].numel())
+        for r0 in range(0, rows.shape[0], step):
+            if leaf in ("tok", "conv_w"):
+                L.normal_init(rows[r0:r0 + step], generator,
+                              0.02 if leaf == "tok" else 0.1)
+            else:
+                L.dense_init(rows[r0:r0 + step], generator)
+
+
+_MIXER_SHAPES = {"attn": _attn_shapes, "attn_local": _attn_shapes,
+                 "mamba": mamba_shapes, "mlstm": mlstm_shapes,
+                 "slstm": slstm_shapes}
+
+
+def _block_shapes(cfg: ArchConfig, mixer: str, ffn: str,
+                  cross: bool = False) -> dict:
+    if mixer not in _MIXER_SHAPES:
+        raise ValueError(mixer)
+    p = {"mix_norm": L.norm_shapes(cfg), "mix": _MIXER_SHAPES[mixer](cfg)}
     if cfg.post_norms:
         p["mix_post_norm"] = L.norm_shapes(cfg)
+    if cross:
+        p["cross_norm"] = L.norm_shapes(cfg)
+        p["cross"] = _attn_shapes(cfg)
+    if ffn not in ("dense", "moe", "none"):
+        raise ValueError(ffn)
     if ffn != "none":
         p["ffn_norm"] = L.norm_shapes(cfg)
         p["ffn"] = L.mlp_shapes(cfg) if ffn == "dense" else moe_shapes(cfg)
@@ -66,19 +127,28 @@ def _block_shapes(cfg: ArchConfig, ffn: str) -> dict:
     return p
 
 
-def param_shapes(cfg: ArchConfig) -> dict:
-    """Nested dict of leaf shapes in the JAX param-tree layout (one branch;
-    block leaves carry the leading ``N_sb`` dim)."""
+def _stack_shapes(cfg: ArchConfig, cross: bool = False) -> dict:
     n = cfg.n_superblocks
     lead = lambda t: {k: lead(v) for k, v in t.items()} \
         if isinstance(t, dict) else (n,) + t
+    return {f"pos{i}": lead(_block_shapes(cfg, mixer, ffn, cross))
+            for i, (mixer, ffn) in enumerate(cfg.pattern)}
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """Nested dict of leaf shapes in the JAX param-tree layout (one branch;
+    block leaves carry the leading ``N_sb`` dim)."""
     embed = {"tok": (cfg.vocab_size, cfg.d_model)}
     if not cfg.tie_embeddings:
         embed["head"] = (cfg.d_model, cfg.vocab_size)
-    blocks = {f"pos{i}": lead(_block_shapes(cfg, ffn))
-              for i, (_, ffn) in enumerate(cfg.pattern)}
-    return {"embed": embed, "blocks": blocks,
+    if cfg.frontend is not None:
+        embed["frontend_proj"] = (cfg.frontend.d_frontend, cfg.d_model)
+    tree = {"embed": embed, "blocks": _stack_shapes(cfg, cfg.is_encdec),
             "final_norm": L.norm_shapes(cfg)}
+    if cfg.is_encdec:
+        tree["enc_blocks"] = _stack_shapes(encoder_cfg(cfg))
+        tree["enc_norm"] = L.norm_shapes(cfg)
+    return tree
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -123,8 +193,9 @@ class ParamTree(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v, lead, dtype, device))
             else:
+                dt = torch.float32 if k in F32_LEAVES else dtype
                 self.register_parameter(k, nn.Parameter(
-                    torch.empty(lead + tuple(v), dtype=dtype, device=device),
+                    torch.empty(lead + tuple(v), dtype=dt, device=device),
                     requires_grad=False))
 
     def __getitem__(self, key: str):
@@ -143,24 +214,21 @@ def _view_tree(node: ParamTree, fn) -> dict:
             for k, v in node.items()}
 
 
-class _PagedLM(nn.Module):
-    """Shared parameter tree, pool factory and training forward;
-    ``n_branches`` leading dim (absent for the single-branch ``Model``)."""
+class _LM(nn.Module):
+    """Shared parameter tree, caches and forwards; ``n_branches`` leading
+    dim (absent for the single-branch ``Model``)."""
 
     def __init__(self, cfg: ArchConfig, branch_cfg: ArchConfig,
                  branch_lead: tuple, device):
         super().__init__()
-        _check_supported(branch_cfg)
         self.cfg = cfg
         self.branch_cfg = branch_cfg
+        self.enc_cfg = encoder_cfg(branch_cfg) if cfg.is_encdec else None
         self._lead = branch_lead
         dtype = L.torch_dtype(cfg)
-        tree = param_shapes(branch_cfg)
-        self.embed = ParamTree(tree["embed"], branch_lead, dtype, device)
-        self.blocks = ParamTree(tree["blocks"], branch_lead, dtype, device)
-        self.final_norm = ParamTree(tree["final_norm"], branch_lead, dtype,
-                                    device)
-        self._views: Optional[tuple] = None
+        for k, sub in param_shapes(branch_cfg).items():
+            self.add_module(k, ParamTree(sub, branch_lead, dtype, device))
+        self._own: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
@@ -168,74 +236,109 @@ class _PagedLM(nn.Module):
 
     @property
     def supports_single_step_prefill(self) -> bool:
-        return all(m == "attn" for m, _ in self.branch_cfg.pattern)
+        return supports_single_step_prefill(self.branch_cfg)
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> "_PagedLM":
-        """Random weights with the JAX init's distributions: dense
-        N(0, 1/d_in), token table N(0, 0.02^2), norm scale 1 and bias 0.
-        Large leaves are drawn a slab of leading-dim rows at a time (at most
-        ``INIT_CHUNK`` elements), so the f32 temporaries stay bounded."""
+    def reset_parameters(self, generator: torch.Generator) -> "_LM":
+        """Random weights with the JAX init's distributions
+        (:func:`init_leaf` on every parameter)."""
         for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if "norm" in name:
-                p.fill_(1.0 if leaf == "w" else 0.0)
-                continue
-            rows = p.view(-1, *p.shape[-2:])
-            step = max(1, INIT_CHUNK // rows[0].numel())
-            for r0 in range(0, rows.shape[0], step):
-                if leaf == "tok":
-                    L.normal_init(rows[r0:r0 + step], generator, 0.02)
-                else:
-                    L.dense_init(rows[r0:r0 + step], generator)
+            init_leaf(name, p, generator)
         return self
 
     def grouped_views(self):
         """(embed, final_norm, per-superblock params) with a leading branch
-        dim G on every leaf (G = 1 for ``Model``): views into the
-        parameters, built once (weights change in place only)."""
-        if self._views is None:
-            g = (lambda t: t) if self._lead else (lambda t: t.unsqueeze(0))
-            emb = {k: g(v) for k, v in self.embed.items()}
-            fnorm = {k: g(v) for k, v in self.final_norm.items()}
-            sbs: List[dict] = [
-                _view_tree(self.blocks, lambda v, n=n: g(v)[:, n])
-                for n in range(self.branch_cfg.n_superblocks)]
-            self._views = (emb, fnorm, sbs)
-        return self._views
+        dim G on every leaf (G = 1 for ``Model``): the pieces of
+        ``_grouped(None)`` the paged path reads."""
+        p = self._grouped(None)
+        return p["embed"], p["final_norm"], p["blocks"]
 
     def param_tree(self) -> Dict:
         """The parameters as nested dicts in the JAX param-tree layout
         (the leaves are the ``nn.Parameter``s themselves)."""
-        return {k: _view_tree(getattr(self, k), lambda p: p)
-                for k in ("embed", "blocks", "final_norm")}
+        return {k: _view_tree(m, lambda p: p)
+                for k, m in self.named_children()}
 
-    # ------------------------------------------------------------ training
+    # ------------------------------------------------------------ forwards
     def _grouped(self, params) -> Dict:
         """``params`` with a leading branch dim G on every leaf (G = 1 for
-        ``Model``)."""
-        if self._lead:
-            return params
+        ``Model``) and the stacks as lists of per-superblock views.
+        ``params`` None: the model's own parameters, views built once
+        (weights change in place only)."""
+        if params is None:
+            if self._own is None:
+                self._own = self._grouped(self.param_tree())
+            return self._own
         g = lambda t: {k: g(v) for k, v in t.items()} \
             if isinstance(t, dict) else t.unsqueeze(0)
-        return g(params)
+        p = dict(params) if self._lead else g(params)
+        for k in ("blocks", "enc_blocks"):
+            if k in p:
+                p[k] = T.superblocks(p[k])
+        return p
 
-    def _hidden_grouped(self, params, batch, *, remat: bool):
+    def _frontend(self, p, embeds: torch.Tensor) -> torch.Tensor:
+        """Stubbed frame / patch embeddings [B, F, d_frontend] projected to
+        every branch: [G, B, F, d]."""
+        w = p["embed"]["frontend_proj"]
+        return torch.einsum("bfe,ged->gbfd", embeds.to(w.dtype), w)
+
+    def _encode(self, p, audio_embeds: torch.Tensor) -> torch.Tensor:
+        """The whisper encoder over stubbed frame embeddings."""
+        x = self._frontend(p, audio_embeds)
+        pos = torch.arange(x.shape[2], device=x.device)[None, :]
+        x, _, _ = T.stack_apply(p["enc_blocks"], x, self.enc_cfg,
+                                positions=pos)
+        return L.norm_apply(p["enc_norm"], x, self.branch_cfg)
+
+    def _enc_kv_stack(self, p, enc_out: torch.Tensor) -> List[dict]:
+        """Each decoder superblock's cross-attention K, V."""
+        return [{f"pos{i}": L.cross_kv(sb[f"pos{i}"]["cross"], enc_out,
+                                       self.branch_cfg)
+                 for i in range(len(self.branch_cfg.pattern))}
+                for sb in p["blocks"]]
+
+    def _is_vlm(self) -> bool:
+        fe = self.cfg.frontend
+        return fe is not None and fe.kind == "vision"
+
+    def _hidden_grouped(self, params, batch, *, remat: bool,
+                        window_override: Optional[int] = None):
         """[G, B, S, d] final hidden states and the per-branch aux [G]."""
         cfg = self.branch_cfg
         p = self._grouped(params)
         tokens = batch["tokens"]
         x = L.embed_apply(p["embed"], tokens, cfg)          # [G, B, S, d]
-        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        x, aux = T.stack_apply(p["blocks"], x, cfg, positions=pos,
-                               remat=remat)
-        return L.norm_apply(p["final_norm"], x, cfg), aux
+        enc_kv = None
+        if cfg.is_encdec:
+            enc_kv = self._enc_kv_stack(
+                p, self._encode(p, batch["audio_embeds"]))
+        if self._is_vlm():
+            prefix = self._frontend(p, batch["image_embeds"])
+            x = torch.cat([prefix.to(x.dtype), x], dim=2)
+        pos = torch.arange(x.shape[2], device=x.device)[None, :]
+        x, _, aux = T.stack_apply(p["blocks"], x, cfg, positions=pos,
+                                  enc_kv_stack=enc_kv, remat=remat,
+                                  window_override=window_override)
+        x = L.norm_apply(p["final_norm"], x, cfg)
+        if self._is_vlm():
+            x = x[:, :, -tokens.shape[1]:]
+        return x, aux
 
-    def forward(self, params, batch, *, remat: bool = False):
+    def _unembed(self, p, x: torch.Tensor) -> torch.Tensor:
+        """[G, B, S, d] -> logits [B, S, vocab] (branch shards merged)."""
+        b = x.shape[1]
+        x = L.norm_apply(p["final_norm"], x, self.branch_cfg).flatten(1, 2)
+        logits = L.unembed_apply(p["embed"], x, self.branch_cfg)
+        return self._merge(logits.unflatten(1, (b, -1)))
+
+    def forward(self, params, batch, *, remat: bool = False,
+                window_override: Optional[int] = None):
         """Full-sequence forward.  Returns (logits, aux).  Materializes the
         full [B, S, vocab] logits: small scale only; training uses
         ``loss_chunked``."""
-        h, aux = self.hidden(params, batch, remat=remat)
+        h, aux = self.hidden(params, batch, remat=remat,
+                             window_override=window_override)
         return self.chunk_logits(params, h), aux
 
     def loss(self, params, batch, *, remat: bool = False):
@@ -251,9 +354,10 @@ class _PagedLM(nn.Module):
         return _chunked_ce(self, params, h, batch["labels"], chunk) \
             + 0.01 * aux
 
-    def init_cache(self, num_blocks: int, block_size: int) -> Dict:
+    # -------------------------------------------------------------- caches
+    def init_pool(self, num_blocks: int, block_size: int) -> Dict:
         """Paged KV pool in the reference layout: ``{"pos<i>": {"k", "v"}}``
-        with leaves [(Bb,) N_sb, P, bs, K, hd] in ``cfg.dtype``."""
+        with leaves [(Bb,) N_sb, P, bs, K, hd] in ``cfg.dtype``, dense."""
         c = self.branch_cfg
         shape = self._lead + (c.n_superblocks, num_blocks, block_size,
                               c.n_kv_heads, c.hd)
@@ -262,8 +366,80 @@ class _PagedLM(nn.Module):
                             "v": torch.zeros(shape, **kw)}
                 for i in range(len(c.pattern))}
 
+    def init_cache(self, batch_size: int, cache_len: int,
+                   window_override: Optional[int] = None) -> Dict:
+        """Dense decode caches of the gang path, per block as
+        ``transformer.block_cache`` lays them out, leaves [(Bb,) N_sb,
+        batch_size, ...] (superblock-major in memory).
+        ``window_override`` turns every global-attention cache into a ring
+        buffer of that window."""
+        cfg = self.branch_cfg
+        if window_override is not None:
+            cfg = cfg.replace(sliding_window=window_override, pattern=tuple(
+                ("attn_local" if m == "attn" else m, f)
+                for m, f in cfg.pattern))
+            cache_len = min(cache_len, window_override)
+        lead = (cfg.n_superblocks,) + self._lead
+        dtype = L.torch_dtype(self.cfg)
+        caches = {f"pos{i}": T.block_cache(cfg, mixer, batch_size, cache_len,
+                                           dtype, lead, self.device)
+                  for i, (mixer, _) in enumerate(cfg.pattern)}
+        if not self._lead:
+            return caches
+        return T.tree_map(lambda t: t.movedim(0, 1), caches)
 
-class Model(_PagedLM):
+    def _cache_grouped(self, cache):
+        return cache if self._lead else \
+            T.tree_map(lambda t: t.unsqueeze(0), cache)
+
+    @torch.no_grad()
+    def prefill_cache(self, params, cache, tokens: torch.Tensor, *,
+                      cache_index: int = 0, lengths=None):
+        """One forward over the whole prompt writes K/V at positions
+        [cache_index, cache_index + S).  tokens: [B, S].  Returns ([B,
+        vocab] logits, cache).  ``lengths`` ([B]) takes each sequence's
+        logits at its true last prompt position instead of the shared
+        padded last column."""
+        cfg = self.branch_cfg
+        p = self._grouped(params)
+        x = L.embed_apply(p["embed"], tokens, cfg)
+        pos = cache_index + torch.arange(tokens.shape[1],
+                                         device=x.device)[None, :]
+        x, _, _ = T.stack_apply(p["blocks"], x, cfg, positions=pos,
+                                caches=self._cache_grouped(cache),
+                                cache_index=cache_index)
+        if lengths is None:
+            x = x[:, :, -1:]
+        else:
+            idx = torch.as_tensor(lengths, device=x.device).long() - 1
+            x = x[:, torch.arange(x.shape[1], device=x.device), idx][:, :,
+                                                                     None]
+        return self._unembed(p, x)[:, -1], cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens: torch.Tensor,
+                    cache_index: int, *, enc_kv=None, batch=None,
+                    window_override: Optional[int] = None):
+        """One-token decode at the Python int ``cache_index``.  tokens:
+        [B, 1].  Returns (logits [B, 1, vocab], cache).  An enc-dec model
+        encodes ``batch["audio_embeds"]`` when ``enc_kv`` (what
+        ``_enc_kv_stack`` returns) is not given."""
+        cfg = self.branch_cfg
+        p = self._grouped(params)
+        x = L.embed_apply(p["embed"], tokens, cfg)
+        if cfg.is_encdec and enc_kv is None:
+            enc_kv = self._enc_kv_stack(
+                p, self._encode(p, batch["audio_embeds"]))
+        pos = torch.full((1, 1), cache_index, dtype=torch.long,
+                         device=x.device)
+        x, _, _ = T.stack_apply(p["blocks"], x, cfg, positions=pos,
+                                caches=self._cache_grouped(cache),
+                                cache_index=cache_index, enc_kv_stack=enc_kv,
+                                window_override=window_override)
+        return self._unembed(p, x), cache
+
+
+class Model(_LM):
     """Single-branch model (n_branches == 1)."""
 
     def __init__(self, cfg: ArchConfig, *, device=None):
@@ -271,9 +447,15 @@ class Model(_PagedLM):
             raise ValueError("Model takes a single-branch config")
         super().__init__(cfg, cfg, (), device)
 
-    def hidden(self, params, batch, *, remat: bool = False):
+    @staticmethod
+    def _merge(logits: torch.Tensor) -> torch.Tensor:
+        return logits[0]
+
+    def hidden(self, params, batch, *, remat: bool = False,
+               window_override: Optional[int] = None):
         """Final hidden states (pre-unembed).  Returns (h [B, S, d], aux)."""
-        h, aux = self._hidden_grouped(params, batch, remat=remat)
+        h, aux = self._hidden_grouped(params, batch, remat=remat,
+                                      window_override=window_override)
         return h[0], aux[0]
 
     def chunk_logits(self, params, h):
@@ -281,7 +463,7 @@ class Model(_PagedLM):
         return L.unembed_apply(params["embed"], h, self.cfg)
 
 
-class SemanticModel(_PagedLM):
+class SemanticModel(_LM):
     """The paper's semantic split: Bb independent block-diagonal branches,
     each a full-depth model of width d/Bb over a vocab shard; the only
     cross-branch op is the final logit concat."""
@@ -293,22 +475,24 @@ class SemanticModel(_PagedLM):
                          device)
 
     @staticmethod
-    def _merge_logits(logits: torch.Tensor) -> torch.Tensor:
+    def _merge(logits: torch.Tensor) -> torch.Tensor:
         """[Bb, batch, (seq,) vocab/Bb] -> [batch, (seq,) vocab],
         branch-major shards."""
         return logits.movedim(0, -2).flatten(-2)
 
-    def hidden(self, params, batch, *, remat: bool = False):
+    def hidden(self, params, batch, *, remat: bool = False,
+               window_override: Optional[int] = None):
         """Per-branch hidden states [Bb, B, S, d_branch] and the aux terms
         summed over branches."""
-        h, aux = self._hidden_grouped(params, batch, remat=remat)
+        h, aux = self._hidden_grouped(params, batch, remat=remat,
+                                      window_override=window_override)
         return h, aux.sum()
 
     def chunk_logits(self, params, h):
         """h: [Bb, B, C, d_b] -> merged [B, C, vocab]."""
         logits = L.unembed_apply(params["embed"], h.flatten(1, 2),
                                  self.branch_cfg)       # [Bb, B*C, V/Bb]
-        return self._merge_logits(logits.unflatten(1, h.shape[1:3]))
+        return self._merge(logits.unflatten(1, h.shape[1:3]))
 
 
 def build_model(cfg: ArchConfig, *, device=None):

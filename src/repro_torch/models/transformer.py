@@ -1,12 +1,20 @@
-"""Superblock assembly of the training forward (``repro.models.transformer``
-without decode caches or encoder inputs).
+"""Superblock assembly (``repro.models.transformer``): every architecture
+is a loop over homogeneous superblocks, the repeating (mixer, ffn) pattern
+of its config.
 
 Every tensor carries a leading branch dim G (G = 1 for ``Model``): where the
 JAX package ``jax.vmap``-ed a ``SemanticModel``'s branches, the branches run
 side by side here.  Block leaves are [G, ...]; stack leaves [G, n, ...]
 (branch, superblock), and the JAX ``lax.scan`` over the stacked leaves is a
-loop over their ``[:, i]`` slices.  Every apply returns ``(x, aux)`` with
-aux [G], the per-branch sum of the MoE load-balance terms.
+loop over the per-superblock views :func:`superblocks` gives.  Every apply
+returns ``(x, caches, aux)`` with aux [G], the per-branch sum of the MoE
+load-balance terms.
+
+Decode caches follow the JAX layout, a tree per block (``{"k", "v"}`` for
+attention, ``{"ssm", "conv"}`` for Mamba, tuples of state tensors for the
+xLSTM cells) with leaves [G, n, B, ...].  A step writes each block's new
+state into its superblock's view of the cache in place and returns the
+same tree.
 
 ``remat`` is ``torch.utils.checkpoint`` (non-reentrant) around one
 superblock, the body that ``jax.checkpoint`` wraps at
@@ -15,27 +23,67 @@ the backward, so the attention forward runs twice per layer and step.
 """
 from __future__ import annotations
 
+from typing import List, Optional
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 from repro_torch.models.moe import moe_apply
 
 
+def block_cache(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
+                dtype, lead: tuple, device):
+    """Decode-time state of one block, leaves ``lead + (batch, ...)``."""
+    if mixer in ("attn", "attn_local"):
+        eff = cache_len
+        if mixer == "attn_local" and cfg.sliding_window:
+            eff = min(cache_len, cfg.sliding_window)
+        shape = lead + (batch, eff, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if mixer == "mamba":
+        return S.mamba_init_state(cfg, batch, dtype, lead, device)
+    if mixer == "mlstm":
+        return X.mlstm_init_state(cfg, batch, lead, device)
+    if mixer == "slstm":
+        return X.slstm_init_state(cfg, batch, lead, device)
+    raise ValueError(mixer)
+
+
 def block_apply(params, x, cfg: ArchConfig, mixer: str, ffn: str, *,
-                positions):
-    """One block on x [G, B, S, d].  Returns (x, aux [G])."""
+                positions, cache=None, cache_index: Optional[int] = None,
+                enc_kv=None, window_override: Optional[int] = None):
+    """One block on x [G, B, S, d].  Returns (x, new_cache, aux [G])."""
     g, b, s, d = x.shape
     aux = x.new_zeros(g, dtype=torch.float32)
     h = L.norm_apply(params["mix_norm"], x, cfg)
-    if mixer != "attn":
-        raise NotImplementedError(
-            f"mixer {mixer!r} is ported with the rest of the zoo")
-    out, _ = L.attn_apply(params["mix"], h, cfg, positions=positions)
+    if mixer in ("attn", "attn_local"):
+        window = cfg.sliding_window if mixer == "attn_local" else 0
+        if window_override is not None and mixer == "attn":
+            window = window_override
+        out, new_cache = L.attn_apply(
+            params["mix"], h, cfg, positions=positions, window=window,
+            kv_cache=cache, cache_index=cache_index)
+    elif mixer == "mamba":
+        out, new_cache = S.mamba_apply(params["mix"], h, cfg, state=cache)
+    elif mixer == "mlstm":
+        out, new_cache = X.mlstm_apply(params["mix"], h, cfg, state=cache)
+    elif mixer == "slstm":
+        out, new_cache = X.slstm_apply(params["mix"], h, cfg, state=cache)
+    else:
+        raise ValueError(mixer)
     if cfg.post_norms:
         out = L.norm_apply(params["mix_post_norm"], out, cfg)
     x = x + out
+    if enc_kv is not None:          # cross-attention (enc-dec decoder)
+        h = L.norm_apply(params["cross_norm"], x, cfg)
+        out, _ = L.attn_apply(params["cross"], h, cfg, positions=positions,
+                              kv_override=enc_kv)
+        x = x + out
     if ffn != "none":
         h = L.norm_apply(params["ffn_norm"], x, cfg).reshape(g, b * s, d)
         if ffn == "dense":
@@ -46,45 +94,82 @@ def block_apply(params, x, cfg: ArchConfig, mixer: str, ffn: str, *,
         if cfg.post_norms:
             out = L.norm_apply(params["ffn_post_norm"], out, cfg)
         x = x + out
-    return x, aux
+    return x, new_cache, aux
 
 
-def superblock_apply(params, x, cfg: ArchConfig, *, positions):
-    """Apply one superblock (leaves [G, ...]).  Returns (x, aux [G])."""
+def tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of same-shaped trees of dicts and
+    tuples."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(u[k] for u in trees)) for k in t}
+    if isinstance(t, tuple):
+        return tuple(tree_map(fn, *u) for u in zip(*trees))
+    return fn(*trees)
+
+
+def _store(view, new) -> None:
+    """Write a block's new decode state into its view of the cache (an
+    attention cache was written in place already)."""
+    if new is not view:
+        tree_map(lambda dst, src: dst.copy_(src), view, new)
+
+
+def superblock_apply(params, x, cfg: ArchConfig, *, positions, cache=None,
+                     cache_index: Optional[int] = None, enc_kv=None,
+                     window_override: Optional[int] = None):
+    """Apply one superblock (leaves [G, ...]; ``cache`` the superblock's
+    views [G, B, ...], written in place).  Returns (x, cache, aux [G])."""
     aux = x.new_zeros(x.shape[0], dtype=torch.float32)
     for i, (mixer, ffn) in enumerate(cfg.pattern):
-        x, a = block_apply(params[f"pos{i}"], x, cfg, mixer, ffn,
-                           positions=positions)
+        key = f"pos{i}"
+        view = None if cache is None else cache[key]
+        x, new, a = block_apply(
+            params[key], x, cfg, mixer, ffn, positions=positions,
+            cache=view, cache_index=cache_index,
+            enc_kv=None if enc_kv is None else enc_kv[key],
+            window_override=window_override)
+        if view is not None:
+            _store(view, new)
         aux = aux + a
-    return x, aux
+    return x, cache, aux
 
 
-def _slice(tree, i: int):
-    """Superblock ``i`` of a stack tree: leaves [G, n, ...] -> [G, ...]."""
-    return {k: _slice(v, i) if isinstance(v, dict) else v[:, i]
-            for k, v in tree.items()}
+def sb_slice(tree, i: int):
+    """Superblock ``i`` of a stacked tree: leaves [G, n, ...] -> [G, ...]
+    (views)."""
+    return tree_map(lambda v: v[:, i], tree)
 
 
-def stack_apply_span(params_span, x, cfg: ArchConfig, *, positions,
-                     remat: bool = False):
-    """Loop over a span of stacked superblocks (leaves [G, n_local, ...]),
-    each wrapped in a checkpoint when ``remat``.  Returns (x, aux [G])."""
-    n = params_span["pos0"]["mix_norm"]["w"].shape[1]
+def superblocks(tree) -> List[dict]:
+    """The per-superblock views of a stacked parameter tree."""
+    n = tree["pos0"]["mix_norm"]["w"].shape[1]
+    return [sb_slice(tree, i) for i in range(n)]
+
+
+def stack_apply(sbs: List[dict], x, cfg: ArchConfig, *, positions,
+                caches=None, cache_index: Optional[int] = None,
+                enc_kv_stack: Optional[List[dict]] = None,
+                window_override: Optional[int] = None,
+                remat: bool = False):
+    """Loop over superblocks ``sbs`` (per-superblock trees, leaves
+    [G, ...]).  ``caches`` (leaves [G, n, ...]) are written in place at
+    ``cache_index``; ``enc_kv_stack`` holds each superblock's cross-
+    attention K/V.  ``remat`` (training) wraps each superblock in a
+    checkpoint.  Returns (x, caches, aux [G])."""
     aux = x.new_zeros(x.shape[0], dtype=torch.float32)
-    for i in range(n):
-        sb = _slice(params_span, i)
+    for i, sb in enumerate(sbs):
+        cache = None if caches is None else sb_slice(caches, i)
+        enc = None if enc_kv_stack is None else enc_kv_stack[i]
 
-        def body(h, sb=sb):
-            return superblock_apply(sb, h, cfg, positions=positions)
+        def body(h, sb=sb, cache=cache, enc=enc):
+            h, _, a = superblock_apply(
+                sb, h, cfg, positions=positions, cache=cache,
+                cache_index=cache_index, enc_kv=enc,
+                window_override=window_override)
+            return h, a
 
         x, a = checkpoint(body, x, use_reentrant=False) if remat \
             else body(x)
         aux = aux + a
-    return x, aux
-
-
-def stack_apply(params, x, cfg: ArchConfig, *, positions,
-                remat: bool = False):
-    """The whole superblock stack (leaves [G, N_sb, ...]).  Returns
-    (x, aux [G])."""
-    return stack_apply_span(params, x, cfg, positions=positions, remat=remat)
+    return x, caches, aux

@@ -6,9 +6,8 @@ copy of ``repro.sched.policies`` for the in-process ``Simulator``.
                               (no split) + the same placement policy.
 ``FixedDecisionScheduler``  — ablation: always layer / always semantic.
 
-The engine is the port's numpy ``SplitDecisionEngine``: ``bandit="ucb"``
-runs; the sampling bandits raise ``NotImplementedError`` as ``MABPolicy``
-does.  New code should use the backend-agnostic ``repro_torch.engine``
+The engine is the port's numpy ``SplitDecisionEngine`` with any of its
+bandits (``ucb``, ``thompson``, ``egreedy``).  New code should use the backend-agnostic ``repro_torch.engine``
 policies.
 """
 from __future__ import annotations
@@ -39,8 +38,8 @@ class SplitPlaceScheduler(_PlacementMixin):
         self.engine = SplitDecisionEngine(len(APPS), bandit=bandit,
                                           n_ctx=n_ctx, ema_init_values=ema0,
                                           **bandit_kw)
-        # ``seed`` keys the reference's sampling bandits; UCB draws nothing
-        self.state = self.engine.init()
+        # ``seed`` seeds the sampling bandits' draws; UCB draws nothing
+        self.state = self.engine.init(seed)
 
     def decide(self, w):
         arm, ctx, self.state = self.engine.decide(self.state, w.app_id,

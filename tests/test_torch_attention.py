@@ -157,13 +157,50 @@ def test_attn_apply_matches_jax(tiny_cfg, s):
                                rtol=RTOL)
 
 
-def test_attn_apply_later_slice_branches_raise(tiny_cfg):
-    cfg = port_cfg(tiny_cfg)
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="legacy gang path"):
-        tlayers.attn_apply({}, x, cfg, positions=None, kv_cache={})
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        tlayers.attn_apply({}, x, cfg, positions=None, kv_override=(x, x))
+@pytest.mark.parametrize("case", ["decode", "ring", "prefill", "cross"])
+def test_attn_apply_cache_and_cross_branches_equal_jax(tiny_cfg, case):
+    """``attn_apply``'s dense-cache branch (a decode step through
+    ``decode_attention``'s plain version, a wrapped ring buffer of window 4
+    with softcap 50, a 3-token prefill into the cache) and its
+    ``kv_override`` cross-attention branch, outputs and caches equal to
+    JAX's on the same weights and cache."""
+    cfg = tiny_cfg.replace(attn_softcap=50.0) if case == "ring" else tiny_cfg
+    rng = np.random.default_rng(12)
+    params = jlayers.attn_init(jax.random.PRNGKey(4), cfg)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+    s = 3 if case == "prefill" else 1
+    x = rng.normal(size=(2, s, cfg.d_model)).astype(np.float32)
+    L = 4 if case == "ring" else 8
+    cache = rng.normal(size=(2, L, cfg.n_kv_heads, cfg.hd)).astype(
+        np.float32)
+    index = {"decode": 5, "ring": 9, "prefill": 2, "cross": 0}[case]
+    window = 4 if case == "ring" else 0
+    pos = np.arange(index, index + s)[None]
+    kw, tkw = {}, {}
+    if case == "cross":
+        enc = rng.normal(size=(2, 5, cfg.n_kv_heads, cfg.hd)).astype(
+            np.float32)
+        kw = dict(kv_override=(jnp.asarray(enc), jnp.asarray(enc)))
+        tkw = dict(kv_override=(torch.from_numpy(enc),) * 2)
+    else:
+        kw = dict(kv_cache={"k": jnp.asarray(cache),
+                            "v": jnp.asarray(cache[::-1].copy())},
+                  cache_index=index, window=window)
+        tkw = dict(kv_cache={"k": torch.from_numpy(cache.copy()),
+                             "v": torch.from_numpy(cache[::-1].copy())},
+                   cache_index=index, window=window)
+    want, jc = jlayers.attn_apply(params, jnp.asarray(x), cfg,
+                                  positions=jnp.asarray(pos), **kw)
+    got, tc = tlayers.attn_apply(tp, torch.from_numpy(x), port_cfg(cfg),
+                                 positions=torch.from_numpy(pos), **tkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+    if case == "cross":
+        assert tc is None and jc is None
+        return
+    for n in ("k", "v"):
+        np.testing.assert_allclose(tc[n].numpy(), np.asarray(jc[n]),
+                                   atol=ATOL, rtol=RTOL)
 
 
 def test_flash_wrapper_counts_no_cpu_launch():

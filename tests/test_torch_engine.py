@@ -33,8 +33,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.core import mab as tmab  # noqa: E402
 from repro_torch.core.decision import SplitDecisionEngine as TEngine  # noqa
 from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,  # noqa: E402
-                                MABPolicy, PlacementEngine, Request,
-                                TorchBackend)
+                                PlacementEngine, Request, TorchBackend)
 from repro_torch.launch import serve  # noqa: E402
 
 from test_torch_paged import np_tree, port_cfg  # noqa: E402
@@ -93,11 +92,6 @@ def test_ucb_decisions_match_jax(seed):
                                rtol=1e-6)
 
 
-def test_sampling_bandits_wait_for_their_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        MABPolicy(bandit="thompson")
-
-
 # ------------------------------------------------------------------ backend
 def _requests(mk, vocab, seed=5):
     rng = np.random.default_rng(seed)
@@ -148,7 +142,6 @@ def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(decode="legacy"),
     dict(fleet="disagg", fleet_devices=("cpu", "cuda:1"))])
 def test_unported_knobs_raise(tiny_cfg, knob):
     with pytest.raises(NotImplementedError):

@@ -785,3 +785,73 @@ def test_op_kernels_reject_what_they_cannot_take(dev):
         decode_attention(q, kv, kv, length.cpu())
     with pytest.raises(ValueError, match="dtypes"):
         decode_attention(q, kv.bfloat16(), kv.bfloat16(), length)
+
+
+# ------------------------------------------------------------ gang path
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "gemma2-27b"])
+@pytest.mark.parametrize("arm", ["layer", "semantic"])
+def test_dense_cache_decode_through_kernel(dev, name, arm):
+    """The gang path's decode steps on CUDA: every attention layer's step
+    launches ``decode_attention`` once (the semantic arm's branches folded
+    into its batch), and the logits equal the same steps through
+    ``decode_attention_plain`` (reduced f32 models; gemma2 past its 16-slot
+    local ring, softcap 50)."""
+    from repro_torch.kernels import decode_attention as DEC
+    from repro_torch.models import layers as ML
+    from repro_torch.models.model import build_model
+    cfg = get_config(name).reduced()
+    if arm == "semantic":
+        cfg = cfg.semantic(2)
+    model = build_model(cfg, device=dev).reset_parameters(
+        torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 24), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+
+    def run():
+        cache = model.init_cache(3, 32)
+        out = []
+        for i in range(toks.shape[1]):
+            lg, cache = model.decode_step(None, cache, toks[:, i:i + 1], i)
+            out.append(lg)
+        return torch.cat(out, 1)
+
+    DEC.decode_attention.launches = 0
+    got = run()
+    assert DEC.decode_attention.launches == cfg.n_layers * toks.shape[1]
+    saved = ML.decode_attention
+    ML.decode_attention = DEC.decode_attention_plain
+    try:
+        want = run()
+    finally:
+        ML.decode_attention = saved
+    _within_rows(got, want, TOL["f32"])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [8, 128])
+def test_mlstm_projection_through_kernel(dev, dt, t):
+    """The mLSTM's per-head projection at xlstm-125m's widths (4 heads of
+    384; the semantic arm's 2 x 2) through ``block_diag_matmul`` and its
+    gradient kernels, against the plain einsum: the forward and both
+    gradients within tol (1 + |plain|) on the path the rows take."""
+    from repro_torch.kernels.block_diag_matmul import block_diag_matmul
+    from repro_torch.models.xlstm import BlockDiagMatmul
+    tol = 2e-4 if dt == torch.float32 else 2e-2
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x0 = torch.randn(4, t, 384, device=dev, generator=gen).to(dt)
+    w0 = (torch.randn(4, 384, 384, device=dev, generator=gen)
+          / 384 ** 0.5).to(dt)
+    dy = torch.randn(4, t, 384, device=dev, generator=gen).to(dt)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    before = block_diag_matmul.launches
+    out = BlockDiagMatmul.apply(x, w)
+    out.backward(dy)
+    assert block_diag_matmul.launches == before + 3
+    xr, wr = x0.float().requires_grad_(), w0.float().requires_grad_()
+    ref = torch.einsum("gtd,gde->gte", xr, wr)
+    ref.backward(dy.float())
+    for got, want in ((out, ref), (x.grad, xr.grad), (w.grad, wr.grad)):
+        diff = (got.float() - want).abs()
+        assert bool((diff <= tol * (1 + want.abs())).all()), \
+            float(diff.max())

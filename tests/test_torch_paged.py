@@ -170,7 +170,7 @@ def _setup(cfg, arm, kv, seed=3, num_blocks=17, bs=4):
     params = jmodel.init(jax.random.PRNGKey(seed))
     jpool = jmodel.init_cache(num_blocks, bs)
     tmodel = bridge.model_from_params(port_cfg(jcfg), np_tree(params))
-    tpool = tmodel.init_cache(num_blocks, bs)
+    tpool = tmodel.init_pool(num_blocks, bs)
     if kv == "int8":
         jpool = jpc.quantize_pool(jpool)
         tpool = tpc.quantize_pool(tpool)

@@ -175,9 +175,13 @@ def test_splitplace_ucb_decisions_equal():
         tbase.LeastLoadedPlacement(), bandit="ucb"))
     assert tdone == jdone and tm == jm
     assert 0 < tm["decisions_semantic_frac"] < 1
-    with pytest.raises(NotImplementedError):
-        tpol.SplitPlaceScheduler(tbase.LeastLoadedPlacement(),
-                                 bandit="thompson")
+    # the sampling bandits run the same simulation (their draws are held
+    # in distribution, not bit for bit: tests/test_torch_bandits.py)
+    for bandit in ("thompson", "egreedy"):
+        tm, _ = _sim_metrics(tsim, tpol.SplitPlaceScheduler(
+            tbase.LeastLoadedPlacement(), bandit=bandit))
+        assert tm["completed"] > 50
+        assert 0 < tm["decisions_semantic_frac"] < 1
 
 
 def test_simulator_reward_compares_in_float64():
