@@ -98,10 +98,11 @@ raising on failure:
             layer), f32 and bf16; flash (bf16: the tensor-core path) and
             quant once each.  The launch counters are zeroed before each op
             call and must read 1 for its kernel and 0 for the others, and
-            every grouped-GEMM call must take its path (bf16 with M > 32:
-            the tensor-core tile; f32: the CUDA-core tile; M <= 32: the
-            skinny tile); with
-            ``use_kernels(False)`` no
+            every grouped-GEMM call must take its path (bf16: the
+            tensor-core tiles, ``mma_skinny`` at M <= 32 and ``wgmma``
+            above; f32: the CUDA-core tiles, ``skinny`` and ``tiled``),
+            and every call at M <= 32 must be one CUDA kernel (the
+            profiler's count); with ``use_kernels(False)`` no
             launch and the oracle's result.  Kernel vs plain within tol (1 +
             |plain|) (``QTOL``), decode within tol times the largest |plain|
             of each output row; the decode check must also reject the plain
@@ -182,7 +183,8 @@ raising on failure:
             mixers take the gang path, prompts prefilled token by token),
             ``bandit="thompson"``, 9 requests (16-48-token prompts, 16-32
             new) in 3 waves: three ``block_diag_matmul`` launches per mLSTM
-            layer per decode step, every one on the skinny tile; the same
+            layer per decode step, every one on the bf16 decode-sized tile
+            (``mma_skinny``); the same
             model check with ``block_diag_matmul_plain`` (a 24-token
             prompt; 8 lanes, so the mLSTM projections run at T 8).
 15. window  gemma2-27b at full width cut to 2 superblocks (hd 128, GQA
@@ -1617,7 +1619,8 @@ def gang_phase(dev, cfg, *, tag: str, decode: str, bandit: str, reqs,
     after: ``decode_attention`` must read one launch per attention layer
     per decode step (the semantic arm's branches share it) and
     ``block_diag_matmul`` three per mLSTM layer per step, every one on the
-    skinny tile.  Returns (backend, report)."""
+    decode-sized tile of the model's dtype (bf16: ``mma_skinny``).  Returns
+    (backend, report)."""
     from repro_torch.engine import (LAYER, SEMANTIC, MABPolicy,
                                     PlacementEngine, TorchBackend)
     from repro_torch.kernels import _gemm_launch as GL
@@ -1668,7 +1671,8 @@ def gang_phase(dev, cfg, *, tag: str, decode: str, bandit: str, reqs,
         raise AssertionError(f"[{tag}] launches {launches}, {steps} decode "
                              f"steps imply {want}")
     want_paths = dict.fromkeys(paths, 0)
-    want_paths["skinny"] = want["block_diag_matmul"]
+    want_paths["mma_skinny" if cfg.dtype == "bfloat16" else "skinny"] = \
+        want["block_diag_matmul"]
     if paths != want_paths:
         raise AssertionError(f"[{tag}] block_diag_matmul launches by path "
                              f"{paths}, expected {want_paths}")
@@ -2292,10 +2296,12 @@ def ops_phase(dev):
             if path != [FL.path_for(dt)]:
                 raise AssertionError(f"{tag}: took {path}, not "
                                      f"{FL.path_for(dt)}")
-        if name in ("block_diag_matmul", "moe_gmm"):
-            m = args[0].shape[1]
-            want_path = "skinny" if m <= GL.SKINNY_M else (
-                "wgmma" if dt == torch.bfloat16 else "tiled")
+        gemm = name in ("block_diag_matmul", "moe_gmm")
+        decode_sized = gemm and args[0].shape[1] <= GL.SKINNY_M
+        if gemm:
+            want_path = ("mma_skinny" if decode_sized else "wgmma") \
+                if dt == torch.bfloat16 else (
+                    "skinny" if decode_sized else "tiled")
             if path != [want_path]:
                 raise AssertionError(f"{tag}: took {path}, not "
                                      f"{want_path}")
@@ -2356,16 +2362,20 @@ def ops_phase(dev):
         if name in OPS_KERNELS:
             bnd, by = case["bound"]
             lib = case["library"]
+            ms, per_call = device_profile(lambda: op(*args, **kw))
+            if decode_sized and per_call != 1:
+                raise AssertionError(f"{tag}: {per_call} CUDA kernels per "
+                                     "call, not 1")
             row.update(
-                bound_ms=bnd, bound_by=by,
-                ms=device_ms(lambda: op(*args, **kw)),
+                bound_ms=bnd, bound_by=by, ms=ms, kernels_per_call=per_call,
                 call_ms=time_ms(lambda: op(*args, **kw)),
                 plain_ms=device_ms(lambda: case["plain"](*args, **kw),
                                    reps=case.get("plain_reps", 5)),
                 library_ms=None if lib is None else device_ms(lib))
             libs = "—" if lib is None else f"{row['library_ms']:.4f} ms"
             log(f"[ops] {tag}: max_abs_err={err:.3g} kernel "
-                f"{row['ms']:.4f} ms (call {row['call_ms']:.4f}), plain "
+                f"{row['ms']:.4f} ms ({per_call} kernel(s) per call; call "
+                f"{row['call_ms']:.4f}), plain "
                 f"{row['plain_ms']:.4f} ms, library {libs}, bound {bnd:.4f} "
                 f"ms ({by})")
         else:
@@ -2563,7 +2573,7 @@ def main(argv=None) -> int:
                   "paged_prefill_attention": "prefill_mma",
                   "quant_matmul": "mma_skinny",
                   "flash_attention": "simt",
-                  "block_diag_matmul": "skinny", "moe_gmm": "wgmma"}
+                  "block_diag_matmul": "mma_skinny", "moe_gmm": "wgmma"}
     for label, row in kernels["flash_attention"]["per_dtype"].items():
         want_path = "mma" if label.endswith("bfloat16") else "simt"
         if row["path"] != want_path:

@@ -42,8 +42,7 @@ def _count_plain():
 
     def bdm(x, w):
         BDM.block_diag_matmul.launches += 1
-        GL.PATH_LAUNCHES["skinny" if x.shape[1] <= GL.SKINNY_M else (
-            "wgmma" if x.dtype == torch.bfloat16 else "tiled")] += 1
+        GL.PATH_LAUNCHES[GL.path_for(x, w)] += 1
         return bdm_plain(x, w)
     DEC.decode_attention_plain = dec
     BDM.block_diag_matmul_plain = bdm

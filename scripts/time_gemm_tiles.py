@@ -90,6 +90,7 @@ def main(argv=None) -> int:
             GL.wgmma_consumers = lambda m: r
         else:
             GL.tile_rows = lambda m: r
+        GL._PLANS.clear()             # plans are cached by argument key
 
     try:
         for label, op, g, m, k, n in shapes():
@@ -120,6 +121,7 @@ def main(argv=None) -> int:
                         times[name].append(device_ms(lambda: kern(x, w),
                                                      reps=10))
                 GL.path_for, GL.tile_rows, GL.wgmma_consumers = saved
+                GL._PLANS.clear()
                 row = dict(shape=label, dtype=str(dt)[6:], G=g, M=m, K=k,
                            N=n, chosen=chosen,
                            ms={v: statistics.median(t)
@@ -134,6 +136,7 @@ def main(argv=None) -> int:
                 del x, w, want
     finally:
         GL.path_for, GL.tile_rows, GL.wgmma_consumers = saved
+        GL._PLANS.clear()
     result = dict(card=card, rows=rows)
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -3,7 +3,9 @@
 into M microbatches whose mean loss is the step's loss, and whose
 gradients accumulate one microbatch at a time, so only one microbatch's
 activations are alive.  The explicit stage-graph schedules (gpipe, 1f1b)
-and expert parallelism need several devices and come with the multi-device
+are not ported yet: the reference runs them on one device too (a 1 x 1
+mesh), and they wait for a slice of their own, with their tick tables and
+the stage-graph executor.  Expert parallelism waits for the multi-device
 training slice.
 
 Numerics: the dense-model loss is invariant to M up to float summation

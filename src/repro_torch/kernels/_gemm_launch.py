@@ -3,7 +3,8 @@ the grouped GEMM (``csrc/grouped_matmul.cu``), which serves both
 ``block_diag_matmul`` and ``moe_gmm``.  :func:`launch` takes CUDA tensors
 only: the wrappers route CPU tensors to their plain versions before
 reaching it.  :func:`path_for` and the planning helpers are pure Python,
-and :func:`wgmma_emulated` is plain PyTorch on any device."""
+and :func:`wgmma_emulated` and :func:`skinny_emulated` are plain PyTorch
+on any device."""
 from __future__ import annotations
 
 import ctypes
@@ -14,29 +15,53 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+
+
+class _SkinnyArgs(ctypes.Structure):
+    """``SkinnyArgs`` of csrc/grouped_matmul.cu, field for field."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "dtype", "mma", "rows", "cols", "splits", "per_split", "G", "M", "K",
+        "N")] + [(f, ctypes.c_longlong) for f in ("sxg", "sxm", "swg",
+                                                  "swk")] \
+        + [("vec_x", ctypes.c_int), ("vec_w", ctypes.c_int)]
+
+
 _ARGTYPES = {
     "grouped_matmul_launch": [_I, _I, _P, _P, _P, _P] + [_I] * 6
     + [_LL] * 4 + [_I, _I, _P],
     "grouped_matmul_wgmma_launch": [_I, _P, _P, _P, _P] + [_I] * 6
     + [_LL] * 4 + [_P],
+    "grouped_matmul_skinny_launch": [ctypes.POINTER(_SkinnyArgs)] + [_P] * 4,
 }
-#: rows at or below which the skinny 8-row tile is used
+#: rows at or below which a call takes a decode-sized tile
 SKINNY_M = 32
-#: contraction slab depth of each CUDA-core tile (csrc/grouped_matmul.cu)
-SLAB = {8: 32, 64: 16, 128: 16}
+#: contraction slab depth of each CUDA-core tile of M > 32
+#: (csrc/grouped_matmul.cu)
+SLAB = {64: 16, 128: 16}
 #: contraction slab depth of the tensor-core tile
 WGMMA_SLAB = 64
-#: CTAs per SM a call aims for before it splits the contraction: the skinny
-#: tile is small (several fit an SM); the tiled kernel fits two
-CTAS_PER_SM = {8: 4, 64: 2, 128: 2}
+#: CTAs per SM a call of M > 32 aims for before it splits the contraction
+#: (the tiled kernel fits two on an SM)
+CTAS_PER_SM = {64: 2, 128: 2}
 #: the same for the tensor-core tile, by consumer warpgroups: one consumer
 #: (96 KB of ring) fits two CTAs on an SM, two or three (128 / 160 KB) one
 WGMMA_CTAS_PER_SM = {1: 2, 2: 1, 3: 1}
+#: decode-sized tiles: the CTAs of one cluster at most (the portable
+#: size), the contraction rows a split is whole steps of (``mma_skinny``:
+#: the k16 step; ``skinny``: 32 rows, its shallowest slab), and the CTAs
+#: per SM a call aims for
+MAX_SPLITS = 8
+SKINNY_STEP = {"mma_skinny": 16, "skinny": 32}
+SKINNY_CTAS_PER_SM = 4
 #: launches by path since import (``wgmma``: bf16 tensor-core tile;
-#: ``tiled``: CUDA-core tile; ``skinny``: the 8-row tile), so a run can show
-#: which path its calls took
-PATH_LAUNCHES = {"wgmma": 0, "tiled": 0, "skinny": 0}
+#: ``tiled``: CUDA-core tile; ``mma_skinny``: bf16 decode-sized tile on
+#: ``mma.sync``; ``skinny``: the CUDA-core decode-sized tile), so a run can
+#: show which path its calls took
+PATH_LAUNCHES = {"wgmma": 0, "tiled": 0, "mma_skinny": 0, "skinny": 0}
 _FNS = {}
+#: call plans by argument key (:func:`launch`), at most ``_MAX_PLANS``
+_PLANS = {}
+_MAX_PLANS = 4096
 
 
 def _fn(name: str):
@@ -58,6 +83,11 @@ def tile_rows(m: int) -> int:
     return 128 if -(-m // 128) * 128 <= -(-m // 64) * 64 else 64
 
 
+def skinny_rows(m: int) -> int:
+    """x rows per CTA of ``mma_skinny``: M padded to 8, 16 or 32."""
+    return next(r for r in (8, 16, 32) if m <= r)
+
+
 def wgmma_consumers(m: int) -> int:
     """Consumer warpgroups (64 rows each) per CTA of the tensor-core tile:
     the count whose tile pads M least, the larger on a tie (the weight
@@ -74,29 +104,59 @@ def _aligned16(t: torch.Tensor) -> bool:
 
 
 def path_for(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The path a call takes, from dtype, shape and alignment alone:
-    ``skinny`` for M <= 32; ``wgmma`` for bf16 with M > 32, K >= 1 and x's
-    and w's pointers and group and row strides 16-byte aligned (what the
-    tensor maps of the copy engine need); ``tiled`` otherwise (every f32
-    call with M > 32, and the bf16 calls the tensor-core tile cannot
-    take)."""
+    """The path a call takes, from dtype, shape and alignment alone.  bf16
+    with x's and w's pointers and group and row strides 16-byte aligned
+    (what 16-byte ``cp.async`` copies and the copy engine's tensor maps
+    need) runs on the tensor cores: ``mma_skinny`` for M <= 32, ``wgmma``
+    above (K >= 1).  Every other call keeps the CUDA cores: ``skinny`` for
+    M <= 32, ``tiled`` above (every f32 call, and the bf16 calls the
+    tensor-core tiles cannot take)."""
     m, k = x.shape[1], x.shape[2]
+    tc = x.dtype == torch.bfloat16 and _aligned16(x) and _aligned16(w)
     if m <= SKINNY_M:
-        return "skinny"
-    if x.dtype == torch.bfloat16 and k >= 1 and _aligned16(x) \
-            and _aligned16(w):
-        return "wgmma"
-    return "tiled"
+        return "mma_skinny" if tc else "skinny"
+    return "wgmma" if tc and k >= 1 else "tiled"
 
 
 def split_plan(tiles: int, k: int, slab: int, want_ctas: int):
-    """(splits, k_per_split): split the contraction, in whole slabs, until
-    ``tiles`` output tiles give about ``want_ctas`` CTAs; every split is
-    non-empty."""
+    """(splits, k_per_split) of a call of M > 32: split the contraction, in
+    whole slabs, until ``tiles`` output tiles give about ``want_ctas``
+    CTAs; every split is non-empty."""
     slabs = -(-k // slab)
     want = max(1, min(slabs, -(-want_ctas // tiles)))
     per = -(-slabs // want) * slab
     return -(-k // per) if k else 1, max(per, slab)
+
+
+def skinny_plan(path: str, g: int, m: int, k: int, n: int, n_sm: int,
+                cols: int | None = None):
+    """(rows, cols, splits, per_split) of a decode-sized call: ``rows`` x
+    ``cols`` outputs per CTA and the contraction cut into ``splits`` <=
+    ``MAX_SPLITS`` slices of ``per_split`` rows, the CTAs of one cluster.
+    Slices are whole ``SKINNY_STEP`` steps, in order, every one non-empty,
+    enough of them for about ``SKINNY_CTAS_PER_SM`` CTAs per SM.
+    ``mma_skinny`` pads M to 8, 16 or 32 rows, ``skinny`` takes 8-row
+    tiles.  Both take 128 columns, or 64 where 128-column tiles in clusters
+    of 8 give fewer CTAs than that and every slice would still be longer
+    than 128 rows (K > 1024): more CTAs then keep more of w in flight,
+    while shorter slices are bound by latency and narrower tiles only add
+    CTAs (``scripts/time_skinny_gemm.py`` on an H100, both dtypes: the
+    mLSTM's 4 x 384 and the semantic up-projection at K 1024 ran faster at
+    128 columns, the down-projection at K 2816 at 64).  ``cols`` forces
+    the width."""
+    step = SKINNY_STEP[path]
+    rows = skinny_rows(m) if path == "mma_skinny" else tile_rows(m)
+    target = SKINNY_CTAS_PER_SM * n_sm
+    row_tiles = -(-m // rows) * g
+    if cols is None:
+        cols, narrowest = 128, 64 if path == "mma_skinny" else 32
+        while cols > narrowest and n > cols // 2 and k > 128 * MAX_SPLITS \
+                and -(-n // cols) * row_tiles * MAX_SPLITS < target:
+            cols //= 2
+    tiles = -(-n // cols) * row_tiles
+    steps = max(1, -(-k // step))
+    per = -(-steps // max(1, min(steps, MAX_SPLITS, -(-target // tiles))))
+    return rows, cols, -(-steps // per), per * step
 
 
 def _vec_ok(t: torch.Tensor) -> bool:
@@ -113,11 +173,11 @@ def _strides(t: torch.Tensor):
     return (sg if g > 1 else max(rows, 1) * sr), sr
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
-    """x [G, M, K] @ w [G, K, N] on one CUDA device, both f32 or both bf16,
-    the last dim dense (any group and row strides).  Returns a dense
-    [G, M, N] in x's dtype.  The path is :func:`path_for`'s, counted in
-    ``PATH_LAUNCHES``; a build or launch error raises."""
+def _plan(x: torch.Tensor, w: torch.Tensor, name: str):
+    """(path, out shape, device index, call) for a call on x and w: the
+    argument checks (raising ``ValueError``), the path, tile and split, and
+    ``call(x, w, out, stream) -> rc`` with every argument that the call's
+    key fixes bound.  Path None: nothing to launch (an empty output)."""
     if w.device != x.device:
         raise ValueError(f"{name}: tensors on {w.device} and {x.device}")
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
@@ -131,10 +191,28 @@ def launch(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
     n = w.shape[2]
     if (x.stride(-1) != 1 and k > 1) or (w.stride(-1) != 1 and n > 1):
         raise ValueError(f"{name}: the last dim must be dense")
-    out = torch.empty((g, m, n), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
+    index, shape = x.device.index, (g, m, n)
+    if g * m * n == 0:
+        return None, shape, index, None
+    if max(m, n, k) >= 2 ** 31:
+        raise ValueError(f"{name}: grid too large")
     path = path_for(x, w)
+    sxg, sxm = _strides(x)
+    swg, swk = _strides(w)
+    n_sm = _build.sm_count(x.device)
+    code = _DTYPE_CODE[x.dtype]
+    if path in SKINNY_STEP:
+        rows, cols, splits, per = skinny_plan(path, g, m, k, n, n_sm)
+        if g * -(-m // rows) > 65535 or -(-n // cols) > 65535:
+            raise ValueError(f"{name}: grid too large")
+        args = _SkinnyArgs(code, int(path == "mma_skinny"), rows, cols,
+                           splits, per, g, m, k, n, sxg, sxm, swg, swk,
+                           int(_vec_ok(x)), int(_vec_ok(w)))
+        fn, ptr = _fn("grouped_matmul_skinny_launch"), ctypes.pointer(args)
+
+        def call(x, w, out, stream):
+            return fn(ptr, x.data_ptr(), w.data_ptr(), out.data_ptr(), stream)
+        return path, shape, index, call
     if path == "wgmma":
         nc = wgmma_consumers(m)
         tm, slab, per_sm = 64 * nc, WGMMA_SLAB, WGMMA_CTAS_PER_SM[nc]
@@ -142,26 +220,57 @@ def launch(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
         tm = tile_rows(m)
         slab, per_sm = SLAB[tm], CTAS_PER_SM[tm]
     tiles = -(-n // 128) * -(-m // tm) * g
-    splits, per = split_plan(tiles, k, slab,
-                             per_sm * _build.sm_count(x.device))
-    if g * splits > 65535 or -(-m // tm) > 65535 or max(m, n, k) >= 2 ** 31:
+    splits, per = split_plan(tiles, k, slab, per_sm * n_sm)
+    if g * splits > 65535 or -(-m // tm) > 65535:
         raise ValueError(f"{name}: grid too large")
-    partial = torch.empty((splits, g, m, n), dtype=torch.float32,
-                          device=x.device) if splits > 1 else None
-    sxg, sxm = _strides(x)
-    swg, swk = _strides(w)
-    pp = None if partial is None else partial.data_ptr()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if path == "wgmma":
-            rc = _fn("grouped_matmul_wgmma_launch")(
-                nc, x.data_ptr(), w.data_ptr(), out.data_ptr(), pp, splits,
-                per, g, m, k, n, sxg, sxm, swg, swk, stream)
-        else:
-            rc = _fn("grouped_matmul_launch")(
-                _DTYPE_CODE[x.dtype], tm, x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), pp, splits, per, g, m, k, n, sxg, sxm, swg,
-                swk, int(_vec_ok(x)), int(_vec_ok(w)), stream)
+    dev = x.device
+    if path == "wgmma":
+        fn = _fn("grouped_matmul_wgmma_launch")
+        lead, tail = (nc,), (splits, per, g, m, k, n, sxg, sxm, swg, swk)
+    else:
+        fn = _fn("grouped_matmul_launch")
+        lead = (code, tm)
+        tail = (splits, per, g, m, k, n, sxg, sxm, swg, swk,
+                int(_vec_ok(x)), int(_vec_ok(w)))
+
+    def call(x, w, out, stream):
+        partial = torch.empty((splits, g, m, n), dtype=torch.float32,
+                              device=dev) if splits > 1 else None
+        return fn(*lead, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                  None if partial is None else partial.data_ptr(), *tail,
+                  stream)
+    return path, shape, index, call
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+    """x [G, M, K] @ w [G, K, N] on one CUDA device, both f32 or both bf16,
+    the last dim dense (any group and row strides).  Returns a dense
+    [G, M, N] in x's dtype.  The path is :func:`path_for`'s, counted in
+    ``PATH_LAUNCHES``; a build or launch error raises.
+
+    The checks, the path and the plan are a function of the arguments'
+    dtypes, devices, shapes, strides and pointer alignment, so they run
+    once per such key and are cached: a call with a known key has passed
+    them, and does only the output's allocation, the launch and the
+    launch-error check."""
+    key = (x.dtype, w.dtype, x.device, w.device, x.shape, w.shape,
+           x.stride(), w.stride(), x.data_ptr() % 16, w.data_ptr() % 16)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _plan(x, w, name)
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        _PLANS[key] = plan
+    path, shape, index, call = plan
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if path is None:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if torch.cuda.current_device() == index:
+        rc = call(x, w, out, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = call(x, w, out, stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed with CUDA error {rc} on the "
                            f"{path} path")
@@ -181,3 +290,29 @@ def wgmma_emulated(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         acc += torch.bmm(x[:, :, k0:k0 + WGMMA_SLAB].float(),
                          w[:, k0:k0 + WGMMA_SLAB].float())
     return acc.to(x.dtype)
+
+
+def skinny_emulated(x: torch.Tensor, w: torch.Tensor,
+                    n_sm: int = 132) -> torch.Tensor:
+    """The decode-sized paths' numerics in plain PyTorch, walking
+    :func:`skinny_plan` on a card of ``n_sm`` SMs: each cluster rank's
+    slice of the contraction in the kernel's steps (``mma_skinny``'s k16
+    steps, ``skinny``'s 32-deep slabs), every step's products summed into
+    the rank's f32 tile; then the ranks' tiles added in rank order from 0
+    (the in-cluster merge) and the sum cast once to x's dtype."""
+    g, m, k = x.shape
+    n = w.shape[2]
+    path = path_for(x, w)
+    if path not in SKINNY_STEP:
+        raise ValueError(f"M = {m}: not a decode-sized call")
+    _, _, splits, per = skinny_plan(path, g, m, k, n, n_sm)
+    step = SKINNY_STEP[path]
+    out = torch.zeros((g, m, n), dtype=torch.float32, device=x.device)
+    for rank in range(splits):
+        tile = torch.zeros_like(out)
+        end = min(k, (rank + 1) * per)
+        for k0 in range(rank * per, end, step):
+            k1 = min(end, k0 + step)
+            tile += torch.bmm(x[:, :, k0:k1].float(), w[:, k0:k1].float())
+        out += tile
+    return out.to(x.dtype)

@@ -9,8 +9,11 @@ The CUDA kernel is the grouped GEMM of ``csrc/grouped_matmul.cu`` (shared
 with ``moe_gmm``), x and w read through their strides, ragged shapes
 masked: bf16 at prefill-sized T on the tensor cores (``wgmma`` fed by TMA,
 bound by bf16 tensor-core arithmetic), f32 on register-tiled CUDA-core
-products (bound by f32 arithmetic), decode-sized T in an 8-row tile (bound
-by the bytes of w); ``_gemm_launch.path_for`` states the rule.  The TPU
+products (bound by f32 arithmetic), decode-sized T (<= 32, the mLSTM's
+per-head projections on the gang path) in one launch whose contraction is
+split over a thread-block cluster and merged inside it, bf16 on
+``mma.sync`` and f32 on CUDA-core FMAs (bound by the bytes of w);
+``_gemm_launch.path_for`` states the rule.  The TPU
 kernel's block knobs (``block_t/e/d``, tiles for the MXU) are not carried:
 the kernel picks its own tiles and takes shapes the TPU asserts refuse.
 """

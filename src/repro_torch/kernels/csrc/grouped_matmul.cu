@@ -17,7 +17,7 @@
 // strides (the last dim dense); out is a dense [G, M, N].  Any M, K, N and
 // G: ragged edges are masked (or zero-filled by the copy engine).
 //
-// Three paths; the caller picks one from dtype, shape and alignment alone
+// Four paths; the caller picks one from dtype, shape and alignment alone
 // (``_gemm_launch.path_for``), before the launch.
 //
 //   wgmma (bf16, M > 32, pointers and strides 16-byte aligned).
@@ -44,20 +44,53 @@
 //     prefill-sized M, 1 where 64-row tiles waste less padding.  f32 stays
 //     here: tensor cores would mean TF32 and change the reference's
 //     numerics.
-//   skinny (M <= 32, both dtypes).
-//     Bound: the bytes of w (8 decode rows).  Design: 8 x 128 outputs per
-//     CTA, 32-deep slabs, one row and 4 columns per thread.
-// Loads of the two CUDA-core paths are 4-element vectors where the pointer
-// and strides allow it (the caller says so), scalars otherwise.  When the
-// output tiles alone cannot fill the card the contraction is also split
-// over CTAs (every path): each split writes f32 partial sums to a workspace
-// [S, G, M, N] and a second kernel adds them in order (deterministic) and
-// casts.
+//   The decode-sized tiles (M <= 32) are bound by the bytes of w: a few
+//   rows reuse each weight element a few times, and one projection has
+//   only N / 128 column tiles per group, too few to keep every SM's loads
+//   in flight.  So both split the contraction over the CTAs of a
+//   thread-block cluster (at most 8, the portable size) and merge the
+//   splits inside the launch: each CTA leaves its f32 tile in shared
+//   memory, and after a cluster barrier each rank adds a slice of the tile
+//   over ranks 0, 1, ... in order through distributed shared memory
+//   (deterministic) and writes it once, cast.  One launch per call, no
+//   workspace.  Both fill a 4-stage ring of slabs by cp.async, so three
+//   slabs are in flight while one is multiplied; ragged M, N and K are
+//   zero-filled by the copies (a partial 16-byte chunk copies its valid
+//   bytes).  The column-tile width and the cluster size come from
+//   ``_gemm_launch.skinny_plan``: narrower tiles where wide ones leave too
+//   few CTAs for a long contraction (a deeper ring instead, 8 stages,
+//   measured slower: its shared memory left fewer clusters resident).
+//   mma_skinny (bf16, M <= 32, pointers and strides 16-byte aligned).
+//     mma.sync m16n8k16 (bf16 -> f32) with the operands swapped: w's
+//     output columns are the m16 side and x's rows the n8 side, so 8 rows
+//     waste no tensor-core rows (BN = 8, 16 or 32 rows, BC = 128 or 64
+//     columns, 4 warps of BC / 4 columns).  64-deep slabs of w ([64, BC],
+//     N-major rows padded by 16 bytes: no bank conflicts) and of x ([BN,
+//     64]) go by 16-byte copies.  The A fragments come from the raw w rows
+//     through ldmatrix.trans, the B fragments from x rows through
+//     ldmatrix: no widened copy.  A bf16 x bf16 product is exact in f32,
+//     so this computes what f32 FMAs would, up to summation order.
+//   skinny (f32 with M <= 32, and bf16 the copies cannot take).
+//     CUDA-core f32 FMAs (no TF32: that would change the reference's
+//     numerics); 8 rows x BC = 128, 64 or 32 columns per CTA of 2 BC
+//     threads, one row and 4 columns per thread, 32-deep slabs staged as
+//     loaded and widened as read.  f32 goes by 16-byte copies where the
+//     pointer and strides allow it, 4-byte copies otherwise; bf16 (rows
+//     not 16-byte aligned) by plain loads, 8-byte vectors where aligned.
+// The tiled path's loads are 4-element vectors where the pointer and
+// strides allow it (the caller says so), scalars otherwise.  When the
+// output tiles alone cannot fill the card the tiled and wgmma paths also
+// split the contraction over CTAs: each split writes f32 partial sums to
+// a workspace [S, G, M, N] and a second kernel adds them in order
+// (deterministic) and casts.
+#include <cooperative_groups.h>
 #include <cuda.h>          // CUtensorMap (no driver call is linked)
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -219,87 +252,6 @@ __global__ void __launch_bounds__(THREADS) gemm_tiled_kernel(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) gemm_skinny_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-    float* __restrict__ partial, int splits, int k_per_split, int G, int M,
-    int K, int N, long long sxg, long long sxm, long long swg, long long swk,
-    bool vec_x, bool vec_w) {
-  constexpr int BM = 8, BN = 128, BK = 32;
-  constexpr int A_CHUNKS = BM * BK / 4;            // 64: threads 0..63
-  constexpr int B_PER_THREAD = BK * BN / 4 / THREADS;
-  static_assert(A_CHUNKS <= THREADS && B_PER_THREAD * THREADS * 4 == BK * BN,
-                "loader");
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-
-  const int g = blockIdx.z / splits, split = blockIdx.z % splits;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int k_begin = split * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
-  const T* xg = x + g * sxg;
-  const T* wg = w + g * swg;
-
-  Quad<T> ra, rb[B_PER_THREAD];
-  auto load = [&](int k0) {
-    if (tid < A_CHUNKS) {
-      const int row = row0 + tid / (BK / 4), k = k0 + (tid % (BK / 4)) * 4;
-      ra = load4(xg + row * sxm + k, row < M ? k_end - k : 0, vec_x);
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER_THREAD; ++i) {
-      const int c = tid + i * THREADS, k = k0 + c / 32;
-      const int col = col0 + (c % 32) * 4;
-      rb[i] = load4(wg + k * swk + col, k < k_end ? N - col : 0, vec_w);
-    }
-  };
-  auto store = [&](int buf) {
-    if (tid < A_CHUNKS) {
-      const int r = tid / (BK / 4), kk = (tid % (BK / 4)) * 4;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) As[buf][kk + e][r] = to_f32(ra.v[e]);
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER_THREAD; ++i) {
-      const int c = tid + i * THREADS;
-      *reinterpret_cast<float4*>(&Bs[buf][c / 32][(c % 32) * 4]) =
-          make_float4(to_f32(rb[i].v[0]), to_f32(rb[i].v[1]),
-                      to_f32(rb[i].v[2]), to_f32(rb[i].v[3]));
-    }
-  };
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  load(k_begin);
-  store(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    const bool more = k0 + BK < k_end;
-    if (more) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float a = As[buf][kk][ty];
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      acc[0] = fmaf(a, b.x, acc[0]);
-      acc[1] = fmaf(a, b.y, acc[1]);
-      acc[2] = fmaf(a, b.z, acc[2]);
-      acc[3] = fmaf(a, b.w, acc[3]);
-    }
-    if (more) store(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  const int row = row0 + ty;
-  if (row >= M) return;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = col0 + tx * 4 + j;
-    if (col < N) emit(out, partial, split, G, g, M, N, row, col, acc[j]);
-  }
-}
-
 // out[i] = sum over splits s (in order) of partial[s * n + i], cast.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) splitk_reduce_kernel(
@@ -325,9 +277,7 @@ int launch_typed(int tile_m, const void* x_, const void* w_, void* out_,
   const dim3 grid((N + 127) / 128, (M + tile_m - 1) / tile_m, G * splits);
 #define GM_ARGS x, w, out, part, splits, k_per_split, G, M, K, N, sxg, sxm, \
                 swg, swk, vec_x, vec_w
-  if (tile_m == 8)
-    gemm_skinny_kernel<T><<<grid, THREADS, 0, st>>>(GM_ARGS);
-  else if (tile_m == 64)
+  if (tile_m == 64)
     gemm_tiled_kernel<T, 1><<<grid, THREADS, 0, st>>>(GM_ARGS);
   else if (tile_m == 128)
     gemm_tiled_kernel<T, 2><<<grid, THREADS, 0, st>>>(GM_ARGS);
@@ -644,11 +594,502 @@ int launch_wgmma(const void* x, const void* w, void* out, float* partial,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ----------------------------------------------- decode-sized paths
+constexpr int SK_MAX_SPLITS = 8;   // CTAs of a cluster (the portable limit)
+constexpr int SK_BK = 64;          // mma_skinny: contraction rows per stage
+constexpr int SK_STAGES = 4;       // ring stages of both decode tiles
+constexpr int SK_THREADS = 128;    // mma_skinny: 4 warps
+
+// 16 bytes global -> shared, asynchronously: the first ``bytes`` (0-16)
+// from ``src``, the rest zero (0: src is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, f32) += a (16 x 16 bf16, row-major fragment) @ b (16 x 8 bf16,
+// column-major fragment b0, b1).
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bytes in range of an 8-element bf16 chunk with ``elems`` elements left.
+__device__ __forceinline__ int chunk_bytes(int elems) {
+  return elems <= 0 ? 0 : (elems >= 8 ? 16 : 2 * elems);
+}
+
+// Four outputs at p, the first ``n`` in range; ``vec``: p is 4-element
+// aligned, so a full quad is one store.
+__device__ __forceinline__ void store4(float* p, float4 v, int n, bool vec) {
+  if (vec && n >= 4) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) p[i] = e[i];
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v, int n,
+                                       bool vec) {
+  if (vec && n >= 4) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                   *reinterpret_cast<uint32_t*>(&hi));
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) p[i] = __float2bfloat16(e[i]);
+}
+
+// The split-K merge and the tile's one write.  Every CTA of the cluster
+// (gridDim.x of them; rank = blockIdx.x = its slice of the contraction)
+// holds its f32 tile Cs [BN][CLD] (row: x row, column: output column).
+// Rank r takes the r-th share of the tile's 4-column quads, adds each
+// over ranks 0, 1, ... in order (every rank's partials loaded before any
+// is added: the remote loads are in flight together) and writes it, cast
+// to T.  One split: the CTA writes its own tile.
+template <typename T, int BN, int BC, int CLD, int NT>
+__device__ __forceinline__ void merge_and_store(const float* Cs,
+                                                T* __restrict__ out, int g,
+                                                int M, int N, int row0,
+                                                int col0) {
+  const int splits = gridDim.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (splits > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  const int rank = splits > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  constexpr int QPR = BC / 4, QUADS = BN * QPR;
+  const int per = (QUADS + splits - 1) / splits;
+  const int v_end = min(QUADS, (rank + 1) * per);
+  const bool vec = (N & 3) == 0;
+  for (int v = rank * per + static_cast<int>(threadIdx.x); v < v_end;
+       v += NT) {
+    const int r = v / QPR, c = (v % QPR) * 4;
+    const int row = row0 + r, col = col0 + c;
+    if (row >= M || col >= N) continue;
+    float4 p[SK_MAX_SPLITS];
+#pragma unroll
+    for (int s = 0; s < SK_MAX_SPLITS; ++s)
+      if (s < splits)
+        p[s] = *reinterpret_cast<const float4*>(
+            (splits > 1 ? cluster.map_shared_rank(Cs, s) : Cs) + r * CLD +
+            c);
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < SK_MAX_SPLITS; ++s) {
+      if (s < splits) {
+        sum.x += p[s].x;
+        sum.y += p[s].y;
+        sum.z += p[s].z;
+        sum.w += p[s].w;
+      }
+    }
+    store4(out + ((long long)g * M + row) * N + col, sum, N - col, vec);
+  }
+  if (splits > 1) cluster.sync();  // peers' tiles stay until read
+}
+
+// Dynamic shared memory of a mma_skinny CTA, in bytes: SK_STAGES ring
+// stages, each a w slab (SK_BK rows of BC bf16, padded by 16 bytes: the
+// 8 rows an ldmatrix reads fall in distinct banks) and an x slab (BN rows
+// of SK_BK bf16, padded the same).  After the walk the ring holds the f32
+// output tile [BN][CLD].
+template <int BN, int BC>
+struct SkinnySmem {
+  static constexpr int WLD = BC * 2 + 16;      // w row stride, bytes
+  static constexpr int XLD = SK_BK * 2 + 16;   // x row stride, bytes
+  static constexpr int CLD = BC + 4;           // f32 output row stride
+  static constexpr int W = SK_BK * WLD;
+  static constexpr int STAGE = W + BN * XLD;
+  static constexpr int BYTES = SK_STAGES * STAGE;
+  static_assert(BN * CLD * 4 <= BYTES, "output tile fits the ring");
+  static_assert(W % 16 == 0 && STAGE % 16 == 0, "16-byte copies");
+};
+
+// BN x rows x BC output columns of group g per CTA; gridDim.x = the
+// slices of the contraction (the CTAs of one cluster), y = column tiles,
+// z = G x row tiles.  Warp w owns output columns [w BC / 4, (w + 1) BC /
+// 4): MI m16 tiles (the A side: w's columns) by NI n8 tiles (the B side:
+// x's rows).  SK_STAGES - 1 slabs are in flight while one is multiplied.
+template <int BN, int BC>
+__global__ void __launch_bounds__(SK_THREADS) gemm_skinny_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    __nv_bfloat16* __restrict__ out, int per_split, int M, int K, int N,
+    long long sxg, long long sxm, long long swg, long long swk) {
+  using L = SkinnySmem<BN, BC>;
+  constexpr int MI = BC / 4 / 16;   // m16 tiles per warp
+  constexpr int NI = BN / 8;        // n8 tiles per warp
+  static_assert(MI >= 1 && (NI == 1 || NI % 2 == 0), "warp tile");
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  const int row_tiles = (M + BN - 1) / BN;
+  const int g = blockIdx.z / row_tiles, row0 = (blockIdx.z % row_tiles) * BN;
+  const int col0 = blockIdx.y * BC;
+  const int k_begin = blockIdx.x * per_split;
+  const int k_end = min(K, k_begin + per_split);
+  const int n_slabs =
+      k_end > k_begin ? (k_end - k_begin + SK_BK - 1) / SK_BK : 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const __nv_bfloat16* xg = x + g * sxg;
+  const __nv_bfloat16* wg = w + g * swg;
+
+  // the copies of slab ``i`` into stage ``i % SK_STAGES``: w rows [k0, k0
+  // + 64) x columns [col0, col0 + BC), x rows [row0, row0 + BN) x [k0, k0
+  // + 64); whatever lies past k_end, N or M is zero
+  auto issue = [&](int i) {
+    uint8_t* st = smem + (i % SK_STAGES) * L::STAGE;
+    const int k0 = k_begin + i * SK_BK;
+    constexpr int WCH = BC / 8;              // 16-byte chunks per w row
+    for (int v = tid; v < SK_BK * WCH; v += SK_THREADS) {
+      const int r = v / WCH, ch = v % WCH, col = col0 + ch * 8;
+      const int bytes = k0 + r < k_end ? chunk_bytes(N - col) : 0;
+      cp_async16(st + r * L::WLD + ch * 16,
+                 bytes ? wg + (k0 + r) * swk + col : wg, bytes);
+    }
+    constexpr int XCH = SK_BK / 8;
+    for (int v = tid; v < BN * XCH; v += SK_THREADS) {
+      const int r = v / XCH, ch = v % XCH, k = k0 + ch * 8;
+      const int bytes = row0 + r < M ? chunk_bytes(k_end - k) : 0;
+      cp_async16(st + L::W + r * L::XLD + ch * 16,
+                 bytes ? xg + (row0 + r) * sxm + k : xg, bytes);
+    }
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int a = 0; a < MI; ++a)
+#pragma unroll
+    for (int b = 0; b < NI; ++b)
+      acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
+  const int lm = lane / 8, lr = lane % 8;
+  const int gid = lane / 4, tig = lane % 4;
+
+#pragma unroll
+  for (int s = 0; s < SK_STAGES - 1; ++s) {
+    if (s < n_slabs) issue(s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_slabs; ++i) {
+    cp_async_wait<SK_STAGES - 2>();   // this thread's copies of slab i
+    __syncthreads();                  // everyone's; slab i - 1 consumed
+    if (i + SK_STAGES - 1 < n_slabs) issue(i + SK_STAGES - 1);
+    cp_async_commit();
+    const uint8_t* ws = smem + (i % SK_STAGES) * L::STAGE;
+    const uint8_t* xs = ws + L::W;
+    const int steps = (min(SK_BK, k_end - k_begin - i * SK_BK) + 15) / 16;
+    for (int kk = 0; kk < steps; ++kk) {
+      // A: matrix j of the x4 is w rows k 8 (j / 2).. x columns 8 (j % 2)..
+      // of this m16 tile, read transposed (a0..a3 of the row-major
+      // fragment); B: x rows of each n8 tile at k lo / k hi (b0, b1)
+      uint32_t af[MI][4], bf[NI][2];
+#pragma unroll
+      for (int a = 0; a < MI; ++a)
+        ldmatrix_x4_trans(af[a], ws + (kk * 16 + (lm >> 1) * 8 + lr) * L::WLD +
+                                     (warp * MI * 16 + a * 16 + (lm & 1) * 8) *
+                                         2);
+      if constexpr (NI == 1) {
+        ldmatrix_x2(bf[0], xs + lr * L::XLD + (kk * 16 + (lm & 1) * 8) * 2);
+      } else {
+#pragma unroll
+        for (int b = 0; b < NI; b += 2) {
+          uint32_t r4[4];
+          ldmatrix_x4(r4, xs + ((b + (lm >> 1)) * 8 + lr) * L::XLD +
+                              (kk * 16 + (lm & 1) * 8) * 2);
+          bf[b][0] = r4[0];
+          bf[b][1] = r4[1];
+          bf[b + 1][0] = r4[2];
+          bf[b + 1][1] = r4[3];
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < MI; ++a)
+#pragma unroll
+        for (int b = 0; b < NI; ++b)
+          mma_bf16(acc[a][b], af[a], bf[b][0], bf[b][1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                    // the ring is free for the output tile
+
+  // ---- this CTA's f32 tile -> shared [BN][CLD]: accumulator row gid (+ 8)
+  // is output column gid (+ 8) of the m16 tile, its columns 2 tig (+ 1)
+  // are x rows of the n8 tile
+  float* Cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int a = 0; a < MI; ++a)
+#pragma unroll
+    for (int b = 0; b < NI; ++b) {
+      const int c = warp * MI * 16 + a * 16 + gid, r = b * 8 + 2 * tig;
+      Cs[r * L::CLD + c] = acc[a][b][0];
+      Cs[(r + 1) * L::CLD + c] = acc[a][b][1];
+      Cs[r * L::CLD + c + 8] = acc[a][b][2];
+      Cs[(r + 1) * L::CLD + c + 8] = acc[a][b][3];
+    }
+  merge_and_store<__nv_bfloat16, BN, BC, L::CLD, SK_THREADS>(Cs, out, g, M,
+                                                             N, row0, col0);
+}
+
+// The CUDA-core decode tile: FMA_BM x rows x BC output columns per CTA
+// of 2 BC threads (x row tid / (BC / 4), output columns 4 (tid % (BC / 4))
+// .. + 3), BC = 128, 64 or 32.  FMA_BK-deep slabs of w ([FMA_BK, BC])
+// and x ([FMA_BM, FMA_BK]) are kept as loaded (f32 or bf16) in a ring of
+// SK_STAGES stages.
+constexpr int FMA_BM = 8, FMA_BK = 32;
+
+template <typename T, int BC>
+struct FmaSmem {
+  static constexpr int W = FMA_BK * BC * sizeof(T);
+  static constexpr int STAGE = W + FMA_BM * FMA_BK * sizeof(T);
+  static constexpr int BYTES = SK_STAGES * STAGE;
+  static constexpr int CLD = BC + 4;          // f32 output row stride
+  static_assert(FMA_BM * CLD * 4 <= BYTES, "output tile fits the ring");
+  static_assert(W % 16 == 0 && STAGE % 16 == 0, "16-byte copies");
+};
+
+// 4 bytes global -> shared, asynchronously; zero where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Elements src[0..3] -> shared dst, the first ``n`` in range (the rest 0;
+// n <= 0: src is not read, ``base`` stands in).  f32 goes by cp.async: one
+// 16-byte copy when ``vec`` (src 16-byte aligned), else four 4-byte copies.
+// bf16 (only the calls mma_skinny cannot take come here, their rows not
+// 16-byte aligned) is loaded and stored: an 8-byte vector where ``vec``.
+__device__ __forceinline__ void stage4(float* dst, const float* src,
+                                       const float* base, int n, bool vec) {
+  if (vec) {
+    cp_async16(dst, n > 0 ? src : base, 4 * max(0, min(n, 4)));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cp_async4(dst + e, e < n ? src + e : base, e < n);
+  }
+}
+__device__ __forceinline__ void stage4(__nv_bfloat16* dst,
+                                       const __nv_bfloat16* src,
+                                       const __nv_bfloat16*, int n,
+                                       bool vec) {
+  *reinterpret_cast<Quad<__nv_bfloat16>*>(dst) = load4(src, n, vec);
+}
+
+// Four consecutive staged elements, widened to f32.
+__device__ __forceinline__ float4 widen4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Grid as gemm_skinny_mma_kernel's, with FMA_BM x BC tiles.
+template <typename T, int BC>
+__global__ void __launch_bounds__(2 * BC) gemm_skinny_fma_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+    int per_split, int M, int K, int N, long long sxg, long long sxm,
+    long long swg, long long swk, bool vec_x, bool vec_w) {
+  using L = FmaSmem<T, BC>;
+  constexpr int BK = FMA_BK;
+  constexpr int NT = 2 * BC, QPR = BC / 4;        // threads, quads a row
+  constexpr int W_QUADS = BK * QPR;                // 4 per thread
+  constexpr int X_QUADS = FMA_BM * BK / 4;         // threads 0..63
+  static_assert(W_QUADS % NT == 0 && X_QUADS <= NT, "loader");
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  const int row_tiles = (M + FMA_BM - 1) / FMA_BM;
+  const int g = blockIdx.z / row_tiles;
+  const int row0 = (blockIdx.z % row_tiles) * FMA_BM;
+  const int col0 = blockIdx.y * BC;
+  const int k_begin = blockIdx.x * per_split;
+  const int k_end = min(K, k_begin + per_split);
+  const int n_slabs = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const int tid = threadIdx.x, tx = tid % QPR, ty = tid / QPR;
+  const T* xg = x + g * sxg;
+  const T* wg = w + g * swg;
+
+  // slab ``i`` into stage ``i % SK_STAGES``; past k_end, N or M is zero
+  auto issue = [&](int i) {
+    T* ws = reinterpret_cast<T*>(smem + (i % SK_STAGES) * L::STAGE);
+    T* xs = reinterpret_cast<T*>(smem + (i % SK_STAGES) * L::STAGE + L::W);
+    const int k0 = k_begin + i * BK;
+#pragma unroll
+    for (int j = 0; j < W_QUADS / NT; ++j) {
+      const int v = tid + j * NT, r = v / QPR, c = (v % QPR) * 4;
+      const int col = col0 + c;
+      stage4(ws + r * BC + c, wg + (k0 + r) * swk + col, wg,
+             k0 + r < k_end ? N - col : 0, vec_w);
+    }
+    if (tid < X_QUADS) {
+      const int r = tid / (BK / 4), c = (tid % (BK / 4)) * 4;
+      const int k = k0 + c;
+      stage4(xs + r * BK + c, xg + (row0 + r) * sxm + k, xg,
+             row0 + r < M ? k_end - k : 0, vec_x);
+    }
+  };
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int s = 0; s < SK_STAGES - 1; ++s) {
+    if (s < n_slabs) issue(s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_slabs; ++i) {
+    cp_async_wait<SK_STAGES - 2>();    // this thread's copies of slab i
+    __syncthreads();                   // everyone's; slab i - 1 consumed
+    if (i + SK_STAGES - 1 < n_slabs) issue(i + SK_STAGES - 1);
+    cp_async_commit();
+    const uint8_t* st = smem + (i % SK_STAGES) * L::STAGE;
+    const T* ws = reinterpret_cast<const T*>(st);
+    const T* xs = reinterpret_cast<const T*>(st + L::W);
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float a = to_f32(xs[ty * BK + kk]);  // a broadcast
+      const float4 b = widen4(ws + kk * BC + tx * 4);
+      acc[0] = fmaf(a, b.x, acc[0]);
+      acc[1] = fmaf(a, b.y, acc[1]);
+      acc[2] = fmaf(a, b.z, acc[2]);
+      acc[3] = fmaf(a, b.w, acc[3]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                     // the ring is free for the output tile
+
+  float* Cs = reinterpret_cast<float*>(smem);
+  *reinterpret_cast<float4*>(Cs + ty * L::CLD + tx * 4) =
+      make_float4(acc[0], acc[1], acc[2], acc[3]);
+  merge_and_store<T, FMA_BM, BC, L::CLD, NT>(Cs, out, g, M, N, row0, col0);
+}
+
+// One launch of ``kern`` with ``splits`` CTAs along x in a cluster.
+template <typename... P, typename... A>
+int launch_cluster(void (*kern)(P...), dim3 grid, int threads, int smem,
+                   int splits, cudaStream_t st, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t rc = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, int BC>
+int launch_skinny_mma(const void* x, const void* w, void* out, int splits,
+                      int per_split, int G, int M, int K, int N,
+                      long long sxg, long long sxm, long long swg,
+                      long long swk, cudaStream_t st) {
+  using L = SkinnySmem<BN, BC>;
+  auto kern = gemm_skinny_mma_kernel<BN, BC>;
+  // once per instantiation and device
+  static unsigned long long configured = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return -5;
+  if (!(configured >> dev & 1ull)) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    configured |= 1ull << dev;
+  }
+  const dim3 grid(splits, (N + BC - 1) / BC, G * ((M + BN - 1) / BN));
+  return launch_cluster(kern, grid, SK_THREADS, L::BYTES, splits, st,
+                        static_cast<const __nv_bfloat16*>(x),
+                        static_cast<const __nv_bfloat16*>(w),
+                        static_cast<__nv_bfloat16*>(out), per_split, M, K, N,
+                        sxg, sxm, swg, swk);
+}
+
+template <typename T, int BC>
+int launch_skinny_fma(const void* x, const void* w, void* out, int splits,
+                      int per_split, int G, int M, int K, int N,
+                      long long sxg, long long sxm, long long swg,
+                      long long swk, bool vec_x, bool vec_w,
+                      cudaStream_t st) {
+  using L = FmaSmem<T, BC>;
+  auto kern = gemm_skinny_fma_kernel<T, BC>;
+  // once per instantiation and device
+  static unsigned long long configured = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return -5;
+  if (!(configured >> dev & 1ull)) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    configured |= 1ull << dev;
+  }
+  const dim3 grid(splits, (N + BC - 1) / BC, G * ((M + FMA_BM - 1) / FMA_BM));
+  return launch_cluster(kern, grid, 2 * BC, L::BYTES, splits, st,
+                        static_cast<const T*>(x), static_cast<const T*>(w),
+                        static_cast<T*>(out), per_split, M, K, N, sxg, sxm,
+                        swg, swk, vec_x, vec_w);
+}
+
 }  // namespace
 
 // out [G, M, N] dense = x [G, M, K] @ w [G, K, N] in ``dtype`` (0 f32, 1
 // bf16); x and w through (group, row) strides in elements, the last dim
-// dense.  ``tile_m``: 8 (skinny), 64 or 128 (tiled) output rows per CTA.
+// dense.  ``tile_m``: 64 or 128 (tiled) output rows per CTA.
 // ``splits`` > 1 splits the contraction into slices of ``k_per_split``
 // (a multiple of the tile's slab depth, every slice non-empty) through the
 // f32 workspace ``partial`` [splits, G, M, N].  ``vec_x`` / ``vec_w``: the
@@ -695,4 +1136,68 @@ extern "C" int grouped_matmul_wgmma_launch(
     default: return -3;
   }
 #undef TC_ARGS
+}
+
+
+// The decode-sized paths' fixed arguments, as _gemm_launch.py's
+// _SkinnyArgs lays them out: one struct per call shape, built once on the
+// host, so a call passes five pointers.
+struct SkinnyArgs {
+  int dtype;       // 0 f32, 1 bf16
+  int mma;         // 1: mma_skinny (bf16); 0: skinny (CUDA-core FMAs)
+  int rows, cols;  // x rows x output columns per CTA
+  int splits;      // CTAs of a cluster (1-8), slices of the contraction
+  int per_split;   // contraction rows per slice, a multiple of 16
+  int G, M, K, N;
+  long long sxg, sxm, swg, swk;
+  int vec_x, vec_w;
+};
+
+// The decode-sized paths (M <= 32): out [G, M, N] dense = x [G, M, K] @ w
+// [G, K, N] through (group, row) strides in elements, the last dim dense.
+// mma_skinny: bf16, pointers and strides 16-byte aligned, ``rows`` 8, 16
+// or 32.  skinny: f32 or bf16, rows 8, ``vec_x`` / ``vec_w`` as for
+// grouped_matmul_launch.  ``cols`` 128 or 64 (skinny also 32).
+// ``splits`` CTAs of a
+// cluster each take ``per_split`` contraction rows (every slice
+// non-empty) and merge inside the launch.  One launch, no workspace.
+// Returns cudaGetLastError() after it (or the launch's own error), -2 for
+// an unsupported dtype, -3 for an unknown tile or split count, -5 when the
+// current device cannot be read.
+extern "C" int grouped_matmul_skinny_launch(const SkinnyArgs* a,
+                                            const void* x, const void* w,
+                                            void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->splits < 1 || a->splits > SK_MAX_SPLITS || a->per_split % 16 ||
+      (a->cols != 32 && a->cols != 64 && a->cols != 128) ||
+      (a->mma && a->cols == 32))
+    return -3;
+  const bool wide = a->cols == 128, narrow = a->cols == 32;
+#define SK_ARGS x, w, out, a->splits, a->per_split, a->G, a->M, a->K, a->N, \
+                a->sxg, a->sxm, a->swg, a->swk
+#define SK_MMA(BN)                                                  \
+  (wide ? launch_skinny_mma<BN, 128>(SK_ARGS, st)                   \
+        : launch_skinny_mma<BN, 64>(SK_ARGS, st))
+#define SK_FMA_AT(T, BC) \
+  launch_skinny_fma<T, BC>(SK_ARGS, a->vec_x != 0, a->vec_w != 0, st)
+#define SK_FMA(T)                           \
+  (wide ? SK_FMA_AT(T, 128)                 \
+        : narrow ? SK_FMA_AT(T, 32) : SK_FMA_AT(T, 64))
+  if (a->mma) {
+    if (a->dtype != BF16) return -2;
+    switch (a->rows) {
+      case 8: return SK_MMA(8);
+      case 16: return SK_MMA(16);
+      case 32: return SK_MMA(32);
+      default: return -3;
+    }
+  }
+  if (a->rows != FMA_BM) return -3;
+  if (a->dtype == F32) return SK_FMA(float);
+  if (a->dtype == BF16) return SK_FMA(__nv_bfloat16);
+  return -2;
+#undef SK_FMA
+#undef SK_FMA_AT
+#undef SK_MMA
+#undef SK_ARGS
 }

@@ -10,7 +10,9 @@ weight.  The CUDA kernel is the grouped GEMM of ``csrc/grouped_matmul.cu``
 experts) one CTA of three 64-row warpgroups covers an expert's rows, so
 each weight tile is read from device memory once, and the bytes of the
 expert weights bound it.  In f32 it runs on CUDA cores in 64-row tiles
-(little padding at C 171), bound by f32 arithmetic.  The TPU kernel's
+(little padding at C 171), bound by f32 arithmetic.  A capacity of 32 rows
+or fewer takes the decode-sized tile of ``block_diag_matmul`` (one launch,
+the contraction split over a cluster).  The TPU kernel's
 block knobs (``block_c/f/d``) are not carried; any C, d and f are taken.
 """
 from __future__ import annotations

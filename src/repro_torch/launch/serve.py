@@ -38,8 +38,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):
-        raise NotImplementedError("multi-device meshes come with the "
-                                  "disaggregation and training slices")
+        raise NotImplementedError(f"mesh {args.mesh}: serving on several "
+                                  "devices is ported with the multi-device "
+                                  "slice")
 
     cfg = get_config(args.arch)
     if args.reduced:

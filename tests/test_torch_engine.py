@@ -135,6 +135,12 @@ def test_serve_cli_runs_on_cpu():
     assert sum(out["per_mode"].values()) == 6
 
 
+def test_serve_cli_refuses_meshes_naming_the_multi_device_slice():
+    with pytest.raises(NotImplementedError,
+                       match="mesh 2,1: .*the multi-device slice"):
+        serve.main(["--device", "cpu", "--mesh", "2,1"])
+
+
 def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -49,26 +49,34 @@ def _within_rows(got, want, tol):
     assert bool((diff <= _row_limit(want, tol)).all()), float(diff.max())
 
 
-def _kernels_per_call(fn, reps=10, tries=5):
-    """CUDA kernels one call of ``fn`` launches, from the profiler: each
-    kernel's record count over ``reps`` calls, rounded (the tracer may lose
-    a record; a profile with a count more than one off is taken again)."""
+def _kernels_per_call(fn, wrapper, kernel, reps=10, tries=5):
+    """CUDA kernels one call of ``fn`` launches: the launches ``wrapper``
+    counts (its ``launches``) over ``reps`` calls, per call, once the
+    profiler shows that those calls ran no kernel whose name lacks
+    ``kernel`` and no more records of it than launches.  Record counts are
+    not the count: the tracer on the card loses records (all, part, or one
+    of a profile); a profile with no kernel record is taken again."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
+        before = wrapper.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        counts = [e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.count > 0]
-        per = [round(c / reps) for c in counts]
-        if counts and all(k >= 1 and abs(c - k * reps) <= 1
-                          for c, k in zip(counts, per)):
-            return sum(per)
-    raise AssertionError(f"the profiler lost records: {counts}")
+        launches = wrapper.launches - before
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count > 0}
+        if seen:
+            others = [k for k in seen if kernel not in k]
+            assert not others, f"kernels other than {kernel}: {others}"
+            assert sum(seen.values()) <= launches, (seen, launches)
+            assert launches % reps == 0, launches
+            return launches // reps
+    raise AssertionError(f"the profiler recorded no kernel in {tries} "
+                         "profiles")
 
 
 @pytest.fixture
@@ -246,7 +254,8 @@ def test_decode_split_edges(dev, kind, hd, heads, softcap):
     _within_rows(got, want, TOL[kind])
     assert bool((got[:, 0] == 0).all())
     assert _kernels_per_call(
-        lambda: paged_decode_attention(q, k, v, tables, lengths, **kw)) == 1
+        lambda: paged_decode_attention(q, k, v, tables, lengths, **kw),
+        paged_decode_attention, "paged_decode_split_kernel") == 1
     long = lengths > 256
     bad = paged_decode_attention_plain(q, k, v, tables[:, 64 // bs:]
                                        .contiguous(), lengths - 64, **kw)
@@ -322,7 +331,8 @@ def test_quant_matmul_tensor_core_edges(dev, bits, group, g, t):
     assert _quant_launch.PATH_LAUNCHES == paths
     limit = QTOL[torch.bfloat16] * (1 + want.float().abs())
     assert bool(((got.float() - want.float()).abs() <= limit).all())
-    assert _kernels_per_call(lambda: quant_matmul(x, q, s)) == 1
+    assert _kernels_per_call(lambda: quant_matmul(x, q, s), quant_matmul,
+                             "qmm_mma_kernel") == 1
     n_g = d // group
     _, splits, per = _quant_launch.mma_plan(
         g, t, e, n_g, torch.cuda.get_device_properties(dev)
@@ -441,7 +451,8 @@ def test_flash_attention_matches_plain(dev, kind, case):
     assert _flash_launch.PATH_LAUNCHES == paths
     assert got.shape == q.shape and got.dtype == dt
     _within_rows(got, want, FLASH_TOL[dt])
-    assert _kernels_per_call(lambda: flash_attention(q, k, v, **opts)) == 1
+    assert _kernels_per_call(lambda: flash_attention(q, k, v, **opts),
+                             flash_attention, "flash_attention_kernel") == 1
     if sq >= 1000 and not window:
         bad = flash_attention_plain(q, k[:, 64:], v[:, 64:], **opts)
         long = torch.arange(sq, device=dev) + sk - sq >= 256
@@ -562,7 +573,10 @@ def _within(got, want, dt, rows=False):
 
 GEMM_CASES = [
     # (G, M, K, N, x sliced from a wider buffer)
-    (2, 8, 1024, 640, False),        # decode rows: skinny tile, split K
+    (2, 8, 1024, 640, False),        # decode rows: K split in a cluster
+    (4, 8, 384, 384, False),         # the mLSTM's q/k/v
+    (2, 32, 4096, 640, False),       # 32 rows, 64-column tiles, long K
+    (1, 1, 8192, 72, True),          # one row, strided x, long K
     (3, 5, 70, 33, False),           # ragged everywhere, odd N (scalar w)
     (2, 200, 96, 130, True),         # 128-row tiles, strided x
     (4, 171, 128, 72, False),        # MoE capacity: 64-row tiles
@@ -586,12 +600,23 @@ def test_grouped_matmul_matches_plain(dev, op, case, dt):
     x = torch.randn(g, m, k + (8 if strided else 0), generator=gen,
                     device=dev).to(dt)[..., :k]
     w = (torch.randn(g, k, n, generator=gen, device=dev) / k ** 0.5).to(dt)
-    before = kern.launches
+    path = _gemm_launch.path_for(x, w)
+    before, paths = kern.launches, dict(_gemm_launch.PATH_LAUNCHES)
     got = kern(x, w)
     want = plain(x, w)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
+    paths[path] += 1
+    assert _gemm_launch.PATH_LAUNCHES == paths
     _within(got, want, dt)
+    if m <= _gemm_launch.SKINNY_M:
+        # decode-sized: one kernel, the splits merged in its cluster
+        assert path == ("mma_skinny" if dt == torch.bfloat16 and k % 8 == 0
+                        and n % 8 == 0 else "skinny")
+        assert _kernels_per_call(
+            lambda: kern(x, w), kern,
+            "gemm_skinny_mma_kernel" if path == "mma_skinny"
+            else "gemm_skinny_fma_kernel") == 1
 
 
 @pytest.mark.parametrize("m", [33, 64, 65, 171, 200, 2048])
@@ -624,7 +649,9 @@ def test_grouped_matmul_tensor_core_path_edges(dev, m, k):
     (2, 200, 70, 64, "dense", "tiled"),       # row stride 140 B
     (2, 171, 64, 96, "offset", "tiled"),      # pointer 2 B past alignment
     (3, 100, 64, 40, "f32", "tiled"),         # f32 stays on CUDA cores
-    (2, 20, 64, 200, "dense", "skinny"),      # decode rows
+    (2, 20, 64, 200, "dense", "mma_skinny"),  # decode rows
+    (2, 20, 64, 200, "offset", "skinny"),     # decode rows, 2 B off
+    (2, 20, 64, 200, "f32", "skinny"),        # decode rows in f32
     (1, 64, 2048, 128, "dense", "wgmma"),     # one tile: split K
 ])
 def test_grouped_matmul_path_rule(dev, case):
@@ -834,7 +861,9 @@ def test_mlstm_projection_through_kernel(dev, dt, t):
     """The mLSTM's per-head projection at xlstm-125m's widths (4 heads of
     384; the semantic arm's 2 x 2) through ``block_diag_matmul`` and its
     gradient kernels, against the plain einsum: the forward and both
-    gradients within tol (1 + |plain|) on the path the rows take."""
+    gradients within tol (1 + |plain|) on the path the rows take: at T 8
+    the forward and dx = dy @ w^T on the decode-sized tile, dw (384 rows)
+    on the tensor-core or tiled one."""
     from repro_torch.kernels.block_diag_matmul import block_diag_matmul
     from repro_torch.models.xlstm import BlockDiagMatmul
     tol = 2e-4 if dt == torch.float32 else 2e-2
@@ -845,9 +874,16 @@ def test_mlstm_projection_through_kernel(dev, dt, t):
     dy = torch.randn(4, t, 384, device=dev, generator=gen).to(dt)
     x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
     before = block_diag_matmul.launches
+    paths = dict(_gemm_launch.PATH_LAUNCHES)
     out = BlockDiagMatmul.apply(x, w)
     out.backward(dy)
     assert block_diag_matmul.launches == before + 3
+    bf16 = dt == torch.bfloat16
+    rows_path = ("mma_skinny" if bf16 else "skinny") if t <= 32 else (
+        "wgmma" if bf16 else "tiled")
+    paths[rows_path] += 2
+    paths["wgmma" if bf16 else "tiled"] += 1
+    assert _gemm_launch.PATH_LAUNCHES == paths
     xr, wr = x0.float().requires_grad_(), w0.float().requires_grad_()
     ref = torch.einsum("gtd,gde->gte", xr, wr)
     ref.backward(dy.float())

@@ -8,6 +8,12 @@ rules that pick each launch's path.
 - The grouped GEMM's bf16 tile (``_gemm_launch.wgmma_emulated``): 64-deep
   K slabs summed into f32, one cast; held as |emulated - plain| <=
   2e-2 (1 + |plain|).
+- Its decode-sized tiles (``_gemm_launch.skinny_emulated``): the cluster
+  plan (``_gemm_launch.skinny_plan``), each rank's contraction slice in
+  k16 steps (``mma_skinny``) or 32-deep slabs (``skinny``) summed in f32,
+  the ranks merged in rank order, one cast; held as |emulated - plain| <=
+  tol (1 + |plain|), tol 2e-2 in bf16 and 2e-4 in f32 (the chip check's
+  ``QTOL``); the plan covers every contraction row once.
 - The bf16-q paged prefill
   (``paged_prefill_attention.paged_prefill_attention_emulated``): 64-row
   query tiles, 64-token K/V tiles through the table, f32 max, sum and
@@ -87,6 +93,68 @@ def test_gemm_emulation_matches_plain_and_jax(g, m, k, n):
             assert (diff <= TOL * (1 + np.abs(want))).all(), diff.max()
 
 
+#: the chip check's tolerances by dtype (``chip_smoke.QTOL``)
+GEMM_TOL = {torch.bfloat16: TOL, torch.float32: 2e-4}
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("g,k,n,pad,path", [
+    (2, 200, 72, 0, "mma_skinny"),      # ragged K and N, one cluster slab
+    (3, 70, 40, 2, "mma_skinny"),       # K = 70 in a 72-wide buffer
+    (1, 4100, 33, 0, "skinny"),         # odd N: w rows not 16-byte aligned
+    (4, 384, 384, 0, "mma_skinny")])    # the mLSTM's q/k/v, 64 columns
+@pytest.mark.parametrize("m", [1, 8, 20, 32])
+def test_skinny_emulation_matches_plain_and_jax(dt, g, k, n, pad, path, m):
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((g, m, k + pad), np.float32)) \
+        .to(dt)[..., :k]
+    w = torch.from_numpy(rng.standard_normal((g, k, n), np.float32)
+                         / np.sqrt(k)).to(dt)
+    want_path = path if dt == torch.bfloat16 else "skinny"
+    assert _gemm_launch.path_for(x, w) == want_path
+    _, _, splits, _ = _gemm_launch.skinny_plan(want_path, g, m, k, n, 132)
+    assert splits > 1                    # the merge is on the walk
+    got = _gemm_launch.skinny_emulated(x, w)
+    assert got.shape == (g, m, n) and got.dtype == dt
+    tol = GEMM_TOL[dt]
+    for want in (block_diag_matmul_plain(x, w).float().numpy(),
+                 np.asarray(jref.block_diag_matmul_ref(_jnp(x), _jnp(w)),
+                            np.float32)):
+        diff = np.abs(_np(got) - want)
+        assert (diff <= tol * (1 + np.abs(want))).all(), diff.max()
+
+
+@pytest.mark.parametrize("path", ["mma_skinny", "skinny"])
+@pytest.mark.parametrize("g,m,k,n,n_sm", [
+    (4, 8, 384, 384, 132), (2, 8, 1024, 2816, 132), (2, 8, 2816, 1024, 132),
+    (2, 32, 4096, 640, 132), (1, 1, 8192, 72, 132), (3, 5, 70, 33, 132),
+    (1, 17, 1, 1, 132), (1, 8, 0, 5, 132), (64, 32, 4096, 4096, 132),
+    (1, 8, 100000, 128, 1000), (2, 8, 384, 384, 1)])
+@pytest.mark.parametrize("cols", [None, 64, 128])
+def test_skinny_plan_covers_the_contraction(path, g, m, k, n, n_sm, cols):
+    """Every contraction row is in exactly one rank's slice, every slice is
+    non-empty and whole steps, no cluster has more than 8 CTAs; the tensor-
+    core tile covers the call's rows in one row tile, the CUDA-core tile
+    takes 8 rows a tile; a forced width is kept."""
+    rows, width, splits, per = _gemm_launch.skinny_plan(
+        path, g, m, k, n, n_sm, cols=cols)
+    step = _gemm_launch.SKINNY_STEP[path]
+    assert 1 <= splits <= _gemm_launch.MAX_SPLITS == 8
+    assert per % step == 0 and per >= step
+    if path == "mma_skinny":
+        assert rows >= m and rows in (8, 16, 32) and width in (64, 128)
+    else:
+        assert rows == 8 and width in (32, 64, 128)
+    assert width == (cols or width)
+    covered = np.zeros(k, int)
+    for rank in range(splits):
+        lo, hi = rank * per, min(k, (rank + 1) * per)
+        assert hi > lo or k == 0
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+
+
 @pytest.mark.parametrize("m,consumers", [
     (33, 1), (64, 1), (65, 2), (128, 2), (171, 3), (192, 3), (200, 2),
     (2048, 2)])
@@ -109,11 +177,14 @@ def _gemm_args(cut):
         "w row stride 100 B": (x[..., :64], torch.zeros(
             2, 64, 50, dtype=torch.bfloat16)),
         "one group": (x[:1, :, :64], w[:1]),
+        "decode rows f32": (x[:, :32, :64].float(), w.float()),
+        "decode rows 2 B off": (x[:, :32, 1:65], w),
     }[cut]
 
 
 @pytest.mark.parametrize("cut,path", [
-    ("aligned", "wgmma"), ("f32", "tiled"), ("decode rows", "skinny"),
+    ("aligned", "wgmma"), ("f32", "tiled"), ("decode rows", "mma_skinny"),
+    ("decode rows f32", "skinny"), ("decode rows 2 B off", "skinny"),
     ("row stride 140 B", "tiled"), ("pointer 2 B off", "tiled"),
     ("broadcast group", "tiled"), ("w row stride 100 B", "tiled"),
     ("one group", "wgmma")])
