@@ -203,9 +203,40 @@ raising on failure:
             like the reference's, takes no image prefix: it is held to the
             text-only forward, and the 256-patch forward to its shape and
             finiteness.
+17. pipeline  the training launcher's explicit schedules at the train
+            phase's shape (full-width stablelm-1.6b, f32, B 2 x S 2048,
+            remat), ``--mode pipeline --n-microbatches 2``: ``--schedule
+            gpipe`` for 3 steps, then ``1f1b`` for 3.  The flash counter is
+            zeroed before each run and must read 3 x M x 24 = 144 per step
+            after it (per microbatch: the F op's forward, the B op's
+            re-forward and remat's recompute inside the B op's backward),
+            every launch on ``simt``; the losses as in phase 6.  Step ms,
+            tokens/s, peak memory and ``schedule_stats`` are reported.
+            Then, from one set of weights and one batch, each schedule's
+            ``value_and_grad`` against fsdp's, and the 1f1b one through the
+            kernel against the same through ``flash_attention_plain``: loss
+            to rel 1e-5, each gradient leaf to 1e-4 of its largest; each
+            call's seconds beside fsdp's.
+18. placement  Table I's two policies on ``SimBackend(seed=1)`` with
+            ``PoissonSource(rate=0.6, seed=3, sla_range=(0.5, 3.0))`` for
+            1000 intervals, A3C's networks on the card:
+            ``CompressionPolicy(A3CPlacement())`` and
+            ``MABPolicy("ucb", placement=A3CPlacement())``; then
+            ``FixedPolicy(SEMANTIC, GOBIPlacement())``, its gradient steps
+            on the card.  Every host's RAM stays within its capacity, the
+            A3C weights are on the card and finite after the run, and one
+            recorded episode's ``policy_logits``, ``value`` and
+            ``a3c_update`` on the card equal the same functions on the CPU
+            within 1e-5 of each tensor's max (floored at the lr, 1e-3, for
+            ``b2``, whose gradient is zero in exact arithmetic).  Reports the four
+            Table-I metrics (reward, SLA violations, accuracy, energy), ms
+            per placement and per update (not gated: whether SplitPlace
+            beats the baseline).
 
-Phases 9-16 run after the serves, before training.  The ``kernels`` line
-counts ``decode_attention`` launches from the ops, ``legacy`` and
+Phases 9-16 run after the serves, before training; 17 and 18 after
+training.  The ``kernels`` line
+counts ``flash_attention`` launches from the ``train`` and ``pipeline``
+phases, ``decode_attention`` launches from the ops, ``legacy`` and
 ``window`` phases and ``block_diag_matmul`` launches from the ops and
 ``recurrent`` phases.  Every backend is freed before the next one is
 built.  The last lines are
@@ -2441,6 +2472,22 @@ def train_phase(dev, cfg):
     return runs
 
 
+def value_and_grad_limits(tag, want, got):
+    """(loss rel, worst leaf error over that leaf's max) of ``got`` against
+    ``want``, each a (loss, [grads]) pair: loss to rel 1e-5, each gradient
+    leaf to 1e-4 of its largest, or raise."""
+    rel_loss = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    worst = 0.0
+    for gw, gg in zip(want[1], got[1]):
+        worst = max(worst, float((gg - gw).abs().max()
+                                 / gw.abs().max().clamp_min(1e-30)))
+    if not rel_loss <= 1e-5 or not worst <= 1e-4:
+        raise AssertionError(f"[{tag}] loss rel {rel_loss}, worst grad leaf "
+                             f"{worst} of its max")
+    return dict(loss=float(got[0]), loss_want=float(want[0]),
+                rel_loss=rel_loss, worst_grad_rel=worst)
+
+
 def grad_check(dev, cfg):
     """One full-width fsdp ``value_and_grad`` through the kernel and one
     through ``flash_attention_plain`` patched into ``models.attention``,
@@ -2465,22 +2512,263 @@ def grad_check(dev, cfg):
         loss_p, grads_p = runner.value_and_grad(tree, batch, remat=True)
     finally:
         MA.flash_attention = saved
-    loss_k, loss_p = float(loss_k), float(loss_p)
-    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
-    worst = 0.0
-    for gk, gp in zip(grads_k, A.tree_leaves(grads_p)):
-        worst = max(worst, float((gk - gp).abs().max()
-                                 / gp.abs().max().clamp_min(1e-30)))
+    out = value_and_grad_limits("train kernel vs plain",
+                                (loss_p, A.tree_leaves(grads_p)),
+                                (loss_k, grads_k))
     del grads_k, grads_p, tree, runner
     gc.collect()
     torch.cuda.empty_cache()
-    if not rel_loss <= 1e-5 or not worst <= 1e-4:
-        raise AssertionError(f"[train] kernel vs plain: loss rel {rel_loss}"
-                             f", worst grad leaf {worst} of its max")
-    out = dict(loss_kernel=loss_k, loss_plain=loss_p, rel_loss=rel_loss,
-               worst_grad_rel=worst)
     log(f"[train] kernel vs plain value_and_grad: {json.dumps(out)}")
     return out
+
+
+PIPELINE_RUNS = (("gpipe", 3), ("1f1b", 3))
+PIPELINE_MICRO = 2
+
+
+def pipeline_phase(dev, cfg):
+    """The training launcher's explicit schedules (gpipe, 1f1b) at the train
+    phase's shape, each run's flash launches counted; then both schedules'
+    ``value_and_grad`` against fsdp's and one through the kernel against
+    the same through ``flash_attention_plain``."""
+    from repro_torch.dist import api as A
+    from repro_torch.kernels import _flash_launch as FL
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train as TR
+    runs = {}
+    ln_vocab = math.log(cfg.vocab_size)
+    tokens = TRAIN_SHAPE["seq_len"] * TRAIN_SHAPE["batch"]
+    for schedule, steps in PIPELINE_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        flash_attention.launches = 0
+        paths = dict(FL.PATH_LAUNCHES)
+        losses = TR.main(
+            ["--arch", cfg.name, "--mode", "pipeline", "--schedule",
+             schedule, "--n-microbatches", str(PIPELINE_MICRO), "--steps",
+             str(steps), "--seq-len", str(TRAIN_SHAPE["seq_len"]),
+             "--batch", str(TRAIN_SHAPE["batch"]), "--log-every", "1"],
+            on_step=lambda i, loss, s: step_s.append(s))
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        # per microbatch: the F op's forward, the B op's re-forward and
+        # remat's recompute inside the B op's backward
+        want = 3 * PIPELINE_MICRO * cfg.n_layers * steps
+        if launches != want:
+            raise AssertionError(
+                f"[pipeline {schedule}] {launches} flash launches, {steps} "
+                f"steps of {PIPELINE_MICRO} microbatches x {cfg.n_layers} "
+                f"layers x 3 imply {want}")
+        by_path = {p: FL.PATH_LAUNCHES[p] - paths[p] for p in paths}
+        if by_path != {"mma": 0, "simt": launches}:
+            raise AssertionError(f"[pipeline {schedule}] flash launches by "
+                                 f"path {by_path}: f32 takes simt")
+        if not all(math.isfinite(x) for x in losses) or \
+                abs(losses[0] - ln_vocab) > 1.0:
+            raise AssertionError(f"[pipeline {schedule}] losses {losses}: "
+                                 f"not finite or first not within 1 of ln V")
+        steady = statistics.median(step_s[1:])
+        stats = A.build_runner(
+            cfg.replace(dtype="float32"), "pipeline",
+            n_microbatches=PIPELINE_MICRO, schedule=schedule,
+            device=dev).schedule_stats(TRAIN_SHAPE["batch"],
+                                       TRAIN_SHAPE["seq_len"])
+        runs[schedule] = dict(
+            steps=steps, losses=losses, step_s=step_s, step_ms=1e3 * steady,
+            tokens_per_s=tokens / steady,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            flash_launches=launches, flash_launches_by_path=by_path,
+            launches_per_step=launches / steps, schedule_stats=stats)
+        log(f"[pipeline {schedule}] {json.dumps(runs[schedule])}")
+    runs["checks"] = pipeline_check(dev, cfg)
+    return runs
+
+
+def pipeline_check(dev, cfg):
+    """From one set of full-width weights and one batch: fsdp's
+    ``value_and_grad``, each schedule's held to it, and the 1f1b one held
+    to the same call through ``flash_attention_plain`` patched into
+    ``models.attention``; each timed once (device work included)."""
+    from repro_torch.data.pipeline import batches_for
+    from repro_torch.dist import api as A
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import attention as MA
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cfg.replace(dtype="float32")
+    fsdp = A.build_runner(cfg, "fsdp", device=dev)
+    tree = fsdp.init(seed=0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches_for(
+        cfg, seq_len=TRAIN_SHAPE["seq_len"],
+        global_batch=TRAIN_SHAPE["batch"])).items()}
+
+    def vag(runner):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = runner.value_and_grad(tree, batch, remat=True)
+        torch.cuda.synchronize()
+        return (loss, A.tree_leaves(grads)), time.perf_counter() - t0
+
+    ref, ref_s = vag(fsdp)
+    out = {"fsdp_s": ref_s}
+    for schedule, _ in PIPELINE_RUNS:
+        runner = A.build_runner(cfg, "pipeline", n_microbatches=PIPELINE_MICRO,
+                                schedule=schedule, device=dev)
+        runner.model = fsdp.model
+        kernel = None               # one schedule's grads alive at a time
+        kernel, secs = vag(runner)
+        out[schedule] = dict(value_and_grad_limits(
+            f"pipeline {schedule} vs fsdp", ref, kernel), seconds=secs,
+            vs_fsdp_time=secs / ref_s)
+    saved = MA.flash_attention
+    MA.flash_attention = flash_attention_plain
+    try:
+        plain, _ = vag(runner)
+    finally:
+        MA.flash_attention = saved
+    out["kernel_vs_plain"] = value_and_grad_limits(
+        f"pipeline {runner.schedule} kernel vs plain", plain, kernel)
+    del ref, plain, kernel, tree, fsdp, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[pipeline] checks: {json.dumps(out)}")
+    return out
+
+
+PLACEMENT_INTERVALS = 1000
+
+
+def _timed_placement(place):
+    """Wrap ``place`` and ``on_complete`` with host-clock timers (the update
+    synchronized, so its device work is inside), and keep the first
+    episode (the first of two or more placements, if one completes) with
+    the weights it started from."""
+    times = {"place": [], "update": []}
+    rec = {}
+    inner_place = place.place
+
+    def timed_place(container, hosts):
+        t0 = time.perf_counter()
+        out = inner_place(container, hosts)
+        times["place"].append(time.perf_counter() - t0)
+        return out
+
+    place.place = timed_place
+    if not hasattr(place, "on_complete"):         # GOBI learns nothing
+        return times, rec
+    inner_done = place.on_complete
+
+    def timed_done(w):
+        ep = place._episodes.get(w.wid)
+        if ep and (not rec or len(rec["episode"]) < 2 <= len(ep)):
+            rec.update(params=tuple(p.clone() for p in place.params),
+                       episode=list(ep), w=w)
+        t0 = time.perf_counter()
+        inner_done(w)
+        torch.cuda.synchronize()
+        times["update"].append(time.perf_counter() - t0)
+
+    place.on_complete = timed_done
+    return times, rec
+
+
+def _episode_check(rec, dev):
+    """One recorded episode's networks and update on ``dev`` (the card)
+    against the same port functions on the CPU, within 1e-5 of each
+    tensor's max, the max floored at the update's lr (1e-3, one SGD step
+    of a unit gradient): ``b2`` shifts every logit alike, so its gradient
+    is zero in exact arithmetic and, from its zero init, it holds only
+    rounding noise (~1e-10) on either device."""
+    from repro_torch.core.reward import workload_reward
+    from repro_torch.sched import a3c as A3
+    w = rec["w"]
+    r = float(workload_reward(w.response_time, w.sla, w.accuracy))
+    ep = rec["episode"]
+    host = dict(feats=torch.from_numpy(np.stack([e[0] for e in ep])),
+                actions=torch.tensor([e[1] for e in ep]),
+                masks=torch.from_numpy(np.stack([e[2] for e in ep])))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        params = A3.A3CParams(*(p.to(where) for p in rec["params"]))
+        x = {k: v.to(where) for k, v in host.items()}
+        out[where.type] = dict(
+            logits=A3.policy_logits(params, x["feats"]),
+            value=A3.value(params, x["feats"]),
+            **A3.a3c_update(params, x["feats"], x["actions"], x["masks"],
+                            r)._asdict())
+    worst = 0.0
+    for k, want in out["cpu"].items():
+        got = out[dev.type][k]
+        if got.device.type != dev.type:
+            raise AssertionError(f"[placement] {k} not on {dev}")
+        err = float((got.cpu() - want).abs().max()
+                    / want.abs().max().clamp_min(1e-3))
+        if not err <= 1e-5:
+            raise AssertionError(f"[placement] {k}: card vs CPU {err} of "
+                                 f"its max")
+        worst = max(worst, err)
+    return dict(steps=len(ep), worst_rel=worst)
+
+
+def placement_phase(dev):
+    """Table I's two policies with A3C on the card, and semantic-only GOBI,
+    on ``SimBackend`` for ``PLACEMENT_INTERVALS`` intervals."""
+    from repro_torch.engine import (SEMANTIC, CompressionPolicy, FixedPolicy,
+                                    MABPolicy, PlacementEngine,
+                                    PoissonSource)
+    from repro_torch.engine.sim_backend import SimBackend
+    from repro_torch.sched.a3c import A3CPlacement
+    from repro_torch.sched.gobi import GOBIPlacement
+    policies = (
+        ("baseline", A3CPlacement(device=dev), CompressionPolicy),
+        ("splitplace", A3CPlacement(device=dev),
+         lambda p: MABPolicy(bandit="ucb", placement=p)),
+        ("gobi_semantic", GOBIPlacement(device=dev),
+         lambda p: FixedPolicy(SEMANTIC, p)))
+    runs = {}
+    for name, place, make in policies:
+        times, rec = _timed_placement(place)
+        eng = PlacementEngine(make(place), SimBackend(seed=1))
+        t0 = time.perf_counter()
+        m = eng.run(PoissonSource(rate=0.6, seed=3, sla_range=(0.5, 3.0)),
+                    PLACEMENT_INTERVALS)
+        wall = time.perf_counter() - t0
+        b = eng.backend
+        if not (b.host_ram_used <= b.host_ram_mb + 1e-6).all():
+            raise AssertionError(f"[placement {name}] a host's RAM is over "
+                                 f"its capacity")
+        if m["completed"] < 100 or not times["place"]:
+            raise AssertionError(f"[placement {name}] {m['completed']} "
+                                 f"completed, {len(times['place'])} places")
+        row = {k: m[k] for k in ("completed", "reward", "sla_violation",
+                                 "accuracy", "energy_wh", "mean_response_s",
+                                 "decisions_semantic_frac")}
+        row.update(wall_s=wall, places=len(times["place"]),
+                   place_ms=1e3 * statistics.median(times["place"]),
+                   updates=len(times["update"]))
+        if isinstance(place, A3CPlacement):
+            if not all(p.device.type == dev.type
+                       and bool(torch.isfinite(p).all())
+                       for p in place.params):
+                raise AssertionError(f"[placement {name}] A3C weights not "
+                                     f"on the card or not finite")
+            if not rec:
+                raise AssertionError(f"[placement {name}] no episode "
+                                     f"completed")
+            row["update_ms"] = 1e3 * statistics.median(times["update"])
+            row["episode_check"] = _episode_check(rec, dev)
+        runs[name] = row
+        log(f"[placement {name}] {json.dumps(row)}")
+    sp, base = runs["splitplace"], runs["baseline"]
+    runs["splitplace_beats_baseline"] = dict(
+        reward=sp["reward"] > base["reward"],
+        sla_violation=sp["sla_violation"] < base["sla_violation"],
+        accuracy=sp["accuracy"] > base["accuracy"])
+    log(f"[placement] SplitPlace beats the baseline (not gated): "
+        f"{json.dumps(runs['splitplace_beats_baseline'])}")
+    return runs
 
 
 def main(argv=None) -> int:
@@ -2559,6 +2847,8 @@ def main(argv=None) -> int:
         {**{k: g["phase_s"] for k, g in gang.items()},
          "zoo": zoo["phase_s"]}))
     train = train_phase(dev, stablelm)
+    pipeline = pipeline_phase(dev, stablelm)
+    placement = placement_phase(dev)
     # the timed kernel phases run last: the profiler they use may leave
     # launch overhead behind, which the serves would otherwise absorb
     kernels = kernel_phase(dev)
@@ -2602,7 +2892,8 @@ def main(argv=None) -> int:
             launches = kernels[name]["launches"] + sum(
                 g["launches"].get(name, 0) for g in gang.values())
         elif name == "flash_attention":
-            launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS)
+            launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS) \
+                + sum(pipeline[s]["flash_launches"] for s, _ in PIPELINE_RUNS)
         else:
             launches = sum(s["launches"][name] for s in serves.values()) \
                 + sum(f["launches"][name] for f in fleet.values())
@@ -2621,7 +2912,8 @@ def main(argv=None) -> int:
         pathlib.Path(args.out).write_text(json.dumps(dict(
             card=card, build_s=build_s, total_s=total_s, kernels=kernels,
             op_layer=op_layer, serves=serves, models=models, fleet=fleet,
-            gang=gang, gang_models=gang_models, zoo=zoo, train=train),
+            gang=gang, gang_models=gang_models, zoo=zoo, train=train,
+            pipeline=pipeline, placement=placement),
             indent=1))
     print(json.dumps({"kernels": line}))
     print(card)

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.sched.a3c import A3CParams
 
 
 def _tensor(a, dtype=None, device="cpu") -> torch.Tensor:
@@ -83,3 +84,15 @@ def opt_state_to_numpy(state: AdamWState):
     order ``repro.optim.adamw.AdamWState(*...)`` takes them."""
     return (np.asarray(state.step, np.int32), tree_to_numpy(state.m),
             tree_to_numpy(state.v))
+
+
+def a3c_params_from_numpy(params, *, device="cpu"):
+    """A JAX ``A3CParams`` whose leaves are numpy arrays (any sequence of
+    the eight in field order) as the port's."""
+    return A3CParams(*(_tensor(p, torch.float32, device) for p in params))
+
+
+def a3c_params_to_numpy(params):
+    """The port's ``A3CParams`` as a tuple of numpy arrays, in field
+    order."""
+    return tuple(p.detach().cpu().numpy() for p in params)

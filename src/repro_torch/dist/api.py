@@ -8,9 +8,10 @@ mode, as ``repro.dist.api``.
                   branches (``cfg.semantic(B)``, B = 2 on one device, as
                   ``max(2, model)`` gives on a 1 x 1 mesh), run side by side
                   along a leading branch dim.
-- ``"pipeline"``  the paper's LAYER split, ``schedule="gspmd"``: the
-                  microbatched loss with gradient accumulation
-                  (``repro_torch.dist.pipeline``).
+- ``"pipeline"``  the paper's LAYER split (``repro_torch.dist.pipeline``):
+                  under ``schedule="gspmd"`` the microbatched loss with
+                  gradient accumulation; under ``"gpipe"`` / ``"1f1b"`` the
+                  explicit stage graph, its tick table walked by one stage.
 
 On one device the three modes are the JAX package's math without its
 sharding specs.  Every runner exposes ``init``, ``loss`` and
@@ -20,10 +21,10 @@ sharding specs.  Every runner exposes ``init``, ``loss`` and
 runner's own weights).  ``make_train_step`` and ``make_serve_step`` close
 over a runner.  Parameter
 and gradient trees are nested dicts in the JAX param-tree layout
-(``Model.param_tree()``).  A mesh other than 1 x 1, the explicit pipeline
-schedules (gpipe, 1f1b) and expert parallelism raise
-``NotImplementedError``: they come with the multi-device training slice
-(FSDP over ``torch.distributed``, the stage graph, all-to-all MoE).
+(``Model.param_tree()``).  A mesh other than 1 x 1 and expert parallelism
+raise ``NotImplementedError``: they come with the multi-device training
+slice (FSDP over ``torch.distributed``, the stage graph across devices,
+all-to-all MoE).
 """
 from __future__ import annotations
 
@@ -148,8 +149,14 @@ class SemanticRunner(BaseRunner):
 
 
 class PipelineRunner(BaseRunner):
-    """LAYER split under ``schedule="gspmd"``: the microbatched loss, its
-    gradients accumulated a microbatch at a time."""
+    """LAYER split under one of three schedules:
+
+    - ``"gspmd"``: the microbatched loss, its gradients accumulated a
+      microbatch at a time.
+    - ``"gpipe"`` / ``"1f1b"``: the explicit stage graph
+      (``repro_torch.dist.pipeline``) with its manual remat-style backward;
+      ``memory_budget`` caps gpipe's saved microbatches.
+    """
 
     mode = "pipeline"
 
@@ -161,9 +168,6 @@ class PipelineRunner(BaseRunner):
             raise ValueError(
                 f"unknown schedule {schedule!r}; expected one of "
                 f"{PL.SCHEDULES}")
-        if schedule != "gspmd":
-            raise NotImplementedError(
-                f"the explicit {schedule} stage-graph schedule {_LATER}")
         if expert_parallel:
             raise NotImplementedError(f"expert parallelism {_LATER}")
         super().__init__(cfg, mesh, device=device)
@@ -177,11 +181,19 @@ class PipelineRunner(BaseRunner):
                                        self.n_microbatches, self.n_stages)
 
     def loss(self, params, batch, *, remat: bool = False):
-        return PL.microbatch_loss(self.model, params, batch,
-                                  self._resolve(batch), remat=remat)
+        m = self._resolve(batch)
+        if self.schedule != "gspmd":
+            return PL.stage_graph_loss(self.model, params, batch, self.mesh,
+                                       schedule=self.schedule, n_micro=m)
+        return PL.microbatch_loss(self.model, params, batch, m, remat=remat)
 
     def value_and_grad(self, params, batch, *, remat: bool = False):
         m = self._resolve(batch)
+        if self.schedule != "gspmd":
+            loss, grads = PL.stage_graph_value_and_grad(
+                self.model, params, batch, self.mesh, schedule=self.schedule,
+                n_micro=m, remat=remat, memory_budget=self.memory_budget)
+            return loss, tree_unflatten(params, grads)
         if m <= 1:
             return super().value_and_grad(params, batch, remat=remat)
         loss, grads = PL.microbatch_value_and_grad(
@@ -189,14 +201,33 @@ class PipelineRunner(BaseRunner):
         return loss, tree_unflatten(params, grads)
 
     def schedule_stats(self, batch_size: int, seq_len: int) -> dict:
-        """The schedule's accounting; under ``gspmd`` there is no tick
-        table to report."""
-        return {"mode": self.mode, "schedule": self.schedule,
-                "n_stages": self.n_stages,
-                "n_microbatches": PL.resolve_microbatches(
-                    batch_size, self.n_microbatches, self.n_stages),
-                "memory_budget": self.memory_budget,
-                "expert_parallel": False}
+        """Bubble-fraction / transfer-bytes accounting for one train step of
+        the configured schedule (analytic, from the static tick table);
+        under ``gspmd`` there is no tick table to report."""
+        m = PL.resolve_microbatches(batch_size, self.n_microbatches,
+                                    self.n_stages)
+        stats = {"mode": self.mode, "schedule": self.schedule,
+                 "n_stages": self.n_stages, "n_microbatches": m,
+                 "memory_budget": self.memory_budget,
+                 "expert_parallel": False}
+        if self.schedule == "gspmd":
+            return stats
+        sched = PL.build_schedule(self.schedule, self.n_stages, m,
+                                  memory_budget=self.memory_budget)
+        pb = PL.payload_bytes(self.cfg, batch_size // m // self.mesh[0],
+                              seq_len)
+        stats.update({
+            "ticks": sched.ticks,
+            "bubble_fraction": round(sched.bubble_fraction, 4),
+            "peak_saved_microbatches": sched.peak_saved_microbatches,
+            "n_transfers": sched.n_transfers,
+            "payload_bytes": pb,
+            "transfer_bytes_per_step": sched.n_transfers * pb,
+            # the reference's SPMD wire traffic: 2 sends a tick a stage,
+            # masked ones included
+            "wire_bytes_per_step": 2 * sched.ticks * self.n_stages * pb,
+        })
+        return stats
 
 
 def build_runner(cfg: ArchConfig, mode: str, mesh=(1, 1), *,

@@ -1,21 +1,43 @@
-"""Microbatched execution of the paper's LAYER split on one device (the
-``schedule="gspmd"`` path of ``repro.dist.pipeline``): the batch is cut
-into M microbatches whose mean loss is the step's loss, and whose
-gradients accumulate one microbatch at a time, so only one microbatch's
-activations are alive.  The explicit stage-graph schedules (gpipe, 1f1b)
-are not ported yet: the reference runs them on one device too (a 1 x 1
-mesh), and they wait for a slice of their own, with their tick tables and
-the stage-graph executor.  Expert parallelism waits for the multi-device
-training slice.
+"""Pipeline execution for the paper's LAYER split on one device
+(``repro.dist.pipeline`` without its meshes).
 
-Numerics: the dense-model loss is invariant to M up to float summation
-order (``tests/test_torch_train.py``).
+1. **Microbatch streaming** (``schedule="gspmd"``): the batch is cut into M
+   microbatches whose mean loss is the step's loss, and whose gradients
+   accumulate one microbatch at a time, so only one microbatch's
+   activations are alive.
+
+2. **The explicit stage graph** (``schedule="gpipe" | "1f1b"``): a static
+   tick table (:class:`Schedule`, built by the reference's list scheduler)
+   says which microbatch each stage runs forward (F) or backward (B) at
+   each tick and which ring-buffer slot each payload is read from and
+   written to.  The executor walks the table's rows in Python.  A stage
+   owns a contiguous span of the superblock stack; an F op runs the span
+   without autograd and saves the stage's received payload, a B op re-runs
+   the span from that saved payload with autograd on (remat-style) and
+   pulls the arriving cotangent, or at the last stage the loss's ``1/M``,
+   back through it.  Idle cells are skipped.  Payloads move between stages
+   by writes into the receiving stage's buffers after the tick's reads,
+   where the reference sends them with ``lax.ppermute``; the runner holds
+   the stage count to 1 (a 1 x 1 mesh), so one stage runs every op.
+
+Expert parallelism waits for the multi-device training slice.
+
+Numerics: the dense-model loss is invariant to M and to the schedule up to
+float summation order (``tests/test_torch_train.py``,
+``tests/test_torch_pipeline.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.models.layers import torch_dtype
+from repro_torch.models.transformer import tree_map
+from repro_torch.optim.adamw import tree_leaves
 
 SCHEDULES = ("gspmd", "gpipe", "1f1b")
 
@@ -76,3 +98,395 @@ def microbatch_value_and_grad(model, params, leaves, batch, n_micro: int, *,
             for acc, x in zip(grads, g):
                 acc.add_(x)
     return total, grads
+
+
+# =========================================================== schedule tables
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """Static tick table driving the stage-graph executor.
+
+    All tables are [ticks, n_stages] int32.  ``*_mb`` holds the microbatch
+    index whose forward/backward stage ``s`` runs at tick ``t`` (-1: idle);
+    the slot tables index the executor's fwd-arrival / saved-input /
+    bwd-arrival ring buffers (the last slot of each buffer is a trash slot,
+    which the reference's SPMD program writes for idle ops).
+    """
+    kind: str
+    n_stages: int
+    n_micro: int
+    ticks: int
+    f_mb: np.ndarray
+    f_read: np.ndarray
+    f_save: np.ndarray
+    f_wslot: np.ndarray
+    b_mb: np.ndarray
+    b_slot: np.ndarray
+    b_read: np.ndarray
+    b_wslot: np.ndarray
+    n_fwd_slots: int       # incl. trash
+    n_saved_slots: int     # incl. trash
+    n_bwd_slots: int       # incl. trash
+
+    @property
+    def n_ops(self) -> int:
+        return int((self.f_mb >= 0).sum() + (self.b_mb >= 0).sum())
+
+    @property
+    def bubble_fraction(self) -> float:
+        """Idle fraction of the tick grid: 1 - busy_slots / (ticks * stages)."""
+        return 1.0 - self.n_ops / float(self.ticks * self.n_stages)
+
+    @property
+    def peak_saved_microbatches(self) -> int:
+        """Max in-flight saved stage inputs (the schedule's activation-memory
+        knob: M for gpipe, O(S) for 1f1b)."""
+        return self.n_saved_slots - 1
+
+    @property
+    def n_transfers(self) -> int:
+        """Scheduled stage-to-stage payload sends per step."""
+        fwd = int((self.f_mb[:, : self.n_stages - 1] >= 0).sum())
+        bwd = int((self.b_mb[:, 1:] >= 0).sum())
+        return fwd + bwd
+
+
+def _op_queues(kind: str, S: int, M: int, forward_only: bool,
+               memory_budget: Optional[int]):
+    if forward_only:
+        return [[("F", m) for m in range(M)] for _ in range(S)]
+    if kind == "gpipe":
+        # Fill-drain.  A memory budget of K < M saved microbatches forces
+        # GPipe into ceil(M/K) sequential fill-drain rounds (it must flush
+        # before admitting more microbatches than it can save).
+        K = M if memory_budget is None else max(1, min(memory_budget, M))
+        q = []
+        for lo in range(0, M, K):
+            mbs = range(lo, min(lo + K, M))
+            q += [("F", m) for m in mbs] + [("B", m) for m in reversed(mbs)]
+        return [list(q) for _ in range(S)]
+    if kind == "1f1b":
+        queues = []
+        for i in range(S):
+            warm = min(M, S - i)
+            q = [("F", m) for m in range(warm)]
+            nf, nb = warm, 0
+            while nb < M:
+                q.append(("B", nb))
+                nb += 1
+                if nf < M:
+                    q.append(("F", nf))
+                    nf += 1
+            queues.append(q)
+        return queues
+    raise ValueError(f"unknown schedule {kind!r}; expected one of {SCHEDULES}")
+
+
+def _simulate(queues, S: int):
+    """Greedy list-scheduling of the per-stage op queues under the transfer
+    constraints (an activation/cotangent sent at the end of tick t is
+    consumable from tick t+1).  Returns (events, t_F, t_B) where events[t][s]
+    is ('F'|'B', mb) or None."""
+    t_F: Dict[Tuple[int, int], int] = {}
+    t_B: Dict[Tuple[int, int], int] = {}
+    ptr = [0] * S
+    total = sum(len(q) for q in queues)
+    done, t, events = 0, 0, []
+    INF = 1 << 30
+    while done < total:
+        if t > 16 * (total + S):
+            raise RuntimeError(f"schedule deadlock: {queues}")
+        row = [None] * S
+        for i in range(S):
+            if ptr[i] >= len(queues[i]):
+                continue
+            op, m = queues[i][ptr[i]]
+            if op == "F":
+                ready = i == 0 or t_F.get((i - 1, m), INF) < t
+            else:
+                ready = t_F.get((i, m), INF) < t and (
+                    i == S - 1 or t_B.get((i + 1, m), INF) < t)
+            if ready:
+                row[i] = (op, m)
+        for i, r in enumerate(row):
+            if r is None:
+                continue
+            op, m = r
+            (t_F if op == "F" else t_B)[(i, m)] = t
+            ptr[i] += 1
+            done += 1
+        events.append(row)
+        t += 1
+    return events, t_F, t_B
+
+
+def _alloc_slots(intervals):
+    """Greedy interval-partitioning.  ``intervals``: [(write_tick, last_read
+    _tick, key)]; a slot written at tick w is reusable once its last read
+    tick r satisfies w_new >= r (the executor reads all buffers before it
+    writes).  Returns ({key: slot}, n_slots)."""
+    assign, slot_free_at = {}, []
+    for w, r, key in sorted(intervals):
+        for j, free_at in enumerate(slot_free_at):
+            if free_at <= w:
+                assign[key] = j
+                slot_free_at[j] = r
+                break
+        else:
+            assign[key] = len(slot_free_at)
+            slot_free_at.append(r)
+    return assign, len(slot_free_at)
+
+
+def build_schedule(kind: str, n_stages: int, n_micro: int, *,
+                   forward_only: bool = False,
+                   memory_budget: Optional[int] = None) -> Schedule:
+    """Build the static tick table for one (schedule, S, M) triple.
+
+    ``memory_budget`` (gpipe only) caps the saved in-flight microbatches,
+    splitting the flush into fill-drain rounds.  1f1b's peak is structurally
+    ~S and ignores the knob.  With both schedules at the same budget K=S,
+    1f1b's bubble fraction (S-1)/(M+S-1) beats gpipe's round-multiplied
+    (M/K)(S-1) / ((M/K)(S-1) + M); unbounded gpipe matches 1f1b's bubble but
+    holds M saved microbatches instead of ~S.
+    """
+    S, M = n_stages, n_micro
+    events, t_F, t_B = _simulate(
+        _op_queues(kind, S, M, forward_only, memory_budget), S)
+    T = len(events)
+
+    # ---- slot allocation (per stage; buffers are uniform across stages, so
+    # they are sized at the max over stages, plus one trash slot).
+    fwd_iv = [[] for _ in range(S)]    # (i, m): sent end of t_F(i-1,m), read at t_F(i,m)
+    sav_iv = [[] for _ in range(S)]    # (i, m): saved at t_F(i,m), read at t_B(i,m)
+    bwd_iv = [[] for _ in range(S)]    # (i, m): sent end of t_B(i+1,m), read at t_B(i,m)
+    for (i, m), t in t_F.items():
+        if i > 0:
+            fwd_iv[i].append((t_F[(i - 1, m)], t, (i, m)))
+        if not forward_only:
+            sav_iv[i].append((t, t_B[(i, m)], (i, m)))
+    for (i, m), t in t_B.items():
+        if i < S - 1:
+            bwd_iv[i].append((t_B[(i + 1, m)], t, (i, m)))
+    fwd_slot, sav_slot, bwd_slot = {}, {}, {}
+    n_fwd = n_sav = n_bwd = 0
+    for i in range(S):
+        a, n = _alloc_slots(fwd_iv[i])
+        fwd_slot.update(a)
+        n_fwd = max(n_fwd, n)
+        a, n = _alloc_slots(sav_iv[i])
+        sav_slot.update(a)
+        n_sav = max(n_sav, n)
+        a, n = _alloc_slots(bwd_iv[i])
+        bwd_slot.update(a)
+        n_bwd = max(n_bwd, n)
+    trash_f, trash_s, trash_b = n_fwd, n_sav, n_bwd
+
+    # ---- tables
+    f_mb = np.full((T, S), -1, np.int32)
+    b_mb = np.full((T, S), -1, np.int32)
+    f_read = np.full((T, S), trash_f, np.int32)
+    f_save = np.full((T, S), trash_s, np.int32)
+    f_wslot = np.full((T, S), trash_f, np.int32)
+    b_slot = np.full((T, S), trash_s, np.int32)
+    b_read = np.full((T, S), trash_b, np.int32)
+    b_wslot = np.full((T, S), trash_b, np.int32)
+    for t, row in enumerate(events):
+        for i, r in enumerate(row):
+            if r is None:
+                continue
+            op, m = r
+            if op == "F":
+                f_mb[t, i] = m
+                if i > 0:
+                    f_read[t, i] = fwd_slot[(i, m)]
+                if not forward_only:
+                    f_save[t, i] = sav_slot[(i, m)]
+                if i + 1 < S:       # receiver's write slot for this send
+                    f_wslot[t, i + 1] = fwd_slot[(i + 1, m)]
+            else:
+                b_mb[t, i] = m
+                b_slot[t, i] = sav_slot[(i, m)]
+                if i < S - 1:
+                    b_read[t, i] = bwd_slot[(i, m)]
+                if i - 1 >= 0:
+                    b_wslot[t, i - 1] = bwd_slot[(i - 1, m)]
+    return Schedule(kind=kind, n_stages=S, n_micro=M, ticks=T,
+                    f_mb=f_mb, f_read=f_read, f_save=f_save, f_wslot=f_wslot,
+                    b_mb=b_mb, b_slot=b_slot, b_read=b_read, b_wslot=b_wslot,
+                    n_fwd_slots=n_fwd + 1, n_saved_slots=n_sav + 1,
+                    n_bwd_slots=n_bwd + 1)
+
+
+def payload_bytes(cfg, b_local: int, seq: int) -> int:
+    """Bytes of one stage-to-stage payload: the activations plus the f32
+    running aux loss."""
+    return b_local * seq * cfg.d_model * torch_dtype(cfg).itemsize + 4
+
+
+# ======================================================= stage-graph runtime
+def _stage_setup(model, batch, mesh, n_micro: int):
+    """Shared validation + microbatch reshape for the stage executors.
+    ``mesh`` is the (data, model) shape; the model axis is the stage
+    count."""
+    cfg = model.cfg
+    if not getattr(model, "supports_stage_split", False):
+        raise ValueError(
+            f"{cfg.name}: the explicit stage-graph schedules support plain "
+            "decoder-only stacks (no enc-dec / modality frontends); use "
+            'schedule="gspmd"')
+    n_data, S = mesh
+    if cfg.n_superblocks % max(S, 1):
+        raise ValueError(
+            f"{cfg.name}: n_superblocks={cfg.n_superblocks} not divisible by "
+            f"mesh 'model' size {S}")
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, s = tokens.shape
+    if B % n_micro or (B // n_micro) % n_data:
+        raise ValueError(
+            f"batch {B} must split into n_microbatches={n_micro} x "
+            f"data axis {n_data}")
+    mt = tokens.reshape(n_micro, B // n_micro, s)
+    ml = labels.reshape(n_micro, B // n_micro, s)
+    return S, mt, ml
+
+
+def _stage_spans(blocks, S: int):
+    """Stage i's contiguous span of the superblock stack (views with a
+    leading [n_superblocks / S] dim)."""
+    n = tree_leaves(blocks)[0].shape[0] // S
+    return [tree_map(lambda t, i=i: t[i * n:(i + 1) * n], blocks)
+            for i in range(S)]
+
+
+def _payload_zero(model, mt):
+    """The zero payload every buffer slot starts from: [b, s, d]
+    activations in the model's dtype and the f32 running aux loss."""
+    b, s = mt.shape[1:]
+    dev = mt.device
+    return {"x": torch.zeros(b, s, model.cfg.d_model,
+                             dtype=torch_dtype(model.cfg), device=dev),
+            "aux": torch.zeros((), dtype=torch.float32, device=dev)}
+
+
+def _tick_core(model, params, span, tokens, labels, recv, col: int, S: int,
+               remat: bool):
+    """One stage's op on one microbatch: embed at stage 0 (else the
+    received payload), the stage's span, and at the last stage the head
+    loss plus ``0.01 * aux``.  Returns (payload, loss or None)."""
+    if col == 0:
+        x = model.stage_embed(params, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, aux = recv["x"], recv["aux"]
+    pos = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    y, aux_local = model.stage_apply(span, x, positions=pos, remat=remat)
+    payload = {"x": y, "aux": aux + aux_local}
+    if col != S - 1:
+        return payload, None
+    return payload, model.stage_head_loss(params, y, labels) \
+        + 0.01 * payload["aux"]
+
+
+def stage_graph_loss(model, params, batch, mesh, *, schedule: str = "gpipe",
+                     n_micro: int = 1):
+    """Forward-only stage-graph loss: M microbatches through the
+    ``forward_only`` table, the last stage's per-microbatch mean losses
+    averaged.  The loss value is schedule-independent (and runs without
+    autograd, so remat has nothing to change)."""
+    S, mt, ml = _stage_setup(model, batch, mesh, n_micro)
+    sched = build_schedule(schedule, S, n_micro, forward_only=True)
+    spans = _stage_spans(params["blocks"], S)
+    fwd_buf = [[_payload_zero(model, mt)] * sched.n_fwd_slots
+               for _ in range(S)]
+    loss = torch.zeros((), dtype=torch.float32, device=mt.device)
+    with torch.no_grad():
+        for t in range(sched.ticks):
+            writes = []
+            for col in range(S):
+                m = int(sched.f_mb[t, col])
+                if m < 0:
+                    continue
+                payload, loss_m = _tick_core(
+                    model, params, spans[col], mt[m], ml[m],
+                    fwd_buf[col][sched.f_read[t, col]], col, S, False)
+                if loss_m is not None:
+                    loss = loss + loss_m / n_micro
+                if col + 1 < S:
+                    writes.append((fwd_buf[col + 1],
+                                   sched.f_wslot[t, col + 1], payload))
+            for buf, slot, value in writes:
+                buf[slot] = value
+    return loss
+
+
+def stage_graph_value_and_grad(model, params, batch, mesh, *,
+                               schedule: str = "gpipe", n_micro: int = 1,
+                               remat: bool = False,
+                               memory_budget: Optional[int] = None):
+    """(loss, [grad per leaf of ``params``]) under an explicit pipeline
+    schedule.
+
+    An F op runs without autograd and saves its received payload.  A B op
+    re-runs the stage forward from that saved payload with autograd on
+    (``remat`` checkpoints each superblock inside it) and pulls back the
+    arriving cotangent, or at the last stage ``1/M`` on the loss; the
+    parameter gradients accumulate over the ops and the payload's
+    cotangent goes to the stage before.  Every stage's grads land in the
+    one tree, which is the reference's psum over 'model' of the leaves
+    replicated there.  All of a tick's buffer writes follow its reads,
+    since the slot tables reuse a slot at the tick of its last read."""
+    S, mt, ml = _stage_setup(model, batch, mesh, n_micro)
+    sched = build_schedule(schedule, S, n_micro, memory_budget=memory_budget)
+    leaves = tree_leaves(params)
+    spans = _stage_spans(params["blocks"], S)
+    zero = _payload_zero(model, mt)
+    fwd_buf = [[zero] * sched.n_fwd_slots for _ in range(S)]
+    sav_buf = [[zero] * sched.n_saved_slots for _ in range(S)]
+    bwd_buf = [[zero] * sched.n_bwd_slots for _ in range(S)]
+    grads = [torch.zeros_like(p) for p in leaves]
+    loss = torch.zeros((), dtype=torch.float32, device=mt.device)
+    ct_loss = torch.full((), 1.0 / n_micro, dtype=torch.float32,
+                         device=mt.device)
+    for t in range(sched.ticks):
+        writes = []
+        for col in range(S):
+            f_m, b_m = int(sched.f_mb[t, col]), int(sched.b_mb[t, col])
+            if f_m >= 0:
+                recv = fwd_buf[col][sched.f_read[t, col]]
+                with torch.no_grad():
+                    payload, loss_m = _tick_core(
+                        model, params, spans[col], mt[f_m], ml[f_m], recv,
+                        col, S, False)
+                if loss_m is not None:
+                    loss = loss + loss_m / n_micro
+                writes.append((sav_buf[col], sched.f_save[t, col], recv))
+                if col + 1 < S:
+                    writes.append((fwd_buf[col + 1],
+                                   sched.f_wslot[t, col + 1], payload))
+            if b_m >= 0:
+                recv, ins = None, leaves
+                if col > 0:
+                    recv = {k: v.detach().requires_grad_() for k, v in
+                            sav_buf[col][sched.b_slot[t, col]].items()}
+                    ins = leaves + [recv["x"], recv["aux"]]
+                with torch.enable_grad():
+                    payload, loss_m = _tick_core(
+                        model, params, spans[col], mt[b_m], ml[b_m], recv,
+                        col, S, remat)
+                if col == S - 1:
+                    outs, cts = [loss_m], [ct_loss]
+                else:       # a dense stack's aux is a constant zero
+                    ct = bwd_buf[col][sched.b_read[t, col]]
+                    outs, cts = zip(*((payload[k], ct[k]) for k in ("x", "aux")
+                                      if payload[k].requires_grad))
+                g = torch.autograd.grad(outs, ins, cts, allow_unused=True)
+                for acc, gi in zip(grads, g):
+                    if gi is not None:
+                        acc.add_(gi)
+                if col > 0:
+                    writes.append((bwd_buf[col - 1],
+                                   sched.b_wslot[t, col - 1],
+                                   {"x": g[-2], "aux": g[-1]}))
+        for buf, slot, value in writes:
+            buf[slot] = value
+    return loss, grads

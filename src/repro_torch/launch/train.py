@@ -2,6 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         --mode fsdp --steps 6 --seq-len 2048 --batch 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+        --mode pipeline --schedule 1f1b --n-microbatches 2 --steps 4 \
+        --seq-len 2048 --batch 2
 
 Runs on the card unless ``--device cpu``; the config is cast to float32, the
 step runs with remat at a constant ``--lr`` (the JAX launcher builds a cosine
@@ -40,8 +43,9 @@ def main(argv=None, *, on_step=None):
                     help="only 1,1 runs in this slice")
     ap.add_argument("--schedule", default="gspmd",
                     choices=["gspmd", "gpipe", "1f1b"],
-                    help="pipeline mode: only gspmd (the microbatched loss) "
-                         "runs on one device")
+                    help="pipeline mode: gspmd (the microbatched loss) or "
+                         "the explicit gpipe / 1f1b stage graph, all on one "
+                         "device")
     ap.add_argument("--n-microbatches", type=int, default=0,
                     help="pipeline microbatch count (0: mesh 'model' size)")
     ap.add_argument("--memory-budget", type=int, default=0,

@@ -462,6 +462,37 @@ class Model(_LM):
         """Unembed a [B, C, d] chunk of hidden states -> [B, C, vocab]."""
         return L.unembed_apply(params["embed"], h, self.cfg)
 
+    # ----------------------------------------------------- per-stage surface
+    # The explicit stage-graph pipeline (repro_torch.dist.pipeline) calls the
+    # model in three pieces: stage 0 embeds, every stage applies its span of
+    # the superblock stack, the last stage runs the head.
+    @property
+    def supports_stage_split(self) -> bool:
+        """Plain decoder-only stacks only: enc-dec cross inputs and modality
+        frontends are stage-0 side inputs the stage graph does not route."""
+        return not self.cfg.is_encdec and self.cfg.frontend is None
+
+    def stage_embed(self, params, tokens):
+        """[B, S] tokens -> [B, S, d] stage-0 input activations."""
+        return L.embed_apply(params["embed"], tokens, self.cfg)
+
+    def stage_apply(self, blocks_span, x, *, positions, remat: bool = False):
+        """Apply a contiguous span of the superblock stack (leaves carry a
+        leading [n_local] dim) to x [B, S, d]; ``remat`` checkpoints each
+        superblock.  Returns (x, aux)."""
+        span = T.tree_map(lambda t: t.unsqueeze(0), blocks_span)
+        x, _, aux = T.stack_apply(T.superblocks(span), x[None], self.cfg,
+                                  positions=positions, remat=remat)
+        return x[0], aux[0]
+
+    def stage_head_loss(self, params, h, labels):
+        """Final norm + unembed + mean CE over one microbatch's hidden states
+        (the last pipeline stage's op; aux is routed by the schedule).
+        Materializes the microbatch's [B, S, vocab] logits."""
+        h = L.norm_apply(params["final_norm"], h, self.cfg)
+        return cross_entropy(L.unembed_apply(params["embed"], h, self.cfg),
+                             labels)
+
 
 class SemanticModel(_LM):
     """The paper's semantic split: Bb independent block-diagonal branches,
@@ -487,6 +518,10 @@ class SemanticModel(_LM):
         h, aux = self._hidden_grouped(params, batch, remat=remat,
                                       window_override=window_override)
         return h, aux.sum()
+
+    @property
+    def supports_stage_split(self) -> bool:
+        return False  # branches already own the 'model' axis
 
     def chunk_logits(self, params, h):
         """h: [Bb, B, C, d_b] -> merged [B, C, vocab]."""

@@ -234,7 +234,8 @@ def test_runner_value_and_grad_match_jax(tiny_cfg, tiny_mesh, mode,
 def test_runner_multi_device_paths_raise(tiny_cfg):
     cfg = port_cfg(tiny_cfg)
     for kw, match in ((dict(mode="fsdp", mesh=(2, 1)), "several devices"),
-                      (dict(mode="pipeline", schedule="1f1b"), "1f1b"),
+                      (dict(mode="pipeline", schedule="1f1b",
+                            expert_parallel=True), "expert parallelism"),
                       (dict(mode="pipeline", expert_parallel=True),
                        "expert parallelism")):
         with pytest.raises(NotImplementedError, match=match):
