@@ -233,10 +233,34 @@ raising on failure:
             per placement and per update (not gated: whether SplitPlace
             beats the baseline).
 
-Phases 9-16 run after the serves, before training; 17 and 18 after
+19. multi   training across ranks: two processes of this script
+            (``--multi-rank``) in a gloo world whose ranks share the one
+            card (``cuda:0``; NCCL refuses two ranks on one device), under
+            a 480 s limit, each exit code checked.  Full-width f32 at the
+            train phase's shape (B 2 x S 2048, remat), 2 steps a run, the
+            runners of ``repro_torch.dist.api`` on ``launch.mesh.init_mesh``
+            meshes: stablelm-1.6b fsdp on (2, 1), 1f1b and gpipe on (1, 2)
+            (12 superblocks a rank, M 2), qwen2-moe-a2.7b cut to 4 of its
+            24 superblocks, expert parallel on (1, 2) (30 of 60 experts a
+            rank).  Each run's first step against a one-process run on the
+            same weights (fsdp: the fsdp runner; the schedules: 1f1b on one
+            device; expert parallel: the gspmd microbatched loss), slice by
+            slice (the reference's gradients on the host): loss to rel
+            1e-6, each gradient leaf to 1e-5 of its largest.  Each rank's
+            parameter bytes must equal the specs' arithmetic, its flash
+            launches (counters zeroed just before the run) the count the
+            run implies (fsdp 2 x 24 a step, a stage 3 x M x 12, expert
+            parallel 2 x 4), all on ``simt``; both ranks report the same
+            losses.  The expert-parallel run takes one sequence (B 1 x S
+            2048, one microbatch): each rank holds ~30 GB of its params,
+            grads and moments, and B 2's step did not fit beside them.  Reports step ms per rank, peak and allocated GB,
+            the collectives' bytes and ``dist.comm.COMM_STATS``' staged
+            bytes and ms: host staging over gloo, not NVLink.
+
+Phases 9-16 run after the serves, before training; 17-19 after
 training.  The ``kernels`` line
-counts ``flash_attention`` launches from the ``train`` and ``pipeline``
-phases, ``decode_attention`` launches from the ops, ``legacy`` and
+counts ``flash_attention`` launches from the ``train``, ``pipeline`` and
+``multi`` phases (the ``multi`` ranks' counts summed), ``decode_attention`` launches from the ops, ``legacy`` and
 ``window`` phases and ``block_diag_matmul`` launches from the ops and
 ``recurrent`` phases.  Every backend is freed before the next one is
 built.  The last lines are
@@ -2637,6 +2661,321 @@ def pipeline_check(dev, cfg):
     return out
 
 
+# -------------------------------------------------------------------- multi
+MULTI_WORLD = 2
+MULTI_STEPS = 2
+MULTI_MICRO = 2
+MULTI_EP_SUPERBLOCKS = 4
+MULTI_TIMEOUT_S = 480
+MULTI_LOSS_REL = 1e-6        # loss against the one-process run, relative
+# each gradient leaf against the one-process run, over that leaf's max.
+# Sound runs read at most 9.9e-6 (fsdp, whose data split sums the batch's
+# gradient in halves, as the pipeline phase's microbatch split does there,
+# 9.7e-6); the same run's gradient rounded to bf16 (``ctrl_bf16``, checked
+# above the limit every run) reads 3.2e-3 to 3.5e-3 on the card.  The
+# pipeline phase's limit, with 10x room below and 30x above.
+MULTI_GRAD_REL = 1e-4
+_PIPE = dict(mode="pipeline", n_microbatches=MULTI_MICRO)
+# expert parallel on one sequence (B 1 x S 2048, one microbatch): at B 2,
+# M 2 a rank peaks at 41.1 GB (30 GB of params, grads and moments, and one
+# microbatch's activations beside a whole gradient tree), which fits the
+# card beside this process only when no phase ran before
+_EP = dict(mode="pipeline", n_microbatches=1, expert_parallel=True)
+MULTI_BATCH = {"stablelm-1.6b": TRAIN_SHAPE["batch"], "qwen2-moe-a2.7b": 1}
+# the one-process runs each sharded run is held to
+MULTI_REFS = {"fsdp": ("stablelm-1.6b", dict(mode="fsdp")),
+              "stage": ("stablelm-1.6b", dict(_PIPE, schedule="1f1b")),
+              "moe": ("qwen2-moe-a2.7b", _EP)}
+# (tag, mesh, runner kwargs, reference)
+MULTI_RUNS = (("fsdp", (2, 1), dict(mode="fsdp"), "fsdp"),
+              ("1f1b", (1, 2), dict(_PIPE, schedule="1f1b"), "stage"),
+              ("gpipe", (1, 2), dict(_PIPE, schedule="gpipe"), "stage"),
+              ("ep", (1, 2), dict(_EP, schedule="1f1b"), "moe"))
+
+
+def multi_cfg(name: str, reduced: bool):
+    """The multi phase's config: f32; qwen2-moe cut to its first
+    ``MULTI_EP_SUPERBLOCKS`` superblocks (full width)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(name)
+    if reduced:
+        cfg = cfg.reduced()
+    if cfg.moe is not None:
+        cfg = cfg.replace(n_layers=min(MULTI_EP_SUPERBLOCKS,
+                                       cfg.n_superblocks) * len(cfg.pattern))
+    return cfg.replace(dtype="float32")
+
+
+def multi_flash_per_step(cfg, mesh, kw) -> int:
+    """Flash launches one rank makes a step: fsdp runs every layer on its
+    rows (forward and remat's recompute); a stage runs its span three times
+    a microbatch (F, B's re-forward, remat's recompute); expert parallel
+    runs every layer twice a microbatch."""
+    if kw["mode"] == "fsdp":
+        return 2 * cfg.n_layers
+    if kw.get("expert_parallel"):
+        return 2 * kw["n_microbatches"] * cfg.n_layers
+    return 3 * kw["n_microbatches"] * cfg.n_layers // mesh[1]
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _multi_reference(dev, key, reduced, batch):
+    """A one-process ``value_and_grad`` on the seed-0 weights: (loss, {leaf
+    path: gradient on the host})."""
+    from repro_torch.dist import api as A
+    name, kw = MULTI_REFS[key]
+    runner = A.build_runner(multi_cfg(name, reduced), device=dev, **kw)
+    tree = runner.init(seed=0)
+    loss, grads = runner.value_and_grad(tree, batch, remat=True)
+    host = {k: v.detach().cpu() for k, v in _paths(grads).items()}
+    out = float(loss)
+    del runner, tree, grads
+    _free()
+    return out, host
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def multi_worker(rank: int, workdir: pathlib.Path, device: str,
+                 reduced: bool) -> int:
+    """One rank of the multi phase's gloo world: each run of
+    ``MULTI_RUNS`` on its mesh, its first step's loss and gradient slices
+    held to the one-process run, then a second step; results to
+    ``workdir/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import batches_for
+    from repro_torch.dist import api as A
+    from repro_torch.dist import comm
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels import _flash_launch as FL
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import attention as MA
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:                 # the plain version's calls count as launches
+        import os
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // MULTI_WORLD))
+        plain = FA.flash_attention_plain
+
+        def counted(q, k, v, **kw):
+            FA.flash_attention.launches += 1
+            FL.PATH_LAUNCHES["simt"] += 1
+            return plain(q, k, v, **kw)
+        MA.flash_attention = counted
+    world = dict(backend="gloo", device=dev, rank=rank,
+                 world_size=MULTI_WORLD, timeout_s=120,
+                 store=dist.FileStore(str(workdir / "store"), MULTI_WORLD))
+    init_mesh(MULTI_RUNS[0][1], **world)
+    refs, batches, runs = {}, {}, {}
+    for tag, dims, kw, ref_key in MULTI_RUNS:
+        name = MULTI_REFS[ref_key][0]
+        cfg = multi_cfg(name, reduced)
+        if name not in batches:
+            batches[name] = {k: torch.from_numpy(v).to(dev) for k, v in next(
+                batches_for(cfg, seq_len=TRAIN_SHAPE["seq_len"],
+                            global_batch=MULTI_BATCH[name])).items()}
+        batch = batches[name]
+        if ref_key not in refs:     # one rank at a time: each is a whole
+            refs.clear()            # one-process step on the card
+            _free()
+            for r in range(MULTI_WORLD):
+                if r == rank:
+                    refs[ref_key] = _multi_reference(dev, ref_key, reduced,
+                                                     batch)
+                dist.barrier()
+        want_loss, want = refs[ref_key]
+        mesh = init_mesh(dims, **world)
+        _free()
+        mem = {}
+
+        def note(at):
+            if dev.type == "cuda":
+                mem[at] = round(torch.cuda.memory_allocated() / 1e9, 3)
+        note("start")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        runner = A.build_runner(cfg, device=dev, mesh=mesh, **kw)
+        params = runner.init(seed=0)
+        spec_bytes = SH.bytes_per_rank(runner.model.param_tree(),
+                                       runner.specs, mesh)
+        held = sum(t.numel() * t.element_size()
+                   for t in A.tree_leaves(params))
+        note("params")
+        step = A.make_train_step(runner, lr=3e-4, remat=True)
+        comm.reset_stats()
+        FA.flash_attention.launches = 0
+        paths = dict(FL.PATH_LAUNCHES)
+        dist.barrier()
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, grads = runner.value_and_grad(params, batch, remat=True)
+        _sync(dev)
+        vag_s = time.perf_counter() - t0
+        note("grads")
+        worst, worst_leaf, ctrl = 0.0, "", 0.0
+        sizes = dict(mesh.shape)
+        specs = _paths(runner.specs)
+        for path, g in _paths(grads).items():
+            w = SH.shard_leaf(want[path], specs[path], sizes,
+                              mesh.coords).to(dev)
+            top = w.abs().max().clamp_min(1e-30)
+            err = float((g - w).abs().max() / top)
+            if err > worst:
+                worst, worst_leaf = err, path
+            # the control: this gradient with a bf16 rounding planted
+            ctrl = max(ctrl, float((g.bfloat16().float() - w).abs().max()
+                                   / top))
+            del w
+        rel_loss = abs(float(loss) - want_loss) / abs(want_loss)
+        _free()
+        opt = adamw_init(params)
+        note("moments")
+        _sync(dev)
+        t1 = time.perf_counter()
+        params, opt = adamw_update(grads, opt, params, lr=3e-4,
+                                   specs=runner.specs, mesh=mesh)
+        _sync(dev)
+        step_s = [vag_s + time.perf_counter() - t1]
+        losses = [float(loss)]
+        del grads
+        for _ in range(MULTI_STEPS - 1):
+            _free()      # the other rank's allocator may need it
+            dist.barrier()
+            _sync(dev)
+            t1 = time.perf_counter()
+            params, opt, loss = step(params, opt, batch)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t1)
+        _sync(dev)
+        launches = FA.flash_attention.launches
+        by_path = {p: FL.PATH_LAUNCHES[p] - paths[p] for p in paths}
+        runs[tag] = dict(
+            mesh=list(dims), coords=mesh.coords, ref=ref_key, losses=losses,
+            step_ms=[1e3 * s for s in step_s], rel_loss=rel_loss,
+            worst_grad_rel=worst, worst_leaf=worst_leaf, ctrl_bf16=ctrl,
+            param_bytes=held, param_bytes_specs=spec_bytes,
+            flash_launches=launches, flash_by_path=by_path,
+            flash_want=MULTI_STEPS * multi_flash_per_step(cfg, dims, kw),
+            comm=dict(comm.COMM_STATS), mem_gb=mem,
+            peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if dev.type == "cuda" else 0.0))
+        log(f"[multi {tag} rank {rank}] step ms {runs[tag]['step_ms']}, "
+            f"loss rel {rel_loss:.3g}, worst grad {worst:.3g} "
+            f"({worst_leaf}; bf16 control {ctrl:.3g}), peak GB "
+            f"{runs[tag]['peak_mem_gb']:.2f}, allocated GB {mem}")
+        del runner, params, opt, step
+        comm.release_buffers()
+    refs.clear()
+    dist.barrier()
+    dist.destroy_process_group()
+    (workdir / f"rank{rank}.json").write_text(json.dumps(runs))
+    return 0
+
+
+def multi_phase(dev, *, reduced: bool = False):
+    """Two ranks of this script (``--multi-rank``) in a gloo world on the
+    one card; each run's gates checked here on both ranks' results."""
+    import os
+    import tempfile
+    _free()
+    if dev.type == "cuda":
+        log(f"[multi] this process holds "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    card = gpu_name_and_limit() if dev.type == "cuda" else "cpu"
+    workdir = pathlib.Path(tempfile.mkdtemp(prefix="multi_"))
+    # two processes' caching allocators share the card: expandable
+    # segments keep their freed blocks from fragmenting it
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    # both ranks on the card's index 0 (or the CPU, when rehearsing)
+    child = "cuda:0" if dev.type == "cuda" else "cpu"
+    args = ["--multi-dir", str(workdir), "--multi-device", child] + \
+        (["--multi-reduced"] if reduced else [])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--multi-rank", str(r)] + args, env=env)
+             for r in range(MULTI_WORLD)]
+    try:
+        rcs = [p.wait(timeout=max(1.0, MULTI_TIMEOUT_S
+                                  - (time.perf_counter() - t0)))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    if rcs is None:
+        raise AssertionError(f"[multi] the world ran past {MULTI_TIMEOUT_S} s")
+    if any(rcs):
+        raise AssertionError(f"[multi] ranks exited with {rcs}")
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text())
+             for r in range(MULTI_WORLD)]
+    out = {"wall_s": wall_s, "card": card, "runs": {}}
+    for tag, dims, kw, _ in MULTI_RUNS:
+        per = [rk[tag] for rk in ranks]
+        for r, run in enumerate(per):
+            where = f"[multi {tag} rank {r}]"
+            if not run["rel_loss"] <= MULTI_LOSS_REL or \
+                    not run["worst_grad_rel"] <= MULTI_GRAD_REL:
+                raise AssertionError(
+                    f"{where} loss rel {run['rel_loss']}, worst grad leaf "
+                    f"{run['worst_grad_rel']} ({run['worst_leaf']}) of its "
+                    "max against the one-process run")
+            if not run["ctrl_bf16"] > MULTI_GRAD_REL:
+                raise AssertionError(
+                    f"{where} the gate passes a bf16-rounded gradient "
+                    f"({run['ctrl_bf16']} of its max)")
+            if run["param_bytes"] != run["param_bytes_specs"]:
+                raise AssertionError(f"{where} holds {run['param_bytes']} "
+                                     f"parameter bytes, specs say "
+                                     f"{run['param_bytes_specs']}")
+            if run["flash_launches"] != run["flash_want"] or \
+                    run["flash_by_path"].get("simt") != run["flash_launches"]:
+                raise AssertionError(
+                    f"{where} {run['flash_launches']} flash launches "
+                    f"({run['flash_by_path']}), want {run['flash_want']} "
+                    "on simt")
+            if not all(math.isfinite(x) for x in run["losses"]):
+                raise AssertionError(f"{where} losses {run['losses']}")
+        if per[0]["losses"] != per[1]["losses"]:
+            raise AssertionError(f"[multi {tag}] ranks report different "
+                                 f"losses {per[0]['losses']} "
+                                 f"{per[1]['losses']}")
+        out["runs"][tag] = per
+        log(f"[multi {tag}] {card} | " + json.dumps(dict(
+            mesh=dims, ranks=[dict(
+                step_ms=r["step_ms"], losses=r["losses"],
+                rel_loss=r["rel_loss"], worst_grad_rel=r["worst_grad_rel"],
+                worst_leaf=r["worst_leaf"], ctrl_bf16=r["ctrl_bf16"],
+                param_bytes=r["param_bytes"],
+                param_bytes_specs=r["param_bytes_specs"],
+                flash_launches=r["flash_launches"], comm=r["comm"],
+                peak_mem_gb=r["peak_mem_gb"]) for r in per])))
+    log(f"[multi] {card} | world of {MULTI_WORLD} gloo ranks on one "
+        f"device, {wall_s:.1f} s")
+    return out
+
+
 PLACEMENT_INTERVALS = 1000
 
 
@@ -2775,7 +3114,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
+    ap.add_argument("--multi-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # a rank of the multi phase
+    ap.add_argument("--multi-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--multi-device", default="cuda:0",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--multi-reduced", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.multi_rank is not None:
+        return multi_worker(args.multi_rank, pathlib.Path(args.multi_dir),
+                            args.multi_device, args.multi_reduced)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2848,6 +3197,7 @@ def main(argv=None) -> int:
          "zoo": zoo["phase_s"]}))
     train = train_phase(dev, stablelm)
     pipeline = pipeline_phase(dev, stablelm)
+    multi = multi_phase(dev)
     placement = placement_phase(dev)
     # the timed kernel phases run last: the profiler they use may leave
     # launch overhead behind, which the serves would otherwise absorb
@@ -2893,7 +3243,9 @@ def main(argv=None) -> int:
                 g["launches"].get(name, 0) for g in gang.values())
         elif name == "flash_attention":
             launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS) \
-                + sum(pipeline[s]["flash_launches"] for s, _ in PIPELINE_RUNS)
+                + sum(pipeline[s]["flash_launches"] for s, _ in PIPELINE_RUNS) \
+                + sum(r["flash_launches"] for per in multi["runs"].values()
+                      for r in per)
         else:
             launches = sum(s["launches"][name] for s in serves.values()) \
                 + sum(f["launches"][name] for f in fleet.values())
@@ -2913,7 +3265,7 @@ def main(argv=None) -> int:
             card=card, build_s=build_s, total_s=total_s, kernels=kernels,
             op_layer=op_layer, serves=serves, models=models, fleet=fleet,
             gang=gang, gang_models=gang_models, zoo=zoo, train=train,
-            pipeline=pipeline, placement=placement),
+            pipeline=pipeline, multi=multi, placement=placement),
             indent=1))
     print(json.dumps({"kernels": line}))
     print(card)

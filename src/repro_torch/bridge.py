@@ -14,6 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as SH
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.sched.a3c import A3CParams
@@ -96,3 +97,81 @@ def a3c_params_to_numpy(params):
     """The port's ``A3CParams`` as a tuple of numpy arrays, in field
     order."""
     return tuple(p.detach().cpu().numpy() for p in params)
+
+
+def _walk(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts and NamedTuples (an int leaf,
+    as ``AdamWState.step``, passes through)."""
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_walk(fn, getattr(tree, f), getattr(specs, f))
+                            for f in tree._fields))
+    if isinstance(tree, int):
+        return tree
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, mesh, coords) -> Dict:
+    """The slice of a numpy or torch tree (params, gradients, AdamW state)
+    that the rank at ``coords`` (axis -> index) holds under ``specs`` on
+    ``mesh``: a copy of each leaf's slice."""
+    sizes = dict(mesh.shape)
+
+    def cut(leaf, spec):
+        part = SH.shard_leaf(leaf, spec, sizes, coords)
+        return part.clone() if isinstance(part, torch.Tensor) else \
+            np.array(part)
+    return _walk(cut, tree, specs)
+
+
+def rank_coords(mesh):
+    """Every rank's coordinates (axis -> index) in rank order (row-major
+    over the mesh dims, as ``init_mesh`` lays ranks out)."""
+    names, dims = list(mesh.shape), list(mesh.shape.values())
+    out = []
+    for r in range(int(np.prod(dims))):
+        c, rest = {}, r
+        for n, d in zip(reversed(names), reversed(dims)):
+            c[n], rest = rest % d, rest // d
+        out.append({n: c[n] for n in names})
+    return out
+
+
+def gather_tree(shards, specs, mesh) -> Dict:
+    """The inverse of :func:`shard_tree`: the full numpy tree from every
+    rank's slice, ``shards`` in rank order (replicas must agree; the first
+    is kept)."""
+    sizes = dict(mesh.shape)
+    coords = rank_coords(mesh)
+
+    def leaves(tree, specs, out):
+        if isinstance(tree, dict):
+            for k in tree:
+                leaves(tree[k], specs[k], out)
+        elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            for f in tree._fields:
+                leaves(getattr(tree, f), getattr(specs, f), out)
+        else:
+            out.append(tree)
+        return out
+
+    per_rank = [leaves(s, specs, []) for s in shards]
+    it = iter(range(len(per_rank[0])))
+
+    def build(leaf, spec):
+        i = next(it)
+        if isinstance(leaf, int):
+            return leaf
+        part = np.asarray(per_rank[0][i])
+        full_shape = list(part.shape)
+        for d, e in enumerate(spec):
+            if e is not None:
+                full_shape[d] *= SH._entry_slot(e, {}, sizes)[1]
+        full = np.empty(full_shape, part.dtype)
+        for c, tree_leaves in zip(coords, per_rank):
+            view = SH.shard_leaf(full, spec, sizes, c)
+            view[...] = np.asarray(tree_leaves[i])
+        return full
+
+    return _walk(build, shards[0], specs)

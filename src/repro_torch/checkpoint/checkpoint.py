@@ -8,6 +8,11 @@ package's ``str`` of a ``GetAttrKey``).  Floats that numpy cannot hold
 int32, as the JAX package stores its step array.  So a checkpoint written by
 either package loads in the other.  Atomic via a temporary file and a
 rename.
+
+A tree sharded over a mesh (``specs``, a tree of ``dist.sharding.P`` of the
+same structure, and ``mesh``) is saved whole: every rank gathers the slices
+and rank 0 writes.  ``restore`` with ``specs`` and ``mesh`` gives each rank
+its slice back.
 """
 from __future__ import annotations
 
@@ -62,10 +67,38 @@ def _host(v) -> np.ndarray:
     return v
 
 
-def save(path: str, tree, *, step: Optional[int] = None) -> None:
+def _spec_flat(specs, prefix: str = "") -> Dict[str, Any]:
+    from repro_torch.dist.sharding import is_spec
+    if is_spec(specs):
+        return {prefix: specs}
+    kids = _children(specs)
+    flat = {}
+    for k, v in kids:
+        flat.update(_spec_flat(v, f"{prefix}/{k}" if prefix else k))
+    return flat
+
+
+def _gathered(flat, specs, mesh) -> Dict[str, Any]:
+    """Whole leaves from this rank's slices (every rank gets them)."""
+    from repro_torch.dist import comm
+    flat_specs = _spec_flat(specs)
+    out = {}
+    for k, v in flat.items():
+        spec = flat_specs[k]
+        if isinstance(v, torch.Tensor):
+            for d, e in enumerate(spec):
+                if e is None:
+                    continue
+                for ax in reversed(e if isinstance(e, tuple) else (e,)):
+                    v = comm.all_gather_dim(v.detach(), d, mesh.group(ax))
+        out[k] = v
+    return out
+
+
+def _write(path: str, flat, step: Optional[int]) -> None:
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    flat = {k: _host(v) for k, v in _flatten(tree).items()}
+    flat = {k: _host(v) for k, v in flat.items()}
     tmp = path.with_suffix(".tmp.npz")
     np.savez(tmp, **flat)
     os.replace(tmp, path)
@@ -73,11 +106,35 @@ def save(path: str, tree, *, step: Optional[int] = None) -> None:
     path.with_suffix(".meta.json").write_text(json.dumps(meta))
 
 
-def restore(path: str, target):
+def save(path: str, tree, *, step: Optional[int] = None, specs=None,
+         mesh=None) -> None:
+    """Write ``tree``; a tree of slices (``specs`` on a distributed
+    ``mesh``) is gathered first and written by rank 0 alone, and every
+    rank returns once the file is in place."""
+    flat = _flatten(tree)
+    if mesh is None or not mesh.distributed:
+        _write(path, flat, step)
+        return
+    from repro_torch.dist import comm
+    flat = _gathered(flat, specs, mesh)
+    try:
+        if mesh.rank == 0:
+            _write(path, flat, step)
+    finally:
+        comm.barrier()
+
+
+def restore(path: str, target, *, specs=None, mesh=None):
     """A tree shaped like ``target`` (tensors, or ints for int leaves) with
     the checkpoint's values, each tensor in its target leaf's dtype and on
-    its device."""
+    its device.  With ``specs`` on a distributed ``mesh`` ``target`` holds
+    this rank's slices, and each leaf is cut to the slice."""
     data = np.load(path)
+    sliced = mesh is not None and mesh.distributed
+    if sliced:
+        from repro_torch.dist.sharding import shard_leaf
+        flat_specs = _spec_flat(specs)
+        sizes = dict(mesh.shape)
 
     def rebuild(tree, prefix):
         kids = _children(tree)
@@ -85,6 +142,8 @@ def restore(path: str, target):
             arr = data[prefix]
             if isinstance(tree, int):
                 return int(arr)
+            if sliced:
+                arr = shard_leaf(arr, flat_specs[prefix], sizes, mesh.coords)
             assert arr.shape == tuple(tree.shape), (prefix, arr.shape,
                                                     tuple(tree.shape))
             return torch.from_numpy(np.array(arr)).to(dtype=tree.dtype,

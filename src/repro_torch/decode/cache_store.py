@@ -188,7 +188,8 @@ class CacheStore:
         if src.device != dst.device:
             raise NotImplementedError(
                 f"shipping between {src.device} and {dst.device} is ported "
-                "in the multi-device slice; both pools must share a device")
+                "in the multi-device slice for serving; both pools must "
+                "share a device")
         self.src = src
         self.dst = dst
         self.timeout_s = timeout_s

@@ -1,30 +1,46 @@
-"""Runner API of the training path on one device: one runner per split
-mode, as ``repro.dist.api``.
+"""Runner API of the training path: one runner per split mode, as
+``repro.dist.api``, on one device or on a mesh of ranks.
 
 ``build_runner(cfg, mode, mesh)`` returns a runner for one of
 
-- ``"fsdp"``      unsplit baseline: the full model.
+- ``"fsdp"``      unsplit baseline: the full model, ZeRO-3 param layout.
 - ``"semantic"``  the paper's SEMANTIC split: B independent block-diagonal
-                  branches (``cfg.semantic(B)``, B = 2 on one device, as
-                  ``max(2, model)`` gives on a 1 x 1 mesh), run side by side
-                  along a leading branch dim.
+                  branches (``cfg.semantic(B)``, B = ``max(2, model)`` by
+                  default), branch dim on 'model'.
 - ``"pipeline"``  the paper's LAYER split (``repro_torch.dist.pipeline``):
-                  under ``schedule="gspmd"`` the microbatched loss with
-                  gradient accumulation; under ``"gpipe"`` / ``"1f1b"`` the
-                  explicit stage graph, its tick table walked by one stage.
+                  under ``schedule="gspmd"`` the microbatched loss; under
+                  ``"gpipe"`` / ``"1f1b"`` the explicit stage graph, with
+                  ``expert_parallel`` the expert-parallel substrate.
 
-On one device the three modes are the JAX package's math without its
-sharding specs.  Every runner exposes ``init``, ``loss`` and
-``value_and_grad``, and the serving surface of the gang path:
-``prefill_step``, ``init_cache``, ``supports_batched_prefill``,
-``prefill_into_cache`` and ``serve_step`` (``params`` None there: the
-runner's own weights).  ``make_train_step`` and ``make_serve_step`` close
-over a runner.  Parameter
-and gradient trees are nested dicts in the JAX param-tree layout
-(``Model.param_tree()``).  A mesh other than 1 x 1 and expert parallelism
-raise ``NotImplementedError``: they come with the multi-device training
-slice (FSDP over ``torch.distributed``, the stage graph across devices,
-all-to-all MoE).
+``mesh`` is a ``repro_torch.launch.mesh`` mesh (or a ``"D,M"`` string or
+tuple naming one).  On a 1 x 1 mesh a runner holds whole leaves and runs
+no collective.  On a :class:`~repro_torch.launch.mesh.Mesh` of several
+ranks each rank stores only its slice of every leaf, as ``param_specs``
+(the reference's specs) assign it, and AdamW moments to match:
+
+- fsdp and gspmd gather each leaf's slices on use: a superblock's leaves
+  inside its body (so remat's recompute gathers them again), embed and
+  norms when the loss starts, by ``dist.comm``'s differentiable all-gather
+  (a broadcast where an axis splits the superblock stack), so autograd
+  reduce-scatters each gradient back to its slice; they split the batch
+  over 'data';
+- semantic ranks hold and run their own branches, gathering only the
+  'data' slices; the branches' logit shards meet in one all-gather;
+- the explicit schedules run one stage a rank, sending activations and
+  cotangents point to point; the expert-parallel substrate exchanges tokens
+  with all-to-alls.
+
+Gradients are those of the mean loss over 'data'.  Ranks on one 'model'
+slice compute the same loss (fsdp, gspmd, semantic, expert parallel), so a
+gradient that collectives summed over 'model' is divided by its size, and
+one of a leaf 'data' does not split is averaged over 'data'.
+
+Every runner exposes ``init``, ``loss``, ``value_and_grad``,
+``param_specs`` and ``cache_specs``, and on one device the serving surface
+of the gang path (``prefill_step``, ``init_cache``,
+``supports_batched_prefill``, ``prefill_into_cache``, ``serve_step``;
+``params`` None there: the runner's own weights).  Parameter and gradient
+trees are nested dicts in the JAX param-tree layout.
 """
 from __future__ import annotations
 
@@ -33,23 +49,25 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import comm
+from repro_torch.dist.comm import reduce_grads, replicated_mean
 from repro_torch.dist import pipeline as PL
+from repro_torch.dist import sharding as SH
+from repro_torch.dist.sharding import (  # noqa: F401  (public API re-exports)
+    batch_specs,
+    make_opt_specs,
+    pod_shard_opt_specs,
+)
+from repro_torch.launch import mesh as M
+from repro_torch.models import layers as L
+from repro_torch.models import model as MM
+from repro_torch.models import transformer as T
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw_update, tree_leaves
 
 MODES = ("fsdp", "semantic", "pipeline")
-_LATER = "is ported with the multi-device training slice"
-
-
-def parse_mesh(mesh) -> tuple:
-    """A (data, model) mesh shape from ``"1,1"`` or a tuple; only 1 x 1
-    runs here."""
-    dims = tuple(int(x) for x in mesh.split(",")) if isinstance(mesh, str) \
-        else tuple(mesh)
-    if any(d != 1 for d in dims):
-        raise NotImplementedError(f"mesh {dims}: training on several "
-                                  f"devices {_LATER}")
-    return dims
+_SERVING = "serving on several devices is ported with the multi-device " \
+    "slice for serving"
 
 
 def tree_unflatten(tree, leaves):
@@ -64,43 +82,151 @@ def tree_unflatten(tree, leaves):
 
 
 class BaseRunner:
-    """Shared runner plumbing; subclasses fix the loss schedule.  The
-    model is built on the meta device (its methods need only its config);
-    ``init`` builds the parameters on ``device``."""
+    """Shared runner plumbing; subclasses fix the layout and the loss
+    schedule.  The model is built on the meta device (its methods need only
+    its config); ``init`` builds the parameters on ``device``."""
 
     mode: str = ""
+    #: leading cache dim (superblock stack / branch) placed on 'model'
+    _cache_model_leading = False
+    #: mesh axes whose slices a rank runs as they are (not gathered)
+    _owned_axes: tuple = ()
 
-    def __init__(self, cfg: ArchConfig, mesh=(1, 1), *, device="cuda"):
-        self.mesh = parse_mesh(mesh)
+    def __init__(self, cfg: ArchConfig, mesh=(1, 1), *, device="cuda",
+                 shard_cache_len: bool = False, zero_data: bool = True):
+        self.mesh = M.resolve(mesh)
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = build_model(cfg, device="meta")
+        self.shard_cache_len = shard_cache_len
+        self.zero_data = zero_data
+        self.specs = None
+
+    @property
+    def distributed(self) -> bool:
+        return self.mesh.distributed
+
+    def _check_world(self) -> None:
+        if self.mesh.size > 1 and not self.mesh.distributed:
+            raise ValueError(
+                f"mesh {self.mesh.dims} is larger than the world (1 rank): "
+                "build it with launch.mesh.init_mesh")
 
     # ------------------------------------------------------------ lifecycle
     def init(self, seed: int = 0):
         """Random parameters (the JAX init's distributions, drawn from a
         ``torch.Generator`` seeded with ``seed``) on the runner's device,
-        with grad enabled; returns their tree."""
+        with grad enabled; returns their tree.  On a mesh every rank draws
+        the same weights and keeps its slice of each leaf."""
+        self._check_world()
         self.model = build_model(self.cfg, device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.model.reset_parameters(gen).requires_grad_(True)
-        return self.model.param_tree()
+        self.model.reset_parameters(gen)
+        if not self.distributed:
+            self.model.requires_grad_(True)
+            return self.model.param_tree()
+        local = self.shard(self.model.param_tree())
+        self.model = build_model(self.cfg, device="meta")
+        return local
 
-    def loss(self, params, batch, *, remat: bool = False):
+    def shard(self, tree):
+        """This rank's slice of a whole tree under ``param_specs`` (copies,
+        with grad enabled); records the specs."""
+        self._check_world()
+        self.specs = self.param_specs(tree)
+        sizes = dict(self.mesh.shape)
+        return SH.tree_map(lambda t, s: SH.shard_leaf(
+            t.detach(), s, sizes, self.mesh.coords).clone()
+            .requires_grad_(True), tree, self.specs)
+
+    def local_batch(self, batch):
+        """This rank's rows of a global batch: the leading dim split over
+        'data' where ``batch_specs`` splits it."""
+        if not self.distributed:
+            return batch
+        specs = batch_specs(self.cfg, self.mesh, batch)
+        sizes = dict(self.mesh.shape)
+        return {k: SH.shard_leaf(v, specs[k], sizes, self.mesh.coords)
+                for k, v in batch.items()}
+
+    def _on_use(self, params):
+        """The model's view of this rank's slices, each leaf gathered
+        (apart from the owned axes' slices) by differentiable collectives,
+        so that autograd reduce-scatters its gradient back to the slice:
+        the superblock stacks a superblock at a time, inside its body (so
+        inside remat's checkpoint, whose recompute gathers it again), the
+        other leaves when the loss starts."""
+        if not self.distributed:
+            return params
+        whole = self.model.param_tree()     # on the meta device
+        sd = len(self.model._lead)          # a stack leaf's superblock dim
+        out = {}
+        for k, sub in params.items():
+            if k not in ("blocks", "enc_blocks"):
+                out[k] = SH.tree_map(self._gather_leaf, sub, self.specs[k])
+                continue
+            n = tree_leaves(whole[k])[0].shape[sd]
+            out[k] = T.StackOnUse(n, lambda i, sub=sub, specs=self.specs[k]:
+                                  SH.tree_map(lambda t, s: self._fetch(
+                                      t, s, sd, i), sub, specs))
+        return out
+
+    def _gather_leaf(self, t, spec):
+        for d, e in enumerate(spec):
+            if e is not None and e not in self._owned_axes:
+                t = comm.all_gather(t, d, self.mesh.group(e))
+        return t
+
+    def _fetch(self, t, spec, sd: int, i: int):
+        """Superblock ``i`` of a stack leaf's slices (dim ``sd``), whole
+        apart from the owned axes.  Where an axis splits the stack,
+        superblock ``i`` lies on one of its ranks, which broadcasts it."""
+        spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+        e, n_local = spec[sd], t.shape[sd]
+        if e is None:
+            x = t.select(sd, i)
+        else:
+            x = comm.broadcast(t.select(sd, i % n_local), i // n_local,
+                               self.mesh.group(e))
+        return self._gather_leaf(x, spec[:sd] + spec[sd + 1:])
+
+    def _n_micro(self, batch) -> int:
+        return 1
+
+    def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1):
         return self.model.loss_chunked(params, batch, remat=remat)
 
+    def loss(self, params, batch, *, remat: bool = False):
+        m = self._n_micro(batch)
+        if not self.distributed:
+            return self._local_loss(params, batch, remat=remat, n_micro=m)
+        with torch.no_grad():
+            loss = self._local_loss(self._on_use(params),
+                                    self.local_batch(batch), remat=False,
+                                    n_micro=m)
+        return replicated_mean(loss, self.mesh)
+
     def value_and_grad(self, params, batch, *, remat: bool = False):
-        """(loss, grads): grads is a tree of the params' paths."""
-        leaves = tree_leaves(params)
-        loss = self.loss(params, batch, remat=remat)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, leaves)]
-        return loss.detach(), tree_unflatten(params, grads)
+        """(loss, grads): grads is a tree of the params' paths (on a mesh,
+        of this rank's slices), accumulated a microbatch at a time."""
+        loss, grads = PL.microbatch_value_and_grad(
+            self.model, params, tree_leaves(params), self.local_batch(batch),
+            self._n_micro(batch), remat=remat,
+            loss_fn=lambda p, b: self._local_loss(self._on_use(p), b,
+                                                  remat=remat))
+        if self.distributed:
+            grads = reduce_grads(grads, self.specs, self.mesh)
+            loss = replicated_mean(loss, self.mesh)
+        return loss, tree_unflatten(params, grads)
 
     # -------------------------------------------------------------- serving
+    def _one_device(self) -> None:
+        if self.distributed:
+            raise NotImplementedError(_SERVING)
+
     def prefill_step(self, params, batch):
         """Full-prompt forward; returns [B, S, vocab] logits."""
+        self._one_device()
         with torch.no_grad():
             logits, _ = self.model.forward(params, batch)
         return logits
@@ -108,6 +234,7 @@ class BaseRunner:
     def init_cache(self, batch_size: int, cache_len: int,
                    window_override: Optional[int] = None):
         """Dense decode caches on the runner's device (after ``init``)."""
+        self._one_device()
         return self.model.init_cache(batch_size, cache_len, window_override)
 
     @property
@@ -119,6 +246,7 @@ class BaseRunner:
                            cache_index: int = 0, lengths=None):
         """Whole-prompt prefill into the decode cache.  tokens: [B, S].
         Returns ([B, vocab] last-token logits, cache)."""
+        self._one_device()
         return self.model.prefill_cache(params, cache, tokens,
                                         cache_index=cache_index,
                                         lengths=lengths)
@@ -126,96 +254,197 @@ class BaseRunner:
     def serve_step(self, params, cache, batch, cache_index: int, *,
                    window_override: Optional[int] = None):
         """One-token decode; returns ([B, vocab] logits, cache)."""
+        self._one_device()
         logits, cache = self.model.decode_step(
             params, cache, batch["tokens"], cache_index, batch=batch,
             window_override=window_override)
         return logits[:, -1], cache
 
+    # -------------------------------------------------------------- layouts
+    def param_specs(self, params):
+        raise NotImplementedError
+
+    def cache_specs(self, cache):
+        return SH.cache_specs(cache, self.mesh,
+                              shard_cache_len=self.shard_cache_len,
+                              model_leading=self._cache_model_leading)
+
 
 class FSDPRunner(BaseRunner):
     mode = "fsdp"
 
+    def param_specs(self, params):
+        return SH.fsdp_param_specs(params, self.mesh,
+                                   zero_data=self.zero_data)
+
+
+class _GatheredBranches:
+    """The chunked CE's view of a semantic model whose branches are spread
+    over 'model': each rank unembeds its own branches and one all-gather
+    joins the vocab shards in branch order."""
+
+    def __init__(self, model, group):
+        self.model, self.group = model, group
+
+    def chunk_logits(self, params, h):
+        logits = L.unembed_apply(params["embed"], h.flatten(1, 2),
+                                 self.model.branch_cfg)
+        logits = comm.all_gather(logits, 0, self.group)
+        return self.model._merge(logits.unflatten(1, h.shape[1:3]))
+
 
 class SemanticRunner(BaseRunner):
-    """SEMANTIC split: B branches of width d/B run independently; the only
-    cross-branch op is the final vocab-shard concat."""
+    """SEMANTIC split: B branches of width d/B run independently (the only
+    cross-branch op is the final vocab-shard concat), so 'model' ranks
+    host whole branches."""
 
     mode = "semantic"
+    _cache_model_leading = True
+    _owned_axes = ("model",)
 
     def __init__(self, cfg: ArchConfig, mesh=(1, 1), *,
-                 n_branches: Optional[int] = None, device="cuda"):
-        n_b = n_branches or max(2, parse_mesh(mesh)[-1])
-        super().__init__(cfg.semantic(n_b), mesh, device=device)
+                 n_branches: Optional[int] = None, **kw):
+        shape = M.resolve(mesh)
+        n_b = n_branches or max(2, shape.axis_size("model"))
+        if n_b % shape.axis_size("model"):
+            raise ValueError(f"{n_b} branches do not divide over mesh "
+                             f"'model' size {shape.axis_size('model')}")
+        super().__init__(cfg.semantic(n_b), shape, **kw)
+        self.base_cfg = cfg
+
+    def param_specs(self, params):
+        return SH.semantic_param_specs(params, self.mesh,
+                                       zero_data=self.zero_data)
+
+    def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1):
+        if not self.distributed or self.mesh.axis_size("model") == 1:
+            return self.model.loss_chunked(params, batch, remat=remat)
+        group = self.mesh.group("model")
+        h, aux = self.model.hidden(params, batch, remat=remat)
+        aux = comm.all_reduce(aux, group)
+        return MM._chunked_ce(_GatheredBranches(self.model, group), params, h,
+                              batch["labels"], 512) + 0.01 * aux
 
 
 class PipelineRunner(BaseRunner):
     """LAYER split under one of three schedules:
 
-    - ``"gspmd"``: the microbatched loss, its gradients accumulated a
-      microbatch at a time.
+    - ``"gspmd"``: the microbatched loss (the stack dim on 'model' as a
+      layout; every rank gathers the leaves and runs every layer), its
+      gradients accumulated a microbatch at a time.
     - ``"gpipe"`` / ``"1f1b"``: the explicit stage graph
-      (``repro_torch.dist.pipeline``) with its manual remat-style backward;
-      ``memory_budget`` caps gpipe's saved microbatches.
+      (``repro_torch.dist.pipeline``), one stage per 'model' rank, with
+      its manual remat-style backward; ``memory_budget`` caps gpipe's saved
+      microbatches.
+
+    With ``expert_parallel`` on an explicit schedule, 'model' carries
+    experts instead of stages and the MoE all-to-all path runs end to end;
+    under ``"gspmd"`` expert parallelism stays layout-level.
     """
 
     mode = "pipeline"
+    _cache_model_leading = True
 
     def __init__(self, cfg: ArchConfig, mesh=(1, 1), *,
                  n_microbatches: Optional[int] = None,
                  expert_parallel: bool = False, schedule: str = "gspmd",
-                 memory_budget: Optional[int] = None, device="cuda"):
+                 memory_budget: Optional[int] = None, **kw):
         if schedule not in PL.SCHEDULES:
             raise ValueError(
                 f"unknown schedule {schedule!r}; expected one of "
                 f"{PL.SCHEDULES}")
-        if expert_parallel:
-            raise NotImplementedError(f"expert parallelism {_LATER}")
-        super().__init__(cfg, mesh, device=device)
+        super().__init__(cfg, mesh, **kw)
         self.n_microbatches = n_microbatches
+        self.expert_parallel = expert_parallel
         self.schedule = schedule
         self.memory_budget = memory_budget
-        self.n_stages = self.mesh[-1]
+        self.n_stages = self.mesh.axis_size("model")
+        self._ep_model = None
+        if self._use_ep_substrate():
+            if cfg.moe.n_experts % max(self.n_stages, 1):
+                raise ValueError(
+                    f"{cfg.name}: expert parallelism needs n_experts="
+                    f"{cfg.moe.n_experts} divisible by the mesh 'model' "
+                    f"size {self.n_stages}")
+            self._ep_model = build_model(
+                cfg.replace(expert_parallel_axis="model"), device="meta")
+
+    def _use_ep_substrate(self) -> bool:
+        return (self.expert_parallel and self.schedule != "gspmd"
+                and self.cfg.moe is not None)
+
+    def _use_stage_graph(self) -> bool:
+        return self.schedule != "gspmd" and not self._use_ep_substrate()
 
     def _resolve(self, batch) -> int:
         return PL.resolve_microbatches(batch["tokens"].shape[0],
                                        self.n_microbatches, self.n_stages)
 
+    def _n_micro(self, batch) -> int:
+        return self._resolve(batch)
+
+    def local_batch(self, batch):
+        """Microbatch-major rows: microbatch m's rows split over 'data'."""
+        if not self.distributed:
+            return batch
+        return PL.split_data(batch, self._resolve(batch), self.mesh)
+
+    def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1):
+        return PL.microbatch_loss(self.model, params, batch, n_micro,
+                                  remat=remat)
+
     def loss(self, params, batch, *, remat: bool = False):
         m = self._resolve(batch)
-        if self.schedule != "gspmd":
+        if self._use_ep_substrate():
+            return PL.ep_loss(self._ep_model, params, batch, self.mesh,
+                              n_micro=m, remat=remat)
+        if self._use_stage_graph():
             return PL.stage_graph_loss(self.model, params, batch, self.mesh,
                                        schedule=self.schedule, n_micro=m)
-        return PL.microbatch_loss(self.model, params, batch, m, remat=remat)
+        return super().loss(params, batch, remat=remat)
 
     def value_and_grad(self, params, batch, *, remat: bool = False):
         m = self._resolve(batch)
-        if self.schedule != "gspmd":
+        if self._use_ep_substrate():
+            loss, grads = PL.ep_value_and_grad(
+                self._ep_model, params, batch, self.mesh, specs=self.specs,
+                n_micro=m, remat=remat)
+            return loss, tree_unflatten(params, grads)
+        if self._use_stage_graph():
             loss, grads = PL.stage_graph_value_and_grad(
                 self.model, params, batch, self.mesh, schedule=self.schedule,
-                n_micro=m, remat=remat, memory_budget=self.memory_budget)
+                n_micro=m, remat=remat, memory_budget=self.memory_budget,
+                specs=self.specs)
             return loss, tree_unflatten(params, grads)
-        if m <= 1:
-            return super().value_and_grad(params, batch, remat=remat)
-        loss, grads = PL.microbatch_value_and_grad(
-            self.model, params, tree_leaves(params), batch, m, remat=remat)
-        return loss, tree_unflatten(params, grads)
+        return super().value_and_grad(params, batch, remat=remat)
 
+    # -------------------------------------------------------------- layouts
+    def param_specs(self, params):
+        if self.schedule != "gspmd":
+            return SH.stage_param_specs(
+                params, self.mesh, expert_parallel=self._use_ep_substrate())
+        return SH.pipeline_param_specs(params, self.mesh,
+                                       zero_data=self.zero_data,
+                                       expert_parallel=self.expert_parallel)
+
+    # ----------------------------------------------------------- accounting
     def schedule_stats(self, batch_size: int, seq_len: int) -> dict:
         """Bubble-fraction / transfer-bytes accounting for one train step of
-        the configured schedule (analytic, from the static tick table);
-        under ``gspmd`` there is no tick table to report."""
+        the configured schedule (analytic, from the static tick table)."""
         m = PL.resolve_microbatches(batch_size, self.n_microbatches,
                                     self.n_stages)
+        n_data = self.mesh.axis_size("data")
         stats = {"mode": self.mode, "schedule": self.schedule,
                  "n_stages": self.n_stages, "n_microbatches": m,
                  "memory_budget": self.memory_budget,
-                 "expert_parallel": False}
-        if self.schedule == "gspmd":
+                 "expert_parallel": bool(self._use_ep_substrate())}
+        if self.schedule == "gspmd" or self._use_ep_substrate():
+            # gspmd: no tick table; expert parallel: all-to-alls sized by
+            # the MoE dispatch
             return stats
         sched = PL.build_schedule(self.schedule, self.n_stages, m,
                                   memory_budget=self.memory_budget)
-        pb = PL.payload_bytes(self.cfg, batch_size // m // self.mesh[0],
-                              seq_len)
+        pb = PL.payload_bytes(self.cfg, batch_size // m // n_data, seq_len)
         stats.update({
             "ticks": sched.ticks,
             "bubble_fraction": round(sched.bubble_fraction, 4),
@@ -224,7 +453,7 @@ class PipelineRunner(BaseRunner):
             "payload_bytes": pb,
             "transfer_bytes_per_step": sched.n_transfers * pb,
             # the reference's SPMD wire traffic: 2 sends a tick a stage,
-            # masked ones included
+            # masked ones included (the port sends the scheduled ones only)
             "wire_bytes_per_step": 2 * sched.ticks * self.n_stages * pb,
         })
         return stats
@@ -232,35 +461,41 @@ class PipelineRunner(BaseRunner):
 
 def build_runner(cfg: ArchConfig, mode: str, mesh=(1, 1), *,
                  n_microbatches: Optional[int] = None,
+                 shard_cache_len: bool = False,
                  expert_parallel: bool = False,
+                 zero_data: bool = True,
                  n_branches: Optional[int] = None,
                  schedule: str = "gspmd",
                  memory_budget: Optional[int] = None, device="cuda"):
     """Construct the runner for one split mode (see the module docstring);
-    the arguments are the JAX ``build_runner``'s that apply on one
-    device, plus ``device``."""
+    the JAX ``build_runner``'s arguments, plus ``device``.  A mesh larger
+    than the world raises."""
+    common = dict(shard_cache_len=shard_cache_len, zero_data=zero_data,
+                  device=device)
     if mode == "fsdp":
-        return FSDPRunner(cfg, mesh, device=device)
+        return FSDPRunner(cfg, mesh, **common)
     if mode == "semantic":
-        return SemanticRunner(cfg, mesh, n_branches=n_branches, device=device)
+        return SemanticRunner(cfg, mesh, n_branches=n_branches, **common)
     if mode == "pipeline":
         return PipelineRunner(cfg, mesh, n_microbatches=n_microbatches,
                               expert_parallel=expert_parallel,
                               schedule=schedule, memory_budget=memory_budget,
-                              device=device)
+                              **common)
     raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
 
 def make_train_step(runner, *, lr: float = 3e-4, remat: bool = False,
                     weight_decay: float = 0.1, clip_norm: float = 1.0):
     """(params, opt, batch) -> (params, opt, loss): grads from
-    ``runner.value_and_grad``, then an AdamW step (in place)."""
+    ``runner.value_and_grad``, then an AdamW step (in place; on a mesh over
+    each rank's slices, clipped by the whole gradient's norm)."""
 
     def step(params, opt, batch):
         loss, grads = runner.value_and_grad(params, batch, remat=remat)
         params, opt = adamw_update(grads, opt, params, lr=lr,
                                    weight_decay=weight_decay,
-                                   clip_norm=clip_norm)
+                                   clip_norm=clip_norm, specs=runner.specs,
+                                   mesh=runner.mesh)
         return params, opt, loss
 
     return step

@@ -1,5 +1,5 @@
-"""Pipeline execution for the paper's LAYER split on one device
-(``repro.dist.pipeline`` without its meshes).
+"""Pipeline execution for the paper's LAYER split (``repro.dist.pipeline``),
+on one device or one stage a rank.
 
 1. **Microbatch streaming** (``schedule="gspmd"``): the batch is cut into M
    microbatches whose mean loss is the step's loss, and whose gradients
@@ -15,12 +15,23 @@
    without autograd and saves the stage's received payload, a B op re-runs
    the span from that saved payload with autograd on (remat-style) and
    pulls the arriving cotangent, or at the last stage the loss's ``1/M``,
-   back through it.  Idle cells are skipped.  Payloads move between stages
-   by writes into the receiving stage's buffers after the tick's reads,
-   where the reference sends them with ``lax.ppermute``; the runner holds
-   the stage count to 1 (a 1 x 1 mesh), so one stage runs every op.
+   back through it.  Idle cells are skipped.  On one device (a 1 x 1
+   mesh, or a ``(data, S)`` shape given to the executor) one process runs
+   every stage, and a payload moves by a write into the receiving stage's
+   buffers after the tick's reads.  On a mesh each 'model' rank runs its
+   stage: the F payload goes downstream and the B cotangent upstream by
+   point-to-point sends, where the reference uses ``lax.ppermute``.  Every
+   rank derives its sends and receives from the same table, only scheduled
+   transfers move (the reference's masked SPMD sends do not), and a tick's
+   transfers go in one ``batch_isend_irecv``.  Microbatches split over
+   'data'; gradients are averaged over 'data', and the leaves every stage
+   holds (embed, final norm, head) summed over 'model'.
 
-Expert parallelism waits for the multi-device training slice.
+3. **Expert parallelism** (``ep_loss``, ``ep_value_and_grad``): the model
+   is built with ``expert_parallel_axis="model"``; expert weights are split
+   over 'model' and ``models.moe._moe_apply_ep`` exchanges token buffers
+   with all-to-alls; everything else is replicated over 'model' and the
+   batch splits over 'data'.
 
 Numerics: the dense-model loss is invariant to M and to the schedule up to
 float summation order (``tests/test_torch_train.py``,
@@ -35,6 +46,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist import comm
+from repro_torch.launch import mesh as M
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import tree_map
 from repro_torch.optim.adamw import tree_leaves
@@ -79,25 +92,65 @@ def microbatch_loss(model, params, batch, n_micro: int, *,
 
 
 def microbatch_value_and_grad(model, params, leaves, batch, n_micro: int, *,
-                              remat: bool = False, chunk: int = 512):
-    """(loss, [grad per leaf]) of :func:`microbatch_loss` by gradient
-    accumulation: each microbatch's backward runs before the next
-    microbatch's forward."""
-    total, grads = None, None
-    for mb in split_microbatches(batch, n_micro):
-        loss = model.loss_chunked(params, mb, chunk=chunk,
-                                  remat=remat) / n_micro
-        g = torch.autograd.grad(loss, leaves, allow_unused=True)
-        g = [torch.zeros_like(p) if x is None else x
-             for x, p in zip(g, leaves)]
-        loss = loss.detach()
-        if grads is None:
-            total, grads = loss, list(g)
-        else:
-            total = total + loss
-            for acc, x in zip(grads, g):
-                acc.add_(x)
+                              remat: bool = False, chunk: int = 512,
+                              loss_fn=None):
+    """(loss, [grad per leaf]) of :func:`microbatch_loss` (or of
+    ``loss_fn(params, microbatch)``) by gradient accumulation: each
+    microbatch's backward runs before the next microbatch's forward, and
+    adds into the leaves' ``.grad`` in place, so no second tree of
+    gradients stands beside the sum.  Each leaf's ``.grad`` is as it was
+    on return."""
+    if loss_fn is None:
+        loss_fn = lambda p, mb: model.loss_chunked(p, mb, chunk=chunk,  # noqa: E731
+                                                   remat=remat)
+    saved = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    total = None
+    try:
+        for mb in split_microbatches(batch, n_micro):
+            loss = loss_fn(params, mb) / n_micro
+            torch.autograd.backward(loss, inputs=leaves)
+            loss = loss.detach()
+            total = loss if total is None else total + loss
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in leaves]
+    finally:
+        for p, g in zip(leaves, saved):
+            p.grad = g
     return total, grads
+
+
+def mesh_dims(mesh) -> Tuple[int, int]:
+    """(data, model) sizes of a mesh or of a ``(data, model)`` shape."""
+    if isinstance(mesh, M.MeshShape):
+        return mesh.axis_size("data"), mesh.axis_size("model")
+    return tuple(int(x) for x in mesh)
+
+
+def _distributed(mesh) -> bool:
+    return isinstance(mesh, M.MeshShape) and mesh.distributed
+
+
+def split_data(batch, n_micro: int, mesh):
+    """This rank's rows of a global batch, microbatch-major: each of the
+    ``n_micro`` microbatches' rows split over 'data' (the reference's
+    ``P(None, "data")`` on the [M, B/M, ...] reshape)."""
+    n_data = mesh.axis_size("data")
+    if n_data == 1:
+        return batch
+    r = mesh.coords["data"]
+    out = {}
+    for k, x in batch.items():
+        B = x.shape[0]
+        if B % n_micro or (B // n_micro) % n_data:
+            raise ValueError(f"batch {B} must split into n_microbatches="
+                             f"{n_micro} x data axis {n_data}")
+        bl = B // n_micro // n_data
+        parts = x.reshape((n_micro, B // n_micro) + tuple(x.shape[1:]))
+        out[k] = parts[:, r * bl:(r + 1) * bl].reshape(
+            (n_micro * bl,) + tuple(x.shape[1:]))
+    return out
 
 
 # =========================================================== schedule tables
@@ -325,16 +378,16 @@ def payload_bytes(cfg, b_local: int, seq: int) -> int:
 
 # ======================================================= stage-graph runtime
 def _stage_setup(model, batch, mesh, n_micro: int):
-    """Shared validation + microbatch reshape for the stage executors.
-    ``mesh`` is the (data, model) shape; the model axis is the stage
-    count."""
+    """Shared validation + microbatch reshape for the stage executors; the
+    model axis is the stage count.  On a mesh, this rank's rows of each
+    microbatch (split over 'data')."""
     cfg = model.cfg
     if not getattr(model, "supports_stage_split", False):
         raise ValueError(
             f"{cfg.name}: the explicit stage-graph schedules support plain "
             "decoder-only stacks (no enc-dec / modality frontends); use "
             'schedule="gspmd"')
-    n_data, S = mesh
+    n_data, S = mesh_dims(mesh)
     if cfg.n_superblocks % max(S, 1):
         raise ValueError(
             f"{cfg.name}: n_superblocks={cfg.n_superblocks} not divisible by "
@@ -347,15 +400,78 @@ def _stage_setup(model, batch, mesh, n_micro: int):
             f"data axis {n_data}")
     mt = tokens.reshape(n_micro, B // n_micro, s)
     ml = labels.reshape(n_micro, B // n_micro, s)
+    if _distributed(mesh) and n_data > 1:
+        bl, r = B // n_micro // n_data, mesh.coords["data"]
+        mt, ml = mt[:, r * bl:(r + 1) * bl], ml[:, r * bl:(r + 1) * bl]
     return S, mt, ml
 
 
-def _stage_spans(blocks, S: int):
-    """Stage i's contiguous span of the superblock stack (views with a
-    leading [n_superblocks / S] dim)."""
+def _stage_spans(blocks, S: int, mesh):
+    """{stage: its contiguous span of the superblock stack} for the stages
+    this process runs: every stage's span (views with a leading
+    [n_superblocks / S] dim) on one device, this rank's own span (the
+    blocks it holds) on a mesh."""
+    if _distributed(mesh):
+        return {mesh.coords["model"]: blocks}
     n = tree_leaves(blocks)[0].shape[0] // S
-    return [tree_map(lambda t, i=i: t[i * n:(i + 1) * n], blocks)
-            for i in range(S)]
+    return {i: tree_map(lambda t, i=i: t[i * n:(i + 1) * n], blocks)
+            for i in range(S)}
+
+
+def _pack(payload) -> torch.Tensor:
+    """A payload (or its cotangent) as one byte buffer: x, then the f32
+    aux."""
+    return torch.cat([payload["x"].contiguous().reshape(-1).view(torch.uint8),
+                      payload["aux"].float().reshape(1).view(torch.uint8)])
+
+
+def _unpack(buf: torch.Tensor, like) -> dict:
+    nx = like["x"].numel() * like["x"].element_size()
+    return {"x": buf[:nx].view(like["x"].dtype).view(like["x"].shape),
+            "aux": buf[nx:].view(torch.float32)[0]}
+
+
+class _Transfers:
+    """One tick's stage-to-stage moves: to a stage this process runs, a
+    buffer write; to another rank's stage, a send (and the matching receive
+    there), all of the tick's in one ``batch_isend_irecv``.  Writes land
+    after the tick's reads, since slots are reused at their last read."""
+
+    def __init__(self, mesh, zero):
+        self.mesh, self.zero = mesh, zero
+        self.writes, self.sends, self.recvs = [], [], []
+
+    def move(self, bufs, dst: int, slot: int, value) -> None:
+        if dst in bufs:
+            self.writes.append((bufs[dst], slot, value))
+        else:
+            self.sends.append((_pack(value), dst))
+
+    def expect(self, buf, slot: int, src: int) -> None:
+        self.recvs.append((buf, slot, src))
+
+    def finish(self) -> None:
+        if self.sends or self.recvs:
+            nbytes = _pack(self.zero).numel()
+            got = comm.exchange(
+                self.sends, [((nbytes,), torch.uint8, src)
+                             for _, _, src in self.recvs],
+                self.mesh.group("model"), self.zero["x"].device)
+            for (buf, slot, _), raw in zip(self.recvs, got):
+                self.writes.append((buf, slot, _unpack(raw, self.zero)))
+        for buf, slot, value in self.writes:
+            buf[slot] = value
+
+
+def _expect_arrivals(tr, sched, t: int, col: int, S: int, fwd_buf,
+                     bwd_buf) -> None:
+    """On a mesh: the receives of stage ``col`` at tick ``t`` (an F payload
+    from upstream, a B cotangent from downstream), as the table has the
+    neighbours send them."""
+    if fwd_buf is not None and col > 0 and sched.f_mb[t, col - 1] >= 0:
+        tr.expect(fwd_buf[col], sched.f_wslot[t, col], col - 1)
+    if bwd_buf is not None and col < S - 1 and sched.b_mb[t, col + 1] >= 0:
+        tr.expect(bwd_buf[col], sched.b_wslot[t, col], col + 1)
 
 
 def _payload_zero(model, mt):
@@ -391,38 +507,44 @@ def stage_graph_loss(model, params, batch, mesh, *, schedule: str = "gpipe",
                      n_micro: int = 1):
     """Forward-only stage-graph loss: M microbatches through the
     ``forward_only`` table, the last stage's per-microbatch mean losses
-    averaged.  The loss value is schedule-independent (and runs without
-    autograd, so remat has nothing to change)."""
+    averaged (summed over 'model' and averaged over 'data' on a mesh).  The
+    loss value is schedule-independent (and runs without autograd, so remat
+    has nothing to change)."""
     S, mt, ml = _stage_setup(model, batch, mesh, n_micro)
     sched = build_schedule(schedule, S, n_micro, forward_only=True)
-    spans = _stage_spans(params["blocks"], S)
-    fwd_buf = [[_payload_zero(model, mt)] * sched.n_fwd_slots
-               for _ in range(S)]
+    spans = _stage_spans(params["blocks"], S, mesh)
+    zero = _payload_zero(model, mt)
+    fwd_buf = {c: [zero] * sched.n_fwd_slots for c in spans}
     loss = torch.zeros((), dtype=torch.float32, device=mt.device)
     with torch.no_grad():
         for t in range(sched.ticks):
-            writes = []
-            for col in range(S):
+            tr = _Transfers(mesh, zero)
+            for col, span in spans.items():
+                if _distributed(mesh):
+                    _expect_arrivals(tr, sched, t, col, S, fwd_buf, None)
                 m = int(sched.f_mb[t, col])
                 if m < 0:
                     continue
                 payload, loss_m = _tick_core(
-                    model, params, spans[col], mt[m], ml[m],
+                    model, params, span, mt[m], ml[m],
                     fwd_buf[col][sched.f_read[t, col]], col, S, False)
                 if loss_m is not None:
                     loss = loss + loss_m / n_micro
                 if col + 1 < S:
-                    writes.append((fwd_buf[col + 1],
-                                   sched.f_wslot[t, col + 1], payload))
-            for buf, slot, value in writes:
-                buf[slot] = value
+                    tr.move(fwd_buf, col + 1, sched.f_wslot[t, col + 1],
+                            payload)
+            tr.finish()
+    if _distributed(mesh):
+        loss = comm.mean_over_data(
+            comm.all_reduce_sum(loss, mesh.group("model")), mesh)
     return loss
 
 
 def stage_graph_value_and_grad(model, params, batch, mesh, *,
                                schedule: str = "gpipe", n_micro: int = 1,
                                remat: bool = False,
-                               memory_budget: Optional[int] = None):
+                               memory_budget: Optional[int] = None,
+                               specs=None):
     """(loss, [grad per leaf of ``params``]) under an explicit pipeline
     schedule.
 
@@ -431,38 +553,41 @@ def stage_graph_value_and_grad(model, params, batch, mesh, *,
     (``remat`` checkpoints each superblock inside it) and pulls back the
     arriving cotangent, or at the last stage ``1/M`` on the loss; the
     parameter gradients accumulate over the ops and the payload's
-    cotangent goes to the stage before.  Every stage's grads land in the
-    one tree, which is the reference's psum over 'model' of the leaves
-    replicated there.  All of a tick's buffer writes follow its reads,
-    since the slot tables reuse a slot at the tick of its last read."""
+    cotangent goes to the stage before.  On one device every stage's grads
+    land in the one tree, which is the reference's psum over 'model' of the
+    leaves replicated there; on a mesh (``params`` this rank's slices,
+    ``specs`` their specs) the reduction is explicit: a mean over 'data',
+    and a sum over 'model' of the leaves 'model' does not split."""
     S, mt, ml = _stage_setup(model, batch, mesh, n_micro)
     sched = build_schedule(schedule, S, n_micro, memory_budget=memory_budget)
     leaves = tree_leaves(params)
-    spans = _stage_spans(params["blocks"], S)
+    spans = _stage_spans(params["blocks"], S, mesh)
     zero = _payload_zero(model, mt)
-    fwd_buf = [[zero] * sched.n_fwd_slots for _ in range(S)]
-    sav_buf = [[zero] * sched.n_saved_slots for _ in range(S)]
-    bwd_buf = [[zero] * sched.n_bwd_slots for _ in range(S)]
+    fwd_buf = {c: [zero] * sched.n_fwd_slots for c in spans}
+    sav_buf = {c: [zero] * sched.n_saved_slots for c in spans}
+    bwd_buf = {c: [zero] * sched.n_bwd_slots for c in spans}
     grads = [torch.zeros_like(p) for p in leaves]
     loss = torch.zeros((), dtype=torch.float32, device=mt.device)
     ct_loss = torch.full((), 1.0 / n_micro, dtype=torch.float32,
                          device=mt.device)
     for t in range(sched.ticks):
-        writes = []
-        for col in range(S):
+        tr = _Transfers(mesh, zero)
+        for col, span in spans.items():
+            if _distributed(mesh):
+                _expect_arrivals(tr, sched, t, col, S, fwd_buf, bwd_buf)
             f_m, b_m = int(sched.f_mb[t, col]), int(sched.b_mb[t, col])
             if f_m >= 0:
                 recv = fwd_buf[col][sched.f_read[t, col]]
                 with torch.no_grad():
                     payload, loss_m = _tick_core(
-                        model, params, spans[col], mt[f_m], ml[f_m], recv,
+                        model, params, span, mt[f_m], ml[f_m], recv,
                         col, S, False)
                 if loss_m is not None:
                     loss = loss + loss_m / n_micro
-                writes.append((sav_buf[col], sched.f_save[t, col], recv))
+                tr.move(sav_buf, col, sched.f_save[t, col], recv)
                 if col + 1 < S:
-                    writes.append((fwd_buf[col + 1],
-                                   sched.f_wslot[t, col + 1], payload))
+                    tr.move(fwd_buf, col + 1, sched.f_wslot[t, col + 1],
+                            payload)
             if b_m >= 0:
                 recv, ins = None, leaves
                 if col > 0:
@@ -471,7 +596,7 @@ def stage_graph_value_and_grad(model, params, batch, mesh, *,
                     ins = leaves + [recv["x"], recv["aux"]]
                 with torch.enable_grad():
                     payload, loss_m = _tick_core(
-                        model, params, spans[col], mt[b_m], ml[b_m], recv,
+                        model, params, span, mt[b_m], ml[b_m], recv,
                         col, S, remat)
                 if col == S - 1:
                     outs, cts = [loss_m], [ct_loss]
@@ -484,9 +609,59 @@ def stage_graph_value_and_grad(model, params, batch, mesh, *,
                     if gi is not None:
                         acc.add_(gi)
                 if col > 0:
-                    writes.append((bwd_buf[col - 1],
-                                   sched.b_wslot[t, col - 1],
-                                   {"x": g[-2], "aux": g[-1]}))
-        for buf, slot, value in writes:
-            buf[slot] = value
+                    tr.move(bwd_buf, col - 1, sched.b_wslot[t, col - 1],
+                            {"x": g[-2], "aux": g[-1]})
+        tr.finish()
+    if _distributed(mesh):
+        loss = comm.mean_over_data(
+            comm.all_reduce_sum(loss, mesh.group("model")), mesh)
+        grads = comm.reduce_grads(grads, specs, mesh,
+                                  replicated_compute=False)
+    return loss, grads
+
+
+# ==================================================== expert-parallel runtime
+def _ep_batch(batch, mesh, n_micro: int):
+    """Validation for the EP substrate, and this rank's rows: the batch
+    splits over 'data' and the local rows split into microbatches."""
+    n_data = mesh_dims(mesh)[0]
+    B = batch["tokens"].shape[0]
+    if B % n_data or (B // n_data) % n_micro:
+        raise ValueError(
+            f"expert-parallel batch {B} must split into data axis {n_data} "
+            f"x n_microbatches={n_micro}")
+    if not _distributed(mesh) or n_data == 1:
+        return batch
+    bl, r = B // n_data, mesh.coords["data"]
+    return {k: v[r * bl:(r + 1) * bl] for k, v in batch.items()}
+
+
+def ep_loss(model, params, batch, mesh, *, n_micro: int = 1,
+            remat: bool = False):
+    """Expert-parallel loss: expert weights split over 'model' and
+    ``models.moe._moe_apply_ep``'s all-to-alls exchange token buffers
+    (``model`` built with ``expert_parallel_axis="model"``).  Non-expert
+    compute is replicated over 'model'; the batch splits over 'data'."""
+    local = _ep_batch(batch, mesh, n_micro)
+    with torch.no_grad(), M.use_mesh(mesh):
+        loss = microbatch_loss(model, params, local, n_micro, remat=remat)
+    return comm.replicated_mean(loss, mesh) if _distributed(mesh) else loss
+
+
+def ep_value_and_grad(model, params, batch, mesh, *, specs=None,
+                      n_micro: int = 1, remat: bool = False):
+    """(loss, [grad per leaf]) of :func:`ep_loss`, a microbatch's backward
+    before the next one's forward (:func:`microbatch_value_and_grad`).
+    Each 'model' rank computes the replicated loss on its 'data' rows, so
+    an expert leaf's gradient, which comes back through the all-to-alls'
+    adjoints once per rank, is divided by the axis size, while replicated
+    leaves take model rank 0's gradient, and the loss is model rank 0's;
+    everything is averaged over 'data'."""
+    local = _ep_batch(batch, mesh, n_micro)
+    with M.use_mesh(mesh):      # remat's recompute exchanges tokens too
+        loss, grads = microbatch_value_and_grad(
+            model, params, tree_leaves(params), local, n_micro, remat=remat)
+    if _distributed(mesh):
+        loss = comm.replicated_mean(loss, mesh)
+        grads = comm.reduce_grads(grads, specs, mesh)
     return loss, grads

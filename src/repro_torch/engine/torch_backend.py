@@ -123,8 +123,8 @@ class TorchBackend:
                 _same_device(torch.device(d), torch.device(device))
                 for d in fleet_devices):
             _not_ported("fleet_devices", [str(d) for d in fleet_devices],
-                        "the multi-device slice (a fleet on this backend "
-                        "shares its one device)")
+                        "the multi-device slice for serving (a fleet on "
+                        "this backend shares its one device)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cache_len = cache_len

@@ -40,7 +40,7 @@ def main(argv=None):
     if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):
         raise NotImplementedError(f"mesh {args.mesh}: serving on several "
                                   "devices is ported with the multi-device "
-                                  "slice")
+                                  "slice for serving")
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -1,10 +1,23 @@
-"""Training launcher of the port (``repro.launch.train`` on one device).
+"""Training launcher of the port (``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         --mode fsdp --steps 6 --seq-len 2048 --batch 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
         --mode pipeline --schedule 1f1b --n-microbatches 2 --steps 4 \
         --seq-len 2048 --batch 2
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch stablelm-1.6b --reduced \
+        --mesh 2,2 --mode fsdp --device cpu --backend gloo --steps 3 \
+        --seq-len 64 --batch 4
+
+With ``--mesh D,M`` other than 1,1 the launcher runs as one of D x M ranks
+started by ``torch.distributed.run`` (which sets the rank and world in the
+environment): it lays a ``(data, model)`` mesh over them on ``--backend``
+(gloo, or nccl with a card per rank), every rank draws the same synthetic
+global batch and takes its rows, and rank 0 alone prints and writes the
+checkpoint.  On the card each rank uses card ``LOCAL_RANK`` modulo the
+card count (ranks beyond it share cards, which gloo allows and nccl
+refuses).
 
 Runs on the card unless ``--device cpu``; the config is cast to float32, the
 step runs with remat at a constant ``--lr`` (the JAX launcher builds a cosine
@@ -15,15 +28,19 @@ layer goes through the flash kernel.  ``main(argv)`` returns the losses.
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import save
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import batches_for
 from repro_torch.dist import api as A
+from repro_torch.launch.mesh import init_mesh
 from repro_torch.optim.adamw import adamw_init, cosine_schedule
 
 
@@ -40,19 +57,22 @@ def main(argv=None, *, on_step=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh", default="1,1",
-                    help="only 1,1 runs in this slice")
+                    help="data,model (more than one rank: run under "
+                         "torch.distributed.run)")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="process-group backend of a mesh of several ranks")
     ap.add_argument("--schedule", default="gspmd",
                     choices=["gspmd", "gpipe", "1f1b"],
                     help="pipeline mode: gspmd (the microbatched loss) or "
-                         "the explicit gpipe / 1f1b stage graph, all on one "
-                         "device")
+                         "the explicit gpipe / 1f1b stage graph")
     ap.add_argument("--n-microbatches", type=int, default=0,
                     help="pipeline microbatch count (0: mesh 'model' size)")
     ap.add_argument("--memory-budget", type=int, default=0,
                     help="gpipe: cap on saved in-flight microbatches "
                          "(0: unbounded)")
     ap.add_argument("--expert-parallel", action="store_true",
-                    help="MoE: shard experts over 'model' (several devices)")
+                    help="MoE with an explicit schedule: experts split over "
+                         "'model', tokens exchanged by all-to-alls")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale variant of the arch")
     ap.add_argument("--d-model", type=int, default=0,
@@ -69,15 +89,26 @@ def main(argv=None, *, on_step=None):
             cfg = cfg.replace(d_model=args.d_model)
     cfg = cfg.replace(dtype="float32")
 
+    dims = tuple(int(x) for x in args.mesh.split(","))
+    mesh, device = dims, args.device
+    if math.prod(dims) > 1:
+        if device == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            device = f"cuda:{local % torch.cuda.device_count()}"
+            torch.cuda.set_device(device)
+        mesh = init_mesh(dims, backend=args.backend, device=device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+
     runner = A.build_runner(
-        cfg, args.mode, args.mesh,
+        cfg, args.mode, mesh,
         n_microbatches=args.n_microbatches or None,
         schedule=args.schedule if args.mode == "pipeline" else "gspmd",
         memory_budget=args.memory_budget or None,
-        expert_parallel=args.expert_parallel, device=args.device)
+        expert_parallel=args.expert_parallel, device=device)
     rcfg = runner.cfg
     if args.mode == "pipeline":
-        print("schedule:", runner.schedule_stats(args.batch, args.seq_len),
+        say("schedule:", runner.schedule_stats(args.batch, args.seq_len),
               flush=True)
     params = runner.init(seed=0)
     opt = adamw_init(params)
@@ -100,15 +131,18 @@ def main(argv=None, *, on_step=None):
             on_step(step, losses[-1], time.perf_counter() - ts)
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t0
-            print(f"step {step:5d} loss {losses[-1]:.4f} "
-                  f"({dt / (step + 1):.2f}s/step)", flush=True)
+            say(f"step {step:5d} loss {losses[-1]:.4f} "
+                f"({dt / (step + 1):.2f}s/step)", flush=True)
     if args.ckpt:
-        save(f"{args.ckpt}/step_{args.steps}.npz", params, step=args.steps)
-        print(f"checkpoint -> {args.ckpt}/step_{args.steps}.npz")
-    print(f"first-10 mean {np.mean(losses[:10]):.4f} -> "
+        save(f"{args.ckpt}/step_{args.steps}.npz", params, step=args.steps,
+             specs=runner.specs, mesh=runner.mesh)
+        say(f"checkpoint -> {args.ckpt}/step_{args.steps}.npz")
+    say(f"first-10 mean {np.mean(losses[:10]):.4f} -> "
           f"last-10 mean {np.mean(losses[-10:]):.4f}")
     return losses
 
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

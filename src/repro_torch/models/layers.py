@@ -182,11 +182,11 @@ def attn_apply(params, x, cfg: ArchConfig, *, positions, window: int = 0,
       [(G,) B, S_enc, K, hd]; no RoPE, every key visible.
 
     The length-sharded cache (flash-decoding, ``cache_axis``) comes with
-    the multi-device slice."""
+    the multi-device slice for serving."""
     if cache_axis is not None:
         raise NotImplementedError(
             "attn_apply over a length-sharded cache (flash-decoding) is "
-            "ported with the multi-device slice")
+            "ported with the multi-device slice for serving")
     s = x.shape[-2]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _dense(x, params["wq"]).unflatten(-1, (h, hd))

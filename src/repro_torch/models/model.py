@@ -269,8 +269,13 @@ class _LM(nn.Module):
             if self._own is None:
                 self._own = self._grouped(self.param_tree())
             return self._own
-        g = lambda t: {k: g(v) for k, v in t.items()} \
-            if isinstance(t, dict) else t.unsqueeze(0)
+
+        def g(t):
+            if isinstance(t, dict):
+                return {k: g(v) for k, v in t.items()}
+            if isinstance(t, T.StackOnUse):
+                return t.map(lambda x: x.unsqueeze(0))
+            return t.unsqueeze(0)
         p = dict(params) if self._lead else g(params)
         for k in ("blocks", "enc_blocks"):
             if k in p:
@@ -296,7 +301,7 @@ class _LM(nn.Module):
         return [{f"pos{i}": L.cross_kv(sb[f"pos{i}"]["cross"], enc_out,
                                        self.branch_cfg)
                  for i in range(len(self.branch_cfg.pattern))}
-                for sb in p["blocks"]]
+                for sb in map(T.fetched, p["blocks"])]
 
     def _is_vlm(self) -> bool:
         fe = self.cfg.frontend

@@ -14,6 +14,12 @@ counts every row of the call (inactive decode lanes and padded prefill slots
 too), and assignments past an expert's capacity drop.  Empty slots point at
 token 0 with weight 0, as in JAX.  The whole dispatch stays on the device
 (no data-dependent shapes, so no host sync).
+
+With ``cfg.expert_parallel_axis`` set (the pipeline runner's
+expert-parallel substrate) the experts are split over that axis of the
+enclosing ``launch.mesh.use_mesh`` mesh, [E_local, d, ff] a rank, and two
+all-to-alls move the token buffers to the experts' owners and back
+(``_moe_apply_ep``).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import current_mesh
 from repro_torch.models import layers as L
 
 
@@ -62,20 +69,16 @@ def moe_apply(params, x: torch.Tensor, cfg: ArchConfig):
     aux is the branch's load-balance loss (a training term: the serving
     path drops it, as the JAX one does)."""
     if cfg.expert_parallel_axis:
-        raise NotImplementedError(
-            "expert-parallel MoE (_moe_apply_ep) is ported with the "
-            "multi-device training slice")
+        return _moe_apply_ep(params, x, cfg)
     return _moe_apply_dense(params, x, cfg)
 
 
-def _moe_apply_dense(params, x: torch.Tensor, cfg: ArchConfig):
-    m = cfg.moe
-    g, t, d = x.shape
+def _dispatch_buffers(weights, idx, g: int, t: int, m):
+    """Sort-based dispatch of G branches' [T, k] assignments into [G*E, C]
+    slots (shared by the dense and expert-parallel paths).  Returns
+    (buf_tok [G*E, C] rows of the [G*T, d] tokens, buf_w [G*E, C])."""
     n_e, k = m.n_experts, m.top_k
-    dev = x.device
-    logits = x @ params["router"]                            # [G, T, E]
-    weights, idx = router_topk(logits, k)                    # [G, T, k]
-    aux = load_balance_loss(logits, idx, n_e)
+    dev = idx.device
     cap = int(max(k, math.ceil(t * k * m.capacity_factor / n_e)))
 
     # ---- sort-based dispatch into [G*E, C] slots.  Branch b's expert e is
@@ -99,17 +102,70 @@ def _moe_apply_dense(params, x: torch.Tensor, cfg: ArchConfig):
     buf_w = torch.zeros(g * n_e + 1, cap, dtype=flat_w.dtype, device=dev)
     buf_tok[slot_e, slot_p] = torch.where(keep, st, 0)
     buf_w[slot_e, slot_p] = torch.where(keep, sw, 0.0)
-    buf_tok, buf_w = buf_tok[:-1], buf_w[:-1]
+    return buf_tok[:-1], buf_w[:-1]
 
-    # ---- expert compute: batched matmul over [G, E, C, d]
-    xt = x.reshape(g * t, d)
-    ex = xt[buf_tok].reshape(g, n_e, cap, d)
-    ey = L.mlp_apply(params["experts"], ex, cfg).reshape(-1, d)
 
-    # ---- combine back (weights cast to the activations' dtype, as in JAX)
+def _route(params, x: torch.Tensor, m):
+    """Router logits, top-k and the load-balance aux of x [G, T, d], and
+    the dispatch buffers."""
+    g, t, _ = x.shape
+    logits = x @ params["router"]                            # [G, T, E]
+    weights, idx = router_topk(logits, m.top_k)              # [G, T, k]
+    aux = load_balance_loss(logits, idx, m.n_experts)
+    return aux, *_dispatch_buffers(weights, idx, g, t, m)
+
+
+def _combine(params, x, xt, buf_tok, buf_w, ey, cfg):
+    """Expert outputs [G*E*C, d] back to the tokens (weights cast to the
+    activations' dtype, as in JAX), plus the shared expert."""
+    g, t, d = x.shape
     out = torch.zeros_like(xt).index_add_(
         0, buf_tok.reshape(-1), ey * buf_w.reshape(-1, 1).to(ey.dtype))
     out = out.reshape(g, t, d)
-    if m.n_shared:
+    if cfg.moe.n_shared:
         out = out + L.mlp_apply(params["shared"], x, cfg)
-    return out, aux
+    return out
+
+
+def _moe_apply_dense(params, x: torch.Tensor, cfg: ArchConfig):
+    g, t, d = x.shape
+    aux, buf_tok, buf_w = _route(params, x, cfg.moe)
+    # ---- expert compute: batched matmul over [G, E, C, d]
+    xt = x.reshape(g * t, d)
+    ex = xt[buf_tok].reshape(g, cfg.moe.n_experts, -1, d)
+    ey = L.mlp_apply(params["experts"], ex, cfg).reshape(-1, d)
+    return _combine(params, x, xt, buf_tok, buf_w, ey, cfg), aux
+
+
+def _moe_apply_ep(params, x: torch.Tensor, cfg: ArchConfig):
+    """Expert-parallel MoE of one branch (G = 1): this rank's experts
+    [E_local, d, ff]; every rank dispatches its own tokens into [E, C]
+    slots (capacity from its own token count), the first all-to-all sends
+    expert e's rows to e's owner, which runs them as [E_local, A*C, d], and
+    the second sends the outputs back."""
+    from repro_torch.dist import comm    # dist imports the models
+    mesh = current_mesh()
+    if mesh is None:     # the reference's axis name is unbound outside
+        raise NotImplementedError(       # shard_map
+            "expert-parallel MoE runs inside a mesh (launch.mesh.use_mesh, "
+            "as the expert-parallel training substrate sets it); serving "
+            "it is ported with the multi-device slice for serving")
+    group = mesh.group(cfg.expert_parallel_axis) if mesh.distributed \
+        else None
+    a = comm.group_size(group) if group is not None else 1
+    g, t, d = x.shape
+    n_e = cfg.moe.n_experts
+    e_l = n_e // a
+    aux, buf_tok, buf_w = _route(params, x, cfg.moe)
+    cap = buf_tok.shape[1]
+    xt = x.reshape(g * t, d)
+    ex = xt[buf_tok]                                         # [E, C, d]
+    if a > 1:
+        ex = comm.all_to_all(ex, group)          # block j: rank j's rows
+    ex = ex.reshape(a, e_l, cap, d).transpose(0, 1).reshape(e_l, a * cap, d)
+    ey = L.mlp_apply(params["experts"], ex[None], cfg)[0]
+    ey = ey.reshape(e_l, a, cap, d).transpose(0, 1).reshape(n_e, cap, d)
+    if a > 1:
+        ey = comm.all_to_all(ey, group)          # back to the tokens' rank
+    return _combine(params, x, xt, buf_tok, buf_w, ey.reshape(-1, d),
+                    cfg), aux

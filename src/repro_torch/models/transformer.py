@@ -20,9 +20,15 @@ same tree.
 superblock, the body that ``jax.checkpoint`` wraps at
 ``repro/models/transformer.py:155,186``: its activations are recomputed in
 the backward, so the attention forward runs twice per layer and step.
+
+A stack may also be a :class:`StackOnUse`, whose superblocks are fetched
+(on a mesh: gathered from the ranks' slices) inside their body, so inside
+the checkpoint: no fetched superblock outlives its use, and the recompute
+fetches it again.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
@@ -135,6 +141,23 @@ def superblock_apply(params, x, cfg: ArchConfig, *, positions, cache=None,
     return x, cache, aux
 
 
+class StackOnUse:
+    """A superblock stack of ``n`` whose superblock ``i`` is the tree
+    ``fetch(i)`` returns, built when its body runs."""
+
+    def __init__(self, n: int, fetch):
+        self.n, self.fetch = n, fetch
+
+    def map(self, fn) -> "StackOnUse":
+        """The same stack with ``fn`` applied to each fetched leaf."""
+        return StackOnUse(self.n, lambda i: tree_map(fn, self.fetch(i)))
+
+
+def fetched(sb):
+    """A superblock's tree (a :class:`StackOnUse` member is fetched)."""
+    return sb() if callable(sb) else sb
+
+
 def sb_slice(tree, i: int):
     """Superblock ``i`` of a stacked tree: leaves [G, n, ...] -> [G, ...]
     (views)."""
@@ -142,7 +165,10 @@ def sb_slice(tree, i: int):
 
 
 def superblocks(tree) -> List[dict]:
-    """The per-superblock views of a stacked parameter tree."""
+    """The per-superblock views of a stacked parameter tree (of a
+    :class:`StackOnUse`, its members, fetched in their bodies)."""
+    if isinstance(tree, StackOnUse):
+        return [functools.partial(tree.fetch, i) for i in range(tree.n)]
     n = tree["pos0"]["mix_norm"]["w"].shape[1]
     return [sb_slice(tree, i) for i in range(n)]
 
@@ -164,7 +190,7 @@ def stack_apply(sbs: List[dict], x, cfg: ArchConfig, *, positions,
 
         def body(h, sb=sb, cache=cache, enc=enc):
             h, _, a = superblock_apply(
-                sb, h, cfg, positions=positions, cache=cache,
+                fetched(sb), h, cfg, positions=positions, cache=cache,
                 cache_index=cache_index, enc_kv=enc,
                 window_override=window_override)
             return h, a

@@ -43,10 +43,25 @@ def adamw_init(params, state_dtype: str = "float32") -> AdamWState:
     return AdamWState(0, _zeros_like(params, dt), _zeros_like(params, dt))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in tree_leaves(tree)))
+def global_norm(tree, *, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32.
+
+    Over a sharded tree (``specs`` on a distributed ``mesh``) each rank
+    sums the squares of the slices it owns, counting a slice replicated
+    over an axis on that axis's rank 0 only, and the sums are all-reduced
+    over the world: every rank gets the norm of the whole tree."""
+    if mesh is None or not mesh.distributed:
+        return torch.sqrt(sum(x.float().square().sum()
+                              for x in tree_leaves(tree)))
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import owns_replica, spec_leaves
+    sizes = dict(mesh.shape)
+    leaves = tree_leaves(tree)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x, spec in zip(leaves, spec_leaves(specs)):
+        if owns_replica(spec, sizes, mesh.coords):
+            total = total + x.float().square().sum()
+    return torch.sqrt(comm.all_reduce_sum(total, None))
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):
@@ -63,15 +78,17 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1, clip_norm=1.0):
+                 eps=1e-8, weight_decay=0.1, clip_norm=1.0, specs=None,
+                 mesh=None):
     """One AdamW step over trees of the same paths; ``params`` and the
     state's moments are updated in place and returned as
-    ``(params, AdamWState)``."""
+    ``(params, AdamWState)``.  On a sharded tree (``specs``, ``mesh``) the
+    clip reads the norm of the whole gradient (:func:`global_norm`)."""
     step = state.step + 1
     g_leaves = tree_leaves(grads)
     scale = None
     if clip_norm:
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, specs=specs, mesh=mesh)
         scale = torch.clamp(clip_norm / torch.clamp(g_norm, min=1e-9),
                             max=1.0)
     bc1 = 1 - b1 ** step
@@ -81,12 +98,17 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
         gf = g.float()
         if scale is not None:
             gf = (g * scale.to(g.dtype)).float()
-        m_new = b1 * m.float() + (1 - b1) * gf
-        v_new = b2 * v.float() + (1 - b2) * gf.square()
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        delta = mhat / (vhat.sqrt() + eps) + weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m_new)
-        v.copy_(v_new)
+        # in place: an f32 leaf is its own f32 view (``t.float()`` is
+        # ``t``); another dtype's f32 copy is written back.  Two leaf-sized
+        # temporaries.
+        mf, vf, pf = m.float(), v.float(), p.float()
+        mf.mul_(b1).add_(gf * (1 - b1))
+        vf.mul_(b2).add_(gf.square().mul_(1 - b2))
+        del gf
+        delta = (mf / bc1).div_((vf / bc2).sqrt_().add_(eps))
+        delta.add_(pf * weight_decay)
+        pf.sub_(delta.mul_(lr))
+        for t, tf in ((m, mf), (v, vf), (p, pf)):
+            if tf is not t:
+                t.copy_(tf)
     return params, AdamWState(step, state.m, state.v)

@@ -84,9 +84,33 @@ def test_router_topk_ties_take_lower_expert():
 
 
 def test_expert_parallel_moe_waits_for_training_slice():
-    cfg = port_cfg(_qwen().replace(expert_parallel_axis="model"))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tmoe.moe_apply({}, torch.zeros(1, 2, cfg.d_model), cfg)
+    """The expert-parallel path came with the multi-device training slice:
+    on a 1 x 1 mesh (one expert owner, no all-to-all) it is the dense
+    dispatch exactly; across ranks ``tests/test_torch_multi.py`` holds it.
+    Outside a mesh it raises, as the reference's unbound axis does."""
+    from repro_torch.launch.mesh import MeshShape, use_mesh
+    cfg = port_cfg(_qwen())
+    ep_cfg = cfg.replace(expert_parallel_axis="model")
+    rng = np.random.default_rng(3)
+    params = {"router": torch.from_numpy(rng.standard_normal(
+        (cfg.d_model, cfg.moe.n_experts)).astype(np.float32))}
+    shapes = tmoe.moe_shapes(cfg)
+    params["experts"] = {k: torch.from_numpy(rng.standard_normal(
+        (1,) + v).astype(np.float32) * 0.1)
+        for k, v in shapes["experts"].items()}
+    if "shared" in shapes:
+        params["shared"] = {k: torch.from_numpy(rng.standard_normal(
+            (1,) + v).astype(np.float32) * 0.1)
+            for k, v in shapes["shared"].items()}
+    params["router"] = params["router"][None]
+    x = torch.from_numpy(rng.standard_normal((1, 12, cfg.d_model))
+                         .astype(np.float32))
+    want, want_aux = tmoe.moe_apply(params, x, cfg)
+    with use_mesh(MeshShape((1, 1))):
+        got, got_aux = tmoe.moe_apply(params, x, ep_cfg)
+    assert torch.equal(got, want) and torch.equal(got_aux, want_aux)
+    with pytest.raises(NotImplementedError, match="inside a mesh"):
+        tmoe.moe_apply(params, x, ep_cfg)
 
 
 @pytest.mark.parametrize("kv", ["f32", "int8"])

@@ -232,14 +232,30 @@ def test_runner_value_and_grad_match_jax(tiny_cfg, tiny_mesh, mode,
 
 
 def test_runner_multi_device_paths_raise(tiny_cfg):
+    """The refusals the multi-device runners keep: a mesh larger than the
+    world (no process group here), expert parallelism with n_experts not
+    divisible by 'model', and a stage split with n_superblocks not
+    divisible by the stage count (the reference's messages)."""
+    from repro_torch.configs.base import get_config as tget
+    from repro_torch.launch.mesh import MeshShape
     cfg = port_cfg(tiny_cfg)
-    for kw, match in ((dict(mode="fsdp", mesh=(2, 1)), "several devices"),
-                      (dict(mode="pipeline", schedule="1f1b",
-                            expert_parallel=True), "expert parallelism"),
-                      (dict(mode="pipeline", expert_parallel=True),
-                       "expert parallelism")):
-        with pytest.raises(NotImplementedError, match=match):
-            tapi.build_runner(cfg, device="cpu", **kw)
+    for mode, mesh in (("fsdp", (2, 1)), ("pipeline", "1,2"),
+                       ("semantic", (1, 4))):
+        with pytest.raises(ValueError, match="larger than the world"):
+            tapi.build_runner(cfg, mode, mesh, device="cpu")
+    with pytest.raises(ValueError, match="larger than the world"):
+        tapi.build_runner(cfg, "fsdp", MeshShape((2, 1)),
+                          device="cpu").init(seed=0)
+    moe = tget("qwen2-moe-a2.7b").reduced()            # 4 experts
+    with pytest.raises(ValueError, match="divisible"):
+        tapi.build_runner(moe, "pipeline", MeshShape((1, 3)),
+                          expert_parallel=True, schedule="1f1b",
+                          device="cpu")
+    r = tapi.build_runner(cfg, "pipeline", MeshShape((1, 3)),
+                          schedule="1f1b", device="cpu")
+    assert cfg.n_superblocks % 3
+    with pytest.raises(ValueError, match="divisible"):
+        r.param_specs(r.model.param_tree())
 
 
 def test_train_main_matches(monkeypatch, capsys):
