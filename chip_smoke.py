@@ -256,12 +256,66 @@ raising on failure:
             grads and moments, and B 2's step did not fit beside them.  Reports step ms per rank, peak and allocated GB,
             the collectives' bytes and ``dist.comm.COMM_STATS``' staged
             bytes and ms: host staging over gloo, not NVLink.
+20. serve_multi  serving across ranks, on the same two ranks after their
+            training runs, each part held to a one-process run of the same
+            runner on a 1 x 1 mesh that this process makes first (seed-0
+            weights, greedy; the ranks are fed its tokens): flash-decoding
+            (``shard_cache_len=True``, fsdp on (2, 1); every part in f32,
+            weights and caches, see ``serve_cfg``: bf16 across ranks is not
+            gated, ``scripts/serve_bf16_witness.py`` reads it against f32)
+            A, full-width
+            stablelm-1.6b, B 1, a 65536-slot cache (25.8 GB of KV, 12.9 GB
+            a rank), a 32760-token prompt (every rank its own causal
+            attention on the flash path, only rank 0's slab written) and 16
+            decode steps across the slab boundary at 32768 (rank 1's slab
+            empty for the first 8: length 0, lse -inf); B, gemma2-27b at
+            full width and 2 of its 23 superblocks, an 8192-slot cache
+            whose first 6000 global slots and every slot of the 4096-slot
+            rings hold seeded K/V (a 6000-step token-by-token prompt would
+            take most of the phase's time), 16 decode steps from 6000:
+            the ring has wrapped across both ranks, softcap 50.  Then the
+            LAYER arm (pipeline: a stage of 12 superblocks a rank, the
+            activation sent on, the logits broadcast) and the SEMANTIC arm
+            (a branch a rank, the logits' branch shards all-gathered) on
+            (1, 2), full-width stablelm-1.6b, B 8, prompts of 256-512
+            tokens (right-padded, per-row lengths), 32 decode steps.  Each
+            call's logits within ``SERVE_LOGIT_REL`` of the one-process
+            run's largest |logit|, the same logits rounded to bf16 above
+            it, both ranks' logits equal, every greedy token of the arms
+            the one-process run's; ``decode_attention`` launches (zeroed
+            before each part) one per held attention layer a step, one
+            slab merge per launch under flash-decoding, 24 flash launches
+            for A's prompt.  Reports prefill and decode ms per step, the
+            collectives' bytes and staged ms, cache bytes and peak GB.
+21. disagg_xdev  the disagg fleet across devices: prefill worker on
+            ``cuda:0``, decode worker on ``cuda:1`` with two cards, else on
+            the CPU; stablelm-1.6b at full width cut to 2 superblocks, f32
+            (its pools too), LAYER, 8 lanes, 8 requests with distinct
+            prompts, then the same requests on the same-device fleet.
+            Every wave's received blocks equal the sent ones bit for bit
+            (read back on the host) with one cross-device copy a pool
+            leaf; ``blocks_shipped``, ``transfer_bytes`` and the wave count
+            equal the same-device run's; every request completes; the
+            tokens equal the same-device run's on two cards (their share
+            is reported with the decode worker on the CPU).
+22. slab    ``decode_attention``'s log-sum-exp entry on one rank's slab of
+            part A (H = K = 32, hd 64, bf16, 32768 valid slots) against its
+            plain version, timed beside
+            ``_scaled_dot_product_efficient_attention(compute_log_sumexp=
+            True)`` with its byte bound; then in f32, serve_multi's dtype,
+            on A's slab (32768 slots at lengths 32761, 32768, 0 and 8, and
+            timed) and on gemma2's (hd 128, GQA 2:1, softcap 50: a global
+            layer's 4096-slot slab at 4096 and 1905, the ring's 2048-slot
+            slab wrapped), each launch against the plain version (runs with
+            the timed kernel phases).
 
-Phases 9-16 run after the serves, before training; 17-19 after
+Phases 9-16 and 21 run after the serves, before training; 17-20 after
 training.  The ``kernels`` line
 counts ``flash_attention`` launches from the ``train``, ``pipeline`` and
-``multi`` phases (the ``multi`` ranks' counts summed), ``decode_attention`` launches from the ops, ``legacy`` and
-``window`` phases and ``block_diag_matmul`` launches from the ops and
+``multi`` phases (the ``multi`` ranks' counts summed, ``serve_multi``'s
+prompt included), ``decode_attention``
+launches from the ops, ``legacy``, ``window`` and ``serve_multi`` phases
+(both ranks summed) and ``block_diag_matmul`` launches from the ops and
 ``recurrent`` phases.  Every backend is freed before the next one is
 built.  The last lines are
 one JSON object per kernel line, the card's name and power limit, and
@@ -2666,7 +2720,7 @@ MULTI_WORLD = 2
 MULTI_STEPS = 2
 MULTI_MICRO = 2
 MULTI_EP_SUPERBLOCKS = 4
-MULTI_TIMEOUT_S = 480
+MULTI_TIMEOUT_S = 600
 MULTI_LOSS_REL = 1e-6        # loss against the one-process run, relative
 # each gradient leaf against the one-process run, over that leaf's max.
 # Sound runs read at most 9.9e-6 (fsdp, whose data split sums the batch's
@@ -2779,6 +2833,14 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
             FL.PATH_LAUNCHES["simt"] += 1
             return plain(q, k, v, **kw)
         MA.flash_attention = counted
+        from repro_torch.kernels import decode_attention as DEC
+        from repro_torch.models import layers as ML
+        plain_dec = DEC.decode_attention_plain
+
+        def dec_counted(*a, **kw):
+            DEC.decode_attention.launches += 1
+            return plain_dec(*a, **kw)
+        ML.decode_attention = dec_counted
     world = dict(backend="gloo", device=dev, rank=rank,
                  world_size=MULTI_WORLD, timeout_s=120,
                  store=dist.FileStore(str(workdir / "store"), MULTI_WORLD))
@@ -2883,6 +2945,7 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
         del runner, params, opt, step
         comm.release_buffers()
     refs.clear()
+    runs["serve"] = serve_multi_worker(rank, workdir, dev, reduced, world)
     dist.barrier()
     dist.destroy_process_group()
     (workdir / f"rank{rank}.json").write_text(json.dumps(runs))
@@ -2900,6 +2963,7 @@ def multi_phase(dev, *, reduced: bool = False):
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
     card = gpu_name_and_limit() if dev.type == "cuda" else "cpu"
     workdir = pathlib.Path(tempfile.mkdtemp(prefix="multi_"))
+    serve_refs = serve_multi_refs(dev, workdir, reduced)
     # two processes' caching allocators share the card: expandable
     # segments keep their freed blocks from fragmenting it
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -2971,8 +3035,588 @@ def multi_phase(dev, *, reduced: bool = False):
                 param_bytes_specs=r["param_bytes_specs"],
                 flash_launches=r["flash_launches"], comm=r["comm"],
                 peak_mem_gb=r["peak_mem_gb"]) for r in per])))
+    out["serve"] = serve_multi_gates(ranks, reduced, card)
+    out["serve_one_process"] = serve_refs
     log(f"[multi] {card} | world of {MULTI_WORLD} gloo ranks on one "
         f"device, {wall_s:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------ serve_multi
+#: flash-decoding on (2, 1) under ``shard_cache_len``: (config, superblocks
+#: or None for all, cache slots, prompt tokens, decode steps).  A fills
+#: slots 0 .. P-1 with a prompt through ``prefill_into_cache`` and decodes
+#: across the slab boundary at cache / 2; B (``attn_local`` ring layers,
+#: which prefill one token at a time) starts from a cache whose first P
+#: global slots and every ring slot hold seeded K/V (``_seeded_cache``),
+#: so its 4096-slot ring has wrapped across both ranks' slabs.
+SERVE_FD = {"A": ("stablelm-1.6b", None, 65536, 32760, 16),
+            "B": ("gemma2-27b", 2, 8192, 6000, 16)}
+SERVE_FD_REDUCED = {"A": ("stablelm-1.6b", None, 512, 250, 16),
+                    "B": ("gemma2-27b", None, 64, 48, 16)}
+#: the LAYER and SEMANTIC arms on (1, 2): (batch, prompt lengths [lo, hi),
+#: decode steps)
+SERVE_ARMS = {"layer": "pipeline", "semantic": "semantic"}
+#: the LAYER arm in the stage graph's layout (``stage_param_specs``): a
+#: stage holds its superblocks and whole embed and norms, so no leaf is
+#: gathered a call (the gspmd layout splits the 411 MB embed and head over
+#: 'model' and gathers both every call)
+SERVE_ARM_KW = {"layer": dict(schedule="1f1b")}
+SERVE_ARM_SHAPE = (8, (256, 513), 32)
+SERVE_ARM_SHAPE_REDUCED = (8, (16, 33), 8)
+SERVE_SEED = 29
+#: each part's logits against the one-process run, max |diff| over the
+#: run's max |logit|, set from readings (see PERF.md); the same logits
+#: rounded to bf16 (``ctrl_bf16``) must read above it every run
+SERVE_LOGIT_REL = {"A": 1e-4, "B": 1e-4, "layer": 1e-4, "semantic": 1e-4}
+
+
+def serve_cfg(name: str, superblocks, reduced: bool,
+              dtype: str = "float32"):
+    """A serve_multi config, in f32 (weights and caches) unless ``dtype``
+    says otherwise.  In bf16 the logits are bf16 values, so two sound runs
+    differ by whole bf16 ulps after 24 layers (NVIDIA H100 80GB HBM3,
+    700.00 W: 1.1e-2 of the largest logit in part A, 1.3e-2 and one flipped
+    greedy token in the SEMANTIC arm; see PERF.md) and a bf16-rounded
+    control reads 0; in f32 the gate can sit far below a bf16 rounding.
+    So bf16 across ranks is not gated here: ``scripts/serve_bf16_
+    witness.py`` reads bf16 ranks and a bf16 process against the f32
+    process."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(name)
+    if reduced:
+        cfg = cfg.reduced()
+    if superblocks:
+        cfg = cfg.replace(n_layers=superblocks * len(cfg.pattern))
+    return cfg.replace(dtype=dtype)
+
+
+def serve_inputs(reduced: bool) -> dict:
+    """Every token the serve_multi runs feed, from one seed: A's prompt,
+    B's first token, the arms' right-padded prompts and their lengths."""
+    fd = SERVE_FD_REDUCED if reduced else SERVE_FD
+    b, (lo, hi), _ = SERVE_ARM_SHAPE_REDUCED if reduced else SERVE_ARM_SHAPE
+    rng = np.random.default_rng(SERVE_SEED)
+    vocab = {k: serve_cfg(n, s, reduced).vocab_size
+             for k, (n, s, _, _, _) in fd.items()}
+    lengths = rng.integers(lo, hi, b).astype(np.int32)
+    arm_vocab = serve_cfg("stablelm-1.6b", None, reduced).vocab_size
+    return {"A_prompt": rng.integers(0, vocab["A"], (1, fd["A"][3]))
+            .astype(np.int32),
+            "B_first": rng.integers(0, vocab["B"], (1, 1)).astype(np.int32),
+            "arm_prompt": rng.integers(0, arm_vocab, (b, int(lengths.max())))
+            .astype(np.int32),
+            "arm_lengths": lengths}
+
+
+def _seeded_cache(cfg, batch: int, cache_len: int, n_pos: int, dev):
+    """The whole decode cache of part B's start: every leaf drawn from
+    N(0, 1) with one seed, in tree order; the global layers' slots from
+    ``n_pos`` on zeroed (not yet written), the ring layers' (shorter)
+    caches full."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+
+    def fill(t):
+        x = torch.randn(t.shape, generator=gen, device=dev).to(t.dtype)
+        if t.shape[-3] == cache_len:
+            x[..., n_pos:, :, :] = 0
+        return x
+    return T.tree_map(fill, build_model(cfg, device="meta").init_cache(
+        batch, cache_len))
+
+
+def _serve_calls(runner, params, cache, inp, part, *, fd, arm_steps,
+                 feed=None, on_logits=None):
+    """One part's calls: A a prompt then its decode steps, B decode steps
+    from the seeded cache, an arm a right-padded prompt (per-row lengths)
+    then its decode steps.  ``feed`` gives the tokens of each decode step
+    (the one-process run's, teacher-forced); without it the greedy token
+    of the last logits.  ``on_logits(i, logits)`` sees each call's [B,
+    vocab] logits.  Returns (the tokens fed, per-call ms, cache)."""
+    dev = runner.device
+    ms, fed = [], []
+
+    def timed(fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    if part == "B":
+        start, steps = fd["B"][3], fd["B"][4]
+        tok = t(inp["B_first"])
+    else:
+        if part == "A":
+            prompt, lengths, steps = t(inp["A_prompt"]), None, fd["A"][4]
+        else:
+            prompt, lengths = t(inp["arm_prompt"]), t(inp["arm_lengths"])
+            steps = arm_steps
+        start = prompt.shape[1]
+        logits, cache = timed(lambda: runner.prefill_into_cache(
+            params, cache, prompt, lengths=lengths))
+        if on_logits:
+            on_logits(0, logits)
+        tok = logits.argmax(-1)[:, None].int()
+    first = 0 if part == "B" else 1
+    for i in range(steps):
+        if feed is not None:
+            tok = t(feed[i])
+        fed.append(tok.cpu().numpy())
+        logits, cache = timed(lambda: runner.serve_step(
+            params, cache, {"tokens": tok}, start + i))
+        if on_logits:
+            on_logits(first + i, logits)
+        tok = logits.argmax(-1)[:, None].int()
+    return np.stack(fed), ms, cache
+
+
+def _serve_parts(reduced: bool, dtype: str = "float32"):
+    """The serve_multi runs as (part, config, mode, mesh dims, runner
+    kwargs, batch, cache slots), with the flash-decoding table, the arms'
+    decode steps and the inputs."""
+    fd = SERVE_FD_REDUCED if reduced else SERVE_FD
+    b, _, steps = SERVE_ARM_SHAPE_REDUCED if reduced else SERVE_ARM_SHAPE
+    inp = serve_inputs(reduced)
+    parts = []
+    for part, (name, sb, cache_len, _, _) in fd.items():
+        parts.append((part, serve_cfg(name, sb, reduced, dtype), "fsdp",
+                      (2, 1),
+                      dict(shard_cache_len=True, zero_data=False), 1,
+                      cache_len))
+    arm_cache = inp["arm_prompt"].shape[1] + steps
+    for part, mode in SERVE_ARMS.items():
+        parts.append((part, serve_cfg("stablelm-1.6b", None, reduced,
+                                      dtype), mode,
+                      (1, 2), SERVE_ARM_KW.get(part, {}), b, arm_cache))
+    return parts, fd, steps, inp
+
+
+def serve_multi_refs(dev, workdir: pathlib.Path, reduced: bool) -> dict:
+    """The one-process runs the serve_multi ranks are held to, in this
+    process before the world starts: each part's runner on a 1 x 1 mesh,
+    the seed-0 weights, greedy decoding; the tokens it fed and every call's
+    logits (host, f32) to ``workdir/serve_<part>.pt``, the inputs to
+    ``workdir/serve_inputs.npz``."""
+    from repro_torch.dist import api as A
+    parts, fd, steps, inp = _serve_parts(reduced)
+    np.savez(workdir / "serve_inputs.npz", **inp)
+    out = {}
+    for part, cfg, mode, _, _, b, cache_len in parts:
+        _free()
+        runner = A.build_runner(cfg, mode, device=dev)
+        params = runner.init(seed=0)
+        cache = _seeded_cache(cfg, b, cache_len, fd["B"][3], dev) \
+            if part == "B" else runner.init_cache(b, cache_len)
+        logits = []
+        fed, ms, cache = _serve_calls(
+            runner, params, cache, inp, part, fd=fd, arm_steps=steps,
+            on_logits=lambda i, lg: logits.append(lg.float().cpu()))
+        torch.save({"fed": torch.from_numpy(fed),
+                    "logits": torch.stack(logits)},
+                   workdir / f"serve_{part}.pt")
+        out[part] = dict(call_ms=ms, calls=len(logits))
+        log(f"[serve_multi {part} one process] {cfg.name} {mode}: "
+            f"{len(logits)} calls, first ms {[round(x, 2) for x in ms[:3]]}")
+        del runner, params, cache, logits
+    _free()
+    return out
+
+
+def serve_multi_worker(rank: int, workdir: pathlib.Path, dev, reduced: bool,
+                       world: dict, dtype: str = "float32") -> dict:
+    """One rank's serve_multi runs on the multi world: each part's runner on
+    its mesh, fed the one-process run's tokens; per call, the logits'
+    largest difference from the one-process run's over their largest
+    |value|, the same with this rank's logits rounded to bf16 (the
+    control), and whether this rank's greedy tokens are the one-process
+    run's; the launches, merges and collectives of the run (counters zeroed
+    just before it).  ``dtype`` is the ranks' (the one-process run's is
+    what ``workdir`` holds)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import api as A
+    from repro_torch.dist import comm
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import layers as L
+    parts, fd, steps, _ = _serve_parts(reduced, dtype)
+    inp = dict(np.load(workdir / "serve_inputs.npz"))
+    out = {}
+    for part, cfg, mode, dims, kw, b, cache_len in parts:
+        _free()
+        mesh = init_mesh(dims, **world)
+        ref = torch.load(workdir / f"serve_{part}.pt")
+        want = ref["logits"].to(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        runner = A.build_runner(cfg, mode, mesh, device=dev, **kw)
+        params = runner.init(seed=0)
+        cache = runner.init_cache(b, cache_len)
+        if part == "B":
+            whole = _seeded_cache(cfg, b, cache_len, fd["B"][3], dev)
+            sizes = dict(mesh.shape)
+            SH.tree_map(lambda loc, w, s: loc.copy_(SH.shard_leaf(
+                w, s, sizes, mesh.coords)), cache, whole,
+                runner.cache_specs(whole))
+            del whole
+        stats = dict(rel=[], ctrl=[], same_token=[], checksum=0.0)
+
+        def check(i, logits):
+            w = want[i]
+            top = w.abs().max().clamp_min(1e-30)
+            got = logits.float()
+            stats["rel"].append(float((got - w).abs().max() / top))
+            stats["ctrl"].append(float((got.bfloat16().float() - w)
+                                       .abs().max() / top))
+            stats["same_token"].append(bool(
+                (got.argmax(-1) == w.argmax(-1)).all()))
+            stats["checksum"] += float(got.double().sum())
+        comm.reset_stats()
+        L.FLASH_STATS["lse_merges"] = 0
+        decode_attention.launches = 0
+        FA.flash_attention.launches = 0
+        dist.barrier()
+        _, ms, cache = _serve_calls(
+            runner, params, cache, inp, part, fd=fd, arm_steps=steps,
+            feed=ref["fed"].numpy(), on_logits=check)
+        n_prefill = 0 if part == "B" else 1
+        out[part] = dict(
+            mesh=list(dims), mode=mode, model=cfg.name, calls=len(ms),
+            prefill_ms=ms[:n_prefill], decode_ms=ms[n_prefill:],
+            worst_rel=max(stats["rel"]), ctrl_bf16=min(stats["ctrl"]),
+            tokens_same=sum(stats["same_token"]),
+            checksum=stats["checksum"],
+            decode_launches=decode_attention.launches,
+            flash_launches=FA.flash_attention.launches,
+            lse_merges=L.FLASH_STATS["lse_merges"],
+            comm=dict(comm.COMM_STATS),
+            cache_bytes=sum(t.numel() * t.element_size()
+                            for t in _leaves_of(cache)),
+            peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if dev.type == "cuda" else 0.0))
+        log(f"[serve_multi {part} rank {rank}] decode ms "
+            f"{statistics.median(out[part]['decode_ms']):.2f} (median), "
+            f"worst rel {out[part]['worst_rel']:.3g} (bf16 control "
+            f"{out[part]['ctrl_bf16']:.3g}), tokens same "
+            f"{out[part]['tokens_same']}/{len(ms)}")
+        del runner, params, cache, want, ref
+        comm.release_buffers()
+    return out
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves_of(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves_of(v)]
+    return [tree]
+
+
+def serve_multi_want(part: str, cfg, dims, fd, steps) -> dict:
+    """The launches one rank makes in a part: a decode step runs the decode
+    kernel once per attention layer the rank holds (a stage its half; the
+    semantic rank its branch, folded into one call), and flash-decoding
+    merges the slabs once per such call; a prompt of 2048 tokens or more
+    at ``cache_index`` 0 runs the flash forward once per layer (its own
+    causal attention: no merge)."""
+    n_steps = fd[part][4] if part in fd else steps
+    layers = cfg.n_layers // (dims[1] if SERVE_ARMS.get(part) == "pipeline"
+                              else 1)
+    prompt = fd["A"][3] if part == "A" else 0
+    return dict(decode_launches=n_steps * layers,
+                lse_merges=n_steps * layers if part in fd else 0,
+                flash_launches=layers if prompt >= 2048 else 0)
+
+
+def serve_multi_gates(ranks, reduced: bool, card: str) -> dict:
+    """Each part's gates on both ranks' results (see ``serve_multi_worker``):
+    logits within ``SERVE_LOGIT_REL`` of the one-process run's, the bf16
+    control above it, the ranks' logits equal, the launches and merges the
+    run implies; on the arms every greedy token the one-process run's."""
+    parts, fd, steps, _ = _serve_parts(reduced)
+    out = {}
+    for part, cfg, mode, dims, _, _, _ in parts:
+        per = [rk["serve"][part] for rk in ranks]
+        want = serve_multi_want(part, cfg, dims, fd, steps)
+        lim = SERVE_LOGIT_REL[part]
+        for r, run in enumerate(per):
+            where = f"[serve_multi {part} rank {r}]"
+            if not run["worst_rel"] <= lim:
+                raise AssertionError(f"{where} logits {run['worst_rel']} of "
+                                     f"their max from the one-process run's,"
+                                     f" limit {lim}")
+            if not run["ctrl_bf16"] > lim:
+                raise AssertionError(f"{where} the gate passes bf16-rounded "
+                                     f"logits ({run['ctrl_bf16']})")
+            got = {k: run[k] for k in want}
+            if got != want:
+                raise AssertionError(f"{where} launches {got}, want {want}")
+            if part in SERVE_ARMS and run["tokens_same"] != run["calls"]:
+                raise AssertionError(
+                    f"{where} greedy tokens equal the one-process run's in "
+                    f"{run['tokens_same']} of {run['calls']} calls")
+        if per[0]["checksum"] != per[1]["checksum"]:
+            raise AssertionError(f"[serve_multi {part}] the ranks' logits "
+                                 f"differ ({per[0]['checksum']}, "
+                                 f"{per[1]['checksum']})")
+        out[part] = per
+        log(f"[serve_multi {part}] {card} | " + json.dumps(dict(
+            model=cfg.name, mode=mode, mesh=dims, limit=lim, ranks=[dict(
+                prefill_ms=r["prefill_ms"],
+                decode_ms_median=statistics.median(r["decode_ms"]),
+                worst_rel=r["worst_rel"], ctrl_bf16=r["ctrl_bf16"],
+                tokens_same=r["tokens_same"], calls=r["calls"],
+                decode_launches=r["decode_launches"],
+                flash_launches=r["flash_launches"],
+                lse_merges=r["lse_merges"], comm=r["comm"],
+                cache_bytes=r["cache_bytes"], peak_mem_gb=r["peak_mem_gb"])
+                for r in per])))
+    return out
+
+
+# ------------------------------------------------------------ disagg_xdev
+XDEV_REQUESTS = 8
+
+
+def _xdev_check(store, waves):
+    """Wrap ``store._transfer``: after each wave, the blocks it wrote on
+    the receiver and the blocks it read on the sender, both read back on
+    the host and compared byte for byte, leaf by leaf."""
+    from repro_torch.decode.cache_store import _index
+    from repro_torch.decode.paged_cache import _leaves, gather_blocks
+    transfer = store._transfer
+
+    def checked(src_ids, dst_ids):
+        copies = store.xdev_copies
+        t0 = time.perf_counter()
+        transfer(src_ids, dst_ids)
+        _sync(store.src.device)
+        _sync(store.dst.device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        a = gather_blocks(store.src.pool, _index(
+            np.asarray(src_ids, np.int64), store.src.device))
+        b = gather_blocks(store.dst.pool, _index(
+            np.asarray(dst_ids, np.int64), store.dst.device))
+        same = all(torch.equal(x.cpu().view(torch.uint8),
+                               y.cpu().view(torch.uint8))
+                   for (_, x), (_, y) in zip(_leaves(a), _leaves(b)))
+        waves.append(dict(blocks=len(src_ids), same=same, ms=ms,
+                          copies=store.xdev_copies - copies,
+                          leaves=len(list(_leaves(a)))))
+    store._transfer = checked
+
+
+def disagg_xdev_phase(dev, cfg):
+    """``TorchBackend(fleet="disagg", fleet_devices=...)`` with the prefill
+    worker on ``cuda:0`` and the decode worker on ``cuda:1`` (two cards) or
+    the CPU (one): stablelm-1.6b at full width cut to 2 superblocks, f32
+    (its pools too), LAYER under ``FixedPolicy``, 8 lanes, 8 requests with
+    distinct prompts; then the same requests on the same-device fleet.
+    Every wave's received blocks must equal the sent ones bit for bit (read
+    back on the host), with one cross-device copy a pool leaf; the ship
+    counters must equal the same-device run's; every request completes.
+    Tokens are gated equal to the same-device run's on two cards; with the
+    decode worker on the CPU (the plain versions, another summation order)
+    their share is reported."""
+    from repro_torch.engine import (LAYER, FixedPolicy, PlacementEngine,
+                                    TorchBackend)
+    cfg = cfg.replace(n_layers=2 * len(cfg.pattern), dtype="float32")
+    two = torch.cuda.device_count() >= 2 if dev.type == "cuda" else False
+    dst = torch.device("cuda:1") if two else torch.device("cpu")
+    src = torch.device("cuda:0") if dev.type == "cuda" else dev
+    counters = _counters()
+    runs = {}
+    for name, devices in (("same", None), ("xdev", [src, dst])):
+        backend = TorchBackend(cfg, max_batch=XDEV_REQUESTS, arms=(LAYER,),
+                               fleet="disagg", fleet_devices=devices,
+                               device=src, **SERVE_SHAPE)
+        pf, dc, store = backend._disagg[LAYER]
+        waves = []
+        _xdev_check(store, waves)
+        role = _new_roles()
+        _count_by_role(pf, dc, role)
+        reqs = _parity_requests(cfg.vocab_size, n=XDEV_REQUESTS, seed=7)
+        eng = PlacementEngine(FixedPolicy(LAYER, placement=None), backend)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        eng.submit(reqs)
+        eng.drain()
+        wall = time.perf_counter() - t0
+        m = eng.summary()
+        runs[name] = dict(
+            devices=[str(pf.device), str(dc.device)], fleet=store.fleet,
+            completed=m["completed"], wall_s=wall,
+            blocks_shipped=m["blocks_shipped"],
+            transfer_bytes=m["transfer_bytes"], ship_waves=m["ship_waves"],
+            ship_xdev_copies=m["ship_xdev_copies"],
+            waves_same=sum(w["same"] for w in waves), waves=len(waves),
+            leaves=waves[0]["leaves"] if waves else 0,
+            copies_per_wave=[w["copies"] for w in waves],
+            wave_ms=[w["ms"] for w in waves], launches_by_role=role,
+            tokens=[r.output for r in reqs])
+        if m["completed"] != XDEV_REQUESTS or any(
+                r.output is None or r.output.shape != (r.max_new,)
+                for r in reqs):
+            raise AssertionError(f"[disagg_xdev {name}] completed "
+                                 f"{m['completed']} of {XDEV_REQUESTS}")
+        _check_unwound(backend, f"disagg_xdev {name}")
+        del backend, eng, pf, dc, store
+        _free()
+    same, xdev = runs["same"], runs["xdev"]
+    if not xdev["fleet"] or same["fleet"]:
+        raise AssertionError(f"[disagg_xdev] fleet flags {same['fleet']} "
+                             f"{xdev['fleet']}")
+    if not xdev["waves"] or xdev["waves_same"] != xdev["waves"]:
+        raise AssertionError(f"[disagg_xdev] {xdev['waves_same']} of "
+                             f"{xdev['waves']} waves received their blocks "
+                             "bit for bit")
+    if any(c != xdev["leaves"] for c in xdev["copies_per_wave"]) or \
+            same["ship_xdev_copies"] != 0:
+        raise AssertionError(f"[disagg_xdev] copies per wave "
+                             f"{xdev['copies_per_wave']}, {xdev['leaves']} "
+                             "leaves; the same-device run made "
+                             f"{same['ship_xdev_copies']}")
+    for k in ("blocks_shipped", "transfer_bytes", "ship_waves"):
+        if same[k] != xdev[k] or not xdev[k]:
+            raise AssertionError(f"[disagg_xdev] {k} {xdev[k]}, same-device"
+                                 f" run {same[k]}")
+    equal = [bool(np.array_equal(a, b))
+             for a, b in zip(same.pop("tokens"), xdev.pop("tokens"))]
+    if two and not all(equal):
+        raise AssertionError(f"[disagg_xdev] streams differ from the "
+                             f"same-device run's: {equal}")
+    pre, dec = "paged_prefill_attention", "paged_decode_attention"
+    if not xdev["launches_by_role"]["prefill"][pre] or (
+            bool(xdev["launches_by_role"]["decode"][dec]) != two):
+        raise AssertionError(f"[disagg_xdev] launches by role "
+                             f"{xdev['launches_by_role']}")
+    out = dict(model=cfg.name, decode_device=str(dst), same=same, xdev=xdev,
+               streams_equal=sum(equal), streams=len(equal),
+               launches={k: n + xdev["launches_by_role"]["decode"][k]
+                         for k, n in
+                         xdev["launches_by_role"]["prefill"].items()})
+    log(f"[disagg_xdev {cfg.name}] {json.dumps(out, default=str)}")
+    return out
+
+
+# -------------------------------------------------- decode_attention slab
+SLAB = dict(h=32, kh=32, hd=64, L=32768)     # one rank's slab of part A
+#: the f32 slabs serve_multi's flash-decoding gives the log-sum-exp entry:
+#: (label, H, K, hd, slots a rank, softcap, the valid lengths, a B 1 call
+#: each).  A: rank 0 before and once its slab is full (32761, 32768), rank
+#: 1 before and past the boundary (0, 8); B: gemma2's global layers (8192
+#: slots over two ranks at step 0: rank 0 full, rank 1 1905) and its
+#: 4096-slot ring wrapped across both ranks (2048 valid each)
+SLAB_F32 = (("A", 32, 32, 64, 32768, 0.0, (32761, 32768, 0, 8)),
+            ("B global", 32, 16, 128, 4096, 50.0, (4096, 1905)),
+            ("B ring", 32, 16, 128, 2048, 50.0, (2048,)))
+#: |lse - plain lse| a slab may show, by dtype
+SLAB_LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+
+
+def _slab(dev, h, kh, hd, L, dt, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(1, h, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(1, L, kh, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(1, L, kh, hd, generator=gen, device=dev).to(dt)
+    return q, k, v
+
+
+def _slab_check(label, q, k, v, n, softcap=0.0):
+    """One launch of the log-sum-exp entry over ``n`` valid slots against
+    the plain version: the output within the row tolerance of its dtype,
+    the lse within ``SLAB_LSE_TOL`` (both -inf at n = 0, the output 0).
+    Returns (out, lse, max |out err|, max |lse err|)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    length = torch.full((1,), n, dtype=torch.int32, device=q.device)
+    before = decode_attention.launches
+    got, lse = decode_attention(q, k, v, length, softcap=softcap,
+                                return_lse=True)
+    want, want_lse = decode_attention_plain(q, k, v, length,
+                                            softcap=softcap, return_lse=True)
+    _sync(q.device)
+    if decode_attention.launches != before + 1:
+        raise AssertionError(f"[slab {label}] the kernel did not launch once")
+    err = float((got - want).abs().max())
+    if n == 0:
+        ok = bool((got == 0).all()) and bool(torch.isneginf(lse).all())
+        lse_err = 0.0 if ok else math.inf
+    else:
+        ok = bool(((got - want).abs() <= row_limit(want, QTOL[q.dtype]))
+                  .all())
+        lse_err = float((lse - want_lse).abs().max())
+    if not ok or not lse_err <= SLAB_LSE_TOL[q.dtype]:
+        raise AssertionError(f"[slab {label} n={n}] out error {err}, lse "
+                             f"error {lse_err}")
+    return got, lse, err, lse_err
+
+
+def _slab_times(q, k, v, got, lse):
+    """Row 5c's times on a full slab, with its bound (the slab's K and V
+    read once), beside SDPA's ``_scaled_dot_product_efficient_attention(
+    compute_log_sumexp=True)`` on the same slab (a yardstick the port
+    never calls) and its errors against the plain version."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    L, kh, hd, h = k.shape[1], k.shape[2], k.shape[3], q.shape[1]
+    length = torch.full((1,), L, dtype=torch.int32, device=q.device)
+    want, want_lse = decode_attention_plain(q, k, v, length,
+                                            return_lse=True)
+    qt = q[:, :, None]
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    sdpa = torch.ops.aten._scaled_dot_product_efficient_attention
+    lib_out, lib_lse = sdpa(qt, kt, vt, None, True)[:2]
+    times = timings(
+        lambda: decode_attention(q, k, v, length, return_lse=True),
+        lambda: decode_attention_plain(q, k, v, length, return_lse=True),
+        lambda: sdpa(qt, kt, vt, None, True))
+    es = q.element_size()
+    nbytes = 2 * L * kh * hd * es + q.numel() * es + got.numel() * 4 \
+        + lse.numel() * 4 + 4
+    bound_ms, bound_by = _bound(nbytes, 4.0 * h * hd * L, q.dtype)
+    return dict(library_lse_max_abs_err=float(
+                    (lib_lse[..., 0].float() - want_lse).abs().max()),
+                library_out_max_abs_err=float(
+                    (lib_out[:, :, 0].float() - want).abs().max()),
+                bound_ms=bound_ms, bound_by=bound_by, **times)
+
+
+def slab_phase(dev):
+    """``decode_attention``'s log-sum-exp entry on the slabs serve_multi
+    gives it, each launch against its plain version: part A's slab in
+    bf16 (stablelm-1.6b's H = K = 32, hd 64, B 1, all 32768 slots valid),
+    timed with its bound (row 5c); then every f32 slab of ``SLAB_F32``,
+    serve_multi's own dtype and shapes (A at hd 64; B's gemma2 layers at
+    hd 128, GQA 2:1, softcap 50, its ring wrapped), with lengths 0 and
+    the slab boundary's, and A's full f32 slab timed too."""
+    h, kh, hd, L = SLAB["h"], SLAB["kh"], SLAB["hd"], SLAB["L"]
+    q, k, v = _slab(dev, h, kh, hd, L, torch.bfloat16, 31)
+    got, lse, err, lse_err = _slab_check("A bf16", q, k, v, L)
+    out = dict(shape=dict(SLAB, B=1, dtype="bfloat16"), max_abs_err=err,
+               lse_max_abs_err=lse_err, **_slab_times(q, k, v, got, lse))
+    del q, k, v
+    f32 = {}
+    for i, (label, h, kh, hd, L, cap, lengths) in enumerate(SLAB_F32):
+        q, k, v = _slab(dev, h, kh, hd, L, torch.float32, 41 + i)
+        errs = [_slab_check(label, q, k, v, n, cap)[2:] for n in lengths]
+        f32[label] = dict(H=h, K=kh, hd=hd, L=L, softcap=cap,
+                          lengths=list(lengths),
+                          max_abs_err=max(e for e, _ in errs),
+                          lse_max_abs_err=max(e for _, e in errs))
+        if label == "A":
+            got, lse = _slab_check(label, q, k, v, L)[:2]
+            f32[label]["times"] = _slab_times(q, k, v, got, lse)
+        del q, k, v
+    out["f32"] = f32
+    log(f"[slab decode_attention lse] {json.dumps(out)}")
     return out
 
 
@@ -3173,6 +3817,7 @@ def main(argv=None) -> int:
     fleet["disagg_parity"] = disagg_parity_phase(dev, stablelm)
     fleet["chaos"] = chaos_phase(dev, stablelm)
     fleet["fleet"] = fleet_phase(dev, stablelm)
+    fleet["disagg_xdev"] = disagg_xdev_phase(dev, stablelm)
     gang, gang_models = {}, {}
     gang["legacy"], gang_models["legacy"] = gang_and_check(
         dev, stablelm, tag="legacy", decode="legacy", bandit="ucb", waves=3,
@@ -3204,6 +3849,7 @@ def main(argv=None) -> int:
     kernels = kernel_phase(dev)
     kernels["quant_matmul"] = quant_phase(dev)
     kernels["flash_attention"] = flash_phase(dev)
+    kernels["decode_attention_slab"] = slab_phase(dev)
     op_layer = ops_phase(dev)
     for name in OPS_KERNELS:
         kernels[name] = op_layer[name]
@@ -3241,10 +3887,16 @@ def main(argv=None) -> int:
         if name in OPS_KERNELS:
             launches = kernels[name]["launches"] + sum(
                 g["launches"].get(name, 0) for g in gang.values())
+            if name == "decode_attention":
+                launches += sum(r["decode_launches"]
+                                for per in multi["serve"].values()
+                                for r in per)
         elif name == "flash_attention":
             launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS) \
                 + sum(pipeline[s]["flash_launches"] for s, _ in PIPELINE_RUNS) \
                 + sum(r["flash_launches"] for per in multi["runs"].values()
+                      for r in per) \
+                + sum(r["flash_launches"] for per in multi["serve"].values()
                       for r in per)
         else:
             launches = sum(s["launches"][name] for s in serves.values()) \

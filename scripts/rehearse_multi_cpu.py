@@ -10,7 +10,15 @@ gpipe on (1, 2), expert parallel on (1, 2), each rank's first step held to
 a one-process run, its parameter bytes to the specs' arithmetic and its
 flash launches to the count the phase wants (each call of the flash
 forward's plain version counts as the launch its CUDA wrapper would make).
-No time it prints is a device time, and no collective it counts is staged.
+Then the phase's ``serve_multi`` part on the same two ranks at reduced
+depth, after this process has run the one-process references: flash-
+decoding on (2, 1) (stablelm ``reduced()``, a 512-slot cache, a 250-token
+prompt and 16 steps across the slab boundary; gemma2 ``reduced()``, a
+64-slot cache seeded to position 48 with its 16-slot rings wrapped, 16
+steps) and the LAYER (stage layout) and SEMANTIC arms on (1, 2) (B 8,
+16-32-token prompts, 8 steps), with the same gates (each plain
+``decode_attention`` call counts as a launch).  No time it prints is a
+device time, and no collective it counts is staged.
 """
 from __future__ import annotations
 

@@ -100,22 +100,25 @@ def a3c_params_to_numpy(params):
 
 
 def _walk(fn, tree, specs):
-    """``fn(leaf, spec)`` over a tree of dicts and NamedTuples (an int leaf,
-    as ``AdamWState.step``, passes through)."""
+    """``fn(leaf, spec)`` over a tree of dicts, NamedTuples and plain tuples
+    (a recurrent cell's state) (an int leaf, as ``AdamWState.step``, passes
+    through)."""
     if isinstance(tree, dict):
         return {k: _walk(fn, v, specs[k]) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(_walk(fn, getattr(tree, f), getattr(specs, f))
                             for f in tree._fields))
+    if isinstance(tree, tuple) and not SH.is_spec(tree):
+        return tuple(_walk(fn, t, s) for t, s in zip(tree, specs))
     if isinstance(tree, int):
         return tree
     return fn(tree, specs)
 
 
 def shard_tree(tree, specs, mesh, coords) -> Dict:
-    """The slice of a numpy or torch tree (params, gradients, AdamW state)
-    that the rank at ``coords`` (axis -> index) holds under ``specs`` on
-    ``mesh``: a copy of each leaf's slice."""
+    """The slice of a numpy or torch tree (params, gradients, AdamW state,
+    decode caches) that the rank at ``coords`` (axis -> index) holds under
+    ``specs`` on ``mesh``: a copy of each leaf's slice."""
     sizes = dict(mesh.shape)
 
     def cut(leaf, spec):
@@ -152,6 +155,9 @@ def gather_tree(shards, specs, mesh) -> Dict:
         elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
             for f in tree._fields:
                 leaves(getattr(tree, f), getattr(specs, f), out)
+        elif isinstance(tree, tuple) and not SH.is_spec(tree):
+            for t, s in zip(tree, specs):
+                leaves(t, s, out)
         else:
             out.append(tree)
         return out

@@ -24,11 +24,17 @@ worker's pool before its lane can join.  The ledger semantics are those of
 Transfers are bit-exact: block payloads are gathered and scattered
 verbatim, so an int8 pool ships its codes and per-slot scales untouched.
 
-Both pools live on one device in this port, and the copy is enqueued on
-the current CUDA stream, after the decode call that ``dispatch_async``
-enqueued: stream order makes a scatter into blocks that a mid-flight
-evicted lane still wrote safe.  Pools on two devices raise
-``NotImplementedError``.
+On one device the gather and the scatter are enqueued on the current CUDA
+stream, after the decode call that ``dispatch_async`` enqueued: stream
+order makes a scatter into blocks that a mid-flight evicted lane still
+wrote safe.  When the two workers' pools live on different devices
+(``fleet`` true: the reference's two-device ``fleet`` mesh) a wave is
+:func:`ship_blocks` between them: the gather on the source, one copy a
+pool leaf to the destination's device, and the scatter there, enqueued
+after the decode worker's call in flight as on one device.
+``ship_xdev_copies`` counts those copies (one a leaf a wave), where the
+reference checks for a ``collective-permute`` in the ship's compiled
+program.
 """
 from __future__ import annotations
 
@@ -39,8 +45,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Set
 import numpy as np
 import torch
 
-from repro_torch.decode.paged_cache import (NULL_BLOCK, gather_blocks,
-                                            scatter_blocks)
+from repro_torch.decode.paged_cache import (NULL_BLOCK, _leaves,
+                                            gather_blocks, scatter_blocks)
 from repro_torch.decode.scheduler import Lane, PagedArmScheduler
 from repro_torch.engine.types import next_pow2
 from repro_torch.obs import Histogram, annotation, get_tracer
@@ -148,6 +154,36 @@ class RequestBlockBuffer:
         return min(live) if live else None
 
 
+def _pool_device(pool: Dict) -> torch.device:
+    return next(iter(next(iter(pool.values())).values())).device
+
+
+def ship_blocks(src_pool: Dict, dst_pool: Dict, src_ids: np.ndarray,
+                dst_ids: np.ndarray) -> None:
+    """Copy physical blocks ``src_ids`` of ``src_pool`` into blocks
+    ``dst_ids`` of ``dst_pool`` (in place), the pools on any devices:
+    ``gather_blocks`` on the source, the payload moved to the destination's
+    device (a no-op on one device), ``scatter_blocks`` there.  Null-block
+    pairs pad a wave: the source's null block is gathered and lands in the
+    destination's null block.
+
+    A copy to a card is enqueued without a host wait (PyTorch orders a
+    copy between two cards against both devices' current streams); a copy
+    to the CPU waits for the gather, so the scatter reads whole blocks."""
+    dst_dev = _pool_device(dst_pool)
+    payload = gather_blocks(src_pool,
+                            _index(src_ids, _pool_device(src_pool)))
+    moved = _map(lambda t: t.to(dst_dev,
+                                non_blocking=dst_dev.type == "cuda"),
+                 payload)
+    scatter_blocks(dst_pool, moved, _index(dst_ids, dst_dev))
+
+
+def _map(fn, tree: Dict) -> Dict:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Block ids on ``device`` without a host wait: from pinned memory with
     a non-blocking copy on the card (a pageable copy would wait for the
@@ -162,7 +198,8 @@ class CacheStore:
     """Block shipping pipe between one prefill and one decode scheduler.
 
     ``src`` must be a ``role="prefill"`` scheduler and ``dst`` a
-    ``role="decode"`` one with the same pool layout on the same device.
+    ``role="decode"`` one with the same pool layout, on one device or on
+    two (``fleet``).
     ``on_requeue(lane)`` fires when a shipment times out (the backend
     pushes the reset request back onto the arm queue); after
     ``max_ship_retries`` attempts the request goes to ``on_fail`` instead
@@ -185,11 +222,6 @@ class CacheStore:
             raise ValueError("src/dst block sizes differ")
         if src.kv_dtype != dst.kv_dtype:
             raise ValueError("src/dst pool layouts differ")
-        if src.device != dst.device:
-            raise NotImplementedError(
-                f"shipping between {src.device} and {dst.device} is ported "
-                "in the multi-device slice for serving; both pools must "
-                "share a device")
         self.src = src
         self.dst = dst
         self.timeout_s = timeout_s
@@ -198,6 +230,7 @@ class CacheStore:
         self.on_fail = on_fail
         self.injector = injector
         self.ledger = RequestBlockBuffer()
+        self.fleet = src.device != dst.device
         # injected-delay staging: (release_t, rid, dst_ids, attempt) marks
         # applied once the owner clock passes release_t, racing the
         # (backed-off) ledger deadline
@@ -221,6 +254,7 @@ class CacheStore:
         self.ship_failed = 0               # retry budget exhausted
         self.decode_spills = 0             # backpressure lane evictions
         self.delayed_marks = 0             # injected-delay marks staged
+        self.xdev_copies = 0               # cross-device leaf copies
         # ship/decode overlap (async dispatch): host seconds of ship + poll
         # work done while the decode call was in flight (hidden) vs
         # seconds blocked reading its results (exposed)
@@ -440,16 +474,16 @@ class CacheStore:
     # ---------------------------------------------------------- transfer
     def _transfer(self, src_ids: List[int], dst_ids: List[int]) -> None:
         """One gather from the prefill pool and one scatter into the decode
-        pool, the wave padded to a power of two with null-block pairs."""
+        pool (:func:`ship_blocks`), the wave padded to a power of two with
+        null-block pairs."""
         n_pad = next_pow2(len(src_ids))
         s = np.full(n_pad, NULL_BLOCK, np.int64)
         d = np.full(n_pad, NULL_BLOCK, np.int64)
         s[:len(src_ids)] = src_ids
         d[:len(dst_ids)] = dst_ids
-        dev = self.dst.device
-        scatter_blocks(self.dst.pool,
-                       gather_blocks(self.src.pool, _index(s, dev)),
-                       _index(d, dev))
+        ship_blocks(self.src.pool, self.dst.pool, s, d)
+        if self.fleet:
+            self.xdev_copies += len(list(_leaves(self.src.pool)))
 
     def note_overlap(self, hidden_s: float, exposed_s: float) -> None:
         """Record one disagg step's ship/decode overlap split (the backend
@@ -472,6 +506,7 @@ class CacheStore:
             "ship_failed": self.ship_failed,
             "ship_stale_marks": self.ledger.stale_marks,
             "ship_delayed_marks": self.delayed_marks,
+            "ship_xdev_copies": self.xdev_copies,
             "decode_spills": self.decode_spills,
             "ship_in_flight": len(self.ledger),
             "overlap_hidden_s": round(self.overlap_hidden_s, 6),

@@ -36,14 +36,30 @@ gradient that collectives summed over 'model' is divided by its size, and
 one of a leaf 'data' does not split is averaged over 'data'.
 
 Every runner exposes ``init``, ``loss``, ``value_and_grad``,
-``param_specs`` and ``cache_specs``, and on one device the serving surface
-of the gang path (``prefill_step``, ``init_cache``,
-``supports_batched_prefill``, ``prefill_into_cache``, ``serve_step``;
-``params`` None there: the runner's own weights).  Parameter and gradient
-trees are nested dicts in the JAX param-tree layout.
+``param_specs``, ``cache_specs`` and the serving surface (``prefill_step``,
+``init_cache``, ``supports_batched_prefill``, ``prefill_into_cache``,
+``serve_step``).  On one device it is the gang path's (``params`` None
+there: the runner's own weights).  On a mesh every rank passes the whole
+batch and its own cache slices (what ``init_cache`` returns, under
+``cache_specs``) and gets the reference's global logits:
+
+- fsdp gathers weights on use, splits the rows over 'data' where they
+  divide and all-gathers the logits;
+- semantic ranks run their own branches over their cache slices, the
+  branches' logit shards meeting in one all-gather;
+- the pipeline runner, where 'model' splits the superblock stack, runs a
+  stage a rank over its cache slice, sends the activation on with
+  ``comm.exchange`` and broadcasts the last stage's logits;
+- under ``shard_cache_len`` the cache length splits over 'data' and every
+  attention layer runs flash-decoding (``models.layers``), each rank over
+  its slab of every row.
+
+Parameter and gradient trees are nested dicts in the JAX param-tree
+layout.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -66,8 +82,6 @@ from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw_update, tree_leaves
 
 MODES = ("fsdp", "semantic", "pipeline")
-_SERVING = "serving on several devices is ported with the multi-device " \
-    "slice for serving"
 
 
 def tree_unflatten(tree, leaves):
@@ -220,22 +234,94 @@ class BaseRunner:
         return loss, tree_unflatten(params, grads)
 
     # -------------------------------------------------------------- serving
-    def _one_device(self) -> None:
-        if self.distributed:
-            raise NotImplementedError(_SERVING)
+    # On one device these are the gang path's dense-cache surface (params
+    # None: the runner's own weights).  On a mesh of ranks every rank calls
+    # each of them with the whole batch and its own cache slices (what
+    # ``init_cache`` returns), and every rank gets the global logits.
+    @property
+    def _cache_axis(self) -> Optional[L.CacheAxis]:
+        """This rank's slab of a cache whose length is split over 'data'
+        (flash-decoding under ``shard_cache_len``) and the merge of the
+        slabs' partials over that axis, or None."""
+        if self.shard_cache_len and self.distributed \
+                and self.mesh.axis_size("data") > 1:
+            return L.CacheAxis(
+                self.mesh.coords["data"], self.mesh.axis_size("data"),
+                functools.partial(comm.merge_lse,
+                                  group=self.mesh.group("data")))
+        return None
+
+    def _split_rows(self, b: int) -> bool:
+        """True when a serving batch of ``b`` rows splits over 'data' (as
+        ``batch_specs`` and ``cache_specs`` split it; never under
+        ``shard_cache_len``, whose 'data' ranks hold slabs of the same
+        rows)."""
+        n = self.mesh.axis_size("data")
+        return self.distributed and not self.shard_cache_len and n > 1 \
+            and b % n == 0
+
+    def _rows(self, t):
+        """This rank's rows of ``t`` (a tensor, or a batch dict) when the
+        batch splits over 'data'."""
+        if isinstance(t, dict):
+            return BaseRunner.local_batch(self, t)
+        n, i = self.mesh.axis_size("data"), self.mesh.coords["data"]
+        return t.chunk(n, 0)[i]
+
+    def _join_rows(self, logits, b: int):
+        if self._split_rows(b):
+            return comm.all_gather_dim(logits, 0, self.mesh.group("data"))
+        return logits
+
+    def _branch_gather(self):
+        """The join of other ranks' branch logits (semantic), or None."""
+        return None
 
     def prefill_step(self, params, batch):
         """Full-prompt forward; returns [B, S, vocab] logits."""
-        self._one_device()
         with torch.no_grad():
-            logits, _ = self.model.forward(params, batch)
-        return logits
+            if not self.distributed:
+                return self.model.forward(params, batch)[0]
+            b = batch["tokens"].shape[0]
+            lb = self._rows(batch) if self._split_rows(b) else batch
+            return self._join_rows(self._forward_logits(params, lb), b)
+
+    def _forward_logits(self, params, batch):
+        return self.model.forward(self._on_use(params), batch)[0]
 
     def init_cache(self, batch_size: int, cache_len: int,
                    window_override: Optional[int] = None):
-        """Dense decode caches on the runner's device (after ``init``)."""
-        self._one_device()
-        return self.model.init_cache(batch_size, cache_len, window_override)
+        """Dense decode caches on the runner's device (after ``init``); on
+        a mesh, this rank's slices of them under ``cache_specs``, laid out
+        in memory as the whole caches are (superblock-major)."""
+        if not self.distributed:
+            return self.model.init_cache(batch_size, cache_len,
+                                         window_override)
+        whole = build_model(self.cfg, device="meta").init_cache(
+            batch_size, cache_len, window_override)
+        specs = self.cache_specs(whole)
+        sizes = dict(self.mesh.shape)
+
+        def local(path, leaf):
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            attn = SH._leaf_key(path) in ("k", "v")
+            if self._cache_axis and attn and spec[leaf.dim() - 3] != "data":
+                raise ValueError(
+                    f"cache leaf {path} of length {leaf.shape[-3]} does not "
+                    f"split over 'data' ({sizes['data']} ranks)")
+            if self._split_rows(batch_size) and not attn:
+                raise ValueError(
+                    f"cache leaf {path}: recurrent state is replicated over "
+                    "'data' while the batch splits over it; serve this "
+                    "model with 'data' of 1 or shard_cache_len")
+            shape = SH.shard_shape(tuple(leaf.shape), spec, sizes)
+            order = sorted(range(leaf.dim()), key=lambda d: -leaf.stride(d))
+            t = torch.zeros([shape[d] for d in order], dtype=leaf.dtype,
+                            device=self.device)
+            return t.permute([order.index(d) for d in range(leaf.dim())])
+        return SH.tree_map_with_path(local, whole)
 
     @property
     def supports_batched_prefill(self) -> bool:
@@ -246,18 +332,50 @@ class BaseRunner:
                            cache_index: int = 0, lengths=None):
         """Whole-prompt prefill into the decode cache.  tokens: [B, S].
         Returns ([B, vocab] last-token logits, cache)."""
-        self._one_device()
-        return self.model.prefill_cache(params, cache, tokens,
-                                        cache_index=cache_index,
-                                        lengths=lengths)
+        with torch.no_grad():
+            if not self.distributed:
+                return self.model.prefill_cache(params, cache, tokens,
+                                                cache_index=cache_index,
+                                                lengths=lengths)
+            b = tokens.shape[0]
+            if self._split_rows(b):
+                tokens = self._rows(tokens)
+                if lengths is not None:
+                    lengths = self._rows(torch.as_tensor(lengths))
+            logits, cache = self._cached_pass(
+                params, cache, tokens, cache_index, lengths=lengths)
+            return self._join_rows(logits, b), cache
 
     def serve_step(self, params, cache, batch, cache_index: int, *,
                    window_override: Optional[int] = None):
         """One-token decode; returns ([B, vocab] logits, cache)."""
-        self._one_device()
+        with torch.no_grad():
+            if not self.distributed:
+                logits, cache = self.model.decode_step(
+                    params, cache, batch["tokens"], cache_index, batch=batch,
+                    window_override=window_override)
+                return logits[:, -1], cache
+            b = batch["tokens"].shape[0]
+            lb = self._rows(batch) if self._split_rows(b) else batch
+            logits, cache = self._cached_pass(
+                params, cache, lb["tokens"], cache_index, batch=lb,
+                window_override=window_override)
+            return self._join_rows(logits, b), cache
+
+    def _cached_pass(self, params, cache, tokens, cache_index: int, *,
+                     lengths=None, batch=None, window_override=None):
+        """One pass of this rank's rows through the model over its cache
+        slices: a prompt (``prefill_cache``) without ``batch``, else a
+        decode step.  Returns ([B_local, vocab] logits, cache)."""
+        kw = dict(cache_axis=self._cache_axis, gather=self._branch_gather())
+        p = self._on_use(params)
+        if batch is None:
+            return self.model.prefill_cache(p, cache, tokens,
+                                            cache_index=cache_index,
+                                            lengths=lengths, **kw)
         logits, cache = self.model.decode_step(
-            params, cache, batch["tokens"], cache_index, batch=batch,
-            window_override=window_override)
+            p, cache, tokens, cache_index, batch=batch,
+            window_override=window_override, **kw)
         return logits[:, -1], cache
 
     # -------------------------------------------------------------- layouts
@@ -315,6 +433,20 @@ class SemanticRunner(BaseRunner):
     def param_specs(self, params):
         return SH.semantic_param_specs(params, self.mesh,
                                        zero_data=self.zero_data)
+
+    def _branch_gather(self):
+        if self.mesh.axis_size("model") == 1:
+            return None
+        group = self.mesh.group("model")
+        return lambda logits: comm.all_gather_dim(logits, 0, group)
+
+    def _forward_logits(self, params, batch):
+        if self.mesh.axis_size("model") == 1:
+            return super()._forward_logits(params, batch)
+        p = self._on_use(params)
+        h, _ = self.model.hidden(p, batch)
+        return _GatheredBranches(self.model, self.mesh.group(
+            "model")).chunk_logits(p, h)
 
     def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1):
         if not self.distributed or self.mesh.axis_size("model") == 1:
@@ -417,6 +549,88 @@ class PipelineRunner(BaseRunner):
                 specs=self.specs)
             return loss, tree_unflatten(params, grads)
         return super().value_and_grad(params, batch, remat=remat)
+
+    # -------------------------------------------------------------- serving
+    def _staged(self) -> bool:
+        """True when serving runs the stages on their ranks: on a mesh whose
+        'model' axis splits the block leaves' stack dim."""
+        if not self.distributed or self.n_stages == 1:
+            return False
+        spec = SH.spec_leaves(self.specs["blocks"])[0]
+        return len(spec) > 0 and spec[0] == "model"
+
+    def _stage_view(self, params):
+        """This stage's view of its slices: embed and norms gathered whole,
+        its superblocks gathered (over the other axes) one at a time when
+        each runs."""
+        out = {}
+        for k, sub in params.items():
+            specs = self.specs[k]
+            if k != "blocks":
+                out[k] = SH.tree_map(self._gather_leaf, sub, specs)
+                continue
+            out[k] = T.StackOnUse(
+                tree_leaves(sub)[0].shape[0],
+                lambda i, sub=sub, specs=specs: SH.tree_map(
+                    lambda t, sp: self._gather_leaf(t.select(0, i),
+                                                    tuple(sp)[1:]),
+                    sub, specs))
+        return out
+
+    def _stage_pass(self, params, tokens, *, positions, cache=None,
+                    cache_index: Optional[int] = None, window_override=None,
+                    select=None):
+        """One forward of the LAYER split's stages: stage 0 embeds, each
+        stage runs its superblocks over its cache slice and sends the
+        activation [B, S, d] on with ``comm.exchange``; the last stage runs
+        the head on ``select(x)`` (all of x without it) and broadcasts the
+        f32 logits to the other stages."""
+        if not self.model.supports_stage_split:
+            raise ValueError(f"{self.cfg.name}: the stages take plain "
+                             "decoder stacks (no enc-dec or frontend inputs)")
+        st, n = self.mesh.coords["model"], self.n_stages
+        group = self.mesh.group("model")
+        p = self._stage_view(params)
+        b, s = tokens.shape
+        if st == 0:
+            x = self.model.stage_embed(p, tokens)
+        else:
+            x, = comm.exchange([], [((b, s, self.cfg.d_model),
+                                     L.torch_dtype(self.cfg), st - 1)],
+                               group, self.device)
+        x, _ = self.model.stage_apply(
+            p["blocks"], x, positions=positions, caches=cache,
+            cache_index=cache_index, cache_axis=self._cache_axis,
+            window_override=window_override)
+        if st < n - 1:
+            comm.exchange([(x, st + 1)], [], group, self.device)
+            logits = torch.empty((b, s if select is None else 1,
+                                  self.cfg.vocab_size), dtype=torch.float32,
+                                 device=self.device)
+        else:
+            logits = self.model.stage_head_logits(
+                p, x if select is None else select(x))
+        return comm.broadcast_from(logits, n - 1, group)
+
+    def _forward_logits(self, params, batch):
+        if not self._staged():
+            return super()._forward_logits(params, batch)
+        pos = torch.arange(batch["tokens"].shape[1], device=self.device)
+        return self._stage_pass(params, batch["tokens"], positions=pos[None])
+
+    def _cached_pass(self, params, cache, tokens, cache_index: int, *,
+                     lengths=None, batch=None, window_override=None):
+        if not self._staged():
+            return super()._cached_pass(
+                params, cache, tokens, cache_index, lengths=lengths,
+                batch=batch, window_override=window_override)
+        pos = cache_index + torch.arange(tokens.shape[1],
+                                         device=self.device)[None, :]
+        logits = self._stage_pass(
+            params, tokens, positions=pos, cache=cache,
+            cache_index=cache_index, window_override=window_override,
+            select=lambda x: MM.last_positions(x, lengths))
+        return logits[:, -1], cache
 
     # -------------------------------------------------------------- layouts
     def param_specs(self, params):

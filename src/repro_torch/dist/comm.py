@@ -7,6 +7,8 @@ communication ops.
 - ``all_reduce`` (sum) and ``all_to_all`` (equal splits along dim 0), both
   differentiable: the adjoint of a sum seen by every rank is a sum, and an
   equal-split all-to-all is its own inverse;
+- ``all_reduce_max`` (no autograd) and ``merge_lse``, flash-decoding's
+  exact merge of the slabs' partial attention over their log-sum-exps;
 - ``broadcast`` from one group rank, differentiable: its backward sums the
   cotangents on that rank (``reduce_to``) and gives the others zeros;
   ``barrier``;
@@ -127,6 +129,32 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
         o.copy_(i)
         dist.all_reduce(o, group=group)
     return _run("all_reduce", group, x, tuple(x.shape), fn)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of every rank's ``x`` (a new tensor)."""
+    if group_size(group) == 1:
+        return x
+
+    def fn(o, i):
+        o.copy_(i)
+        dist.all_reduce(o, op=dist.ReduceOp.MAX, group=group)
+    return _run("all_reduce_max", group, x, tuple(x.shape), fn)
+
+
+def merge_lse(out: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """The exact softmax over the union of the ranks' slabs of a cache
+    (flash-decoding) from each rank's f32 partial ``out`` [..., hd]
+    (normalised over its own slab) and its log-sum-exp ``lse`` [...]: M =
+    max over ranks of lse, then out = sum_r exp(lse_r - M) out_r / sum_r
+    exp(lse_r - M), one all-reduce max and one all-reduce sum (numerators
+    and denominators packed).  A row with no valid slot on any rank is
+    0."""
+    m = all_reduce_max(lse, group)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)[..., None]
+    tot = all_reduce_sum(torch.cat([out * w, w], dim=-1), group)
+    return tot[..., :-1] / tot[..., -1:].clamp_min(1e-20)
 
 
 def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:

@@ -17,7 +17,8 @@ standard ``Policy.place`` surface.  What makes the routing cache-aware:
     baselines (random / least-loaded / round-robin) route the identical
     fragment stream.
 
-The replicas sit on the backend's one device.  They share one built-call
+The replicas sit on the backend's one device (``mesh`` shapes their arms'
+runners, as ``TorchBackend``'s does).  They share one built-call
 cache per arm and, with it, that arm's model (same seed, same weights, held
 once; each bucket is built once fleet-wide), and one clock, so outcome
 latencies are comparable across replicas.  Each replica keeps its own pools,
@@ -54,8 +55,8 @@ class ReplicaView:
 class FleetBackend:
     """N-replica ``TorchBackend`` fleet with cache-status-synced routing."""
 
-    def __init__(self, cfg, *, n_replicas: int = 4, device="cuda",
-                 **backend_kw):
+    def __init__(self, cfg, *, mesh=(1, 1), n_replicas: int = 4,
+                 device="cuda", **backend_kw):
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
         self.n_replicas = n_replicas
@@ -64,8 +65,8 @@ class FleetBackend:
         self.jit_cache: Dict[int, dict] = {}
         self.replicas: List[TorchBackend] = []
         for i in range(n_replicas):
-            rep = TorchBackend(cfg, jit_cache=self.jit_cache, device=device,
-                               **backend_kw)
+            rep = TorchBackend(cfg, mesh=mesh, jit_cache=self.jit_cache,
+                               device=device, **backend_kw)
             rep._t0 = self._t0          # one fleet clock
             self.replicas.append(rep)
         self.block_size = self.replicas[0].block_size

@@ -2,8 +2,16 @@
 ExecutionBackend.
 
 Each split arm has its own model on one device: LAYER -> ``Model(cfg)``,
-SEMANTIC -> ``SemanticModel(cfg.semantic(2))`` (what the JAX
-``SemanticRunner`` builds on a 1x1 mesh), COMPRESSED -> ``Model(cfg)``.
+SEMANTIC -> ``SemanticModel(cfg.semantic(max(2, M)))`` (what the JAX
+``SemanticRunner`` builds on a mesh of 'model' size M), COMPRESSED ->
+``Model(cfg)``.  ``mesh`` is a (data, model) shape (a tuple, a ``"D,M"``
+string or a ``launch.mesh.MeshShape``): as ``JaxBackend``'s mesh, it only
+shapes the arms' runners (the semantic branch count; the pipeline's stage
+count is the reference's, and no serving step reads it), and nothing is
+placed on other devices.  A process-group ``launch.mesh.Mesh`` raises:
+ranks split the serving work through the runners' serving surface
+(``dist.api``: ``prefill_step``, ``init_cache``, ``prefill_into_cache``,
+``serve_step`` on a mesh).
 Each step picks the arm that owes the earliest deadline and runs one step
 of one of two decode paths on it:
 
@@ -37,8 +45,12 @@ blockwise-quantized copy of its attention projections (``quant_matmul``).
 
 ``fleet="disagg"`` gives each arm a prefill worker and a decode worker,
 each with its own pool, joined by a ``CacheStore`` that ships finished
-prompts' KV blocks; both workers share the arm's model and device
-(``fleet_devices`` may name only that device).  ``faults=`` takes a
+prompts' KV blocks.  ``fleet_devices`` is a pool of devices from which each
+arm, in the order the arms are built, takes a (prefill, decode) pair; once
+fewer than two are left an arm's workers share the backend's device, as
+in the reference.  A worker on another device than the backend's holds a
+copy of the arm's model, made once, and the store ships between the two
+devices.  ``faults=`` takes a
 ``repro_torch.faults.FaultPlan`` fired on the step counter: arm blackouts,
 dropped / duplicated / delayed ship waves and transient dispatch errors
 (retried with backoff under a per-arm circuit breaker).  ``load_shed``
@@ -48,8 +60,7 @@ one arm share that arm's model, kept in its dict, as well as its built
 calls, so every bucket is built once fleet-wide and the weights are held
 once (every replica draws the same seed, as ``JaxBackend``'s do).  Runs on
 ``cuda`` unless the caller passes ``device="cpu"``; asking for the card
-where there is none raises.  Knobs of later slices raise
-``NotImplementedError``.
+where there is none raises (a fleet device too).
 """
 from __future__ import annotations
 
@@ -67,12 +78,12 @@ from repro_torch.engine.types import (COMPRESSED, LAYER, SEMANTIC, Outcome,
                                       Request, accuracy_for, next_pow2)
 from repro_torch.faults import (ARM_BLACKOUT, FaultInjector,
                                 TransientDispatchError)
+from repro_torch.launch.mesh import Mesh, MeshShape
 from repro_torch.models.model import (Model, SemanticModel,
                                       supports_single_step_prefill)
 from repro_torch.obs import Histogram, get_tracer, merge_stat_dicts
 
 ARM_MODES = {LAYER: "pipeline", SEMANTIC: "semantic", COMPRESSED: "fsdp"}
-SEMANTIC_BRANCHES = 2
 
 
 def resolve_device(device) -> torch.device:
@@ -85,16 +96,28 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(name: str, value, later: str) -> None:
-    raise NotImplementedError(f"{name}={value!r} is ported in {later}")
-
-
 def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
+def mesh_shape(mesh) -> MeshShape:
+    """The backend's mesh argument as a shape without process groups."""
+    if isinstance(mesh, Mesh):
+        raise ValueError(
+            f"{mesh!r}: the backend places nothing on other ranks; ranks "
+            "split the serving work through the runners' serving surface "
+            "(dist.api build_runner on the mesh: prefill_step, init_cache, "
+            "prefill_into_cache, serve_step)")
+    if isinstance(mesh, MeshShape):
+        return mesh
+    dims = tuple(int(x) for x in mesh.split(",")) if isinstance(mesh, str) \
+        else tuple(int(x) for x in mesh)
+    return MeshShape(dims, ("data", "model") if len(dims) == 2
+                     else ("pod", "data", "model"))
+
+
 class TorchBackend:
-    def __init__(self, cfg: ArchConfig, *, cache_len: int = 128,
+    def __init__(self, cfg: ArchConfig, *, mesh=(1, 1), cache_len: int = 128,
                  max_batch: int = 8, seed: int = 0,
                  arms=(LAYER, SEMANTIC), decode: str = "auto",
                  scan_tokens: int = 8, block_size: int = 16,
@@ -119,14 +142,13 @@ class TorchBackend:
         if weight_quant not in (None, "int8", "int4"):
             raise ValueError(f"weight_quant={weight_quant!r}; "
                              "expected None|int8|int4")
-        if fleet_devices and not all(
-                _same_device(torch.device(d), torch.device(device))
-                for d in fleet_devices):
-            _not_ported("fleet_devices", [str(d) for d in fleet_devices],
-                        "the multi-device slice for serving (a fleet on "
-                        "this backend shares its one device)")
         self.cfg = cfg
+        self.mesh = mesh_shape(mesh)
         self.device = resolve_device(device)
+        # fleet device pool, taken (prefill, decode) per arm in _ensure_arm
+        # order; an exhausted pool colocates on the backend's device
+        self._fleet_pool = [resolve_device(d) for d in fleet_devices or ()]
+        self._copies: Dict[tuple, object] = {}    # (arm, device) -> model
         self.cache_len = cache_len
         self.max_batch = max_batch
         self.decode = decode
@@ -201,7 +223,8 @@ class TorchBackend:
             if self._jit_cache is not None else None
         model = shared.get("model") if shared is not None else None
         if model is None:
-            model = SemanticModel(self.cfg.semantic(SEMANTIC_BRANCHES),
+            n_b = max(2, self.mesh.axis_size("model"))
+            model = SemanticModel(self.cfg.semantic(n_b),
                                   device=self.device) if arm == SEMANTIC \
                 else Model(self.cfg, device=self.device)
             # every arm draws from the same seed, as JaxBackend's init key
@@ -224,8 +247,16 @@ class TorchBackend:
                   jit_cache=shared)
         label = f"arm{arm}:{ARM_MODES[arm]}"
         if self.fleet == "disagg":
-            pf = PagedArmScheduler(model, role="prefill", **kw)
-            dc = PagedArmScheduler(model, role="decode", **kw)
+            pf_dev = dc_dev = self.device
+            if len(self._fleet_pool) >= 2:
+                pf_dev, dc_dev = self._fleet_pool[:2]
+                del self._fleet_pool[:2]
+            pf = PagedArmScheduler(self._model_on(arm, model, pf_dev),
+                                   role="prefill", **self._worker_kw(
+                                       kw, shared, pf_dev))
+            dc = PagedArmScheduler(self._model_on(arm, model, dc_dev),
+                                   role="decode", **self._worker_kw(
+                                       kw, shared, dc_dev))
             store = CacheStore(
                 pf, dc, timeout_s=self.ship_timeout_s,
                 on_requeue=lambda lane, a=arm: self._requeue(a, lane),
@@ -242,6 +273,28 @@ class TorchBackend:
             sched = PagedArmScheduler(model, **kw)
             sched.track = (label, sched.track[1])
             self._paged[arm] = sched
+
+    def _model_on(self, arm: int, model, dev: torch.device):
+        """The arm's model on ``dev``: itself on the backend's device, else
+        a copy of it and its weights, made once per (arm, device)."""
+        if _same_device(dev, self.device):
+            return model
+        key = (arm, str(dev))
+        if key not in self._copies:
+            copy = type(model)(model.cfg, device=dev)
+            copy.load_state_dict(model.state_dict())
+            self._copies[key] = copy
+        return self._copies[key]
+
+    def _worker_kw(self, kw: dict, shared, dev: torch.device) -> dict:
+        """Scheduler kwargs for a worker on ``dev``: built calls close over
+        their model's weights, so a worker on another device keeps its own
+        built-call cache (in the fleet's shared dict under the device)."""
+        if _same_device(dev, self.device):
+            return kw
+        calls = None if shared is None else \
+            shared.setdefault(("calls", str(dev)), {})
+        return dict(kw, jit_cache=calls)
 
     # ------------------------------------------------------------- lifecycle
     @property

@@ -19,7 +19,7 @@ HEAD_GROUPS = (8, 4, 2, 1)
 CHUNK = 256
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
-_ARGTYPES = [_I] * 3 + [_P] * 7 + [_I] * 6 + [_LL] * 8 + [_F, _F, _P]
+_ARGTYPES = [_I] * 3 + [_P] * 8 + [_I] * 6 + [_LL] * 8 + [_F, _F, _P]
 _FN = []
 
 
@@ -38,11 +38,13 @@ def head_group(rep: int) -> int:
     return next(g for g in HEAD_GROUPS if rep % g == 0)
 
 
-def launch(q, k_cache, v_cache, length, *, softcap: float):
+def launch(q, k_cache, v_cache, length, *, softcap: float,
+           return_lse: bool = False):
     """q [B, H, hd], k/v_cache [B, L, K, hd] on one CUDA device, one of f32
     or bf16, the head dim dense and rows 16-byte aligned (any other
     strides); length int32 [B] on the same device.  Returns a dense
-    [B, H, hd] in q's dtype."""
+    [B, H, hd] in q's dtype; with ``return_lse`` an f32 one and each
+    row's f32 log-sum-exp [B, H] (-inf where the row has no valid slot)."""
     name = "decode_attention"
     dev = q.device
     for t in (k_cache, v_cache, length):
@@ -76,9 +78,12 @@ def launch(q, k_cache, v_cache, length, *, softcap: float):
             raise ValueError(f"{name}: the head dim must be dense and rows "
                              "16-byte aligned")
     length = length.contiguous()
-    out = torch.empty((b, h, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((b, h, hd), dtype=torch.float32 if return_lse
+                      else q.dtype, device=dev)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     rt = head_group(h // kh)
     splits = max(1, -(-L // CHUNK))
     if b > 65535 or h // rt > 65535 or L >= 2 ** 31:
@@ -95,11 +100,12 @@ def launch(q, k_cache, v_cache, length, *, softcap: float):
             _DTYPE_CODE[q.dtype], hd, rt, q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), length.data_ptr(), out.data_ptr(),
             None if ws_acc is None else ws_acc.data_ptr(),
-            None if ws_ml is None else ws_ml.data_ptr(), b, h, kh, L, CHUNK,
+            None if ws_ml is None else ws_ml.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, h, kh, L, CHUNK,
             splits, q.stride(0), q.stride(1), k_cache.stride(0),
             k_cache.stride(1), k_cache.stride(2), v_cache.stride(0),
             v_cache.stride(1), v_cache.stride(2), 1.0 / math.sqrt(hd),
             float(softcap), stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed with CUDA error {rc}")
-    return out
+    return (out, lse) if return_lse else out

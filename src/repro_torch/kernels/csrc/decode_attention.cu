@@ -28,6 +28,13 @@
 // f32 workspace and a second kernel merges the splits of each (lane, head)
 // in order.
 //
+// Log-sum-exp.  When ``lse`` is given, each (lane, head) row also writes
+// the f32 log-sum-exp of its valid scores, lse = m + log(l) (-inf for a
+// row with no valid slot), and the output is f32, so that partial results
+// over slabs of one cache (flash-decoding over a length-sharded cache)
+// merge exactly before any rounding:
+// out = sum_r exp(lse_r - M) out_r / sum_r exp(lse_r - M).
+//
 // Bound.  Every valid K/V byte is read once; at ~1 flop per byte of bf16
 // the kernel is bound by device-memory bytes.  Splitting the cache gives
 // every SM loads to keep in flight even at 8 lanes.
@@ -40,6 +47,10 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int U = 4;                  // slots per group in flight together
 constexpr float NEG_INF = -1e30f;
+// the log-sum-exp of a row with no valid slot
+__device__ __forceinline__ float empty_lse() {
+  return __int_as_float(0xff800000);
+}
 
 enum Dtype { F32 = 0, BF16 = 1 };
 
@@ -50,6 +61,16 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+// Element i of the output: f32 when the log-sum-exp is asked for (a
+// partial that is merged before any rounding), else T.
+template <typename T>
+__device__ __forceinline__ void put(void* out, long long i, float x,
+                                    const float* lse) {
+  if (lse != nullptr)
+    static_cast<float*>(out)[i] = x;
+  else
+    store_as(static_cast<T*>(out) + i, x);
 }
 
 // The VEC elements of one 16-byte load as f32.
@@ -63,9 +84,10 @@ __device__ __forceinline__ void widen(const uint4& r, float (&f)[VEC]) {
 template <typename T, int HD, int RT>
 __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ length, T* __restrict__ out,
-    float* __restrict__ ws_acc, float* __restrict__ ws_ml, int H, int KH,
-    int L, int chunk, int splits, long long sqb, long long sqh,
+    const int* __restrict__ length, void* __restrict__ out,
+    float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+    float* __restrict__ lse, int H, int KH, int L, int chunk, int splits,
+    long long sqb, long long sqh,
     long long skb, long long skl, long long skh, long long svb,
     long long svl, long long svh, float scale, float softcap) {
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
@@ -89,9 +111,12 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
   if (t_begin >= t_end) {
     // Nothing to read.  With one split this CTA owns the output (a
     // length-0 row: 0); with several, the merge pass skips this split.
-    if (splits == 1)
+    if (splits == 1) {
       for (int i = tid; i < RT * HD; i += THREADS)
-        store_as(out + ((long long)b * H + h0 + i / HD) * HD + i % HD, 0.f);
+        put<T>(out, ((long long)b * H + h0 + i / HD) * HD + i % HD, 0.f, lse);
+      if (lse != nullptr && tid < RT) lse[(long long)b * H + h0 + tid] =
+          empty_lse();
+    }
     return;
   }
 
@@ -196,7 +221,9 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
     }
     const long long row = (long long)b * H + h0 + r;
     if (splits == 1) {
-      store_as(out + row * HD + d, a / fmaxf(ls, 1e-20f));
+      put<T>(out, row * HD + d, a / fmaxf(ls, 1e-20f), lse);
+      if (lse != nullptr && d == 0)
+        lse[row] = ls > 0.f ? mx + logf(ls) : empty_lse();
     } else {
       ws_acc[(row * splits + split) * HD + d] = a;
       if (d == 0) {
@@ -211,8 +238,8 @@ __global__ void __launch_bounds__(THREADS) decode_attention_kernel(
 template <typename T>
 __global__ void __launch_bounds__(THREADS) decode_merge_kernel(
     const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
-    const int* __restrict__ length, T* __restrict__ out, int H, int HD,
-    int L, int chunk, int splits) {
+    const int* __restrict__ length, void* __restrict__ out,
+    float* __restrict__ lse, int H, int HD, int L, int chunk, int splits) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int len = min(max(length[b], 0), L);
   const int n_eff = (len + chunk - 1) / chunk;  // splits that wrote
@@ -227,36 +254,40 @@ __global__ void __launch_bounds__(THREADS) decode_merge_kernel(
       a = a * c_old + ws_acc[(row * splits + s) * HD + d] * c_new;
       mx = m_new;
     }
-    store_as(out + row * HD + d, a / fmaxf(ls, 1e-20f));
+    put<T>(out, row * HD + d, a / fmaxf(ls, 1e-20f), lse);
+    if (lse != nullptr && d == 0)
+      lse[row] = ls > 0.f ? mx + logf(ls) : empty_lse();
   }
 }
 
 template <typename T, int HD, int RT>
 int launch_rt(const void* q, const void* k, const void* v, const int* length,
-              void* out, float* ws_acc, float* ws_ml, int B, int H, int KH,
-              int L, int chunk, int splits, const long long* st, float scale,
-              float softcap, cudaStream_t stream) {
+              void* out, float* ws_acc, float* ws_ml, float* lse, int B,
+              int H, int KH, int L, int chunk, int splits,
+              const long long* st, float scale, float softcap,
+              cudaStream_t stream) {
   const dim3 grid(splits, KH * (H / KH / RT), B);
   decode_attention_kernel<T, HD, RT><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), length, static_cast<T*>(out), ws_acc, ws_ml,
-      H, KH, L, chunk, splits, st[0], st[1], st[2], st[3], st[4], st[5],
+      static_cast<const T*>(v), length, out, ws_acc, ws_ml,
+      lse, H, KH, L, chunk, splits, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], scale, softcap);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || splits == 1) return rc;
   decode_merge_kernel<T><<<dim3(H, B), THREADS, 0, stream>>>(
-      ws_acc, ws_ml, length, static_cast<T*>(out), H, HD, L, chunk, splits);
+      ws_acc, ws_ml, length, out, lse, H, HD, L, chunk,
+      splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int launch_hd(int rt, const void* q, const void* k, const void* v,
               const int* length, void* out, float* ws_acc, float* ws_ml,
-              int B, int H, int KH, int L, int chunk, int splits,
+              float* lse, int B, int H, int KH, int L, int chunk, int splits,
               const long long* st, float scale, float softcap,
               cudaStream_t stream) {
-#define DA_ARGS q, k, v, length, out, ws_acc, ws_ml, B, H, KH, L, chunk, \
-                splits, st, scale, softcap, stream
+#define DA_ARGS q, k, v, length, out, ws_acc, ws_ml, lse, B, H, KH, L, \
+                chunk, splits, st, scale, softcap, stream
   switch (rt) {
     case 1: return launch_rt<T, HD, 1>(DA_ARGS);
     case 2: return launch_rt<T, HD, 2>(DA_ARGS);
@@ -270,11 +301,11 @@ int launch_hd(int rt, const void* q, const void* k, const void* v,
 template <typename T>
 int launch_typed(int hd, int rt, const void* q, const void* k, const void* v,
                  const int* length, void* out, float* ws_acc, float* ws_ml,
-                 int B, int H, int KH, int L, int chunk, int splits,
-                 const long long* st, float scale, float softcap,
+                 float* lse, int B, int H, int KH, int L, int chunk,
+                 int splits, const long long* st, float scale, float softcap,
                  cudaStream_t stream) {
-#define DA_ARGS rt, q, k, v, length, out, ws_acc, ws_ml, B, H, KH, L, chunk, \
-                splits, st, scale, softcap, stream
+#define DA_ARGS rt, q, k, v, length, out, ws_acc, ws_ml, lse, B, H, KH, L, \
+                chunk, splits, st, scale, softcap, stream
   switch (hd) {
     case 32: return launch_hd<T, 32>(DA_ARGS);
     case 64: return launch_hd<T, 64>(DA_ARGS);
@@ -291,15 +322,17 @@ int launch_typed(int hd, int rt, const void* q, const void* k, const void* v,
 // ``length`` int32 [B]; out dense [B, H, hd].  ``rt`` query heads per CTA
 // (1, 2, 4 or 8, dividing H / KH); ``splits`` CTAs of ``chunk`` slots along
 // L, merged through the f32 workspaces ``ws_acc`` [B, H, splits, hd] and
-// ``ws_ml`` [B, H, splits, 2] when splits > 1.  Returns cudaGetLastError()
-// after the launches, -2 for an unsupported dtype, -3 for an unsupported
-// head dim or head group.
+// ``ws_ml`` [B, H, splits, 2] when splits > 1; ``lse`` (nullable) f32
+// [B, H] receives each row's log-sum-exp, and out is then f32.  Returns
+// cudaGetLastError() after the launches, -2 for an unsupported dtype, -3
+// for an unsupported head dim or head group.
 extern "C" int decode_attention_launch(int dtype, int hd, int rt,
                                        const void* q, const void* k,
                                        const void* v, const int* length,
                                        void* out, float* ws_acc,
-                                       float* ws_ml, int B, int H, int KH,
-                                       int L, int chunk, int splits,
+                                       float* ws_ml, float* lse, int B,
+                                       int H, int KH, int L, int chunk,
+                                       int splits,
                                        long long sqb, long long sqh,
                                        long long skb, long long skl,
                                        long long skh, long long svb,
@@ -310,11 +343,11 @@ extern "C" int decode_attention_launch(int dtype, int hd, int rt,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == F32)
     return launch_typed<float>(hd, rt, q, k, v, length, out, ws_acc, ws_ml,
-                               B, H, KH, L, chunk, splits, st, scale,
+                               lse, B, H, KH, L, chunk, splits, st, scale,
                                softcap, s);
   if (dtype == BF16)
     return launch_typed<__nv_bfloat16>(hd, rt, q, k, v, length, out, ws_acc,
-                                       ws_ml, B, H, KH, L, chunk, splits, st,
-                                       scale, softcap, s);
+                                       ws_ml, lse, B, H, KH, L, chunk, splits,
+                                       st, scale, softcap, s);
   return -2;
 }

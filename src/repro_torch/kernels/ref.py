@@ -97,6 +97,26 @@ def decode_attention_ref(q, k_cache, v_cache, length, *, softcap=0.0):
     return torch.einsum("bhl,blhd->bhd", p, v).to(q.dtype)
 
 
+def attention_lse_ref(q, k, v, valid, *, softcap=0.0):
+    """Masked attention of q [..., S, H, hd] over k/v [..., L, K, hd] with
+    one pass over the scores (``valid`` broadcasts against them, [..., H,
+    S, L]): the f32 output [..., S, H, hd] and each row's log-sum-exp
+    [..., S, H] of its valid (softcapped) scores.  Unlike the oracles
+    above, a row with no valid key gives 0 and -inf: partial results over
+    slabs of one cache merge through their log-sum-exps."""
+    h, hd = q.shape[-2], q.shape[-1]
+    kk = _repeat_heads(k, h // k.shape[-2]).float()
+    vv = _repeat_heads(v, h // v.shape[-2]).float()
+    s = torch.einsum("...qhd,...khd->...hqk", q.float(), kk) / math.sqrt(hd)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(valid, s, -math.inf)
+    lse = torch.logsumexp(s, dim=-1)                     # [..., H, S]
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
+    out = torch.einsum("...hqk,...khd->...qhd", p, vv)
+    return out, lse.transpose(-1, -2)
+
+
 def dequant_pool_ref(pool, scale):
     """Dequantize an int8 KV pool [P, bs, K, hd] with per-token-slot scales
     [P, bs, K].  Identity for ``scale=None`` (float pools)."""

@@ -9,6 +9,9 @@ gang path for recurrent, local-window, enc-dec and VLM models).
 
 ``--bandit`` is ucb, thompson or egreedy; ``--no-reduced`` serves the full
 model; ``--device cpu`` runs the plain PyTorch path without a card.
+``--mesh D,M`` shapes the arms' runners as the reference's mesh does (the
+semantic arm serves max(2, M) branches); the backend serves on its one
+device.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--mesh", default="1,1",
-                    help="one device per arm: only 1,1 is served")
+                    help="(data, model) shape of the arms' runners")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=64)
@@ -37,18 +40,14 @@ def main(argv=None):
     ap.add_argument("--bandit", default="ucb", choices=sorted(BANDITS))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):
-        raise NotImplementedError(f"mesh {args.mesh}: serving on several "
-                                  "devices is ported with the multi-device "
-                                  "slice for serving")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     eng = PlacementEngine(
         MABPolicy(bandit=args.bandit, ema_init_values=None, n_ctx=8),
-        TorchBackend(cfg, cache_len=args.cache_len, max_batch=args.max_batch,
-                     device=args.device))
+        TorchBackend(cfg, mesh=args.mesh, cache_len=args.cache_len,
+                     max_batch=args.max_batch, device=args.device))
     rng = np.random.default_rng(0)
     rid = 0
     for _ in range(args.batches):

@@ -11,12 +11,13 @@ with at most a leading branch dim that lines up with the activations'.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 
 
@@ -125,6 +126,27 @@ def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.flatten(-3, -2) @ w).unflatten(-2, x.shape[-3:-1])
 
 
+def _self_attend(q, k, v, window: int, cfg: ArchConfig) -> torch.Tensor:
+    """Self-attention of a sequence q [..., S, H, hd] over its own k/v
+    [..., S, K, hd]: at ``S >= 2048`` through
+    :func:`repro_torch.models.attention.attention` (the flash kernel
+    forward, a chunked recompute backward), the leading dims folded into
+    its batch dim; below, dense ``sdpa`` with the causal mask."""
+    s, h, hd = q.shape[-3:]
+    kv = k.shape[-2]
+    if s >= 2048:
+        from repro_torch.models.attention import attention
+        out = attention(q.reshape(-1, s, h, hd), k.reshape(-1, s, kv, hd),
+                        v.reshape(-1, s, kv, hd), causal=cfg.causal,
+                        window=window, softcap=cfg.attn_softcap)
+        return out.reshape(q.shape)
+    mask = causal_mask(s, s, window=window, device=q.device) \
+        if cfg.causal else torch.ones(1, 1, s, s, dtype=torch.bool,
+                                      device=q.device)
+    return sdpa(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv), mask,
+                softcap=cfg.attn_softcap)
+
+
 def _cache_attend(q, k, v, kv_cache, cache_index: int, window: int,
                   cfg: ArchConfig) -> torch.Tensor:
     """Write this call's k/v [..., S, K, hd] into the dense cache (in
@@ -155,11 +177,92 @@ def _cache_attend(q, k, v, kv_cache, cache_index: int, window: int,
                                cv.reshape(lanes, L, kv, hd), length,
                                softcap=cfg.attn_softcap)
         return out.reshape(q.shape)
+    if s >= 2048 and cache_index == 0 and not window:
+        # nothing precedes the prompt: its attention over the cache is its
+        # own causal attention, on the flash path as without a cache
+        return _self_attend(q, k, v, 0, cfg)
     kpos = torch.arange(L, device=q.device)[None, :]
     qpos = (cache_index + torch.arange(s, device=q.device))[:, None]
     valid = kpos < W if window and cache_index >= W else kpos <= qpos
     return sdpa(q, _repeat_kv(ck, h // kv), _repeat_kv(cv, h // kv),
                 valid[None, None], softcap=cfg.attn_softcap)
+
+
+#: flash-decoding's merges of the slabs' partial attention (one per
+#: attention layer and call on a length-sharded cache)
+FLASH_STATS = {"lse_merges": 0}
+
+
+class CacheAxis(NamedTuple):
+    """One rank's handle on the mesh axis that splits a cache's length
+    (flash-decoding): the rank's slab ``index`` of ``size`` slabs, and
+    ``merge(out, lse)``, which turns every rank's f32 partial ``out``
+    [..., hd] (normalised over its own slab) and ``lse`` [...] into the
+    softmax over all the slabs (a collective over the axis:
+    ``dist.comm.merge_lse``).  The reference passes the axis name and its
+    ``pmax`` / ``psum`` find the axis; here the runner that owns the mesh
+    passes what the name would find."""
+    index: int
+    size: int
+    merge: Callable
+
+
+def _flash_decode_sharded(q, k, v, kv_cache, cache_index: int, window: int,
+                          cfg: ArchConfig, axis: CacheAxis) -> torch.Tensor:
+    """Attention over a cache whose LENGTH dim is split over a mesh axis
+    (``repro.models.layers._flash_decode_sharded``): the rank at
+    ``axis.index`` r holds global slots [r * L_loc, (r + 1) * L_loc) of
+    every cache leaf [..., B, L_loc, K, hd].
+
+    Only the slab owning a written slot stores it (global slot
+    ``cache_index % W`` in a ring of W = min(window, A * L_loc), else
+    ``cache_index`` clamped as one device clamps it).  A decode step (S =
+    1) runs the ``decode_attention`` kernel over the slab's valid prefix,
+    ``clamp(n_valid - r * L_loc, 0, L_loc)`` slots with ``n_valid = W``
+    once the ring has wrapped, else ``cache_index + 1``, and returns each
+    row's log-sum-exp with it; a prompt (S > 1, global attention) attends
+    densely over its slab with the mask ``kpos <= qpos``.  The slabs'
+    partials merge exactly (``axis.merge``, counted in ``FLASH_STATS``).
+    A prompt at ``cache_index == 0`` sees only itself: every rank computes
+    its causal attention directly, and nothing merges."""
+    r, n_ax = axis.index, axis.size
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    s, h, hd = q.shape[-3:]
+    L_loc, kv = ck.shape[-3], ck.shape[-2]
+    L_glob = n_ax * L_loc
+    W = min(window, L_glob) if window else L_glob
+    if s > 1 and window:
+        raise ValueError("a prompt into a ring-buffer cache (window "
+                         f"{window}) runs one token at a time")
+    slot = cache_index % W if window else \
+        min(max(cache_index, 0), L_glob - s)
+    lo, hi = max(slot, r * L_loc), min(slot + s, (r + 1) * L_loc)
+    if lo < hi:
+        ck.narrow(-3, lo - r * L_loc, hi - lo).copy_(k.narrow(-3, lo - slot,
+                                                              hi - lo))
+        cv.narrow(-3, lo - r * L_loc, hi - lo).copy_(v.narrow(-3, lo - slot,
+                                                              hi - lo))
+    if s > 1 and cache_index == 0:
+        return _self_attend(q, k, v, 0, cfg)
+    if s == 1:
+        n_valid = W if window and cache_index >= W else \
+            min(cache_index + 1, L_glob)
+        lanes = q.shape[:-3].numel()
+        length = torch.full((lanes,), min(max(n_valid - r * L_loc, 0), L_loc),
+                            dtype=torch.int32, device=q.device)
+        out, lse = decode_attention(
+            q.reshape(lanes, h, hd), ck.reshape(lanes, L_loc, kv, hd),
+            cv.reshape(lanes, L_loc, kv, hd), length,
+            softcap=cfg.attn_softcap, return_lse=True)
+        out = out.reshape(q.shape)
+        lse = lse.reshape(q.shape[:-1])
+    else:
+        kpos = r * L_loc + torch.arange(L_loc, device=q.device)[None, :]
+        qpos = (cache_index + torch.arange(s, device=q.device))[:, None]
+        out, lse = ref.attention_lse_ref(q, ck, cv, kpos <= qpos,
+                                         softcap=cfg.attn_softcap)
+    FLASH_STATS["lse_merges"] += 1
+    return axis.merge(out, lse).to(q.dtype)
 
 
 def attn_apply(params, x, cfg: ArchConfig, *, positions, window: int = 0,
@@ -181,12 +284,10 @@ def attn_apply(params, x, cfg: ArchConfig, *, positions, window: int = 0,
     - Cross-attention: ``kv_override = (k, v)``, the encoder's K/V
       [(G,) B, S_enc, K, hd]; no RoPE, every key visible.
 
-    The length-sharded cache (flash-decoding, ``cache_axis``) comes with
-    the multi-device slice for serving."""
-    if cache_axis is not None:
-        raise NotImplementedError(
-            "attn_apply over a length-sharded cache (flash-decoding) is "
-            "ported with the multi-device slice for serving")
+    - Length-sharded cache (flash-decoding): ``cache_axis``, a
+      :class:`CacheAxis`, is this rank's slab of the cache length and the
+      merge of the ranks' partials (see :func:`_flash_decode_sharded`).
+    """
     s = x.shape[-2]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _dense(x, params["wq"]).unflatten(-1, (h, hd))
@@ -202,20 +303,13 @@ def attn_apply(params, x, cfg: ArchConfig, *, positions, window: int = 0,
         v = _dense(x, params["wv"]).unflatten(-1, (kv, hd))
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        if kv_cache is not None:
+        if kv_cache is not None and cache_axis is not None:
+            out = _flash_decode_sharded(q, k, v, kv_cache, cache_index,
+                                        window, cfg, cache_axis)
+        elif kv_cache is not None:
             out = _cache_attend(q, k, v, kv_cache, cache_index, window, cfg)
-        elif s >= 2048:
-            from repro_torch.models.attention import attention
-            out = attention(q.reshape(-1, s, h, hd),
-                            k.reshape(-1, s, kv, hd),
-                            v.reshape(-1, s, kv, hd), causal=cfg.causal,
-                            window=window, softcap=cfg.attn_softcap)
         else:
-            mask = causal_mask(s, s, window=window, device=x.device) \
-                if cfg.causal else torch.ones(1, 1, s, s, dtype=torch.bool,
-                                              device=x.device)
-            out = sdpa(q, _repeat_kv(k, h // kv), _repeat_kv(v, h // kv),
-                       mask, softcap=cfg.attn_softcap)
+            out = _self_attend(q, k, v, window, cfg)
     out = out.reshape(x.shape[:-1] + (h * hd,))
     return _dense(out, params["wo"]), kv_cache
 

@@ -330,11 +330,16 @@ class _LM(nn.Module):
             x = x[:, :, -tokens.shape[1]:]
         return x, aux
 
-    def _unembed(self, p, x: torch.Tensor) -> torch.Tensor:
-        """[G, B, S, d] -> logits [B, S, vocab] (branch shards merged)."""
+    def _unembed(self, p, x: torch.Tensor, gather=None) -> torch.Tensor:
+        """[G, B, S, d] -> logits [B, S, vocab] (branch shards merged).
+        ``gather`` joins the per-branch logits [G, B*S, vocab/Bb] of ranks
+        that hold the other branches (a semantic runner on a mesh) before
+        they merge."""
         b = x.shape[1]
         x = L.norm_apply(p["final_norm"], x, self.branch_cfg).flatten(1, 2)
         logits = L.unembed_apply(p["embed"], x, self.branch_cfg)
+        if gather is not None:
+            logits = gather(logits)
         return self._merge(logits.unflatten(1, (b, -1)))
 
     def forward(self, params, batch, *, remat: bool = False,
@@ -399,12 +404,17 @@ class _LM(nn.Module):
 
     @torch.no_grad()
     def prefill_cache(self, params, cache, tokens: torch.Tensor, *,
-                      cache_index: int = 0, lengths=None):
+                      cache_index: int = 0, lengths=None,
+                      cache_axis: Optional[L.CacheAxis] = None, gather=None):
         """One forward over the whole prompt writes K/V at positions
         [cache_index, cache_index + S).  tokens: [B, S].  Returns ([B,
         vocab] logits, cache).  ``lengths`` ([B]) takes each sequence's
         logits at its true last prompt position instead of the shared
-        padded last column."""
+        padded last column.  ``cache_axis`` and ``gather`` serve a runner
+        on a mesh: this rank's slab of caches whose length is split over a
+        mesh axis with the merge over it (flash-decoding,
+        ``layers.CacheAxis``), and the join of other ranks' branch logits
+        (see ``_unembed``)."""
         cfg = self.branch_cfg
         p = self._grouped(params)
         x = L.embed_apply(p["embed"], tokens, cfg)
@@ -412,23 +422,21 @@ class _LM(nn.Module):
                                          device=x.device)[None, :]
         x, _, _ = T.stack_apply(p["blocks"], x, cfg, positions=pos,
                                 caches=self._cache_grouped(cache),
-                                cache_index=cache_index)
-        if lengths is None:
-            x = x[:, :, -1:]
-        else:
-            idx = torch.as_tensor(lengths, device=x.device).long() - 1
-            x = x[:, torch.arange(x.shape[1], device=x.device), idx][:, :,
-                                                                     None]
-        return self._unembed(p, x)[:, -1], cache
+                                cache_index=cache_index,
+                                cache_axis=cache_axis)
+        return self._unembed(p, last_positions(x, lengths),
+                             gather)[:, -1], cache
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens: torch.Tensor,
                     cache_index: int, *, enc_kv=None, batch=None,
-                    window_override: Optional[int] = None):
+                    window_override: Optional[int] = None,
+                    cache_axis: Optional[L.CacheAxis] = None, gather=None):
         """One-token decode at the Python int ``cache_index``.  tokens:
         [B, 1].  Returns (logits [B, 1, vocab], cache).  An enc-dec model
         encodes ``batch["audio_embeds"]`` when ``enc_kv`` (what
-        ``_enc_kv_stack`` returns) is not given."""
+        ``_enc_kv_stack`` returns) is not given.  ``cache_axis`` and
+        ``gather`` as in :meth:`prefill_cache`."""
         cfg = self.branch_cfg
         p = self._grouped(params)
         x = L.embed_apply(p["embed"], tokens, cfg)
@@ -440,8 +448,9 @@ class _LM(nn.Module):
         x, _, _ = T.stack_apply(p["blocks"], x, cfg, positions=pos,
                                 caches=self._cache_grouped(cache),
                                 cache_index=cache_index, enc_kv_stack=enc_kv,
-                                window_override=window_override)
-        return self._unembed(p, x), cache
+                                window_override=window_override,
+                                cache_axis=cache_axis)
+        return self._unembed(p, x, gather), cache
 
 
 class Model(_LM):
@@ -481,14 +490,31 @@ class Model(_LM):
         """[B, S] tokens -> [B, S, d] stage-0 input activations."""
         return L.embed_apply(params["embed"], tokens, self.cfg)
 
-    def stage_apply(self, blocks_span, x, *, positions, remat: bool = False):
+    def stage_apply(self, blocks_span, x, *, positions, remat: bool = False,
+                    caches=None, cache_index: Optional[int] = None,
+                    cache_axis: Optional[L.CacheAxis] = None,
+                    window_override: Optional[int] = None):
         """Apply a contiguous span of the superblock stack (leaves carry a
-        leading [n_local] dim) to x [B, S, d]; ``remat`` checkpoints each
-        superblock.  Returns (x, aux)."""
-        span = T.tree_map(lambda t: t.unsqueeze(0), blocks_span)
-        x, _, aux = T.stack_apply(T.superblocks(span), x[None], self.cfg,
-                                  positions=positions, remat=remat)
+        leading [n_local] dim, or a :class:`~repro_torch.models.transformer.
+        StackOnUse` of the span) to x [B, S, d]; ``remat`` checkpoints each
+        superblock.  ``caches`` (leaves [n_local, B, ...], the span's decode
+        caches) are written in place at ``cache_index``.  Returns (x,
+        aux)."""
+        lead = lambda t: t.unsqueeze(0)
+        span = blocks_span.map(lead) if isinstance(blocks_span, T.StackOnUse) \
+            else T.tree_map(lead, blocks_span)
+        x, _, aux = T.stack_apply(
+            T.superblocks(span), x[None], self.cfg, positions=positions,
+            remat=remat, caches=None if caches is None
+            else T.tree_map(lead, caches), cache_index=cache_index,
+            cache_axis=cache_axis, window_override=window_override)
         return x[0], aux[0]
+
+    def stage_head_logits(self, params, h):
+        """Final norm + unembed of the last stage's hidden states [B, S, d]
+        -> f32 logits [B, S, vocab]."""
+        h = L.norm_apply(params["final_norm"], h, self.cfg)
+        return L.unembed_apply(params["embed"], h, self.cfg)
 
     def stage_head_loss(self, params, h, labels):
         """Final norm + unembed + mean CE over one microbatch's hidden states
@@ -533,6 +559,17 @@ class SemanticModel(_LM):
         logits = L.unembed_apply(params["embed"], h.flatten(1, 2),
                                  self.branch_cfg)       # [Bb, B*C, V/Bb]
         return self._merge(logits.unflatten(1, h.shape[1:3]))
+
+
+def last_positions(x: torch.Tensor, lengths=None) -> torch.Tensor:
+    """x [..., B, S, d] -> [..., B, 1, d]: each row's hidden state at its
+    last prompt position ``lengths - 1`` ([B]), or the shared last
+    column."""
+    if lengths is None:
+        return x[..., -1:, :]
+    idx = torch.as_tensor(lengths, device=x.device).long() - 1
+    return x[..., torch.arange(x.shape[-3], device=x.device), idx, :][
+        ..., None, :]
 
 
 def build_model(cfg: ArchConfig, *, device=None):

@@ -148,8 +148,9 @@ def _moe_apply_ep(params, x: torch.Tensor, cfg: ArchConfig):
     if mesh is None:     # the reference's axis name is unbound outside
         raise NotImplementedError(       # shard_map
             "expert-parallel MoE runs inside a mesh (launch.mesh.use_mesh, "
-            "as the expert-parallel training substrate sets it); serving "
-            "it is ported with the multi-device slice for serving")
+            "as the expert-parallel training substrate sets it): outside "
+            "one, as outside the reference's shard_map, its axis is "
+            "unbound")
     group = mesh.group(cfg.expert_parallel_axis) if mesh.distributed \
         else None
     a = comm.group_size(group) if group is not None else 1

@@ -62,8 +62,12 @@ def block_cache(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
 
 def block_apply(params, x, cfg: ArchConfig, mixer: str, ffn: str, *,
                 positions, cache=None, cache_index: Optional[int] = None,
-                enc_kv=None, window_override: Optional[int] = None):
-    """One block on x [G, B, S, d].  Returns (x, new_cache, aux [G])."""
+                enc_kv=None, window_override: Optional[int] = None,
+                cache_axis: Optional[L.CacheAxis] = None):
+    """One block on x [G, B, S, d].  ``cache_axis``: this rank's slab of
+    attention caches whose length is split over a mesh axis, and the merge
+    over it (flash-decoding, :class:`~repro_torch.models.layers.CacheAxis`).
+    Returns (x, new_cache, aux [G])."""
     g, b, s, d = x.shape
     aux = x.new_zeros(g, dtype=torch.float32)
     h = L.norm_apply(params["mix_norm"], x, cfg)
@@ -73,7 +77,7 @@ def block_apply(params, x, cfg: ArchConfig, mixer: str, ffn: str, *,
             window = window_override
         out, new_cache = L.attn_apply(
             params["mix"], h, cfg, positions=positions, window=window,
-            kv_cache=cache, cache_index=cache_index)
+            kv_cache=cache, cache_index=cache_index, cache_axis=cache_axis)
     elif mixer == "mamba":
         out, new_cache = S.mamba_apply(params["mix"], h, cfg, state=cache)
     elif mixer == "mlstm":
@@ -123,7 +127,8 @@ def _store(view, new) -> None:
 
 def superblock_apply(params, x, cfg: ArchConfig, *, positions, cache=None,
                      cache_index: Optional[int] = None, enc_kv=None,
-                     window_override: Optional[int] = None):
+                     window_override: Optional[int] = None,
+                     cache_axis: Optional[L.CacheAxis] = None):
     """Apply one superblock (leaves [G, ...]; ``cache`` the superblock's
     views [G, B, ...], written in place).  Returns (x, cache, aux [G])."""
     aux = x.new_zeros(x.shape[0], dtype=torch.float32)
@@ -134,7 +139,7 @@ def superblock_apply(params, x, cfg: ArchConfig, *, positions, cache=None,
             params[key], x, cfg, mixer, ffn, positions=positions,
             cache=view, cache_index=cache_index,
             enc_kv=None if enc_kv is None else enc_kv[key],
-            window_override=window_override)
+            window_override=window_override, cache_axis=cache_axis)
         if view is not None:
             _store(view, new)
         aux = aux + a
@@ -177,11 +182,13 @@ def stack_apply(sbs: List[dict], x, cfg: ArchConfig, *, positions,
                 caches=None, cache_index: Optional[int] = None,
                 enc_kv_stack: Optional[List[dict]] = None,
                 window_override: Optional[int] = None,
-                remat: bool = False):
+                remat: bool = False,
+                cache_axis: Optional[L.CacheAxis] = None):
     """Loop over superblocks ``sbs`` (per-superblock trees, leaves
     [G, ...]).  ``caches`` (leaves [G, n, ...]) are written in place at
-    ``cache_index``; ``enc_kv_stack`` holds each superblock's cross-
-    attention K/V.  ``remat`` (training) wraps each superblock in a
+    ``cache_index`` (their length split over a mesh axis when
+    ``cache_axis`` is given); ``enc_kv_stack`` holds each superblock's
+    cross-attention K/V.  ``remat`` (training) wraps each superblock in a
     checkpoint.  Returns (x, caches, aux [G])."""
     aux = x.new_zeros(x.shape[0], dtype=torch.float32)
     for i, sb in enumerate(sbs):
@@ -192,7 +199,7 @@ def stack_apply(sbs: List[dict], x, cfg: ArchConfig, *, positions,
             h, _, a = superblock_apply(
                 fetched(sb), h, cfg, positions=positions, cache=cache,
                 cache_index=cache_index, enc_kv=enc,
-                window_override=window_override)
+                window_override=window_override, cache_axis=cache_axis)
             return h, a
 
         x, a = checkpoint(body, x, use_reentrant=False) if remat \

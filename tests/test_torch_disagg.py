@@ -399,16 +399,27 @@ def test_role_guards(tiny_cfg, jax_weights):
     pf.validate(long_gen)
     with pytest.raises(ValueError, match="paged capacity"):
         dc.validate(long_gen)
-    # pools on two devices are the multi-device slice's
+    # pools on two devices make a two-device fleet: the store ships
+    # between them (a copy a pool leaf a wave), and none on one device
+    assert not CacheStore(pf, dc).fleet
     dc.device = torch.device("meta")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        CacheStore(pf, dc)
+    store = CacheStore(pf, dc)
+    assert store.fleet and store.stats()["ship_xdev_copies"] == 0
 
 
-def test_distinct_fleet_devices_raise(tiny_cfg):
-    with pytest.raises(NotImplementedError, match="multi-device"):
+def test_distinct_fleet_devices_raise(tiny_cfg, monkeypatch):
+    """The fleet's devices are resolved as the backend's is: a card that
+    is not there raises (nothing moves to the CPU), and each arm takes a
+    (prefill, decode) pair from the pool in the order the arms are built;
+    an arm that finds fewer than two left colocates."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchBackend(port_cfg(tiny_cfg), device="cpu", fleet="disagg",
                      fleet_devices=("cpu", "cuda:1"))
+    tb = TorchBackend(port_cfg(tiny_cfg), device="cpu", fleet="disagg",
+                      fleet_devices=("cpu", "cpu", "cpu"),
+                      arms=(LAYER, SEMANTIC), cache_len=16)
+    assert set(tb._disagg) == {LAYER, SEMANTIC} and len(tb._fleet_pool) == 1
     with pytest.raises(ValueError, match="fleet"):
         TorchBackend(port_cfg(tiny_cfg), device="cpu", fleet="colocated")
     # naming the backend's own device is the same-device fleet

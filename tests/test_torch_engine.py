@@ -136,9 +136,13 @@ def test_serve_cli_runs_on_cpu():
 
 
 def test_serve_cli_refuses_meshes_naming_the_multi_device_slice():
-    with pytest.raises(NotImplementedError,
-                       match="mesh 2,1: .*the multi-device slice"):
-        serve.main(["--device", "cpu", "--mesh", "2,1"])
+    """``serve --mesh 2,1`` serves (the mesh shapes the arms' runners, as
+    in the reference); only a mesh spec that names no shape is refused."""
+    out = serve.main(["--device", "cpu", "--mesh", "2,1", "--batches", "1",
+                      "--batch-size", "2", "--cache-len", "32"])
+    assert out["completed"] == 2
+    with pytest.raises(ValueError):
+        serve.main(["--device", "cpu", "--mesh", "two,one"])
 
 
 def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
@@ -149,9 +153,21 @@ def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
 
 @pytest.mark.parametrize("knob", [
     dict(fleet="disagg", fleet_devices=("cpu", "cuda:1"))])
-def test_unported_knobs_raise(tiny_cfg, knob):
-    with pytest.raises(NotImplementedError):
+def test_unported_knobs_raise(tiny_cfg, knob, monkeypatch):
+    """Every knob is ported; what still raises is a request the backend
+    cannot honour: a fleet device that is not there (nothing falls back to
+    the CPU), and a process-group mesh (ranks split serving through the
+    runners' serving surface, not through the backend)."""
+    from repro_torch.launch.mesh import Mesh, MeshShape
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchBackend(port_cfg(tiny_cfg), device="cpu", **knob)
+    ranks = Mesh.__new__(Mesh)
+    MeshShape.__init__(ranks, (1, 2))
+    ranks.rank, ranks.coords = 0, {"data": 0, "model": 0}
+    ranks.backend, ranks.device = "gloo", torch.device("cpu")
+    with pytest.raises(ValueError, match="serving surface"):
+        TorchBackend(port_cfg(tiny_cfg), device="cpu", mesh=ranks)
 
 
 def test_moe_config_raises():

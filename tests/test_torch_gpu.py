@@ -721,6 +721,41 @@ def test_decode_attention_matches_plain(dev, case, dt):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: "-".join(map(str, c[:6])))
+def test_decode_attention_lse_matches_plain(dev, case, dt):
+    """The kernel's log-sum-exp entry (one piece and the merge pass) against
+    the plain version's: the output as above, the f32 lse within 1e-3
+    absolute (bf16 inputs: the plain scores round the same inputs in
+    another order; lse is a log of a sum, so an absolute tolerance), and
+    a length-0 row (an empty slab of a length-sharded cache) 0 and -inf,
+    never NaN; one launch a call."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    b, h, kh, L, hd, cap, lens = case
+    gen = torch.Generator(device=dev).manual_seed(L + hd + 1)
+    q = torch.randn(b, h, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(b, L, kh, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(b, L, kh, hd, generator=gen, device=dev).to(dt)
+    length = torch.tensor([0] + list(lens[1:]), dtype=torch.int32,
+                          device=dev)
+    before = decode_attention.launches
+    got, lse = decode_attention(q, k, v, length, softcap=cap,
+                                return_lse=True)
+    want, want_lse = decode_attention_plain(q, k, v, length, softcap=cap,
+                                            return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, h)
+    _within(got, want, dt, rows=True)
+    assert not bool(torch.isnan(lse).any() or torch.isnan(got).any())
+    assert bool((got[0] == 0).all() and torch.isneginf(lse[0]).all())
+    live = length > 0
+    assert bool(((lse[live] - want_lse[live]).abs() <= 1e-3).all())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(2, 37, 3, 5), (1, 100, 16, 8),
                                    (3, 1, 4, 4)])
 def test_ssm_scan_matches_plain(dev, shape, dt):

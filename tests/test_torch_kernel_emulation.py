@@ -47,8 +47,11 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.decode.paged_cache import quantize_kv  # noqa: E402
 from repro_torch.kernels import (_gemm_launch, _paged_launch,  # noqa: E402
                                  _quant_launch)
+from repro_torch.kernels._decode_launch import CHUNK  # noqa: E402
 from repro_torch.kernels.block_diag_matmul import \
     block_diag_matmul_plain  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_emulated, decode_attention_plain)
 from repro_torch.kernels.moe_gmm import moe_gmm_plain  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_emulated, paged_decode_attention_plain)
@@ -436,3 +439,58 @@ def test_decode_plan(h, kh, hd, item, nb, b):
     assert (pieces - 1) * piece < nb * bs <= pieces * piece
     if (h, kh, hd, item, nb, b) == (32, 32, 64, 2, 64, 8):   # stablelm bf16
         assert (hg, rt, pieces, piece) == (4, 1, 5, 208)
+
+
+# ------------------------------------------------- dense decode attention
+def _slab_lengths(L: int):
+    """A rank's slab lengths of a length-sharded cache: empty (0), one
+    slot, either side of the 256-slot pieces, whole; and the two ranks'
+    slabs of a ring window of W = 1.5 L that has wrapped, whose valid slots
+    are a prefix of the global slots: clamp(W - r * L, 0, L)."""
+    ring = [min(max(3 * L // 2 - r * L, 0), L) for r in (0, 1)]
+    return [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, L] + ring
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("hd,heads", [(64, (8, 8)), (128, (8, 2))])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_dense_decode_emulation_with_lse(dt, hd, heads, softcap):
+    """``decode_attention_emulated`` (256-slot pieces, one CTA each, token
+    groups merged per piece, the pieces merged by ``decode_merge_kernel``,
+    each row's log-sum-exp) against the plain version and the JAX oracle;
+    a length-0 slab gives 0 and -inf, never NaN; a kernel that drops a
+    piece fails the check in every row that piece holds slots of."""
+    h, kh = heads
+    L = 600                                         # three pieces
+    rng = np.random.default_rng(hd + h)
+    qdt = torch.bfloat16 if dt == "bf16" else torch.float32
+    lengths = _slab_lengths(L)
+    b = len(lengths)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(qdt)
+               for s in ((b, h, hd), (b, L, kh, hd), (b, L, kh, hd)))
+    length = torch.tensor(lengths, dtype=torch.int32)
+    got, got_lse = decode_attention_emulated(q, k, v, length, softcap=softcap)
+    want, want_lse = decode_attention_plain(q, k, v, length, softcap=softcap,
+                                            return_lse=True)
+    oracle = np.array(jref.decode_attention_ref(
+        _jnp(q), _jnp(k), _jnp(v), _jnp(length), softcap=softcap),
+        np.float32)
+    oracle[0] = 0          # the JAX oracle averages a length-0 row's keys
+    tol = TOL if dt == "bf16" else 1e-5
+    for ref_out in (_np(want), oracle):
+        diff = np.abs(_np(got) - ref_out)
+        assert (diff <= tol * np.abs(ref_out).max(-1, keepdims=True)
+                + 1e-30).all(), diff.max()
+    assert not torch.isnan(got).any() and not torch.isnan(got_lse).any()
+    assert (_np(got[0]) == 0).all() and torch.isneginf(got_lse[0]).all()
+    np.testing.assert_allclose(got_lse[1:].numpy(), want_lse[1:].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for drop in (0, 1, 2):
+        bad, bad_lse = decode_attention_emulated(q, k, v, length,
+                                                 softcap=softcap,
+                                                 drop_piece=drop)
+        hit = np.array(lengths) > drop * CHUNK
+        over = (np.abs(_np(bad) - _np(want)) > tol * np.abs(_np(want)).max(
+            -1, keepdims=True)).any((-2, -1)) | (np.abs(
+                (bad_lse - want_lse).nan_to_num().numpy()) > 1e-3).any(-1)
+        assert hit.any() and over[hit].all() and not over[~hit].any(), drop

@@ -1,0 +1,541 @@
+"""The port's serving across ranks (the runners' serving surface on gloo
+process groups of CPU processes, flash-decoding over a length-sharded
+cache, the cross-device block ship, ``TorchBackend(mesh=)`` and ``serve
+--mesh``) against the JAX package on one device.
+
+The reference's contract (``tests/test_perf_paths.py``,
+``test_flash_decode_parity``) is that a runner on a mesh serves what the
+same runner serves on one device, the length-sharded cache included.  So
+each case here runs in one world of two CPU processes, which builds a
+(2, 1) and a (1, 2) mesh, and is held to a module-scoped JAX run of the
+runner of its mode on a 1 x 1 mesh, on the same weights (the JAX init,
+bridged through numpy and cut into each rank's slices by the port's specs)
+and the same numpy-seeded tokens:
+
+- flash-decoding (``shard_cache_len=True``, fsdp on (2, 1)) on tiny
+  stablelm (a prompt at 0, a second one across the slab boundary at
+  ``cache_index`` 5, six decode steps) and on shrunk gemma2 (local window
+  8 and softcap 50, twelve decode steps from 0: the ring wraps and the
+  global cache crosses its slab boundary);
+- fsdp on (2, 1) (rows over 'data'), pipeline (stages; in the gspmd
+  layout, embed and head split over 'model' and gathered on use, and in
+  the stage graph's, whole on each stage) and semantic (branches) on
+  (1, 2): ``prefill_step``, ``prefill_into_cache`` with per-row lengths
+  and four ``serve_step`` calls.
+
+Logits are held to JAX's within 1e-5 of their largest |value| (the
+reference holds its sharded decode to 1e-3 absolute); the caches the ranks
+hold, reassembled by ``bridge.gather_tree``, within 1e-6 of theirs under
+flash-decoding and 1e-5 elsewhere.  The
+world runs under a 120 s limit, its process groups with a 60 s timeout.
+This file doubles as the worker: ``python tests/test_torch_serve_multi.py
+RANK DIR`` (it imports torch and the port only).
+"""
+import dataclasses
+import math
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+SHRINK = dict(d_model=64, n_heads=2, n_kv_heads=2, head_dim=32, d_ff=128,
+              vocab_size=128)
+CONFIGS = {"dense": ("stablelm-1.6b", {"n_layers": 4}),
+           "gemma": ("gemma2-27b", {"sliding_window": 8})}
+# name -> (dims, config, weights, mode, runner kwargs, what runs)
+CASES = {
+    "fd_dense": ((2, 1), "dense", "dense", "fsdp",
+                 dict(shard_cache_len=True), "flash_prompt"),
+    "fd_gemma": ((2, 1), "gemma", "gemma", "fsdp",
+                 dict(shard_cache_len=True), "flash_steps"),
+    "fsdp": ((2, 1), "dense", "dense", "fsdp", {}, "surface"),
+    "pipeline": ((1, 2), "dense", "dense", "pipeline", {}, "surface"),
+    "stages": ((1, 2), "dense", "dense", "pipeline", dict(schedule="1f1b"),
+               "surface"),
+    "semantic": ((1, 2), "dense", "sem", "semantic", {}, "surface"),
+}
+B, S, CACHE = 4, 6, 16
+LENGTHS = np.array([6, 4, 5, 3], np.int32)
+FLASH = dict(b=2, cache=16, prompt=5, second=4, steps=6, gemma_steps=12)
+TOL, CACHE_TOL = 1e-5, 1e-6
+WORLD_TIMEOUT_S = 120
+
+
+def make_cfg(get_config, key):
+    name, extra = CONFIGS[key]
+    return get_config(name).reduced().replace(**SHRINK).replace(**extra)
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def unflat(d):
+    out = {}
+    for k, v in d.items():
+        node = out
+        parts = k.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def _tokens(key, vocab):
+    """Every token stream of a case, drawn from one seed."""
+    rng = np.random.default_rng(len(key))
+    f = FLASH
+    return {"prompt": rng.integers(0, vocab, (B, S)).astype(np.int32),
+            "steps": rng.integers(0, vocab, (8, B, 1)).astype(np.int32),
+            "fd_prompt": rng.integers(0, vocab, (f["b"], f["prompt"]))
+            .astype(np.int32),
+            "fd_second": rng.integers(0, vocab, (f["b"], f["second"]))
+            .astype(np.int32),
+            "fd_steps": rng.integers(0, vocab, (f["gemma_steps"], f["b"], 1))
+            .astype(np.int32)}
+
+
+def run_case(runner, params, what, toks, t):
+    """The calls of one case (either package: ``t`` wraps a numpy array
+    as the package's tensor).  Returns ({name: logits}, cache)."""
+    out = {}
+    f = FLASH
+    if what == "surface":
+        out["prefill_step"] = runner.prefill_step(
+            params, {"tokens": t(toks["prompt"])})
+        cache = runner.init_cache(B, CACHE)
+        out["prefill_into_cache"], cache = runner.prefill_into_cache(
+            params, cache, t(toks["prompt"]), lengths=t(LENGTHS))
+        for i in range(4):
+            out[f"step{i}"], cache = runner.serve_step(
+                params, cache, {"tokens": t(toks["steps"][i])}, S + i)
+        return out, cache
+    cache = runner.init_cache(f["b"], f["cache"])
+    if what == "flash_prompt":
+        out["prompt"], cache = runner.prefill_into_cache(
+            params, cache, t(toks["fd_prompt"]))
+        out["second"], cache = runner.prefill_into_cache(
+            params, cache, t(toks["fd_second"]), cache_index=f["prompt"])
+        start, n = f["prompt"] + f["second"], f["steps"]
+    else:
+        start, n = 0, f["gemma_steps"]
+    for i in range(n):
+        out[f"step{i}"], cache = runner.serve_step(
+            params, cache, {"tokens": t(toks["fd_steps"][i])}, start + i)
+    return out, cache
+
+
+# =================================================================== worker
+def _worker(rank: int, io: pathlib.Path) -> None:
+    import torch.distributed as dist
+
+    from repro_torch import bridge
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import api as A
+    from repro_torch.dist import comm
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models import layers as L
+    torch.set_num_threads(1)
+    store = dist.FileStore(str(io / "store"), 2)
+    meshes = {dims: init_mesh(dims, backend="gloo", device="cpu",
+                              store=store, rank=rank, world_size=2,
+                              timeout_s=60) for dims in ((2, 1), (1, 2))}
+    weights = {k: unflat(dict(np.load(io / f"w_{k}.npz")))
+               for k in ("dense", "sem", "gemma")}
+    for name, (dims, ckey, wkey, mode, kw, what) in CASES.items():
+        cfg = make_cfg(get_config, ckey)
+        runner = A.build_runner(cfg, mode, meshes[dims], device="cpu", **kw)
+        params = runner.shard(bridge.tree_from_numpy(weights[wkey]))
+        comm.reset_stats()
+        L.FLASH_STATS["lse_merges"] = 0
+        out, cache = run_case(runner, params, what, _tokens(name,
+                                                            cfg.vocab_size),
+                              lambda a: torch.from_numpy(np.asarray(a)))
+        res = {"l/" + k: v.numpy() for k, v in out.items()}
+        res.update({"c/" + k: v for k, v in
+                    flat(bridge.tree_to_numpy(cache)).items()})
+        res.update({"s/" + k: np.asarray(v)
+                    for k, v in comm.COMM_STATS.items()})
+        res["s/lse_merges"] = np.asarray(L.FLASH_STATS["lse_merges"])
+        np.savez(io / f"r_{name}_{rank}.npz", **res)
+    dist.destroy_process_group()
+
+
+# ==================================================================== tests
+def port(cfg):
+    from repro_torch.configs.base import ArchConfig
+    return ArchConfig(**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(cfg)})
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Weights written, the world of two started, the JAX references
+    computed while it runs; then the workers' results."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.base import get_config
+    from repro.dist import api as japi
+    io = tmp_path_factory.mktemp("serve_multi")
+    one = jax.make_mesh((1, 1), ("data", "model"))
+    cfgs = {k: make_cfg(get_config, k) for k in CONFIGS}
+    inits = {"dense": japi.build_runner(cfgs["dense"], "fsdp", one),
+             "sem": japi.build_runner(cfgs["dense"], "semantic", one),
+             "gemma": japi.build_runner(cfgs["gemma"], "fsdp", one)}
+    weights = {k: r.init(jax.random.PRNGKey(0)) for k, r in inits.items()}
+    for k, w in weights.items():
+        np.savez(io / f"w_{k}.npz", **flat(jax.tree.map(np.asarray, w)))
+
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    procs, logs, t0 = [], [], time.time()
+    for r in range(2):
+        logs.append(io / f"log_{r}.txt")
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, str(r), str(io)], env=env,
+                stdout=log, stderr=subprocess.STDOUT))
+
+    refs = {}
+    for name, (dims, ckey, wkey, mode, kw, what) in CASES.items():
+        runner = japi.build_runner(cfgs[ckey], mode, one)
+        out, cache = run_case(runner, weights[wkey], what,
+                              _tokens(name, cfgs[ckey].vocab_size),
+                              jnp.asarray)
+        refs[name] = ({k: np.asarray(v) for k, v in out.items()},
+                      flat(jax.tree.map(np.asarray, cache)))
+
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, WORLD_TIMEOUT_S - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail(f"the gloo world ran past {WORLD_TIMEOUT_S} s")
+    bad = [log.read_text()[-3000:] for p, log in zip(procs, logs)
+           if p.returncode]
+    assert not bad, bad[0]
+    return io, cfgs, refs
+
+
+def _shards(io, name):
+    return [dict(np.load(io / f"r_{name}_{r}.npz")) for r in range(2)]
+
+
+def _rank_caches(world, name):
+    """The ranks' caches reassembled under the port runner's cache specs,
+    and JAX's."""
+    from repro_torch import bridge
+    from repro_torch.dist import api as tapi
+    from repro_torch.launch.mesh import MeshShape
+    io, cfgs, refs = world
+    dims, ckey, _, mode, kw, _ = CASES[name]
+    shards = [unflat({k[2:]: v for k, v in s.items() if k.startswith("c/")})
+              for s in _shards(io, name)]
+    want = refs[name][1]
+    runner = tapi.build_runner(port(cfgs[ckey]), mode, MeshShape(dims),
+                               device="cpu", **kw)
+    specs = runner.cache_specs(unflat(want))
+    return flat(bridge.gather_tree(shards, specs, MeshShape(dims))), want
+
+
+def _close_logits(got, want, tol=TOL):
+    assert got.shape == want.shape
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_logits_match_jax(world, name):
+    """Every call's logits on both ranks: the reference's global logits."""
+    io, _, refs = world
+    want = refs[name][0]
+    for s in _shards(io, name):
+        got = {k[2:]: v for k, v in s.items() if k.startswith("l/")}
+        assert set(got) == set(want)
+        for k in want:
+            _close_logits(got[k], want[k])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_rank_caches_match_jax(world, name):
+    """The slices the ranks hold, reassembled, are JAX's whole cache: within
+    1e-6 of its largest |value| under flash-decoding (the K/V of the
+    one-device layer stack, written into slabs), 1e-5 elsewhere (the
+    semantic branches' K/V round differently from JAX's vmap)."""
+    got, want = _rank_caches(world, name)
+    tol = CACHE_TOL if name.startswith("fd_") else TOL
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].shape == w.shape, k
+        err = float(np.abs(got[k] - w).max())
+        assert err <= tol * max(float(np.abs(w).max()), 1e-30), (k, err)
+
+
+def test_flash_decoding_slabs_and_merges(world):
+    """Under ``shard_cache_len`` each rank holds half of every cache's
+    length, and each decode step merges the slabs once per attention layer
+    (one all-reduce max and one all-reduce sum each)."""
+    io, cfgs, refs = world
+    for name, steps in (("fd_dense", FLASH["steps"]),
+                        ("fd_gemma", FLASH["gemma_steps"])):
+        n_layers = cfgs[CASES[name][1]].n_layers
+        for s in _shards(io, name):
+            for k, v in s.items():
+                if k.startswith("c/"):
+                    assert v.shape[-3] * 2 == refs[name][1][k[2:]].shape[-3]
+            # the second prompt (at cache_index 5) merges too; the first,
+            # at 0, is its own causal attention
+            prompts = 1 if name == "fd_dense" else 0
+            merges = (steps + prompts) * n_layers
+            assert int(s["s/lse_merges"]) == merges
+            assert int(s["s/all_reduce_max_calls"]) == merges
+            assert int(s["s/all_reduce_calls"]) == merges
+    # rank 1's slab of the gemma ring is written only once the ring reaches
+    # slot 4 of its 8, its global slab only from position 8
+    r1 = _shards(io, "fd_gemma")[1]
+    assert np.abs(r1["c/pos0/k"]).max() > 0
+    assert np.abs(r1["c/pos1/k"]).max() > 0
+
+
+def test_serving_collectives_by_mode(world):
+    """fsdp gathers weights on use and the rows' logits; the stages send
+    one activation a call and broadcast the head's logits; the branches'
+    logits meet in one all-gather a call."""
+    io = world[0]
+    calls = 6        # prefill_step, prefill_into_cache, four serve_steps
+    for name in ("pipeline", "stages"):
+        pipe = _shards(io, name)
+        assert sum(int(s.get("s/send_calls", 0)) for s in pipe) == calls
+        assert all(int(s["s/broadcast_calls"]) == calls for s in pipe)
+        gathers = [int(s.get("s/all_gather_calls", 0)) for s in pipe]
+        assert (min(gathers) > 0) == (name == "pipeline"), gathers
+    for s in _shards(io, "semantic"):
+        assert int(s["s/all_gather_calls"]) == calls
+        assert int(s.get("s/send_calls", 0)) == 0
+    for s in _shards(io, "fsdp"):
+        assert int(s["s/all_gather_calls"]) > calls
+        assert int(s.get("s/send_calls", 0)) == 0
+
+
+# -------------------------------------------------- decode_attention's lse
+def _lse_f64(q, k, v, length, softcap):
+    b, h, hd = q.shape
+    rep = h // k.shape[2]
+    kk = np.repeat(k.astype(np.float64), rep, axis=2)
+    vv = np.repeat(v.astype(np.float64), rep, axis=2)
+    s = np.einsum("bhd,blhd->bhl", q.astype(np.float64), kk) / math.sqrt(hd)
+    if softcap:
+        s = np.tanh(s / softcap) * softcap
+    valid = np.arange(k.shape[1])[None, None] < length[:, None, None]
+    s = np.where(valid, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - np.where(np.isfinite(m), m, 0))
+    l = p.sum(-1)
+    out = np.einsum("bhl,blhd->bhd", p, vv) / np.maximum(l, 1e-300)[..., None]
+    with np.errstate(divide="ignore"):
+        return out, np.where(l > 0, np.log(l) + m[..., 0], -np.inf)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_plain_decode_attention_lse_matches_f64(softcap):
+    """The plain version's output and log-sum-exp against a float64
+    softmax; a length-0 slab gives 0 and -inf, never NaN."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    rng = np.random.default_rng(3)
+    b, L, h, kh, hd = 5, 40, 8, 2, 32
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, L, kh, hd)).astype(np.float32)
+    v = rng.standard_normal((b, L, kh, hd)).astype(np.float32)
+    length = np.array([0, 1, 17, 39, 40], np.int32)
+    out, lse = decode_attention(*(torch.from_numpy(a) for a in (q, k, v,
+                                                                  length)),
+                                softcap=softcap, return_lse=True)
+    want, want_lse = _lse_f64(q, k, v, length, softcap)
+    assert out.dtype == torch.float32 and lse.dtype == torch.float32
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=2e-6)
+    assert np.isneginf(lse[0].numpy()).all() and (out[0] == 0).all()
+    np.testing.assert_allclose(lse[1:].numpy(), want_lse[1:], rtol=1e-6)
+
+
+# ------------------------------------------------- the cross-device ship
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_ship_blocks_matches_jax_gather_scatter(kv):
+    """``ship_blocks`` between two pools (on the CPU the move to the
+    destination's device is a no-op) writes what JAX's ``gather_blocks``
+    then ``scatter_blocks`` write, NULL-padded ids included."""
+    import jax.numpy as jnp
+
+    from repro.decode import paged_cache as jpc
+    from repro_torch.decode.cache_store import ship_blocks
+    rng = np.random.default_rng(11)
+    n_sb, nb, bs, kh, hd = 2, 12, 4, 2, 8
+
+    def pool():
+        p = {}
+        for i in range(2):
+            if kv == "int8":
+                p[f"pos{i}"] = {
+                    n: rng.integers(-127, 128, (n_sb, nb, bs, kh, hd))
+                    .astype(np.int8) for n in ("k", "v")}
+                p[f"pos{i}"].update({
+                    n: rng.random((n_sb, nb, bs, kh)).astype(np.float32)
+                    for n in ("k_scale", "v_scale")})
+            else:
+                p[f"pos{i}"] = {n: rng.standard_normal(
+                    (n_sb, nb, bs, kh, hd)).astype(np.float32)
+                    for n in ("k", "v")}
+        return p
+    src, dst = pool(), pool()
+    s = np.array([3, 7, 1, 0, 0, 0, 0, 0], np.int64)     # NULL padded
+    d = np.array([5, 2, 9, 0, 0, 0, 0, 0], np.int64)
+    t = lambda tree: {k: t(v) if isinstance(v, dict) else torch.from_numpy(
+        v.copy()) for k, v in tree.items()}
+    tdst = t(dst)
+    ship_blocks(t(src), tdst, s, d)
+    want = jpc.scatter_blocks(
+        jax_tree(dst, jnp), jpc.gather_blocks(jax_tree(src, jnp),
+                                              jnp.asarray(s, jnp.int32)),
+        jnp.asarray(d, jnp.int32))
+    got = flat(tdst)
+    for k, w in flat(want).items():
+        if "/" in k:
+            # the null block (0) is scratch by design in both packages
+            np.testing.assert_array_equal(got[k].numpy()[:, 1:],
+                                          np.asarray(w)[:, 1:], err_msg=k)
+
+
+def jax_tree(tree, jnp):
+    return {k: jax_tree(v, jnp) if isinstance(v, dict) else jnp.asarray(v)
+            for k, v in tree.items()}
+
+
+def test_cache_store_fleet_ships_a_copy_a_leaf(tiny_cfg, tiny_mesh):
+    """A disagg backend's stores ship with ``ship_blocks``: it emits
+    JaxBackend's tokens and ship counters, and on one device counts no
+    cross-device copy.  A decode worker on another device (``meta``:
+    shapes without data) makes the store a fleet whose waves count one
+    copy a pool leaf."""
+    from repro.engine import FixedPolicy as JFixed
+    from repro.engine import PlacementEngine as JPlacement
+    from repro.engine import Request as JRequest
+    from repro.engine.jax_backend import JaxBackend
+    from repro_torch import bridge
+    from repro_torch.decode.cache_store import CacheStore
+    from repro_torch.decode.scheduler import PagedArmScheduler
+    from repro_torch.engine import (LAYER, FixedPolicy, PlacementEngine,
+                                    Request, TorchBackend)
+    from test_torch_paged import np_tree
+    kw = dict(cache_len=16, arms=(LAYER,), fleet="disagg", max_batch=2,
+              block_size=4, prefill_chunk=4, scan_tokens=4)
+    jb = JaxBackend(tiny_cfg, tiny_mesh, **kw)
+    tb = TorchBackend(port(tiny_cfg), device="cpu", **kw)
+    bridge.load_params(tb.models[LAYER], np_tree(jb.params[LAYER]))
+    store = tb._disagg[LAYER][2]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, tiny_cfg.vocab_size, 6).astype(np.int32)
+               for _ in range(4)]
+    mk = lambda cls: [cls(rid=i, app_id=0, tokens=p, sla_s=5.0, max_new=4)
+                      for i, p in enumerate(prompts)]
+    jreqs, treqs = mk(JRequest), mk(Request)
+    for eng, reqs in ((JPlacement(JFixed(LAYER, placement=None), jb), jreqs),
+                      (PlacementEngine(FixedPolicy(LAYER, placement=None),
+                                       tb), treqs)):
+        eng.submit(reqs)
+        eng.drain()
+    for j, t in zip(jreqs, treqs):
+        np.testing.assert_array_equal(t.output, j.output)
+    jm, tm = jb.extra_metrics(), tb.extra_metrics()
+    for key in ("blocks_shipped", "transfer_bytes", "ship_waves"):
+        assert tm[key] == jm[key], key
+    assert not store.fleet and tm["ship_xdev_copies"] == 0
+    pf = store.src
+    far = PagedArmScheduler(type(pf.model)(pf.model.cfg, device="meta"),
+                            n_lanes=2, cache_len=16, block_size=4,
+                            role="decode")
+    fleet = CacheStore(pf, far)
+    fleet._transfer([1, 2, 3], [3, 1, 2])
+    n_leaves = sum(len(v) for v in far.pool.values())
+    assert fleet.fleet and fleet.stats()["ship_xdev_copies"] == n_leaves > 0
+
+
+# --------------------------------------------- the backend's mesh shape
+def test_torch_backend_mesh_matches_jax_backend(tiny_cfg):
+    """On a (1, 4) mesh shape both backends serve 4 semantic branches and
+    emit the same tokens on both arms; only ``mesh.shape`` is read."""
+    from repro.engine import FixedPolicy as JFixed
+    from repro.engine import PlacementEngine as JPlacement
+    from repro.engine import Request as JRequest
+    from repro.engine.jax_backend import JaxBackend
+    from repro_torch import bridge
+    from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,
+                                    PlacementEngine, Request, TorchBackend)
+    from test_torch_paged import np_tree
+    shape = type("MeshShape", (), {"shape": {"data": 1, "model": 4}})()
+    kw = dict(cache_len=16, max_batch=2, block_size=4, prefill_chunk=4,
+              scan_tokens=4)
+    jb = JaxBackend(tiny_cfg, shape, **kw)
+    tb = TorchBackend(port(tiny_cfg), mesh=(1, 4), device="cpu", **kw)
+    assert tb.models[SEMANTIC].cfg.n_branches == 4 == \
+        jb.runners[SEMANTIC].model.n_branches
+    for arm in (LAYER, SEMANTIC):
+        bridge.load_params(tb.models[arm], np_tree(jb.params[arm]))
+    rng = np.random.default_rng(4)
+    spec = [(i % 2, rng.integers(0, tiny_cfg.vocab_size, 5).astype(np.int32))
+            for i in range(4)]
+    for arm in (LAYER, SEMANTIC):
+        jreqs = [JRequest(rid=i, app_id=0, tokens=p, sla_s=5.0, max_new=3)
+                 for i, (a, p) in enumerate(spec) if a == arm]
+        treqs = [Request(rid=i, app_id=0, tokens=p, sla_s=5.0, max_new=3)
+                 for i, (a, p) in enumerate(spec) if a == arm]
+        decisions = []
+        for eng, reqs in ((JPlacement(JFixed(arm, placement=None), jb),
+                           jreqs),
+                          (PlacementEngine(FixedPolicy(arm, placement=None),
+                                           tb), treqs)):
+            eng.submit(reqs)
+            decisions.append(sorted((o.request.rid, o.decision)
+                                    for o in eng.drain()))
+        assert decisions[0] == decisions[1] and len(decisions[0]) == 2
+        for j, t in zip(jreqs, treqs):
+            np.testing.assert_array_equal(t.output, j.output)
+
+
+def test_serve_cli_mesh_shapes_the_runners():
+    """``serve --mesh 1,2`` serves every request; the semantic arm has
+    max(2, M) branches."""
+    from repro_torch.engine import SEMANTIC, TorchBackend
+    from repro_torch.launch import serve
+    seen = []
+    orig = TorchBackend.__init__
+
+    def spy(self, *a, **kw):
+        orig(self, *a, **kw)
+        seen.append(self)
+    TorchBackend.__init__ = spy
+    try:
+        out = serve.main(["--device", "cpu", "--mesh", "1,2", "--batches",
+                          "2", "--batch-size", "3", "--cache-len", "32"])
+    finally:
+        TorchBackend.__init__ = orig
+    assert out["completed"] == 6
+    assert seen[0].mesh.shape == {"data": 1, "model": 2}
+    assert seen[0].models[SEMANTIC].cfg.n_branches == 2
+
+
+if __name__ == "__main__":
+    _worker(int(sys.argv[1]), pathlib.Path(sys.argv[2]))

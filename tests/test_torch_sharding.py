@@ -267,31 +267,50 @@ def test_bytes_per_rank_match_spec_arithmetic(mesh):
 
 
 def test_serving_refusals_name_the_serving_slice():
-    """Serving across devices waits for the next slice; each refusal says
-    so: the serve CLI's mesh, a fleet on other devices, a block transfer
-    between devices, flash-decoding over a length-sharded cache."""
+    """Serving across devices runs; no message of the port names a later
+    slice for it: the serve CLI's mesh shapes the runners, a fleet takes
+    devices from its pool, a store between two devices ships across them,
+    and flash-decoding over one slab is attention over the whole cache."""
+    import pathlib
     import types
 
     from repro_torch.configs.base import get_config
     from repro_torch.decode.cache_store import CacheStore
-    from repro_torch.engine import TorchBackend
+    from repro_torch.engine import SEMANTIC, TorchBackend
     from repro_torch.launch import serve
     from repro_torch.models import layers as L
-    msg = "multi-device slice for serving"
-    with pytest.raises(NotImplementedError, match=f"mesh 2,1: .*{msg}"):
-        serve.main(["--arch", "stablelm-1.6b", "--mesh", "2,1",
-                    "--device", "cpu"])
+    port = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    assert not [p for p in port.rglob("*.py")
+                if "slice for serving" in p.read_text()]
+    out = serve.main(["--arch", "stablelm-1.6b", "--mesh", "2,1",
+                      "--device", "cpu", "--batches", "1", "--batch-size",
+                      "2", "--cache-len", "32"])
+    assert out["completed"] == 2
     cfg = get_config("stablelm-1.6b").reduced()
-    with pytest.raises(NotImplementedError, match=msg):
-        TorchBackend(cfg, fleet="disagg", fleet_devices=["cuda:1"],
-                     device="cpu")
+    tb = TorchBackend(cfg, mesh=(1, 4), arms=(SEMANTIC,), device="cpu",
+                      cache_len=32)
+    assert tb.models[SEMANTIC].cfg.n_branches == 4
     pool = dict(block_size=16, kv_dtype="f32")
     src = types.SimpleNamespace(role="prefill", device=torch.device("cpu"),
                                 **pool)
     dst = types.SimpleNamespace(role="decode", device=torch.device("meta"),
                                 **pool)
-    with pytest.raises(NotImplementedError, match=msg):
-        CacheStore(src, dst)
-    with pytest.raises(NotImplementedError, match=msg):
-        L.attn_apply({}, torch.zeros(1, 2, cfg.d_model), cfg,
-                     positions=torch.zeros(1, 2), cache_axis="data")
+    assert CacheStore(src, dst).fleet
+    # flash-decoding on one slab of one (its merge the identity) is the
+    # attention over the whole cache
+    d, kvd = cfg.d_model, cfg.n_kv_heads * cfg.hd
+    gen = torch.Generator().manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen)
+    w = {"wq": rnd(d, cfg.n_heads * cfg.hd), "wk": rnd(d, kvd),
+         "wv": rnd(d, kvd), "wo": rnd(cfg.n_heads * cfg.hd, d)}
+    kv = {"k": rnd(1, 8, cfg.n_kv_heads, cfg.hd),
+          "v": rnd(1, 8, cfg.n_kv_heads, cfg.hd)}
+    x, pos = rnd(1, 1, d), torch.full((1, 1), 5)
+    one = L.CacheAxis(0, 1, lambda out, lse: out)
+    got, gk = L.attn_apply(w, x, cfg, positions=pos, cache_axis=one,
+                           kv_cache={k: t.clone() for k, t in kv.items()},
+                           cache_index=5)
+    want, wk = L.attn_apply(w, x, cfg, positions=pos, kv_cache=kv,
+                            cache_index=5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(gk["k"], wk["k"]) and torch.equal(gk["v"], wk["v"])
