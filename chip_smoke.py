@@ -309,8 +309,21 @@ raising on failure:
             slab wrapped), each launch against the plain version (runs with
             the timed kernel phases).
 
-Phases 9-16 and 21 run after the serves, before training; 17-20 after
-training.  The ``kernels`` line
+23. dryrun  the dry run (``repro_torch.launch.dryrun``, a rank traced on
+            the meta device in a fake world) of the train phase's fsdp
+            step on a 1 x 1 mesh, held to that run: its predicted flash
+            launches a step equal the measured (48, all ``simt``), its
+            argument bytes (parameters, AdamW state, batch) within 1% of
+            what the run's setup allocated, its peak within 15% of the
+            run's peak (less what was live before it); both numbers of
+            each pair and their ratio reported.  Then production runs on
+            the host (stablelm-1.6b ``train_4k`` on one pod as one
+            microbatch, xlstm-125m ``decode_32k`` on one pod,
+            jamba-1.5-large-398b ``long_500k`` on two): ``trace_s``, peak
+            and argument bytes a rank.
+
+Phases 9-16 and 21 run after the serves, before training; 23 and 17-20
+after training.  The ``kernels`` line
 counts ``flash_attention`` launches from the ``train``, ``pipeline`` and
 ``multi`` phases (the ``multi`` ranks' counts summed, ``serve_multi``'s
 prompt included), ``decode_attention``
@@ -2099,15 +2112,14 @@ FLASH_CASES = (
 def flash_bound(q, k, *, causal, window):
     """(bound_ms, bound_by): q, k, v and out each moved once over the memory
     rate, against 4 hd flops (QK^T and PV) per unmasked (query, key) pair
-    of this call over the peak for q's type."""
+    of this call over the peak for q's type (``kernels.cost.flash_cost``,
+    which the dry run counts)."""
+    from repro_torch.kernels.cost import flash_cost
     n, sq, h, hd = q.shape
-    sk = k.shape[1]
-    qpos = np.arange(sq) + sk - sq
-    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq)
-    pairs = float(np.maximum(hi - lo, 0).sum()) * n * h
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return _bound(nbytes, 4.0 * hd * pairs, q.dtype)
+    flops, nbytes = flash_cost(n, sq, k.shape[1], h, k.shape[2], hd,
+                               q.element_size(), causal=causal,
+                               window=window)
+    return _bound(nbytes, flops, q.dtype)
 
 
 # flash within ``flash_attention.FLASH_TOL`` times each output row's max
@@ -2270,18 +2282,18 @@ def ops_cases(dev):
     from repro_torch.kernels import quant_matmul as Q
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as SCAN
+    from repro_torch.kernels.cost import decode_cost, gemm_cost
     gen = torch.Generator(device=dev).manual_seed(23)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
 
     def gemm(name, mod, label, g, m, k, n, dt):
         x = rnd(g, m, k).to(dt)
         w = (rnd(g, k, n) / math.sqrt(k)).to(dt)
-        size = x.element_size()
+        flops, nbytes = gemm_cost(g, m, k, n, x.element_size())
         return dict(kernel=name, label=f"{label}/{str(dt)[6:]}", dt=dt,
                     args=(x, w), kw={}, plain=getattr(mod, f"{name}_plain"),
                     oracle=getattr(ref, f"{name}_ref"),
-                    bound=_bound((g * m * k + g * k * n + g * m * n) * size,
-                                 2.0 * g * m * k * n, dt),
+                    bound=_bound(nbytes, flops, dt),
                     library=lambda: torch.bmm(x, w))
 
     sem = get_config("stablelm-1.6b").semantic(2)
@@ -2330,7 +2342,6 @@ def ops_cases(dev):
             q = rnd(DECODE_B, h, hd).to(dt)
             k = rnd(DECODE_B, DECODE_L, kh, hd).to(dt)
             v = rnd(DECODE_B, DECODE_L, kh, hd).to(dt)
-            size = q.element_size()
             keys = sum(DECODE_LENGTHS)
             library = None
             if not cap_s and h == kh:
@@ -2355,10 +2366,8 @@ def ops_cases(dev):
                        plain=DEC.decode_attention_plain,
                        oracle=ref.decode_attention_ref, zero_rows=length == 0,
                        row_limit=True, fault=fault,
-                       bound=_bound(keys * 2 * kh * hd * size
-                                    + 2 * q.numel() * size
-                                    + length.numel() * 4,
-                                    4.0 * h * hd * keys, dt),
+                       bound=_bound(*reversed(decode_cost(
+                           DECODE_B, h, kh, hd, keys, q.element_size())), dt),
                        library=library)
             del q, k, v, library, fault
 
@@ -2516,11 +2525,17 @@ def train_phase(dev, cfg):
         step_s = []
         flash_attention.launches = 0
         paths = dict(FL.PATH_LAUNCHES)
+        # the bytes live before the run, and those its setup (parameters
+        # and AdamW state) adds: the dry run's argument bytes, measured
+        base = torch.cuda.memory_allocated()
+        setup = {}
         losses = TR.main(
             ["--arch", cfg.name, "--mode", mode, "--steps", str(steps),
              "--seq-len", str(TRAIN_SHAPE["seq_len"]), "--batch",
              str(TRAIN_SHAPE["batch"]), "--log-every", "1"],
-            on_step=lambda i, loss, s: step_s.append(s))
+            on_step=lambda i, loss, s: step_s.append(s),
+            on_setup=lambda *a: setup.update(
+                bytes=torch.cuda.memory_allocated() - base))
         torch.cuda.synchronize()
         launches = flash_attention.launches
         want = 2 * cfg.n_layers * steps
@@ -2542,6 +2557,7 @@ def train_phase(dev, cfg):
         runs[mode] = dict(steps=steps, losses=losses, step_s=step_s,
                           step_ms=1e3 * steady, tokens_per_s=tokens / steady,
                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          base_bytes=base, setup_bytes=setup["bytes"],
                           flash_launches=launches,
                           flash_launches_by_path=by_path,
                           launches_per_step=launches / steps)
@@ -2597,6 +2613,79 @@ def grad_check(dev, cfg):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] kernel vs plain value_and_grad: {json.dumps(out)}")
+    return out
+
+
+#: the dry run's production runs on the card's host: (arch, shape, two
+#: pods, microbatches).  train_4k runs as one microbatch (``--n-micro 1``):
+#: its default 16 traced 104 s on the card's host, past the phase's
+#: budget
+DRYRUN_RUNS = (("stablelm-1.6b", "train_4k", False, 1),
+               ("xlstm-125m", "decode_32k", False, None),
+               ("jamba-1.5-large-398b", "long_500k", True, None))
+#: the dry run against the train phase's fsdp run: argument bytes within
+#: 1% of the setup's bytes, the peak within 15% of the run's own peak
+DRYRUN_ARG_REL, DRYRUN_PEAK_REL = 0.01, 0.15
+
+
+def dryrun_phase(cfg, train):
+    """The dry run (``repro_torch.launch.dryrun``) of the step the train
+    phase measured, on a 1 x 1 fake mesh on the meta device (fsdp, f32,
+    remat, the train phase's batch), held to that run: its predicted flash
+    launches a step to the measured (all ``simt``), its argument bytes to
+    the bytes the run's setup allocated, its peak to the run's peak less
+    what was live before it.  Then the production runs of
+    ``DRYRUN_RUNS`` on the host, each a rank of the production mesh."""
+    import torch.distributed as dist
+    from repro_torch.dist import api as A
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.model import InputShape
+    if dist.is_initialized():
+        raise AssertionError("[dryrun] a process group is running")
+    t_phase = time.perf_counter()
+    run = train["fsdp"]
+    shape = InputShape("train_phase", TRAIN_SHAPE["seq_len"],
+                       TRAIN_SHAPE["batch"], "train")
+    with fake_mesh((1, 1)) as mesh:
+        runner = A.build_runner(cfg.replace(dtype="float32"), "fsdp", mesh,
+                                device="meta")
+        rec = DR.dryrun_rank(runner, shape, remat=True)
+    flash = rec["kernels"]["flash_attention"]
+    want = run["launches_per_step"]
+    if flash["launches"] != want or flash["paths"] != {"simt": want}:
+        raise AssertionError(f"[dryrun] predicted flash launches {flash}, "
+                             f"the train phase measured {want} a step, all "
+                             "simt")
+    peak = run["peak_mem_gb"] * 1e9 - run["base_bytes"]
+    ratios = dict(argument=rec["argument_bytes"] / run["setup_bytes"],
+                  peak=rec["peak_bytes"] / peak)
+    out = dict(trace_s=rec["trace_s"], flash_launches=flash,
+               flash_launches_measured=want,
+               argument_bytes=rec["argument_bytes"],
+               argument_bytes_measured=run["setup_bytes"],
+               peak_bytes=rec["peak_bytes"], peak_bytes_measured=peak,
+               base_bytes=run["base_bytes"], ratios=ratios,
+               flops=rec["flops"], production={})
+    log(f"[dryrun] train phase's fsdp step: {json.dumps(out)}")
+    if not abs(ratios["argument"] - 1) <= DRYRUN_ARG_REL \
+            or not abs(ratios["peak"] - 1) <= DRYRUN_PEAK_REL:
+        raise AssertionError(f"[dryrun] predicted / measured {ratios}: "
+                             f"limits {DRYRUN_ARG_REL} (arguments), "
+                             f"{DRYRUN_PEAK_REL} (peak)")
+    for arch, shape_name, pod2, n_micro in DRYRUN_RUNS:
+        r = DR.run_dryrun(arch, shape_name, multi_pod=pod2, save=False,
+                          verbose=False, n_micro=n_micro)
+        tag = f"{arch}/{shape_name}/{'pod2' if pod2 else 'pod1'}" + (
+            f"/n_micro{n_micro}" if n_micro else "")
+        out["production"][tag] = dict(
+            trace_s=r["trace_s"], peak_gb=r["peak_bytes"] / 1e9,
+            argument_bytes=r["argument_bytes"], flops=r["flops"],
+            collectives=r["collectives"], kernels=r["kernels"],
+            ranks=r["ranks"])
+        log(f"[dryrun] {tag}: {json.dumps(out['production'][tag])}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase seconds {out['phase_s']:.1f}")
     return out
 
 
@@ -3564,6 +3653,7 @@ def _slab_times(q, k, v, got, lse):
     read once), beside SDPA's ``_scaled_dot_product_efficient_attention(
     compute_log_sumexp=True)`` on the same slab (a yardstick the port
     never calls) and its errors against the plain version."""
+    from repro_torch.kernels.cost import decode_cost
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     L, kh, hd, h = k.shape[1], k.shape[2], k.shape[3], q.shape[1]
@@ -3578,10 +3668,9 @@ def _slab_times(q, k, v, got, lse):
         lambda: decode_attention(q, k, v, length, return_lse=True),
         lambda: decode_attention_plain(q, k, v, length, return_lse=True),
         lambda: sdpa(qt, kt, vt, None, True))
-    es = q.element_size()
-    nbytes = 2 * L * kh * hd * es + q.numel() * es + got.numel() * 4 \
-        + lse.numel() * 4 + 4
-    bound_ms, bound_by = _bound(nbytes, 4.0 * h * hd * L, q.dtype)
+    flops, nbytes = decode_cost(q.shape[0], h, kh, hd, q.shape[0] * L,
+                                q.element_size(), return_lse=True)
+    bound_ms, bound_by = _bound(nbytes, flops, q.dtype)
     return dict(library_lse_max_abs_err=float(
                     (lib_lse[..., 0].float() - want_lse).abs().max()),
                 library_out_max_abs_err=float(
@@ -3841,6 +3930,7 @@ def main(argv=None) -> int:
         {**{k: g["phase_s"] for k, g in gang.items()},
          "zoo": zoo["phase_s"]}))
     train = train_phase(dev, stablelm)
+    dryrun = dryrun_phase(stablelm, train)
     pipeline = pipeline_phase(dev, stablelm)
     multi = multi_phase(dev)
     placement = placement_phase(dev)
@@ -3917,7 +4007,7 @@ def main(argv=None) -> int:
             card=card, build_s=build_s, total_s=total_s, kernels=kernels,
             op_layer=op_layer, serves=serves, models=models, fleet=fleet,
             gang=gang, gang_models=gang_models, zoo=zoo, train=train,
-            pipeline=pipeline, multi=multi, placement=placement),
+            dryrun=dryrun, pipeline=pipeline, multi=multi, placement=placement),
             indent=1))
     print(json.dumps({"kernels": line}))
     print(card)

@@ -131,11 +131,14 @@ class BaseRunner:
         """Random parameters (the JAX init's distributions, drawn from a
         ``torch.Generator`` seeded with ``seed``) on the runner's device,
         with grad enabled; returns their tree.  On a mesh every rank draws
-        the same weights and keeps its slice of each leaf."""
+        the same weights and keeps its slice of each leaf.  On the meta
+        device (the dry run) nothing is drawn: the leaves are shapes, and a
+        rank's slices and specs come as they do from a draw."""
         self._check_world()
         self.model = build_model(self.cfg, device=self.device)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.model.reset_parameters(gen)
+        if self.device.type != "meta":
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.model.reset_parameters(gen)
         if not self.distributed:
             self.model.requires_grad_(True)
             return self.model.param_tree()
@@ -293,35 +296,66 @@ class BaseRunner:
                    window_override: Optional[int] = None):
         """Dense decode caches on the runner's device (after ``init``); on
         a mesh, this rank's slices of them under ``cache_specs``, laid out
-        in memory as the whole caches are (superblock-major)."""
+        in memory as the whole caches are (superblock-major), each filled
+        as the model's own cache starts.  Where the rows split over 'data',
+        recurrent state stays whole on every rank, as ``cache_specs``
+        replicates it (see :meth:`_row_state`)."""
         if not self.distributed:
             return self.model.init_cache(batch_size, cache_len,
                                          window_override)
-        whole = build_model(self.cfg, device="meta").init_cache(
-            batch_size, cache_len, window_override)
+        meta = build_model(self.cfg, device="meta")
+        whole = meta.init_cache(batch_size, cache_len, window_override)
+        # every leaf starts constant (zeros; the mLSTM's stabiliser at its
+        # floor): read each one's value off a one-row, one-slot cache
+        start = meta.init_cache(1, 1, window_override, device="cpu")
         specs = self.cache_specs(whole)
         sizes = dict(self.mesh.shape)
 
         def local(path, leaf):
-            spec = specs
+            spec, fill = specs, start
             for k in path:
-                spec = spec[k]
+                spec, fill = spec[k], fill[k]
             attn = SH._leaf_key(path) in ("k", "v")
             if self._cache_axis and attn and spec[leaf.dim() - 3] != "data":
                 raise ValueError(
                     f"cache leaf {path} of length {leaf.shape[-3]} does not "
                     f"split over 'data' ({sizes['data']} ranks)")
-            if self._split_rows(batch_size) and not attn:
-                raise ValueError(
-                    f"cache leaf {path}: recurrent state is replicated over "
-                    "'data' while the batch splits over it; serve this "
-                    "model with 'data' of 1 or shard_cache_len")
             shape = SH.shard_shape(tuple(leaf.shape), spec, sizes)
             order = sorted(range(leaf.dim()), key=lambda d: -leaf.stride(d))
-            t = torch.zeros([shape[d] for d in order], dtype=leaf.dtype,
-                            device=self.device)
+            t = torch.full([shape[d] for d in order],
+                           float(fill.reshape(-1)[0]), dtype=leaf.dtype,
+                           device=self.device)
             return t.permute([order.index(d) for d in range(leaf.dim())])
         return SH.tree_map_with_path(local, whole)
+
+    def _row_state(self, cache):
+        """(the cache a pass over this rank's rows writes, the recurrent
+        leaves to join after it).  Where the rows split over 'data',
+        attention leaves already hold this rank's rows; recurrent state is
+        whole on every rank (``cache_specs`` replicates it over 'data'), so
+        the pass runs, and writes in place, a view of its own rows, and
+        :meth:`_join_state` gathers the other ranks' rows back into it, as
+        GSPMD's resharding of the reference's state does."""
+        bdim = 1 + len(self.model._lead)        # [(Bb,) n_sb, B, ...]
+        n, i = self.mesh.axis_size("data"), self.mesh.coords["data"]
+        joins = []
+
+        def view(path, leaf):
+            if SH._leaf_key(path) in ("k", "v"):
+                return leaf
+            rows = leaf.shape[bdim] // n
+            part = leaf.narrow(bdim, i * rows, rows)
+            joins.append((leaf, part))
+            return part
+        return SH.tree_map_with_path(view, cache), joins
+
+    def _join_state(self, joins) -> None:
+        """Each recurrent leaf's rows from every 'data' rank, written back
+        into the whole state: one all-gather a leaf."""
+        bdim = 1 + len(self.model._lead)
+        group = self.mesh.group("data")
+        for whole, part in joins:
+            whole.copy_(comm.all_gather_dim(part, bdim, group))
 
     @property
     def supports_batched_prefill(self) -> bool:
@@ -338,12 +372,16 @@ class BaseRunner:
                                                 cache_index=cache_index,
                                                 lengths=lengths)
             b = tokens.shape[0]
-            if self._split_rows(b):
-                tokens = self._rows(tokens)
-                if lengths is not None:
-                    lengths = self._rows(torch.as_tensor(lengths))
-            logits, cache = self._cached_pass(
-                params, cache, tokens, cache_index, lengths=lengths)
+            if not self._split_rows(b):
+                return self._cached_pass(params, cache, tokens, cache_index,
+                                         lengths=lengths)
+            tokens = self._rows(tokens)
+            if lengths is not None:
+                lengths = self._rows(torch.as_tensor(lengths))
+            rows, joins = self._row_state(cache)
+            logits, _ = self._cached_pass(params, rows, tokens, cache_index,
+                                          lengths=lengths)
+            self._join_state(joins)
             return self._join_rows(logits, b), cache
 
     def serve_step(self, params, cache, batch, cache_index: int, *,
@@ -356,10 +394,16 @@ class BaseRunner:
                     window_override=window_override)
                 return logits[:, -1], cache
             b = batch["tokens"].shape[0]
-            lb = self._rows(batch) if self._split_rows(b) else batch
-            logits, cache = self._cached_pass(
-                params, cache, lb["tokens"], cache_index, batch=lb,
+            if not self._split_rows(b):
+                return self._cached_pass(
+                    params, cache, batch["tokens"], cache_index, batch=batch,
+                    window_override=window_override)
+            lb = self._rows(batch)
+            rows, joins = self._row_state(cache)
+            logits, _ = self._cached_pass(
+                params, rows, lb["tokens"], cache_index, batch=lb,
                 window_override=window_override)
+            self._join_state(joins)
             return self._join_rows(logits, b), cache
 
     def _cached_pass(self, params, cache, tokens, cache_index: int, *,
@@ -577,25 +621,31 @@ class PipelineRunner(BaseRunner):
                     sub, specs))
         return out
 
-    def _stage_pass(self, params, tokens, *, positions, cache=None,
+    def _stage_pass(self, params, tokens, *, positions=None, cache=None,
                     cache_index: Optional[int] = None, window_override=None,
-                    select=None):
-        """One forward of the LAYER split's stages: stage 0 embeds, each
-        stage runs its superblocks over its cache slice and sends the
-        activation [B, S, d] on with ``comm.exchange``; the last stage runs
-        the head on ``select(x)`` (all of x without it) and broadcasts the
-        f32 logits to the other stages."""
-        if not self.model.supports_stage_split:
-            raise ValueError(f"{self.cfg.name}: the stages take plain "
-                             "decoder stacks (no enc-dec or frontend inputs)")
+                    select=None, image_embeds=None):
+        """One forward of the LAYER split's stages: stage 0 embeds (a VLM's
+        patch embeddings ahead of the tokens, as its prefix), each stage
+        runs its superblocks over its cache slice and sends the activation
+        [B, S, d] on with ``comm.exchange``; the last stage runs the head on
+        the token positions' ``select(x)`` (all of them without it) and
+        broadcasts the f32 logits to the other stages.  ``positions``
+        defaults to every position of the activation."""
+        if self.cfg.is_encdec:
+            raise ValueError(f"{self.cfg.name}: the stages take decoder "
+                             "stacks (a VLM's patch prefix too), not enc-dec "
+                             "inputs")
         st, n = self.mesh.coords["model"], self.n_stages
         group = self.mesh.group("model")
         p = self._stage_view(params)
         b, s = tokens.shape
+        width = s if image_embeds is None else s + image_embeds.shape[1]
+        if positions is None:
+            positions = torch.arange(width, device=self.device)[None]
         if st == 0:
-            x = self.model.stage_embed(p, tokens)
+            x = self.model.stage_embed(p, tokens, image_embeds)
         else:
-            x, = comm.exchange([], [((b, s, self.cfg.d_model),
+            x, = comm.exchange([], [((b, width, self.cfg.d_model),
                                      L.torch_dtype(self.cfg), st - 1)],
                                group, self.device)
         x, _ = self.model.stage_apply(
@@ -608,6 +658,7 @@ class PipelineRunner(BaseRunner):
                                   self.cfg.vocab_size), dtype=torch.float32,
                                  device=self.device)
         else:
+            x = x[:, width - s:]
             logits = self.model.stage_head_logits(
                 p, x if select is None else select(x))
         return comm.broadcast_from(logits, n - 1, group)
@@ -615,8 +666,8 @@ class PipelineRunner(BaseRunner):
     def _forward_logits(self, params, batch):
         if not self._staged():
             return super()._forward_logits(params, batch)
-        pos = torch.arange(batch["tokens"].shape[1], device=self.device)
-        return self._stage_pass(params, batch["tokens"], positions=pos[None])
+        return self._stage_pass(params, batch["tokens"],
+                                image_embeds=batch.get("image_embeds"))
 
     def _cached_pass(self, params, cache, tokens, cache_index: int, *,
                      lengths=None, batch=None, window_override=None):
@@ -699,20 +750,89 @@ def build_runner(cfg: ArchConfig, mode: str, mesh=(1, 1), *,
 
 
 def make_train_step(runner, *, lr: float = 3e-4, remat: bool = False,
-                    weight_decay: float = 0.1, clip_norm: float = 1.0):
+                    weight_decay: float = 0.1, clip_norm: float = 1.0,
+                    opt_specs: Optional[SH.AdamWState] = None):
     """(params, opt, batch) -> (params, opt, loss): grads from
     ``runner.value_and_grad``, then an AdamW step (in place; on a mesh over
-    each rank's slices, clipped by the whole gradient's norm)."""
+    each rank's slices, clipped by the whole gradient's norm).
+
+    ``opt_specs`` (``pod_shard_opt_specs``'s: moments split further over
+    'pod' than the parameters are) runs the step on the moments' slices:
+    see :func:`_resharded_adamw`."""
+    kw = dict(lr=lr, weight_decay=weight_decay, clip_norm=clip_norm)
 
     def step(params, opt, batch):
         loss, grads = runner.value_and_grad(params, batch, remat=remat)
-        params, opt = adamw_update(grads, opt, params, lr=lr,
-                                   weight_decay=weight_decay,
-                                   clip_norm=clip_norm, specs=runner.specs,
-                                   mesh=runner.mesh)
+        if opt_specs is None:
+            params, opt = adamw_update(grads, opt, params, specs=runner.specs,
+                                       mesh=runner.mesh, **kw)
+        else:
+            params, opt = _resharded_adamw(grads, opt, params, runner,
+                                           opt_specs, **kw)
         return params, opt, loss
 
     return step
+
+
+def _resharded_adamw(grads, opt, params, runner, opt_specs, *, lr,
+                     weight_decay, clip_norm):
+    """One AdamW step whose moments lie under ``opt_specs`` while the
+    parameters and gradients lie under ``runner.specs`` (they differ on
+    at most one dim of a leaf, which the moments split over 'pod' as
+    well), as GSPMD reshards the reference's step: the clip reads the
+    whole gradient's norm; then, a leaf at a time, the gradient and the
+    parameter are all-gathered along that dim, cut to the moments' slice
+    and stepped there, and the stepped slices are all-gathered back and
+    cut to the parameter's slice."""
+    from repro_torch.optim.adamw import AdamWState, global_norm
+    mesh = runner.mesh
+    sizes = dict(mesh.shape)
+    scale = None
+    if clip_norm:
+        g_norm = global_norm(grads, specs=runner.specs, mesh=mesh)
+        scale = torch.clamp(clip_norm / torch.clamp(g_norm, min=1e-9),
+                            max=1.0)
+
+    def axes(e):
+        return () if e is None else (e if isinstance(e, tuple) else (e,))
+
+    def along(t, entry, d, whole):
+        """Gather ``t``'s slices along dim ``d`` over ``entry``'s axes
+        (minor first) when ``whole``, else cut the slice of ``entry``."""
+        if whole:
+            for ax in reversed(axes(entry)):
+                t = comm.all_gather_dim(t, d, mesh.group(ax))
+            return t
+        spec = [None] * t.dim()
+        spec[d] = entry
+        return SH.shard_leaf(t, spec, sizes, mesh.coords)
+
+    def leaf_step(g, m, v, p, ps, os_):
+        if scale is not None:
+            g = g * scale.to(g.dtype)
+        ps = tuple(ps) + (None,) * (p.dim() - len(ps))
+        os_ = tuple(os_) + (None,) * (p.dim() - len(os_))
+        diff = [d for d in range(p.dim()) if ps[d] != os_[d]]
+        state = AdamWState(opt.step, {"x": m}, {"x": v})
+        kw = dict(clip_norm=0.0, lr=lr, weight_decay=weight_decay)
+        if not diff:
+            _, st = adamw_update({"x": g}, state, {"x": p}, **kw)
+            return st.m["x"], st.v["x"]
+        d, = diff
+        gs = along(along(g, ps[d], d, True), os_[d], d, False)
+        pp = along(along(p.detach(), ps[d], d, True), os_[d], d,
+                   False).clone()
+        _, st = adamw_update({"x": gs}, state, {"x": pp}, **kw)
+        with torch.no_grad():
+            p.copy_(along(along(pp, os_[d], d, True), ps[d], d, False))
+        return st.m["x"], st.v["x"]
+
+    # leaves matched by path: the moments' trees need not list them in the
+    # parameters' order
+    mv = SH.tree_map(leaf_step, grads, opt.m, opt.v, params, runner.specs,
+                     opt_specs.m)
+    pick = lambda i: SH.tree_map(lambda t: t[i], mv)
+    return params, AdamWState(opt.step + 1, pick(0), pick(1))
 
 
 def make_serve_step(runner, *, window_override: Optional[int] = None):

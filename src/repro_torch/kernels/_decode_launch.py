@@ -1,7 +1,8 @@
 """Argument checks, split choice and the ctypes launch of the decode
-attention kernel (``csrc/decode_attention.cu``).  CUDA tensors only: the
-wrapper routes CPU tensors to the plain version before reaching this
-module."""
+attention kernel (``csrc/decode_attention.cu``).  :func:`launch` takes
+CUDA tensors only: the wrapper routes CPU tensors to the plain version
+before reaching this module, and meta tensors to :func:`dry_launch`, which
+runs the same checks and allocates what a launch allocates without one."""
 from __future__ import annotations
 
 import ctypes
@@ -10,6 +11,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import add_dryrun, decode_cost
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -38,13 +40,11 @@ def head_group(rep: int) -> int:
     return next(g for g in HEAD_GROUPS if rep % g == 0)
 
 
-def launch(q, k_cache, v_cache, length, *, softcap: float,
-           return_lse: bool = False):
-    """q [B, H, hd], k/v_cache [B, L, K, hd] on one CUDA device, one of f32
-    or bf16, the head dim dense and rows 16-byte aligned (any other
-    strides); length int32 [B] on the same device.  Returns a dense
-    [B, H, hd] in q's dtype; with ``return_lse`` an f32 one and each
-    row's f32 log-sum-exp [B, H] (-inf where the row has no valid slot)."""
+def check(q, k_cache, v_cache, length, *, softcap: float) -> None:
+    """The launch's argument checks (raising ``ValueError``): q [B, H, hd],
+    k/v_cache [B, L, K, hd] on one device, one of f32 or bf16, the head dim
+    dense and rows 16-byte aligned (any other strides); length int32 [B]
+    on the same device."""
     name = "decode_attention"
     dev = q.device
     for t in (k_cache, v_cache, length):
@@ -77,23 +77,65 @@ def launch(q, k_cache, v_cache, length, *, softcap: float,
                 s * item % 16 for s in t.stride()[:-1]):
             raise ValueError(f"{name}: the head dim must be dense and rows "
                              "16-byte aligned")
-    length = length.contiguous()
+    if b > 65535 or h // head_group(h // kh) > 65535 or L >= 2 ** 31:
+        raise ValueError(f"{name}: grid too large")
+
+
+def _buffers(q, L: int, return_lse: bool):
+    """(out, lse or None, the merge's two workspaces or None) as a launch
+    allocates them: the pieces' partial accumulators and (max, sum) pairs
+    when the cache is split over more than one ``CHUNK``-slot piece."""
+    b, h, hd = q.shape
+    dev = q.device
     out = torch.empty((b, h, hd), dtype=torch.float32 if return_lse
                       else q.dtype, device=dev)
     lse = torch.empty((b, h), dtype=torch.float32, device=dev) \
         if return_lse else None
+    splits = max(1, -(-L // CHUNK))
+    ws = None
+    if splits > 1 and out.numel():
+        ws = (torch.empty((b, h, splits, hd), dtype=torch.float32,
+                          device=dev),
+              torch.empty((b, h, splits, 2), dtype=torch.float32,
+                          device=dev))
+    return out, lse, ws
+
+
+def dry_launch(q, k_cache, v_cache, length, *, softcap: float,
+               return_lse: bool = False):
+    """A launch on meta tensors: the checks, the output (and lse) and the
+    merge's workspaces allocated on meta, the call's work over every slot
+    of the cache (the lengths are not known there) added to
+    ``cost.DRYRUN``.  Returns what :func:`launch` returns."""
+    check(q, k_cache, v_cache, length, softcap=softcap)
+    b, h, hd = q.shape
+    L, kh = k_cache.shape[1], k_cache.shape[2]
+    out, lse, ws = _buffers(q, L, return_lse)
+    del ws
+    if out.numel():
+        add_dryrun(decode_cost(b, h, kh, hd, b * L, q.element_size(),
+                               return_lse=return_lse))
+    return (out, lse) if return_lse else out
+
+
+def launch(q, k_cache, v_cache, length, *, softcap: float,
+           return_lse: bool = False):
+    """q, k/v_cache and length on one CUDA device, as :func:`check` takes
+    them.  Returns a dense [B, H, hd] in q's dtype; with ``return_lse`` an
+    f32 one and each row's f32 log-sum-exp [B, H] (-inf where the row has
+    no valid slot)."""
+    name = "decode_attention"
+    check(q, k_cache, v_cache, length, softcap=softcap)
+    dev = q.device
+    b, h, hd = q.shape
+    L, kh = k_cache.shape[1], k_cache.shape[2]
+    length = length.contiguous()
+    out, lse, ws = _buffers(q, L, return_lse)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
     rt = head_group(h // kh)
     splits = max(1, -(-L // CHUNK))
-    if b > 65535 or h // rt > 65535 or L >= 2 ** 31:
-        raise ValueError(f"{name}: grid too large")
-    ws_acc = ws_ml = None
-    if splits > 1:
-        ws_acc = torch.empty((b, h, splits, hd), dtype=torch.float32,
-                             device=dev)
-        ws_ml = torch.empty((b, h, splits, 2), dtype=torch.float32,
-                            device=dev)
+    ws_acc, ws_ml = ws if ws is not None else (None, None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _fn()(

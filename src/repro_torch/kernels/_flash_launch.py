@@ -1,8 +1,10 @@
 """Argument checks, the walk rule, path choice and the ctypes launch of the
 flash-attention forward (``csrc/flash_attention.cu``).  :func:`launch`
 takes CUDA tensors only: the wrapper routes CPU tensors to the plain
-version before reaching it.  :func:`flash_plan` is the kernels' walk in
-pure Python, shared by the emulation and the tests."""
+version before reaching it, and meta tensors to :func:`dry_launch`, which
+runs the same checks and counts the launch and its work without one.
+:func:`flash_plan` is the kernels' walk in pure Python, shared by the
+emulation and the tests."""
 from __future__ import annotations
 
 import ctypes
@@ -12,6 +14,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import add_dryrun, flash_cost
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -22,6 +25,8 @@ QUERY_TILE = 128
 #: launches by path since import, so a run can show which path its calls
 #: took
 PATH_LAUNCHES = {"mma": 0, "simt": 0}
+#: the same for the launches the dry run predicts on meta tensors
+DRY_PATH_LAUNCHES = {"mma": 0, "simt": 0}
 
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
@@ -80,11 +85,11 @@ def _fn():
     return fn
 
 
-def launch(q, k, v, *, causal: bool, window: int, softcap: float):
-    """q [N, Sq, H, hd], k/v [N, Sk, KH, hd] on one CUDA device, one of f32
-    or bf16, with a dense head dim and 16-byte aligned rows (any batch,
-    sequence and head strides).  Returns a dense [N, Sq, H, hd] in q's
-    dtype."""
+def check(q, k, v, *, causal: bool, window: int, softcap: float) -> None:
+    """The launch's argument checks (raising ``ValueError``): q [N, Sq,
+    H, hd], k/v [N, Sk, KH, hd] on one device, one of f32 or bf16, with a
+    dense head dim and 16-byte aligned rows (any batch, sequence and head
+    strides)."""
     name = "flash_attention"
     dev = q.device
     for t in (k, v):
@@ -118,6 +123,32 @@ def launch(q, k, v, *, causal: bool, window: int, softcap: float):
                              "16-byte aligned")
     if n > 65535 or -(-sq // QUERY_TILE) > 65535:
         raise ValueError(f"{name}: grid too large")
+
+
+def dry_launch(q, k, v, *, causal: bool, window: int, softcap: float):
+    """A launch on meta tensors: the checks, the output allocated on meta,
+    the predicted launch counted under its path in ``DRY_PATH_LAUNCHES``
+    and its work added to ``cost.DRYRUN``.  Returns the output."""
+    check(q, k, v, causal=causal, window=window, softcap=softcap)
+    n, sq, h, hd = q.shape
+    out = torch.empty((n, sq, h, hd), dtype=q.dtype, device=q.device)
+    if out.numel():
+        DRY_PATH_LAUNCHES[path_for(q.dtype)] += 1
+        add_dryrun(flash_cost(n, sq, k.shape[1], h, k.shape[2], hd,
+                              q.element_size(), causal=causal,
+                              window=window))
+    return out
+
+
+def launch(q, k, v, *, causal: bool, window: int, softcap: float):
+    """q [N, Sq, H, hd], k/v [N, Sk, KH, hd] on one CUDA device, as
+    :func:`check` takes them.  Returns a dense [N, Sq, H, hd] in q's
+    dtype."""
+    name = "flash_attention"
+    check(q, k, v, causal=causal, window=window, softcap=softcap)
+    dev = q.device
+    n, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
     out = torch.empty((n, sq, h, hd), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out

@@ -2,9 +2,11 @@
 the grouped GEMM (``csrc/grouped_matmul.cu``), which serves both
 ``block_diag_matmul`` and ``moe_gmm``.  :func:`launch` takes CUDA tensors
 only: the wrappers route CPU tensors to their plain versions before
-reaching it.  :func:`path_for` and the planning helpers are pure Python,
-and :func:`wgmma_emulated` and :func:`skinny_emulated` are plain PyTorch
-on any device."""
+reaching it, and meta tensors to :func:`dry_launch`, which runs the same
+checks, path and plan (on an H100's SM count) without a launch.
+:func:`path_for` and the planning helpers are pure Python, and
+:func:`wgmma_emulated` and :func:`skinny_emulated` are plain PyTorch on
+any device."""
 from __future__ import annotations
 
 import ctypes
@@ -12,6 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import add_dryrun, gemm_cost
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
@@ -53,11 +56,15 @@ WGMMA_CTAS_PER_SM = {1: 2, 2: 1, 3: 1}
 MAX_SPLITS = 8
 SKINNY_STEP = {"mma_skinny": 16, "skinny": 32}
 SKINNY_CTAS_PER_SM = 4
+#: SMs of the port's card (an H100 SXM5), the plan's SM count on meta
+H100_SMS = 132
 #: launches by path since import (``wgmma``: bf16 tensor-core tile;
 #: ``tiled``: CUDA-core tile; ``mma_skinny``: bf16 decode-sized tile on
 #: ``mma.sync``; ``skinny``: the CUDA-core decode-sized tile), so a run can
 #: show which path its calls took
 PATH_LAUNCHES = {"wgmma": 0, "tiled": 0, "mma_skinny": 0, "skinny": 0}
+#: the same for the launches the dry run predicts on meta tensors
+DRY_PATH_LAUNCHES = dict.fromkeys(PATH_LAUNCHES, 0)
 _FNS = {}
 #: call plans by argument key (:func:`launch`), at most ``_MAX_PLANS``
 _PLANS = {}
@@ -173,11 +180,9 @@ def _strides(t: torch.Tensor):
     return (sg if g > 1 else max(rows, 1) * sr), sr
 
 
-def _plan(x: torch.Tensor, w: torch.Tensor, name: str):
-    """(path, out shape, device index, call) for a call on x and w: the
-    argument checks (raising ``ValueError``), the path, tile and split, and
-    ``call(x, w, out, stream) -> rc`` with every argument that the call's
-    key fixes bound.  Path None: nothing to launch (an empty output)."""
+def check(x: torch.Tensor, w: torch.Tensor, name: str):
+    """The launch's argument checks (raising ``ValueError``); returns
+    (G, M, K, N)."""
     if w.device != x.device:
         raise ValueError(f"{name}: tensors on {w.device} and {x.device}")
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
@@ -191,20 +196,75 @@ def _plan(x: torch.Tensor, w: torch.Tensor, name: str):
     n = w.shape[2]
     if (x.stride(-1) != 1 and k > 1) or (w.stride(-1) != 1 and n > 1):
         raise ValueError(f"{name}: the last dim must be dense")
+    if g * m * n and max(m, n, k) >= 2 ** 31:
+        raise ValueError(f"{name}: grid too large")
+    return g, m, k, n
+
+
+def _tiling(path: str, g: int, m: int, k: int, n: int, n_sm: int, name: str):
+    """The plan of a call of M > 32: (consumer warpgroups or None, tile
+    rows, splits, contraction rows a split), checked against the grid."""
+    if path == "wgmma":
+        nc = wgmma_consumers(m)
+        tm, slab, per_sm = 64 * nc, WGMMA_SLAB, WGMMA_CTAS_PER_SM[nc]
+    else:
+        nc, tm = None, tile_rows(m)
+        slab, per_sm = SLAB[tm], CTAS_PER_SM[tm]
+    tiles = -(-n // 128) * -(-m // tm) * g
+    splits, per = split_plan(tiles, k, slab, per_sm * n_sm)
+    if g * splits > 65535 or -(-m // tm) > 65535:
+        raise ValueError(f"{name}: grid too large")
+    return nc, tm, splits, per
+
+
+def _skinny_tiling(path: str, g: int, m: int, k: int, n: int, n_sm: int,
+                   name: str):
+    """:func:`skinny_plan`, checked against the grid."""
+    rows, cols, splits, per = skinny_plan(path, g, m, k, n, n_sm)
+    if g * -(-m // rows) > 65535 or -(-n // cols) > 65535:
+        raise ValueError(f"{name}: grid too large")
+    return rows, cols, splits, per
+
+
+def dry_launch(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+    """A launch on meta tensors: the checks, path and plan (on
+    ``H100_SMS`` SMs), the output and the split-K workspace allocated on
+    meta, the predicted launch counted under its path in
+    ``DRY_PATH_LAUNCHES`` and its work added to ``cost.DRYRUN``.  Returns
+    the output."""
+    g, m, k, n = check(x, w, name)
+    out = torch.empty((g, m, n), dtype=x.dtype, device=x.device)
+    if g * m * n == 0:
+        return out
+    path = path_for(x, w)
+    if path in SKINNY_STEP:
+        _skinny_tiling(path, g, m, k, n, H100_SMS, name)
+    else:
+        splits = _tiling(path, g, m, k, n, H100_SMS, name)[2]
+        if splits > 1:
+            torch.empty((splits, g, m, n), dtype=torch.float32,
+                        device=x.device)
+    DRY_PATH_LAUNCHES[path] += 1
+    add_dryrun(gemm_cost(g, m, k, n, x.element_size()))
+    return out
+
+
+def _plan(x: torch.Tensor, w: torch.Tensor, name: str):
+    """(path, out shape, device index, call) for a call on x and w: the
+    argument checks (raising ``ValueError``), the path, tile and split, and
+    ``call(x, w, out, stream) -> rc`` with every argument that the call's
+    key fixes bound.  Path None: nothing to launch (an empty output)."""
+    g, m, k, n = check(x, w, name)
     index, shape = x.device.index, (g, m, n)
     if g * m * n == 0:
         return None, shape, index, None
-    if max(m, n, k) >= 2 ** 31:
-        raise ValueError(f"{name}: grid too large")
     path = path_for(x, w)
     sxg, sxm = _strides(x)
     swg, swk = _strides(w)
     n_sm = _build.sm_count(x.device)
     code = _DTYPE_CODE[x.dtype]
     if path in SKINNY_STEP:
-        rows, cols, splits, per = skinny_plan(path, g, m, k, n, n_sm)
-        if g * -(-m // rows) > 65535 or -(-n // cols) > 65535:
-            raise ValueError(f"{name}: grid too large")
+        rows, cols, splits, per = _skinny_tiling(path, g, m, k, n, n_sm, name)
         args = _SkinnyArgs(code, int(path == "mma_skinny"), rows, cols,
                            splits, per, g, m, k, n, sxg, sxm, swg, swk,
                            int(_vec_ok(x)), int(_vec_ok(w)))
@@ -213,16 +273,7 @@ def _plan(x: torch.Tensor, w: torch.Tensor, name: str):
         def call(x, w, out, stream):
             return fn(ptr, x.data_ptr(), w.data_ptr(), out.data_ptr(), stream)
         return path, shape, index, call
-    if path == "wgmma":
-        nc = wgmma_consumers(m)
-        tm, slab, per_sm = 64 * nc, WGMMA_SLAB, WGMMA_CTAS_PER_SM[nc]
-    else:
-        tm = tile_rows(m)
-        slab, per_sm = SLAB[tm], CTAS_PER_SM[tm]
-    tiles = -(-n // 128) * -(-m // tm) * g
-    splits, per = split_plan(tiles, k, slab, per_sm * n_sm)
-    if g * splits > 65535 or -(-m // tm) > 65535:
-        raise ValueError(f"{name}: grid too large")
+    nc, tm, splits, per = _tiling(path, g, m, k, n, n_sm, name)
     dev = x.device
     if path == "wgmma":
         fn = _fn("grouped_matmul_wgmma_launch")

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._gemm_launch import launch
+from repro_torch.kernels._gemm_launch import dry_launch, launch
 
 
 #: the kernel's function in plain PyTorch (the CPU path, and the kernel's
@@ -34,14 +34,22 @@ def block_diag_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [Bb, T, d_b] @ w [Bb, d_b, e_b] -> [Bb, T, e_b] in x's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``block_diag_matmul.launches``) or raise."""
+    count the launch in ``block_diag_matmul.launches``) or raise; meta
+    tensors (the dry run) are checked as a CUDA launch would be, the
+    predicted launch counted in ``block_diag_matmul.dry_launches`` (the real
+    count moves only where a kernel launches), what the launch allocates
+    allocated on meta and the call's work added to ``cost.DRYRUN``."""
     if x.device.type == "cpu":
         return block_diag_matmul_plain(x, w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"block_diag_matmul: no kernel for {x.device}")
+    if x.device.type == "meta":
+        block_diag_matmul.dry_launches += 1
+        return dry_launch(x, w, "block_diag_matmul")
     out = launch(x, w, "block_diag_matmul")
     block_diag_matmul.launches += 1
     return out
 
 
 block_diag_matmul.launches = 0
+block_diag_matmul.dry_launches = 0

@@ -29,7 +29,7 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._decode_launch import CHUNK, launch
+from repro_torch.kernels._decode_launch import CHUNK, dry_launch, launch
 
 
 def decode_attention_plain(q, k_cache, v_cache, length, *,
@@ -125,12 +125,20 @@ def decode_attention(q, k_cache, v_cache, length, *, softcap: float = 0.0,
     the pair (f32 out, f32 lse [B, H]).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch in ``decode_attention.launches``) or raise."""
+    count the launch in ``decode_attention.launches``) or raise; meta
+    tensors (the dry run) are checked as a CUDA launch would be, the
+    predicted launch counted in ``decode_attention.dry_launches`` (the real
+    count moves only where a kernel launches), what the launch allocates
+    allocated on meta and the call's work added to ``cost.DRYRUN``."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, length,
                                       softcap=softcap, return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: no kernel for {q.device}")
+    if q.device.type == "meta":
+        decode_attention.dry_launches += 1
+        return dry_launch(q, k_cache, v_cache, length, softcap=softcap,
+                          return_lse=return_lse)
     out = launch(q, k_cache, v_cache, length, softcap=softcap,
                  return_lse=return_lse)
     decode_attention.launches += 1
@@ -138,3 +146,4 @@ def decode_attention(q, k_cache, v_cache, length, *, softcap: float = 0.0,
 
 
 decode_attention.launches = 0
+decode_attention.dry_launches = 0

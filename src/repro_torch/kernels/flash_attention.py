@@ -22,7 +22,8 @@ import math
 
 import torch
 
-from repro_torch.kernels._flash_launch import KEY_TILE, flash_plan, launch
+from repro_torch.kernels._flash_launch import (KEY_TILE, dry_launch,
+                                               flash_plan, launch)
 
 NEG_INF = -1e30
 #: the kernels' check (the GPU tests, ``chip_smoke.py``, the emulation's
@@ -144,20 +145,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     CPU tensors take the plain version; CUDA tensors launch the kernel of
     their dtype's path (and count the launch in
     ``flash_attention.launches`` and ``_flash_launch.PATH_LAUNCHES``) or
-    raise.  The leading dims fold into one batch dim, so a semantic split's
-    branches share one launch."""
+    raise; meta tensors (the dry run) are checked as a CUDA launch would
+    be, the predicted launch counted in ``flash_attention.dry_launches``
+    (the real count moves only where a kernel launches), the output
+    allocated on meta and the call's work added to ``cost.DRYRUN``.  The
+    leading dims fold into one batch dim, so a semantic split's branches
+    share one launch."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if q.shape[:-3] != k.shape[:-3]:
         raise ValueError(f"flash_attention: leading dims {tuple(q.shape)} "
                          f"vs {tuple(k.shape)}")
-    out = launch(_flat(q), _flat(k), _flat(v), causal=causal, window=window,
-                 softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "meta":
+        flash_attention.dry_launches += 1
+        return dry_launch(_flat(q), _flat(k), _flat(v), **kw).reshape(q.shape)
+    out = launch(_flat(q), _flat(k), _flat(v), **kw)
     flash_attention.launches += 1
     return out.reshape(q.shape)
 
 
 flash_attention.launches = 0
+flash_attention.dry_launches = 0

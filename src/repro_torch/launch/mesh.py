@@ -13,6 +13,12 @@ The caller names the backend and the device.  Nothing falls back from NCCL
 to gloo or from the card to the CPU: NCCL wants one card per rank, so a
 world with more ranks than cards (two ranks sharing one H100) runs on gloo,
 whose collectives ``repro_torch.dist.comm`` stages through host memory.
+
+:func:`fake_mesh` plays one rank of a mesh of any size in this process
+(the dry run's counterpart of the reference's
+``--xla_force_host_platform_device_count``): a world on the ``"fake"``
+backend, whose collectives return at once and move nothing, over tensors
+on the ``meta`` device, which hold shapes and no memory.
 """
 from __future__ import annotations
 
@@ -125,11 +131,19 @@ def use_mesh(mesh):
         _ACTIVE = saved
 
 
+#: what ``init_process_group`` is given for each backend name (the fake
+#: backend serves host and meta tensors, point-to-point ops included)
+_BACKEND_ARG = {"gloo": "gloo", "nccl": "nccl", "fake": "cpu:fake,meta:fake"}
+
+
 def check_backend(backend: str, device, world_size: int) -> None:
     """Refuse a backend that cannot run the world on ``device``."""
     dev = torch.device(device)
-    if backend not in ("gloo", "nccl"):
-        raise ValueError(f"backend {backend!r}; expected gloo|nccl")
+    if backend not in _BACKEND_ARG:
+        raise ValueError(f"backend {backend!r}; expected gloo|nccl|fake")
+    if (backend == "fake") != (dev.type == "meta"):
+        raise ValueError(f"backend {backend} on {dev}: the fake backend "
+                         "runs meta tensors, and only it does")
     if backend == "nccl":
         if dev.type != "cuda":
             raise ValueError(f"backend nccl runs on CUDA devices, not {dev}")
@@ -138,7 +152,7 @@ def check_backend(backend: str, device, world_size: int) -> None:
             raise ValueError(
                 f"backend nccl needs a card per rank: {world_size} ranks on "
                 f"{n} card(s); run ranks that share a card on gloo")
-    elif dev.type not in ("cpu", "cuda"):
+    elif backend == "gloo" and dev.type not in ("cpu", "cuda"):
         raise ValueError(f"backend gloo runs on cpu or cuda, not {dev}")
 
 
@@ -158,11 +172,12 @@ def init_mesh(dims: Sequence[int], names: Sequence[str] = AXES, *,
         world = world_size if world_size is not None else \
             int(os.environ.get("WORLD_SIZE", "1"))
         check_backend(backend, dev, world)
-        kw = dict(backend=backend, timeout=timedelta(seconds=timeout_s))
+        kw = dict(backend=_BACKEND_ARG[backend],
+                  timeout=timedelta(seconds=timeout_s))
         if store is not None:
             kw.update(store=store, rank=rank, world_size=world_size)
         dist.init_process_group(**kw)
-    elif dist.get_backend() != backend:
+    elif dist.get_backend() != _BACKEND_ARG[backend]:
         raise ValueError(f"the world runs {dist.get_backend()}, not "
                          f"{backend}")
     world = dist.get_world_size()
@@ -171,9 +186,41 @@ def init_mesh(dims: Sequence[int], names: Sequence[str] = AXES, *,
         raise ValueError(f"mesh {dims} needs {math.prod(dims)} ranks; the "
                          f"world has {world}")
     ids = torch.arange(world).reshape(dims)
-    dm = DeviceMesh(dev.type, ids, mesh_dim_names=names)
+    # a DeviceMesh takes no meta device: the fake world's groups sit on
+    # the host, its tensors on meta
+    dm = DeviceMesh("cpu" if dev.type == "meta" else dev.type, ids,
+                    mesh_dim_names=names)
     _LAST = Mesh(dims, names, device_mesh=dm, backend=backend, device=dev)
     return _LAST
+
+
+@contextlib.contextmanager
+def fake_mesh(dims: Sequence[int], names: Optional[Sequence[str]] = None, *,
+              rank: int = 0):
+    """A :class:`Mesh` of shape ``dims`` on which this process plays rank
+    ``rank`` of a ``"fake"`` world of ``prod(dims)`` ranks, tensors on the
+    meta device: its collectives move nothing and the runners on it
+    allocate nothing, so it traces one rank of a mesh of any size.  It
+    refuses to start while a world is running, and destroys its world on
+    exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    global _LAST
+    dims = tuple(int(d) for d in dims)
+    names = tuple(names) if names is not None else \
+        (AXES if len(dims) == 2 else POD_AXES)
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group is already running")
+    world = math.prod(dims)
+    if not 0 <= rank < world:
+        raise ValueError(f"fake_mesh: rank {rank} of {world}")
+    saved = _LAST
+    try:
+        yield init_mesh(dims, names, backend="fake", device="meta",
+                        store=FakeStore(), rank=rank, world_size=world)
+    finally:
+        _LAST = saved
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def resolve(mesh) -> MeshShape:

@@ -44,10 +44,12 @@ from repro_torch.launch.mesh import init_mesh
 from repro_torch.optim.adamw import adamw_init, cosine_schedule
 
 
-def main(argv=None, *, on_step=None):
+def main(argv=None, *, on_step=None, on_setup=None):
     """Train and return the per-step losses.  ``on_step(step, loss,
     seconds)``, if given, is called after each step with its wall time
-    (the loss is read back, so the step has finished on the device)."""
+    (the loss is read back, so the step has finished on the device);
+    ``on_setup(runner, params, opt)`` once the parameters and the AdamW
+    state are made, before the first step."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--mode", default="fsdp",
@@ -112,6 +114,8 @@ def main(argv=None, *, on_step=None):
               flush=True)
     params = runner.init(seed=0)
     opt = adamw_init(params)
+    if on_setup is not None:
+        on_setup(runner, params, opt)
 
     # built and never used, as in the JAX launcher: the step runs at --lr
     sched = cosine_schedule(  # noqa: F841

@@ -20,6 +20,9 @@ The training surface follows the JAX ``Model``: ``hidden``,
 explicit ``params`` tree (``param_tree()``: nested dicts of the parameters
 in the JAX layout), so gradients come back as a tree of the same paths.
 
+``InputShape``, ``INPUT_SHAPES`` and ``input_specs`` are the reference's
+production input shapes, as meta tensors (the dry run's inputs).
+
 The dense-cache surface of the legacy gang path follows it too:
 ``init_cache(batch_size, cache_len, window_override=)``,
 ``prefill_cache(params, cache, tokens, lengths=)`` and
@@ -33,6 +36,7 @@ and return it.  The paged serving path's pool comes from ``init_pool``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional
 
 import torch
@@ -377,12 +381,13 @@ class _LM(nn.Module):
                 for i in range(len(c.pattern))}
 
     def init_cache(self, batch_size: int, cache_len: int,
-                   window_override: Optional[int] = None) -> Dict:
+                   window_override: Optional[int] = None, *,
+                   device=None) -> Dict:
         """Dense decode caches of the gang path, per block as
         ``transformer.block_cache`` lays them out, leaves [(Bb,) N_sb,
-        batch_size, ...] (superblock-major in memory).
-        ``window_override`` turns every global-attention cache into a ring
-        buffer of that window."""
+        batch_size, ...] (superblock-major in memory), on ``device`` (the
+        model's by default).  ``window_override`` turns every
+        global-attention cache into a ring buffer of that window."""
         cfg = self.branch_cfg
         if window_override is not None:
             cfg = cfg.replace(sliding_window=window_override, pattern=tuple(
@@ -391,8 +396,9 @@ class _LM(nn.Module):
             cache_len = min(cache_len, window_override)
         lead = (cfg.n_superblocks,) + self._lead
         dtype = L.torch_dtype(self.cfg)
+        device = self.device if device is None else device
         caches = {f"pos{i}": T.block_cache(cfg, mixer, batch_size, cache_len,
-                                           dtype, lead, self.device)
+                                           dtype, lead, device)
                   for i, (mixer, _) in enumerate(cfg.pattern)}
         if not self._lead:
             return caches
@@ -486,9 +492,16 @@ class Model(_LM):
         frontends are stage-0 side inputs the stage graph does not route."""
         return not self.cfg.is_encdec and self.cfg.frontend is None
 
-    def stage_embed(self, params, tokens):
-        """[B, S] tokens -> [B, S, d] stage-0 input activations."""
-        return L.embed_apply(params["embed"], tokens, self.cfg)
+    def stage_embed(self, params, tokens, image_embeds=None):
+        """[B, S] tokens -> [B, S, d] stage-0 input activations; a VLM's
+        stubbed patch embeddings [B, P, d_frontend], when given, projected
+        into P prefix slots ahead of them ([B, P + S, d])."""
+        x = L.embed_apply(params["embed"], tokens, self.cfg)
+        if image_embeds is None:
+            return x
+        w = params["embed"]["frontend_proj"]
+        prefix = torch.einsum("bfe,ed->bfd", image_embeds.to(w.dtype), w)
+        return torch.cat([prefix.to(x.dtype), x], dim=1)
 
     def stage_apply(self, blocks_span, x, *, positions, remat: bool = False,
                     caches=None, cache_index: Optional[int] = None,
@@ -575,3 +588,54 @@ def last_positions(x: torch.Tensor, lengths=None) -> torch.Tensor:
 def build_model(cfg: ArchConfig, *, device=None):
     return SemanticModel(cfg, device=device) if cfg.n_branches > 1 \
         else Model(cfg, device=device)
+
+
+# ------------------------------------------------------------- input shapes
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, *,
+                batch_override: Optional[int] = None) -> Dict:
+    """Meta-tensor stand-ins for every model input (no allocation), the
+    reference's shapes and dtypes."""
+    b = batch_override or shape.global_batch
+    dt = L.torch_dtype(cfg)
+    meta = lambda *s, dtype=torch.int32: torch.empty(s, dtype=dtype,
+                                                     device="meta")
+    if shape.kind in ("train", "prefill"):
+        s = shape.seq_len
+        specs = {}
+        if cfg.is_encdec:
+            # half the budget to encoder frames, half to decoder tokens
+            fe = cfg.frontend
+            specs["audio_embeds"] = meta(b, min(fe.n_tokens, s // 2),
+                                         fe.d_frontend, dtype=dt)
+            s = s // 2
+        if cfg.frontend is not None and cfg.frontend.kind == "vision":
+            fe = cfg.frontend
+            npatch = min(fe.n_tokens, s // 2)
+            specs["image_embeds"] = meta(b, npatch, fe.d_frontend, dtype=dt)
+            s = s - npatch
+        specs["tokens"] = meta(b, s)
+        if shape.kind == "train":
+            specs["labels"] = meta(b, s)
+        return specs
+    # decode: one new token against a cache of seq_len
+    specs = {"tokens": meta(b, 1)}
+    if cfg.is_encdec:
+        fe = cfg.frontend
+        specs["audio_embeds"] = meta(b, fe.n_tokens, fe.d_frontend, dtype=dt)
+    return specs

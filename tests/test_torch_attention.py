@@ -205,11 +205,15 @@ def test_attn_apply_cache_and_cross_branches_equal_jax(tiny_cfg, case):
 
 def test_flash_wrapper_counts_no_cpu_launch():
     """On CPU tensors the wrapper takes the plain version and counts no
-    launch; a tensor on another device raises instead of falling back."""
+    launch; a tensor on a device without a kernel (an xpu stand-in: meta
+    is the dry run's) raises instead of falling back."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
     arrs = _t(_qkv(6, 1, 64, 64, 2, 2, 32))
     before = tfa.flash_attention.launches
     out = tfa.flash_attention(*arrs)
     assert tfa.flash_attention.launches == before == 0
     assert torch.equal(out, tfa.flash_attention_plain(*arrs))
-    with pytest.raises(ValueError, match="no kernel"):
-        tfa.flash_attention(*(a.to("meta") for a in arrs))
+    mode = FakeTensorMode()
+    with pytest.raises(ValueError, match="no kernel for xpu"):
+        tfa.flash_attention(*(FakeTensor(mode, a.to("meta"),
+                                         torch.device("xpu")) for a in arrs))

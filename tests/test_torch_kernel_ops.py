@@ -268,10 +268,15 @@ def test_ops_launch_nothing_on_cpu():
     (decode_attention, ((1, 2, 32), (1, 4, 1, 32), (1, 4, 1, 32))),
 ], ids=["block_diag_matmul", "moe_gmm", "ssm_scan", "decode_attention"])
 def test_wrappers_refuse_devices_without_a_kernel(wrapper, args):
-    tensors = [torch.empty(s, device="meta") for s in args]
+    """A tensor on a device with no kernel (an xpu stand-in: meta is the
+    dry run's, whose launches ``tests/test_torch_dryrun.py`` holds)."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    mode, xpu = FakeTensorMode(), torch.device("xpu")
+    on = lambda t: FakeTensor(mode, t.to("meta"), xpu)
+    tensors = [on(torch.empty(s)) for s in args]
     if wrapper is decode_attention:
-        tensors.append(torch.empty(1, dtype=torch.int32, device="meta"))
-    with pytest.raises(ValueError, match="no kernel for meta"):
+        tensors.append(on(torch.empty(1, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="no kernel for xpu"):
         wrapper(*tensors)
 
 

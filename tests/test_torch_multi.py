@@ -13,6 +13,12 @@ into each rank's slices by the port's specs) and a numpy-seeded batch:
 - qwen2-moe expert parallel (``1f1b``) on (1, 4) with capacity factor 8,
   against JAX's microbatched loss; phi3.5-moe's gspmd, expert-parallel and
   stage-graph losses on (1, 2);
+- the dry run's collectives (``launch.dryrun``: rank 0 of the (2, 2) fsdp
+  train step traced on the meta device in a fake world) against the calls
+  and bytes rank 0 ran here;
+- one clipped AdamW step whose moments are split over 'pod' as well
+  (``make_train_step(opt_specs=)``, the two-pod dry run's step) on a
+  (2, 2, 1) ('pod', 'data', 'model') mesh against JAX's unsharded step;
 - ``schedule_stats`` at S = 4; one AdamW step with clipping against JAX's
   unsharded step (a norm over one rank's slices would clip each rank
   differently: the workers report that norm too, and it differs); a
@@ -78,6 +84,9 @@ CASES = {
     },
 }
 ADAMW = dict(lr=1e-2, clip_norm=0.05, weight_decay=0.1)
+#: the (2, 2) world's second mesh: ('pod', 'data', 'model'), the moments
+#: split over 'pod' too (``pod_shard_opt_specs``)
+POD_DIMS = (2, 2, 1)
 TOL = 1e-5
 
 
@@ -161,8 +170,11 @@ def _worker(dims, rank: int, io: pathlib.Path) -> None:
             local_norm = float(global_norm(grads))
             norm = float(global_norm(grads, specs=runner.specs, mesh=mesh))
             opt = adamw_init(params)
+            comm.reset_stats()
             params, opt = adamw_update(grads, opt, params, specs=runner.specs,
                                        mesh=mesh, **ADAMW)
+            out[name].update({"u/" + k: np.asarray(v)
+                              for k, v in comm.COMM_STATS.items()})
             out["adamw"] = {"norm": np.asarray(norm),
                             "local_norm": np.asarray(local_norm),
                             **{"p/" + k: v for k, v in _np(params).items()},
@@ -180,6 +192,20 @@ def _worker(dims, rank: int, io: pathlib.Path) -> None:
                 A.tree_leaves(params) + A.tree_leaves(opt.m)
                 + A.tree_leaves(opt.v))) and back[1].step == opt.step
             out["ckpt"] = {"same": np.asarray(same)}
+    if dims == (2, 2):      # AdamW moments split over 'pod' as well
+        from repro_torch.launch.dryrun import pod_moments
+        from repro_torch.launch.mesh import POD_AXES
+        pmesh = init_mesh(POD_DIMS, POD_AXES, backend="gloo", device="cpu")
+        runner = A.build_runner(make_cfg(get_config, "dense"), "fsdp", pmesh,
+                                device="cpu")
+        params = runner.shard(bridge.tree_from_numpy(weights["dense"]))
+        opt, o_specs = pod_moments(runner)
+        _, grads = runner.value_and_grad(params, batches["dense"])
+        params, opt = A._resharded_adamw(grads, opt, params, runner, o_specs,
+                                         **ADAMW)
+        out["pod_adamw"] = {**{"p/" + k: v for k, v in _np(params).items()},
+                            **{"m/" + k: v for k, v in _np(opt.m).items()},
+                            **{"v/" + k: v for k, v in _np(opt.v).items()}}
     if dims == (1, 2):      # the reverse pair: backward is an all-gather
         x = (torch.arange(8.) + 10 * rank).reshape(4, 2).requires_grad_()
         y = comm.reduce_scatter(x, 0, mesh.group("model"))
@@ -291,11 +317,11 @@ def _shards(io, dims, name):
             for r in range(dims[0] * dims[1])]
 
 
-def _specs(cfg, mode, kw, dims, tree):
+def _specs(cfg, mode, kw, dims, tree, names=("data", "model")):
     from repro_torch.dist import api as tapi
     from repro_torch.launch.mesh import MeshShape
-    return tapi.build_runner(port(cfg), mode, MeshShape(dims), device="cpu",
-                             **kw).param_specs(tree)
+    return tapi.build_runner(port(cfg), mode, MeshShape(dims, names),
+                             device="cpu", **kw).param_specs(tree)
 
 
 def port(cfg):
@@ -372,6 +398,30 @@ def _gathers_on_use(specs, n_sb: int) -> int:
     return n
 
 
+def test_dryrun_collectives_match_gloo_world(multi):
+    """The dry run of the (2, 2) fsdp train step (rank 0 traced on the meta
+    device in a fake world of four) records, op for op, the calls and the
+    bytes of the collectives rank 0 ran in this gloo world: its
+    ``value_and_grad``'s and its AdamW step's (the clip's norm)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import api as A
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models.model import InputShape
+    want = {}
+    for k, v in _shards(multi[0], (2, 2), "fsdp")[0].items():
+        if k[:2] in ("c/", "u/"):
+            op, what = k[2:].rsplit("_", 1)
+            want.setdefault(op, {"calls": 0, "bytes": 0})[what] += int(v)
+    assert want["all_gather"]["calls"] > 0 and want["all_reduce"]["calls"]
+    b, s = BATCHES["dense"]
+    with fake_mesh((2, 2)) as mesh:
+        runner = A.build_runner(make_cfg(get_config, "dense"), "fsdp", mesh,
+                                device="meta")
+        rec = DR.dryrun_rank(runner, InputShape("t", s, b, "train"))
+    assert rec["collectives"] == want
+
+
 @pytest.mark.parametrize("name", ["gspmd", "ep", "stage"])
 def test_phi35_moe_losses_match_jax(multi, name):
     """phi3.5-moe on (1, 2): the gspmd microbatched, expert-parallel and
@@ -423,6 +473,40 @@ def test_adamw_step_with_clipping_matches_jax(multi):
         sure = np.abs(m) > 1e-3 * np.abs(m).max()
         np.testing.assert_allclose(g[sure], want["p/" + k][sure], rtol=0,
                                    atol=1e-6, err_msg=k)
+
+
+def test_pod_split_adamw_step_matches_jax(multi):
+    """The moments split over 'pod' too (each rank steps its slice of them
+    and all-gathers the stepped parameters): the same step as JAX's on
+    whole leaves, as ``test_adamw_step_with_clipping_matches_jax`` holds
+    it; every moment leaf that 'pod' can split is smaller than its
+    parameter slice."""
+    from repro_torch import bridge
+    from repro_torch.dist import sharding as TSH
+    from repro_torch.launch.mesh import POD_AXES, MeshShape
+    io, weights, refs, cfgs = multi
+    mesh = MeshShape(POD_DIMS, POD_AXES)
+    specs = _specs(cfgs["dense"], "fsdp", {}, POD_DIMS, weights["dense"],
+                   POD_AXES)
+    o_specs = TSH.pod_shard_opt_specs(TSH.make_opt_specs(specs),
+                                      weights["dense"], mesh)
+    shards = [unflat(s) for s in _shards(io, (2, 2), "pod_adamw")]
+    want = refs["adamw"]
+    n_split = 0
+    for part, sp in (("m", o_specs.m), ("v", o_specs.v), ("p", specs)):
+        got = flat(bridge.gather_tree([s[part] for s in shards], sp, mesh))
+        if part != "p":
+            _close(got, {k[2:]: v for k, v in want.items()
+                         if k.startswith(part + "/")})
+            n_split += sum("pod" in TSH.spec_axes(x)
+                           for x in TSH.spec_leaves(sp))
+            continue
+        for k, g in got.items():
+            m = want["m/" + k]
+            sure = np.abs(m) > 1e-3 * np.abs(m).max()
+            np.testing.assert_allclose(g[sure], want["p/" + k][sure],
+                                       rtol=0, atol=1e-6, err_msg=k)
+    assert n_split > 0
 
 
 def test_checkpoint_round_trip_across_ranks(multi):

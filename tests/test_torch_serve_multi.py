@@ -17,6 +17,14 @@ and the same numpy-seeded tokens:
   ``cache_index`` 5, six decode steps) and on shrunk gemma2 (local window
   8 and softcap 50, twelve decode steps from 0: the ring wraps and the
   global cache crosses its slab boundary);
+- fsdp on (2, 1) with recurrent state (tiny xLSTM, and tiny jamba for
+  its Mamba mixer), whose rows split over 'data' while the state stays
+  whole on each rank: ``prefill_step`` and a prompt fed a token at a time
+  through ``serve_step``, then more steps (JAX's calls jitted; the weights
+  drawn by the port, whose init is quicker than JAX's Mamba init);
+- the LAYER stages on (1, 2) serving tiny internvl's prompt behind its
+  patch prefix (``prefill_step`` with ``image_embeds``: stage 0 projects
+  the patches, the last stage drops the prefix before the head);
 - fsdp on (2, 1) (rows over 'data'), pipeline (stages; in the gspmd
   layout, embed and head split over 'model' and gathered on use, and in
   the stage graph's, whole on each stage) and semantic (branches) on
@@ -24,7 +32,12 @@ and the same numpy-seeded tokens:
   and four ``serve_step`` calls.
 
 Logits are held to JAX's within 1e-5 of their largest |value| (the
-reference holds its sharded decode to 1e-3 absolute); the caches the ranks
+reference holds its sharded decode to 1e-3 absolute), tiny xLSTM's within
+1e-4: the reduced xLSTM is ill-conditioned, and the port's one-device
+runner itself reads 3.1e-5 of the largest logit against JAX's on these
+weights;
+its caches and its ranks against the one-device run within 1e-4 too (a
+rank's one row rounds differently from two rows); the caches the ranks
 hold, reassembled by ``bridge.gather_tree``, within 1e-6 of theirs under
 flash-decoding and 1e-5 elsewhere.  The
 world runs under a 120 s limit, its process groups with a 60 s timeout.
@@ -48,7 +61,12 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 SHRINK = dict(d_model=64, n_heads=2, n_kv_heads=2, head_dim=32, d_ff=128,
               vocab_size=128)
 CONFIGS = {"dense": ("stablelm-1.6b", {"n_layers": 4}),
-           "gemma": ("gemma2-27b", {"sliding_window": 8})}
+           "gemma": ("gemma2-27b", {"sliding_window": 8}),
+           "xlstm": ("xlstm-125m", {"n_layers": 6}),
+           "jamba": ("jamba-1.5-large-398b", {"n_layers": 8}),
+           "vlm": ("internvl2-26b", {})}
+#: configs whose weights the port draws (JAX's Mamba init takes seconds)
+PORT_DRAWN = ("xlstm", "jamba")
 # name -> (dims, config, weights, mode, runner kwargs, what runs)
 CASES = {
     "fd_dense": ((2, 1), "dense", "dense", "fsdp",
@@ -56,6 +74,9 @@ CASES = {
     "fd_gemma": ((2, 1), "gemma", "gemma", "fsdp",
                  dict(shard_cache_len=True), "flash_steps"),
     "fsdp": ((2, 1), "dense", "dense", "fsdp", {}, "surface"),
+    "fsdp_xlstm": ((2, 1), "xlstm", "xlstm", "fsdp", {}, "recurrent"),
+    "fsdp_mamba": ((2, 1), "jamba", "jamba", "fsdp", {}, "recurrent"),
+    "stages_vlm": ((1, 2), "vlm", "vlm", "pipeline", {}, "vlm"),
     "pipeline": ((1, 2), "dense", "dense", "pipeline", {}, "surface"),
     "stages": ((1, 2), "dense", "dense", "pipeline", dict(schedule="1f1b"),
                "surface"),
@@ -64,13 +85,36 @@ CASES = {
 B, S, CACHE = 4, 6, 16
 LENGTHS = np.array([6, 4, 5, 3], np.int32)
 FLASH = dict(b=2, cache=16, prompt=5, second=4, steps=6, gemma_steps=12)
+#: the recurrent cases: 2 rows (one a rank), a 4-token prompt, 2 more steps
+RECURRENT = dict(b=2, prompt=4, steps=2)
 TOL, CACHE_TOL = 1e-5, 1e-6
+#: logits against JAX's by case, where not ``TOL`` (see above)
+LOGIT_TOL = {"fsdp_xlstm": 1e-4}
+#: the same for the caches and for the ranks against the port's one-device
+#: run (the xLSTM ranks run one row each, which rounds differently)
+RANK_TOL = {"fsdp_xlstm": 1e-4}
 WORLD_TIMEOUT_S = 120
 
 
 def make_cfg(get_config, key):
     name, extra = CONFIGS[key]
-    return get_config(name).reduced().replace(**SHRINK).replace(**extra)
+    cfg = get_config(name).reduced().replace(**SHRINK).replace(**extra)
+    if cfg.moe is not None:
+        # no token drops: a rank's MoE sizes its expert capacity by its own
+        # rows, the reference's GSPMD by the whole batch's
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, d_ff=128,
+                                                  capacity_factor=8.0))
+    return cfg
+
+
+def dictify(tree):
+    """A tree with its tuples (a recurrent cell's state) as dicts keyed by
+    index, so ``flat`` and the bridge walk it."""
+    if isinstance(tree, dict):
+        return {k: dictify(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return {str(i): dictify(v) for i, v in enumerate(tree)}
+    return tree
 
 
 def flat(tree, prefix=""):
@@ -104,7 +148,11 @@ def _tokens(key, vocab):
             "fd_second": rng.integers(0, vocab, (f["b"], f["second"]))
             .astype(np.int32),
             "fd_steps": rng.integers(0, vocab, (f["gemma_steps"], f["b"], 1))
-            .astype(np.int32)}
+            .astype(np.int32),
+            "rec": rng.integers(0, vocab, (RECURRENT["b"], RECURRENT["prompt"]
+                                           + RECURRENT["steps"]))
+            .astype(np.int32),
+            "patches": rng.standard_normal((B, 16, 128)).astype(np.float32)}
 
 
 def run_case(runner, params, what, toks, t):
@@ -121,6 +169,21 @@ def run_case(runner, params, what, toks, t):
         for i in range(4):
             out[f"step{i}"], cache = runner.serve_step(
                 params, cache, {"tokens": t(toks["steps"][i])}, S + i)
+        return out, cache
+    if what == "vlm":
+        out["prefill_step"] = runner.prefill_step(
+            params, {"tokens": t(toks["prompt"]),
+                     "image_embeds": t(toks["patches"])})
+        return out, {}
+    if what == "recurrent":
+        r = RECURRENT
+        toks_r = toks["rec"]
+        out["prefill_step"] = runner.prefill_step(
+            params, {"tokens": t(toks_r[:, :r["prompt"]])})
+        cache = runner.init_cache(r["b"], CACHE)
+        for i in range(toks_r.shape[1]):
+            out[f"step{i}"], cache = runner.serve_step(
+                params, cache, {"tokens": t(toks_r[:, i:i + 1])}, i)
         return out, cache
     cache = runner.init_cache(f["b"], f["cache"])
     if what == "flash_prompt":
@@ -153,7 +216,7 @@ def _worker(rank: int, io: pathlib.Path) -> None:
                               store=store, rank=rank, world_size=2,
                               timeout_s=60) for dims in ((2, 1), (1, 2))}
     weights = {k: unflat(dict(np.load(io / f"w_{k}.npz")))
-               for k in ("dense", "sem", "gemma")}
+               for k in ("dense", "sem", "gemma", "vlm") + PORT_DRAWN}
     for name, (dims, ckey, wkey, mode, kw, what) in CASES.items():
         cfg = make_cfg(get_config, ckey)
         runner = A.build_runner(cfg, mode, meshes[dims], device="cpu", **kw)
@@ -165,7 +228,7 @@ def _worker(rank: int, io: pathlib.Path) -> None:
                               lambda a: torch.from_numpy(np.asarray(a)))
         res = {"l/" + k: v.numpy() for k, v in out.items()}
         res.update({"c/" + k: v for k, v in
-                    flat(bridge.tree_to_numpy(cache)).items()})
+                    flat(bridge.tree_to_numpy(dictify(cache))).items()})
         res.update({"s/" + k: np.asarray(v)
                     for k, v in comm.COMM_STATS.items()})
         res["s/lse_merges"] = np.asarray(L.FLASH_STATS["lse_merges"])
@@ -194,8 +257,11 @@ def world(tmp_path_factory):
     cfgs = {k: make_cfg(get_config, k) for k in CONFIGS}
     inits = {"dense": japi.build_runner(cfgs["dense"], "fsdp", one),
              "sem": japi.build_runner(cfgs["dense"], "semantic", one),
-             "gemma": japi.build_runner(cfgs["gemma"], "fsdp", one)}
+             "gemma": japi.build_runner(cfgs["gemma"], "fsdp", one),
+             "vlm": japi.build_runner(cfgs["vlm"], "fsdp", one)}
     weights = {k: r.init(jax.random.PRNGKey(0)) for k, r in inits.items()}
+    weights.update({k: jax.tree.map(jnp.asarray, _port_weights(cfgs[k]))
+                    for k in PORT_DRAWN})
     for k, w in weights.items():
         np.savez(io / f"w_{k}.npz", **flat(jax.tree.map(np.asarray, w)))
 
@@ -211,11 +277,17 @@ def world(tmp_path_factory):
     refs = {}
     for name, (dims, ckey, wkey, mode, kw, what) in CASES.items():
         runner = japi.build_runner(cfgs[ckey], mode, one)
+        if what == "recurrent":         # eager JAX steps take seconds each
+            runner = _Jitted(runner)
         out, cache = run_case(runner, weights[wkey], what,
                               _tokens(name, cfgs[ckey].vocab_size),
                               jnp.asarray)
         refs[name] = ({k: np.asarray(v) for k, v in out.items()},
-                      flat(jax.tree.map(np.asarray, cache)))
+                      flat(dictify(jax.tree.map(np.asarray, cache))))
+        if what == "recurrent":     # the port's own one-device run
+            refs[name] += (_port_one_device(cfgs[ckey], weights[wkey],
+                                            _tokens(name,
+                                                    cfgs[ckey].vocab_size)),)
 
     for p in procs:
         try:
@@ -228,6 +300,43 @@ def world(tmp_path_factory):
            if p.returncode]
     assert not bad, bad[0]
     return io, cfgs, refs
+
+
+def _port_weights(cfg):
+    """Weights drawn by the port's init (seed 0) as a numpy tree in the
+    JAX layout."""
+    from repro_torch import bridge
+    from repro_torch.dist import api as tapi
+    runner = tapi.build_runner(port(cfg), "fsdp", device="cpu")
+    return bridge.tree_to_numpy(runner.init(seed=0))
+
+
+def _port_one_device(cfg, weights, toks):
+    """The port's logits of a recurrent case on one device."""
+    from repro_torch import bridge
+    from repro_torch.dist import api as tapi
+    runner = tapi.build_runner(port(cfg), "fsdp", device="cpu")
+    runner.model = bridge.model_from_params(
+        runner.cfg, jax_to_numpy(weights))
+    out, _ = run_case(runner, runner.model.param_tree(), "recurrent", toks,
+                      lambda a: torch.from_numpy(np.asarray(a)))
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def jax_to_numpy(tree):
+    return {k: jax_to_numpy(v) if isinstance(v, dict) else np.asarray(v)
+            for k, v in tree.items()}
+
+
+class _Jitted:
+    """A JAX runner whose serving calls are jitted (the cache index
+    traced, so each step reuses one compile)."""
+
+    def __init__(self, runner):
+        import jax
+        self.init_cache = runner.init_cache
+        self.prefill_step = jax.jit(runner.prefill_step)
+        self.serve_step = jax.jit(runner.serve_step)
 
 
 def _shards(io, name):
@@ -267,17 +376,17 @@ def test_logits_match_jax(world, name):
         got = {k[2:]: v for k, v in s.items() if k.startswith("l/")}
         assert set(got) == set(want)
         for k in want:
-            _close_logits(got[k], want[k])
+            _close_logits(got[k], want[k], LOGIT_TOL.get(name, TOL))
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", [n for n in CASES if CASES[n][-1] != "vlm"])
 def test_rank_caches_match_jax(world, name):
     """The slices the ranks hold, reassembled, are JAX's whole cache: within
     1e-6 of its largest |value| under flash-decoding (the K/V of the
     one-device layer stack, written into slabs), 1e-5 elsewhere (the
     semantic branches' K/V round differently from JAX's vmap)."""
     got, want = _rank_caches(world, name)
-    tol = CACHE_TOL if name.startswith("fd_") else TOL
+    tol = CACHE_TOL if name.startswith("fd_") else RANK_TOL.get(name, TOL)
     assert set(got) == set(want)
     for k, w in want.items():
         assert got[k].shape == w.shape, k
@@ -309,6 +418,35 @@ def test_flash_decoding_slabs_and_merges(world):
     r1 = _shards(io, "fd_gemma")[1]
     assert np.abs(r1["c/pos0/k"]).max() > 0
     assert np.abs(r1["c/pos1/k"]).max() > 0
+
+
+@pytest.mark.parametrize("name", ["fsdp_xlstm", "fsdp_mamba"])
+def test_recurrent_state_whole_on_every_rank(world, name):
+    """Where the rows split over 'data', each rank holds the whole
+    recurrent state (the bytes of the specs' arithmetic: a replicated
+    leaf), equal on both ranks after every call: each call runs a rank's
+    own rows and all-gathers each state leaf once."""
+    io, cfgs, refs = world
+    shards = _shards(io, name)
+    want = refs[name][1]
+    n_state = 0
+    for k, w in want.items():
+        a, b = shards[0]["c/" + k], shards[1]["c/" + k]
+        if k.rsplit("/", 1)[-1] in ("k", "v"):
+            assert a.shape[-4] * 2 == w.shape[-4], k     # rows split
+            continue
+        n_state += 1
+        assert a.shape == b.shape == w.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    assert n_state > 0
+    for s in shards:        # the ranks serve what one device serves
+        for k, w in refs[name][2].items():
+            _close_logits(s["l/" + k], w, RANK_TOL.get(name, TOL))
+    calls = RECURRENT["prompt"] + RECURRENT["steps"]
+    n_gather_logits = calls + 1     # every serve_step and prefill_step
+    for s in shards:
+        assert int(s["s/all_gather_calls"]) >= calls * n_state \
+            + n_gather_logits
 
 
 def test_serving_collectives_by_mode(world):
