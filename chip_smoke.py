@@ -202,7 +202,11 @@ raising on failure:
             largest |value|; in bf16 both are finite.  internvl's decode,
             like the reference's, takes no image prefix: it is held to the
             text-only forward, and the 256-patch forward to its shape and
-            finiteness.
+            finiteness.  Then the Mamba mixer's full-sequence forward at S
+            2048 (four 512-step chunks of the log-depth scan), B 1, f32
+            and bf16, timed (CUDA events) beside the same forward with each
+            chunk walked a step at a time, to which it is held in f32
+            within 1e-4 of the largest |y|.
 17. pipeline  the training launcher's explicit schedules at the train
             phase's shape (full-width stablelm-1.6b, f32, B 2 x S 2048,
             remat), ``--mode pipeline --n-microbatches 2``: ``--schedule
@@ -255,7 +259,12 @@ raising on failure:
             2048, one microbatch): each rank holds ~30 GB of its params,
             grads and moments, and B 2's step did not fit beside them.  Reports step ms per rank, peak and allocated GB,
             the collectives' bytes and ``dist.comm.COMM_STATS``' staged
-            bytes and ms: host staging over gloo, not NVLink.
+            bytes and ms: host staging over gloo, not NVLink.  Last,
+            qwen2-moe-a2.7b cut to 2 superblocks at capacity factor 1.0,
+            fsdp on (2, 1) over B 2 (a row a rank): its experts overflow,
+            so the ranks must size capacity and drop over the whole batch;
+            held to one process as above, and the assignments the two
+            ranks drop must sum to the one process's, above 0.
 20. serve_multi  serving across ranks, on the same two ranks after their
             training runs, each part held to a one-process run of the same
             runner on a 1 x 1 mesh that this process makes first (seed-0
@@ -287,6 +296,19 @@ raising on failure:
             slab merge per launch under flash-decoding, 24 flash launches
             for A's prompt.  Reports prefill and decode ms per step, the
             collectives' bytes and staged ms, cache bytes and peak GB.
+            Then the engine across ranks: ``TorchBackend(mesh=<the
+            process-group mesh>, decode="legacy")`` on (2, 1) and on
+            (1, 2), full-width stablelm-1.6b in f32, each arm's 8
+            requests (64-257-token prompts, 12-16 new tokens) under
+            ``FixedPolicy``; rank 0 drives the engine and broadcasts each
+            gang batch, rank 1 follows.  Rank 0's tokens must equal a
+            one-process ``TorchBackend(decode="legacy")`` on the same seed
+            (this process runs it first), the follower's batches, prefill
+            calls, decode steps and token streams' CRC-32 rank 0's, and
+            each rank's ``decode_attention`` launches one per attention
+            layer it holds per decode step.  Reports decode ms per step on
+            rank 0 beside the one process's, collectives and staged bytes
+            per step and the headers sent.
 21. disagg_xdev  the disagg fleet across devices: prefill worker on
             ``cuda:0``, decode worker on ``cuda:1`` with two cards, else on
             the CPU; stablelm-1.6b at full width cut to 2 superblocks, f32
@@ -328,8 +350,8 @@ counts ``flash_attention`` launches from the ``train``, ``pipeline`` and
 ``multi`` phases (the ``multi`` ranks' counts summed, ``serve_multi``'s
 prompt included), ``decode_attention``
 launches from the ops, ``legacy``, ``window`` and ``serve_multi`` phases
-(both ranks summed) and ``block_diag_matmul`` launches from the ops and
-``recurrent`` phases.  Every backend is freed before the next one is
+(both ranks summed, the engine part's too) and ``block_diag_matmul``
+launches from the ops and ``recurrent`` phases.  Every backend is freed before the next one is
 built.  The last lines are
 one JSON object per kernel line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -2095,6 +2117,54 @@ def zoo_phase(dev):
                 "steps, finite")
             del params, x, full, dec, state
             _free()
+    out["mamba_scan"] = mamba_scan_timing(dev, gen)
+    return out
+
+
+#: the Mamba mixer's timed full-sequence forward: four 512-step chunks
+MAMBA_SCAN_SEQ = 2048
+
+
+def mamba_scan_timing(dev, gen):
+    """jamba-1.5-large's Mamba mixer (d 8192, d_inner 16384), its
+    full-sequence forward at S ``MAMBA_SCAN_SEQ`` (B 1, f32 and bf16):
+    CUDA-event ms a call (``time_ms``) with the log-depth scan, beside the
+    same forward with each chunk walked a step at a time; in f32 the two
+    agree within 1e-4 of the largest |y|, in bf16 both are finite."""
+    from unittest import mock
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm as MS
+    from repro_torch.models.model import ParamTree, init_leaf
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config("jamba-1.5-large-398b").replace(dtype=dtype)
+        dt = _DTYPES[dtype]
+        params = ParamTree(MS.mamba_shapes(cfg), (1,), dt, dev)
+        for leaf, p in params.named_parameters():
+            init_leaf(leaf, p, gen)
+        x = torch.randn(1, 1, MAMBA_SCAN_SEQ, cfg.d_model, generator=gen,
+                        device=dev).to(dt)
+        fwd = lambda: MS.mamba_apply(params, x, cfg)[0]
+        timed = dev.type == "cuda"        # not when rehearsed on the CPU
+        with torch.no_grad():
+            y = fwd()
+            ms = time_ms(fwd, reps=3, rounds=3) if timed else None
+            with mock.patch.object(MS, "_scan_chunk", MS._scan_chunk_steps):
+                y_loop = fwd()
+                loop_ms = time_ms(fwd, reps=1, rounds=3) if timed else None
+        rel = float((y.float() - y_loop.float()).abs().max()
+                    / y_loop.float().abs().max())
+        finite = bool(y.isfinite().all() and y_loop.isfinite().all())
+        if not finite or (dtype == "float32" and not rel <= 1e-4):
+            raise AssertionError(f"[zoo] mamba scan {dtype}: against the "
+                                 f"step loop {rel}, finite {finite}")
+        out[dtype] = dict(seq=MAMBA_SCAN_SEQ,
+                          chunks=MAMBA_SCAN_SEQ // MS.DEFAULT_SCAN_CHUNK,
+                          ms=ms, loop_ms=loop_ms, rel_to_loop=rel)
+        log(f"[zoo] mamba scan {dtype}: {json.dumps(out[dtype])}")
+        del params, x, y, y_loop
+        _free()
     return out
 
 
@@ -2824,29 +2894,68 @@ _PIPE = dict(mode="pipeline", n_microbatches=MULTI_MICRO)
 # microbatch's activations beside a whole gradient tree), which fits the
 # card beside this process only when no phase ran before
 _EP = dict(mode="pipeline", n_microbatches=1, expert_parallel=True)
-MULTI_BATCH = {"stablelm-1.6b": TRAIN_SHAPE["batch"], "qwen2-moe-a2.7b": 1}
-# the one-process runs each sharded run is held to
+# the one-process runs each sharded run is held to, and their global batch
 MULTI_REFS = {"fsdp": ("stablelm-1.6b", dict(mode="fsdp")),
               "stage": ("stablelm-1.6b", dict(_PIPE, schedule="1f1b")),
-              "moe": ("qwen2-moe-a2.7b", _EP)}
+              "moe": ("qwen2-moe-a2.7b", _EP),
+              "moe_rows": ("qwen2-moe-a2.7b", dict(mode="fsdp"))}
+MULTI_BATCH = {"fsdp": TRAIN_SHAPE["batch"], "stage": TRAIN_SHAPE["batch"],
+               "moe": 1, "moe_rows": 2}
+# the MoE on a row split: fsdp on (2, 1) splits B 2 into a row a rank, 2
+# superblocks at a capacity factor whose experts overflow, so capacity and
+# drops must be the whole batch's for the ranks to match one process
+MULTI_MOE_ROWS = dict(superblocks=2, capacity_factor=1.0)
 # (tag, mesh, runner kwargs, reference)
 MULTI_RUNS = (("fsdp", (2, 1), dict(mode="fsdp"), "fsdp"),
               ("1f1b", (1, 2), dict(_PIPE, schedule="1f1b"), "stage"),
               ("gpipe", (1, 2), dict(_PIPE, schedule="gpipe"), "stage"),
-              ("ep", (1, 2), dict(_EP, schedule="1f1b"), "moe"))
+              ("ep", (1, 2), dict(_EP, schedule="1f1b"), "moe"),
+              ("moe_rows", (2, 1), dict(mode="fsdp"), "moe_rows"))
 
 
-def multi_cfg(name: str, reduced: bool):
-    """The multi phase's config: f32; qwen2-moe cut to its first
-    ``MULTI_EP_SUPERBLOCKS`` superblocks (full width)."""
+def multi_cfg(key: str, reduced: bool):
+    """The multi phase's config of a reference key: f32; qwen2-moe cut to
+    its first ``MULTI_EP_SUPERBLOCKS`` superblocks (full width), or as
+    ``MULTI_MOE_ROWS`` says."""
+    import dataclasses
+
     from repro_torch.configs.base import get_config
-    cfg = get_config(name)
+    cfg = get_config(MULTI_REFS[key][0])
     if reduced:
         cfg = cfg.reduced()
     if cfg.moe is not None:
-        cfg = cfg.replace(n_layers=min(MULTI_EP_SUPERBLOCKS,
-                                       cfg.n_superblocks) * len(cfg.pattern))
+        rows = MULTI_MOE_ROWS if key == "moe_rows" else {}
+        cfg = cfg.replace(n_layers=min(
+            rows.get("superblocks", MULTI_EP_SUPERBLOCKS),
+            cfg.n_superblocks) * len(cfg.pattern))
+        if rows:
+            cfg = cfg.replace(moe=dataclasses.replace(
+                cfg.moe, capacity_factor=rows["capacity_factor"]))
     return cfg.replace(dtype="float32")
+
+
+class _MoeDrops:
+    """While active, the assignments this process's MoE dispatch drops past
+    capacity, summed over its calls (``dropped``), of ``assigned``: an
+    assignment is kept exactly when its routing weight lands in a slot
+    (the top-k softmax weights are never 0)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.dropped = self.assigned = 0
+        self.orig = MOE._dispatch_buffers
+
+        def counted(weights, idx, g, t, m, rows=None):
+            buf_tok, buf_w = self.orig(weights, idx, g, t, m, rows)
+            self.assigned += g * t * m.top_k
+            self.dropped += g * t * m.top_k - int((buf_w != 0).sum())
+            return buf_tok, buf_w
+        MOE._dispatch_buffers = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE._dispatch_buffers = self.orig
 
 
 def multi_flash_per_step(cfg, mesh, kw) -> int:
@@ -2868,17 +2977,18 @@ def _sync(dev) -> None:
 
 def _multi_reference(dev, key, reduced, batch):
     """A one-process ``value_and_grad`` on the seed-0 weights: (loss, {leaf
-    path: gradient on the host})."""
+    path: gradient on the host}, MoE assignments dropped)."""
     from repro_torch.dist import api as A
-    name, kw = MULTI_REFS[key]
-    runner = A.build_runner(multi_cfg(name, reduced), device=dev, **kw)
+    _, kw = MULTI_REFS[key]
+    runner = A.build_runner(multi_cfg(key, reduced), device=dev, **kw)
     tree = runner.init(seed=0)
-    loss, grads = runner.value_and_grad(tree, batch, remat=True)
+    with _MoeDrops() as drops:
+        loss, grads = runner.value_and_grad(tree, batch, remat=True)
     host = {k: v.detach().cpu() for k, v in _paths(grads).items()}
     out = float(loss)
     del runner, tree, grads
     _free()
-    return out, host
+    return out, host, drops.dropped
 
 
 def _paths(tree, prefix=""):
@@ -2936,13 +3046,14 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
     init_mesh(MULTI_RUNS[0][1], **world)
     refs, batches, runs = {}, {}, {}
     for tag, dims, kw, ref_key in MULTI_RUNS:
-        name = MULTI_REFS[ref_key][0]
-        cfg = multi_cfg(name, reduced)
-        if name not in batches:
-            batches[name] = {k: torch.from_numpy(v).to(dev) for k, v in next(
-                batches_for(cfg, seq_len=TRAIN_SHAPE["seq_len"],
-                            global_batch=MULTI_BATCH[name])).items()}
-        batch = batches[name]
+        cfg = multi_cfg(ref_key, reduced)
+        if ref_key not in batches:
+            batches[ref_key] = {k: torch.from_numpy(v).to(dev) for k, v in
+                                next(batches_for(
+                                    cfg, seq_len=TRAIN_SHAPE["seq_len"],
+                                    global_batch=MULTI_BATCH[ref_key]))
+                                .items()}
+        batch = batches[ref_key]
         if ref_key not in refs:     # one rank at a time: each is a whole
             refs.clear()            # one-process step on the card
             _free()
@@ -2951,7 +3062,7 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
                     refs[ref_key] = _multi_reference(dev, ref_key, reduced,
                                                      batch)
                 dist.barrier()
-        want_loss, want = refs[ref_key]
+        want_loss, want, want_dropped = refs[ref_key]
         mesh = init_mesh(dims, **world)
         _free()
         mem = {}
@@ -2976,7 +3087,8 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
         dist.barrier()
         _sync(dev)
         t0 = time.perf_counter()
-        loss, grads = runner.value_and_grad(params, batch, remat=True)
+        with _MoeDrops() as drops:
+            loss, grads = runner.value_and_grad(params, batch, remat=True)
         _sync(dev)
         vag_s = time.perf_counter() - t0
         note("grads")
@@ -3025,6 +3137,8 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
             flash_launches=launches, flash_by_path=by_path,
             flash_want=MULTI_STEPS * multi_flash_per_step(cfg, dims, kw),
             comm=dict(comm.COMM_STATS), mem_gb=mem,
+            moe_dropped=drops.dropped, moe_assigned=drops.assigned,
+            moe_dropped_one_process=want_dropped,
             peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
                          if dev.type == "cuda" else 0.0))
         log(f"[multi {tag} rank {rank}] step ms {runs[tag]['step_ms']}, "
@@ -3035,6 +3149,7 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
         comm.release_buffers()
     refs.clear()
     runs["serve"] = serve_multi_worker(rank, workdir, dev, reduced, world)
+    runs["engine"] = engine_worker(rank, dev, reduced, world)
     dist.barrier()
     dist.destroy_process_group()
     (workdir / f"rank{rank}.json").write_text(json.dumps(runs))
@@ -3053,6 +3168,7 @@ def multi_phase(dev, *, reduced: bool = False):
     card = gpu_name_and_limit() if dev.type == "cuda" else "cpu"
     workdir = pathlib.Path(tempfile.mkdtemp(prefix="multi_"))
     serve_refs = serve_multi_refs(dev, workdir, reduced)
+    engine_ref = engine_refs(dev, reduced)
     # two processes' caching allocators share the card: expandable
     # segments keep their freed blocks from fragmenting it
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -3110,6 +3226,14 @@ def multi_phase(dev, *, reduced: bool = False):
                     "on simt")
             if not all(math.isfinite(x) for x in run["losses"]):
                 raise AssertionError(f"{where} losses {run['losses']}")
+        dropped = sum(r["moe_dropped"] for r in per)
+        if tag == "moe_rows" and not (
+                dropped == per[0]["moe_dropped_one_process"] > 0):
+            raise AssertionError(
+                f"[multi {tag}] the ranks dropped {dropped} MoE "
+                f"assignments, one process "
+                f"{per[0]['moe_dropped_one_process']} (must be equal and "
+                "above 0)")
         if per[0]["losses"] != per[1]["losses"]:
             raise AssertionError(f"[multi {tag}] ranks report different "
                                  f"losses {per[0]['losses']} "
@@ -3123,9 +3247,14 @@ def multi_phase(dev, *, reduced: bool = False):
                 param_bytes=r["param_bytes"],
                 param_bytes_specs=r["param_bytes_specs"],
                 flash_launches=r["flash_launches"], comm=r["comm"],
+                moe_dropped=r["moe_dropped"],
+                moe_assigned=r["moe_assigned"],
+                moe_dropped_one_process=r["moe_dropped_one_process"],
                 peak_mem_gb=r["peak_mem_gb"]) for r in per])))
     out["serve"] = serve_multi_gates(ranks, reduced, card)
     out["serve_one_process"] = serve_refs
+    out["engine"] = engine_gates(ranks, engine_ref, card)
+    out["engine_one_process"] = engine_ref
     log(f"[multi] {card} | world of {MULTI_WORLD} gloo ranks on one "
         f"device, {wall_s:.1f} s")
     return out
@@ -3466,6 +3595,189 @@ def serve_multi_gates(ranks, reduced: bool, card: str) -> dict:
                 lse_merges=r["lse_merges"], comm=r["comm"],
                 cache_bytes=r["cache_bytes"], peak_mem_gb=r["peak_mem_gb"])
                 for r in per])))
+    return out
+
+
+# ----------------------------------------------------- the engine, ranks
+#: ``TorchBackend`` on a process-group mesh (the gang path through the
+#: runners; rank 0 drives the engine, rank 1 follows its headers) on each
+#: of these meshes, against a one-process backend on the same seed
+ENGINE_MESHES = ((2, 1), (1, 2))
+ENGINE_SHAPE = dict(cache_len=320, max_batch=8, decode="legacy")
+ENGINE_SHAPE_REDUCED = dict(cache_len=48, max_batch=8, decode="legacy")
+#: requests an arm (one gang batch of 8 rows), prompt lengths [lo, hi) and
+#: new tokens [lo, hi)
+ENGINE_REQUESTS = (8, (64, 258), (12, 17))
+ENGINE_REQUESTS_REDUCED = (8, (8, 25), (4, 9))
+
+
+def engine_setup(reduced: bool):
+    """The engine part's config (stablelm-1.6b, f32), backend shape and
+    each arm's requests (made anew per run: they carry their outputs)."""
+    from repro_torch.engine import LAYER, SEMANTIC
+    cfg = serve_cfg("stablelm-1.6b", None, reduced)
+    n, plen, max_new = ENGINE_REQUESTS_REDUCED if reduced \
+        else ENGINE_REQUESTS
+    reqs = lambda arm: gang_requests(cfg.vocab_size, n, seed=40 + arm,
+                                     plen=plen, max_new=max_new)
+    shape = ENGINE_SHAPE_REDUCED if reduced else ENGINE_SHAPE
+    return cfg, shape, {arm: reqs for arm in (LAYER, SEMANTIC)}
+
+
+def _engine_serve(backend, reqs):
+    """Each arm's requests under ``FixedPolicy`` on ``backend`` (rank 0's
+    or one process's), traced: ({arm: {rid: tokens}}, {arm: decode
+    steps}, decode ms a step over the ``legacy_decode`` spans)."""
+    from repro_torch.engine import FixedPolicy, PlacementEngine
+    from repro_torch.obs import Tracer, set_tracer
+    tokens, steps = {}, {}
+    tracer = Tracer()
+    old = set_tracer(tracer)
+    try:
+        for arm, make in reqs.items():
+            batch = make(arm)
+            before = backend.decode_steps
+            eng = PlacementEngine(FixedPolicy(arm, placement=None), backend)
+            eng.submit(batch)
+            eng.drain()
+            if any(r.output is None or r.output.shape != (r.max_new,)
+                   for r in batch):
+                raise AssertionError(f"[engine] arm {arm}: a request did "
+                                     "not complete")
+            tokens[arm] = {str(r.rid): r.output.tolist() for r in batch}
+            steps[arm] = backend.decode_steps - before
+    finally:
+        set_tracer(old)
+    dec = tracer.events("legacy_decode")
+    n = sum(e[5]["steps"] for e in dec)
+    return tokens, steps, 1e3 * sum(e[4] for e in dec) / 1e6 / max(n, 1)
+
+
+def engine_refs(dev, reduced: bool) -> dict:
+    """The one-process backend the engine part is held to, in this
+    process before the world starts: each arm's tokens, decode steps and
+    decode ms a step."""
+    from repro_torch.engine import TorchBackend
+    cfg, shape, reqs = engine_setup(reduced)
+    _free()
+    backend = TorchBackend(cfg, device=dev, **shape)
+    tokens, steps, ms = _engine_serve(backend, reqs)
+    del backend
+    _free()
+    log(f"[engine one process] {cfg.name}: decode ms a step {ms:.2f}, "
+        f"steps {steps}")
+    return dict(tokens={str(a): t for a, t in tokens.items()}, steps=steps,
+                decode_ms=ms)
+
+
+def engine_worker(rank: int, dev, reduced: bool, world: dict) -> dict:
+    """One rank of the engine part on each of ``ENGINE_MESHES``: the
+    backend built on the mesh; rank 0 serves each arm's requests under
+    ``FixedPolicy`` and closes it, rank 1 follows.  The counters
+    (``decode_attention`` launches, ``COMM_STATS``) are zeroed just
+    before."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import comm
+    from repro_torch.engine import TorchBackend
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.launch.mesh import init_mesh
+    cfg, shape, reqs = engine_setup(reduced)
+    out = {}
+    for dims in ENGINE_MESHES:
+        _free()
+        mesh = init_mesh(dims, **world)
+        backend = TorchBackend(cfg, mesh=mesh, device=dev, **shape)
+        comm.reset_stats()
+        decode_attention.launches = 0
+        dist.barrier()
+        t0 = time.perf_counter()
+        if rank == 0:
+            try:
+                tokens, steps, ms = _engine_serve(backend, reqs)
+            finally:
+                backend.close()
+            res = dict(tokens={str(a): t for a, t in tokens.items()},
+                       steps=steps, decode_ms=ms,
+                       metrics={k: v for k, v in
+                                backend.extra_metrics().items()
+                                if not isinstance(v, dict)})
+        else:
+            res = dict(follow=backend.follow())
+        _sync(dev)
+        res.update(wall_s=time.perf_counter() - t0,
+                   decode_launches=decode_attention.launches,
+                   comm=dict(comm.COMM_STATS),
+                   held_layers={str(a): _held_attention_layers(r)
+                                for a, r in backend.runners.items()})
+        out[",".join(map(str, dims))] = res
+        log(f"[engine {dims} rank {rank}] {res['wall_s']:.1f} s, "
+            f"{res['decode_launches']} decode_attention launches")
+        del backend
+        comm.release_buffers()
+    return out
+
+
+def _held_attention_layers(runner) -> int:
+    """Attention layers whose decode step a rank runs: a stage its span,
+    every other layout every layer (the semantic branches in one call)."""
+    cfg = runner.cfg
+    n = sum(m in ("attn", "attn_local") for m, _ in cfg.pattern) \
+        * cfg.n_superblocks
+    return n // runner.n_stages if getattr(runner, "_staged", None) and \
+        runner._staged() else n
+
+
+def engine_gates(ranks, ref: dict, card: str) -> dict:
+    """The engine part's gates: rank 0's tokens are the one-process
+    backend's on every arm, the follower ran rank 0's batches, prefill
+    calls and decode steps and took its tokens (the streams' CRC-32), and
+    each rank launched ``decode_attention`` once per attention layer it
+    holds per decode step."""
+    out = {}
+    for dims in ENGINE_MESHES:
+        key = ",".join(map(str, dims))
+        lead, follower = (rk["engine"][key] for rk in ranks)
+        where = f"[engine {dims}]"
+        if lead["tokens"] != ref["tokens"]:
+            same = sum(lead["tokens"][a][r] == ref["tokens"][a][r]
+                       for a in ref["tokens"] for r in ref["tokens"][a])
+            raise AssertionError(f"{where} rank 0's tokens equal the "
+                                 f"one-process backend's in {same} requests "
+                                 f"of {sum(map(len, ref['tokens'].values()))}")
+        m = lead["metrics"]
+        followed = ("batches", "prefill_calls", "decode_steps",
+                    "stream_digest")
+        if any(follower["follow"][k] != m[k] for k in followed):
+            raise AssertionError(f"{where} the follower ran "
+                                 f"{follower['follow']}, rank 0 {m}")
+        for r, rk in enumerate((lead, follower)):
+            want = sum(rk["held_layers"][str(a)] * n
+                       for a, n in lead["steps"].items())
+            if rk["decode_launches"] != want:
+                raise AssertionError(f"{where} rank {r} launched "
+                                     f"decode_attention "
+                                     f"{rk['decode_launches']} times, want "
+                                     f"{want}")
+        steps = m["decode_steps"]
+        row = dict(mesh=dims, decode_ms=lead["decode_ms"],
+                   decode_ms_one_process=ref["decode_ms"],
+                   decode_steps=steps, batches=m["batches"],
+                   headers_sent=m["headers_sent"] + 1,       # and the stop
+                   wall_s=[lead["wall_s"], follower["wall_s"]],
+                   decode_launches=[lead["decode_launches"],
+                                    follower["decode_launches"]],
+                   collectives_per_step=[sum(
+                       v for k, v in rk["comm"].items()
+                       if k.endswith("_calls")) / steps
+                       for rk in (lead, follower)],
+                   staged_bytes_per_step=[rk["comm"].get("staged_bytes", 0)
+                                          / steps
+                                          for rk in (lead, follower)],
+                   comm=[lead["comm"], follower["comm"]])
+        out[key] = row
+        log(f"[engine {dims}] {card} | " + json.dumps(
+            {k: v for k, v in row.items() if k != "comm"}))
     return out
 
 
@@ -3980,7 +4292,9 @@ def main(argv=None) -> int:
             if name == "decode_attention":
                 launches += sum(r["decode_launches"]
                                 for per in multi["serve"].values()
-                                for r in per)
+                                for r in per) \
+                    + sum(sum(e["decode_launches"])
+                          for e in multi["engine"].values())
         elif name == "flash_attention":
             launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS) \
                 + sum(pipeline[s]["flash_launches"] for s, _ in PIPELINE_RUNS) \

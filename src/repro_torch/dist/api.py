@@ -79,6 +79,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as MM
 from repro_torch.models import transformer as T
 from repro_torch.models.model import build_model
+from repro_torch.models.moe import RowSplit
 from repro_torch.optim.adamw import adamw_update, tree_leaves
 
 MODES = ("fsdp", "semantic", "pipeline")
@@ -210,8 +211,30 @@ class BaseRunner:
     def _n_micro(self, batch) -> int:
         return 1
 
-    def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1):
-        return self.model.loss_chunked(params, batch, remat=remat)
+    def _row_split(self, aux: bool = False) -> RowSplit:
+        """The MoE's handle on the 'data' axis that splits the rows of a
+        call (:class:`~repro_torch.models.moe.RowSplit`), so that capacity
+        and drops are the whole batch's, as the reference's GSPMD sizes
+        them; with ``aux`` (a loss) it also sums the load-balance term's
+        means over the axis, which the serving calls drop."""
+        group = self.mesh.group("data")
+        return RowSplit(self.mesh.coords["data"], self.mesh.axis_size("data"),
+                        lambda t: comm.all_gather_dim(t, 0, group),
+                        (lambda t: comm.all_reduce(t, group)) if aux
+                        else None)
+
+    def _batch_rows(self, batch) -> Optional[RowSplit]:
+        """The row split of a training batch whose rows ``local_batch``
+        splits over 'data' (``batch_specs``: where they divide), or
+        None."""
+        n = self.mesh.axis_size("data")
+        if not self.distributed or n == 1 or batch["tokens"].shape[0] % n:
+            return None
+        return self._row_split(aux=True)
+
+    def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1,
+                    rows: Optional[RowSplit] = None):
+        return self.model.loss_chunked(params, batch, remat=remat, rows=rows)
 
     def loss(self, params, batch, *, remat: bool = False):
         m = self._n_micro(batch)
@@ -220,17 +243,18 @@ class BaseRunner:
         with torch.no_grad():
             loss = self._local_loss(self._on_use(params),
                                     self.local_batch(batch), remat=False,
-                                    n_micro=m)
+                                    n_micro=m, rows=self._batch_rows(batch))
         return replicated_mean(loss, self.mesh)
 
     def value_and_grad(self, params, batch, *, remat: bool = False):
         """(loss, grads): grads is a tree of the params' paths (on a mesh,
         of this rank's slices), accumulated a microbatch at a time."""
+        rows = self._batch_rows(batch)
         loss, grads = PL.microbatch_value_and_grad(
             self.model, params, tree_leaves(params), self.local_batch(batch),
             self._n_micro(batch), remat=remat,
             loss_fn=lambda p, b: self._local_loss(self._on_use(p), b,
-                                                  remat=remat))
+                                                  remat=remat, rows=rows))
         if self.distributed:
             grads = reduce_grads(grads, self.specs, self.mesh)
             loss = replicated_mean(loss, self.mesh)
@@ -286,11 +310,13 @@ class BaseRunner:
             if not self.distributed:
                 return self.model.forward(params, batch)[0]
             b = batch["tokens"].shape[0]
-            lb = self._rows(batch) if self._split_rows(b) else batch
-            return self._join_rows(self._forward_logits(params, lb), b)
+            if not self._split_rows(b):
+                return self._forward_logits(params, batch)
+            return self._join_rows(self._forward_logits(
+                params, self._rows(batch), rows=self._row_split()), b)
 
-    def _forward_logits(self, params, batch):
-        return self.model.forward(self._on_use(params), batch)[0]
+    def _forward_logits(self, params, batch, rows: Optional[RowSplit] = None):
+        return self.model.forward(self._on_use(params), batch, rows=rows)[0]
 
     def init_cache(self, batch_size: int, cache_len: int,
                    window_override: Optional[int] = None):
@@ -378,9 +404,10 @@ class BaseRunner:
             tokens = self._rows(tokens)
             if lengths is not None:
                 lengths = self._rows(torch.as_tensor(lengths))
-            rows, joins = self._row_state(cache)
-            logits, _ = self._cached_pass(params, rows, tokens, cache_index,
-                                          lengths=lengths)
+            local, joins = self._row_state(cache)
+            logits, _ = self._cached_pass(params, local, tokens, cache_index,
+                                          lengths=lengths,
+                                          rows=self._row_split())
             self._join_state(joins)
             return self._join_rows(logits, b), cache
 
@@ -399,19 +426,22 @@ class BaseRunner:
                     params, cache, batch["tokens"], cache_index, batch=batch,
                     window_override=window_override)
             lb = self._rows(batch)
-            rows, joins = self._row_state(cache)
+            local, joins = self._row_state(cache)
             logits, _ = self._cached_pass(
-                params, rows, lb["tokens"], cache_index, batch=lb,
-                window_override=window_override)
+                params, local, lb["tokens"], cache_index, batch=lb,
+                window_override=window_override, rows=self._row_split())
             self._join_state(joins)
             return self._join_rows(logits, b), cache
 
     def _cached_pass(self, params, cache, tokens, cache_index: int, *,
-                     lengths=None, batch=None, window_override=None):
+                     lengths=None, batch=None, window_override=None,
+                     rows: Optional[RowSplit] = None):
         """One pass of this rank's rows through the model over its cache
         slices: a prompt (``prefill_cache``) without ``batch``, else a
-        decode step.  Returns ([B_local, vocab] logits, cache)."""
-        kw = dict(cache_axis=self._cache_axis, gather=self._branch_gather())
+        decode step; ``rows`` where the rows split over 'data'.  Returns
+        ([B_local, vocab] logits, cache)."""
+        kw = dict(cache_axis=self._cache_axis, gather=self._branch_gather(),
+                  rows=rows)
         p = self._on_use(params)
         if batch is None:
             return self.model.prefill_cache(p, cache, tokens,
@@ -484,19 +514,21 @@ class SemanticRunner(BaseRunner):
         group = self.mesh.group("model")
         return lambda logits: comm.all_gather_dim(logits, 0, group)
 
-    def _forward_logits(self, params, batch):
+    def _forward_logits(self, params, batch, rows: Optional[RowSplit] = None):
         if self.mesh.axis_size("model") == 1:
-            return super()._forward_logits(params, batch)
+            return super()._forward_logits(params, batch, rows)
         p = self._on_use(params)
-        h, _ = self.model.hidden(p, batch)
+        h, _ = self.model.hidden(p, batch, rows=rows)
         return _GatheredBranches(self.model, self.mesh.group(
             "model")).chunk_logits(p, h)
 
-    def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1):
+    def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1,
+                    rows: Optional[RowSplit] = None):
         if not self.distributed or self.mesh.axis_size("model") == 1:
-            return self.model.loss_chunked(params, batch, remat=remat)
+            return self.model.loss_chunked(params, batch, remat=remat,
+                                           rows=rows)
         group = self.mesh.group("model")
-        h, aux = self.model.hidden(params, batch, remat=remat)
+        h, aux = self.model.hidden(params, batch, remat=remat, rows=rows)
         aux = comm.all_reduce(aux, group)
         return MM._chunked_ce(_GatheredBranches(self.model, group), params, h,
                               batch["labels"], 512) + 0.01 * aux
@@ -565,9 +597,16 @@ class PipelineRunner(BaseRunner):
             return batch
         return PL.split_data(batch, self._resolve(batch), self.mesh)
 
-    def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1):
+    def _batch_rows(self, batch) -> Optional[RowSplit]:
+        """``split_data`` splits each microbatch's rows over 'data'."""
+        if not self.distributed or self.mesh.axis_size("data") == 1:
+            return None
+        return self._row_split(aux=True)
+
+    def _local_loss(self, params, batch, *, remat: bool, n_micro: int = 1,
+                    rows: Optional[RowSplit] = None):
         return PL.microbatch_loss(self.model, params, batch, n_micro,
-                                  remat=remat)
+                                  remat=remat, rows=rows)
 
     def loss(self, params, batch, *, remat: bool = False):
         m = self._resolve(batch)
@@ -623,7 +662,8 @@ class PipelineRunner(BaseRunner):
 
     def _stage_pass(self, params, tokens, *, positions=None, cache=None,
                     cache_index: Optional[int] = None, window_override=None,
-                    select=None, image_embeds=None):
+                    select=None, image_embeds=None,
+                    rows: Optional[RowSplit] = None):
         """One forward of the LAYER split's stages: stage 0 embeds (a VLM's
         patch embeddings ahead of the tokens, as its prefix), each stage
         runs its superblocks over its cache slice and sends the activation
@@ -651,7 +691,7 @@ class PipelineRunner(BaseRunner):
         x, _ = self.model.stage_apply(
             p["blocks"], x, positions=positions, caches=cache,
             cache_index=cache_index, cache_axis=self._cache_axis,
-            window_override=window_override)
+            window_override=window_override, rows=rows)
         if st < n - 1:
             comm.exchange([(x, st + 1)], [], group, self.device)
             logits = torch.empty((b, s if select is None else 1,
@@ -663,24 +703,26 @@ class PipelineRunner(BaseRunner):
                 p, x if select is None else select(x))
         return comm.broadcast_from(logits, n - 1, group)
 
-    def _forward_logits(self, params, batch):
+    def _forward_logits(self, params, batch, rows: Optional[RowSplit] = None):
         if not self._staged():
-            return super()._forward_logits(params, batch)
+            return super()._forward_logits(params, batch, rows)
         return self._stage_pass(params, batch["tokens"],
-                                image_embeds=batch.get("image_embeds"))
+                                image_embeds=batch.get("image_embeds"),
+                                rows=rows)
 
     def _cached_pass(self, params, cache, tokens, cache_index: int, *,
-                     lengths=None, batch=None, window_override=None):
+                     lengths=None, batch=None, window_override=None,
+                     rows: Optional[RowSplit] = None):
         if not self._staged():
             return super()._cached_pass(
                 params, cache, tokens, cache_index, lengths=lengths,
-                batch=batch, window_override=window_override)
+                batch=batch, window_override=window_override, rows=rows)
         pos = cache_index + torch.arange(tokens.shape[1],
                                          device=self.device)[None, :]
         logits = self._stage_pass(
             params, tokens, positions=pos, cache=cache,
             cache_index=cache_index, window_override=window_override,
-            select=lambda x: MM.last_positions(x, lengths))
+            select=lambda x: MM.last_positions(x, lengths), rows=rows)
         return logits[:, -1], cache
 
     # -------------------------------------------------------------- layouts

@@ -79,15 +79,17 @@ def split_microbatches(batch, n_micro: int):
 
 
 def microbatch_loss(model, params, batch, n_micro: int, *,
-                    remat: bool = False, chunk: int = 512):
+                    remat: bool = False, chunk: int = 512, rows=None):
     """Mean per-microbatch loss over M microbatches.  M = 1 is the plain
-    full-batch loss."""
+    full-batch loss.  ``rows``: the split of each microbatch's rows over
+    ranks (``models.moe.RowSplit``)."""
     if n_micro <= 1:
-        return model.loss_chunked(params, batch, chunk=chunk, remat=remat)
+        return model.loss_chunked(params, batch, chunk=chunk, remat=remat,
+                                  rows=rows)
     total = 0.0
     for mb in split_microbatches(batch, n_micro):
         total = total + model.loss_chunked(params, mb, chunk=chunk,
-                                           remat=remat)
+                                           remat=remat, rows=rows)
     return total / n_micro
 
 

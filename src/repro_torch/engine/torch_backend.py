@@ -8,10 +8,27 @@ SEMANTIC -> ``SemanticModel(cfg.semantic(max(2, M)))`` (what the JAX
 string or a ``launch.mesh.MeshShape``): as ``JaxBackend``'s mesh, it only
 shapes the arms' runners (the semantic branch count; the pipeline's stage
 count is the reference's, and no serving step reads it), and nothing is
-placed on other devices.  A process-group ``launch.mesh.Mesh`` raises:
-ranks split the serving work through the runners' serving surface
-(``dist.api``: ``prefill_step``, ``init_cache``, ``prefill_into_cache``,
-``serve_step`` on a mesh).
+placed on other devices.
+
+A process-group ``launch.mesh.Mesh`` of several ranks serves the gang path
+across them, single-controller as the reference's one JAX program is.
+Every rank constructs the same backend; each arm is a ``dist.api`` runner
+on the mesh (LAYER the pipeline runner in the stage graph's layout, a stage
+a 'model' rank; SEMANTIC its branches on 'model'; COMPRESSED fsdp; none
+splits its weights over 'data'), holding its slice of the weights every
+rank draws from the same seed.  Rank 0 alone
+runs the engine, the policy, the queues, the clock and the fault plane;
+before each gang batch it broadcasts a header (op, arm, rows, prompt
+length, new tokens) and the batch's tokens over the world, and the other
+ranks, in :meth:`follow`, run the same runner calls
+(``init_cache``, ``prefill_into_cache`` or a teacher-forced ``serve_step``
+loop, then ``serve_step`` a token).  The runners give every rank the
+global logits, so every rank takes the same greedy tokens with no
+collective of its own.  :meth:`close` on rank 0 stops the followers.  On a
+mesh only the gang path serves (``decode="legacy"``): the paged,
+disaggregated and fleet paths raise (``ROADMAP.md``, queue 4), as does a
+LAYER arm the stages cannot take.
+
 Each step picks the arm that owes the earliest deadline and runs one step
 of one of two decode paths on it:
 
@@ -66,6 +83,7 @@ from __future__ import annotations
 
 import heapq
 import time
+import zlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -78,12 +96,27 @@ from repro_torch.engine.types import (COMPRESSED, LAYER, SEMANTIC, Outcome,
                                       Request, accuracy_for, next_pow2)
 from repro_torch.faults import (ARM_BLACKOUT, FaultInjector,
                                 TransientDispatchError)
-from repro_torch.launch.mesh import Mesh, MeshShape
+from repro_torch.dist import api as A
+from repro_torch.dist import comm
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.models.model import (Model, SemanticModel,
                                       supports_single_step_prefill)
 from repro_torch.obs import Histogram, get_tracer, merge_stat_dicts
 
 ARM_MODES = {LAYER: "pipeline", SEMANTIC: "semantic", COMPRESSED: "fsdp"}
+#: runner options of an arm on a process-group mesh: no arm splits its
+#: weights over 'data' (serving replicas hold them whole there; ZeRO's
+#: split would gather every leaf on every call), and the LAYER arm serves
+#: a stage a 'model' rank (the stage graph's layout, whole embed and norms
+#: on each stage), not the gspmd layout, which gathers embed and head over
+#: 'model' on every call
+MESH_ARM_KW = {LAYER: dict(schedule="1f1b", zero_data=False),
+               SEMANTIC: dict(zero_data=False),
+               COMPRESSED: dict(zero_data=False)}
+#: the gang header's ops (rank 0 -> the followers)
+OP_STOP, OP_GANG = 0, 1
+_MESH_QUEUE = "ROADMAP.md, queue 4: the paged, disaggregated and fleet " \
+    "paths on a mesh"
 
 
 def resolve_device(device) -> torch.device:
@@ -101,13 +134,8 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 def mesh_shape(mesh) -> MeshShape:
-    """The backend's mesh argument as a shape without process groups."""
-    if isinstance(mesh, Mesh):
-        raise ValueError(
-            f"{mesh!r}: the backend places nothing on other ranks; ranks "
-            "split the serving work through the runners' serving surface "
-            "(dist.api build_runner on the mesh: prefill_step, init_cache, "
-            "prefill_into_cache, serve_step)")
+    """The backend's mesh argument: a ``MeshShape`` (a process-group
+    ``Mesh`` too) as it is, a tuple or ``"D,M"`` string as a shape."""
     if isinstance(mesh, MeshShape):
         return mesh
     dims = tuple(int(x) for x in mesh.split(",")) if isinstance(mesh, str) \
@@ -135,6 +163,18 @@ class TorchBackend:
             raise ValueError(f"decode={decode!r}; expected auto|paged|legacy")
         if fleet not in (None, "disagg"):
             raise ValueError(f"fleet={fleet!r}; expected None|'disagg'")
+        self.mesh = mesh_shape(mesh)
+        #: the process-group mesh the arms' runners serve on, or None
+        self.ranks = self.mesh if self.mesh.distributed else None
+        if self.ranks is not None:
+            refused = [f"decode={decode!r}"] if decode != "legacy" else []
+            refused += [f"{k}=" for k, v in (("fleet", fleet), (
+                "fleet_devices", fleet_devices)) if v]
+            if refused:
+                raise ValueError(
+                    f"{', '.join(refused)} on a process-group mesh: a mesh "
+                    "serves the gang path only (decode='legacy'), through "
+                    f"the runners' serving surface ({_MESH_QUEUE})")
         if fleet is not None and decode == "legacy":
             raise ValueError("fleet='disagg' needs the paged decode path")
         if kv_dtype not in ("f32", "int8"):
@@ -143,8 +183,11 @@ class TorchBackend:
             raise ValueError(f"weight_quant={weight_quant!r}; "
                              "expected None|int8|int4")
         self.cfg = cfg
-        self.mesh = mesh_shape(mesh)
         self.device = resolve_device(device)
+        self.runners: Dict[int, object] = {}
+        self.params: Dict[int, object] = {}
+        self.headers_sent = 0
+        self._digest = 0          # CRC-32 of the gang batches' tokens
         # fleet device pool, taken (prefill, decode) per arm in _ensure_arm
         # order; an exhausted pool colocates on the backend's device
         self._fleet_pool = [resolve_device(d) for d in fleet_devices or ()]
@@ -219,6 +262,9 @@ class TorchBackend:
             raise ValueError(
                 f"fleet='disagg' but arm {arm} (mode {ARM_MODES[arm]}) has "
                 "recurrent mixers — block shipping needs the paged path")
+        if self.ranks is not None:
+            self._ensure_runner(arm)
+            return
         shared = self._jit_cache.setdefault(arm, {}) \
             if self._jit_cache is not None else None
         model = shared.get("model") if shared is not None else None
@@ -273,6 +319,21 @@ class TorchBackend:
             sched = PagedArmScheduler(model, **kw)
             sched.track = (label, sched.track[1])
             self._paged[arm] = sched
+
+    def _ensure_runner(self, arm: int) -> None:
+        """An arm on the process-group mesh: its runner and this rank's
+        slice of the weights (every rank draws the one-process backend's
+        seed; ``runner.init`` keeps the slice ``param_specs`` assigns)."""
+        if ARM_MODES[arm] == "pipeline" and self.cfg.is_encdec:
+            raise ValueError(
+                f"{self.cfg.name}: the LAYER arm's stages take decoder "
+                f"stacks, not enc-dec inputs ({_MESH_QUEUE})")
+        runner = A.build_runner(self.cfg, ARM_MODES[arm], self.ranks,
+                                device=self.device, **MESH_ARM_KW[arm])
+        self.params[arm] = runner.init(seed=self.seed + 1)
+        self.runners[arm] = runner
+        self.models[arm] = runner.model
+        self._queues[arm] = []
 
     def _model_on(self, arm: int, model, dev: torch.device):
         """The arm's model on ``dev``: itself on the backend's device, else
@@ -550,36 +611,115 @@ class TorchBackend:
 
     def _generate(self, arm: int, batch_tokens: np.ndarray,
                   max_new: int) -> np.ndarray:
+        """One gang batch on the arm: on a process-group mesh, the header
+        and the tokens broadcast to the followers first."""
+        b, plen = batch_tokens.shape
+        key = (arm, b, plen)
+        self._legacy_buckets[key] = self._legacy_buckets.get(key, 0) + 1
+        toks = torch.from_numpy(batch_tokens).to(self.device)
+        if self.ranks is not None:
+            self._send_header(OP_GANG, arm, b, plen, max_new)
+            toks = comm.broadcast_from(toks, 0, self._world)
+        return self._run_gang(arm, toks, max_new)
+
+    def _gang_calls(self, arm: int):
+        """(batch-prefill support, init_cache(b), prefill(cache, tokens),
+        step(cache, tok [B, 1], i)) of an arm: its model's calls on one
+        device, its runner's serving surface on a mesh; both calls return
+        ([B, vocab] logits, cache)."""
+        if self.ranks is None:
+            m = self.models[arm]
+
+            def step(cache, tok, i):
+                logits, cache = m.decode_step(None, cache, tok, i)
+                return logits[:, -1], cache
+            return (m.supports_single_step_prefill,
+                    lambda b: m.init_cache(b, self.cache_len),
+                    lambda cache, toks: m.prefill_cache(None, cache, toks),
+                    step)
+        r, p = self.runners[arm], self.params[arm]
+        return (r.supports_batched_prefill,
+                lambda b: r.init_cache(b, self.cache_len),
+                lambda cache, toks: r.prefill_into_cache(p, cache, toks),
+                lambda cache, tok, i: r.serve_step(p, cache, {"tokens": tok},
+                                                   i))
+
+    def _run_gang(self, arm: int, toks: torch.Tensor,
+                  max_new: int) -> np.ndarray:
         """One prefill (a whole-prompt call, or a per-token decode loop for
         models without single-step prefill) and ``max_new - 1`` decode
         steps on a fresh dense cache; greedy tokens stay on the device
         until the batch's one read."""
-        model = self.models[arm]
-        b, plen = batch_tokens.shape
-        key = (arm, b, plen)
-        self._legacy_buckets[key] = self._legacy_buckets.get(key, 0) + 1
+        batched, init_cache, prefill, step = self._gang_calls(arm)
+        b, plen = toks.shape
         tr = get_tracer()
-        cache = model.init_cache(b, self.cache_len)
-        toks = torch.from_numpy(batch_tokens).to(self.device)
+        cache = init_cache(b)
         with tr.span("legacy_prefill", arm=arm, b=b, plen=plen):
-            if model.supports_single_step_prefill:
-                logits, cache = model.prefill_cache(None, cache, toks)
+            if batched:
+                logits, cache = prefill(cache, toks)
                 self._legacy_prefills += 1
             else:
                 for i in range(plen):
-                    logits, cache = model.decode_step(
-                        None, cache, toks[:, i:i + 1], i)
-                    logits = logits[:, -1]
+                    logits, cache = step(cache, toks[:, i:i + 1], i)
                     self.decode_steps += 1
         tok = logits.argmax(-1)[:, None].int()
         out = [tok]
         with tr.span("legacy_decode", arm=arm, b=b, steps=max_new - 1):
             for i in range(plen, plen + max_new - 1):
-                logits, cache = model.decode_step(None, cache, tok, i)
+                logits, cache = step(cache, tok, i)
                 self.decode_steps += 1
-                tok = logits[:, -1].argmax(-1)[:, None].int()
+                tok = logits.argmax(-1)[:, None].int()
                 out.append(tok)
-            return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+            out = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+        if self.ranks is not None:
+            self._digest = zlib.crc32(out.tobytes(), self._digest)
+        return out
+
+    # -------------------------------------------- the followers (a mesh)
+    @property
+    def _world(self):
+        import torch.distributed as dist
+        return dist.group.WORLD
+
+    def _send_header(self, *header: int) -> None:
+        comm.broadcast_from(torch.tensor(header, dtype=torch.long,
+                                         device=self.device), 0, self._world)
+        self.headers_sent += 1
+
+    def follow(self) -> dict:
+        """A rank other than 0 of a process-group mesh: run every gang
+        batch rank 0 broadcasts, with the same runner calls, until rank 0's
+        :meth:`close`.  Returns this rank's counts (batches, prefill calls,
+        decode steps), which equal rank 0's ``extra_metrics()``, and the
+        CRC-32 of its token streams, which equals rank 0's
+        ``stream_digest``."""
+        if self.ranks is None or self.ranks.rank == 0:
+            raise ValueError("follow() runs on the ranks other than 0 of a "
+                             "process-group mesh")
+        while True:
+            header = comm.broadcast_from(
+                torch.zeros(5, dtype=torch.long, device=self.device), 0,
+                self._world)
+            op, arm, b, plen, max_new = header.tolist()
+            if op == OP_STOP:
+                break
+            self._ensure_arm(arm)
+            toks = comm.broadcast_from(
+                torch.zeros((b, plen), dtype=torch.int32,
+                            device=self.device), 0, self._world)
+            self._run_gang(arm, toks, max_new)
+            self.batches += 1
+        return {"batches": self.batches, "prefill_calls": self.prefill_calls,
+                "decode_steps": self.decode_steps,
+                "stream_digest": self._digest}
+
+    def close(self) -> None:
+        """Rank 0 of a process-group mesh: send the followers the stop
+        header (call it in a ``finally``, so a failure on rank 0 never
+        leaves them waiting out the group's timeout).  Elsewhere a
+        no-op."""
+        if self.ranks is not None and self.ranks.rank == 0:
+            self._send_header(OP_STOP, 0, 0, 0, 0)
 
     def _step_legacy(self, arm: int) -> List[Outcome]:
         picked = self._form_batch(arm)
@@ -634,6 +774,10 @@ class TorchBackend:
     def extra_metrics(self) -> dict:
         m = {"batches": self.batches, "prefill_calls": self.prefill_calls,
              "decode_steps": self.decode_steps}
+        if self.ranks is not None:
+            m.update(mesh=list(self.ranks.dims), rank=self.ranks.rank,
+                     headers_sent=self.headers_sent,
+                     stream_digest=self._digest)
         if self._legacy_buckets:
             calls = sum(self._legacy_buckets.values())
             m["prefill_bucket_misses"] = len(self._legacy_buckets)

@@ -7,30 +7,50 @@ gang path for recurrent, local-window, enc-dec and VLM models).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
         --bandit thompson
 
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --mesh 2,1 --device cpu \
+        --backend gloo --batches 2
+
 ``--bandit`` is ucb, thompson or egreedy; ``--no-reduced`` serves the full
 model; ``--device cpu`` runs the plain PyTorch path without a card.
-``--mesh D,M`` shapes the arms' runners as the reference's mesh does (the
-semantic arm serves max(2, M) branches); the backend serves on its one
-device.
+
+In one process, ``--mesh D,M`` shapes the arms' runners as the reference's
+mesh does (the semantic arm serves max(2, M) branches); the backend serves
+on its one device.  Under ``torch.distributed.run`` with D x M ranks it
+lays a ``(data, model)`` mesh over them on ``--backend`` (gloo, or nccl
+with a card per rank; each rank on card ``LOCAL_RANK`` modulo the card
+count), as ``launch/train.py`` does, and the backend serves the gang path
+across the ranks: rank 0 runs the engine and alone prints the summary, the
+other ranks follow its batches.  Across ranks the backend serves the gang
+path (``decode="legacy"``, the one path a mesh serves); in one process the
+paged path where it applies.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import get_config
 from repro_torch.core.mab import BANDITS
 from repro_torch.engine import (MABPolicy, PlacementEngine, Request,
                                 TorchBackend)
+from repro_torch.launch.mesh import init_mesh
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--mesh", default="1,1",
-                    help="(data, model) shape of the arms' runners")
+                    help="(data, model) shape of the arms' runners (more "
+                         "than one rank: run under torch.distributed.run)")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="process-group backend of a mesh of several ranks")
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=64)
@@ -44,10 +64,34 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    dims = tuple(int(x) for x in args.mesh.split(","))
+    mesh, device = args.mesh, args.device
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if device == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            device = f"cuda:{local % torch.cuda.device_count()}"
+            torch.cuda.set_device(device)
+        mesh = init_mesh(dims, backend=args.backend, device=device)
+    across = math.prod(dims) > 1 and dist.is_initialized()
+    backend = TorchBackend(
+        cfg, mesh=mesh, cache_len=args.cache_len, max_batch=args.max_batch,
+        decode="legacy" if across else "auto",
+        device=device)
+    if across and dist.get_rank() > 0:
+        return backend.follow()
+    try:
+        summary = _serve(args, cfg, backend)
+    finally:
+        backend.close()
+    print(json.dumps(summary, indent=2))
+    return summary
+
+
+def _serve(args, cfg, backend) -> dict:
+    """The request waves through the MAB-routed engine; its summary."""
     eng = PlacementEngine(
         MABPolicy(bandit=args.bandit, ema_init_values=None, n_ctx=8),
-        TorchBackend(cfg, mesh=args.mesh, cache_len=args.cache_len,
-                     max_batch=args.max_batch, device=args.device))
+        backend)
     rng = np.random.default_rng(0)
     rid = 0
     for _ in range(args.batches):
@@ -61,10 +105,10 @@ def main(argv=None):
             rid += 1
         eng.submit(reqs)
         eng.drain()
-    summary = eng.summary()
-    print(json.dumps(summary, indent=2))
-    return summary
+    return eng.summary()
 
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -312,8 +312,10 @@ class _LM(nn.Module):
         return fe is not None and fe.kind == "vision"
 
     def _hidden_grouped(self, params, batch, *, remat: bool,
-                        window_override: Optional[int] = None):
-        """[G, B, S, d] final hidden states and the per-branch aux [G]."""
+                        window_override: Optional[int] = None, rows=None):
+        """[G, B, S, d] final hidden states and the per-branch aux [G].
+        ``rows``: the split of the batch's rows over ranks
+        (``moe.RowSplit``), which sizes MoE capacity by the whole batch."""
         cfg = self.branch_cfg
         p = self._grouped(params)
         tokens = batch["tokens"]
@@ -328,7 +330,7 @@ class _LM(nn.Module):
         pos = torch.arange(x.shape[2], device=x.device)[None, :]
         x, _, aux = T.stack_apply(p["blocks"], x, cfg, positions=pos,
                                   enc_kv_stack=enc_kv, remat=remat,
-                                  window_override=window_override)
+                                  window_override=window_override, rows=rows)
         x = L.norm_apply(p["final_norm"], x, cfg)
         if self._is_vlm():
             x = x[:, :, -tokens.shape[1]:]
@@ -347,12 +349,12 @@ class _LM(nn.Module):
         return self._merge(logits.unflatten(1, (b, -1)))
 
     def forward(self, params, batch, *, remat: bool = False,
-                window_override: Optional[int] = None):
+                window_override: Optional[int] = None, rows=None):
         """Full-sequence forward.  Returns (logits, aux).  Materializes the
         full [B, S, vocab] logits: small scale only; training uses
-        ``loss_chunked``."""
+        ``loss_chunked``.  ``rows`` as in ``_hidden_grouped``."""
         h, aux = self.hidden(params, batch, remat=remat,
-                             window_override=window_override)
+                             window_override=window_override, rows=rows)
         return self.chunk_logits(params, h), aux
 
     def loss(self, params, batch, *, remat: bool = False):
@@ -361,10 +363,10 @@ class _LM(nn.Module):
         return cross_entropy(logits, batch["labels"], mask) + 0.01 * aux
 
     def loss_chunked(self, params, batch, *, chunk: int = 512,
-                     remat: bool = False):
+                     remat: bool = False, rows=None):
         """Cross-entropy over sequence chunks of the unembedding; never
-        materializes [B, S, vocab]."""
-        h, aux = self.hidden(params, batch, remat=remat)
+        materializes [B, S, vocab].  ``rows`` as in ``_hidden_grouped``."""
+        h, aux = self.hidden(params, batch, remat=remat, rows=rows)
         return _chunked_ce(self, params, h, batch["labels"], chunk) \
             + 0.01 * aux
 
@@ -411,7 +413,8 @@ class _LM(nn.Module):
     @torch.no_grad()
     def prefill_cache(self, params, cache, tokens: torch.Tensor, *,
                       cache_index: int = 0, lengths=None,
-                      cache_axis: Optional[L.CacheAxis] = None, gather=None):
+                      cache_axis: Optional[L.CacheAxis] = None, gather=None,
+                      rows=None):
         """One forward over the whole prompt writes K/V at positions
         [cache_index, cache_index + S).  tokens: [B, S].  Returns ([B,
         vocab] logits, cache).  ``lengths`` ([B]) takes each sequence's
@@ -419,8 +422,9 @@ class _LM(nn.Module):
         padded last column.  ``cache_axis`` and ``gather`` serve a runner
         on a mesh: this rank's slab of caches whose length is split over a
         mesh axis with the merge over it (flash-decoding,
-        ``layers.CacheAxis``), and the join of other ranks' branch logits
-        (see ``_unembed``)."""
+        ``layers.CacheAxis``), the join of other ranks' branch logits (see
+        ``_unembed``), and ``rows`` the split of the rows over ranks (see
+        ``_hidden_grouped``)."""
         cfg = self.branch_cfg
         p = self._grouped(params)
         x = L.embed_apply(p["embed"], tokens, cfg)
@@ -429,7 +433,7 @@ class _LM(nn.Module):
         x, _, _ = T.stack_apply(p["blocks"], x, cfg, positions=pos,
                                 caches=self._cache_grouped(cache),
                                 cache_index=cache_index,
-                                cache_axis=cache_axis)
+                                cache_axis=cache_axis, rows=rows)
         return self._unembed(p, last_positions(x, lengths),
                              gather)[:, -1], cache
 
@@ -437,12 +441,13 @@ class _LM(nn.Module):
     def decode_step(self, params, cache, tokens: torch.Tensor,
                     cache_index: int, *, enc_kv=None, batch=None,
                     window_override: Optional[int] = None,
-                    cache_axis: Optional[L.CacheAxis] = None, gather=None):
+                    cache_axis: Optional[L.CacheAxis] = None, gather=None,
+                    rows=None):
         """One-token decode at the Python int ``cache_index``.  tokens:
         [B, 1].  Returns (logits [B, 1, vocab], cache).  An enc-dec model
         encodes ``batch["audio_embeds"]`` when ``enc_kv`` (what
-        ``_enc_kv_stack`` returns) is not given.  ``cache_axis`` and
-        ``gather`` as in :meth:`prefill_cache`."""
+        ``_enc_kv_stack`` returns) is not given.  ``cache_axis``,
+        ``gather`` and ``rows`` as in :meth:`prefill_cache`."""
         cfg = self.branch_cfg
         p = self._grouped(params)
         x = L.embed_apply(p["embed"], tokens, cfg)
@@ -455,7 +460,7 @@ class _LM(nn.Module):
                                 caches=self._cache_grouped(cache),
                                 cache_index=cache_index, enc_kv_stack=enc_kv,
                                 window_override=window_override,
-                                cache_axis=cache_axis)
+                                cache_axis=cache_axis, rows=rows)
         return self._unembed(p, x, gather), cache
 
 
@@ -472,10 +477,11 @@ class Model(_LM):
         return logits[0]
 
     def hidden(self, params, batch, *, remat: bool = False,
-               window_override: Optional[int] = None):
+               window_override: Optional[int] = None, rows=None):
         """Final hidden states (pre-unembed).  Returns (h [B, S, d], aux)."""
         h, aux = self._hidden_grouped(params, batch, remat=remat,
-                                      window_override=window_override)
+                                      window_override=window_override,
+                                      rows=rows)
         return h[0], aux[0]
 
     def chunk_logits(self, params, h):
@@ -506,13 +512,13 @@ class Model(_LM):
     def stage_apply(self, blocks_span, x, *, positions, remat: bool = False,
                     caches=None, cache_index: Optional[int] = None,
                     cache_axis: Optional[L.CacheAxis] = None,
-                    window_override: Optional[int] = None):
+                    window_override: Optional[int] = None, rows=None):
         """Apply a contiguous span of the superblock stack (leaves carry a
         leading [n_local] dim, or a :class:`~repro_torch.models.transformer.
         StackOnUse` of the span) to x [B, S, d]; ``remat`` checkpoints each
         superblock.  ``caches`` (leaves [n_local, B, ...], the span's decode
-        caches) are written in place at ``cache_index``.  Returns (x,
-        aux)."""
+        caches) are written in place at ``cache_index``; ``rows`` as in
+        ``_hidden_grouped``.  Returns (x, aux)."""
         lead = lambda t: t.unsqueeze(0)
         span = blocks_span.map(lead) if isinstance(blocks_span, T.StackOnUse) \
             else T.tree_map(lead, blocks_span)
@@ -520,7 +526,8 @@ class Model(_LM):
             T.superblocks(span), x[None], self.cfg, positions=positions,
             remat=remat, caches=None if caches is None
             else T.tree_map(lead, caches), cache_index=cache_index,
-            cache_axis=cache_axis, window_override=window_override)
+            cache_axis=cache_axis, window_override=window_override,
+            rows=rows)
         return x[0], aux[0]
 
     def stage_head_logits(self, params, h):
@@ -556,11 +563,12 @@ class SemanticModel(_LM):
         return logits.movedim(0, -2).flatten(-2)
 
     def hidden(self, params, batch, *, remat: bool = False,
-               window_override: Optional[int] = None):
+               window_override: Optional[int] = None, rows=None):
         """Per-branch hidden states [Bb, B, S, d_branch] and the aux terms
         summed over branches."""
         h, aux = self._hidden_grouped(params, batch, remat=remat,
-                                      window_override=window_override)
+                                      window_override=window_override,
+                                      rows=rows)
         return h, aux.sum()
 
     @property

@@ -15,6 +15,20 @@ too), and assignments past an expert's capacity drop.  Empty slots point at
 token 0 with weight 0, as in JAX.  The whole dispatch stays on the device
 (no data-dependent shapes, so no host sync).
 
+On a mesh whose 'data' axis splits the call's rows, the runner hands down a
+:class:`RowSplit` (as it hands ``layers.CacheAxis`` to attention), and the
+dispatch drops what the reference's GSPMD drops over the whole batch:
+capacity from the global token count, and an assignment kept exactly when
+its place in the global stable order (lower 'data' ranks' rows first, the
+order of ``jnp.argsort`` over the global tokens) is below it.  That place
+is this rank's own place plus the lower ranks' assignments to the same
+expert, so the ranks all-gather their per-expert counts ([G*E] integers a
+layer and call), and each rank runs the experts on its own kept tokens:
+a token's expert output depends on that token alone.  The load-balance
+term, a product of two means over the tokens, takes the means over the
+whole batch too where it is used (training): one differentiable all-reduce
+of [G, 2E] sums a layer; the serving calls drop it and skip that.
+
 With ``cfg.expert_parallel_axis`` set (the pipeline runner's
 expert-parallel substrate) the experts are split over that axis of the
 enclosing ``launch.mesh.use_mesh`` mesh, [E_local, d, ff] a rank, and two
@@ -24,6 +38,7 @@ all-to-alls move the token buffers to the experts' owners and back
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -54,32 +69,63 @@ def router_topk(logits: torch.Tensor, top_k: int):
 
 
 def load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,
-                      n_experts: int) -> torch.Tensor:
+                      n_experts: int, rows=None) -> torch.Tensor:
     """Switch-style auxiliary load-balance loss per branch: logits [G, T, E],
-    idx [G, T, k] -> [G]."""
+    idx [G, T, k] -> [G]; with ``rows`` (a :class:`RowSplit`) that can sum
+    over ranks the means run over every rank's tokens."""
     probs = torch.softmax(logits.float(), dim=-1)
-    me = probs.mean(dim=-2)
-    ce = torch.nn.functional.one_hot(idx[..., 0], n_experts).float() \
-        .mean(dim=-2)                                   # primary expert
+    primary = torch.nn.functional.one_hot(idx[..., 0], n_experts).float()
+    if rows is None or rows.sum is None:
+        me, ce = probs.mean(dim=-2), primary.mean(dim=-2)
+    else:
+        both = torch.cat([probs.sum(dim=-2), primary.sum(dim=-2)], dim=-1)
+        me, ce = (rows.sum(both) / (logits.shape[-2] * rows.size)).split(
+            n_experts, dim=-1)
     return n_experts * (me * ce).sum(dim=-1)
 
 
-def moe_apply(params, x: torch.Tensor, cfg: ArchConfig):
+class RowSplit(NamedTuple):
+    """One rank's handle on the mesh axis that splits a call's rows
+    ('data'): the rank's ``index`` of ``size`` ranks, each holding as many
+    tokens; ``gather(t)``, which concatenates every rank's 1-D integer
+    tensor ``t`` in rank order (``dist.comm.all_gather_dim`` over the
+    axis); and ``sum(t)``, the differentiable sum of every rank's ``t``
+    (``dist.comm.all_reduce``), or None where the caller drops the
+    load-balance aux (serving: the aux's means then stay this rank's, and
+    no collective is spent on them).  The runner that owns the mesh passes
+    it; no module reads a mesh."""
+    index: int
+    size: int
+    gather: Callable
+    sum: Optional[Callable]
+
+
+def moe_apply(params, x: torch.Tensor, cfg: ArchConfig,
+              rows: Optional[RowSplit] = None):
     """x [G, T, d] -> ([G, T, d], aux [G]), each branch routed on its own;
     aux is the branch's load-balance loss (a training term: the serving
-    path drops it, as the JAX one does)."""
+    path drops it, as the JAX one does).  ``rows``: the split of the
+    call's rows over ranks, whose capacity is the whole batch's."""
     if cfg.expert_parallel_axis:
         return _moe_apply_ep(params, x, cfg)
-    return _moe_apply_dense(params, x, cfg)
+    return _moe_apply_dense(params, x, cfg, rows)
 
 
-def _dispatch_buffers(weights, idx, g: int, t: int, m):
+def _dispatch_buffers(weights, idx, g: int, t: int, m,
+                      rows: Optional[RowSplit] = None):
     """Sort-based dispatch of G branches' [T, k] assignments into [G*E, C]
-    slots (shared by the dense and expert-parallel paths).  Returns
-    (buf_tok [G*E, C] rows of the [G*T, d] tokens, buf_w [G*E, C])."""
+    slots (shared by the dense and expert-parallel paths).  With ``rows``
+    the T tokens are this rank's of ``rows.size`` ranks', the capacity and
+    the drops are the whole batch's (see the module docstring), and C is
+    the smaller of that capacity and T.  Returns (buf_tok [G*E, C] rows of
+    the [G*T, d] tokens, buf_w [G*E, C])."""
     n_e, k = m.n_experts, m.top_k
     dev = idx.device
-    cap = int(max(k, math.ceil(t * k * m.capacity_factor / n_e)))
+    n_rows = 1 if rows is None else rows.size
+    cap = int(max(k, math.ceil(t * n_rows * k * m.capacity_factor / n_e)))
+    # a rank keeps at most its own t tokens an expert (a token's k experts
+    # differ), so its slots need not span the whole batch's capacity
+    width = cap if rows is None else min(cap, t)
 
     # ---- sort-based dispatch into [G*E, C] slots.  Branch b's expert e is
     # slot row b*E + e and its token j row b*T + j of xt, so one stable sort
@@ -91,28 +137,36 @@ def _dispatch_buffers(weights, idx, g: int, t: int, m):
     order = torch.argsort(flat_e, stable=True)
     se, sw, st = flat_e[order], flat_w[order], flat_tok[order]
     # position within its expert's group = rank - first rank of the expert
-    first = torch.searchsorted(se, torch.arange(g * n_e, device=dev))
+    experts = torch.arange(g * n_e, device=dev)
+    first = torch.searchsorted(se, experts)
     pos = torch.arange(se.numel(), device=dev) - first[se]
-    keep = pos < cap
+    if rows is None:
+        keep = pos < cap
+    else:
+        # the lower ranks' assignments to each expert come first in the
+        # global order
+        count = torch.searchsorted(se, experts, right=True) - first
+        every = rows.gather(count).reshape(rows.size, g * n_e)
+        keep = pos + every[:rows.index].sum(0)[se] < cap
     # dropped assignments land in a spare row that is cut off afterwards
     # (JAX's out-of-range index with mode="drop")
     slot_e = torch.where(keep, se, g * n_e)
     slot_p = torch.where(keep, pos, 0)
-    buf_tok = torch.zeros(g * n_e + 1, cap, dtype=torch.long, device=dev)
-    buf_w = torch.zeros(g * n_e + 1, cap, dtype=flat_w.dtype, device=dev)
+    buf_tok = torch.zeros(g * n_e + 1, width, dtype=torch.long, device=dev)
+    buf_w = torch.zeros(g * n_e + 1, width, dtype=flat_w.dtype, device=dev)
     buf_tok[slot_e, slot_p] = torch.where(keep, st, 0)
     buf_w[slot_e, slot_p] = torch.where(keep, sw, 0.0)
     return buf_tok[:-1], buf_w[:-1]
 
 
-def _route(params, x: torch.Tensor, m):
+def _route(params, x: torch.Tensor, m, rows: Optional[RowSplit] = None):
     """Router logits, top-k and the load-balance aux of x [G, T, d], and
     the dispatch buffers."""
     g, t, _ = x.shape
     logits = x @ params["router"]                            # [G, T, E]
     weights, idx = router_topk(logits, m.top_k)              # [G, T, k]
-    aux = load_balance_loss(logits, idx, m.n_experts)
-    return aux, *_dispatch_buffers(weights, idx, g, t, m)
+    aux = load_balance_loss(logits, idx, m.n_experts, rows)
+    return aux, *_dispatch_buffers(weights, idx, g, t, m, rows)
 
 
 def _combine(params, x, xt, buf_tok, buf_w, ey, cfg):
@@ -127,9 +181,10 @@ def _combine(params, x, xt, buf_tok, buf_w, ey, cfg):
     return out
 
 
-def _moe_apply_dense(params, x: torch.Tensor, cfg: ArchConfig):
+def _moe_apply_dense(params, x: torch.Tensor, cfg: ArchConfig,
+                     rows: Optional[RowSplit] = None):
     g, t, d = x.shape
-    aux, buf_tok, buf_w = _route(params, x, cfg.moe)
+    aux, buf_tok, buf_w = _route(params, x, cfg.moe, rows)
     # ---- expert compute: batched matmul over [G, E, C, d]
     xt = x.reshape(g * t, d)
     ex = xt[buf_tok].reshape(g, cfg.moe.n_experts, -1, d)
@@ -140,9 +195,11 @@ def _moe_apply_dense(params, x: torch.Tensor, cfg: ArchConfig):
 def _moe_apply_ep(params, x: torch.Tensor, cfg: ArchConfig):
     """Expert-parallel MoE of one branch (G = 1): this rank's experts
     [E_local, d, ff]; every rank dispatches its own tokens into [E, C]
-    slots (capacity from its own token count), the first all-to-all sends
-    expert e's rows to e's owner, which runs them as [E_local, A*C, d], and
-    the second sends the outputs back."""
+    slots (capacity from its own token count: the reference runs this path
+    inside ``shard_map``, where each shard sizes its own, so no
+    :class:`RowSplit` reaches it), the first all-to-all sends expert e's
+    rows to e's owner, which runs them as [E_local, A*C, d], and the second
+    sends the outputs back."""
     from repro_torch.dist import comm    # dist imports the models
     mesh = current_mesh()
     if mesh is None:     # the reference's axis name is unbound outside

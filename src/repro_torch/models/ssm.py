@@ -4,7 +4,8 @@
 Every tensor carries the leading branch dim G of ``models.transformer``:
 x [G, B, S, d] with weights [G, ...].  Training and full-sequence forwards
 run the linear recurrence h_t = a_t h_{t-1} + bx_t a chunk at a time (the
-[B, S, d_inner, d_state] gate tensors exist one chunk at a time); a decode
+[B, S, d_inner, d_state] gate tensors exist one chunk at a time), each chunk
+by the reference's associative scan at log depth; a decode
 step carries ``{"ssm": [B, d_inner, d_state] f32, "conv": [B, d_conv - 1,
 d_inner]}``.  Serving never reaches the chunked scan (recurrent mixers
 prefill token by token), and the reference's Mamba does not call its
@@ -69,17 +70,61 @@ def _conv1d(params, x: torch.Tensor, cfg: ArchConfig, conv_state=None):
     return F.silu(y), None
 
 
+def _combine(c1, c2):
+    """The recurrence's monoid on (gate, input) pairs, the reference's
+    ``combine``: applying c1 then c2 is (a1 a2, a2 b1 + b2)."""
+    (a1, b1), (a2, b2) = c1, c2
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even, odd):
+    """[.., e, ..] and [.., o, ..] along dim 2 (e = o or o + 1) ->
+    even[0], odd[0], even[1], ..."""
+    k = odd.shape[2]
+    out = torch.stack([even[:, :, :k], odd], dim=3).flatten(2, 3)
+    return torch.cat([out, even[:, :, k:]], dim=2) if even.shape[2] > k \
+        else out
+
+
+def _associative_scan(a, b):
+    """The inclusive scan of the pairs (a_t, b_t) along dim 2 under
+    :func:`_combine`, by the odd/even recursion of
+    ``jax.lax.associative_scan``: combine adjacent pairs, scan the
+    half-length sequence (the odd positions' results), then fix up the even
+    positions from their left neighbours; an odd length keeps its last
+    element for the fix-up, as lax does.  Depth log2(S), a constant number
+    of ops a level."""
+    n = a.shape[2]
+    if n < 2:
+        return a, b
+    at = lambda s: (a[:, :, s], b[:, :, s])
+    odd = _associative_scan(*_combine(at(slice(0, -1, 2)),
+                                      at(slice(1, None, 2))))
+    left = odd if n % 2 else (odd[0][:, :, :-1], odd[1][:, :, :-1])
+    even = _combine(left, at(slice(2, None, 2)))
+    return tuple(_interleave(torch.cat([x[:, :, :1], e], dim=2), o)
+                 for x, e, o in zip((a, b), even, odd))
+
+
 def _scan_chunk(params, h0, xc_c, cfg: ArchConfig):
-    """One chunk: h = a_cum h0 + h_in, where a_cum is the running product
-    of the gates and h_in the recurrence from a zero state (what the
-    reference's associative scan yields); y_t = <h_t, C_t>."""
+    """One chunk: h = a_cum h0 + h_in, where (a_cum, h_in) is the
+    associative scan of the (gate, input) pairs, as in the reference;
+    y_t = <h_t, C_t>."""
     a, bx, c_ = _ssm_params(params, xc_c, cfg)
-    a_cum = torch.cumprod(a, dim=2)
-    h_in, hs = torch.zeros_like(bx[:, :, 0]), []
+    a_cum, h_in = _associative_scan(a, bx)
+    h = a_cum * h0[:, :, None] + h_in
+    return h[:, :, -1], torch.einsum("gbsdn,gbsn->gbsd", h, c_)
+
+
+def _scan_chunk_steps(params, h0, xc_c, cfg: ArchConfig):
+    """:func:`_scan_chunk` walked a time step at a time: its plain
+    version, which the tests and the chip check hold the scan to."""
+    a, bx, c_ = _ssm_params(params, xc_c, cfg)
+    h, hs = h0, []
     for t in range(a.shape[2]):
-        h_in = a[:, :, t] * h_in + bx[:, :, t]
-        hs.append(h_in)
-    h = a_cum * h0[:, :, None] + torch.stack(hs, dim=2)
+        h = a[:, :, t] * h + bx[:, :, t]
+        hs.append(h)
+    h = torch.stack(hs, dim=2)
     return h[:, :, -1], torch.einsum("gbsdn,gbsn->gbsd", h, c_)
 
 

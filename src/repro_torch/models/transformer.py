@@ -38,7 +38,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
-from repro_torch.models.moe import moe_apply
+from repro_torch.models.moe import RowSplit, moe_apply
 
 
 def block_cache(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
@@ -63,11 +63,14 @@ def block_cache(cfg: ArchConfig, mixer: str, batch: int, cache_len: int,
 def block_apply(params, x, cfg: ArchConfig, mixer: str, ffn: str, *,
                 positions, cache=None, cache_index: Optional[int] = None,
                 enc_kv=None, window_override: Optional[int] = None,
-                cache_axis: Optional[L.CacheAxis] = None):
+                cache_axis: Optional[L.CacheAxis] = None,
+                rows: Optional[RowSplit] = None):
     """One block on x [G, B, S, d].  ``cache_axis``: this rank's slab of
     attention caches whose length is split over a mesh axis, and the merge
     over it (flash-decoding, :class:`~repro_torch.models.layers.CacheAxis`).
-    Returns (x, new_cache, aux [G])."""
+    ``rows``: the split of the batch's rows over ranks, which sizes the
+    MoE's capacity by the whole batch (:class:`~repro_torch.models.moe.
+    RowSplit`).  Returns (x, new_cache, aux [G])."""
     g, b, s, d = x.shape
     aux = x.new_zeros(g, dtype=torch.float32)
     h = L.norm_apply(params["mix_norm"], x, cfg)
@@ -99,7 +102,7 @@ def block_apply(params, x, cfg: ArchConfig, mixer: str, ffn: str, *,
         if ffn == "dense":
             out = L.mlp_apply(params["ffn"], h, cfg)
         else:
-            out, aux = moe_apply(params["ffn"], h, cfg)
+            out, aux = moe_apply(params["ffn"], h, cfg, rows)
         out = out.reshape(g, b, s, d)
         if cfg.post_norms:
             out = L.norm_apply(params["ffn_post_norm"], out, cfg)
@@ -128,7 +131,8 @@ def _store(view, new) -> None:
 def superblock_apply(params, x, cfg: ArchConfig, *, positions, cache=None,
                      cache_index: Optional[int] = None, enc_kv=None,
                      window_override: Optional[int] = None,
-                     cache_axis: Optional[L.CacheAxis] = None):
+                     cache_axis: Optional[L.CacheAxis] = None,
+                     rows: Optional[RowSplit] = None):
     """Apply one superblock (leaves [G, ...]; ``cache`` the superblock's
     views [G, B, ...], written in place).  Returns (x, cache, aux [G])."""
     aux = x.new_zeros(x.shape[0], dtype=torch.float32)
@@ -139,7 +143,8 @@ def superblock_apply(params, x, cfg: ArchConfig, *, positions, cache=None,
             params[key], x, cfg, mixer, ffn, positions=positions,
             cache=view, cache_index=cache_index,
             enc_kv=None if enc_kv is None else enc_kv[key],
-            window_override=window_override, cache_axis=cache_axis)
+            window_override=window_override, cache_axis=cache_axis,
+            rows=rows)
         if view is not None:
             _store(view, new)
         aux = aux + a
@@ -183,13 +188,15 @@ def stack_apply(sbs: List[dict], x, cfg: ArchConfig, *, positions,
                 enc_kv_stack: Optional[List[dict]] = None,
                 window_override: Optional[int] = None,
                 remat: bool = False,
-                cache_axis: Optional[L.CacheAxis] = None):
+                cache_axis: Optional[L.CacheAxis] = None,
+                rows: Optional[RowSplit] = None):
     """Loop over superblocks ``sbs`` (per-superblock trees, leaves
     [G, ...]).  ``caches`` (leaves [G, n, ...]) are written in place at
     ``cache_index`` (their length split over a mesh axis when
     ``cache_axis`` is given); ``enc_kv_stack`` holds each superblock's
-    cross-attention K/V.  ``remat`` (training) wraps each superblock in a
-    checkpoint.  Returns (x, caches, aux [G])."""
+    cross-attention K/V; ``rows`` as in :func:`block_apply`.  ``remat``
+    (training) wraps each superblock in a checkpoint.  Returns (x, caches,
+    aux [G])."""
     aux = x.new_zeros(x.shape[0], dtype=torch.float32)
     for i, sb in enumerate(sbs):
         cache = None if caches is None else sb_slice(caches, i)
@@ -199,7 +206,8 @@ def stack_apply(sbs: List[dict], x, cfg: ArchConfig, *, positions,
             h, _, a = superblock_apply(
                 fetched(sb), h, cfg, positions=positions, cache=cache,
                 cache_index=cache_index, enc_kv=enc,
-                window_override=window_override, cache_axis=cache_axis)
+                window_override=window_override, cache_axis=cache_axis,
+                rows=rows)
             return h, a
 
         x, a = checkpoint(body, x, use_reentrant=False) if remat \

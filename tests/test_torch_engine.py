@@ -156,8 +156,8 @@ def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
 def test_unported_knobs_raise(tiny_cfg, knob, monkeypatch):
     """Every knob is ported; what still raises is a request the backend
     cannot honour: a fleet device that is not there (nothing falls back to
-    the CPU), and a process-group mesh (ranks split serving through the
-    runners' serving surface, not through the backend)."""
+    the CPU), and the paged path on a process-group mesh (a mesh serves the
+    gang path, through the runners' serving surface)."""
     from repro_torch.launch.mesh import Mesh, MeshShape
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -29,7 +29,19 @@ and the same numpy-seeded tokens:
   layout, embed and head split over 'model' and gathered on use, and in
   the stage graph's, whole on each stage) and semantic (branches) on
   (1, 2): ``prefill_step``, ``prefill_into_cache`` with per-row lengths
-  and four ``serve_step`` calls.
+  and four ``serve_step`` calls;
+- the same calls of fsdp on (2, 1) on tiny qwen2-moe at a capacity factor
+  whose experts overflow (the reference drops assignments, counted here),
+  and the loss and gradients of its ``value_and_grad``: capacity and drops
+  are the whole batch's though each rank routes its own rows;
+- ``TorchBackend`` on the process-group mesh (the gang path through the
+  runners, rank 0 driving the engine, rank 1 following its headers) on
+  (2, 1) and (1, 2), each arm under ``FixedPolicy`` held token for token
+  to ``JaxBackend(decode="legacy")`` on its own weights; a UCB run; tiny
+  jamba (a teacher-forced prompt loop) held to ``JaxBackend`` on the
+  weights the port draws, and to the port's one-process backend.
+  The follower's batches, prefill calls, decode steps and the CRC-32 of
+  its token streams equal rank 0's.
 
 Logits are held to JAX's within 1e-5 of their largest |value| (the
 reference holds its sharded decode to 1e-3 absolute), tiny xLSTM's within
@@ -60,7 +72,9 @@ torch = pytest.importorskip("torch")
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SHRINK = dict(d_model=64, n_heads=2, n_kv_heads=2, head_dim=32, d_ff=128,
               vocab_size=128)
-CONFIGS = {"dense": ("stablelm-1.6b", {"n_layers": 4}),
+CONFIGS = {"tiny": ("stablelm-1.6b", {}),
+           "dense": ("stablelm-1.6b", {"n_layers": 4}),
+           "moe": ("qwen2-moe-a2.7b", {}),
            "gemma": ("gemma2-27b", {"sliding_window": 8}),
            "xlstm": ("xlstm-125m", {"n_layers": 6}),
            "jamba": ("jamba-1.5-large-398b", {"n_layers": 8}),
@@ -81,7 +95,26 @@ CASES = {
     "stages": ((1, 2), "dense", "dense", "pipeline", dict(schedule="1f1b"),
                "surface"),
     "semantic": ((1, 2), "dense", "sem", "semantic", {}, "surface"),
+    "fsdp_moe": ((2, 1), "moe", "moe", "fsdp", {}, "surface"),
 }
+#: the MoE case's capacity factor: at 4 experts and top 2, a call of T
+#: tokens keeps max(2, T / 4) assignments an expert, so experts overflow
+MOE_CF = 0.5
+#: the engine cases: (mesh dims, config, policy); "fixed" serves each arm
+#: under ``FixedPolicy`` on JaxBackend's weights, "ucb" both arms under
+#: UCB and "recurrent" the LAYER arm under ``FixedPolicy``, both on the
+#: weights every rank draws (JaxBackend's, in the recurrent case, bridged
+#: from them)
+ENGINE = {"engine_data": ((2, 1), "tiny", "fixed"),
+          "engine_model": ((1, 2), "tiny", "fixed"),
+          "engine_ucb": ((2, 1), "tiny", "ucb"),
+          "engine_mamba": ((2, 1), "jamba", "recurrent")}
+ENGINE_KW = dict(cache_len=16, max_batch=4, decode="legacy")
+#: each request's new tokens: five requests make a batch of four rows
+#: (split over 'data') and one of one row (run whole on every rank)
+ENGINE_MAX_NEW = (3, 5, 4, 3, 4)
+#: what a follower counts, equal to rank 0's ``extra_metrics()``
+FOLLOWED = ("batches", "prefill_calls", "decode_steps", "stream_digest")
 B, S, CACHE = 4, 6, 16
 LENGTHS = np.array([6, 4, 5, 3], np.int32)
 FLASH = dict(b=2, cache=16, prompt=5, second=4, steps=6, gemma_steps=12)
@@ -100,10 +133,10 @@ def make_cfg(get_config, key):
     name, extra = CONFIGS[key]
     cfg = get_config(name).reduced().replace(**SHRINK).replace(**extra)
     if cfg.moe is not None:
-        # no token drops: a rank's MoE sizes its expert capacity by its own
-        # rows, the reference's GSPMD by the whole batch's
-        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, d_ff=128,
-                                                  capacity_factor=8.0))
+        # no token drops but in the MoE case's
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, d_ff=128,
+            capacity_factor=MOE_CF if key == "moe" else 8.0))
     return cfg
 
 
@@ -152,7 +185,32 @@ def _tokens(key, vocab):
             "rec": rng.integers(0, vocab, (RECURRENT["b"], RECURRENT["prompt"]
                                            + RECURRENT["steps"]))
             .astype(np.int32),
-            "patches": rng.standard_normal((B, 16, 128)).astype(np.float32)}
+            "patches": rng.standard_normal((B, 16, 128)).astype(np.float32),
+            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+
+
+def engine_requests(cls, vocab, n=len(ENGINE_MAX_NEW), seed=8):
+    """The engine cases' requests (either package's ``Request``): prompts
+    of 3 to 8 tokens, one app each."""
+    rng = np.random.default_rng(seed)
+    return [cls(rid=i, app_id=i % 3, sla_s=5.0,
+                max_new=ENGINE_MAX_NEW[i % len(ENGINE_MAX_NEW)],
+                tokens=rng.integers(0, vocab, int(rng.integers(3, 9)))
+                .astype(np.int32)) for i in range(n)]
+
+
+def serve_fixed(backend, placement_engine, fixed, request_cls, vocab, arms):
+    """Each arm's requests under ``FixedPolicy`` on one backend (either
+    package's classes): {arm: ({rid: tokens}, [(rid, decision)])}."""
+    out = {}
+    for arm in arms:
+        reqs = engine_requests(request_cls, vocab)
+        eng = placement_engine(fixed(arm, placement=None), backend)
+        eng.submit(reqs)
+        done = eng.drain()
+        out[arm] = ({r.rid: np.asarray(r.output).tolist() for r in reqs},
+                    sorted((o.request.rid, o.decision) for o in done))
+    return out
 
 
 def run_case(runner, params, what, toks, t):
@@ -216,7 +274,8 @@ def _worker(rank: int, io: pathlib.Path) -> None:
                               store=store, rank=rank, world_size=2,
                               timeout_s=60) for dims in ((2, 1), (1, 2))}
     weights = {k: unflat(dict(np.load(io / f"w_{k}.npz")))
-               for k in ("dense", "sem", "gemma", "vlm") + PORT_DRAWN}
+               for k in ("dense", "sem", "gemma", "vlm", "moe", "eng0",
+                         "eng1") + PORT_DRAWN}
     for name, (dims, ckey, wkey, mode, kw, what) in CASES.items():
         cfg = make_cfg(get_config, ckey)
         runner = A.build_runner(cfg, mode, meshes[dims], device="cpu", **kw)
@@ -232,8 +291,90 @@ def _worker(rank: int, io: pathlib.Path) -> None:
         res.update({"s/" + k: np.asarray(v)
                     for k, v in comm.COMM_STATS.items()})
         res["s/lse_merges"] = np.asarray(L.FLASH_STATS["lse_merges"])
+        if name == "fsdp_moe":
+            t = lambda a: torch.from_numpy(np.asarray(a))
+            toks = _tokens(name, cfg.vocab_size)
+            loss, grads = runner.value_and_grad(params, {
+                "tokens": t(toks["prompt"]), "labels": t(toks["labels"])})
+            res["v/loss"] = loss.detach().numpy()
+            res.update({"g/" + k: v for k, v in
+                        flat(bridge.tree_to_numpy(grads)).items()})
+            res.update(_moe_step_collectives(runner, params, toks, t))
         np.savez(io / f"r_{name}_{rank}.npz", **res)
+    _engine_worker(rank, io, meshes, weights)
     dist.destroy_process_group()
+
+
+def _moe_step_collectives(runner, params, toks, t):
+    """The collectives of one decode step of the row-split MoE runner
+    (``ds/``), and of the same step with the MoE sized by this rank's rows
+    alone (``dw/``: no ``RowSplit``), each op's calls."""
+    from repro_torch.dist import comm
+    out = {}
+    for tag in ("ds", "dw"):
+        if tag == "dw":
+            runner._row_split = lambda aux=False: None
+        cache = runner.init_cache(B, CACHE)
+        comm.reset_stats()
+        runner.serve_step(params, cache, {"tokens": t(toks["steps"][0])}, 0)
+        out.update({f"{tag}/{k}": np.asarray(v) for k, v in
+                    comm.COMM_STATS.items() if k.endswith("_calls")})
+    del runner._row_split
+    return out
+
+
+def _engine_worker(rank, io, meshes, weights):
+    """The engine cases on this rank: rank 0 drives each backend's engine
+    and closes it; rank 1 follows.  Results to ``io/e_<rank>.json``."""
+    import json
+
+    from repro_torch import bridge
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import sharding as SH
+    from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy, MABPolicy,
+                                    PlacementEngine, Request, TorchBackend)
+    out = {}
+    for name, (dims, ckey, what) in ENGINE.items():
+        cfg = make_cfg(get_config, ckey)
+        arms = (LAYER,) if what == "recurrent" else (LAYER, SEMANTIC)
+        tb = TorchBackend(cfg, mesh=meshes[dims], arms=arms, device="cpu",
+                          **ENGINE_KW)
+        res = {}
+        if what == "fixed":
+            for arm in arms:
+                tb.params[arm] = tb.runners[arm].shard(bridge.tree_from_numpy(
+                    weights[f"eng{arm}"]))
+        else:       # the weights drawn: the one-process backend's, cut
+            one = TorchBackend(cfg, arms=arms, device="cpu", **ENGINE_KW)
+            sizes = dict(meshes[dims].shape)
+            res["weights_err"] = max(max(flat(SH.tree_map(
+                lambda loc, w, sp: float((loc - SH.shard_leaf(
+                    w, sp, sizes, meshes[dims].coords)).abs().max()),
+                tb.params[arm], one.models[arm].param_tree(),
+                tb.runners[arm].specs)).values()) for arm in arms)
+        if rank > 0:
+            res["follow"] = tb.follow()
+        else:
+            try:
+                if what == "ucb":
+                    eng = PlacementEngine(MABPolicy(
+                        bandit="ucb", ema_init_values=None, n_ctx=8), tb)
+                    for wave in range(2):
+                        eng.submit(engine_requests(Request, cfg.vocab_size,
+                                                   n=6, seed=wave))
+                        eng.drain()
+                    res["completed"] = eng.summary()["completed"]
+                else:
+                    res["served"] = {str(a): v for a, v in serve_fixed(
+                        tb, PlacementEngine, FixedPolicy, Request,
+                        cfg.vocab_size, arms).items()}
+                res["metrics"] = {k: v for k, v in tb.extra_metrics().items()
+                                  if not isinstance(v, dict)}
+            finally:
+                tb.close()
+            res["headers_after_close"] = tb.headers_sent
+        out[name] = res
+    (io / f"e_{rank}.json").write_text(json.dumps(out))
 
 
 # ==================================================================== tests
@@ -255,11 +396,17 @@ def world(tmp_path_factory):
     io = tmp_path_factory.mktemp("serve_multi")
     one = jax.make_mesh((1, 1), ("data", "model"))
     cfgs = {k: make_cfg(get_config, k) for k in CONFIGS}
+    from repro.engine import LAYER, SEMANTIC
+    from repro.engine.jax_backend import JaxBackend
     inits = {"dense": japi.build_runner(cfgs["dense"], "fsdp", one),
              "sem": japi.build_runner(cfgs["dense"], "semantic", one),
              "gemma": japi.build_runner(cfgs["gemma"], "fsdp", one),
-             "vlm": japi.build_runner(cfgs["vlm"], "fsdp", one)}
+             "vlm": japi.build_runner(cfgs["vlm"], "fsdp", one),
+             "moe": japi.build_runner(cfgs["moe"], "fsdp", one)}
     weights = {k: r.init(jax.random.PRNGKey(0)) for k, r in inits.items()}
+    jb = JaxBackend(cfgs["tiny"], one, arms=(LAYER, SEMANTIC), **ENGINE_KW)
+    weights.update({f"eng{arm}": jb.params[arm] for arm in (LAYER,
+                                                             SEMANTIC)})
     weights.update({k: jax.tree.map(jnp.asarray, _port_weights(cfgs[k]))
                     for k in PORT_DRAWN})
     for k, w in weights.items():
@@ -274,14 +421,19 @@ def world(tmp_path_factory):
                 [sys.executable, __file__, str(r), str(io)], env=env,
                 stdout=log, stderr=subprocess.STDOUT))
 
-    refs = {}
+    refs = {"engine": _engine_refs(jb, cfgs, one)}
     for name, (dims, ckey, wkey, mode, kw, what) in CASES.items():
         runner = japi.build_runner(cfgs[ckey], mode, one)
         if what == "recurrent":         # eager JAX steps take seconds each
             runner = _Jitted(runner)
-        out, cache = run_case(runner, weights[wkey], what,
-                              _tokens(name, cfgs[ckey].vocab_size),
-                              jnp.asarray)
+        with _CountDrops(cfgs[ckey].moe) as drops:
+            out, cache = run_case(runner, weights[wkey], what,
+                                  _tokens(name, cfgs[ckey].vocab_size),
+                                  jnp.asarray)
+        if name == "fsdp_moe":
+            refs["moe_drops"] = drops.per_call
+            refs["moe_grads"] = _moe_value_and_grad(
+                runner, weights[wkey], _tokens(name, cfgs[ckey].vocab_size))
         refs[name] = ({k: np.asarray(v) for k, v in out.items()},
                       flat(dictify(jax.tree.map(np.asarray, cache))))
         if what == "recurrent":     # the port's own one-device run
@@ -300,6 +452,83 @@ def world(tmp_path_factory):
            if p.returncode]
     assert not bad, bad[0]
     return io, cfgs, refs
+
+
+class _CountDrops:
+    """While active, the assignments the reference's MoE drops past
+    capacity (``router_topk`` wrapped: an expert keeps the first ``cap`` of
+    its assignments), one count a layer and call, reported from inside
+    its traced superblock scan by ``jax.debug.callback``: ``per_call``."""
+
+    def __init__(self, moe):
+        self.moe, self.per_call = moe, []
+
+    def __enter__(self):
+        import jax
+        import jax.numpy as jnp
+        from repro.models import moe as jmoe
+        self.orig = jmoe.router_topk
+
+        def spy(logits, top_k):
+            w, idx = self.orig(logits, top_k)
+            t, m = idx.shape[0], self.moe
+            cap = max(top_k, math.ceil(t * top_k * m.capacity_factor
+                                       / m.n_experts))
+            count = jnp.bincount(idx.reshape(-1), length=m.n_experts)
+            jax.debug.callback(lambda d: self.per_call.append(int(d)),
+                               jnp.maximum(count - cap, 0).sum())
+            return w, idx
+        if self.moe is not None:
+            jmoe.router_topk = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro.models import moe as jmoe
+        jmoe.router_topk = self.orig
+
+
+def _moe_value_and_grad(runner, params, toks):
+    """The reference's loss and gradient tree (numpy, flat paths) on the
+    MoE case's batch."""
+    import jax
+    import jax.numpy as jnp
+    batch = {"tokens": jnp.asarray(toks["prompt"]),
+             "labels": jnp.asarray(toks["labels"])}
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: runner.loss(p, batch)))(params)
+    return float(loss), flat(jax.tree.map(np.asarray, grads))
+
+
+def _engine_refs(jb, cfgs, one):
+    """JaxBackend's tokens and decisions on the engine cases' requests,
+    each arm under ``FixedPolicy``: the fixed cases' on its own weights,
+    the recurrent case's (tiny jamba) on the weights the port's backend
+    draws, bridged; and the one-process port backend's on the recurrent
+    case too."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.engine import FixedPolicy as JFixed
+    from repro.engine import LAYER, SEMANTIC
+    from repro.engine import PlacementEngine as JPlacement
+    from repro.engine import Request as JRequest
+    from repro.engine.jax_backend import JaxBackend
+    from repro_torch import bridge
+    from repro_torch.engine import (FixedPolicy, PlacementEngine, Request,
+                                    TorchBackend)
+    vocab = cfgs["tiny"].vocab_size
+    refs = {"fixed": serve_fixed(jb, JPlacement, JFixed, JRequest, vocab,
+                                 (LAYER, SEMANTIC))}
+    jamba = port(cfgs["jamba"])
+    tb = TorchBackend(jamba, arms=(LAYER,), device="cpu", **ENGINE_KW)
+    jjb = JaxBackend(cfgs["jamba"], one, arms=(LAYER,), **ENGINE_KW)
+    jjb.params[LAYER] = jax.tree.map(jnp.asarray, bridge.tree_to_numpy(
+        tb.models[LAYER].param_tree()))
+    refs["recurrent"] = serve_fixed(jjb, JPlacement, JFixed, JRequest,
+                                    jamba.vocab_size, (LAYER,))
+    refs["recurrent_port"] = serve_fixed(tb, PlacementEngine, FixedPolicy,
+                                         Request, jamba.vocab_size, (LAYER,))
+    return refs
 
 
 def _port_weights(cfg):
@@ -673,6 +902,138 @@ def test_serve_cli_mesh_shapes_the_runners():
     assert out["completed"] == 6
     assert seen[0].mesh.shape == {"data": 1, "model": 2}
     assert seen[0].models[SEMANTIC].cfg.n_branches == 2
+
+
+# ------------------------------------- the MoE's capacity on a row split
+def test_moe_row_split_drops_as_the_reference(world):
+    """At ``MOE_CF`` the reference drops assignments, and the ranks,
+    each routing its own rows, drop what it drops: their logits (in
+    ``test_logits_match_jax``) and caches match it, and so do the loss and
+    every gradient slice of ``value_and_grad`` on the same rows, within
+    ``TOL`` of the largest value.  (Sized by a rank's own rows, capacity
+    halves, and the logits part from the reference's.)"""
+    from repro_torch.dist import api as tapi
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import MeshShape
+    io, cfgs, refs = world
+    drops = refs["moe_drops"]          # 6 calls of 2 MoE layers
+    assert len(drops) == 6 * cfgs["moe"].n_layers and sum(drops) > 0, drops
+    want_loss, want = refs["moe_grads"]
+    dims = CASES["fsdp_moe"][0]
+    runner = tapi.build_runner(port(cfgs["moe"]), "fsdp", MeshShape(dims),
+                               device="cpu")
+    specs = flat(runner.param_specs(unflat(want)))
+    for r, s in enumerate(_shards(io, "fsdp_moe")):
+        assert abs(float(s["v/loss"]) - want_loss) <= TOL * abs(want_loss)
+        got = {k[2:]: v for k, v in s.items() if k.startswith("g/")}
+        assert set(got) == set(want)
+        coords = {"data": r, "model": 0}
+        for k, w in want.items():
+            w = SH.shard_leaf(torch.from_numpy(w), specs[k], dict(
+                data=dims[0], model=dims[1]), coords).numpy()
+            assert got[k].shape == w.shape, k
+            err = float(np.abs(got[k] - w).max())
+            assert err <= TOL * max(float(np.abs(w).max()), 1e-30), (k, err)
+
+
+def test_moe_row_split_serving_gathers_once_a_layer(world):
+    """A decode step of the row-split MoE spends one collective a MoE
+    layer on its capacity (the per-expert counts' all-gather) beyond the
+    same step sized by a rank's own rows, and no all-reduce: the serving
+    calls drop the load-balance aux, so its means are not summed."""
+    io, cfgs, _ = world
+    for s in _shards(io, "fsdp_moe"):
+        split, whole = ({k[3:]: int(v) for k, v in s.items()
+                         if k.startswith(tag)} for tag in ("ds/", "dw/"))
+        assert split.get("all_reduce_calls", 0) == 0, split
+        assert sum(split.values()) - sum(whole.values()) \
+            == cfgs["moe"].n_layers, (split, whole)
+        assert split["all_gather_calls"] - whole["all_gather_calls"] \
+            == cfgs["moe"].n_layers
+
+
+# ------------------------------------------- the engine across ranks
+def _engine(world):
+    import json
+    io = world[0]
+    return [json.loads((io / f"e_{r}.json").read_text()) for r in range(2)]
+
+
+@pytest.mark.parametrize("name", ["engine_data", "engine_model"])
+def test_engine_on_mesh_matches_jax_backend(world, name):
+    """Rank 0's ``TorchBackend`` on the process-group mesh serves each arm
+    under ``FixedPolicy`` through the runners: the same tokens as
+    ``JaxBackend(decode="legacy")`` on a 1 x 1 mesh, token for token, and
+    the same decisions."""
+    want = world[2]["engine"]["fixed"]
+    got = _engine(world)[0][name]["served"]
+    for arm, (tokens, decisions) in want.items():
+        g_tokens, g_decisions = got[str(arm)]
+        assert {int(k): v for k, v in g_tokens.items()} == tokens, arm
+        assert [tuple(d) for d in g_decisions] == decisions, arm
+
+
+@pytest.mark.parametrize("name", list(ENGINE))
+def test_engine_follower_matches_rank0(world, name):
+    """The follower ran what rank 0 ran: its batches, prefill calls and
+    decode steps equal rank 0's ``extra_metrics()``, and the CRC-32 of its
+    greedy token streams equals rank 0's (so every rank took the same
+    tokens); rank 0 sent a header a batch and the stop header."""
+    lead, follower = (e[name] for e in _engine(world))
+    m = lead["metrics"]
+    assert {k: follower["follow"][k] for k in FOLLOWED} == \
+        {k: m[k] for k in FOLLOWED}
+    assert m["batches"] > 0 and m["decode_steps"] > 0
+    assert m["mesh"] == list(ENGINE[name][0]) and m["rank"] == 0
+    assert m["headers_sent"] == m["batches"]
+    assert lead["headers_after_close"] == m["batches"] + 1
+
+
+def test_engine_ucb_serves_every_request(world):
+    """A UCB run on (2, 1): every request completes on both arms' runners,
+    and the weights every rank drew are the one-process backend's, cut by
+    the runners' specs."""
+    lead, follower = (e["engine_ucb"] for e in _engine(world))
+    assert lead["completed"] == 12
+    assert lead["weights_err"] == follower["weights_err"] == 0.0
+
+
+def test_engine_recurrent_prompt_loop_matches_one_process(world):
+    """Tiny jamba's LAYER arm on (2, 1): prompts fed a token at a time
+    through ``serve_step`` (no batched prefill), the tokens and decisions
+    of ``JaxBackend(decode="legacy")`` on a 1 x 1 mesh and of the
+    one-process port backend, on the weights every rank draws."""
+    lead, follower = (e["engine_mamba"] for e in _engine(world))
+    g_tokens, g_decisions = lead["served"]["0"]
+    for ref in ("recurrent", "recurrent_port"):
+        (tokens, decisions), = world[2]["engine"][ref].values()
+        assert {int(k): v for k, v in g_tokens.items()} == tokens, ref
+        assert [tuple(d) for d in g_decisions] == decisions, ref
+    assert lead["metrics"]["prefill_calls"] == 0
+    assert lead["weights_err"] == follower["weights_err"] == 0.0
+
+
+@pytest.mark.parametrize("knob", [dict(decode="auto"), dict(decode="paged"),
+                                  dict(fleet="disagg"),
+                                  dict(fleet_devices=("cpu", "cpu")),
+                                  dict(arch="whisper-base")])
+def test_engine_mesh_refusals(knob):
+    """On a process-group mesh the backend serves the gang path only: the
+    paged path, a fleet and a LAYER arm the stages cannot take (enc-dec)
+    raise, naming the queue that holds them; nothing is served another
+    way."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.engine import TorchBackend
+    from repro_torch.launch.mesh import Mesh, MeshShape
+    ranks = Mesh.__new__(Mesh)
+    MeshShape.__init__(ranks, (1, 2))
+    ranks.rank, ranks.coords = 0, {"data": 0, "model": 0}
+    ranks.backend, ranks.device = "gloo", torch.device("cpu")
+    kw = dict(knob)
+    cfg = get_config(kw.pop("arch", "stablelm-1.6b")).reduced()
+    kw.setdefault("decode", "legacy")
+    with pytest.raises(ValueError, match="queue 4"):
+        TorchBackend(cfg, mesh=ranks, device="cpu", **kw)
 
 
 if __name__ == "__main__":

@@ -113,6 +113,100 @@ def test_mixers_equal_jax(kind, name):
         close(a[0], b, what=f"{kind} state")
 
 
+@pytest.mark.parametrize("seq,chunk", [(39, 13)])
+def test_mamba_scan_chunks_equal_jax(seq, chunk):
+    """jamba's chunked Mamba scan over several chunks whose length is not a
+    power of two (13: odd at the top of the recursion, even below it): y,
+    the state each chunk carries out and the gradients of the parameters
+    and the input against JAX (``mamba_chunked_scan``, its states from one
+    associative scan over the sequence; one jitted call) within 1e-4, and
+    against the per-step loop (``_scan_chunk_steps``)."""
+    from repro.models import ssm as JS
+    from repro_torch.models import ssm as TS
+    cfg = zoo_cfg("jamba-1.5-large-398b")
+    tcfg = port_cfg(cfg)
+    params = JS.mamba_init(jax.random.PRNGKey(3), cfg)
+    din = cfg.ssm_expand * cfg.d_model
+    rng = np.random.default_rng(9)
+    xc = (0.5 * rng.normal(size=(2, seq, din))).astype(np.float32)
+    cot = rng.normal(size=(2, seq, din)).astype(np.float32)
+    def jscan(p, x):
+        y = JS.mamba_chunked_scan(p, x, cfg, chunk=chunk)
+        return jnp.sum(y * cot), y
+
+    def jstates(p, x):          # h_t over the whole sequence from zero
+        a, bx, _ = JS._ssm_params(p, x, cfg)
+        return jax.lax.associative_scan(
+            lambda c1, c2: (c1[0] * c2[0], c2[0] * c1[1] + c2[1]), (a, bx),
+            axis=1)[1]
+    (_, want), jgrads, jh = jax.jit(lambda p, x: (
+        *jax.value_and_grad(jscan, argnums=(0, 1), has_aux=True)(p, x),
+        jstates(p, x)))(params, jnp.asarray(xc))
+    tp = {k: torch.from_numpy(np.array(v))[None].requires_grad_(True)
+          for k, v in params.items()}
+    tx = torch.from_numpy(xc)[None].requires_grad_(True)
+
+    def grad(y, cot):       # the scan reads x_proj, dt_bias and A_log only
+        leaves = [tx, *tp.values()]
+        gs = torch.autograd.grad((y * torch.from_numpy(cot)[None]).sum(),
+                                 leaves, allow_unused=True)
+        return [torch.zeros_like(t) if g is None else g
+                for t, g in zip(leaves, gs)]
+    got = TS.mamba_chunked_scan(tp, tx, tcfg, chunk=chunk)
+    close(got[0], want, what="mamba chunked scan")
+    grads = grad(got, cot)
+    close(grads[0][0], jgrads[1], what="d xc")
+    for k, g in zip(tp, grads[1:]):
+        close(g[0], jgrads[0][k], what=f"d {k}")
+    # the carried state and the loop oracle, chunk by chunk
+    h = torch.zeros(1, 2, din, cfg.ssm_d_state)
+    h_loop = h
+    for c0 in range(0, seq, chunk):
+        x_c = tx[:, :, c0:c0 + chunk]
+        h, y = TS._scan_chunk(tp, h, x_c, tcfg)
+        h_loop, y_loop = TS._scan_chunk_steps(tp, h_loop, x_c, tcfg)
+        close(h[0], jh[:, c0 + chunk - 1], what="carried state")
+        close(h, h_loop.detach(), what="state against the loop")
+        close(y, y_loop.detach(), what="y against the loop")
+    for k, g, w in zip(["xc", *tp], grad(y, cot[:, -chunk:]),
+                       grad(y_loop, cot[:, -chunk:])):
+        close(g, w, what=f"d {k} against the loop")
+
+
+def test_mamba_scan_chunk_ops_grow_with_log_chunk():
+    """One chunk of the scan issues a fixed number of aten ops a level of
+    its log2(chunk)-deep recursion: each doubling of the chunk adds the
+    same count, and a 512-step chunk issues far fewer than 512 (the
+    per-step loop issued two a step)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import ssm as TS
+    cfg = port_cfg(zoo_cfg("jamba-1.5-large-398b")).replace(
+        d_model=4, ssm_d_state=2)
+    din = cfg.ssm_expand * cfg.d_model
+    gen = torch.Generator().manual_seed(0)
+    params = {k: 0.1 * torch.randn((1,) + v, generator=gen)
+              for k, v in TS.mamba_shapes(cfg).items()}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, fn, types, args=(), kwargs=None):
+            Count.n += 1
+            return fn(*args, **(kwargs or {}))
+    counts = {}
+    for chunk in (64, 128, 256, 512):
+        x = torch.randn(1, 1, chunk, din, generator=gen)
+        h0 = torch.zeros(1, 1, din, cfg.ssm_d_state)
+        Count.n = 0
+        with Count():
+            TS._scan_chunk(params, h0, x, cfg)
+        counts[chunk] = Count.n
+    steps = [counts[2 * c] - counts[c] for c in (64, 128, 256)]
+    assert len(set(steps)) == 1 and steps[0] > 0, counts
+    assert counts[512] < 512, counts
+
+
 @pytest.mark.parametrize("name", ["whisper-base", "internvl2-26b"])
 def test_jax_params_load_into_port(name):
     """A JAX init's tree loads by name into the port's model (the frontend
