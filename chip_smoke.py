@@ -3040,6 +3040,7 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
             DEC.decode_attention.launches += 1
             return plain_dec(*a, **kw)
         ML.decode_attention = dec_counted
+        _count_paged_plain()
     world = dict(backend="gloo", device=dev, rank=rank,
                  world_size=MULTI_WORLD, timeout_s=120,
                  store=dist.FileStore(str(workdir / "store"), MULTI_WORLD))
@@ -3150,6 +3151,7 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
     refs.clear()
     runs["serve"] = serve_multi_worker(rank, workdir, dev, reduced, world)
     runs["engine"] = engine_worker(rank, dev, reduced, world)
+    runs["engine_paged"] = engine_paged_worker(rank, dev, reduced, world)
     dist.barrier()
     dist.destroy_process_group()
     (workdir / f"rank{rank}.json").write_text(json.dumps(runs))
@@ -3169,6 +3171,7 @@ def multi_phase(dev, *, reduced: bool = False):
     workdir = pathlib.Path(tempfile.mkdtemp(prefix="multi_"))
     serve_refs = serve_multi_refs(dev, workdir, reduced)
     engine_ref = engine_refs(dev, reduced)
+    engine_paged_ref = engine_paged_refs(dev, reduced)
     # two processes' caching allocators share the card: expandable
     # segments keep their freed blocks from fragmenting it
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -3255,6 +3258,8 @@ def multi_phase(dev, *, reduced: bool = False):
     out["serve_one_process"] = serve_refs
     out["engine"] = engine_gates(ranks, engine_ref, card)
     out["engine_one_process"] = engine_ref
+    out["engine_paged"] = engine_paged_gates(ranks, engine_paged_ref, card)
+    out["engine_paged_one_process"] = engine_paged_ref
     log(f"[multi] {card} | world of {MULTI_WORLD} gloo ranks on one "
         f"device, {wall_s:.1f} s")
     return out
@@ -3781,6 +3786,320 @@ def engine_gates(ranks, ref: dict, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------- the paged engine, ranks
+#: ``TorchBackend(decode="paged")`` on a process-group mesh (each rank
+#: holding its stages' or branches' slice of the paged pool; rank 0
+#: deciding and relaying every device call) on each mesh, with each set of
+#: backend options; each held to a one-process backend of the same options
+ENGINE_PAGED = (((2, 1), {}), ((1, 2), {}),
+                ((1, 2), dict(kv_dtype="int8", weight_quant="int8")))
+ENGINE_PAGED_SHAPE = dict(cache_len=320, max_batch=8, decode="paged",
+                          block_size=16, prefill_chunk=128)
+ENGINE_PAGED_SHAPE_REDUCED = dict(cache_len=48, max_batch=8, decode="paged",
+                                  block_size=4, prefill_chunk=8)
+#: the three prefix families' heads (not whole blocks: a probe's match ends
+#: inside a block, which copy-on-write resolves)
+ENGINE_PAGED_HEADS = (100, 150, 200)
+ENGINE_PAGED_HEADS_REDUCED = (10, 13, 18)
+
+
+def _paged_key(dims, kw) -> str:
+    return ",".join(map(str, dims)) + ("/int8" if kw else "")
+
+
+def paged_engine_waves(vocab: int, arm: int, reduced: bool):
+    """An arm's 8 requests in three waves (all at ``arrival_s`` 0, so
+    deadlines order them alike on every run): a donor of each prefix
+    family; probes that share a family's head, 12-16 new tokens; two urgent
+    ones (one a family's, one fresh) whose earlier deadline comes first.
+    Full size: prompts of 64 to 257 tokens."""
+    from repro_torch.engine import Request
+    rng = np.random.default_rng(60 + arm)
+    r = lambda n: rng.integers(0, vocab, n).astype(np.int32)
+    heads = [r(n) for n in (ENGINE_PAGED_HEADS_REDUCED if reduced
+                            else ENGINE_PAGED_HEADS)]
+    tails = (2, 5, 3, 6, 4, 7) if reduced else (2, 57, 40, 30, 20, 64)
+    spec = [[(np.r_[h, r(tails[0])], 30.0, 12) for h in heads],
+            [(np.r_[h, r(t)], 20.0, 16) for h, t in zip(heads, tails[1:4])],
+            [(np.r_[heads[1], r(tails[4])], 1.0, 12), (r(tails[5]), 1.0, 14)]]
+    waves, rid = [], 0
+    for wave in spec:
+        waves.append([])
+        for toks, sla, max_new in wave:
+            waves[-1].append(Request(rid=rid, app_id=rid % 3, tokens=toks,
+                                     sla_s=sla, max_new=max_new,
+                                     arrival_s=0.0))
+            rid += 1
+    return waves
+
+
+def _paged_engine_serve(backend, cfg, reduced: bool):
+    """Each arm's waves under ``FixedPolicy`` on ``backend`` (rank 0's or
+    one process's), traced: the donors drained, two steps into the probes,
+    the urgent wave, drained.  Returns ({arm: {rid: tokens}}, the
+    counters, {arm: (prefill chunks, decode steps)}, decode ms a step over
+    the ``decode_scan`` and ``decode_read`` spans)."""
+    from repro_torch.engine import FixedPolicy, PlacementEngine
+    from repro_torch.obs import Tracer, set_tracer
+    tokens = {}
+    tracer = Tracer()
+    old = set_tracer(tracer)
+    try:
+        for arm, sched in backend._paged.items():
+            waves = paged_engine_waves(cfg.vocab_size, arm, reduced)
+            eng = PlacementEngine(FixedPolicy(arm, placement=None), backend)
+            eng.submit(waves[0])
+            eng.drain()
+            eng.submit(waves[1])
+            eng.step()
+            eng.step()
+            eng.submit(waves[2])
+            eng.drain()
+            reqs = [q for w in waves for q in w]
+            if any(q.output is None or q.output.shape != (q.max_new,)
+                   for q in reqs):
+                raise AssertionError(f"[engine paged] arm {arm}: a request "
+                                     "did not complete")
+            tokens[str(arm)] = {str(q.rid): q.output.tolist() for q in reqs}
+    finally:
+        set_tracer(old)
+    m = backend.extra_metrics()
+    counters = {k: m[k] for k in ("prefix_hit_rate", "cow_copies",
+                                  "preemptions", "prefill_chunks",
+                                  "decode_dispatches", "decoded_tokens")}
+    calls = {str(a): (_bucket_steps(s, "prefill"), _bucket_steps(s, "decode"))
+             for a, s in backend._paged.items()}
+    steps = sum(d for _, d in calls.values())
+    dec = tracer.events("decode_scan") + tracer.events("decode_read")
+    return tokens, counters, calls, 1e3 * sum(e[4] for e in dec) / 1e6 \
+        / max(steps, 1)
+
+
+def engine_paged_refs(dev, reduced: bool) -> dict:
+    """The one-process paged backends the ranks are held to, in this
+    process before the world starts: per option set, each arm's tokens,
+    the counters and decode ms a step."""
+    from repro_torch.engine import TorchBackend
+    cfg, _, _ = engine_setup(reduced)
+    shape = ENGINE_PAGED_SHAPE_REDUCED if reduced else ENGINE_PAGED_SHAPE
+    out = {}
+    for _, kw in ENGINE_PAGED:
+        tag = "int8" if kw else "f32"
+        if tag in out:
+            continue
+        _free()
+        backend = TorchBackend(cfg, device=dev, **shape, **kw)
+        tokens, counters, calls, ms = _paged_engine_serve(backend, cfg,
+                                                          reduced)
+        m = backend.extra_metrics()
+        out[tag] = dict(tokens=tokens, counters=counters, calls=calls,
+                        decode_ms=ms, quant=m.get("weight_quant_max_err"),
+                        quant_mean=m.get("weight_quant_mean_err"))
+        del backend
+        log(f"[engine paged one process {tag}] {cfg.name}: decode ms a "
+            f"step {ms:.2f}, {counters}")
+    _free()
+    return out
+
+
+def _count_paged_plain():
+    """On the CPU (a rehearsal), each plain call of the paged kernels and
+    of ``quant_matmul`` from the paged forward counts as the launch its
+    CUDA wrapper would make, on the path it would take."""
+    from repro_torch.decode import paged_model as PM
+    from repro_torch.kernels import _paged_launch as PL
+    from repro_torch.kernels import _quant_launch as QL
+    from repro_torch.kernels import paged_decode_attention as PD
+    from repro_torch.kernels import paged_prefill_attention as PP
+    from repro_torch.kernels import quant_matmul as QM
+
+    def prefill(q, *a, **kw):
+        PP.paged_prefill_attention.launches += 1
+        PL.PATH_LAUNCHES[PL.path_for(q.dtype, True)] += 1
+        return PP.paged_prefill_attention_plain(q, *a, **kw)
+
+    def decode(q, *a, **kw):
+        PD.paged_decode_attention.launches += 1
+        PL.PATH_LAUNCHES["decode_split"] += 1
+        return PD.paged_decode_attention_plain(q, *a, **kw)
+
+    def quant(x, q, sc):
+        QM.quant_matmul.launches += 1
+        d, e = x.shape[-1], q.shape[-1]
+        QL.PATH_LAUNCHES[QL.path_for(
+            x.dtype, x.shape[-2], d, e, d // sc.shape[-2],
+            QM.infer_bits(d, q))] += 1
+        return QM.quant_matmul_plain(x, q, sc)
+    PM.paged_prefill_attention = prefill
+    PM.paged_decode_attention = decode
+    PM.quant_matmul = quant
+
+
+def _decode_comm(backend) -> dict:
+    """Wrap each paged scheduler's ``call``: ``COMM_STATS`` summed over its
+    decode calls, by arm (on rank 0 the relay of each call's header and
+    host arrays included; a follower receives those before its call)."""
+    from collections import defaultdict
+
+    from repro_torch.dist import comm
+    acc = {}
+    for arm, sched in backend._paged.items():
+        def call(kind, key, host, orig=sched.call,
+                 mine=acc.setdefault(str(arm), defaultdict(float))):
+            if kind != "decode":
+                return orig(kind, key, host)
+            before = dict(comm.COMM_STATS)
+            out = orig(kind, key, host)
+            for k, v in comm.COMM_STATS.items():
+                mine[k] += v - before.get(k, 0.0)
+            return out
+        sched.call = call
+    return acc
+
+
+def engine_paged_worker(rank: int, dev, reduced: bool, world: dict) -> dict:
+    """One rank of each ``ENGINE_PAGED`` run: the paged backend built on
+    the mesh; rank 0 serves each arm's waves and closes it, rank 1
+    follows.  The paged and quant launches by path and ``COMM_STATS`` are
+    zeroed just before; each arm's held attention layers and this rank's
+    pool bytes recorded."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import comm
+    from repro_torch.engine import TorchBackend
+    from repro_torch.kernels import _paged_launch as PL
+    from repro_torch.kernels import _quant_launch as QL
+    from repro_torch.launch.mesh import init_mesh
+    cfg, _, _ = engine_setup(reduced)
+    shape = ENGINE_PAGED_SHAPE_REDUCED if reduced else ENGINE_PAGED_SHAPE
+    out = {}
+    for dims, kw in ENGINE_PAGED:
+        _free()
+        mesh = init_mesh(dims, **world)
+        backend = TorchBackend(cfg, mesh=mesh, device=dev, **shape, **kw)
+        decode_comm = _decode_comm(backend)
+        comm.reset_stats()
+        paths0, qpaths0 = dict(PL.PATH_LAUNCHES), dict(QL.PATH_LAUNCHES)
+        dist.barrier()
+        t0 = time.perf_counter()
+        if rank == 0:
+            try:
+                tokens, counters, calls, ms = _paged_engine_serve(
+                    backend, cfg, reduced)
+            finally:
+                backend.close()
+            m = backend.extra_metrics()
+            res = dict(tokens=tokens, counters=counters, calls=calls,
+                       decode_ms=ms, metrics={k: v for k, v in m.items()
+                                              if not isinstance(v, dict)})
+        else:
+            res = dict(follow=backend.follow())
+        _sync(dev)
+        res.update(
+            wall_s=time.perf_counter() - t0, comm=dict(comm.COMM_STATS),
+            decode_comm={a: dict(c) for a, c in decode_comm.items()},
+            paths={k: PL.PATH_LAUNCHES[k] - paths0[k] for k in paths0},
+            quant_paths={k: QL.PATH_LAUNCHES[k] - qpaths0[k]
+                         for k in qpaths0},
+            held_layers={str(a): _held_attention_layers(r)
+                         for a, r in backend.runners.items()},
+            pool_bytes={str(a): sum(t.numel() * t.element_size()
+                                    for e in s.pool.values()
+                                    for t in e.values())
+                        for a, s in backend._paged.items()})
+        key = _paged_key(dims, kw)
+        out[key] = res
+        log(f"[engine paged {key} rank {rank}] {res['wall_s']:.1f} s, "
+            f"launches {res['paths']} quant {res['quant_paths']}")
+        del backend
+        comm.release_buffers()
+    return out
+
+
+def _paged_engine_launches(row: dict, name: str) -> int:
+    """A paged engine run's launches of kernel ``name`` on both ranks."""
+    keys = {"paged_prefill_attention": ("prefill_simt", "prefill_mma"),
+            "paged_decode_attention": ("decode_split",),
+            "quant_matmul": ("quant_simt", "quant_mma_skinny",
+                             "quant_mma_tile")}[name]
+    return sum(r.get(k, 0) for r in row["launches"] for k in keys)
+
+
+def engine_paged_gates(ranks, ref: dict, card: str) -> dict:
+    """The paged engine runs' gates: rank 0's tokens and counters (prefix
+    hit rate, COW copies, preemptions, chunks, dispatches) are the
+    one-process backend's, and so is its weight-quant telemetry (the max
+    error exactly, the mean within 1e-6: each rank sums its slices' errors
+    and the ranks' sums are added); the follower made rank 0's calls (its
+    chunks, dispatches and COW copies and the CRC-32 of its decode tokens
+    equal rank 0's); each rank launched one prefill (``prefill_simt``: f32 q) per
+    held attention layer a chunk and one ``decode_split`` per held layer a
+    decode step, and with ``weight_quant`` four ``quant_matmul`` (``simt``)
+    per held layer a chunk or step, and nothing else."""
+    out = {}
+    followed = ("prefill_chunks", "decode_dispatches", "cow_copies",
+                "stream_digest")
+    for dims, kw in ENGINE_PAGED:
+        key = _paged_key(dims, kw)
+        want = ref["int8" if kw else "f32"]
+        lead, follower = (rk["engine_paged"][key] for rk in ranks)
+        where = f"[engine paged {key}]"
+        if lead["tokens"] != want["tokens"]:
+            same = sum(lead["tokens"][a][r] == want["tokens"][a][r]
+                       for a in want["tokens"] for r in want["tokens"][a])
+            raise AssertionError(f"{where} rank 0's tokens equal the "
+                                 f"one-process backend's in {same} requests")
+        if lead["counters"] != want["counters"]:
+            raise AssertionError(f"{where} counters {lead['counters']}, "
+                                 f"one process {want['counters']}")
+        if not (want["counters"]["cow_copies"] > 0
+                and want["counters"]["prefix_hit_rate"] > 0):
+            raise AssertionError(f"{where} no prefix hit or COW copy "
+                                 f"({want['counters']})")
+        m = lead["metrics"]
+        if m.get("weight_quant_max_err") != want["quant"] or (
+                kw and abs(m["weight_quant_mean_err"] - want["quant_mean"])
+                > 1e-6):
+            raise AssertionError(
+                f"{where} weight-quant error max {m.get('weight_quant_max_err')}"
+                f" mean {m.get('weight_quant_mean_err')}, one process "
+                f"{want['quant']} and {want['quant_mean']}")
+        if any(follower["follow"][k] != m[k] for k in followed):
+            raise AssertionError(f"{where} the follower ran "
+                                 f"{follower['follow']}, rank 0 {m}")
+        for r, rk in enumerate((lead, follower)):
+            held = rk["held_layers"]
+            chunks = sum(held[a] * c for a, (c, _) in lead["calls"].items())
+            steps = sum(held[a] * d for a, (_, d) in lead["calls"].items())
+            got = {p: n for p, n in rk["paths"].items() if n}
+            exp = {"prefill_simt": chunks, "decode_split": steps}
+            qgot = {p: n for p, n in rk["quant_paths"].items() if n}
+            qexp = {"simt": 4 * (chunks + steps)} if kw else {}
+            if got != exp or qgot != qexp:
+                raise AssertionError(f"{where} rank {r} launched {got} and "
+                                     f"quant {qgot}, want {exp} and {qexp}")
+        steps = sum(d for _, d in lead["calls"].values())
+        row = dict(
+            mesh=dims, options=kw, decode_ms=lead["decode_ms"],
+            decode_ms_one_process=want["decode_ms"], decode_steps=steps,
+            counters=lead["counters"], headers_sent=m["headers_sent"] + 1,
+            wall_s=[lead["wall_s"], follower["wall_s"]],
+            # by arm and rank: a decode step's collectives, the bytes put
+            # into them and the bytes staged through the host
+            decode_comm_per_step={a: [{k: v / max(d, 1) for k, v in
+                                       rk["decode_comm"][a].items()
+                                       if not k.endswith("_ms")}
+                                      for rk in (lead, follower)]
+                                  for a, (_, d) in lead["calls"].items()},
+            launches=[dict(rk["paths"], **{"quant_" + k: v for k, v in
+                                           rk["quant_paths"].items()})
+                      for rk in (lead, follower)],
+            pool_bytes=[lead["pool_bytes"], follower["pool_bytes"]])
+        out[key] = row
+        log(f"[engine paged {key}] {card} | " + json.dumps(row))
+    return out
+
+
 # ------------------------------------------------------------ disagg_xdev
 XDEV_REQUESTS = 8
 
@@ -4304,7 +4623,9 @@ def main(argv=None) -> int:
                       for r in per)
         else:
             launches = sum(s["launches"][name] for s in serves.values()) \
-                + sum(f["launches"][name] for f in fleet.values())
+                + sum(f["launches"][name] for f in fleet.values()) \
+                + sum(_paged_engine_launches(row, name)
+                      for row in multi["engine_paged"].values())
         line.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",

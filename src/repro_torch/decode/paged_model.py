@@ -13,6 +13,9 @@ decode loop, over a ``Model`` or a ``SemanticModel``.
                     mid-loop (writes route to the null block, lengths
                     freeze).
 ``paged_decode_logits``  one paged decode step (``paged_decode_attention``).
+``make_prefill_fn``  the scheduler's chunk call: the chunk committed, each
+                    lane's greedy token at its last valid position returned
+                    instead of its logits.
 
 Where the JAX package ``lax.scan``-ned the superblock stack, this loops
 over ``N_sb``; where it ``jax.vmap``-ed a ``SemanticModel``'s branches, every
@@ -27,6 +30,26 @@ Every forward takes an optional ``params``: the model's grouped views
 projections :func:`quantize_attn_params` replaced by ``{"q", "scale"}``
 dicts; those route the four attention matmuls through ``quant_matmul``.
 MoE FFNs go through ``moe_apply``.
+
+The forwards also serve one rank's slice of a model on a process-group
+mesh (``dist.api``'s runners hand the scheduler a model-like view: its
+``grouped_views()`` are the rank's slices, its pool the rank's slice of the
+pool, and its ``join`` says how the slices meet).  A superblock view may be
+a callable that fetches the superblock when its body runs
+(``transformer.StackOnUse``).  The join decides three things: where the
+activation comes from (``enter``: the embedding, or the stage before), what
+leaves the stack (``tokens``: the greedy token of each lane, the only thing
+the decode loop and the prefill read, so no logits cross ranks) and how
+per-rank statistics add up (``reduce_stats``).  :data:`LOCAL` is the join
+of a rank that runs the whole model, one process included.  A LAYER stage
+runs its superblocks over its slice of the pool; a SEMANTIC rank runs its
+branches (the leading dim G is its share of them) over theirs.  'data'
+splits neither the pool nor the wave: a lane's table may point at any
+physical block and prefix sharing aliases blocks across lanes, so each
+'data' rank holds its model slice's whole pool and runs the whole wave.
+That is exact and needs no collective, and 'data' gains nothing; splitting
+lanes over replicas is a fleet's job.  COMPRESSED (fsdp) gathers its
+weights on use, as its gang path does, and runs every layer on every rank.
 """
 from __future__ import annotations
 
@@ -43,7 +66,7 @@ from repro_torch.kernels.paged_prefill_attention import \
 from repro_torch.kernels.quant_matmul import (dequantize_blockwise,
                                               quant_matmul, quantize_blockwise)
 from repro_torch.models import layers as L
-from repro_torch.models.model import SemanticModel
+from repro_torch.models import transformer as T
 from repro_torch.models.moe import moe_apply
 
 #: the serving-side projection weights eligible for blockwise quantization
@@ -55,9 +78,43 @@ def supports_paged_decode(model) -> bool:
     return getattr(model, "supports_single_step_prefill", False)
 
 
+class LocalJoin:
+    """The join of a rank that runs the whole model (one process; a rank
+    whose mesh axes split nothing of this model): it embeds, runs every
+    superblock and takes the greedy tokens over the merged vocab; nothing
+    crosses ranks."""
+
+    @staticmethod
+    def enter(embed, shape):
+        """The stack's input: ``embed()`` ([G, B, S, d]); ``shape`` (B, S)
+        sizes an activation received instead."""
+        return embed()
+
+    @staticmethod
+    def tokens(model, params, x, select):
+        """[B] int32 greedy tokens of the stack's output ``x`` [G, B, S, d]
+        at the positions ``select(x)`` ([G, B, d]) picks."""
+        return torch.argmax(_head(model, params, select(x)), dim=-1).int()
+
+    @staticmethod
+    def reduce_stats(stats):
+        """(max, sum, count) of per-rank statistics over the ranks that
+        hold the other slices of the model."""
+        return stats
+
+
+LOCAL = LocalJoin()
+
+
+def join_of(model):
+    """The model's join: a mesh view's own, else :data:`LOCAL`."""
+    return getattr(model, "join", LOCAL)
+
+
 def _grouped_pool(model, pool: Dict) -> Dict:
-    """Pool leaves with a leading branch dim (views; writes reach ``pool``)."""
-    if isinstance(model, SemanticModel):
+    """Pool leaves with a leading branch dim (views; writes reach ``pool``).
+    A semantic model's (or rank's) pool has one already."""
+    if model.cfg.n_branches > 1:
         return pool
     return {pos: {k: v.unsqueeze(0) for k, v in e.items()}
             for pos, e in pool.items()}
@@ -67,8 +124,15 @@ def _sb_pool(gpool: Dict, n: int) -> Dict:
     return {pos: {k: v[:, n] for k, v in e.items()} for pos, e in gpool.items()}
 
 
+def _with_mix(sb: Dict, mixes: Dict) -> Dict:
+    """Superblock ``sb`` with each block's attention projections replaced
+    by ``mixes[pos]``'s."""
+    return {pos: {**blk, "mix": {**blk["mix"], **mixes[pos]}}
+            for pos, blk in sb.items()}
+
+
 @torch.no_grad()
-def quantize_attn_params(params, bits: int):
+def quantize_attn_params(params, bits: int, reduce=None):
     """Serving-side blockwise weight quantization of the attention
     projections (wq/wk/wv/wo) in every superblock of ``params`` (grouped
     views, as ``model.grouped_views()`` returns them).
@@ -77,23 +141,30 @@ def quantize_attn_params(params, bits: int):
     float parameters are untouched) whose projection leaves are
     ``{"q", "scale"}`` dicts consumed by :func:`_proj`, plus the max / mean
     absolute dequantization error over all quantized weights.  Norms,
-    embeddings and FFN weights keep their dtype."""
+    embeddings and FFN weights keep their dtype.  A superblock fetched on
+    use stays so: only its quantized projections are kept.  ``reduce``
+    (a join's ``reduce_stats``) adds up the (max, sum, count) of the error
+    over the ranks holding the other slices, so a rank reports the whole
+    model's telemetry."""
     err_max, err_sum, err_n = 0.0, 0.0, 0
     new_sbs = []
     for sb in params[2]:
-        new_sb = {}
-        for pos, blk in sb.items():
-            mix = dict(blk["mix"])
+        mixes = {}
+        for pos, blk in T.fetched(sb).items():
+            mixes[pos] = {}
             for name in ATTN_PROJ:
-                w = mix[name]
+                w = blk["mix"][name]
                 q, s = quantize_blockwise(w, bits=bits)
                 err = (dequantize_blockwise(q, s, bits=bits) - w.float()).abs()
                 err_max = max(err_max, float(err.max()))
                 err_sum += float(err.sum(dtype=torch.float64))
                 err_n += err.numel()
-                mix[name] = {"q": q, "scale": s}
-            new_sb[pos] = {**blk, "mix": mix}
-        new_sbs.append(new_sb)
+                mixes[pos][name] = {"q": q, "scale": s}
+        new_sbs.append(
+            (lambda sb=sb, mixes=mixes: _with_mix(sb(), mixes))
+            if callable(sb) else _with_mix(sb, mixes))
+    if reduce is not None:
+        err_max, err_sum, err_n = reduce((err_max, err_sum, err_n))
     tele = {
         "weight_quant_bits": bits,
         "weight_quant_max_err": round(err_max, 6),
@@ -203,7 +274,8 @@ def _run_stack(model, params, pool, x, attn_fn):
     _, _, sbs = params
     gpool = _grouped_pool(model, pool)
     for n, sb_params in enumerate(sbs):
-        x = _stack_body(cfg, x, sb_params, _sb_pool(gpool, n), attn_fn)
+        x = _stack_body(cfg, x, T.fetched(sb_params), _sb_pool(gpool, n),
+                        attn_fn)
     return x
 
 
@@ -219,16 +291,14 @@ def _block_size(pool: Dict) -> int:
     return next(iter(next(iter(pool.values())).values())).shape[-3]
 
 
-@torch.no_grad()
-def paged_decode_logits(model, pool, tokens, block_tables, lengths, active,
-                        params=None):
-    """One paged decode step.  tokens: [B, 1]; lengths: [B] tokens already
-    in cache (the new token's position); active: [B] bool.  Returns
-    ([B, vocab] f32 logits, pool)."""
+def _decode_pass(model, pool, tokens, block_tables, lengths, active,
+                 params):
+    """One paged decode step through this rank's superblocks: (the stack's
+    output [G, B, 1, d], the position picker, params)."""
     cfg = model.branch_cfg
     params = params or model.grouped_views()
-    emb = params[0]
-    x = L.embed_apply(emb, tokens, cfg)                # [G, B, 1, d]
+    x = join_of(model).enter(
+        lambda: L.embed_apply(params[0], tokens, cfg), tokens.shape)
     positions = lengths[:, None]
     wb, wo = write_slots(lengths, block_tables, active, _block_size(pool))
     valid_lens = (lengths + active.int()).int()
@@ -236,21 +306,39 @@ def paged_decode_logits(model, pool, tokens, block_tables, lengths, active,
         p, hn, cfg, positions=positions, pool=entry,
         block_tables=block_tables, valid_lens=valid_lens, wb=wb, wo=wo)
     x = _run_stack(model, params, pool, x, attn)
-    return _head(model, params, x[:, :, -1]), pool
+    return x, lambda h: h[:, :, -1], params
 
 
 @torch.no_grad()
-def paged_chunk_logits(model, pool, tokens, starts, n_tok, block_tables,
-                       params=None):
-    """Chunked prefill: commit ``tokens`` [B, C] at absolute positions
-    ``starts + [0..C)`` into the pool and return the [B, vocab] logits at
-    each lane's last valid chunk position.  Padded token slots (>= n_tok)
-    write to the null block and their outputs are never read."""
+def paged_decode_logits(model, pool, tokens, block_tables, lengths, active,
+                        params=None):
+    """One paged decode step.  tokens: [B, 1]; lengths: [B] tokens already
+    in cache (the new token's position); active: [B] bool.  Returns
+    ([B, vocab] f32 logits, pool)."""
+    x, select, params = _decode_pass(model, pool, tokens, block_tables,
+                                     lengths, active, params)
+    return _head(model, params, select(x)), pool
+
+
+@torch.no_grad()
+def paged_decode_tokens(model, pool, tokens, block_tables, lengths, active,
+                        params=None):
+    """:func:`paged_decode_logits`'s greedy tokens: ([B] int32, pool), on
+    every rank of a mesh."""
+    x, select, params = _decode_pass(model, pool, tokens, block_tables,
+                                     lengths, active, params)
+    return join_of(model).tokens(model, params, x, select), pool
+
+
+def _chunk_pass(model, pool, tokens, starts, n_tok, block_tables, params):
+    """One prefill chunk through this rank's superblocks: (the stack's
+    output [G, B, C, d], the picker of each lane's last valid position,
+    params)."""
     cfg = model.branch_cfg
     params = params or model.grouped_views()
-    emb = params[0]
     b, c = tokens.shape
-    x = L.embed_apply(emb, tokens, cfg)                # [G, B, C, d]
+    x = join_of(model).enter(
+        lambda: L.embed_apply(params[0], tokens, cfg), tokens.shape)
     ar = torch.arange(c, device=tokens.device)
     positions = (starts[:, None] + ar[None, :]).int()
     wb, wo = chunk_write_slots(starts, n_tok, block_tables,
@@ -260,8 +348,20 @@ def paged_chunk_logits(model, pool, tokens, starts, n_tok, block_tables,
         block_tables=block_tables, wb=wb, wo=wo)
     x = _run_stack(model, params, pool, x, attn)
     idx = (n_tok.long() - 1).clamp(0, c - 1)
-    last = x[:, torch.arange(b, device=x.device), idx]  # [G, B, d]
-    return _head(model, params, last), pool
+    rows = torch.arange(b, device=x.device)
+    return x, lambda h: h[:, rows, idx], params
+
+
+@torch.no_grad()
+def paged_chunk_logits(model, pool, tokens, starts, n_tok, block_tables,
+                       params=None):
+    """Chunked prefill: commit ``tokens`` [B, C] at absolute positions
+    ``starts + [0..C)`` into the pool and return the [B, vocab] logits at
+    each lane's last valid chunk position.  Padded token slots (>= n_tok)
+    write to the null block and their outputs are never read."""
+    x, select, params = _chunk_pass(model, pool, tokens, starts, n_tok,
+                                    block_tables, params)
+    return _head(model, params, select(x)), pool
 
 
 # ---------------------------------------------------------------- factories
@@ -274,20 +374,32 @@ def make_prefill_chunk_fn(model, params=None):
     return chunk
 
 
+def make_prefill_fn(model, params=None):
+    """(pool, toks [W, C], starts [W], n_tok [W], block_tables [W, NB]) ->
+    (pool, [W] int32 greedy tokens at each lane's last valid position)."""
+    @torch.no_grad()
+    def chunk(pool, toks, starts, n_tok, block_tables):
+        x, select, p = _chunk_pass(model, pool, toks, starts, n_tok,
+                                   block_tables, params)
+        return pool, join_of(model).tokens(model, p, x, select)
+    return chunk
+
+
 def make_decode_fn(model, *, scan_tokens: int, params=None):
     """K = ``scan_tokens`` greedy decode steps for every active lane.
 
     (pool, tok [B, 1], block_tables [B, NB], lengths [B], remaining [B]) ->
     (pool, tok', lengths', remaining', toks [B, K]), all on the device.
     A lane with remaining == 0 is inactive for the rest of the loop
-    (null-block writes, frozen length, frozen token)."""
+    (null-block writes, frozen length, frozen token).  The params views
+    are read once a call."""
     def decode(pool, tok, block_tables, lengths, remaining):
+        p = params or model.grouped_views()
         steps = []
         for _ in range(scan_tokens):
             active = remaining > 0
-            logits, pool = paged_decode_logits(model, pool, tok, block_tables,
-                                               lengths, active, params)
-            nxt = torch.argmax(logits, dim=-1).int()
+            nxt, pool = paged_decode_tokens(model, pool, tok, block_tables,
+                                            lengths, active, p)
             tok = torch.where(active, nxt, tok[:, 0])[:, None]
             lengths = lengths + active.int()
             remaining = remaining - active.int()

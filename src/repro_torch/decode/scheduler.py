@@ -33,13 +33,26 @@ every call is enqueued on its current CUDA stream; block tables, lengths
 and budgets stay host-side numpy and cross to the device once per call.
 ``weight_quant`` ("int8" / "int4") serves from a private blockwise-quantized
 copy of the attention projections, made at construction; the model's float
-parameters stay untouched.  ``jit_cache`` is a built-call dict shared by
-schedulers of one model (a fleet's replicas of an arm): each bucket is built
-once across them, and they share the quantized copy the calls close over.
+parameters stay untouched.  Without it the built calls read the model's
+params at every call (``model.grouped_views()``).  ``jit_cache`` is a
+built-call dict shared by schedulers of one model (a fleet's replicas of an
+arm): each bucket is built once across them, and they share the quantized
+copy the calls close over.
+
+The model may be a runner's view on a process-group mesh
+(``dist.api.PagedView``): its pool is this rank's slice and its forwards
+meet the other ranks' slices.  The three device calls (the COW copy, the
+prefill chunk, the decode call) all go through :meth:`call`, which counts
+them.  Its ``relay`` hook (rank 0's backend) gets each call's kind, bucket
+and host arrays packed side by side into one int32 matrix before it runs;
+on another rank :meth:`replay` unpacks that matrix and makes the same call
+on its slices.  Every rank keeps a CRC-32 of the tokens of its decode
+calls (``token_digest``), read where the tokens reach the host.
 """
 from __future__ import annotations
 
 import heapq
+import zlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -49,8 +62,8 @@ import torch
 from repro_torch.decode.paged_cache import (NULL_BLOCK, BlockAllocator,
                                             PrefixIndex, copy_blocks,
                                             pool_block_bytes, quantize_pool)
-from repro_torch.decode.paged_model import (make_decode_fn,
-                                            make_prefill_chunk_fn,
+from repro_torch.decode.paged_model import (join_of, make_decode_fn,
+                                            make_prefill_fn,
                                             quantize_attn_params,
                                             supports_paged_decode)
 from repro_torch.engine.types import next_pow2
@@ -136,7 +149,7 @@ class PagedArmScheduler:
         # sharers must serve one model
         self._built: Dict[tuple, object] = \
             jit_cache if jit_cache is not None else {}
-        params = model.grouped_views()
+        params = None              # the model's own, read at each call
         if weight_quant is not None:
             # a PRIVATE quantized copy of the attention projections: the
             # model's float parameters stay untouched (other arms and the
@@ -144,10 +157,17 @@ class PagedArmScheduler:
             key = ("quant_params", weight_quant)
             if key not in self._built:
                 self._built[key] = quantize_attn_params(
-                    params, int(weight_quant[3:]))
+                    model.grouped_views(), int(weight_quant[3:]),
+                    reduce=join_of(model).reduce_stats)
             params, telemetry = self._built[key]
             self.quant_telemetry = dict(telemetry)
         self.params = params
+        #: rank 0 of a process-group mesh: ``relay(kind, key, wire)`` before
+        #: each device call, ``wire`` the call's host arrays as
+        #: :meth:`replay` takes them
+        self.relay = None
+        #: CRC-32 of the tokens of every decode call, in call order
+        self.token_digest = 0
         self.n_lanes = n_lanes
         self.block_size = block_size
         self.scan_tokens = scan_tokens
@@ -263,6 +283,63 @@ class PagedArmScheduler:
         return min(best, next_pow2(int(rems.max())))
 
     # -------------------------------------------------------------- build
+    def _build(self, kind: str, key: tuple):
+        """The device call of ``kind`` at bucket ``key``: (pool, *host
+        arrays on the device) -> (pool, *outputs)."""
+        if kind == "cow":
+            return lambda pool, src, dst: (copy_blocks(pool, src, dst),)
+        if kind == "prefill":
+            return make_prefill_fn(self.model, self.params)
+        return make_decode_fn(self.model, scan_tokens=key[1],
+                              params=self.params)
+
+    def _columns(self, kind: str, key: tuple) -> tuple:
+        """The columns each host array of a call takes in its wire matrix
+        (a row a lane, or a COW pair); 0 for a vector."""
+        nb = self.max_blocks
+        if kind == "cow":
+            return 0, 0
+        return (key[1], 0, 0, nb) if kind == "prefill" else (1, nb, 0, 0)
+
+    def call(self, kind: str, key: tuple, host: tuple) -> list:
+        """One device call: ``kind`` ("cow", "prefill" or "decode") at
+        bucket ``key`` on the pool, its host arrays moved to the device.
+        The pool rebinds to the call's output; returns the other outputs.
+        ``relay`` gets the call first, its host arrays as one int32
+        matrix."""
+        if self.relay is not None:
+            self.relay(kind, key, np.concatenate(
+                [np.asarray(a, np.int32).reshape(key[0], -1) for a in host],
+                axis=1))
+        fn = self._get_built(kind, key, lambda: self._build(kind, key))
+        self.pool, *out = fn(self.pool, *(self._dev(a) for a in host))
+        if kind == "cow":
+            self.cow_copies += int(np.count_nonzero(host[0] != NULL_BLOCK))
+        elif kind == "prefill":
+            self.prefill_chunks += 1
+        else:
+            self.decode_dispatches += 1
+        return out
+
+    def replay(self, kind: str, key: tuple, wire: np.ndarray) -> None:
+        """Another rank's side of ``relay``: the call rank 0 made, from its
+        wire matrix, on this rank's pool."""
+        host, at = [], 0
+        for cols in self._columns(kind, key):
+            host.append(wire[:, at:at + cols] if cols else wire[:, at])
+            at += max(cols, 1)
+        if at != wire.shape[1]:
+            raise ValueError(f"{kind} call {key}: a wire matrix of "
+                             f"{wire.shape[1]} columns, expected {at}")
+        out = self.call(kind, key, tuple(host))
+        if kind == "decode":
+            self._note_tokens(out[-1].cpu().numpy())
+
+    def _note_tokens(self, toks: np.ndarray) -> None:
+        """Add a decode call's tokens [W, K] to ``token_digest``."""
+        self.token_digest = zlib.crc32(
+            np.ascontiguousarray(toks, np.int32).tobytes(), self.token_digest)
+
     def _get_built(self, kind: str, key: tuple, build):
         full = (kind,) + key
         stat = f"{kind}_hits" if full in self._built else f"{kind}_misses"
@@ -514,12 +591,10 @@ class PagedArmScheduler:
         dst = np.full(n_pad, NULL_BLOCK, np.int32)
         for i, (s, d) in enumerate(cow_pairs):
             src[i], dst[i] = s, d
-        fn = self._get_built("cow", (n_pad,), lambda: copy_blocks)
         with get_tracer().span("cow_copy", track=self.track,
                                pairs=len(cow_pairs)), \
                 annotation(f"cow:{n_pad}"):
-            self.pool = fn(self.pool, self._dev(src), self._dev(dst))
-        self.cow_copies += len(cow_pairs)
+            self.call("cow", (n_pad,), (src, dst))
         self.alloc.free([s for s, _ in cow_pairs])
         cow_pairs.clear()
 
@@ -550,17 +625,11 @@ class PagedArmScheduler:
             starts[row] = s0
             n_tok[row] = k
             bt[row] = self.block_tables[li]
-        fn = self._get_built("prefill", (w, c),
-                             lambda: make_prefill_chunk_fn(self.model,
-                                                           self.params))
         tr = get_tracer()
         with tr.span("prefill_chunk", track=self.track, wave=len(pf),
                      chunk=c), annotation(f"prefill:{w}x{c}"):
-            logits, self.pool = fn(self.pool, self._dev(toks),
-                                   self._dev(starts), self._dev(n_tok),
-                                   self._dev(bt))
-            first = torch.argmax(logits, dim=-1).int().cpu().numpy()
-        self.prefill_chunks += 1
+            first, = self.call("prefill", (w, c), (toks, starts, n_tok, bt))
+            first = first.cpu().numpy()
 
         retired: List[Lane] = []
         t_first = self.clock() if self.clock is not None else now
@@ -666,10 +735,6 @@ class PagedArmScheduler:
             return None
         w = next_pow2(n_act)
         k_eff = self._scan_bucket(self.remaining[act])
-        fn = self._get_built(
-            "decode", (w, k_eff),
-            lambda: make_decode_fn(self.model, scan_tokens=k_eff,
-                                   params=self.params))
         # pad rows are inactive: null tables, zero budget, length 0
         bt = np.full((w, self.max_blocks), NULL_BLOCK, np.int32)
         lengths = np.zeros(w, np.int32)
@@ -683,10 +748,8 @@ class PagedArmScheduler:
 
         with get_tracer().span("decode_scan", track=self.track, lanes=n_act,
                                scan=k_eff), annotation(f"decode:{w}x{k_eff}"):
-            self.pool, tok_o, lengths_o, remaining_o, toks = fn(
-                self.pool, self._dev(tok[:, None]), self._dev(bt),
-                self._dev(lengths), self._dev(remaining))
-        self.decode_dispatches += 1
+            tok_o, lengths_o, remaining_o, toks = self.call(
+                "decode", (w, k_eff), (tok[:, None], bt, lengths, remaining))
         self.lane_steps += w * k_eff
         self._active_frac_sum += n_act / w
         return {
@@ -712,6 +775,7 @@ class PagedArmScheduler:
         with get_tracer().span("decode_read", track=self.track):
             host = pending["out"].cpu().numpy()
         toks = host[:, :k_eff]
+        self._note_tokens(toks)
         tok_o = host[:, k_eff]
         lengths_o = host[:, k_eff + 1]
         remaining_o = host[:, k_eff + 2]

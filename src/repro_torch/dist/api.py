@@ -54,6 +54,31 @@ batch and its own cache slices (what ``init_cache`` returns, under
   attention layer runs flash-decoding (``models.layers``), each rank over
   its slab of every row.
 
+The paged surface (``paged_model``, ``init_pool``) serves
+``decode.scheduler.PagedArmScheduler`` on a mesh: a model-like view
+(:class:`PagedView`) whose params are this rank's slices of the arm's
+current params and whose pool is this rank's slice of the paged pool,
+laid out as ``cache_specs`` lays out the dense cache with the
+physical-block dim in place of the batch dim (``sharding.pool_specs``):
+
+- a LAYER stage holds its superblocks' pool; stage 0 embeds, each stage
+  runs its superblocks and sends the activation on with
+  ``comm.exchange``, and the last stage broadcasts the greedy tokens [B]
+  int32;
+- a SEMANTIC rank holds its branches' pool and runs them end to end;
+  each rank offers its branches' (largest logit, its first index) per
+  lane and one all-gather picks the token of the merged vocab;
+- 'data' splits neither the pool nor the lanes: the physical-block dim
+  is not split (a lane's table may point at any block, and prefix sharing
+  aliases blocks across lanes), so each 'data' rank holds the whole pool
+  of its model slice and runs the whole wave, which is exact, needs no
+  collective and gains nothing from 'data' (splitting lanes over replicas
+  is a fleet's job); fsdp (COMPRESSED) gathers its weights on use, as its
+  gang path does.
+
+Only tokens cross ranks in the paged decode loop (and, between stages,
+the activation).
+
 Parameter and gradient trees are nested dicts in the JAX param-tree
 layout.
 """
@@ -65,6 +90,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.decode import paged_model as PM
 from repro_torch.dist import comm
 from repro_torch.dist.comm import reduce_grads, replicated_mean
 from repro_torch.dist import pipeline as PL
@@ -452,6 +478,43 @@ class BaseRunner:
             window_override=window_override, **kw)
         return logits[:, -1], cache
 
+    # -------------------------------------------------------- paged surface
+    def paged_model(self, params_fn) -> "PagedView":
+        """The model-like view ``PagedArmScheduler`` serves on this rank:
+        ``params_fn()`` returns the arm's current params (this rank's
+        slices), read at every call."""
+        return PagedView(self, params_fn)
+
+    def _pool_split(self) -> bool:
+        """True when this rank holds a 'model' slice of the paged pool (its
+        stages' superblocks or its branches)."""
+        return False
+
+    def init_pool(self, num_blocks: int, block_size: int):
+        """The paged KV pool (after ``init``); on a mesh, this rank's slice
+        of it under :meth:`pool_specs`."""
+        if not self.distributed:
+            return self.model.init_pool(num_blocks, block_size)
+        whole = build_model(self.cfg, device="meta").init_pool(num_blocks,
+                                                               block_size)
+        sizes = dict(self.mesh.shape)
+        return SH.tree_map(lambda t, s: torch.zeros(
+            SH.shard_shape(tuple(t.shape), s, sizes), dtype=t.dtype,
+            device=self.device), whole, self.pool_specs(whole))
+
+    def pool_specs(self, pool):
+        return SH.pool_specs(pool, self.mesh, model_leading=self._pool_split())
+
+    def _paged_views(self, params):
+        """(embed, final_norm, superblocks) of ``params`` as the paged
+        forward reads them: leaves with a leading branch dim, the stack a
+        superblock at a time (on a mesh, gathered on use)."""
+        p = self.model._grouped(self._on_use(params))
+        return p["embed"], p["final_norm"], p["blocks"]
+
+    def _paged_join(self):
+        return PM.LOCAL
+
     # -------------------------------------------------------------- layouts
     def param_specs(self, params):
         raise NotImplementedError
@@ -507,6 +570,12 @@ class SemanticRunner(BaseRunner):
     def param_specs(self, params):
         return SH.semantic_param_specs(params, self.mesh,
                                        zero_data=self.zero_data)
+
+    def _pool_split(self) -> bool:
+        return self.distributed and self.mesh.axis_size("model") > 1
+
+    def _paged_join(self):
+        return _BranchJoin(self.mesh) if self._pool_split() else PM.LOCAL
 
     def _branch_gather(self):
         if self.mesh.axis_size("model") == 1:
@@ -710,6 +779,18 @@ class PipelineRunner(BaseRunner):
                                 image_embeds=batch.get("image_embeds"),
                                 rows=rows)
 
+    def _pool_split(self) -> bool:
+        return self._staged()
+
+    def _paged_views(self, params):
+        if not self._staged():
+            return super()._paged_views(params)
+        p = self.model._grouped(self._stage_view(params))
+        return p["embed"], p["final_norm"], p["blocks"]
+
+    def _paged_join(self):
+        return _StageJoin(self) if self._staged() else PM.LOCAL
+
     def _cached_pass(self, params, cache, tokens, cache_index: int, *,
                      lengths=None, batch=None, window_override=None,
                      rows: Optional[RowSplit] = None):
@@ -764,6 +845,101 @@ class PipelineRunner(BaseRunner):
             "wire_bytes_per_step": 2 * sched.ticks * self.n_stages * pb,
         })
         return stats
+
+
+# ------------------------------------------------------------ paged view
+class PagedView:
+    """What ``PagedArmScheduler`` reads of a model, over a runner: the
+    device, the configs, ``supports_single_step_prefill``,
+    ``grouped_views()`` (this rank's slices of the arm's params as
+    ``params_fn()`` gives them at the call), ``init_pool`` (this rank's
+    slice of the pool) and ``join`` (how this rank's slice of a paged
+    forward meets the others': ``decode.paged_model``)."""
+
+    def __init__(self, runner: BaseRunner, params_fn):
+        self.runner, self._params_fn = runner, params_fn
+        self.cfg, self.branch_cfg = runner.model.cfg, runner.model.branch_cfg
+        self._merge = runner.model._merge
+        self.device = runner.device
+        self.supports_single_step_prefill = runner.supports_batched_prefill
+        self.join = runner._paged_join()
+
+    def grouped_views(self):
+        return self.runner._paged_views(self._params_fn())
+
+    def init_pool(self, num_blocks: int, block_size: int):
+        return self.runner.init_pool(num_blocks, block_size)
+
+
+def _reduce_stats(stats, mesh):
+    """(max, sum, count) over the mesh's 'model' ranks: one all-reduce
+    max, one sum, on the mesh's wire device."""
+    mx, tot, n = stats
+    group, dev = mesh.group("model"), M.wire_device(mesh)
+    mx = comm.all_reduce_max(
+        torch.tensor([mx], dtype=torch.float64, device=dev), group)
+    tot = comm.all_reduce_sum(
+        torch.tensor([tot, n], dtype=torch.float64, device=dev), group)
+    return float(mx[0]), float(tot[0]), int(tot[1])
+
+
+class _StageJoin:
+    """A LAYER stage's side of a paged forward: stage 0 embeds and a later
+    stage receives the activation [B, S, d] from the one before; a stage
+    but the last sends its output on, and the last stage takes the greedy
+    tokens and broadcasts them ([B] int32)."""
+
+    def __init__(self, runner: PipelineRunner):
+        self.mesh = runner.mesh
+        self.st, self.n = runner.mesh.coords["model"], runner.n_stages
+        self.device, self.d = runner.device, runner.cfg.d_model
+        self.dtype = L.torch_dtype(runner.cfg)
+
+    def enter(self, embed, shape):
+        if self.st == 0:
+            return embed()
+        x, = comm.exchange([], [((*shape, self.d), self.dtype, self.st - 1)],
+                           self.mesh.group("model"), self.device)
+        return x[None]
+
+    def tokens(self, model, params, x, select):
+        group = self.mesh.group("model")
+        if self.st < self.n - 1:
+            comm.exchange([(x[0], self.st + 1)], [], group, self.device)
+            tok = torch.empty(x.shape[1], dtype=torch.int32,
+                              device=self.device)
+        else:
+            tok = PM.LOCAL.tokens(model, params, x, select)
+        return comm.broadcast_from(tok, self.n - 1, group)
+
+    def reduce_stats(self, stats):
+        return _reduce_stats(stats, self.mesh)
+
+
+class _BranchJoin(PM.LocalJoin):
+    """A SEMANTIC rank's side: it runs its own branches end to end.  The
+    greedy token of the merged vocab (branch-major shards, a rank's
+    branches contiguous in branch order) is the first index of its largest
+    logit, so each rank offers, per lane, its branches' largest logit and
+    that logit's first global index, one all-gather of [B, 2] f32 joins the
+    pairs in rank order, and the first rank holding the largest value
+    gives the token: ``torch.argmax`` over the merged vocab."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def tokens(self, model, params, x, select):
+        logits = PM._head(model, params, select(x))      # [B, own vocab]
+        idx = torch.argmax(logits, dim=-1)
+        val = logits.gather(-1, idx[:, None])[:, 0].float()
+        first = idx + self.mesh.coords["model"] * logits.shape[-1]
+        pairs = comm.all_gather_dim(torch.stack([val, first.float()], -1)[None],
+                                    0, self.mesh.group("model"))
+        best = torch.argmax(pairs[..., 0], dim=0)        # first rank of max
+        return pairs[..., 1].gather(0, best[None])[0].int()
+
+    def reduce_stats(self, stats):
+        return _reduce_stats(stats, self.mesh)
 
 
 def build_runner(cfg: ArchConfig, mode: str, mesh=(1, 1), *,

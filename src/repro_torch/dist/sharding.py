@@ -233,6 +233,24 @@ def cache_specs(cache, mesh, *, shard_cache_len: bool = False,
     return tree_map_with_path(spec, cache)
 
 
+def pool_specs(pool, mesh, *, model_leading: bool = False):
+    """Paged-pool layout: :func:`cache_specs`'s with the physical-block dim
+    in place of the batch dim, which no axis splits.  A lane's table may
+    point at any block and prefix sharing aliases blocks across lanes, so
+    each 'data' rank holds its model slice's whole pool.
+    ``model_leading`` places the leading stack / branch dim on 'model'."""
+    n_model = _axis_sizes(mesh).get("model", 1)
+
+    def spec(path, leaf):
+        shape = tuple(leaf.shape)
+        entries = [None] * len(shape)
+        if model_leading and shape and n_model > 1 and shape[0] % n_model == 0:
+            entries[0] = "model"
+        return P(*entries)
+
+    return tree_map_with_path(spec, pool)
+
+
 # ------------------------------------------------------------- batch specs
 def batch_specs(cfg, mesh, batch):
     """Data-parallel batch layout: the leading (batch) dim over 'data'

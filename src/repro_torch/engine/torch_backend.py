@@ -10,24 +10,39 @@ shapes the arms' runners (the semantic branch count; the pipeline's stage
 count is the reference's, and no serving step reads it), and nothing is
 placed on other devices.
 
-A process-group ``launch.mesh.Mesh`` of several ranks serves the gang path
-across them, single-controller as the reference's one JAX program is.
-Every rank constructs the same backend; each arm is a ``dist.api`` runner
-on the mesh (LAYER the pipeline runner in the stage graph's layout, a stage
-a 'model' rank; SEMANTIC its branches on 'model'; COMPRESSED fsdp; none
-splits its weights over 'data'), holding its slice of the weights every
-rank draws from the same seed.  Rank 0 alone
-runs the engine, the policy, the queues, the clock and the fault plane;
-before each gang batch it broadcasts a header (op, arm, rows, prompt
-length, new tokens) and the batch's tokens over the world, and the other
-ranks, in :meth:`follow`, run the same runner calls
-(``init_cache``, ``prefill_into_cache`` or a teacher-forced ``serve_step``
-loop, then ``serve_step`` a token).  The runners give every rank the
-global logits, so every rank takes the same greedy tokens with no
-collective of its own.  :meth:`close` on rank 0 stops the followers.  On a
-mesh only the gang path serves (``decode="legacy"``): the paged,
-disaggregated and fleet paths raise (``ROADMAP.md``, queue 4), as does a
-LAYER arm the stages cannot take.
+A process-group ``launch.mesh.Mesh`` of several ranks serves the paged and
+the gang path across them, single-controller as the reference's one JAX
+program is.  Every rank constructs the same backend; each arm is a
+``dist.api`` runner on the mesh (LAYER the pipeline runner in the stage
+graph's layout, a stage a 'model' rank; SEMANTIC its branches on 'model';
+COMPRESSED fsdp; none splits its weights over 'data'), holding its slice of
+the weights every rank draws from the same seed.  Rank 0 alone runs the
+engine, the policy, the queues, the clock and the fault plane, and on the
+paged path the joins, the allocator, the prefix index, copy-on-write and
+preemption.  Before each device call it broadcasts a header (op, arm, two
+shape numbers, a width) over the world, and the other ranks, in
+:meth:`follow`, make the same call:
+
+- a gang batch (``OP_GANG``: rows, prompt length, new tokens; then the
+  tokens): ``init_cache``, ``prefill_into_cache`` or a teacher-forced
+  ``serve_step`` loop, then ``serve_step`` a token, through the runners,
+  which give every rank the global logits;
+- a paged call (``OP_COW``, ``OP_PREFILL``, ``OP_DECODE``; then the call's
+  host arrays as the scheduler packs them, one int32 matrix): the arm's
+  ``PagedArmScheduler`` on every rank holds that rank's slice of the paged
+  pool (``dist.api``'s paged surface) and replays the call there, its
+  forward passing only tokens (and a stage's activation) between ranks;
+- a lazily built arm (``OP_ARM``: a policy's first request to an arm not
+  in ``arms``), so that ranks build arms, and run the collectives of a
+  build, in one order.
+
+Headers and host arrays travel as host tensors under gloo and on the
+card under NCCL (``launch.mesh.wire_device``).
+
+:meth:`close` on rank 0 stops the followers.  ``decode="auto"`` takes the
+gang path on recurrent and local-window configs, as in one process.  The
+disaggregated and fleet paths raise on a mesh (``ROADMAP.md``, queue 4),
+as does a LAYER arm the stages cannot take.
 
 Each step picks the arm that owes the earliest deadline and runs one step
 of one of two decode paths on it:
@@ -81,6 +96,7 @@ where there is none raises (a fleet device too).
 """
 from __future__ import annotations
 
+import functools
 import heapq
 import time
 import zlib
@@ -98,7 +114,7 @@ from repro_torch.faults import (ARM_BLACKOUT, FaultInjector,
                                 TransientDispatchError)
 from repro_torch.dist import api as A
 from repro_torch.dist import comm
-from repro_torch.launch.mesh import MeshShape
+from repro_torch.launch.mesh import MeshShape, wire_device
 from repro_torch.models.model import (Model, SemanticModel,
                                       supports_single_step_prefill)
 from repro_torch.obs import Histogram, get_tracer, merge_stat_dicts
@@ -113,10 +129,13 @@ ARM_MODES = {LAYER: "pipeline", SEMANTIC: "semantic", COMPRESSED: "fsdp"}
 MESH_ARM_KW = {LAYER: dict(schedule="1f1b", zero_data=False),
                SEMANTIC: dict(zero_data=False),
                COMPRESSED: dict(zero_data=False)}
-#: the gang header's ops (rank 0 -> the followers)
-OP_STOP, OP_GANG = 0, 1
-_MESH_QUEUE = "ROADMAP.md, queue 4: the paged, disaggregated and fleet " \
-    "paths on a mesh"
+#: the header's ops (rank 0 -> the followers)
+OP_STOP, OP_GANG, OP_ARM, OP_COW, OP_PREFILL, OP_DECODE = range(6)
+#: a paged device call's op by the scheduler's kind of call
+PAGED_OPS = {"cow": OP_COW, "prefill": OP_PREFILL, "decode": OP_DECODE}
+_PAGED_KINDS = {op: kind for kind, op in PAGED_OPS.items()}
+_MESH_QUEUE = "ROADMAP.md, queue 4: the disaggregated and fleet paths " \
+    "and enc-dec stages on a mesh"
 
 
 def resolve_device(device) -> torch.device:
@@ -167,14 +186,13 @@ class TorchBackend:
         #: the process-group mesh the arms' runners serve on, or None
         self.ranks = self.mesh if self.mesh.distributed else None
         if self.ranks is not None:
-            refused = [f"decode={decode!r}"] if decode != "legacy" else []
-            refused += [f"{k}=" for k, v in (("fleet", fleet), (
+            refused = [f"{k}=" for k, v in (("fleet", fleet), (
                 "fleet_devices", fleet_devices)) if v]
             if refused:
                 raise ValueError(
                     f"{', '.join(refused)} on a process-group mesh: a mesh "
-                    "serves the gang path only (decode='legacy'), through "
-                    f"the runners' serving surface ({_MESH_QUEUE})")
+                    "serves the colocated paged path and the gang path "
+                    f"({_MESH_QUEUE})")
         if fleet is not None and decode == "legacy":
             raise ValueError("fleet='disagg' needs the paged decode path")
         if kv_dtype not in ("f32", "int8"):
@@ -188,6 +206,7 @@ class TorchBackend:
         self.params: Dict[int, object] = {}
         self.headers_sent = 0
         self._digest = 0          # CRC-32 of the gang batches' tokens
+        self._built_all = False   # past __init__: later arms are announced
         # fleet device pool, taken (prefill, decode) per arm in _ensure_arm
         # order; an exhausted pool colocates on the backend's device
         self._fleet_pool = [resolve_device(d) for d in fleet_devices or ()]
@@ -242,6 +261,7 @@ class TorchBackend:
         self._legacy_lane_steps = 0
         for arm in arms:
             self._ensure_arm(arm)
+        self._built_all = True
 
     def _ensure_arm(self, arm: int) -> None:
         """Build the model, weights and scheduler of a split arm on first
@@ -262,24 +282,28 @@ class TorchBackend:
             raise ValueError(
                 f"fleet='disagg' but arm {arm} (mode {ARM_MODES[arm]}) has "
                 "recurrent mixers — block shipping needs the paged path")
+        shared = None
         if self.ranks is not None:
-            self._ensure_runner(arm)
-            return
-        shared = self._jit_cache.setdefault(arm, {}) \
-            if self._jit_cache is not None else None
-        model = shared.get("model") if shared is not None else None
-        if model is None:
-            n_b = max(2, self.mesh.axis_size("model"))
-            model = SemanticModel(self.cfg.semantic(n_b),
-                                  device=self.device) if arm == SEMANTIC \
-                else Model(self.cfg, device=self.device)
-            # every arm draws from the same seed, as JaxBackend's init key
-            gen = torch.Generator(device=self.device).manual_seed(
-                self.seed + 1)
-            model.reset_parameters(gen)
-            if shared is not None:
-                shared["model"] = model
-        self.models[arm] = model
+            if self.ranks.rank == 0 and self._built_all:
+                # the followers build it with this rank, in the same order
+                self._send_header(OP_ARM, arm, 0, 0, 0)
+            model = self._ensure_runner(arm)
+        else:
+            shared = self._jit_cache.setdefault(arm, {}) \
+                if self._jit_cache is not None else None
+            model = shared.get("model") if shared is not None else None
+            if model is None:
+                n_b = max(2, self.mesh.axis_size("model"))
+                model = SemanticModel(self.cfg.semantic(n_b),
+                                      device=self.device) if arm == SEMANTIC \
+                    else Model(self.cfg, device=self.device)
+                # every arm draws from the same seed, as JaxBackend's init
+                gen = torch.Generator(device=self.device).manual_seed(
+                    self.seed + 1)
+                model.reset_parameters(gen)
+                if shared is not None:
+                    shared["model"] = model
+            self.models[arm] = model
         self._queues[arm] = []
         if self.decode == "legacy" or not paged_ok:
             return                            # the gang path: no scheduler
@@ -318,12 +342,16 @@ class TorchBackend:
         else:
             sched = PagedArmScheduler(model, **kw)
             sched.track = (label, sched.track[1])
+            if self.ranks is not None and self.ranks.rank == 0:
+                sched.relay = functools.partial(self._relay, arm)
             self._paged[arm] = sched
 
-    def _ensure_runner(self, arm: int) -> None:
+    def _ensure_runner(self, arm: int):
         """An arm on the process-group mesh: its runner and this rank's
         slice of the weights (every rank draws the one-process backend's
-        seed; ``runner.init`` keeps the slice ``param_specs`` assigns)."""
+        seed; ``runner.init`` keeps the slice ``param_specs`` assigns).
+        Returns the runner's paged view, which reads ``params[arm]`` at
+        every call (a caller may load other weights into it)."""
         if ARM_MODES[arm] == "pipeline" and self.cfg.is_encdec:
             raise ValueError(
                 f"{self.cfg.name}: the LAYER arm's stages take decoder "
@@ -333,7 +361,7 @@ class TorchBackend:
         self.params[arm] = runner.init(seed=self.seed + 1)
         self.runners[arm] = runner
         self.models[arm] = runner.model
-        self._queues[arm] = []
+        return runner.paged_model(lambda: self.params[arm])
 
     def _model_on(self, arm: int, model, dev: torch.device):
         """The arm's model on ``dev``: itself on the backend's device, else
@@ -681,37 +709,76 @@ class TorchBackend:
         import torch.distributed as dist
         return dist.group.WORLD
 
+    @property
+    def _wire(self) -> torch.device:
+        """The device of the headers and host arrays rank 0 sends."""
+        return wire_device(self.ranks)
+
     def _send_header(self, *header: int) -> None:
+        """Five int64s (op, arm, three numbers) to the followers."""
         comm.broadcast_from(torch.tensor(header, dtype=torch.long,
-                                         device=self.device), 0, self._world)
+                                         device=self._wire), 0, self._world)
         self.headers_sent += 1
 
+    def _relay(self, arm: int, kind: str, key: tuple,
+               wire: np.ndarray) -> None:
+        """Rank 0's scheduler is about to make a paged device call: the
+        header (op, arm, the bucket, the wire matrix's width) and the
+        matrix go to the followers."""
+        self._send_header(PAGED_OPS[kind], arm, key[0],
+                          key[1] if len(key) > 1 else 0, wire.shape[1])
+        comm.broadcast_from(torch.from_numpy(wire).to(self._wire), 0,
+                            self._world)
+
+    @property
+    def stream_digest(self) -> int:
+        """CRC-32 of the gang batches' tokens, then of each paged arm's
+        ``token_digest`` in arm order: equal on every rank."""
+        d = self._digest
+        for arm in sorted(self._paged):
+            d = zlib.crc32(self._paged[arm].token_digest.to_bytes(4, "little"),
+                           d)
+        return d
+
     def follow(self) -> dict:
-        """A rank other than 0 of a process-group mesh: run every gang
-        batch rank 0 broadcasts, with the same runner calls, until rank 0's
-        :meth:`close`.  Returns this rank's counts (batches, prefill calls,
-        decode steps), which equal rank 0's ``extra_metrics()``, and the
-        CRC-32 of its token streams, which equals rank 0's
-        ``stream_digest``."""
+        """A rank other than 0 of a process-group mesh: make every call
+        rank 0 announces (gang batches through the runners, paged calls on
+        this rank's pools, arms built), until rank 0's :meth:`close`.
+        Returns this rank's counts (batches, prefill calls, decode steps;
+        paged prefill chunks, decode dispatches and COW copies), which
+        equal rank 0's ``extra_metrics()``, and the CRC-32 of its token
+        streams (gang batches and paged decode calls), which equals rank
+        0's ``stream_digest``."""
         if self.ranks is None or self.ranks.rank == 0:
             raise ValueError("follow() runs on the ranks other than 0 of a "
                              "process-group mesh")
         while True:
             header = comm.broadcast_from(
-                torch.zeros(5, dtype=torch.long, device=self.device), 0,
+                torch.zeros(5, dtype=torch.long, device=self._wire), 0,
                 self._world)
-            op, arm, b, plen, max_new = header.tolist()
+            op, arm, a, b, c = header.tolist()
             if op == OP_STOP:
                 break
             self._ensure_arm(arm)
-            toks = comm.broadcast_from(
-                torch.zeros((b, plen), dtype=torch.int32,
-                            device=self.device), 0, self._world)
-            self._run_gang(arm, toks, max_new)
-            self.batches += 1
+            if op in _PAGED_KINDS:
+                kind = _PAGED_KINDS[op]
+                wire = comm.broadcast_from(
+                    torch.zeros((a, c), dtype=torch.int32,
+                                device=self._wire), 0, self._world)
+                self._paged[arm].replay(kind, (a,) if op == OP_COW
+                                        else (a, b), wire.cpu().numpy())
+            elif op == OP_GANG:
+                toks = comm.broadcast_from(
+                    torch.zeros((a, b), dtype=torch.int32,
+                                device=self.device), 0, self._world)
+                self._run_gang(arm, toks, c)
+                self.batches += 1
         return {"batches": self.batches, "prefill_calls": self.prefill_calls,
                 "decode_steps": self.decode_steps,
-                "stream_digest": self._digest}
+                **{k: sum(getattr(s, k) for s in self._paged.values())
+                   for k in ("prefill_chunks", "decode_dispatches",
+                             "cow_copies")},
+                "stream_digest": self.stream_digest}
 
     def close(self) -> None:
         """Rank 0 of a process-group mesh: send the followers the stop
@@ -777,7 +844,7 @@ class TorchBackend:
         if self.ranks is not None:
             m.update(mesh=list(self.ranks.dims), rank=self.ranks.rank,
                      headers_sent=self.headers_sent,
-                     stream_digest=self._digest)
+                     stream_digest=self.stream_digest)
         if self._legacy_buckets:
             calls = sum(self._legacy_buckets.values())
             m["prefill_bucket_misses"] = len(self._legacy_buckets)

@@ -113,6 +113,89 @@ def paged_prefill_attention_emulated(q, k_pool, v_pool, block_tables,
         b, c, h, hd).to(q.dtype)
 
 
+#: query rows per CTA of the CUDA-core kernel (f32 q), and its K/V tile:
+#: 32 tokens, 16 at head dim 128 (where 32 would pass the kernel's 48 KB of
+#: static shared memory)
+SIMT_ROWS = 32
+
+
+def simt_tile(hd: int) -> int:
+    return 16 if hd > 64 else 32
+
+
+def paged_prefill_attention_simt_emulated(q, k_pool, v_pool, block_tables,
+                                          positions, *, k_scale=None,
+                                          v_scale=None, softcap=0.0,
+                                          drop_tile=None):
+    """The CUDA-core kernel's numerics (``prefill_simt``, f32 q) in plain
+    PyTorch: for each lane and tile of ``SIMT_ROWS`` query rows of a kv
+    head (row = c * rep + r), K/V tiles of :func:`simt_tile` tokens walked
+    through the table up to the tile's last position (clipped to NB
+    blocks), each dequantized into f32 (int8: times its slot's scale); the
+    queries pre-scaled by 1/sqrt(hd), scores softcapped and masked (key
+    position <= query position), the running max starting at -1e30; f32
+    max, sum and accumulator, P unrounded.  ``drop_tile`` leaves that tile
+    index out of every walk, as a faulty kernel would.  Shapes as
+    :func:`paged_prefill_attention`."""
+    if q.dim() == 5:
+        return torch.stack([paged_prefill_attention_simt_emulated(
+            q[i], k_pool[i], v_pool[i], block_tables, positions,
+            k_scale=None if k_scale is None else k_scale[i],
+            v_scale=None if v_scale is None else v_scale[i],
+            softcap=softcap, drop_tile=drop_tile) for i in range(q.shape[0])])
+    b, c, h, hd = q.shape
+    _, bs, kh, _ = k_pool.shape
+    rep, nb, tile = h // kh, block_tables.shape[1], simt_tile(hd)
+    rows = c * rep
+    n_rt = -(-rows // SIMT_ROWS)
+    pad = n_rt * SIMT_ROWS - rows
+    # every CTA (lane, row tile) at once: [B, n_rt, K, ROWS, hd]; pad rows
+    # have position -1 (no key), as the kernel's
+    qg = q.reshape(b, c, kh, rep, hd).transpose(1, 2).reshape(
+        b, kh, rows, hd).float() * (1.0 / math.sqrt(hd))
+    qg = torch.nn.functional.pad(qg, (0, 0, 0, pad)).reshape(
+        b, kh, n_rt, SIMT_ROWS, hd).transpose(1, 2)
+    qpos = torch.nn.functional.pad(
+        positions.long().repeat_interleave(rep, dim=1), (0, pad),
+        value=-1).reshape(b, n_rt, SIMT_ROWS)
+    # each CTA's walk: [0, min(its last position + 1, NB * bs))
+    kv_len = (qpos.amax(-1) + 1).clamp(max=nb * bs)           # [B, n_rt]
+    kflat = k_pool.reshape(-1, kh, hd).float()
+    vflat = v_pool.reshape(-1, kh, hd).float()
+    if k_scale is not None:
+        kflat = kflat * k_scale.reshape(-1, kh)[..., None]
+        vflat = vflat * v_scale.reshape(-1, kh)[..., None]
+    tables = block_tables.long()
+    m = torch.full((b, n_rt, kh, SIMT_ROWS), ref.NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qg)
+    # a CTA past its own walk adds p = 0 at alpha = 1: exactly nothing
+    for t0 in range(0, int(kv_len.max()), tile):
+        if t0 // tile == drop_tile:
+            continue
+        kpos = torch.arange(t0, t0 + tile, device=q.device)
+        slot = tables[:, (kpos // bs).clamp(max=nb - 1)] * bs + kpos % bs
+        valid = kpos[None, None, :] < kv_len[..., None]        # [B, n_rt, T]
+        kt, vt = kflat[slot], vflat[slot]                      # [B, T, K, hd]
+        s = torch.einsum("bnkrd,btkd->bnkrt", qg, kt)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        ok = (kpos[None, None, None, :] <= qpos[..., None]) \
+            & valid[:, :, None, :]                              # [B,n_rt,R,T]
+        ok = ok[:, :, None]
+        m_new = torch.maximum(m, s.masked_fill(~ok, ref.NEG_INF).amax(-1))
+        p = torch.exp(s - m_new[..., None]).masked_fill(~ok, 0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bnkrt,btkd->bnkrd", p,
+                                                    vt)
+        m = m_new
+    out = (acc / l.clamp(min=1e-20)[..., None]).transpose(1, 2).reshape(
+        b, kh, n_rt * SIMT_ROWS, hd)[:, :, :rows]
+    return out.reshape(b, kh, c, rep, hd).transpose(1, 2).reshape(
+        b, c, h, hd).to(q.dtype)
+
+
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, positions, *,
                             k_scale=None, v_scale=None, softcap: float = 0.0):
     """q: [B, C, H, hd], or [G, B, C, H, hd] with a branch dim, at absolute

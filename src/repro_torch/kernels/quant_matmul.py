@@ -19,7 +19,9 @@ T (<= 32, bound by the code bytes; the groups split over the CTAs of a
 cluster and merged in the same launch) and ``mma_tile`` above (128 x 128
 tiles, bound by tensor-core operations at a 1024-row prefill);
 :func:`quant_matmul_emulated` walks the same steps in plain PyTorch.  f32 x
-keeps CUDA-core f32 FMAs (``simt``: no TF32).  A leading branch dim G (the
+keeps CUDA-core f32 FMAs (``simt``: no TF32; decode-sized calls split the
+groups over CTAs and a second kernel adds the splits in order), which
+:func:`quant_matmul_simt_emulated` walks.  A leading branch dim G (the
 semantic split's branches) folds into the grid.
 """
 from __future__ import annotations
@@ -163,6 +165,53 @@ def quant_matmul_emulated(x: torch.Tensor, q: torch.Tensor,
                 part += torch.bmm(
                     x[:, :, gi * group + k0:gi * group + k0 + 16].float(),
                     w[:, k0:k0 + 16])
+            acc += part * scales[:, gi][:, None, :]
+        out = out + acc
+    out = out.to(x.dtype)
+    return out if lead else out[0]
+
+
+def quant_matmul_simt_emulated(x: torch.Tensor, q: torch.Tensor,
+                               scales: torch.Tensor, *, n_sm: int = 132,
+                               drop_group=None) -> torch.Tensor:
+    """The CUDA-core path's numerics (``simt``: f32 x) in plain PyTorch: the
+    groups split as ``_quant_launch.split_count`` splits them for ``n_sm``
+    SMs (decode-sized T only), each split walking its groups in order; a
+    group's product on the codes taken a shared-memory slab at a time (128
+    contraction rows at decode-sized T, 32 above; int4: a slab of stored
+    rows, its low nibbles and then its high nibbles) in f32, scaled once by
+    the group's per-column scale into the split's f32 accumulator; the
+    splits then added in order from 0 (the reduce kernel), one cast to x's
+    dtype.  ``drop_group`` (an index or a set) leaves those groups out, as
+    a faulty kernel would.  Shapes as :func:`quant_matmul`."""
+    from repro_torch.kernels._quant_launch import DECODE_T, split_count
+    lead = x.dim() == 3
+    if not lead:
+        x, q, scales = x[None], q[None], scales[None]
+    g, t, d = x.shape
+    n_g, e = scales.shape[1], scales.shape[2]
+    group, bits = d // n_g, infer_bits(d, q)
+    drop = set() if drop_group is None else (
+        {drop_group} if isinstance(drop_group, int) else set(drop_group))
+    splits = split_count(g, t, e, n_g, n_sm)
+    per = -(-n_g // splits)
+    slab = (128 if t <= DECODE_T else 32) // (2 if bits == 4 else 1)
+    span = group // 2 if bits == 4 else group
+    xf = x.float()
+    out = torch.zeros((g, t, e), dtype=torch.float32, device=x.device)
+    for s in range(splits):
+        acc = torch.zeros_like(out)
+        for gi in range(s * per, min(n_g, (s + 1) * per)):
+            if gi in drop:
+                continue
+            w = _group_codes(q, gi, group, bits)     # contraction order
+            part = torch.zeros_like(out)
+            for p0 in range(0, span, slab):
+                rows = list(range(p0, min(span, p0 + slab)))
+                if bits == 4:                         # then the high nibbles
+                    rows += [span + r for r in rows]
+                part += torch.bmm(xf[:, :, [gi * group + r for r in rows]],
+                                  w[:, rows])
             acc += part * scales[:, gi][:, None, :]
         out = out + acc
     out = out.to(x.dtype)

@@ -109,6 +109,15 @@ class Mesh(MeshShape):
                 f"{self.backend} on {self.device})")
 
 
+def wire_device(mesh) -> torch.device:
+    """Where a collective's tensors made on the host (serving headers, a
+    device call's host arrays, small statistics) go: the host under gloo
+    and the fake backend, which take host tensors as they are (nothing
+    staged), and the rank's card under NCCL, which takes CUDA tensors
+    only."""
+    return mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+
+
 _LAST: Optional[Mesh] = None         # what init_mesh built last
 _ACTIVE: Optional[MeshShape] = None   # what use_mesh set
 

@@ -19,11 +19,15 @@ mesh does (the semantic arm serves max(2, M) branches); the backend serves
 on its one device.  Under ``torch.distributed.run`` with D x M ranks it
 lays a ``(data, model)`` mesh over them on ``--backend`` (gloo, or nccl
 with a card per rank; each rank on card ``LOCAL_RANK`` modulo the card
-count), as ``launch/train.py`` does, and the backend serves the gang path
-across the ranks: rank 0 runs the engine and alone prints the summary, the
-other ranks follow its batches.  Across ranks the backend serves the gang
-path (``decode="legacy"``, the one path a mesh serves); in one process the
-paged path where it applies.
+count), as ``launch/train.py`` does, and the backend serves across the
+ranks: rank 0 runs the engine and alone prints the summary, the other ranks
+follow its calls.  Either way the backend serves ``decode="auto"``, as the
+reference's launcher does: the paged path where it applies (pure global
+attention: each rank holds its stages' or branches' slice of the paged
+pool), the gang path for recurrent, local-window, enc-dec and VLM models.
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --mesh 1,2 --device cpu --backend gloo
 """
 from __future__ import annotations
 
@@ -75,8 +79,7 @@ def main(argv=None):
     across = math.prod(dims) > 1 and dist.is_initialized()
     backend = TorchBackend(
         cfg, mesh=mesh, cache_len=args.cache_len, max_batch=args.max_batch,
-        decode="legacy" if across else "auto",
-        device=device)
+        decode="auto", device=device)
     if across and dist.get_rank() > 0:
         return backend.follow()
     try:

@@ -156,8 +156,9 @@ def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
 def test_unported_knobs_raise(tiny_cfg, knob, monkeypatch):
     """Every knob is ported; what still raises is a request the backend
     cannot honour: a fleet device that is not there (nothing falls back to
-    the CPU), and the paged path on a process-group mesh (a mesh serves the
-    gang path, through the runners' serving surface)."""
+    the CPU), and a disagg fleet on a process-group mesh (a mesh serves
+    the colocated paged path, as the default ``decode="auto"`` shows, and
+    the gang path)."""
     from repro_torch.launch.mesh import Mesh, MeshShape
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -166,8 +167,11 @@ def test_unported_knobs_raise(tiny_cfg, knob, monkeypatch):
     MeshShape.__init__(ranks, (1, 2))
     ranks.rank, ranks.coords = 0, {"data": 0, "model": 0}
     ranks.backend, ranks.device = "gloo", torch.device("cpu")
-    with pytest.raises(ValueError, match="serving surface"):
-        TorchBackend(port_cfg(tiny_cfg), device="cpu", mesh=ranks)
+    assert set(TorchBackend(port_cfg(tiny_cfg), device="cpu",
+                            mesh=ranks)._paged) == {LAYER, SEMANTIC}
+    with pytest.raises(ValueError, match="colocated paged path"):
+        TorchBackend(port_cfg(tiny_cfg), device="cpu", mesh=ranks,
+                     fleet="disagg")
 
 
 def test_moe_config_raises():

@@ -21,6 +21,14 @@ rules that pick each launch's path.
   scale on P); held as |emulated - plain| <= 2e-2 times each output row's
   max |plain|, and the same check must reject the plain output with the
   first 64-token tile of every row longer than 256 keys left out.
+- The f32-q paged prefill on the CUDA cores
+  (``paged_prefill_attention.paged_prefill_attention_simt_emulated``,
+  path ``prefill_simt``: every f32 chunk of a mesh's paged path): 32-row
+  query tiles, 32-token K/V tiles (16 at head dim 128) through the table,
+  queries pre-scaled, f32 max, sum and accumulator, P unrounded; held as
+  |emulated - plain| <= 1e-4 (the chip check's f32 tolerance) times each
+  output row's max |plain|, and the same check must reject the emulation
+  with one K/V tile left out, in every row that tile holds keys of.
 - ``quant_matmul``'s tensor-core paths
   (``quant_matmul.quant_matmul_emulated``): the kernel's split of the groups
   (``_quant_launch.mma_plan``), each group's k16 steps summed in f32 on the
@@ -28,6 +36,14 @@ rules that pick each launch's path.
   group, the splits added in order; held as |emulated - plain| <= 2e-2 (1 +
   |plain|), and the same check must reject the output with a group or a
   whole split left out, in every output row.
+- ``quant_matmul``'s CUDA-core path (``quant_matmul.
+  quant_matmul_simt_emulated``, ``simt``: f32 x, every quantized
+  projection of a mesh's f32 paged path): the groups split over CTAs
+  (``_quant_launch.split_count``) at decode-sized T, each group's product a
+  128-row slab (32 above; int4 a slab's low nibbles, then its high ones) in
+  f32, scaled once, the splits added in order by the reduce kernel; held as
+  |emulated - plain| <= 2e-4 (1 + |plain|) (the chip check's ``QTOL``),
+  rejecting a group or a whole split left out in every output row.
 - ``paged_decode_attention``'s ``decode_split`` kernel
   (``paged_decode_attention.paged_decode_attention_emulated``): pieces of
   the table (``_paged_launch.decode_plan``), token groups each with f32
@@ -56,9 +72,11 @@ from repro_torch.kernels.moe_gmm import moe_gmm_plain  # noqa: E402
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_emulated, paged_decode_attention_plain)
 from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
-    paged_prefill_attention_emulated, paged_prefill_attention_plain)
+    paged_prefill_attention_emulated, paged_prefill_attention_plain,
+    paged_prefill_attention_simt_emulated, simt_tile)
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
-    quant_matmul_emulated, quant_matmul_plain, quantize_blockwise)
+    quant_matmul_emulated, quant_matmul_plain, quant_matmul_simt_emulated,
+    quantize_blockwise)
 
 #: the chip check's bf16 tolerance (``chip_smoke.QTOL`` / ``TOL``)
 TOL = 2e-2
@@ -207,10 +225,12 @@ def test_paged_path_rule(dt, chunk, path):
 
 
 # ------------------------------------------------------- paged prefill
-def _prefill_case(kind, *, hd, c, g, b=4, h=8, kh=2, bs=16, nb=24):
-    """GQA 4 with bf16 q: lane 0 a null table at positions from 0, lanes
-    1-3 alias lane 1's first four blocks, lane 1's rows pass 256 keys, lane
-    3's chunk runs past the table."""
+def _prefill_case(kind, *, hd, c, g, b=4, h=8, kh=2, bs=16, nb=24,
+                  qdt=torch.bfloat16):
+    """GQA 4 with ``qdt`` q (bf16 pools for kind "bf16", f32 for "f32"):
+    lane 0 a null table at positions from 0, lanes 1-3 alias lane 1's first
+    four blocks, lane 1's rows pass 256 keys, lane 3's chunk runs past the
+    table."""
     rng = np.random.default_rng(hd + c)
     p_blocks = 1 + b * nb
     kf = torch.from_numpy(rng.standard_normal((g, p_blocks, bs, kh, hd),
@@ -223,7 +243,7 @@ def _prefill_case(kind, *, hd, c, g, b=4, h=8, kh=2, bs=16, nb=24):
     starts = np.asarray([0, 300, 100, nb * bs - c // 2])
     case = dict(
         q=torch.from_numpy(rng.standard_normal((g, b, c, h, hd),
-                                               np.float32)).bfloat16(),
+                                               np.float32)).to(qdt),
         tables=torch.from_numpy(tables.astype(np.int32)),
         positions=torch.from_numpy(
             (starts[:, None] + np.arange(c)).astype(np.int32)))
@@ -231,12 +251,13 @@ def _prefill_case(kind, *, hd, c, g, b=4, h=8, kh=2, bs=16, nb=24):
         (k, ks), (v, vs) = quantize_kv(kf), quantize_kv(vf)
         case.update(k=k, v=v, kw=dict(k_scale=ks, v_scale=vs))
     else:
-        case.update(k=kf.bfloat16(), v=vf.bfloat16(), kw={})
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        case.update(k=kf.to(dt), v=vf.to(dt), kw={})
     return case
 
 
-def _row_limit(want):
-    return TOL * np.abs(want).max(-1, keepdims=True)
+def _row_limit(want, tol=TOL):
+    return tol * np.abs(want).max(-1, keepdims=True)
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
@@ -268,6 +289,44 @@ def test_prefill_emulation_matches_plain_and_jax(kind, hd, c, g, softcap):
         cs["positions"] - 64, **kw))
     over = (np.abs(bad - want) > _row_limit(want)).any((-2, -1))  # [G,B,C]
     assert long.any() and over[:, long].all()
+
+
+#: the chip check's f32 attention tolerance (``chip_smoke.TOL["f32"]``)
+F32_TOL = 1e-4
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("c,g,softcap", [(1, 1, 0.0), (33, 2, 30.0)])
+def test_prefill_simt_emulation_matches_plain_and_jax(kind, hd, c, g,
+                                                      softcap):
+    """The f32-q prefill's tiles against the plain version and the JAX
+    oracle; the check rejects the output with the second K/V tile left
+    out, in every query row with a key in it (and in no other row), on the
+    lanes with a table (lane 0's null table repeats one block, so its
+    tiles are copies of each other)."""
+    cs = _prefill_case(kind, hd=hd, c=c, g=g, qdt=torch.float32)
+    args = (cs["q"], cs["k"], cs["v"], cs["tables"], cs["positions"])
+    kw = dict(cs["kw"], softcap=softcap)
+    assert _paged_launch.path_for(cs["q"].dtype, True) == "prefill_simt"
+    got = _np(paged_prefill_attention_simt_emulated(*args, **kw))
+    want = _np(paged_prefill_attention_plain(*args, **kw))
+    assert got.shape == tuple(cs["q"].shape)
+    oracle = np.stack([np.asarray(jref.paged_prefill_attention_ref(
+        _jnp(cs["q"][i]), _jnp(cs["k"][i]), _jnp(cs["v"][i]),
+        _jnp(cs["tables"]), _jnp(cs["positions"]),
+        **{n: _jnp(s[i]) for n, s in cs["kw"].items()}, softcap=softcap),
+        np.float32) for i in range(g)])
+    for ref_out in (want, oracle):
+        diff = np.abs(got - ref_out)
+        assert (diff <= _row_limit(ref_out, F32_TOL)).all(), diff.max()
+    tile = simt_tile(hd)
+    bad = _np(paged_prefill_attention_simt_emulated(*args, drop_tile=1,
+                                                    **kw))
+    over = (np.abs(bad - want) > _row_limit(want, F32_TOL)).any((-2, -1))
+    hit = _np(cs["positions"]) >= tile                       # [B, C]
+    over, hit = over[:, 1:], hit[1:]
+    assert hit.any() and over[:, hit].all() and not over[:, ~hit].any()
 
 
 # ---------------------------------------------------------- quant GEMM
@@ -310,6 +369,40 @@ def test_quant_emulation_matches_plain_and_jax(bits, group, g, t):
     for drop in ({n_g - 1}, set(last)):
         bad = _np(quant_matmul_emulated(x, q, s, drop_group=drop))
         assert (np.abs(bad - want) > _quant_limit(want)).any(-1).all()
+
+
+#: the chip check's f32 quant tolerance (``chip_smoke.QTOL``)
+QUANT_F32_TOL = 2e-4
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("group", [32, 128])
+@pytest.mark.parametrize("t", [1, 8, 33, 200])
+def test_quant_simt_emulation_matches_plain_and_jax(bits, group, t):
+    """f32 x on the CUDA-core path, two branches: T 1 and 8 split the groups
+    over CTAs (and reduce in order), 33 and 200 do not; E = 208 is not a
+    multiple of the 32- or 64-column tiles."""
+    x, q, s = _quant_case(g=2, t=t, bits=bits, group=group)
+    x = x.float()
+    assert _quant_launch.path_for(x.dtype, t, 256, 208, group, bits) == \
+        "simt"
+    got = quant_matmul_simt_emulated(x, q, s)
+    assert got.shape == (2, t, 208) and got.dtype == torch.float32
+    want = _np(quant_matmul_plain(x, q, s))
+    oracle = np.stack([np.asarray(jref.quant_matmul_ref(
+        _jnp(x[i]), jnp.asarray(q[i].numpy()), jnp.asarray(s[i].numpy()),
+        bits=bits), np.float32) for i in range(2)])
+    limit = lambda w: QUANT_F32_TOL * (1 + np.abs(w))
+    for ref_out in (want, oracle):
+        diff = np.abs(_np(got) - ref_out)
+        assert (diff <= limit(ref_out)).all(), diff.max()
+    n_g = 256 // group
+    splits = _quant_launch.split_count(2, t, 208, n_g, 132)
+    assert (splits > 1) == (t <= _quant_launch.DECODE_T)
+    per = -(-n_g // splits)
+    for drop in ({n_g - 1}, set(range((splits - 1) * per, n_g))):
+        bad = _np(quant_matmul_simt_emulated(x, q, s, drop_group=drop))
+        assert (np.abs(bad - want) > limit(want)).any(-1).all()
 
 
 @pytest.mark.parametrize("g,t,e,n_g", [

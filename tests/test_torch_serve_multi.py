@@ -41,7 +41,18 @@ and the same numpy-seeded tokens:
   jamba (a teacher-forced prompt loop) held to ``JaxBackend`` on the
   weights the port draws, and to the port's one-process backend.
   The follower's batches, prefill calls, decode steps and the CRC-32 of
-  its token streams equal rank 0's.
+  its token streams equal rank 0's;
+- the paged path across ranks (``TorchBackend(decode="paged")`` on the
+  process-group mesh, each rank holding its stages' or branches' slice of
+  the paged pool) on (2, 1) and (1, 2), each arm and COMPRESSED under
+  ``FixedPolicy``
+  with requests from shared-prefix families in three waves and a pool
+  small enough that an urgent wave preempts a lane: held token for token
+  and counter for counter (prefix hits, COW copies, preemptions, chunks,
+  dispatches) to ``JaxBackend(decode="paged")`` on the same weights; the
+  same on (1, 2) with int8 KV and int8 weights, held to the port's
+  one-process backend, its codes to JAX's ``quantize_blockwise``; each
+  rank's pool bytes, and the collectives of one paged decode step a mesh.
 
 Logits are held to JAX's within 1e-5 of their largest |value| (the
 reference holds its sharded decode to 1e-3 absolute), tiny xLSTM's within
@@ -54,7 +65,8 @@ hold, reassembled by ``bridge.gather_tree``, within 1e-6 of theirs under
 flash-decoding and 1e-5 elsewhere.  The
 world runs under a 120 s limit, its process groups with a 60 s timeout.
 This file doubles as the worker: ``python tests/test_torch_serve_multi.py
-RANK DIR`` (it imports torch and the port only).
+RANK DIR`` (it imports torch and the port only), and as the paged cases'
+reference process beside it (``... paged DIR``, with JAX).
 """
 import dataclasses
 import math
@@ -110,6 +122,30 @@ ENGINE = {"engine_data": ((2, 1), "tiny", "fixed"),
           "engine_ucb": ((2, 1), "tiny", "ucb"),
           "engine_mamba": ((2, 1), "jamba", "recurrent")}
 ENGINE_KW = dict(cache_len=16, max_batch=4, decode="legacy")
+#: the paged engine cases: mesh dims and the weights ("fixed": JaxBackend's,
+#: "int8": the ones every rank draws, with int8 KV and int8 weights)
+PAGED = {"engine_paged_data": ((2, 1), "fixed"),
+         "engine_paged_model": ((1, 2), "fixed"),
+         "engine_paged_int8": ((1, 2), "int8")}
+#: the arms the int8 case builds at construction: its COMPRESSED arm is
+#: built at its first request (rank 0 announces it with ``OP_ARM``, and
+#: both ranks quantize its weights and reduce the telemetry then)
+PAGED_INT8_ARMS = (0, 1)
+#: 11 allocatable blocks of 4 slots: the urgent wave preempts a lane
+PAGED_KW = dict(cache_len=32, max_batch=4, decode="paged", block_size=4,
+                prefill_chunk=4, scan_tokens=4, num_blocks=12)
+PAGED_INT8 = dict(kv_dtype="int8", weight_quant="int8")
+#: the paged cases' arms (LAYER, SEMANTIC, COMPRESSED), and the legacy
+#: JaxBackend's arm whose weights each serves (one init key: COMPRESSED's
+#: fsdp runner draws LAYER's weights)
+PAGED_ARMS = (0, 1, 2)
+PAGED_WEIGHTS = {0: 0, 1: 1, 2: 0}
+#: the paged calls' counts a follower keeps, equal to rank 0's
+PAGED_FOLLOWED = ("prefill_chunks", "decode_dispatches", "cow_copies",
+                  "prefill_calls", "stream_digest")
+#: the scheduler counters held to JaxBackend's
+PAGED_COUNTERS = ("prefix_hit_rate", "cow_copies", "preemptions",
+                  "prefill_calls", "decode_dispatches", "decoded_tokens")
 #: each request's new tokens: five requests make a batch of four rows
 #: (split over 'data') and one of one row (run whole on every rank)
 ENGINE_MAX_NEW = (3, 5, 4, 3, 4)
@@ -209,6 +245,49 @@ def serve_fixed(backend, placement_engine, fixed, request_cls, vocab, arms):
         eng.submit(reqs)
         done = eng.drain()
         out[arm] = ({r.rid: np.asarray(r.output).tolist() for r in reqs},
+                    sorted((o.request.rid, o.decision) for o in done))
+    return out
+
+
+def paged_waves(cls, vocab, arm, seed=17):
+    """An arm's three waves of requests (either package's ``Request``, all
+    at ``arrival_s`` 0): donors of two 10-token heads; probes that share a
+    head (whole blocks and a partial one: a COW copy) with long budgets;
+    two urgent requests whose earlier deadline preempts a probe."""
+    rng = np.random.default_rng(seed + arm)
+    r = lambda n: rng.integers(0, vocab, n).astype(np.int32)
+    ha, hb = r(10), r(10)
+    spec = [[(np.r_[ha, r(2)], 50.0, 5), (np.r_[hb, r(1)], 50.0, 5)],
+            [(np.r_[ha, r(3)], 40.0, 12), (np.r_[hb, r(4)], 40.0, 12),
+             (np.r_[ha, r(2)], 40.0, 12)],
+            [(np.r_[hb, r(3)], 1.0, 4), (r(12), 1.0, 4)]]
+    waves, rid = [], 0
+    for wave in spec:
+        waves.append([])
+        for toks, sla, max_new in wave:
+            waves[-1].append(cls(rid=rid, app_id=rid % 3, tokens=toks,
+                                 sla_s=sla, max_new=max_new, arrival_s=0.0))
+            rid += 1
+    return waves
+
+
+def serve_paged(backend, placement_engine, fixed, request_cls, vocab, arms):
+    """Each arm's waves under ``FixedPolicy`` (either package's classes):
+    the donors drained, two steps into the probes, the urgent wave, drained.
+    {arm: ({rid: tokens}, [(rid, decision)])}."""
+    out = {}
+    for arm in arms:
+        waves = paged_waves(request_cls, vocab, arm)
+        eng = placement_engine(fixed(arm, placement=None), backend)
+        done = []
+        eng.submit(waves[0])
+        done += eng.drain()
+        eng.submit(waves[1])
+        done += eng.step() + eng.step()
+        eng.submit(waves[2])
+        done += eng.drain()
+        out[arm] = ({r.rid: np.asarray(r.output).tolist()
+                     for w in waves for r in w},
                     sorted((o.request.rid, o.decision) for o in done))
     return out
 
@@ -374,7 +453,72 @@ def _engine_worker(rank, io, meshes, weights):
                 tb.close()
             res["headers_after_close"] = tb.headers_sent
         out[name] = res
+    out.update(_paged_worker(rank, meshes, weights))
     (io / f"e_{rank}.json").write_text(json.dumps(out))
+
+
+def _paged_worker(rank, meshes, weights):
+    """The paged engine cases on this rank (rank 0 drives, rank 1 follows),
+    then one paged decode step of each arm made by both ranks with the
+    relay off, its collectives counted."""
+    from repro_torch import bridge
+    from repro_torch.configs.base import get_config
+    from repro_torch.decode.paged_cache import NULL_BLOCK
+    from repro_torch.dist import comm
+    from repro_torch.engine import (FixedPolicy, PlacementEngine, Request,
+                                    TorchBackend)
+    from repro_torch.models import transformer as T
+    cfg = make_cfg(get_config, "tiny")
+    out = {}
+    for name, (dims, what) in PAGED.items():
+        kw = dict(PAGED_KW, **(PAGED_INT8 if what == "int8" else {}))
+        tb = TorchBackend(cfg, mesh=meshes[dims], device="cpu",
+                          arms=PAGED_INT8_ARMS if what == "int8"
+                          else PAGED_ARMS, **kw)
+        if what == "fixed":
+            for arm in PAGED_ARMS:
+                tb.params[arm] = tb.runners[arm].shard(bridge.tree_from_numpy(
+                    weights[f"eng{PAGED_WEIGHTS[arm]}"]))
+        res = {}
+        if rank > 0:
+            res["follow"] = tb.follow()
+        else:
+            try:
+                res["served"] = {str(a): v for a, v in serve_paged(
+                    tb, PlacementEngine, FixedPolicy, Request,
+                    cfg.vocab_size, PAGED_ARMS).items()}
+                res["metrics"] = {k: v for k, v in tb.extra_metrics().items()
+                                  if not isinstance(v, dict)}
+            finally:
+                tb.close()
+        res["pool_bytes"] = {str(a): sum(
+            t.numel() * t.element_size()
+            for e in tb._paged[a].pool.values() for t in e.values())
+            for a in PAGED_ARMS}
+        if what == "int8":
+            # this rank's float wq slices and their int8 codes and scales
+            res["codes"] = {}
+            for a in PAGED_ARMS:
+                mix = T.fetched(tb._paged[a].params[2][0])["pos0"]["mix"]
+                res["codes"][str(a)] = [mix["wq"][k].numpy().tolist()
+                                        for k in ("q", "scale")]
+                w = tb._paged[a].model.grouped_views()[2][0]
+                res["codes"][str(a)].append(
+                    T.fetched(w)["pos0"]["mix"]["wq"].detach().numpy().tolist())
+        # one decode call (4 lanes, one step) on every rank, relay off
+        res["step_comm"] = {}
+        for a in PAGED_ARMS:
+            sched = tb._paged[a]
+            sched.relay = None
+            w, nb = 4, sched.max_blocks
+            host = (np.zeros((w, 1), np.int32),
+                    np.full((w, nb), NULL_BLOCK, np.int32),
+                    np.zeros(w, np.int32), np.ones(w, np.int32))
+            comm.reset_stats()
+            sched.call("decode", (w, 1), host)
+            res["step_comm"][str(a)] = dict(comm.COMM_STATS)
+        out[name] = res
+    return out
 
 
 # ==================================================================== tests
@@ -414,11 +558,11 @@ def world(tmp_path_factory):
 
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     procs, logs, t0 = [], [], time.time()
-    for r in range(2):
+    for r in ("0", "1", "paged"):         # the world's two ranks; refs
         logs.append(io / f"log_{r}.txt")
         with open(logs[-1], "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, __file__, str(r), str(io)], env=env,
+                [sys.executable, __file__, r, str(io)], env=env,
                 stdout=log, stderr=subprocess.STDOUT))
 
     refs = {"engine": _engine_refs(jb, cfgs, one)}
@@ -451,6 +595,7 @@ def world(tmp_path_factory):
     bad = [log.read_text()[-3000:] for p, log in zip(procs, logs)
            if p.returncode]
     assert not bad, bad[0]
+    refs["engine"].update(_load_paged_refs(io))
     return io, cfgs, refs
 
 
@@ -529,6 +674,64 @@ def _engine_refs(jb, cfgs, one):
     refs["recurrent_port"] = serve_fixed(tb, PlacementEngine, FixedPolicy,
                                          Request, jamba.vocab_size, (LAYER,))
     return refs
+
+
+def _paged_refs(io: pathlib.Path) -> None:
+    """The paged cases' references, in a process of their own beside the
+    world (``python tests/test_torch_serve_multi.py paged DIR``):
+    ``JaxBackend(decode="paged")`` on the tiny config, whose weights are
+    the legacy backend's (one init key: checked against ``w_eng<arm>``),
+    and the port's one-process int8 run.  Results to
+    ``io/paged_refs.json``."""
+    import json
+
+    import jax
+
+    from repro.configs.base import get_config
+    from repro.engine import FixedPolicy as JFixed
+    from repro.engine import PlacementEngine as JPlacement
+    from repro.engine import Request as JRequest
+    from repro.engine.jax_backend import JaxBackend
+    from repro_torch.engine import (FixedPolicy, PlacementEngine, Request,
+                                    TorchBackend)
+    cfg = make_cfg(get_config, "tiny")
+    arms = PAGED_ARMS
+    jpb = JaxBackend(cfg, jax.make_mesh((1, 1), ("data", "model")),
+                     arms=arms, **PAGED_KW)
+    same = all(all(np.array_equal(np.asarray(v), w[k]) for k, v in flat(
+        jax.tree.map(np.asarray, jpb.params[a])).items())
+        for a in arms
+        for w in [dict(np.load(io / f"w_eng{PAGED_WEIGHTS[a]}.npz"))])
+    out = {"same_weights": same,
+           "paged": (serve_paged(jpb, JPlacement, JFixed, JRequest,
+                                 cfg.vocab_size, arms),
+                     _counters(jpb.extra_metrics()))}
+    one8 = TorchBackend(port(cfg), arms=arms, device="cpu", **PAGED_KW,
+                        **PAGED_INT8)
+    out["paged_int8"] = (serve_paged(one8, PlacementEngine, FixedPolicy,
+                                     Request, cfg.vocab_size, arms),
+                         one8.extra_metrics())
+    out["pool_bytes"] = {str(a): sum(
+        t.numel() * t.element_size() for e in sc.pool.values()
+        for t in e.values()) for a, sc in one8._paged.items()}
+    (io / "paged_refs.json").write_text(json.dumps(out, default=int))
+
+
+def _load_paged_refs(io: pathlib.Path) -> dict:
+    """``_paged_refs``' results with their int keys and tuples back."""
+    import json
+    out = json.loads((io / "paged_refs.json").read_text())
+    assert out.pop("same_weights")
+    for key in ("paged", "paged_int8"):
+        served, metrics = out[key]
+        out[key] = ({int(a): ({int(r): t for r, t in toks.items()},
+                              [tuple(d) for d in dec])
+                     for a, (toks, dec) in served.items()}, metrics)
+    return out
+
+
+def _counters(metrics):
+    return {k: metrics[k] for k in PAGED_COUNTERS}
 
 
 def _port_weights(cfg):
@@ -883,8 +1086,9 @@ def test_torch_backend_mesh_matches_jax_backend(tiny_cfg):
 
 
 def test_serve_cli_mesh_shapes_the_runners():
-    """``serve --mesh 1,2`` serves every request; the semantic arm has
-    max(2, M) branches."""
+    """``serve --mesh 1,2`` serves every request with ``decode="auto"`` (as
+    under ``torch.distributed.run`` too); the semantic arm has max(2, M)
+    branches."""
     from repro_torch.engine import SEMANTIC, TorchBackend
     from repro_torch.launch import serve
     seen = []
@@ -900,6 +1104,7 @@ def test_serve_cli_mesh_shapes_the_runners():
     finally:
         TorchBackend.__init__ = orig
     assert out["completed"] == 6
+    assert seen[0].decode == "auto"
     assert seen[0].mesh.shape == {"data": 1, "model": 2}
     assert seen[0].models[SEMANTIC].cfg.n_branches == 2
 
@@ -1013,28 +1218,214 @@ def test_engine_recurrent_prompt_loop_matches_one_process(world):
     assert lead["weights_err"] == follower["weights_err"] == 0.0
 
 
-@pytest.mark.parametrize("knob", [dict(decode="auto"), dict(decode="paged"),
-                                  dict(fleet="disagg"),
+# ------------------------------------------------ the paged path across ranks
+@pytest.mark.parametrize("name", ["engine_paged_data", "engine_paged_model"])
+def test_paged_engine_on_mesh_matches_jax_backend(world, name):
+    """Rank 0's paged backend on the process-group mesh: JaxBackend's
+    (decode="paged") tokens, decisions and scheduler counters on the same
+    weights, with prefix hits, COW copies and a preemption on the way."""
+    want, counters = world[2]["engine"]["paged"]
+    lead = _engine(world)[0][name]
+    for arm, (tokens, decisions) in want.items():
+        g_tokens, g_decisions = lead["served"][str(arm)]
+        assert {int(k): v for k, v in g_tokens.items()} == tokens, arm
+        assert [tuple(d) for d in g_decisions] == decisions, arm
+    assert {k: lead["metrics"][k] for k in PAGED_COUNTERS} == counters
+    assert counters["cow_copies"] > 0 and counters["preemptions"] > 0 \
+        and counters["prefix_hit_rate"] > 0
+
+
+def test_paged_engine_int8_on_mesh_matches_one_process(world):
+    """int8 KV and int8 weights on (1, 2): the one-process backend's tokens,
+    counters and weight-quant telemetry (the error's max exact, its mean
+    within the last printed digit: sums in another order); each rank's
+    codes and scales are JAX's ``quantize_blockwise`` of its own slice."""
+    import jax.numpy as jnp
+
+    from repro.kernels.quant_matmul import quantize_blockwise
+    want, m1 = world[2]["engine"]["paged_int8"]
+    lead = _engine(world)[0]["engine_paged_int8"]
+    for arm, (tokens, decisions) in want.items():
+        g_tokens, g_decisions = lead["served"][str(arm)]
+        assert {int(k): v for k, v in g_tokens.items()} == tokens, arm
+        assert [tuple(d) for d in g_decisions] == decisions, arm
+    m = lead["metrics"]
+    assert {k: m[k] for k in PAGED_COUNTERS} == \
+        {k: m1[k] for k in PAGED_COUNTERS}
+    assert m["weight_quant_max_err"] == m1["weight_quant_max_err"] > 0
+    assert abs(m["weight_quant_mean_err"] - m1["weight_quant_mean_err"]) \
+        <= 1e-6
+    for rank in _engine(world):
+        for arm, (q, scale, w) in rank["engine_paged_int8"]["codes"].items():
+            jq, js = quantize_blockwise(jnp.asarray(np.asarray(w, np.float32)),
+                                        bits=8)
+            np.testing.assert_array_equal(np.asarray(q), np.asarray(jq))
+            np.testing.assert_allclose(np.asarray(scale), np.asarray(js),
+                                       rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", list(PAGED))
+def test_paged_follower_matches_rank0(world, name):
+    """The follower made rank 0's paged calls on its own slices: its
+    prefill chunks, decode dispatches, COW copies and the CRC-32 of every
+    decode call's tokens equal rank 0's; rank 0 sent a header a device
+    call, one an arm built after construction (the int8 case's
+    COMPRESSED) and the stop header."""
+    lead, follower = (e[name] for e in _engine(world))
+    m = lead["metrics"]
+    assert {k: follower["follow"][k] for k in PAGED_FOLLOWED} == \
+        {k: m[k] for k in PAGED_FOLLOWED}
+    assert m["stream_digest"] != 0 and m["batches"] == 0
+    lazy = len(PAGED_ARMS) - len(PAGED_INT8_ARMS) \
+        if PAGED[name][1] == "int8" else 0
+    calls = m["prefill_chunks"] + m["decode_dispatches"] + lazy
+    cow_calls = m["headers_sent"] - calls
+    assert 0 < cow_calls <= m["cow_copies"]
+
+
+@pytest.mark.parametrize("name", list(PAGED))
+def test_paged_pool_is_the_ranks_slice(world, name):
+    """Each rank holds its stages' superblocks' or its branches' slice of
+    the paged pool (half of it on (1, 2)), the whole pool on (2, 1) and in
+    the COMPRESSED arm (fsdp computes every layer on every rank): the
+    physical-block dim is never split."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import build_model
+    dims, what = PAGED[name]
+    cfg = make_cfg(get_config, "tiny")
+    for arm in map(str, PAGED_ARMS):
+        if what == "int8":
+            whole = world[2]["engine"]["pool_bytes"][arm]
+        else:
+            c = cfg.semantic(max(2, dims[1])) if arm == "1" else cfg
+            pool = build_model(port(c), device="meta").init_pool(
+                PAGED_KW["num_blocks"], PAGED_KW["block_size"])
+            whole = sum(t.numel() * t.element_size()
+                        for e in pool.values() for t in e.values())
+        split = dims[1] if arm in ("0", "1") else 1
+        for rank in _engine(world):
+            assert rank[name]["pool_bytes"][arm] * split == whole, arm
+
+
+def test_paged_decode_step_passes_only_tokens(world):
+    """One paged decode call of 4 lanes and one step: on (2, 1) no
+    collective; on (1, 2) the LAYER stages send the [4, 1, d] activation
+    once and broadcast the [4] int32 tokens once, and the SEMANTIC ranks
+    all-gather one (max, index) pair a lane: no logits cross ranks.
+    (COMPRESSED on (1, 2) gathers its weights on use, as its gang path
+    does, and passes no token.)"""
+    from repro_torch.configs.base import get_config
+    d = make_cfg(get_config, "tiny").d_model
+    ranks = _engine(world)
+    for rank, e in enumerate(ranks):
+        calls = lambda arm, name: {k[:-6]: int(v) for k, v in
+                                   e[name]["step_comm"][arm].items()
+                                   if k.endswith("_calls")}
+        nbytes = lambda arm, name, op: int(
+            e[name]["step_comm"][arm][op + "_bytes"])
+        for arm in map(str, PAGED_ARMS):
+            assert calls(arm, "engine_paged_data") == {}
+        layer = {"send": 1, "broadcast": 1} if rank == 0 \
+            else {"broadcast": 1}
+        assert calls("0", "engine_paged_model") == layer
+        assert nbytes("0", "engine_paged_model", "broadcast") == 4 * 4
+        if rank == 0:
+            assert nbytes("0", "engine_paged_model", "send") == 4 * d * 4
+        assert calls("1", "engine_paged_model") == {"all_gather": 1}
+        assert nbytes("1", "engine_paged_model", "all_gather") == 4 * 2 * 4
+
+
+@pytest.mark.parametrize("knob", [dict(fleet="disagg"),
                                   dict(fleet_devices=("cpu", "cpu")),
                                   dict(arch="whisper-base")])
 def test_engine_mesh_refusals(knob):
-    """On a process-group mesh the backend serves the gang path only: the
-    paged path, a fleet and a LAYER arm the stages cannot take (enc-dec)
-    raise, naming the queue that holds them; nothing is served another
-    way."""
+    """On a process-group mesh the backend serves the colocated paged path
+    and the gang path: a fleet and a LAYER arm the stages cannot take
+    (enc-dec) raise, naming the queue that holds them; nothing is served
+    another way."""
     from repro_torch.configs.base import get_config
     from repro_torch.engine import TorchBackend
+    kw = dict(knob)
+    cfg = get_config(kw.pop("arch", "stablelm-1.6b")).reduced()
+    kw.setdefault("decode", "legacy")
+    with pytest.raises(ValueError, match="queue 4"):
+        TorchBackend(cfg, mesh=_rank0_mesh(), device="cpu", **kw)
+
+
+def _rank0_mesh():
+    """Rank 0's view of a (1, 2) process-group mesh, without a world (what
+    the backend reads while it builds its arms)."""
     from repro_torch.launch.mesh import Mesh, MeshShape
     ranks = Mesh.__new__(Mesh)
     MeshShape.__init__(ranks, (1, 2))
     ranks.rank, ranks.coords = 0, {"data": 0, "model": 0}
     ranks.backend, ranks.device = "gloo", torch.device("cpu")
-    kw = dict(knob)
-    cfg = get_config(kw.pop("arch", "stablelm-1.6b")).reduced()
-    kw.setdefault("decode", "legacy")
-    with pytest.raises(ValueError, match="queue 4"):
-        TorchBackend(cfg, mesh=ranks, device="cpu", **kw)
+    return ranks
+
+
+@pytest.mark.parametrize("backend,where", [("gloo", "cpu"),
+                                           ("nccl", "meta")])
+def test_mesh_wire_tensors_on_the_backends_device(monkeypatch, backend,
+                                                  where):
+    """What the backend makes on the host for the world (rank 0's headers
+    and a paged call's wire matrix, the follower's receive buffers, the
+    quant telemetry's reduce) goes as host tensors under gloo and on the
+    rank's device under NCCL, which takes no host tensor (the meta device
+    stands in for the card here)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import api as A
+    from repro_torch.dist import comm
+    from repro_torch.engine import TorchBackend
+    seen = []
+
+    def record(x, *args):
+        seen.append(x.device.type)
+        return torch.zeros(x.shape, dtype=x.dtype)
+    for name in ("broadcast_from", "all_reduce_max", "all_reduce_sum"):
+        monkeypatch.setattr(comm, name, record)
+    monkeypatch.setattr(TorchBackend, "_world", None)
+    tb = TorchBackend(get_config("stablelm-1.6b").reduced(),
+                      mesh=_rank0_mesh(), device="cpu", arms=())
+    tb.ranks.backend, tb.ranks.device = backend, torch.device(where)
+    tb.ranks.groups = {"model": None}
+    tb._send_header(1, 0, 0, 0, 0)
+    tb._relay(0, "decode", (4, 2), np.zeros((4, 5), np.int32))
+    A._reduce_stats((1.0, 2.0, 3), tb.ranks)
+    tb.ranks.rank = 1
+    assert tb.follow()["stream_digest"] == 0      # the zeros: a stop
+    assert seen == [where] * 6
+
+
+@pytest.mark.parametrize("arch,decode", [("stablelm-1.6b", "paged"),
+                                         ("xlstm-125m", "auto")])
+def test_engine_mesh_builds_paged_or_gang(arch, decode):
+    """On a (1, 2) process-group mesh ``decode="paged"`` (and "auto" on a
+    pure global-attention config) builds a paged scheduler an arm over the
+    runner's view, its pool this rank's slice: the first stage's
+    superblocks, the first branch; "auto" on a recurrent config takes the
+    gang path, as in one process."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist.api import PagedView
+    from repro_torch.engine import LAYER, SEMANTIC, TorchBackend
+    cfg = get_config(arch).reduced()
+    tb = TorchBackend(cfg, mesh=_rank0_mesh(), device="cpu", decode=decode,
+                      cache_len=16, block_size=4)
+    assert set(tb.runners) == {LAYER, SEMANTIC}
+    if arch == "xlstm-125m":
+        assert tb._paged == {}
+        return
+    assert set(tb._paged) == {LAYER, SEMANTIC}
+    for arm, sched in tb._paged.items():
+        assert isinstance(sched.model, PagedView)
+        k = sched.pool["pos0"]["k"]
+        if arm == LAYER:
+            assert k.shape[0] == cfg.n_superblocks // 2
+        else:
+            assert k.shape[:2] == (1, cfg.n_superblocks)
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), pathlib.Path(sys.argv[2]))
+    if sys.argv[1] == "paged":
+        _paged_refs(pathlib.Path(sys.argv[2]))
+    else:
+        _worker(int(sys.argv[1]), pathlib.Path(sys.argv[2]))
