@@ -308,7 +308,31 @@ raising on failure:
             each rank's ``decode_attention`` launches one per attention
             layer it holds per decode step.  Reports decode ms per step on
             rank 0 beside the one process's, collectives and staged bytes
-            per step and the headers sent.
+            per step and the headers sent.  Then the paged engine across
+            ranks (``decode="paged"``, each rank holding its stages' or
+            branches' slice of the pool, rank 0 relaying every device call)
+            on (2, 1), (1, 2) and (1, 2) with int8 KV and weights, each
+            arm's 8 requests in three waves of three prefix families:
+            tokens and scheduler counters equal to one process's, the
+            follower's counts and CRC to rank 0's, one ``prefill_simt``
+            launch a held layer a chunk and one ``decode_split`` a held
+            layer a step.  Then the disaggregated engine across ranks
+            (``fleet="disagg"``: each rank holds its slice of both workers'
+            pools, rank 0 relays every worker call and ship wave) on the
+            same waves on (2, 1), (1, 2) and (1, 2) under a seeded plan of
+            a dropped and a delayed ship wave (ship expiry 0 s, so a wave
+            whose marks are lost expires at the step that shipped it on
+            every run): rank 0's tokens, scheduler, ship and fault
+            counters equal to one process's disaggregated backend on the
+            same seed and plan; the follower's counts (ship waves and
+            blocks included) and CRC equal to rank 0's; each rank's
+            prefill worker launches one ``prefill_simt`` a held layer a
+            chunk and its decode worker one ``decode_split`` a held layer
+            a step, and nothing else launches; bytes into the decode
+            calls' sends (LAYER) and all-gathers (SEMANTIC) the
+            activation's and the (max, index) pairs' a step; each worker's
+            pool bytes the rank's slice.  Reports decode ms per step on
+            rank 0 beside one process's and ``ship_overlap_frac``.
 21. disagg_xdev  the disagg fleet across devices: prefill worker on
             ``cuda:0``, decode worker on ``cuda:1`` with two cards, else on
             the CPU; stablelm-1.6b at full width cut to 2 superblocks, f32
@@ -1081,7 +1105,7 @@ def _instrument_store(store, waves):
 
 def _by_role(backend, role_launches):
     """Count the paged launches made inside each arm's prefill worker's
-    chunk calls and inside its decode worker's decode calls."""
+    device calls and inside its decode worker's."""
     for pf, dc, _ in backend._disagg.values():
         _count_by_role(pf, dc, role_launches)
 
@@ -1099,12 +1123,13 @@ def _with_colocated(role, launches):
 
 
 def _count_by_role(pf, dc, role_launches):
-    """Count paged launches made inside the prefill worker's chunk calls
-    and inside the decode worker's decode calls."""
+    """Count paged launches made inside the prefill worker's device calls
+    and inside the decode worker's (``call``: rank 0's and a follower's
+    replayed calls alike)."""
     counters = _counters()
 
-    def wrap(sched, name, role):
-        call = getattr(sched, name)
+    def wrap(sched, role):
+        call = sched.call
 
         def counted(*a, **kw):
             before = {k: fn.launches for k, fn in counters.items()}
@@ -1113,9 +1138,9 @@ def _count_by_role(pf, dc, role_launches):
             finally:
                 for k, fn in counters.items():
                     role_launches[role][k] += fn.launches - before[k]
-        setattr(sched, name, counted)
-    wrap(pf, "prefill_step", "prefill")
-    wrap(dc, "dispatch_async", "decode")
+        sched.call = counted
+    wrap(pf, "prefill")
+    wrap(dc, "decode")
 
 
 def disagg_phase(dev, cfg, *, kv_dtype: str, n_requests: int = 9,
@@ -3152,6 +3177,7 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
     runs["serve"] = serve_multi_worker(rank, workdir, dev, reduced, world)
     runs["engine"] = engine_worker(rank, dev, reduced, world)
     runs["engine_paged"] = engine_paged_worker(rank, dev, reduced, world)
+    runs["engine_disagg"] = engine_disagg_worker(rank, dev, reduced, world)
     dist.barrier()
     dist.destroy_process_group()
     (workdir / f"rank{rank}.json").write_text(json.dumps(runs))
@@ -3172,6 +3198,7 @@ def multi_phase(dev, *, reduced: bool = False):
     serve_refs = serve_multi_refs(dev, workdir, reduced)
     engine_ref = engine_refs(dev, reduced)
     engine_paged_ref = engine_paged_refs(dev, reduced)
+    engine_disagg_ref = engine_disagg_refs(dev, reduced)
     # two processes' caching allocators share the card: expandable
     # segments keep their freed blocks from fragmenting it
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -3260,6 +3287,9 @@ def multi_phase(dev, *, reduced: bool = False):
     out["engine_one_process"] = engine_ref
     out["engine_paged"] = engine_paged_gates(ranks, engine_paged_ref, card)
     out["engine_paged_one_process"] = engine_paged_ref
+    out["engine_disagg"] = engine_disagg_gates(ranks, engine_disagg_ref,
+                                               card)
+    out["engine_disagg_one_process"] = engine_disagg_ref
     log(f"[multi] {card} | world of {MULTI_WORLD} gloo ranks on one "
         f"device, {wall_s:.1f} s")
     return out
@@ -3797,6 +3827,9 @@ ENGINE_PAGED_SHAPE = dict(cache_len=320, max_batch=8, decode="paged",
                           block_size=16, prefill_chunk=128)
 ENGINE_PAGED_SHAPE_REDUCED = dict(cache_len=48, max_batch=8, decode="paged",
                                   block_size=4, prefill_chunk=8)
+#: rank 0's scheduler counters held to the one process's
+PAGED_COUNTERS = ("prefix_hit_rate", "cow_copies", "preemptions",
+                  "prefill_chunks", "decode_dispatches", "decoded_tokens")
 #: the three prefix families' heads (not whole blocks: a probe's match ends
 #: inside a block, which copy-on-write resolves)
 ENGINE_PAGED_HEADS = (100, 150, 200)
@@ -3833,19 +3866,22 @@ def paged_engine_waves(vocab: int, arm: int, reduced: bool):
     return waves
 
 
-def _paged_engine_serve(backend, cfg, reduced: bool):
+def _paged_engine_serve(backend, cfg, reduced: bool) -> dict:
     """Each arm's waves under ``FixedPolicy`` on ``backend`` (rank 0's or
-    one process's), traced: the donors drained, two steps into the probes,
-    the urgent wave, drained.  Returns ({arm: {rid: tokens}}, the
-    counters, {arm: (prefill chunks, decode steps)}, decode ms a step over
-    the ``decode_scan`` and ``decode_read`` spans)."""
+    one process's; colocated or disaggregated), traced: the donors
+    drained, two steps into the probes, the urgent wave, drained; the
+    pools checked unwound.  Returns {arm: {rid: tokens}}, the counters
+    (``PAGED_COUNTERS``; ``DISAGG_COUNTERS`` and the fault counters on a
+    disaggregated backend), {arm: (prefill chunks, decode steps)}, decode ms a step over
+    the ``decode_scan`` and ``decode_read`` spans and
+    ``ship_overlap_frac``."""
     from repro_torch.engine import FixedPolicy, PlacementEngine
     from repro_torch.obs import Tracer, set_tracer
     tokens = {}
     tracer = Tracer()
     old = set_tracer(tracer)
     try:
-        for arm, sched in backend._paged.items():
+        for arm in list(backend._paged) + list(backend._disagg):
             waves = paged_engine_waves(cfg.vocab_size, arm, reduced)
             eng = PlacementEngine(FixedPolicy(arm, placement=None), backend)
             eng.submit(waves[0])
@@ -3863,16 +3899,19 @@ def _paged_engine_serve(backend, cfg, reduced: bool):
             tokens[str(arm)] = {str(q.rid): q.output.tolist() for q in reqs}
     finally:
         set_tracer(old)
+    _check_unwound(backend, "engine paged")
     m = backend.extra_metrics()
-    counters = {k: m[k] for k in ("prefix_hit_rate", "cow_copies",
-                                  "preemptions", "prefill_chunks",
-                                  "decode_dispatches", "decoded_tokens")}
-    calls = {str(a): (_bucket_steps(s, "prefill"), _bucket_steps(s, "decode"))
-             for a, s in backend._paged.items()}
+    keys = DISAGG_COUNTERS + tuple(k for k in m if k.startswith("fault")) \
+        if backend._disagg else PAGED_COUNTERS
+    workers = {a: (s, s) for a, s in backend._paged.items()}
+    workers.update({a: (pf, dc) for a, (pf, dc, _) in backend._disagg.items()})
+    calls = {str(a): (_bucket_steps(pf, "prefill"), _bucket_steps(dc, "decode"))
+             for a, (pf, dc) in workers.items()}
     steps = sum(d for _, d in calls.values())
     dec = tracer.events("decode_scan") + tracer.events("decode_read")
-    return tokens, counters, calls, 1e3 * sum(e[4] for e in dec) / 1e6 \
-        / max(steps, 1)
+    return dict(tokens=tokens, counters={k: m[k] for k in keys}, calls=calls,
+                decode_ms=1e3 * sum(e[4] for e in dec) / 1e6 / max(steps, 1),
+                ship_overlap_frac=m.get("ship_overlap_frac"))
 
 
 def engine_paged_refs(dev, reduced: bool) -> dict:
@@ -3889,15 +3928,13 @@ def engine_paged_refs(dev, reduced: bool) -> dict:
             continue
         _free()
         backend = TorchBackend(cfg, device=dev, **shape, **kw)
-        tokens, counters, calls, ms = _paged_engine_serve(backend, cfg,
-                                                          reduced)
+        got = _paged_engine_serve(backend, cfg, reduced)
         m = backend.extra_metrics()
-        out[tag] = dict(tokens=tokens, counters=counters, calls=calls,
-                        decode_ms=ms, quant=m.get("weight_quant_max_err"),
+        out[tag] = dict(got, quant=m.get("weight_quant_max_err"),
                         quant_mean=m.get("weight_quant_mean_err"))
         del backend
         log(f"[engine paged one process {tag}] {cfg.name}: decode ms a "
-            f"step {ms:.2f}, {counters}")
+            f"step {got['decode_ms']:.2f}, {got['counters']}")
     _free()
     return out
 
@@ -3935,15 +3972,17 @@ def _count_paged_plain():
     PM.quant_matmul = quant
 
 
-def _decode_comm(backend) -> dict:
-    """Wrap each paged scheduler's ``call``: ``COMM_STATS`` summed over its
-    decode calls, by arm (on rank 0 the relay of each call's header and
-    host arrays included; a follower receives those before its call)."""
+def _decode_comm(scheds) -> dict:
+    """Wrap the ``call`` of each arm's decoding scheduler (``{arm:
+    sched}``): ``COMM_STATS`` summed over its decode calls, by arm (on
+    rank 0 the relay of each call's header and host arrays included; a
+    follower receives those before its call), and the lane-steps (pow2
+    width x loop length) the calls ran."""
     from collections import defaultdict
 
     from repro_torch.dist import comm
     acc = {}
-    for arm, sched in backend._paged.items():
+    for arm, sched in scheds.items():
         def call(kind, key, host, orig=sched.call,
                  mine=acc.setdefault(str(arm), defaultdict(float))):
             if kind != "decode":
@@ -3952,6 +3991,7 @@ def _decode_comm(backend) -> dict:
             out = orig(kind, key, host)
             for k, v in comm.COMM_STATS.items():
                 mine[k] += v - before.get(k, 0.0)
+            mine["lane_steps"] += key[0] * key[1]
             return out
         sched.call = call
     return acc
@@ -3977,21 +4017,18 @@ def engine_paged_worker(rank: int, dev, reduced: bool, world: dict) -> dict:
         _free()
         mesh = init_mesh(dims, **world)
         backend = TorchBackend(cfg, mesh=mesh, device=dev, **shape, **kw)
-        decode_comm = _decode_comm(backend)
+        decode_comm = _decode_comm(backend._paged)
         comm.reset_stats()
         paths0, qpaths0 = dict(PL.PATH_LAUNCHES), dict(QL.PATH_LAUNCHES)
         dist.barrier()
         t0 = time.perf_counter()
         if rank == 0:
             try:
-                tokens, counters, calls, ms = _paged_engine_serve(
-                    backend, cfg, reduced)
+                res = _paged_engine_serve(backend, cfg, reduced)
             finally:
                 backend.close()
-            m = backend.extra_metrics()
-            res = dict(tokens=tokens, counters=counters, calls=calls,
-                       decode_ms=ms, metrics={k: v for k, v in m.items()
-                                              if not isinstance(v, dict)})
+            res["metrics"] = {k: v for k, v in backend.extra_metrics().items()
+                              if not isinstance(v, dict)}
         else:
             res = dict(follow=backend.follow())
         _sync(dev)
@@ -4003,9 +4040,7 @@ def engine_paged_worker(rank: int, dev, reduced: bool, world: dict) -> dict:
                          for k in qpaths0},
             held_layers={str(a): _held_attention_layers(r)
                          for a, r in backend.runners.items()},
-            pool_bytes={str(a): sum(t.numel() * t.element_size()
-                                    for e in s.pool.values()
-                                    for t in e.values())
+            pool_bytes={str(a): _tree_bytes(s.pool)
                         for a, s in backend._paged.items()})
         key = _paged_key(dims, kw)
         out[key] = res
@@ -4014,6 +4049,12 @@ def engine_paged_worker(rank: int, dev, reduced: bool, world: dict) -> dict:
         del backend
         comm.release_buffers()
     return out
+
+
+def _tree_bytes(pool) -> int:
+    """Bytes of a paged pool's leaves."""
+    return sum(t.numel() * t.element_size() for e in pool.values()
+               for t in e.values())
 
 
 def _paged_engine_launches(row: dict, name: str) -> int:
@@ -4097,6 +4138,232 @@ def engine_paged_gates(ranks, ref: dict, card: str) -> dict:
             pool_bytes=[lead["pool_bytes"], follower["pool_bytes"]])
         out[key] = row
         log(f"[engine paged {key}] {card} | " + json.dumps(row))
+    return out
+
+
+# -------------------------------------------- the disaggregated engine, ranks
+#: ``TorchBackend(fleet="disagg")`` on a process-group mesh (each rank
+#: holding its slice of both workers' pools; rank 0 deciding and relaying
+#: every worker call and ship wave), on each mesh, clean and under the
+#: ship-fault plan; each held to a one-process disaggregated backend of the
+#: same options and plan
+ENGINE_DISAGG = (((2, 1), None), ((1, 2), None), ((1, 2), "faults"))
+#: the fault run's plan (the step counter its clock): the first ship wave
+#: from step 2 loses its marks, the first from step 4 gets them a second
+#: late; with ship expiry at 0 s both shipments expire at the step that
+#: shipped them, on every run alike, and their requests re-prefill
+ENGINE_DISAGG_PLAN = ((2.0, "ship_drop", 0.0), (4.0, "ship_delay", 1.0))
+ENGINE_DISAGG_SEED = 11
+#: rank 0's counters held to the one process's
+DISAGG_COUNTERS = PAGED_COUNTERS + (
+    "blocks_shipped", "ship_waves", "ship_skipped_blocks", "transfer_bytes",
+    "ship_deferred", "decode_spills", "ship_requeues", "ship_dropped_waves",
+    "ship_retries", "kv_block_bytes")
+#: the follower's counts held to rank 0's
+DISAGG_FOLLOWED = ("prefill_chunks", "decode_dispatches", "cow_copies",
+                   "ship_waves", "blocks_shipped", "stream_digest")
+
+
+def _disagg_key(dims, faults) -> str:
+    return ",".join(map(str, dims)) + (f"/{faults}" if faults else "")
+
+
+def _disagg_kw(faults) -> dict:
+    """The backend options of a disaggregated engine run: its plan built
+    anew (an injector consumes it)."""
+    from repro_torch import faults as F
+    kw = dict(fleet="disagg")
+    if faults:
+        kw.update(ship_timeout_s=0.0, faults=F.FaultPlan(
+            [F.Fault(at=at, kind=kind, magnitude=mag)
+             for at, kind, mag in ENGINE_DISAGG_PLAN],
+            seed=ENGINE_DISAGG_SEED))
+    return kw
+
+
+def engine_disagg_refs(dev, reduced: bool) -> dict:
+    """The one-process disaggregated backends the ranks are held to, in
+    this process before the world starts: clean and under the plan, each
+    arm's tokens, the counters, decode ms a step and
+    ``ship_overlap_frac``."""
+    from repro_torch.engine import TorchBackend
+    cfg, _, _ = engine_setup(reduced)
+    shape = ENGINE_PAGED_SHAPE_REDUCED if reduced else ENGINE_PAGED_SHAPE
+    out = {}
+    for faults in sorted({f or "" for _, f in ENGINE_DISAGG}):
+        _free()
+        backend = TorchBackend(cfg, device=dev, **shape,
+                               **_disagg_kw(faults))
+        got = out[faults or "clean"] = _paged_engine_serve(backend, cfg,
+                                                           reduced)
+        del backend
+        log(f"[engine disagg one process {faults or 'clean'}] {cfg.name}: "
+            f"decode ms a step {got['decode_ms']:.2f}, overlap "
+            f"{got['ship_overlap_frac']}, {got['counters']}")
+    _free()
+    return out
+
+
+def engine_disagg_worker(rank: int, dev, reduced: bool, world: dict) -> dict:
+    """One rank of each ``ENGINE_DISAGG`` run: the disaggregated backend
+    built on the mesh; rank 0 serves each arm's waves and closes it, rank 1
+    follows.  The paged launches by path and ``COMM_STATS`` are zeroed just
+    before; the launches by worker, each arm's held attention layers, this
+    rank's calls and each worker's pool bytes recorded."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import comm
+    from repro_torch.engine import TorchBackend
+    from repro_torch.kernels import _paged_launch as PL
+    from repro_torch.launch.mesh import init_mesh
+    cfg, _, _ = engine_setup(reduced)
+    shape = ENGINE_PAGED_SHAPE_REDUCED if reduced else ENGINE_PAGED_SHAPE
+    out = {}
+    for dims, faults in ENGINE_DISAGG:
+        _free()
+        mesh = init_mesh(dims, **world)
+        backend = TorchBackend(cfg, mesh=mesh, device=dev, **shape,
+                               **_disagg_kw(faults))
+        roles = _new_roles()
+        _by_role(backend, roles)
+        decode_comm = _decode_comm({a: dc for a, (_, dc, _) in
+                                    backend._disagg.items()})
+        comm.reset_stats()
+        paths0 = dict(PL.PATH_LAUNCHES)
+        dist.barrier()
+        t0 = time.perf_counter()
+        if rank == 0:
+            try:
+                res = _paged_engine_serve(backend, cfg, reduced)
+            finally:
+                backend.close()
+            res["metrics"] = {k: v for k, v in backend.extra_metrics().items()
+                              if not isinstance(v, dict)}
+        else:
+            res = dict(follow=backend.follow())
+        _sync(dev)
+        res.update(
+            wall_s=time.perf_counter() - t0, comm=dict(comm.COMM_STATS),
+            decode_comm={a: dict(c) for a, c in decode_comm.items()},
+            paths={k: PL.PATH_LAUNCHES[k] - paths0[k] for k in paths0},
+            roles=roles,
+            calls={str(a): (_bucket_steps(pf, "prefill"),
+                            _bucket_steps(dc, "decode"))
+                   for a, (pf, dc, _) in backend._disagg.items()},
+            held_layers={str(a): _held_attention_layers(r)
+                         for a, r in backend.runners.items()},
+            pool_bytes={str(a): [_tree_bytes(w.pool) for w in (pf, dc)]
+                        for a, (pf, dc, _) in backend._disagg.items()},
+            # one process's pool of the arm, from its shapes on meta
+            whole_pool={str(a): _tree_bytes(backend.runners[a].whole_pool(
+                pf.alloc.num_blocks, pf.block_size))
+                for a, (pf, _, _) in backend._disagg.items()},
+            d_model=cfg.d_model)
+        key = _disagg_key(dims, faults)
+        out[key] = res
+        log(f"[engine disagg {key} rank {rank}] {res['wall_s']:.1f} s, "
+            f"launches by worker {roles}")
+        del backend
+        comm.release_buffers()
+    return out
+
+
+def engine_disagg_gates(ranks, ref: dict, card: str) -> dict:
+    """The disaggregated engine runs' gates: rank 0's tokens and counters
+    (scheduler, ship and fault) are the one-process backend's of the same
+    plan; the follower made rank 0's calls and ship waves (its chunks,
+    dispatches, COW copies, ship waves, blocks and the CRC-32 of its decode
+    tokens equal rank 0's); on each rank the prefill workers launched one
+    ``prefill_simt`` per held attention layer a chunk and the decode
+    workers one ``decode_split`` per held layer a step, and nothing else
+    launched; on (1, 2) the decode calls put the activation ([W, 1, d] f32
+    a step) into LAYER's one send and a (max, index) pair a lane into
+    SEMANTIC's all-gather; each worker's pool is the rank's slice of one
+    process's."""
+    from repro_torch.engine import LAYER, SEMANTIC
+    out = {}
+    for dims, faults in ENGINE_DISAGG:
+        key = _disagg_key(dims, faults)
+        want = ref[faults or "clean"]
+        lead, follower = (rk["engine_disagg"][key] for rk in ranks)
+        where = f"[engine disagg {key}]"
+        if lead["tokens"] != want["tokens"]:
+            same = sum(lead["tokens"][a][r] == want["tokens"][a][r]
+                       for a in want["tokens"] for r in want["tokens"][a])
+            raise AssertionError(f"{where} rank 0's tokens equal the "
+                                 f"one-process backend's in {same} requests")
+        if lead["counters"] != want["counters"]:
+            raise AssertionError(f"{where} counters {lead['counters']}, "
+                                 f"one process {want['counters']}")
+        c = want["counters"]
+        if not (c["blocks_shipped"] > 0 and c["prefix_hit_rate"] > 0
+                and c["cow_copies"] > 0) or (faults and not (
+                    c["ship_dropped_waves"] > 0 and c["ship_requeues"] > 0)):
+            raise AssertionError(f"{where} the run missed a ship, a prefix "
+                                 f"hit, a COW copy or a fault ({c})")
+        m = lead["metrics"]
+        if any(follower["follow"][k] != m[k] for k in DISAGG_FOLLOWED):
+            raise AssertionError(f"{where} the follower ran "
+                                 f"{follower['follow']}, rank 0 {m}")
+        for r, rk in enumerate((lead, follower)):
+            held = rk["held_layers"]
+            if rk["calls"] != lead["calls"]:
+                raise AssertionError(f"{where} rank {r} ran calls "
+                                     f"{rk['calls']}, rank 0 {lead['calls']}")
+            chunks = sum(held[a] * n for a, (n, _) in rk["calls"].items())
+            steps = sum(held[a] * n for a, (_, n) in rk["calls"].items())
+            zero = dict.fromkeys(rk["roles"]["prefill"], 0)
+            exp = {"prefill": dict(zero, paged_prefill_attention=chunks),
+                   "decode": dict(zero, paged_decode_attention=steps)}
+            got = {p: n for p, n in rk["paths"].items() if n}
+            if rk["roles"] != exp or got != {"prefill_simt": chunks,
+                                             "decode_split": steps}:
+                raise AssertionError(f"{where} rank {r} launched "
+                                     f"{rk['roles']} by worker ({got}), "
+                                     f"want {exp}")
+            for arm, pair in rk["pool_bytes"].items():
+                split = dims[1] if int(arm) in (LAYER, SEMANTIC) else 1
+                whole = rk["whole_pool"][arm]
+                if pair != [whole // split] * 2:
+                    raise AssertionError(f"{where} rank {r} arm {arm} pools "
+                                         f"{pair} bytes, want {whole} / "
+                                         f"{split} each")
+            dcomm = rk["decode_comm"]
+            layer, sem = dcomm[str(LAYER)], dcomm[str(SEMANTIC)]
+            if dims[1] == 1 and any(
+                    arm_comm.get(k, 0) for arm_comm in dcomm.values()
+                    for k in ("send_bytes", "all_gather_bytes")):
+                raise AssertionError(f"{where} rank {r}: a decode call "
+                                     f"sent or gathered ({dcomm})")
+            if dims[1] > 1:
+                act = layer["lane_steps"] * rk["d_model"] * 4
+                if layer.get("send_bytes", 0) != (act if r == 0 else 0):
+                    raise AssertionError(
+                        f"{where} rank {r} LAYER decode sends "
+                        f"{layer.get('send_bytes', 0)} B, want {act}")
+                if sem.get("all_gather_bytes", 0) != sem["lane_steps"] * 8:
+                    raise AssertionError(
+                        f"{where} rank {r} SEMANTIC decode all-gathers "
+                        f"{sem.get('all_gather_bytes', 0)} B, want "
+                        f"{sem['lane_steps'] * 8}")
+        steps = sum(d for _, d in want["calls"].values())
+        row = dict(
+            mesh=dims, faults=faults, decode_ms=lead["decode_ms"],
+            decode_ms_one_process=want["decode_ms"], decode_steps=steps,
+            ship_overlap_frac=lead["ship_overlap_frac"],
+            ship_overlap_frac_one_process=want["ship_overlap_frac"],
+            counters=lead["counters"], headers_sent=m["headers_sent"] + 1,
+            wall_s=[lead["wall_s"], follower["wall_s"]],
+            decode_comm_per_step={a: [{k: v / max(d, 1) for k, v in
+                                       rk["decode_comm"][a].items()
+                                       if not k.endswith("_ms")}
+                                      for rk in (lead, follower)]
+                                  for a, (_, d) in want["calls"].items()},
+            launches=[rk["paths"] for rk in (lead, follower)],
+            launches_by_worker=[rk["roles"] for rk in (lead, follower)],
+            pool_bytes=[lead["pool_bytes"], follower["pool_bytes"]])
+        out[key] = row
+        log(f"[engine disagg {key}] {card} | " + json.dumps(row))
     return out
 
 
@@ -4625,7 +4892,8 @@ def main(argv=None) -> int:
             launches = sum(s["launches"][name] for s in serves.values()) \
                 + sum(f["launches"][name] for f in fleet.values()) \
                 + sum(_paged_engine_launches(row, name)
-                      for row in multi["engine_paged"].values())
+                      for part in ("engine_paged", "engine_disagg")
+                      for row in multi[part].values())
         line.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",

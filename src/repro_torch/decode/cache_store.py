@@ -35,6 +35,13 @@ after the decode worker's call in flight as on one device.
 ``ship_xdev_copies`` counts those copies (one a leaf a wave), where the
 reference checks for a ``collective-permute`` in the ship's compiled
 program.
+
+On a process-group mesh each rank's two pools are its slices of the two
+workers' pools, of one layout, and the block dim is split by no axis.
+Rank 0 keeps the ledger and hands each wave's padded (source,
+destination) block ids to ``relay`` before it ships; every other rank
+ships the same ids between its own slices (:meth:`CacheStore.replay_ship`),
+so a wave moves no pool bytes between ranks.
 """
 from __future__ import annotations
 
@@ -241,6 +248,10 @@ class CacheStore:
 
         # test fault injection: rid -> True drops the wave's arrival marks
         self.drop_filter: Optional[Callable[[int], bool]] = None
+        #: rank 0 of a process-group mesh: ``relay(wire)`` before each
+        #: wave's transfer, ``wire`` the [n_pad, 2] int32 (source,
+        #: destination) block ids :meth:`replay_ship` takes
+        self.relay = None
 
         # instrumentation
         self.blocks_shipped = 0
@@ -475,15 +486,30 @@ class CacheStore:
     def _transfer(self, src_ids: List[int], dst_ids: List[int]) -> None:
         """One gather from the prefill pool and one scatter into the decode
         pool (:func:`ship_blocks`), the wave padded to a power of two with
-        null-block pairs."""
-        n_pad = next_pow2(len(src_ids))
-        s = np.full(n_pad, NULL_BLOCK, np.int64)
-        d = np.full(n_pad, NULL_BLOCK, np.int64)
-        s[:len(src_ids)] = src_ids
-        d[:len(dst_ids)] = dst_ids
-        ship_blocks(self.src.pool, self.dst.pool, s, d)
+        null-block pairs; ``relay`` gets the pairs first."""
+        wire = np.full((next_pow2(len(src_ids)), 2), NULL_BLOCK, np.int32)
+        wire[:len(src_ids), 0] = src_ids
+        wire[:len(dst_ids), 1] = dst_ids
+        if self.relay is not None:
+            self.relay(wire)
+        self._ship(wire)
+
+    def _ship(self, wire: np.ndarray) -> None:
+        ship_blocks(self.src.pool, self.dst.pool, wire[:, 0].astype(np.int64),
+                    wire[:, 1].astype(np.int64))
         if self.fleet:
             self.xdev_copies += len(list(_leaves(self.src.pool)))
+
+    def replay_ship(self, wire: np.ndarray) -> None:
+        """Another rank's side of ``relay``: the wave rank 0 shipped, from
+        its [n_pad, 2] pairs, between this rank's two pool slices; counts
+        the wave and its blocks (the non-null pairs)."""
+        if wire.ndim != 2 or wire.shape[1] != 2:
+            raise ValueError(f"a ship wave of shape {wire.shape}, expected "
+                             "[n_pad, 2] (source, destination) pairs")
+        self._ship(wire)
+        self.ship_waves += 1
+        self.blocks_shipped += int(np.count_nonzero(wire[:, 0] != NULL_BLOCK))
 
     def note_overlap(self, hidden_s: float, exposed_s: float) -> None:
         """Record one disagg step's ship/decode overlap split (the backend

@@ -358,6 +358,13 @@ def _leaves(pool: Dict, prefix=()):
             yield prefix + (k,), v
 
 
+def meta_like(pool: Dict) -> Dict:
+    """The pool's leaves, shapes and dtypes, on the meta device."""
+    return {k: meta_like(v) if isinstance(v, dict) else
+            torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in pool.items()}
+
+
 def pool_block_bytes(pool: Dict) -> int:
     """Pool bytes per physical block, summed over every layer and leaf.
     Scale leaves ([..., P, bs, K]) have their physical axis at -3, KV leaves

@@ -61,7 +61,8 @@ import torch
 
 from repro_torch.decode.paged_cache import (NULL_BLOCK, BlockAllocator,
                                             PrefixIndex, copy_blocks,
-                                            pool_block_bytes, quantize_pool)
+                                            meta_like, pool_block_bytes,
+                                            quantize_pool)
 from repro_torch.decode.paged_model import (join_of, make_decode_fn,
                                             make_prefill_fn,
                                             quantize_attn_params,
@@ -184,11 +185,17 @@ class PagedArmScheduler:
             num_blocks, block_size,
             on_evict=lambda blk, key: self.index.drop(key))
         self.pool = model.init_pool(num_blocks, block_size)
-        self.kv_block_bytes_f32 = pool_block_bytes(self.pool)
+        # the byte gauges count a block of the WHOLE pool, as the
+        # reference's global arrays do: a mesh view's pool is this rank's
+        # slice of it (``PagedView.whole_pool``)
+        whole = model.whole_pool(num_blocks, block_size) \
+            if hasattr(model, "whole_pool") else meta_like(self.pool)
+        self.kv_block_bytes_f32 = pool_block_bytes(whole)
         if kv_dtype == "int8":
             # int8 codes + one f32 scale per (token slot, kv head)
             self.pool = quantize_pool(self.pool)
-        self.kv_block_bytes = pool_block_bytes(self.pool)
+            whole = quantize_pool(whole)
+        self.kv_block_bytes = pool_block_bytes(whole)
 
         self.block_tables = np.full((n_lanes, self.max_blocks), NULL_BLOCK,
                                     np.int32)

@@ -495,12 +495,17 @@ class BaseRunner:
         of it under :meth:`pool_specs`."""
         if not self.distributed:
             return self.model.init_pool(num_blocks, block_size)
-        whole = build_model(self.cfg, device="meta").init_pool(num_blocks,
-                                                               block_size)
+        whole = self.whole_pool(num_blocks, block_size)
         sizes = dict(self.mesh.shape)
         return SH.tree_map(lambda t, s: torch.zeros(
             SH.shard_shape(tuple(t.shape), s, sizes), dtype=t.dtype,
             device=self.device), whole, self.pool_specs(whole))
+
+    def whole_pool(self, num_blocks: int, block_size: int):
+        """The whole paged pool on the meta device (no memory): the layout
+        :meth:`init_pool` cuts this rank's slice from."""
+        return build_model(self.cfg, device="meta").init_pool(num_blocks,
+                                                              block_size)
 
     def pool_specs(self, pool):
         return SH.pool_specs(pool, self.mesh, model_leading=self._pool_split())
@@ -853,8 +858,10 @@ class PagedView:
     device, the configs, ``supports_single_step_prefill``,
     ``grouped_views()`` (this rank's slices of the arm's params as
     ``params_fn()`` gives them at the call), ``init_pool`` (this rank's
-    slice of the pool) and ``join`` (how this rank's slice of a paged
-    forward meets the others': ``decode.paged_model``)."""
+    slice of the pool), ``whole_pool`` (the whole pool on the meta device,
+    whose block the scheduler's byte gauges count) and ``join`` (how this
+    rank's slice of a paged forward meets the others':
+    ``decode.paged_model``)."""
 
     def __init__(self, runner: BaseRunner, params_fn):
         self.runner, self._params_fn = runner, params_fn
@@ -869,6 +876,9 @@ class PagedView:
 
     def init_pool(self, num_blocks: int, block_size: int):
         return self.runner.init_pool(num_blocks, block_size)
+
+    def whole_pool(self, num_blocks: int, block_size: int):
+        return self.runner.whole_pool(num_blocks, block_size)
 
 
 def _reduce_stats(stats, mesh):

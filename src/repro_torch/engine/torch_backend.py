@@ -18,31 +18,45 @@ graph's layout, a stage a 'model' rank; SEMANTIC its branches on 'model';
 COMPRESSED fsdp; none splits its weights over 'data'), holding its slice of
 the weights every rank draws from the same seed.  Rank 0 alone runs the
 engine, the policy, the queues, the clock and the fault plane, and on the
-paged path the joins, the allocator, the prefix index, copy-on-write and
-preemption.  Before each device call it broadcasts a header (op, arm, two
-shape numbers, a width) over the world, and the other ranks, in
-:meth:`follow`, make the same call:
+paged path the joins, the allocators, the prefix indexes, copy-on-write,
+preemption and, for a disaggregated arm, the ship ledger, its timeouts,
+receiver backpressure and the fault responses.  Before each device call
+it broadcasts a header of six int64s, (op, arm, a, b, c, worker), over the
+world, and the other ranks, in :meth:`follow`, make the same call:
 
 - a gang batch (``OP_GANG``: rows, prompt length, new tokens; then the
   tokens): ``init_cache``, ``prefill_into_cache`` or a teacher-forced
   ``serve_step`` loop, then ``serve_step`` a token, through the runners,
   which give every rank the global logits;
-- a paged call (``OP_COW``, ``OP_PREFILL``, ``OP_DECODE``; then the call's
-  host arrays as the scheduler packs them, one int32 matrix): the arm's
-  ``PagedArmScheduler`` on every rank holds that rank's slice of the paged
-  pool (``dist.api``'s paged surface) and replays the call there, its
-  forward passing only tokens (and a stage's activation) between ranks;
+- a paged call (``OP_COW``, ``OP_PREFILL``, ``OP_DECODE``; a, b the
+  bucket, c the width of the call's host arrays as the scheduler packs
+  them, one [a, c] int32 matrix that follows): ``worker`` names the
+  ``PagedArmScheduler`` of the arm (``COLOCATED``, or a disaggregated
+  arm's ``PREFILL`` or ``DECODE`` worker), which on every rank holds that
+  rank's slice of its paged pool (``dist.api``'s paged surface) and
+  replays the call there, its forward passing only tokens (and a stage's
+  activation) between ranks;
+- a ship wave of a disaggregated arm (``OP_SHIP``; a the wave's padded
+  width, c = 2; then the [a, 2] int32 matrix of (source, destination)
+  block ids, null pairs padding it): every rank's ``CacheStore`` copies
+  those blocks from its prefill worker's pool slice into its decode
+  worker's.  Both slices have one layout and the block dim is split by
+  no axis, so the ship moves no pool bytes between ranks;
 - a lazily built arm (``OP_ARM``: a policy's first request to an arm not
   in ``arms``), so that ranks build arms, and run the collectives of a
   build, in one order.
 
 Headers and host arrays travel as host tensors under gloo and on the
-card under NCCL (``launch.mesh.wire_device``).
+card under NCCL (``launch.mesh.wire_device``).  Every rank makes a
+disaggregated step's device calls in one order: the prefill worker's COW
+copy and chunk, the decode worker's call, the ship, then the read of the
+decode call's tokens; fault responses, timeouts and evictions are host
+work on rank 0 and send nothing.
 
 :meth:`close` on rank 0 stops the followers.  ``decode="auto"`` takes the
-gang path on recurrent and local-window configs, as in one process.  The
-disaggregated and fleet paths raise on a mesh (``ROADMAP.md``, queue 4),
-as does a LAYER arm the stages cannot take.
+gang path on recurrent and local-window configs, as in one process.
+``fleet_devices`` and a LAYER arm the stages cannot take raise on a mesh
+(``ROADMAP.md``, queue 4).
 
 Each step picks the arm that owes the earliest deadline and runs one step
 of one of two decode paths on it:
@@ -82,7 +96,9 @@ arm, in the order the arms are built, takes a (prefill, decode) pair; once
 fewer than two are left an arm's workers share the backend's device, as
 in the reference.  A worker on another device than the backend's holds a
 copy of the arm's model, made once, and the store ships between the two
-devices.  ``faults=`` takes a
+devices.  On a process-group mesh both workers serve on the arm's runner,
+each holding this rank's slice of its own pool, and rank 0 relays every
+worker call and ship wave.  ``faults=`` takes a
 ``repro_torch.faults.FaultPlan`` fired on the step counter: arm blackouts,
 dropped / duplicated / delayed ship waves and transient dispatch errors
 (retried with backoff under a per-arm circuit breaker).  ``load_shed``
@@ -130,12 +146,16 @@ MESH_ARM_KW = {LAYER: dict(schedule="1f1b", zero_data=False),
                SEMANTIC: dict(zero_data=False),
                COMPRESSED: dict(zero_data=False)}
 #: the header's ops (rank 0 -> the followers)
-OP_STOP, OP_GANG, OP_ARM, OP_COW, OP_PREFILL, OP_DECODE = range(6)
+OP_STOP, OP_GANG, OP_ARM, OP_COW, OP_PREFILL, OP_DECODE, OP_SHIP = range(7)
+#: the header's worker field: an arm's colocated scheduler, or its
+#: disaggregated fleet's prefill or decode worker
+COLOCATED, PREFILL, DECODE = range(3)
 #: a paged device call's op by the scheduler's kind of call
 PAGED_OPS = {"cow": OP_COW, "prefill": OP_PREFILL, "decode": OP_DECODE}
 _PAGED_KINDS = {op: kind for kind, op in PAGED_OPS.items()}
-_MESH_QUEUE = "ROADMAP.md, queue 4: the disaggregated and fleet paths " \
-    "and enc-dec stages on a mesh"
+_FLEET_QUEUE = "ROADMAP.md, queue 4 item 3: fleet_devices and " \
+    "FleetBackend across ranks"
+_ENCDEC_QUEUE = "ROADMAP.md, queue 4 item 4: enc-dec stages on a mesh"
 
 
 def resolve_device(device) -> torch.device:
@@ -185,14 +205,11 @@ class TorchBackend:
         self.mesh = mesh_shape(mesh)
         #: the process-group mesh the arms' runners serve on, or None
         self.ranks = self.mesh if self.mesh.distributed else None
-        if self.ranks is not None:
-            refused = [f"{k}=" for k, v in (("fleet", fleet), (
-                "fleet_devices", fleet_devices)) if v]
-            if refused:
-                raise ValueError(
-                    f"{', '.join(refused)} on a process-group mesh: a mesh "
-                    "serves the colocated paged path and the gang path "
-                    f"({_MESH_QUEUE})")
+        if self.ranks is not None and fleet_devices:
+            raise ValueError(
+                "fleet_devices= on a process-group mesh: the ranks hold "
+                "slices of each worker's pool, not workers on devices "
+                f"of their own ({_FLEET_QUEUE})")
         if fleet is not None and decode == "legacy":
             raise ValueError("fleet='disagg' needs the paged decode path")
         if kv_dtype not in ("f32", "int8"):
@@ -316,17 +333,24 @@ class TorchBackend:
                   weight_quant=self.weight_quant, clock=lambda: self.now,
                   jit_cache=shared)
         label = f"arm{arm}:{ARM_MODES[arm]}"
+        lead = self.ranks is not None and self.ranks.rank == 0
         if self.fleet == "disagg":
-            pf_dev = dc_dev = self.device
-            if len(self._fleet_pool) >= 2:
-                pf_dev, dc_dev = self._fleet_pool[:2]
-                del self._fleet_pool[:2]
-            pf = PagedArmScheduler(self._model_on(arm, model, pf_dev),
-                                   role="prefill", **self._worker_kw(
-                                       kw, shared, pf_dev))
-            dc = PagedArmScheduler(self._model_on(arm, model, dc_dev),
-                                   role="decode", **self._worker_kw(
-                                       kw, shared, dc_dev))
+            if self.ranks is not None:
+                # both workers over the runner's view, each holding this
+                # rank's slice of its own pool
+                pf = PagedArmScheduler(model, role="prefill", **kw)
+                dc = PagedArmScheduler(model, role="decode", **kw)
+            else:
+                pf_dev = dc_dev = self.device
+                if len(self._fleet_pool) >= 2:
+                    pf_dev, dc_dev = self._fleet_pool[:2]
+                    del self._fleet_pool[:2]
+                pf = PagedArmScheduler(self._model_on(arm, model, pf_dev),
+                                       role="prefill", **self._worker_kw(
+                                           kw, shared, pf_dev))
+                dc = PagedArmScheduler(self._model_on(arm, model, dc_dev),
+                                       role="decode", **self._worker_kw(
+                                           kw, shared, dc_dev))
             store = CacheStore(
                 pf, dc, timeout_s=self.ship_timeout_s,
                 on_requeue=lambda lane, a=arm: self._requeue(a, lane),
@@ -338,11 +362,16 @@ class TorchBackend:
             pf.track = (label, pf.track[1])
             dc.track = (label, dc.track[1])
             store.track = (label, "ship")
+            if lead:
+                pf.relay = functools.partial(self._relay, arm,
+                                             worker=PREFILL)
+                dc.relay = functools.partial(self._relay, arm, worker=DECODE)
+                store.relay = functools.partial(self._relay_ship, arm)
             self._disagg[arm] = (pf, dc, store)
         else:
             sched = PagedArmScheduler(model, **kw)
             sched.track = (label, sched.track[1])
-            if self.ranks is not None and self.ranks.rank == 0:
+            if lead:
                 sched.relay = functools.partial(self._relay, arm)
             self._paged[arm] = sched
 
@@ -355,7 +384,7 @@ class TorchBackend:
         if ARM_MODES[arm] == "pipeline" and self.cfg.is_encdec:
             raise ValueError(
                 f"{self.cfg.name}: the LAYER arm's stages take decoder "
-                f"stacks, not enc-dec inputs ({_MESH_QUEUE})")
+                f"stacks, not enc-dec inputs ({_ENCDEC_QUEUE})")
         runner = A.build_runner(self.cfg, ARM_MODES[arm], self.ranks,
                                 device=self.device, **MESH_ARM_KW[arm])
         self.params[arm] = runner.init(seed=self.seed + 1)
@@ -714,71 +743,113 @@ class TorchBackend:
         """The device of the headers and host arrays rank 0 sends."""
         return wire_device(self.ranks)
 
-    def _send_header(self, *header: int) -> None:
-        """Five int64s (op, arm, three numbers) to the followers."""
-        comm.broadcast_from(torch.tensor(header, dtype=torch.long,
-                                         device=self._wire), 0, self._world)
+    def _send_header(self, op: int, arm: int, a: int, b: int, c: int,
+                     worker: int = COLOCATED) -> None:
+        """Six int64s (op, arm, three numbers, the worker) to the
+        followers."""
+        comm.broadcast_from(torch.tensor((op, arm, a, b, c, worker),
+                                         dtype=torch.long, device=self._wire),
+                            0, self._world)
         self.headers_sent += 1
 
-    def _relay(self, arm: int, kind: str, key: tuple,
-               wire: np.ndarray) -> None:
-        """Rank 0's scheduler is about to make a paged device call: the
-        header (op, arm, the bucket, the wire matrix's width) and the
-        matrix go to the followers."""
+    def _relay(self, arm: int, kind: str, key: tuple, wire: np.ndarray,
+               worker: int = COLOCATED) -> None:
+        """Rank 0's scheduler (the arm's ``worker``) is about to make a
+        paged device call: the header (op, arm, the bucket, the wire
+        matrix's width, the worker) and the matrix go to the followers."""
         self._send_header(PAGED_OPS[kind], arm, key[0],
-                          key[1] if len(key) > 1 else 0, wire.shape[1])
+                          key[1] if len(key) > 1 else 0, wire.shape[1],
+                          worker)
         comm.broadcast_from(torch.from_numpy(wire).to(self._wire), 0,
                             self._world)
 
+    def _relay_ship(self, arm: int, wire: np.ndarray) -> None:
+        """Rank 0's cache store is about to ship a wave: the header and the
+        wave's [n_pad, 2] (source, destination) block ids go to the
+        followers."""
+        self._send_header(OP_SHIP, arm, wire.shape[0], 0, wire.shape[1])
+        comm.broadcast_from(torch.from_numpy(wire).to(self._wire), 0,
+                            self._world)
+
+    def _worker_of(self, arm: int, worker: int) -> PagedArmScheduler:
+        """The scheduler a header addresses; raises for one this rank does
+        not hold."""
+        if worker == COLOCATED and arm in self._paged:
+            return self._paged[arm]
+        if worker in (PREFILL, DECODE) and arm in self._disagg:
+            return self._disagg[arm][worker - PREFILL]
+        raise ValueError(f"a header addresses worker {worker} of arm {arm}, "
+                         "which this rank does not hold")
+
     @property
     def stream_digest(self) -> int:
-        """CRC-32 of the gang batches' tokens, then of each paged arm's
-        ``token_digest`` in arm order: equal on every rank."""
+        """CRC-32 of the gang batches' tokens, then of each colocated paged
+        arm's ``token_digest`` in arm order, then of each disaggregated
+        arm's decode worker's, in arm order: equal on every rank."""
         d = self._digest
-        for arm in sorted(self._paged):
-            d = zlib.crc32(self._paged[arm].token_digest.to_bytes(4, "little"),
-                           d)
+        digests = [self._paged[a].token_digest for a in sorted(self._paged)]
+        digests += [self._disagg[a][1].token_digest
+                    for a in sorted(self._disagg)]
+        for t in digests:
+            d = zlib.crc32(t.to_bytes(4, "little"), d)
         return d
 
     def follow(self) -> dict:
         """A rank other than 0 of a process-group mesh: make every call
         rank 0 announces (gang batches through the runners, paged calls on
-        this rank's pools, arms built), until rank 0's :meth:`close`.
-        Returns this rank's counts (batches, prefill calls, decode steps;
-        paged prefill chunks, decode dispatches and COW copies), which
-        equal rank 0's ``extra_metrics()``, and the CRC-32 of its token
-        streams (gang batches and paged decode calls), which equals rank
-        0's ``stream_digest``."""
+        this rank's pools, ship waves, arms built), until rank 0's
+        :meth:`close`.  Returns this rank's counts (batches, prefill calls,
+        decode steps; paged prefill chunks, decode dispatches and COW
+        copies over every scheduler, disaggregated workers included; with
+        a disaggregated arm, ship waves and blocks shipped), which equal
+        rank 0's ``extra_metrics()``, and the CRC-32 of its token streams
+        (gang batches and paged decode calls), which equals rank 0's
+        ``stream_digest``."""
         if self.ranks is None or self.ranks.rank == 0:
             raise ValueError("follow() runs on the ranks other than 0 of a "
                              "process-group mesh")
         while True:
             header = comm.broadcast_from(
-                torch.zeros(5, dtype=torch.long, device=self._wire), 0,
+                torch.zeros(6, dtype=torch.long, device=self._wire), 0,
                 self._world)
-            op, arm, a, b, c = header.tolist()
+            op, arm, a, b, c, worker = header.tolist()
             if op == OP_STOP:
                 break
             self._ensure_arm(arm)
             if op in _PAGED_KINDS:
-                kind = _PAGED_KINDS[op]
+                sched = self._worker_of(arm, worker)
                 wire = comm.broadcast_from(
                     torch.zeros((a, c), dtype=torch.int32,
                                 device=self._wire), 0, self._world)
-                self._paged[arm].replay(kind, (a,) if op == OP_COW
-                                        else (a, b), wire.cpu().numpy())
+                sched.replay(_PAGED_KINDS[op], (a,) if op == OP_COW
+                             else (a, b), wire.cpu().numpy())
+            elif op == OP_SHIP:
+                if arm not in self._disagg:
+                    raise ValueError(f"a ship wave of arm {arm}, which "
+                                     "this rank holds no cache store of")
+                wire = comm.broadcast_from(
+                    torch.zeros((a, c), dtype=torch.int32,
+                                device=self._wire), 0, self._world)
+                self._disagg[arm][2].replay_ship(wire.cpu().numpy())
             elif op == OP_GANG:
                 toks = comm.broadcast_from(
                     torch.zeros((a, b), dtype=torch.int32,
                                 device=self.device), 0, self._world)
                 self._run_gang(arm, toks, c)
                 self.batches += 1
-        return {"batches": self.batches, "prefill_calls": self.prefill_calls,
-                "decode_steps": self.decode_steps,
-                **{k: sum(getattr(s, k) for s in self._paged.values())
-                   for k in ("prefill_chunks", "decode_dispatches",
-                             "cow_copies")},
-                "stream_digest": self.stream_digest}
+            elif op != OP_ARM:
+                raise ValueError(f"a header of unknown op {op}")
+        scheds = list(self._all_scheds())
+        out = {"batches": self.batches, "prefill_calls": self.prefill_calls,
+               "decode_steps": self.decode_steps,
+               **{k: sum(getattr(s, k) for s in scheds)
+                  for k in ("prefill_chunks", "decode_dispatches",
+                            "cow_copies")}}
+        if self._disagg:
+            out.update({k: sum(getattr(st, k) for _, _, st in
+                               self._disagg.values())
+                        for k in ("ship_waves", "blocks_shipped")})
+        return dict(out, stream_digest=self.stream_digest)
 
     def close(self) -> None:
         """Rank 0 of a process-group mesh: send the followers the stop

@@ -5,8 +5,8 @@ only: the wrappers route CPU tensors to their plain versions before
 reaching it, and meta tensors to :func:`dry_launch`, which runs the same
 checks, path and plan (on an H100's SM count) without a launch.
 :func:`path_for` and the planning helpers are pure Python, and
-:func:`wgmma_emulated` and :func:`skinny_emulated` are plain PyTorch on
-any device."""
+:func:`wgmma_emulated`, :func:`tiled_emulated` and :func:`skinny_emulated`
+are plain PyTorch on any device."""
 from __future__ import annotations
 
 import ctypes
@@ -341,6 +341,48 @@ def wgmma_emulated(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         acc += torch.bmm(x[:, :, k0:k0 + WGMMA_SLAB].float(),
                          w[:, k0:k0 + WGMMA_SLAB].float())
     return acc.to(x.dtype)
+
+
+def tiled_emulated(x: torch.Tensor, w: torch.Tensor, n_sm: int = 132, *,
+                   drop_tile=None, drop_split=None) -> torch.Tensor:
+    """The CUDA-core tile's numerics (``tiled``: M > 32, every f32 call and
+    the bf16 calls the tensor cores cannot take) in plain PyTorch, walking
+    :func:`_tiling`'s plan on a card of ``n_sm`` SMs: for each split, each
+    (64 MH) x 128 output tile sums its products over the split's
+    contraction rows a 16-deep slab at a time into an f32 accumulator (x
+    and w widened to f32, as the kernel stages them) and writes it to the
+    split's f32 partial sums; the partials are then added in split order
+    from 0 (``splitk_reduce_kernel``; one split is the tile itself) and
+    cast once to x's dtype.  ``drop_tile`` ((group, row tile, column
+    tile)) leaves that output tile out of every split, ``drop_split`` (an
+    index) that split out of every tile, as a faulty kernel would."""
+    g, m, k = x.shape
+    n = w.shape[2]
+    if path_for(x, w) != "tiled":
+        raise ValueError(f"x {tuple(x.shape)} {x.dtype}: not a call of the "
+                         "tiled path")
+    _, tm, splits, per = _tiling("tiled", g, m, k, n, n_sm, "tiled_emulated")
+    slab, xf, wf = SLAB[tm], x.float(), w.float()
+    partial = torch.zeros((splits, g, m, n), dtype=torch.float32,
+                          device=x.device)
+    for s in range(splits):
+        if s == drop_split:
+            continue
+        k_end = min(k, (s + 1) * per)
+        for r0 in range(0, m, tm):
+            for c0 in range(0, n, 128):
+                acc = partial[s, :, r0:r0 + tm, c0:c0 + 128]
+                for k0 in range(s * per, k_end, slab):
+                    k1 = min(k_end, k0 + slab)
+                    acc += torch.bmm(xf[:, r0:r0 + tm, k0:k1],
+                                     wf[:, k0:k1, c0:c0 + 128])
+    if drop_tile is not None:
+        gi, ri, ci = drop_tile
+        partial[:, gi, ri * tm:(ri + 1) * tm, ci * 128:(ci + 1) * 128] = 0.0
+    out = torch.zeros((g, m, n), dtype=torch.float32, device=x.device)
+    for s in range(splits):
+        out += partial[s]
+    return out.to(x.dtype)
 
 
 def skinny_emulated(x: torch.Tensor, w: torch.Tensor,

@@ -156,9 +156,10 @@ def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
 def test_unported_knobs_raise(tiny_cfg, knob, monkeypatch):
     """Every knob is ported; what still raises is a request the backend
     cannot honour: a fleet device that is not there (nothing falls back to
-    the CPU), and a disagg fleet on a process-group mesh (a mesh serves
-    the colocated paged path, as the default ``decode="auto"`` shows, and
-    the gang path)."""
+    the CPU), and a pool of fleet devices on a process-group mesh (a mesh
+    serves the colocated paged path, as the default ``decode="auto"``
+    shows, the disaggregated one on the runners' views, and the gang
+    path)."""
     from repro_torch.launch.mesh import Mesh, MeshShape
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -169,9 +170,14 @@ def test_unported_knobs_raise(tiny_cfg, knob, monkeypatch):
     ranks.backend, ranks.device = "gloo", torch.device("cpu")
     assert set(TorchBackend(port_cfg(tiny_cfg), device="cpu",
                             mesh=ranks)._paged) == {LAYER, SEMANTIC}
-    with pytest.raises(ValueError, match="colocated paged path"):
-        TorchBackend(port_cfg(tiny_cfg), device="cpu", mesh=ranks,
-                     fleet="disagg")
+    from repro_torch.dist.api import PagedView
+    tb = TorchBackend(port_cfg(tiny_cfg), device="cpu", mesh=ranks,
+                      fleet="disagg")
+    assert set(tb._disagg) == {LAYER, SEMANTIC} and not tb._paged
+    assert all(isinstance(w.model, PagedView)
+               for pf, dc, _ in tb._disagg.values() for w in (pf, dc))
+    with pytest.raises(ValueError, match="queue 4 item 3"):
+        TorchBackend(port_cfg(tiny_cfg), device="cpu", mesh=ranks, **knob)
 
 
 def test_moe_config_raises():

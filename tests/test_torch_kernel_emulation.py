@@ -14,6 +14,13 @@ rules that pick each launch's path.
   the ranks merged in rank order, one cast; held as |emulated - plain| <=
   tol (1 + |plain|), tol 2e-2 in bf16 and 2e-4 in f32 (the chip check's
   ``QTOL``); the plan covers every contraction row once.
+- Its CUDA-core tile for M > 32 (``_gemm_launch.tiled_emulated``, path
+  ``tiled``: every f32 call and the bf16 calls whose pointers or strides
+  the tensor cores cannot take): (64 MH) x 128 output tiles, each split's
+  contraction in 16-deep slabs summed in f32, the split-K partials added in
+  split order, one cast; held as the decode-sized tiles are, and the same
+  check must reject the output with one output tile left out (in every row
+  of that tile) and with one split left out (in every output row).
 - The bf16-q paged prefill
   (``paged_prefill_attention.paged_prefill_attention_emulated``): 64-row
   query tiles, 64-token K/V tiles through the table, f32 max, sum and
@@ -144,6 +151,57 @@ def test_skinny_emulation_matches_plain_and_jax(dt, g, k, n, pad, path, m):
                             np.float32)):
         diff = np.abs(_np(got) - want)
         assert (diff <= tol * (1 + np.abs(want))).all(), diff.max()
+
+
+def _tiled_case(dt, g, m, k, n, x_width, w_width):
+    """x [g, m, k] and w [g, k, n] cut from buffers ``x_width`` and
+    ``w_width`` wide (a bf16 row stride that is no multiple of 16 bytes
+    keeps the call off the tensor cores)."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.standard_normal((g, m, x_width), np.float32)) \
+        .to(dt)[..., :k]
+    w = torch.from_numpy(rng.standard_normal((g, k, w_width), np.float32)
+                         / np.sqrt(k)).to(dt)[..., :n]
+    return x, w
+
+
+@pytest.mark.parametrize("dt,g,m,k,n,x_width,w_width", [
+    (torch.float32, 2, 65, 200, 72, 200, 72),      # one 128-row tile
+    (torch.float32, 3, 171, 72, 130, 72, 130),     # 64-row tiles, ragged N
+    (torch.float32, 1, 200, 1000, 96, 1000, 96),   # ragged last slab
+    (torch.bfloat16, 2, 171, 64, 200, 70, 200),    # x rows 140 B apart
+    (torch.bfloat16, 2, 100, 300, 50, 300, 50)],   # w rows 100 B apart
+    ids=["f32-m65", "f32-m171", "f32-m200", "bf16-x140B", "bf16-w100B"])
+def test_tiled_emulation_matches_plain_and_jax(dt, g, m, k, n, x_width,
+                                               w_width):
+    """The CUDA-core tile with K split over CTAs, held to both plain
+    versions and both JAX oracles; the check rejects a dropped output tile
+    in every row of that tile and a dropped split in every output row."""
+    x, w = _tiled_case(dt, g, m, k, n, x_width, w_width)
+    assert _gemm_launch.path_for(x, w) == "tiled"
+    _, tm, splits, _ = _gemm_launch._tiling("tiled", g, m, k, n, 132, "t")
+    assert splits > 1                    # the split-K reduce is on the walk
+    got = _gemm_launch.tiled_emulated(x, w)
+    assert got.shape == (g, m, n) and got.dtype == dt
+    tol = GEMM_TOL[dt]
+    limit = lambda want: tol * (1 + np.abs(want))
+    for plain, oracle in (
+            (block_diag_matmul_plain, jref.block_diag_matmul_ref),
+            (moe_gmm_plain, jref.moe_gmm_ref)):
+        for want in (plain(x, w).float().numpy(),
+                     np.asarray(oracle(_jnp(x), _jnp(w)), np.float32)):
+            diff = np.abs(_np(got) - want)
+            assert (diff <= limit(want)).all(), diff.max()
+    want = _np(block_diag_matmul_plain(x, w))
+    ri, ci = (m - 1) // tm, (n - 1) // 128
+    bad = _np(_gemm_launch.tiled_emulated(x, w, drop_tile=(g - 1, ri, ci)))
+    rows, cols = slice(ri * tm, m), slice(ci * 128, n)
+    assert (np.abs(bad - want) > limit(want))[g - 1, rows, cols] \
+        .any(-1).all()
+    assert np.array_equal(np.delete(bad, g - 1, 0), np.delete(_np(got), g - 1,
+                                                              0))
+    bad = _np(_gemm_launch.tiled_emulated(x, w, drop_split=splits - 1))
+    assert (np.abs(bad - want) > limit(want)).any(-1).all()
 
 
 @pytest.mark.parametrize("path", ["mma_skinny", "skinny"])

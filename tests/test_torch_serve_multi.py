@@ -1335,14 +1335,13 @@ def test_paged_decode_step_passes_only_tokens(world):
         assert nbytes("1", "engine_paged_model", "all_gather") == 4 * 2 * 4
 
 
-@pytest.mark.parametrize("knob", [dict(fleet="disagg"),
-                                  dict(fleet_devices=("cpu", "cpu")),
+@pytest.mark.parametrize("knob", [dict(fleet_devices=("cpu", "cpu")),
                                   dict(arch="whisper-base")])
 def test_engine_mesh_refusals(knob):
-    """On a process-group mesh the backend serves the colocated paged path
-    and the gang path: a fleet and a LAYER arm the stages cannot take
-    (enc-dec) raise, naming the queue that holds them; nothing is served
-    another way."""
+    """On a process-group mesh the backend serves the colocated and the
+    disaggregated paged paths and the gang path: a pool of fleet devices
+    and a LAYER arm the stages cannot take (enc-dec) raise, naming the
+    queue that holds them; nothing is served another way."""
     from repro_torch.configs.base import get_config
     from repro_torch.engine import TorchBackend
     kw = dict(knob)
