@@ -332,7 +332,26 @@ raising on failure:
             calls' sends (LAYER) and all-gathers (SEMANTIC) the
             activation's and the (max, index) pairs' a step; each worker's
             pool bytes the rank's slice.  Reports decode ms per step on
-            rank 0 beside one process's and ``ship_overlap_frac``.
+            rank 0 beside one process's and ``ship_overlap_frac``.  Then
+            the routed fleet across ranks: ``FleetBackend`` of two
+            colocated paged replicas (LAYER) on (1, 2) and (2, 1) under
+            ``PrefixAwareRouter`` (rank 0 routes and relays every
+            replica's calls, the header naming the replica), two passes of
+            prefix-family requests on a step clock: tokens, routes and
+            sync counters equal to a one-process fleet's, the follower's
+            counts and CRC rank 0's, one ``prefill_simt`` a held layer a
+            chunk and one ``decode_split`` a held layer a step over both
+            replicas, one runner for both.  Then ``fleet_devices=(1, 0)``
+            on (1, 2): the LAYER arm's prefill worker pinned whole to rank
+            1, its decode worker to rank 0, the KV ship crossing ranks:
+            tokens and counters equal to the one-process disaggregated
+            backend's, every wave's blocks received bit for bit (read
+            back on the host), the bytes sent between the ranks
+            ``transfer_bytes``, ``prefill_simt`` on rank 1 only and
+            ``decode_split`` on rank 0 only for that arm.  Reports decode
+            ms per step against one process, headers sent, ship ms a wave
+            and its GB/s (gloo through the host) and
+            ``ship_overlap_frac``.
 21. disagg_xdev  the disagg fleet across devices: prefill worker on
             ``cuda:0``, decode worker on ``cuda:1`` with two cards, else on
             the CPU; stablelm-1.6b at full width cut to 2 superblocks, f32
@@ -383,6 +402,7 @@ one JSON object per kernel line, the card's name and power limit, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -3178,6 +3198,8 @@ def multi_worker(rank: int, workdir: pathlib.Path, device: str,
     runs["engine"] = engine_worker(rank, dev, reduced, world)
     runs["engine_paged"] = engine_paged_worker(rank, dev, reduced, world)
     runs["engine_disagg"] = engine_disagg_worker(rank, dev, reduced, world)
+    runs["engine_fleet"] = engine_fleet_worker(rank, dev, reduced, world)
+    runs["engine_pinned"] = engine_pinned_worker(rank, dev, reduced, world)
     dist.barrier()
     dist.destroy_process_group()
     (workdir / f"rank{rank}.json").write_text(json.dumps(runs))
@@ -3199,6 +3221,7 @@ def multi_phase(dev, *, reduced: bool = False):
     engine_ref = engine_refs(dev, reduced)
     engine_paged_ref = engine_paged_refs(dev, reduced)
     engine_disagg_ref = engine_disagg_refs(dev, reduced)
+    engine_fleet_ref = engine_fleet_refs(dev, reduced)
     # two processes' caching allocators share the card: expandable
     # segments keep their freed blocks from fragmenting it
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -3290,6 +3313,10 @@ def multi_phase(dev, *, reduced: bool = False):
     out["engine_disagg"] = engine_disagg_gates(ranks, engine_disagg_ref,
                                                card)
     out["engine_disagg_one_process"] = engine_disagg_ref
+    out["engine_fleet"] = engine_fleet_gates(ranks, engine_fleet_ref, card)
+    out["engine_fleet_one_process"] = engine_fleet_ref
+    out["engine_pinned"] = engine_pinned_gates(
+        ranks, engine_disagg_ref["clean"], card)
     log(f"[multi] {card} | world of {MULTI_WORLD} gloo ranks on one "
         f"device, {wall_s:.1f} s")
     return out
@@ -4367,6 +4394,439 @@ def engine_disagg_gates(ranks, ref: dict, card: str) -> dict:
     return out
 
 
+# ------------------------------------------- the engine fleet, pinned
+#: ``FleetBackend`` of ``ENGINE_FLEET_REPLICAS`` colocated paged replicas
+#: (the LAYER arm) on a process-group mesh under ``PrefixAwareRouter``:
+#: rank 0 routes, runs every replica's engine and relays each replica's
+#: calls, the header naming the replica; on each of these meshes
+ENGINE_FLEET = ((1, 2), (2, 1))
+ENGINE_FLEET_REPLICAS = 2
+#: a pass's requests and waves, the passes (warm, measured), the prefix
+#: families and their head tokens, tail tokens [lo, hi), new tokens [lo,
+#: hi): full size, then reduced
+ENGINE_FLEET_LOAD = dict(n=12, waves=4, passes=2, families=4, head=128,
+                         tail=(8, 41), new=(8, 17))
+ENGINE_FLEET_LOAD_REDUCED = dict(n=12, waves=4, passes=2, families=4,
+                                 head=16, tail=(2, 9), new=(4, 9))
+#: the step clock both fleets run on (the router weighs SLA slack, so the
+#: wall clock would route the two runs apart)
+ENGINE_FLEET_TICK = 0.01
+#: rank 0's routing, sync and scheduler counters held to one process's
+FLEET_COUNTERS = ("completed", "prefix_hit_rate", "sync_deltas",
+                  "tracked_hashes", "prefill_chunks", "decode_dispatches",
+                  "decoded_tokens", "cow_copies", "routed_per_replica")
+#: the follower's counts held to rank 0's
+FLEET_FOLLOWED = ("prefill_chunks", "decode_dispatches", "cow_copies",
+                  "prefill_calls", "stream_digest")
+#: ``fleet_devices=(1, 0)`` on this mesh: the LAYER arm's prefill worker
+#: pinned whole to rank 1, its decode worker to rank 0 (SEMANTIC, the
+#: pool spent, on the runner's view); held to the one-process
+#: disaggregated backend (``engine_disagg_refs``' clean run)
+ENGINE_PINNED = ((1, 2), (1, 0))
+
+
+@contextlib.contextmanager
+def _step_clock():
+    """``FleetBackend.now`` and ``TorchBackend.now`` read a counter that
+    every fleet step advances by ``ENGINE_FLEET_TICK``."""
+    from repro_torch.engine import FleetBackend, TorchBackend
+    clock = {"t": 0.0}
+    step = FleetBackend.step
+
+    def ticking(self, policy=None):
+        clock["t"] += ENGINE_FLEET_TICK
+        return step(self, policy)
+
+    saved = [(c, k, c.__dict__[k]) for c, k in
+             ((FleetBackend, "now"), (TorchBackend, "now"),
+              (FleetBackend, "step"))]
+    now = property(lambda self: clock["t"])
+    FleetBackend.now = TorchBackend.now = now
+    FleetBackend.step = ticking
+    try:
+        yield
+    finally:
+        for c, k, v in saved:
+            setattr(c, k, v)
+
+
+def engine_fleet_requests(vocab: int, reduced: bool, seed: int, rid0: int):
+    """A pass's requests: one of the families' heads (the same on every
+    call) and a fresh tail, SLA 30 s (step clock)."""
+    from repro_torch.engine import Request
+    load = ENGINE_FLEET_LOAD_REDUCED if reduced else ENGINE_FLEET_LOAD
+    heads = np.random.default_rng(200).integers(
+        0, vocab, (load["families"], load["head"])).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(load["n"]):
+        fam = int(rng.integers(load["families"]))
+        tail = rng.integers(0, vocab, int(rng.integers(*load["tail"])))
+        reqs.append(Request(
+            rid=rid0 + i, app_id=int(rng.integers(0, 3)), sla_s=30.0,
+            tokens=np.concatenate([heads[fam], tail]).astype(np.int32),
+            max_new=int(rng.integers(*load["new"]))))
+    return reqs
+
+
+def _fleet_engine_serve(fleet, cfg, reduced: bool) -> dict:
+    """The passes under ``PrefixAwareRouter`` on ``fleet`` (rank 0's or one
+    process's), on the step clock and traced: each wave submitted, then a
+    step; then steps until the fleet is empty; every pool checked unwound.
+    Returns {rid: tokens}, the counters (``FLEET_COUNTERS``), the prefill
+    chunks and decode steps over the replicas, decode ms a step over the
+    ``decode_scan`` and ``decode_read`` spans, and place ms a request."""
+    from repro_torch.engine import (LAYER, FixedPolicy, PlacementEngine,
+                                    PrefixAwareRouter)
+    from repro_torch.obs import Tracer, set_tracer
+    load = ENGINE_FLEET_LOAD_REDUCED if reduced else ENGINE_FLEET_LOAD
+    eng = PlacementEngine(
+        FixedPolicy(LAYER, placement=PrefixAwareRouter(fleet.board)), fleet)
+    tokens = {}
+    tracer = Tracer()
+    old = set_tracer(tracer)
+    try:
+        with _step_clock():
+            for p in range(load["passes"]):
+                reqs = engine_fleet_requests(cfg.vocab_size, reduced,
+                                             seed=70 + p, rid0=p * load["n"])
+                per = -(-len(reqs) // load["waves"])
+                for w in range(load["waves"]):
+                    eng.submit(reqs[w * per:(w + 1) * per])
+                    eng.step()
+                for _ in range(2000):
+                    if not fleet.pending():
+                        break
+                    eng.step()
+                if any(q.output is None or q.output.shape != (q.max_new,)
+                       for q in reqs):
+                    raise AssertionError("[engine fleet] a request did not "
+                                         "complete")
+                tokens.update({str(q.rid): q.output.tolist() for q in reqs})
+    finally:
+        set_tracer(old)
+    for rep in fleet.replicas:
+        _check_unwound(rep, "engine fleet")
+    m = dict(fleet.extra_metrics(), **eng.summary())
+    scheds = [s for rep in fleet.replicas for s in rep._all_scheds()]
+    calls = (sum(_bucket_steps(s, "prefill") for s in scheds),
+             sum(_bucket_steps(s, "decode") for s in scheds))
+    dec = tracer.events("decode_scan") + tracer.events("decode_read")
+    return dict(tokens=tokens, counters={k: m[k] for k in FLEET_COUNTERS},
+                calls=calls,
+                decode_ms=1e3 * sum(e[4] for e in dec) / 1e6
+                / max(calls[1], 1),
+                place_ms=1e3 * fleet.place_time_s / max(len(tokens), 1))
+
+
+def engine_fleet_refs(dev, reduced: bool) -> dict:
+    """The one-process fleet the ranks' fleets are held to, in this
+    process before the world starts."""
+    from repro_torch.engine import LAYER, FleetBackend
+    cfg, _, _ = engine_setup(reduced)
+    shape = ENGINE_PAGED_SHAPE_REDUCED if reduced else ENGINE_PAGED_SHAPE
+    _free()
+    fleet = FleetBackend(cfg, n_replicas=ENGINE_FLEET_REPLICAS,
+                         arms=(LAYER,), device=dev, **shape)
+    out = _fleet_engine_serve(fleet, cfg, reduced)
+    del fleet
+    _free()
+    log(f"[engine fleet one process] {cfg.name}: decode ms a step "
+        f"{out['decode_ms']:.2f}, {out['counters']}")
+    return out
+
+
+def engine_fleet_worker(rank: int, dev, reduced: bool, world: dict) -> dict:
+    """One rank of each ``ENGINE_FLEET`` run: the fleet built on the mesh;
+    rank 0 serves the passes and closes it, rank 1 follows.  The paged
+    launches by path and ``COMM_STATS`` are zeroed just before; the held
+    layers, the steps this rank ran and what the replicas share
+    recorded."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import comm
+    from repro_torch.engine import LAYER, FleetBackend
+    from repro_torch.kernels import _paged_launch as PL
+    from repro_torch.launch.mesh import init_mesh
+    cfg, _, _ = engine_setup(reduced)
+    shape = ENGINE_PAGED_SHAPE_REDUCED if reduced else ENGINE_PAGED_SHAPE
+    out = {}
+    for dims in ENGINE_FLEET:
+        _free()
+        mesh = init_mesh(dims, **world)
+        fleet = FleetBackend(cfg, mesh=mesh,
+                             n_replicas=ENGINE_FLEET_REPLICAS,
+                             arms=(LAYER,), device=dev, **shape)
+        comm.reset_stats()
+        paths0 = dict(PL.PATH_LAUNCHES)
+        dist.barrier()
+        t0 = time.perf_counter()
+        if rank == 0:
+            try:
+                res = _fleet_engine_serve(fleet, cfg, reduced)
+            finally:
+                fleet.close()
+            res["metrics"] = {k: v for k, v in fleet.extra_metrics().items()
+                              if not isinstance(v, (dict, list))}
+        else:
+            res = dict(follow={k: v for k, v in fleet.follow().items()
+                               if k != "replicas"})
+        _sync(dev)
+        scheds = [s for rep in fleet.replicas for s in rep._all_scheds()]
+        res.update(
+            wall_s=time.perf_counter() - t0, comm=dict(comm.COMM_STATS),
+            paths={k: PL.PATH_LAUNCHES[k] - paths0[k] for k in paths0},
+            held=_held_attention_layers(fleet.replicas[0].runners[LAYER]),
+            steps=[sum(_bucket_steps(s, k) for s in scheds)
+                   for k in ("prefill", "decode")],
+            runners=len({id(r.runners[LAYER]) for r in fleet.replicas}),
+            pools=len({id(s.pool["pos0"]["k"]) for s in scheds}))
+        key = ",".join(map(str, dims))
+        out[key] = res
+        log(f"[engine fleet {key} rank {rank}] {res['wall_s']:.1f} s, "
+            f"launches {res['paths']}")
+        del fleet, scheds
+        comm.release_buffers()
+    return out
+
+
+def engine_fleet_gates(ranks, ref: dict, card: str) -> dict:
+    """The fleet runs' gates: rank 0's tokens, routes and counters are the
+    one-process fleet's (one step clock); the follower replayed every
+    replica's calls (its counts and stream CRC rank 0's); on each rank one
+    ``prefill_simt`` a held layer a chunk and one ``decode_split`` a held
+    layer a step over both replicas, and nothing else; the replicas share
+    one runner and hold a pool each."""
+    out = {}
+    for dims in ENGINE_FLEET:
+        key = ",".join(map(str, dims))
+        lead, follower = (rk["engine_fleet"][key] for rk in ranks)
+        where = f"[engine fleet {key}]"
+        if lead["tokens"] != ref["tokens"]:
+            same = sum(lead["tokens"][r] == t for r, t in
+                       ref["tokens"].items())
+            raise AssertionError(f"{where} rank 0's tokens equal the "
+                                 f"one-process fleet's in {same} requests")
+        if lead["counters"] != ref["counters"]:
+            raise AssertionError(f"{where} counters {lead['counters']}, "
+                                 f"one process {ref['counters']}")
+        c = ref["counters"]
+        if not (c["prefix_hit_rate"] > 0 and min(c["routed_per_replica"])
+                > 0):
+            raise AssertionError(f"{where} the run missed a prefix hit or "
+                                 f"a replica ({c})")
+        m = lead["metrics"]
+        if any(follower["follow"][k] != m[k] for k in FLEET_FOLLOWED):
+            raise AssertionError(f"{where} the follower ran "
+                                 f"{follower['follow']}, rank 0 {m}")
+        for r, rk in enumerate((lead, follower)):
+            want = {"prefill_simt": rk["held"] * rk["steps"][0],
+                    "decode_split": rk["held"] * rk["steps"][1]}
+            got = {p: n for p, n in rk["paths"].items() if n}
+            if rk["steps"] != list(lead["calls"]) or got != want:
+                raise AssertionError(f"{where} rank {r} launched {got} in "
+                                     f"{rk['steps']} steps, want {want}")
+            if (rk["runners"], rk["pools"]) != (1, ENGINE_FLEET_REPLICAS):
+                raise AssertionError(
+                    f"{where} rank {r}: {rk['runners']} runners, "
+                    f"{rk['pools']} pools for {ENGINE_FLEET_REPLICAS} "
+                    "replicas")
+        row = dict(
+            mesh=dims, decode_ms=lead["decode_ms"],
+            decode_ms_one_process=ref["decode_ms"],
+            decode_steps=lead["calls"][1], prefill_chunks=lead["calls"][0],
+            place_ms=lead["place_ms"], counters=lead["counters"],
+            headers_sent=m["headers_sent"] + 1,
+            wall_s=[lead["wall_s"], follower["wall_s"]],
+            launches=[rk["paths"] for rk in (lead, follower)],
+            staged_bytes=[rk["comm"].get("staged_bytes", 0)
+                          for rk in (lead, follower)])
+        out[key] = row
+        log(f"[engine fleet {key}] {card} | " + json.dumps(row))
+    return out
+
+
+def _watch_pinned_ship(store, rec: dict) -> None:
+    """Wrap a pinned store's ``_ship``: per wave the non-null blocks, this
+    rank's host ms of the ship and the bytes it sent; on the prefill rank
+    a device copy of the wave's source blocks, on the decode rank of the
+    blocks it wrote (gathers enqueued after the ship, read once the run is
+    over)."""
+    from repro_torch.decode.paged_cache import NULL_BLOCK, gather_blocks
+    from repro_torch.dist import comm
+    orig = store._ship
+
+    def ship(wire):
+        n = int(np.count_nonzero(wire[:, 0] != NULL_BLOCK))
+        sent = comm.COMM_STATS.get("send_bytes", 0.0)
+        t0 = time.perf_counter()
+        orig(wire)
+        ms = 1e3 * (time.perf_counter() - t0)
+        rec["waves"].append(dict(
+            blocks=n, ms=ms,
+            sent=comm.COMM_STATS.get("send_bytes", 0.0) - sent))
+        src, dst = store.pinned
+        for side, rank, sched, col in (("src", src, store.src, 0),
+                                       ("dst", dst, store.dst, 1)):
+            if store.mesh.rank == rank:
+                ids = torch.from_numpy(wire[:n, col].astype(np.int64)).to(
+                    sched.device)
+                rec[side].append(gather_blocks(sched.pool, ids))
+    store._ship = ship
+
+
+def _tree_crc(tree) -> list:
+    """CRC-32 of each leaf's bytes, in leaf order (read to the host)."""
+    import zlib
+
+    from repro_torch.decode.paged_cache import _leaves
+    return [zlib.crc32(t.contiguous().view(torch.uint8).cpu().numpy()
+                       .tobytes()) for _, t in _leaves(tree)]
+
+
+def engine_pinned_worker(rank: int, dev, reduced: bool, world: dict) -> dict:
+    """One rank of the pinned run: the disaggregated backend on the mesh
+    with ``fleet_devices`` as ranks (``ENGINE_PINNED``); rank 0 serves each
+    arm's waves and closes it, rank 1 follows.  The paged launches by path
+    and ``COMM_STATS`` are zeroed just before; the launches inside the
+    pinned workers' calls, each wave's ship and the pools recorded."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import comm
+    from repro_torch.engine import LAYER, SEMANTIC, TorchBackend
+    from repro_torch.kernels import _paged_launch as PL
+    from repro_torch.launch.mesh import init_mesh
+    cfg, _, _ = engine_setup(reduced)
+    shape = ENGINE_PAGED_SHAPE_REDUCED if reduced else ENGINE_PAGED_SHAPE
+    dims, pins = ENGINE_PINNED
+    _free()
+    mesh = init_mesh(dims, **world)
+    backend = TorchBackend(cfg, mesh=mesh, device=dev, **shape,
+                           fleet="disagg", fleet_devices=pins)
+    pf, dc, store = backend._disagg[LAYER]
+    roles = _new_roles()
+    _count_by_role(pf, dc, roles)
+    ship = dict(waves=[], src=[], dst=[])
+    _watch_pinned_ship(store, ship)
+    comm.reset_stats()
+    paths0 = dict(PL.PATH_LAUNCHES)
+    dist.barrier()
+    t0 = time.perf_counter()
+    if rank == 0:
+        try:
+            res = _paged_engine_serve(backend, cfg, reduced)
+        finally:
+            backend.close()
+        res["metrics"] = {k: v for k, v in backend.extra_metrics().items()
+                          if not isinstance(v, dict)}
+        res["digest_for_1"] = backend.stream_digest_for(1)
+        res["layer_transfer_bytes"] = store.transfer_bytes
+    else:
+        res = dict(follow=backend.follow())
+    _sync(dev)
+    res.update(
+        wall_s=time.perf_counter() - t0, comm=dict(comm.COMM_STATS),
+        paths={k: PL.PATH_LAUNCHES[k] - paths0[k] for k in paths0},
+        roles=roles, pins=list(backend._pins[LAYER]),
+        layer_steps=[_bucket_steps(pf, "prefill"),
+                     _bucket_steps(dc, "decode")],
+        semantic_steps=[_bucket_steps(w, k) for w, k in zip(
+            backend._disagg[SEMANTIC][:2], ("prefill", "decode"))],
+        layer_held=_held_attention_layers(pf.model),
+        semantic_held=_held_attention_layers(backend.runners[SEMANTIC]),
+        pools=[[_tree_bytes(w.pool), all(
+            t.is_meta for e in w.pool.values() for t in e.values())]
+            for w in (pf, dc)],
+        whole_pool=pf.kv_block_bytes * pf.alloc.num_blocks,
+        ship_waves=ship["waves"],
+        ship_src=[_tree_crc(p) for p in ship["src"]],
+        ship_dst=[_tree_crc(p) for p in ship["dst"]])
+    log(f"[engine pinned rank {rank}] {res['wall_s']:.1f} s, launches "
+        f"{res['paths']}, by worker {roles}")
+    del backend, pf, dc, store, ship
+    comm.release_buffers()
+    return res
+
+
+def engine_pinned_gates(ranks, ref: dict, card: str) -> dict:
+    """The pinned run's gates: rank 0's tokens and counters are the
+    one-process disaggregated backend's; the follower's counts rank 0's
+    and its stream CRC rank 0's over the workers it holds; every wave's
+    blocks landed on rank 0 bit for bit, and the bytes rank 1 sent are the
+    LAYER store's ``transfer_bytes``; the LAYER prefill worker launched
+    ``prefill_simt`` on rank 1 only and its decode worker ``decode_split``
+    on rank 0 only, one a layer a chunk or step, and each rank launched
+    nothing else but its SEMANTIC slices' (one a held layer); each pinned
+    pool is whole on its rank and absent from the other."""
+    dims, pins = ENGINE_PINNED
+    lead, follower = (rk["engine_pinned"] for rk in ranks)
+    where = "[engine pinned]"
+    if lead["tokens"] != ref["tokens"]:
+        raise AssertionError(f"{where} rank 0's tokens differ from the "
+                             "one-process disaggregated backend's")
+    if lead["counters"] != ref["counters"]:
+        raise AssertionError(f"{where} counters {lead['counters']}, one "
+                             f"process {ref['counters']}")
+    m = lead["metrics"]
+    want = dict(m, stream_digest=lead["digest_for_1"])
+    if any(follower["follow"][k] != want[k] for k in DISAGG_FOLLOWED):
+        raise AssertionError(f"{where} the follower ran {follower['follow']}"
+                             f", rank 0 {want}")
+    src, dst = ranks[pins[0]]["engine_pinned"], ranks[pins[1]]["engine_pinned"]
+    if not src["ship_src"] or src["ship_src"] != dst["ship_dst"]:
+        raise AssertionError(f"{where} {len(src['ship_src'])} waves sent, "
+                             f"{len(dst['ship_dst'])} received; equal "
+                             f"{src['ship_src'] == dst['ship_dst']}")
+    sent = sum(w["sent"] for w in src["ship_waves"])
+    if sent != lead["layer_transfer_bytes"] or any(
+            w["sent"] for w in dst["ship_waves"]):
+        raise AssertionError(f"{where} rank {pins[0]} sent {sent} B, "
+                             f"transfer_bytes {lead['layer_transfer_bytes']}")
+    chunks, steps = lead["layer_steps"]
+    for r, rk in enumerate((lead, follower)):
+        held = rk["layer_held"]
+        exp = {"prefill": dict.fromkeys(rk["roles"]["prefill"], 0),
+               "decode": dict.fromkeys(rk["roles"]["decode"], 0)}
+        if r == pins[0]:
+            exp["prefill"]["paged_prefill_attention"] = held * chunks
+        if r == pins[1]:
+            exp["decode"]["paged_decode_attention"] = held * steps
+        sem = rk["semantic_held"]
+        want_paths = {
+            "prefill_simt": exp["prefill"]["paged_prefill_attention"]
+            + sem * lead["semantic_steps"][0],
+            "decode_split": exp["decode"]["paged_decode_attention"]
+            + sem * lead["semantic_steps"][1]}
+        got = {p: n for p, n in rk["paths"].items() if n}
+        if rk["roles"] != exp or got != want_paths:
+            raise AssertionError(f"{where} rank {r} launched {rk['roles']} "
+                                 f"by worker, {got} in all; want {exp}, "
+                                 f"{want_paths}")
+        for i, (nbytes, meta) in enumerate(rk["pools"]):
+            if (pins[i] == r) == meta or (pins[i] == r and nbytes !=
+                                          lead["whole_pool"]):
+                raise AssertionError(f"{where} rank {r} worker {i}: pool "
+                                     f"{nbytes} B, meta {meta}")
+    waves = src["ship_waves"]
+    recv = dst["ship_waves"]
+    gbs = [w["sent"] / (v["ms"] * 1e6) for w, v in zip(waves, recv)]
+    row = dict(
+        mesh=dims, pins=pins, decode_ms=lead["decode_ms"],
+        decode_ms_one_process=ref["decode_ms"],
+        ship_overlap_frac=lead["ship_overlap_frac"],
+        ship_overlap_frac_one_process=ref["ship_overlap_frac"],
+        ship_waves=len(waves), blocks=[w["blocks"] for w in waves],
+        ship_ms_rank0=[round(v["ms"], 3) for v in recv],
+        ship_ms_median=statistics.median(v["ms"] for v in recv),
+        ship_gbps_median=statistics.median(gbs), ship_bytes=sent,
+        counters=lead["counters"], headers_sent=m["headers_sent"] + 1,
+        wall_s=[lead["wall_s"], follower["wall_s"]],
+        launches=[rk["paths"] for rk in (lead, follower)],
+        launches_by_worker=[rk["roles"] for rk in (lead, follower)])
+    log(f"{where} {card} | " + json.dumps(row))
+    return row
+
+
 # ------------------------------------------------------------ disagg_xdev
 XDEV_REQUESTS = 8
 
@@ -4892,8 +5352,10 @@ def main(argv=None) -> int:
             launches = sum(s["launches"][name] for s in serves.values()) \
                 + sum(f["launches"][name] for f in fleet.values()) \
                 + sum(_paged_engine_launches(row, name)
-                      for part in ("engine_paged", "engine_disagg")
-                      for row in multi[part].values())
+                      for part in ("engine_paged", "engine_disagg",
+                                   "engine_fleet")
+                      for row in multi[part].values()) \
+                + _paged_engine_launches(multi["engine_pinned"], name)
         line.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",

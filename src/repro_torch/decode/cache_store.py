@@ -41,7 +41,14 @@ workers' pools, of one layout, and the block dim is split by no axis.
 Rank 0 keeps the ledger and hands each wave's padded (source,
 destination) block ids to ``relay`` before it ships; every other rank
 ships the same ids between its own slices (:meth:`CacheStore.replay_ship`),
-so a wave moves no pool bytes between ranks.
+so a wave moves no pool bytes between ranks.  When the two workers are
+pinned whole to ranks (``pinned``: the prefill rank, the decode rank),
+only those ranks touch the wave: one rank ships between its two pools;
+two ranks move it point to point, the prefill rank gathering the wave's
+non-null source blocks of every pool leaf (int8 codes and scales alike)
+and sending them, the decode rank scattering them into its pool, so the
+bytes between ranks are the wave's blocks times the whole pool's block
+bytes.  ``ship_xdev_copies`` counts a leaf a wave there too.
 """
 from __future__ import annotations
 
@@ -52,9 +59,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Set
 import numpy as np
 import torch
 
-from repro_torch.decode.paged_cache import (NULL_BLOCK, _leaves,
+from repro_torch.decode.paged_cache import (NULL_BLOCK, _at, _leaves,
                                             gather_blocks, scatter_blocks)
 from repro_torch.decode.scheduler import Lane, PagedArmScheduler
+from repro_torch.dist import comm
 from repro_torch.engine.types import next_pow2
 from repro_torch.obs import Histogram, annotation, get_tracer
 
@@ -206,7 +214,9 @@ class CacheStore:
 
     ``src`` must be a ``role="prefill"`` scheduler and ``dst`` a
     ``role="decode"`` one with the same pool layout, on one device or on
-    two (``fleet``).
+    two (``fleet``), or pinned to ranks ``pinned`` = (prefill rank,
+    decode rank) of the process-group mesh ``mesh``, whose world
+    ``group`` carries the wave between them.
     ``on_requeue(lane)`` fires when a shipment times out (the backend
     pushes the reset request back onto the arm queue); after
     ``max_ship_retries`` attempts the request goes to ``on_fail`` instead
@@ -222,7 +232,8 @@ class CacheStore:
                  on_requeue: Optional[Callable[[Lane], None]] = None,
                  max_ship_retries: Optional[int] = None,
                  on_fail: Optional[Callable[[Lane], None]] = None,
-                 injector=None):
+                 injector=None, pinned: Optional[tuple] = None, mesh=None,
+                 group=None):
         if src.role != "prefill" or dst.role != "decode":
             raise ValueError("CacheStore wants a prefill src and decode dst")
         if src.block_size != dst.block_size:
@@ -237,7 +248,9 @@ class CacheStore:
         self.on_fail = on_fail
         self.injector = injector
         self.ledger = RequestBlockBuffer()
-        self.fleet = src.device != dst.device
+        self.pinned, self.mesh, self.group = pinned, mesh, group
+        self.fleet = src.device != dst.device if pinned is None \
+            else pinned[0] != pinned[1]
         # injected-delay staging: (release_t, rid, dst_ids, attempt) marks
         # applied once the owner clock passes release_t, racing the
         # (backed-off) ledger deadline
@@ -495,10 +508,40 @@ class CacheStore:
         self._ship(wire)
 
     def _ship(self, wire: np.ndarray) -> None:
-        ship_blocks(self.src.pool, self.dst.pool, wire[:, 0].astype(np.int64),
-                    wire[:, 1].astype(np.int64))
+        if self.pinned is None or self.mesh.rank in self.pinned:
+            if self.fleet and self.pinned is not None:
+                self._ship_across(wire)
+            else:
+                ship_blocks(self.src.pool, self.dst.pool,
+                            wire[:, 0].astype(np.int64),
+                            wire[:, 1].astype(np.int64))
         if self.fleet:
             self.xdev_copies += len(list(_leaves(self.src.pool)))
+
+    def _ship_across(self, wire: np.ndarray) -> None:
+        """A wave between workers pinned to two ranks, on either of them:
+        the prefill rank sends the non-null source blocks of each pool leaf
+        in leaf order, the decode rank receives and scatters them (after
+        the decode call in flight on its stream)."""
+        src_rank, dst_rank = self.pinned
+        n = int(np.count_nonzero(wire[:, 0] != NULL_BLOCK))
+        ids = wire[:n].astype(np.int64)
+        if self.mesh.rank == src_rank:
+            payload = gather_blocks(self.src.pool,
+                                    _index(ids[:, 0], self.src.device))
+            for _, leaf in _leaves(payload):
+                comm.send_to(leaf, dst_rank, self.group)
+        else:
+            dev = self.dst.device
+            # the payload's shapes: the same gather on the source's layout
+            # (a remote view's pool here, on the meta device)
+            like = gather_blocks(self.src.pool, torch.zeros(
+                n, dtype=torch.long, device=self.src.device))
+            recvs = [comm.post_recv(t.shape, t.dtype, src_rank, self.group,
+                                    dev) for _, t in _leaves(like)]
+            at = _index(ids[:, 1], dev).long()
+            for (path, leaf), recv in zip(_leaves(self.dst.pool), recvs):
+                leaf[_at(path, at)] = recv.wait()
 
     def replay_ship(self, wire: np.ndarray) -> None:
         """Another rank's side of ``relay``: the wave rank 0 shipped, from

@@ -46,7 +46,11 @@ prefill chunk, the decode call) all go through :meth:`call`, which counts
 them.  Its ``relay`` hook (rank 0's backend) gets each call's kind, bucket
 and host arrays packed side by side into one int32 matrix before it runs;
 on another rank :meth:`replay` unpacks that matrix and makes the same call
-on its slices.  Every rank keeps a CRC-32 of the tokens of its decode
+on its slices.  A worker pinned whole to one rank has the whole model
+there and a ``dist.api.RemoteView`` elsewhere: rank 0's calls through the
+view receive the outputs the pinned rank sends back (its ``answer`` hook,
+after each replayed call), and another rank drops the call but counts
+it.  Every rank keeps a CRC-32 of the tokens of its prefill and decode
 calls (``token_digest``), read where the tokens reach the host.
 """
 from __future__ import annotations
@@ -167,7 +171,12 @@ class PagedArmScheduler:
         #: each device call, ``wire`` the call's host arrays as
         #: :meth:`replay` takes them
         self.relay = None
-        #: CRC-32 of the tokens of every decode call, in call order
+        #: a worker pinned to a rank other than 0, on that rank:
+        #: ``answer(outputs)`` after each replayed call sends rank 0 the
+        #: outputs it reads
+        self.answer = None
+        #: CRC-32 of the tokens of every prefill and decode call, in call
+        #: order
         self.token_digest = 0
         self.n_lanes = n_lanes
         self.block_size = block_size
@@ -295,10 +304,20 @@ class PagedArmScheduler:
         arrays on the device) -> (pool, *outputs)."""
         if kind == "cow":
             return lambda pool, src, dst: (copy_blocks(pool, src, dst),)
+        remote = getattr(self.model, "remote_call", None)
+        if remote is not None:
+            return remote(kind, key)
         if kind == "prefill":
             return make_prefill_fn(self.model, self.params)
-        return make_decode_fn(self.model, scan_tokens=key[1],
-                              params=self.params)
+        decode = make_decode_fn(self.model, scan_tokens=key[1],
+                                params=self.params)
+
+        def packed(pool, *host):
+            # the outputs the host reads, in one [W, K + 3] int32 matrix
+            pool, tok, lengths, remaining, toks = decode(pool, *host)
+            return pool, torch.cat([toks, tok, lengths[:, None],
+                                    remaining[:, None]], dim=1)
+        return packed
 
     def _columns(self, kind: str, key: tuple) -> tuple:
         """The columns each host array of a call takes in its wire matrix
@@ -320,17 +339,21 @@ class PagedArmScheduler:
                 axis=1))
         fn = self._get_built(kind, key, lambda: self._build(kind, key))
         self.pool, *out = fn(self.pool, *(self._dev(a) for a in host))
+        self._count(kind, host)
+        return out
+
+    def _count(self, kind: str, host: tuple) -> None:
         if kind == "cow":
             self.cow_copies += int(np.count_nonzero(host[0] != NULL_BLOCK))
         elif kind == "prefill":
             self.prefill_chunks += 1
         else:
             self.decode_dispatches += 1
-        return out
 
     def replay(self, kind: str, key: tuple, wire: np.ndarray) -> None:
         """Another rank's side of ``relay``: the call rank 0 made, from its
-        wire matrix, on this rank's pool."""
+        wire matrix, on this rank's pool (a worker held elsewhere only
+        counts it); then ``answer`` gets the outputs rank 0 reads."""
         host, at = [], 0
         for cols in self._columns(kind, key):
             host.append(wire[:, at:at + cols] if cols else wire[:, at])
@@ -338,12 +361,23 @@ class PagedArmScheduler:
         if at != wire.shape[1]:
             raise ValueError(f"{kind} call {key}: a wire matrix of "
                              f"{wire.shape[1]} columns, expected {at}")
+        if hasattr(self.model, "remote_call"):     # held on another rank
+            self._count(kind, tuple(host))
+            return
         out = self.call(kind, key, tuple(host))
-        if kind == "decode":
-            self._note_tokens(out[-1].cpu().numpy())
+        if kind == "cow":
+            return
+        read = out[0].cpu()
+        # a prefill's pad rows (no tokens) attend the null block, whose
+        # contents are garbage by design: only its lanes' tokens count
+        self._note_tokens(read.numpy()[host[2] > 0] if kind == "prefill"
+                          else read.numpy()[:, :key[1]])
+        if self.answer is not None:
+            self.answer(read)
 
     def _note_tokens(self, toks: np.ndarray) -> None:
-        """Add a decode call's tokens [W, K] to ``token_digest``."""
+        """Add a call's tokens (a prefill's lanes', a decode call's [W, K])
+        to ``token_digest``."""
         self.token_digest = zlib.crc32(
             np.ascontiguousarray(toks, np.int32).tobytes(), self.token_digest)
 
@@ -637,6 +671,7 @@ class PagedArmScheduler:
                      chunk=c), annotation(f"prefill:{w}x{c}"):
             first, = self.call("prefill", (w, c), (toks, starts, n_tok, bt))
             first = first.cpu().numpy()
+        self._note_tokens(first[n_tok > 0])
 
         retired: List[Lane] = []
         t_first = self.clock() if self.clock is not None else now
@@ -755,8 +790,9 @@ class PagedArmScheduler:
 
         with get_tracer().span("decode_scan", track=self.track, lanes=n_act,
                                scan=k_eff), annotation(f"decode:{w}x{k_eff}"):
-            tok_o, lengths_o, remaining_o, toks = self.call(
-                "decode", (w, k_eff), (tok[:, None], bt, lengths, remaining))
+            # [W, K + 3]: the K tokens, then tok', lengths', remaining'
+            out, = self.call("decode", (w, k_eff),
+                             (tok[:, None], bt, lengths, remaining))
         self.lane_steps += w * k_eff
         self._active_frac_sum += n_act / w
         return {
@@ -765,8 +801,7 @@ class PagedArmScheduler:
             # slot still holds the SAME lane (evict_latest can free a slot,
             # and admit_shipped re-seat it, while the call runs)
             "lanes": [self.lanes[i] for i in act],
-            "out": torch.cat([toks, tok_o, lengths_o[:, None],
-                              remaining_o[:, None]], dim=1),
+            "out": out,
         }
 
     def finish_dispatch(self, pending: Optional[dict],

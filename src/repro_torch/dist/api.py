@@ -79,6 +79,13 @@ physical-block dim in place of the batch dim (``sharding.pool_specs``):
 Only tokens cross ranks in the paged decode loop (and, between stages,
 the activation).
 
+A disaggregated worker may instead be pinned whole to one rank (the
+reference's ``fleet_devices``, each entry a rank's device): that rank
+holds the arm's whole model and whole pool (its join a
+:class:`PinnedJoin`), and every other rank holds a :class:`RemoteView`
+of it, shapes on the meta device and no weights.  Rank 0's remote view
+relays each call and receives the outputs it reads point to point.
+
 Parameter and gradient trees are nested dicts in the JAX param-tree
 layout.
 """
@@ -879,6 +886,96 @@ class PagedView:
 
     def whole_pool(self, num_blocks: int, block_size: int):
         return self.runner.whole_pool(num_blocks, block_size)
+
+
+# ------------------------------------------------------- pinned workers
+class PinnedJoin(PM.LocalJoin):
+    """The join of a paged worker pinned whole to ``rank`` of a
+    process-group mesh, on that rank: its forwards run the whole model
+    (nothing crosses ranks), and on a rank other than 0 the statistics it
+    reduces (the weight-quant telemetry) go to rank 0, whose
+    :class:`RemoteView` of the worker takes them."""
+
+    def __init__(self, rank: int, mesh, group):
+        self.rank, self.mesh, self.group = rank, mesh, group
+
+    def reduce_stats(self, stats):
+        if self.rank != 0:
+            comm.send_to(torch.tensor(stats, dtype=torch.float64,
+                                      device=M.wire_device(self.mesh)),
+                         0, self.group)
+        return stats
+
+
+class _RemoteJoin(PM.LocalJoin):
+    """A :class:`RemoteView`'s join: rank 0 receives the pinned rank's
+    reduced statistics; another rank has none to add."""
+
+    def __init__(self, rank: int, mesh, group):
+        self.rank, self.mesh, self.group = rank, mesh, group
+
+    def reduce_stats(self, stats):
+        if self.mesh.rank != 0:
+            return stats
+        mx, tot, n = comm.post_recv((3,), torch.float64, self.rank,
+                                    self.group,
+                                    M.wire_device(self.mesh)).wait().tolist()
+        return mx, tot, int(n)
+
+
+class _Outputs:
+    """The outputs of one call of a remote worker, in flight from its
+    rank: ``cpu()`` waits for them (the scheduler reads a call's outputs
+    so)."""
+
+    def __init__(self, recv: comm.Receive):
+        self._recv = recv
+
+    def cpu(self) -> torch.Tensor:
+        return self._recv.wait().cpu()
+
+
+class RemoteView:
+    """A paged worker pinned whole to another rank (``rank``) of a
+    process-group mesh, as this rank's ``PagedArmScheduler`` holds it:
+    the configs of ``model`` (built on the meta device: no weights here),
+    ``init_pool`` and ``whole_pool`` (the whole pool on the meta device,
+    shapes only), and ``remote_call``, the scheduler's device calls.  On
+    rank 0 a call makes no device work: it posts the receive of the
+    outputs rank 0 reads (the prefill chunk's [W] tokens, the decode
+    call's packed [W, K + 3] matrix), which the pinned rank sends once it
+    has replayed the call.  On another rank the scheduler drops the
+    call."""
+
+    def __init__(self, model, rank: int, mesh, group):
+        self.cfg, self.branch_cfg = model.cfg, model.branch_cfg
+        self.supports_single_step_prefill = model.supports_single_step_prefill
+        self.device = torch.device("meta")
+        self.rank, self.mesh, self.group = rank, mesh, group
+        self.join = _RemoteJoin(rank, mesh, group)
+        self._meta = model
+
+    def grouped_views(self):
+        """No weights here: an empty stack (its weight-quantized copy is
+        empty too; the telemetry comes from the pinned rank, through the
+        join)."""
+        return None, None, []
+
+    def init_pool(self, num_blocks: int, block_size: int):
+        return self._meta.init_pool(num_blocks, block_size)
+
+    whole_pool = init_pool
+
+    def remote_call(self, kind: str, key: tuple):
+        """The device call of ``kind`` at bucket ``key``, as rank 0 makes
+        it for this worker: (pool, *host arrays) -> (pool, the outputs in
+        flight), the COW copy (pool,)."""
+        if kind == "cow":
+            return lambda pool, *host: (pool,)
+        shape = (key[0],) if kind == "prefill" else (key[0], key[1] + 3)
+        wire = M.wire_device(self.mesh)
+        return lambda pool, *host: (pool, _Outputs(comm.post_recv(
+            shape, torch.int32, self.rank, self.group, wire)))
 
 
 def _reduce_stats(stats, mesh):

@@ -14,6 +14,9 @@ communication ops.
   ``barrier``;
 - ``exchange``: one tick's point-to-point sends and receives in a single
   ``batch_isend_irecv``, so two neighbours never wait on each other;
+- ``send_to`` and ``post_recv``: one tensor point to point, the receive
+  posted now and waited for later (a pinned serving worker's outputs and
+  its ship payloads);
 - ``reduce_grads``, ``mean_over_data`` and ``replicated_mean``: the
   runners' gradient and loss reductions over a mesh.
 
@@ -238,6 +241,47 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
         COMM_STATS["staged_bytes"] += staged_bytes
         COMM_STATS["staged_ms"] += 1e3 * (time.perf_counter() - t0)
     return outs
+
+
+def send_to(x: torch.Tensor, peer: int, group) -> None:
+    """Send ``x`` to group rank ``peer`` and return once it has gone (on
+    gloo a CUDA tensor goes from a host copy)."""
+    x = x.contiguous()
+    _count("send", x.numel() * x.element_size())
+    if _staged(group, x):
+        COMM_STATS["staged_bytes"] += x.numel() * x.element_size()
+        x = x.cpu()
+    dist.send(x, dst=dist.get_global_rank(group, peer), group=group)
+
+
+class Receive:
+    """A receive :func:`post_recv` posted: :meth:`wait` waits for it and
+    returns the tensor on the device it was asked for."""
+
+    def __init__(self, work, buf: torch.Tensor, device: torch.device):
+        self._work, self._buf, self._device = work, buf, device
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        if self._buf.device == self._device:
+            return self._buf
+        COMM_STATS["staged_bytes"] += self._buf.numel() * \
+            self._buf.element_size()
+        return self._buf.to(self._device)
+
+
+def post_recv(shape, dtype: torch.dtype, peer: int, group,
+              device) -> Receive:
+    """Post the receive of a ``shape`` / ``dtype`` tensor from group rank
+    ``peer`` without waiting for it (on gloo a CUDA destination receives
+    into host memory and moves in :meth:`Receive.wait`)."""
+    dev = torch.device(device)
+    staged = dev.type == "cuda" and dist.get_backend(group) == "gloo"
+    buf = torch.empty(tuple(shape), dtype=dtype,
+                      device="cpu" if staged else dev)
+    _count("recv", buf.numel() * buf.element_size())
+    work = dist.irecv(buf, src=dist.get_global_rank(group, peer), group=group)
+    return Receive(work, buf, dev)
 
 
 # ------------------------------------------------------ autograd wrappers

@@ -23,17 +23,33 @@ cache per arm and, with it, that arm's model (same seed, same weights, held
 once; each bucket is built once fleet-wide), and one clock, so outcome
 latencies are comparable across replicas.  Each replica keeps its own pools,
 queues and fault injector.
+
+On a process-group ``launch.mesh.Mesh`` every rank constructs the same
+fleet.  Each replica's arms are ``TorchBackend``'s mesh arms (colocated
+paged, disaggregated, with ``fleet_devices`` as ranks pinning a
+disaggregated arm's workers, or gang), sharing the arm's runner, its
+weights (one ``params`` dict) and its built calls; each replica holds its
+own pool slices on every rank.  Rank 0 alone routes (the board, ``place``,
+the views, the fallbacks: host work that sends nothing), runs every
+replica's engine, queues, clock and fault plane, and relays every device
+call of every replica, the header's replica field naming it (its index,
+``replica``).  The other ranks call :meth:`FleetBackend.follow`, which
+hands each header to the replica it names, until rank 0's
+:meth:`FleetBackend.close`.  A follower never routes, and a header naming a
+replica, arm or worker a rank does not hold raises.
 """
 from __future__ import annotations
 
 import time
+import zlib
 from dataclasses import dataclass
 from typing import Dict, List
 
 import numpy as np
 
 from repro_torch.engine.routing import CacheStatusBoard, RequestFragment
-from repro_torch.engine.torch_backend import TorchBackend
+from repro_torch.engine.torch_backend import (OP_STOP, TorchBackend,
+                                              recv_header)
 from repro_torch.engine.types import Outcome, Request
 from repro_torch.obs import Histogram, get_tracer, merge_stat_dicts
 
@@ -66,9 +82,11 @@ class FleetBackend:
         self.replicas: List[TorchBackend] = []
         for i in range(n_replicas):
             rep = TorchBackend(cfg, mesh=mesh, jit_cache=self.jit_cache,
-                               device=device, **backend_kw)
+                               replica=i, device=device, **backend_kw)
             rep._t0 = self._t0          # one fleet clock
             self.replicas.append(rep)
+        #: the process-group mesh the replicas serve on, or None
+        self.ranks = self.replicas[0].ranks
         self.block_size = self.replicas[0].block_size
         self._inbox: List[Request] = []
         self._wired: set = set()        # id(index) already on the board
@@ -145,6 +163,9 @@ class FleetBackend:
         self.place_time_s += time.perf_counter() - t0
 
     def step(self, policy=None) -> List[Outcome]:
+        if self.ranks is not None and self.ranks.rank != 0:
+            raise ValueError("a follower of the mesh never routes: it "
+                             "calls follow()")
         if policy is not None:
             self._route(policy)
             self._last_placement = getattr(policy, "placement", None)
@@ -156,6 +177,50 @@ class FleetBackend:
             outs.extend(rep.step(policy))
         return outs
 
+    # ------------------------------------------- the followers (a mesh)
+    def stream_digest_for(self, rank: int) -> int:
+        """CRC-32 of each replica's ``stream_digest_for(rank)``, in replica
+        order."""
+        d = 0
+        for rep in self.replicas:
+            d = zlib.crc32(rep.stream_digest_for(rank).to_bytes(4, "little"),
+                           d)
+        return d
+
+    @property
+    def stream_digest(self) -> int:
+        return self.stream_digest_for(
+            self.ranks.rank if self.ranks is not None else 0)
+
+    def follow(self) -> dict:
+        """A rank other than 0 of a process-group mesh: hand each header
+        rank 0 sends to the replica it names (``TorchBackend.replay``)
+        until the stop header.  Returns each replica's
+        ``follow_counts()`` (``replicas``), their sums, and the fleet's
+        ``stream_digest``."""
+        if self.ranks is None or self.ranks.rank == 0:
+            raise ValueError("follow() runs on the ranks other than 0 of a "
+                             "process-group mesh")
+        world = self.replicas[0]._world
+        while True:
+            op, arm, a, b, c, worker, replica = recv_header(self.ranks, world)
+            if op == OP_STOP:
+                break
+            if not 0 <= replica < self.n_replicas:
+                raise ValueError(f"a header addresses replica {replica} of "
+                                 f"a fleet of {self.n_replicas}")
+            self.replicas[replica].replay(op, arm, a, b, c, worker)
+        per = [rep.follow_counts() for rep in self.replicas]
+        summed = {k: sum(p.get(k, 0) for p in per)
+                  for k in per[0] if k != "stream_digest"}
+        return dict(summed, replicas=per, stream_digest=self.stream_digest)
+
+    def close(self) -> None:
+        """Rank 0 of a process-group mesh: one stop header for the whole
+        fleet, sent (and counted) by replica 0 (call it in a ``finally``).
+        Elsewhere a no-op."""
+        self.replicas[0].close()
+
     # ------------------------------------------------------------- metrics
     def extra_metrics(self) -> dict:
         m: dict = {
@@ -163,6 +228,10 @@ class FleetBackend:
             "place_time_s": round(self.place_time_s, 6),
             "routed_per_replica": [int(n) for n in self.routed_per_replica],
         }
+        if self.ranks is not None:
+            m.update(mesh=list(self.ranks.dims), rank=self.ranks.rank,
+                     headers_sent=sum(r.headers_sent for r in self.replicas),
+                     stream_digest=self.stream_digest)
         if self.route_fallbacks:
             m["route_fallbacks"] = self.route_fallbacks
         m["batches"] = sum(r.batches for r in self.replicas)

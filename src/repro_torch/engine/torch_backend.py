@@ -21,8 +21,10 @@ engine, the policy, the queues, the clock and the fault plane, and on the
 paged path the joins, the allocators, the prefix indexes, copy-on-write,
 preemption and, for a disaggregated arm, the ship ledger, its timeouts,
 receiver backpressure and the fault responses.  Before each device call
-it broadcasts a header of six int64s, (op, arm, a, b, c, worker), over the
-world, and the other ranks, in :meth:`follow`, make the same call:
+it broadcasts a header of seven int64s, (op, arm, a, b, c, worker,
+replica), over the world, and the other ranks, in :meth:`follow`, make
+the same call (``replica`` names the backend among a fleet's replicas, 0
+for a backend alone):
 
 - a gang batch (``OP_GANG``: rows, prompt length, new tokens; then the
   tokens): ``init_cache``, ``prefill_into_cache`` or a teacher-forced
@@ -46,6 +48,23 @@ world, and the other ranks, in :meth:`follow`, make the same call:
   in ``arms``), so that ranks build arms, and run the collectives of a
   build, in one order.
 
+On a mesh the entries of ``fleet_devices`` are ranks of the world, each
+standing for that rank's device (as a JAX device of a multi-process run
+belongs to one process); anything else raises.  A disaggregated arm that
+takes a (prefill rank, decode rank) pair pins each worker whole to its
+rank: that rank holds the arm's whole model (drawn from the one-process
+seed) and the worker's whole pool, the others a ``dist.api.RemoteView``
+of it (no weights, the pool's shapes on the meta device).  Rank 0 still
+keeps both workers' host state and relays their calls: only the pinned
+rank replays one, and a pinned rank other than 0 sends back the outputs
+rank 0 reads (the chunk's tokens; the decode call's tokens, lengths and
+budgets), which rank 0's remote view receives, the decode call's posted
+at dispatch and waited for at the read, so the ship's host work runs
+while it is in flight.  A wave between two ranks goes point to point
+from the prefill rank to the decode rank (``CacheStore``).  Once fewer
+than two ranks are left in the pool, an arm's workers serve on the
+runner's view as above.
+
 Headers and host arrays travel as host tensors under gloo and on the
 card under NCCL (``launch.mesh.wire_device``).  Every rank makes a
 disaggregated step's device calls in one order: the prefill worker's COW
@@ -54,8 +73,8 @@ decode call's tokens; fault responses, timeouts and evictions are host
 work on rank 0 and send nothing.
 
 :meth:`close` on rank 0 stops the followers.  ``decode="auto"`` takes the
-gang path on recurrent and local-window configs, as in one process.
-``fleet_devices`` and a LAYER arm the stages cannot take raise on a mesh
+gang path on recurrent and local-window configs, as in one process.  A
+LAYER arm the stages cannot take (enc-dec) raises on a mesh
 (``ROADMAP.md``, queue 4).
 
 Each step picks the arm that owes the earliest deadline and runs one step
@@ -91,24 +110,28 @@ blockwise-quantized copy of its attention projections (``quant_matmul``).
 
 ``fleet="disagg"`` gives each arm a prefill worker and a decode worker,
 each with its own pool, joined by a ``CacheStore`` that ships finished
-prompts' KV blocks.  ``fleet_devices`` is a pool of devices from which each
-arm, in the order the arms are built, takes a (prefill, decode) pair; once
-fewer than two are left an arm's workers share the backend's device, as
-in the reference.  A worker on another device than the backend's holds a
-copy of the arm's model, made once, and the store ships between the two
-devices.  On a process-group mesh both workers serve on the arm's runner,
-each holding this rank's slice of its own pool, and rank 0 relays every
-worker call and ship wave.  ``faults=`` takes a
+prompts' KV blocks.  ``fleet_devices`` is a pool of devices (ranks, on a
+process-group mesh) from which each arm, in the order the arms are built,
+takes a (prefill, decode) pair; once fewer than two are left an arm's
+workers share the backend's device, as in the reference.  A worker on
+another device than the backend's holds a copy of the arm's model, made
+once, and the store ships between the two devices.  On a process-group
+mesh an arm without a pair serves both workers on the arm's runner, each
+holding this rank's slice of its own pool, and rank 0 relays every worker
+call and ship wave.  ``faults=`` takes a
 ``repro_torch.faults.FaultPlan`` fired on the step counter: arm blackouts,
 dropped / duplicated / delayed ship waves and transient dispatch errors
 (retried with backoff under a per-arm circuit breaker).  ``load_shed``
 drops queued requests whose deadline has passed.  ``jit_cache`` is the
-built-call cache a fleet's replicas share (``{arm: dict}``): replicas of
-one arm share that arm's model, kept in its dict, as well as its built
-calls, so every bucket is built once fleet-wide and the weights are held
-once (every replica draws the same seed, as ``JaxBackend``'s do).  Runs on
-``cuda`` unless the caller passes ``device="cpu"``; asking for the card
-where there is none raises (a fleet device too).
+built-call cache a fleet's replicas share (``{arm: dict}``): the replicas
+of one arm keep in its dict that arm's model (on a mesh its runner and
+paged view), its pinned workers' models and its built calls, so every
+bucket is built once fleet-wide and the weights are held once (every
+replica draws the same seed, as ``JaxBackend``'s do); on a mesh its
+``"params"`` entry is the replicas' one ``params`` dict.  Each replica
+keeps its own pools.  Runs on ``cuda`` unless the caller passes
+``device="cpu"``; asking for the card where there is none raises (a fleet
+device too).
 """
 from __future__ import annotations
 
@@ -147,14 +170,14 @@ MESH_ARM_KW = {LAYER: dict(schedule="1f1b", zero_data=False),
                COMPRESSED: dict(zero_data=False)}
 #: the header's ops (rank 0 -> the followers)
 OP_STOP, OP_GANG, OP_ARM, OP_COW, OP_PREFILL, OP_DECODE, OP_SHIP = range(7)
+#: the header's int64s: (op, arm, a, b, c, worker, replica)
+HEADER_LEN = 7
 #: the header's worker field: an arm's colocated scheduler, or its
 #: disaggregated fleet's prefill or decode worker
 COLOCATED, PREFILL, DECODE = range(3)
 #: a paged device call's op by the scheduler's kind of call
 PAGED_OPS = {"cow": OP_COW, "prefill": OP_PREFILL, "decode": OP_DECODE}
 _PAGED_KINDS = {op: kind for kind, op in PAGED_OPS.items()}
-_FLEET_QUEUE = "ROADMAP.md, queue 4 item 3: fleet_devices and " \
-    "FleetBackend across ranks"
 _ENCDEC_QUEUE = "ROADMAP.md, queue 4 item 4: enc-dec stages on a mesh"
 
 
@@ -166,6 +189,13 @@ def resolve_device(device) -> torch.device:
                            "available; pass device='cpu' to run the plain "
                            "PyTorch path")
     return dev
+
+
+def recv_header(mesh, group) -> list:
+    """Another rank: the next header rank 0 broadcasts."""
+    return comm.broadcast_from(
+        torch.zeros(HEADER_LEN, dtype=torch.long, device=wire_device(mesh)),
+        0, group).tolist()
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -197,7 +227,7 @@ class TorchBackend:
                  max_retries: int = 3, breaker_cooldown: int = 8,
                  max_ship_retries: Optional[int] = None,
                  load_shed: bool = False, jit_cache: Optional[dict] = None,
-                 device="cuda"):
+                 replica: int = 0, device="cuda"):
         if decode not in ("auto", "paged", "legacy"):
             raise ValueError(f"decode={decode!r}; expected auto|paged|legacy")
         if fleet not in (None, "disagg"):
@@ -205,11 +235,13 @@ class TorchBackend:
         self.mesh = mesh_shape(mesh)
         #: the process-group mesh the arms' runners serve on, or None
         self.ranks = self.mesh if self.mesh.distributed else None
-        if self.ranks is not None and fleet_devices:
+        if self.ranks is not None and fleet_devices and not all(
+                isinstance(r, (int, np.integer)) and not isinstance(r, bool)
+                and 0 <= r < self.ranks.size for r in fleet_devices):
             raise ValueError(
-                "fleet_devices= on a process-group mesh: the ranks hold "
-                "slices of each worker's pool, not workers on devices "
-                f"of their own ({_FLEET_QUEUE})")
+                f"fleet_devices={tuple(fleet_devices)!r} on a process-group "
+                "mesh: each entry is a rank of the world, an int in [0, "
+                f"{self.ranks.size})")
         if fleet is not None and decode == "legacy":
             raise ValueError("fleet='disagg' needs the paged decode path")
         if kv_dtype not in ("f32", "int8"):
@@ -220,13 +252,23 @@ class TorchBackend:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.runners: Dict[int, object] = {}
-        self.params: Dict[int, object] = {}
+        # on a mesh a fleet's replicas share one params dict (the views
+        # read it), so weights loaded through one replica load them all
+        self.params: Dict[int, object] = jit_cache.setdefault("params", {}) \
+            if jit_cache is not None and self.ranks is not None else {}
+        #: this backend's index among a fleet's replicas (the header's
+        #: replica field)
+        self.replica = replica
         self.headers_sent = 0
         self._digest = 0          # CRC-32 of the gang batches' tokens
         self._built_all = False   # past __init__: later arms are announced
-        # fleet device pool, taken (prefill, decode) per arm in _ensure_arm
-        # order; an exhausted pool colocates on the backend's device
-        self._fleet_pool = [resolve_device(d) for d in fleet_devices or ()]
+        # fleet device pool (ranks on a mesh), taken (prefill, decode) per
+        # arm in _ensure_arm order; an exhausted pool colocates on the
+        # backend's device (on a mesh, on the runner's view)
+        self._fleet_pool = [int(r) for r in fleet_devices or ()] \
+            if self.ranks is not None else \
+            [resolve_device(d) for d in fleet_devices or ()]
+        self._pins: Dict[int, tuple] = {}   # arm -> (prefill, decode) rank
         self._copies: Dict[tuple, object] = {}    # (arm, device) -> model
         self.cache_len = cache_len
         self.max_batch = max_batch
@@ -299,25 +341,23 @@ class TorchBackend:
             raise ValueError(
                 f"fleet='disagg' but arm {arm} (mode {ARM_MODES[arm]}) has "
                 "recurrent mixers — block shipping needs the paged path")
-        shared = None
+        shared = self._jit_cache.setdefault(arm, {}) \
+            if self._jit_cache is not None else None
+        pins = None
+        if self.fleet == "disagg" and len(self._fleet_pool) >= 2:
+            pins = tuple(self._fleet_pool[:2])
+            del self._fleet_pool[:2]
         if self.ranks is not None:
             if self.ranks.rank == 0 and self._built_all:
                 # the followers build it with this rank, in the same order
                 self._send_header(OP_ARM, arm, 0, 0, 0)
-            model = self._ensure_runner(arm)
+            # an arm pinned to ranks serves on no runner
+            model = None if pins is not None else \
+                self._ensure_runner(arm, shared)
         else:
-            shared = self._jit_cache.setdefault(arm, {}) \
-                if self._jit_cache is not None else None
             model = shared.get("model") if shared is not None else None
             if model is None:
-                n_b = max(2, self.mesh.axis_size("model"))
-                model = SemanticModel(self.cfg.semantic(n_b),
-                                      device=self.device) if arm == SEMANTIC \
-                    else Model(self.cfg, device=self.device)
-                # every arm draws from the same seed, as JaxBackend's init
-                gen = torch.Generator(device=self.device).manual_seed(
-                    self.seed + 1)
-                model.reset_parameters(gen)
+                model = self._draw_model(arm, self.device)
                 if shared is not None:
                     shared["model"] = model
             self.models[arm] = model
@@ -335,28 +375,39 @@ class TorchBackend:
         label = f"arm{arm}:{ARM_MODES[arm]}"
         lead = self.ranks is not None and self.ranks.rank == 0
         if self.fleet == "disagg":
-            if self.ranks is not None:
-                # both workers over the runner's view, each holding this
-                # rank's slice of its own pool
-                pf = PagedArmScheduler(model, role="prefill", **kw)
-                dc = PagedArmScheduler(model, role="decode", **kw)
-            else:
-                pf_dev = dc_dev = self.device
-                if len(self._fleet_pool) >= 2:
-                    pf_dev, dc_dev = self._fleet_pool[:2]
-                    del self._fleet_pool[:2]
+            pinned = None
+            if self.ranks is None:
+                pf_dev, dc_dev = pins or (self.device, self.device)
                 pf = PagedArmScheduler(self._model_on(arm, model, pf_dev),
                                        role="prefill", **self._worker_kw(
                                            kw, shared, pf_dev))
                 dc = PagedArmScheduler(self._model_on(arm, model, dc_dev),
                                        role="decode", **self._worker_kw(
                                            kw, shared, dc_dev))
+            elif pins is None:
+                # both workers over the runner's view, each holding this
+                # rank's slice of its own pool
+                pf = PagedArmScheduler(model, role="prefill", **kw)
+                dc = PagedArmScheduler(model, role="decode", **kw)
+            else:
+                # each worker pinned whole to its rank
+                pinned = self._pins[arm] = pins
+                pf, dc = (PagedArmScheduler(
+                    self._pinned(arm, r, shared), role=role,
+                    **dict(kw, jit_cache=None if shared is None else
+                           shared.setdefault(("calls", f"rank{r}"), {})))
+                    for role, r in zip(("prefill", "decode"), pins))
+                self.models[arm] = pf.model
+                for w, r in zip((pf, dc), pins):
+                    if r == self.ranks.rank != 0:
+                        w.answer = self._answer
             store = CacheStore(
                 pf, dc, timeout_s=self.ship_timeout_s,
                 on_requeue=lambda lane, a=arm: self._requeue(a, lane),
                 max_ship_retries=self.max_ship_retries,
                 on_fail=lambda lane, a=arm: self._fail(a, lane),
-                injector=self._injector)
+                injector=self._injector, pinned=pinned, mesh=self.ranks,
+                group=None if pinned is None else self._world)
             # trace tracks: one process row per arm, the prefill / ship /
             # decode workers as its threads
             pf.track = (label, pf.track[1])
@@ -375,22 +426,58 @@ class TorchBackend:
                 sched.relay = functools.partial(self._relay, arm)
             self._paged[arm] = sched
 
-    def _ensure_runner(self, arm: int):
+    def _draw_model(self, arm: int, device):
+        """The arm's whole model on ``device``: LAYER and COMPRESSED
+        ``Model(cfg)``, SEMANTIC ``SemanticModel(cfg.semantic(n))`` with
+        the mesh's branch count, drawn from the seed every arm draws (as
+        ``JaxBackend``'s init); on the meta device, shapes only."""
+        n_b = max(2, self.mesh.axis_size("model"))
+        model = SemanticModel(self.cfg.semantic(n_b), device=device) \
+            if arm == SEMANTIC else Model(self.cfg, device=device)
+        if torch.device(device).type != "meta":
+            gen = torch.Generator(device=device).manual_seed(self.seed + 1)
+            model.reset_parameters(gen)
+        return model
+
+    def _pinned(self, arm: int, rank: int, shared):
+        """A disaggregated worker's model pinned to ``rank``: on that rank
+        the arm's whole model, elsewhere a ``RemoteView`` of it; made once
+        per arm and rank (fleet-wide, in ``shared``)."""
+        cache = shared if shared is not None else self._copies
+        key = (arm, "rank", rank)
+        if key not in cache:
+            if rank == self.ranks.rank:
+                model = self._draw_model(arm, self.device)
+                model.join = A.PinnedJoin(rank, self.ranks, self._world)
+            else:
+                model = A.RemoteView(self._draw_model(arm, "meta"), rank,
+                                     self.ranks, self._world)
+            cache[key] = model
+        return cache[key]
+
+    def _ensure_runner(self, arm: int, shared):
         """An arm on the process-group mesh: its runner and this rank's
         slice of the weights (every rank draws the one-process backend's
-        seed; ``runner.init`` keeps the slice ``param_specs`` assigns).
-        Returns the runner's paged view, which reads ``params[arm]`` at
-        every call (a caller may load other weights into it)."""
-        if ARM_MODES[arm] == "pipeline" and self.cfg.is_encdec:
-            raise ValueError(
-                f"{self.cfg.name}: the LAYER arm's stages take decoder "
-                f"stacks, not enc-dec inputs ({_ENCDEC_QUEUE})")
-        runner = A.build_runner(self.cfg, ARM_MODES[arm], self.ranks,
-                                device=self.device, **MESH_ARM_KW[arm])
-        self.params[arm] = runner.init(seed=self.seed + 1)
+        seed; ``runner.init`` keeps the slice ``param_specs`` assigns), made
+        once fleet-wide (in ``shared``).  Returns the runner's paged view,
+        which reads ``params[arm]`` at every call (a caller may load other
+        weights into it)."""
+        if shared is not None and "runner" in shared:
+            runner, view = shared["runner"], shared["view"]
+        else:
+            if ARM_MODES[arm] == "pipeline" and self.cfg.is_encdec:
+                raise ValueError(
+                    f"{self.cfg.name}: the LAYER arm's stages take decoder "
+                    f"stacks, not enc-dec inputs ({_ENCDEC_QUEUE})")
+            runner = A.build_runner(self.cfg, ARM_MODES[arm], self.ranks,
+                                    device=self.device, **MESH_ARM_KW[arm])
+            self.params[arm] = runner.init(seed=self.seed + 1)
+            view = runner.paged_model(lambda: self.params[arm])
+            if shared is not None:
+                shared.update(runner=runner, view=view)
         self.runners[arm] = runner
         self.models[arm] = runner.model
-        return runner.paged_model(lambda: self.params[arm])
+        return view
 
     def _model_on(self, arm: int, model, dev: torch.device):
         """The arm's model on ``dev``: itself on the backend's device, else
@@ -745,12 +832,17 @@ class TorchBackend:
 
     def _send_header(self, op: int, arm: int, a: int, b: int, c: int,
                      worker: int = COLOCATED) -> None:
-        """Six int64s (op, arm, three numbers, the worker) to the
-        followers."""
-        comm.broadcast_from(torch.tensor((op, arm, a, b, c, worker),
-                                         dtype=torch.long, device=self._wire),
-                            0, self._world)
+        """Seven int64s (op, arm, three numbers, the worker, this
+        replica) to the followers."""
+        comm.broadcast_from(torch.tensor(
+            (op, arm, a, b, c, worker, self.replica), dtype=torch.long,
+            device=self._wire), 0, self._world)
         self.headers_sent += 1
+
+    def _answer(self, out: torch.Tensor) -> None:
+        """A worker pinned to this rank (not 0) has replayed a call: the
+        outputs rank 0 reads go back to it."""
+        comm.send_to(out.to(self._wire), 0, self._world)
 
     def _relay(self, arm: int, kind: str, key: tuple, wire: np.ndarray,
                worker: int = COLOCATED) -> None:
@@ -781,64 +873,97 @@ class TorchBackend:
         raise ValueError(f"a header addresses worker {worker} of arm {arm}, "
                          "which this rank does not hold")
 
-    @property
-    def stream_digest(self) -> int:
-        """CRC-32 of the gang batches' tokens, then of each colocated paged
-        arm's ``token_digest`` in arm order, then of each disaggregated
-        arm's decode worker's, in arm order: equal on every rank."""
+    def stream_digest_for(self, rank: int) -> int:
+        """CRC-32 of the gang batches' tokens, then of the ``token_digest``
+        (prefill and decode tokens) of each colocated paged arm in arm
+        order, then of each disaggregated arm's prefill and decode worker,
+        in arm order: the workers whose tokens ``rank`` reads (rank 0
+        every worker's; another rank those it holds a slice of or is
+        pinned to).  Equal on rank 0 and on ``rank``."""
         d = self._digest
         digests = [self._paged[a].token_digest for a in sorted(self._paged)]
-        digests += [self._disagg[a][1].token_digest
-                    for a in sorted(self._disagg)]
+        for a in sorted(self._disagg):
+            pins = self._pins.get(a)
+            digests += [w.token_digest for i, w in
+                        enumerate(self._disagg[a][:2])
+                        if rank == 0 or pins is None or pins[i] == rank]
         for t in digests:
             d = zlib.crc32(t.to_bytes(4, "little"), d)
         return d
+
+    @property
+    def stream_digest(self) -> int:
+        """:meth:`stream_digest_for` this rank (every worker's tokens in
+        one process and on rank 0)."""
+        return self.stream_digest_for(
+            self.ranks.rank if self.ranks is not None else 0)
 
     def follow(self) -> dict:
         """A rank other than 0 of a process-group mesh: make every call
         rank 0 announces (gang batches through the runners, paged calls on
         this rank's pools, ship waves, arms built), until rank 0's
-        :meth:`close`.  Returns this rank's counts (batches, prefill calls,
-        decode steps; paged prefill chunks, decode dispatches and COW
-        copies over every scheduler, disaggregated workers included; with
-        a disaggregated arm, ship waves and blocks shipped), which equal
-        rank 0's ``extra_metrics()``, and the CRC-32 of its token streams
-        (gang batches and paged decode calls), which equals rank 0's
-        ``stream_digest``."""
+        :meth:`close`.  Returns :meth:`follow_counts`, which equal rank
+        0's ``extra_metrics()`` (the stream CRC its
+        ``stream_digest_for(rank)``)."""
         if self.ranks is None or self.ranks.rank == 0:
             raise ValueError("follow() runs on the ranks other than 0 of a "
                              "process-group mesh")
         while True:
-            header = comm.broadcast_from(
-                torch.zeros(6, dtype=torch.long, device=self._wire), 0,
-                self._world)
-            op, arm, a, b, c, worker = header.tolist()
+            op, arm, a, b, c, worker, replica = recv_header(self.ranks,
+                                                            self._world)
             if op == OP_STOP:
                 break
+            if replica != self.replica:
+                raise ValueError(f"a header addresses replica {replica}; "
+                                 f"this backend is replica {self.replica}")
+            self.replay(op, arm, a, b, c, worker)
+        return self.follow_counts()
+
+    def replay(self, op: int, arm: int, a: int, b: int, c: int,
+               worker: int) -> None:
+        """One header rank 0 sent this backend, and what follows it: an
+        arm built, or the announced call made on this rank's pools (a
+        worker pinned to another rank drops it).  A header naming an arm,
+        a worker or an op this rank does not hold raises."""
+        if op == OP_ARM:
             self._ensure_arm(arm)
-            if op in _PAGED_KINDS:
-                sched = self._worker_of(arm, worker)
-                wire = comm.broadcast_from(
-                    torch.zeros((a, c), dtype=torch.int32,
-                                device=self._wire), 0, self._world)
-                sched.replay(_PAGED_KINDS[op], (a,) if op == OP_COW
-                             else (a, b), wire.cpu().numpy())
-            elif op == OP_SHIP:
-                if arm not in self._disagg:
-                    raise ValueError(f"a ship wave of arm {arm}, which "
-                                     "this rank holds no cache store of")
-                wire = comm.broadcast_from(
-                    torch.zeros((a, c), dtype=torch.int32,
-                                device=self._wire), 0, self._world)
-                self._disagg[arm][2].replay_ship(wire.cpu().numpy())
-            elif op == OP_GANG:
-                toks = comm.broadcast_from(
-                    torch.zeros((a, b), dtype=torch.int32,
-                                device=self.device), 0, self._world)
-                self._run_gang(arm, toks, c)
-                self.batches += 1
-            elif op != OP_ARM:
-                raise ValueError(f"a header of unknown op {op}")
+            return
+        if arm not in self.models:
+            raise ValueError(f"a header addresses arm {arm}, which this "
+                             "rank has not built")
+        if op in _PAGED_KINDS:
+            sched = self._worker_of(arm, worker)
+            wire = comm.broadcast_from(
+                torch.zeros((a, c), dtype=torch.int32, device=self._wire),
+                0, self._world)
+            sched.replay(_PAGED_KINDS[op], (a,) if op == OP_COW else (a, b),
+                         wire.cpu().numpy())
+        elif op == OP_SHIP:
+            if arm not in self._disagg:
+                raise ValueError(f"a ship wave of arm {arm}, which this "
+                                 "rank holds no cache store of")
+            wire = comm.broadcast_from(
+                torch.zeros((a, c), dtype=torch.int32, device=self._wire), 0,
+                self._world)
+            self._disagg[arm][2].replay_ship(wire.cpu().numpy())
+        elif op == OP_GANG:
+            if arm not in self.runners:
+                raise ValueError(f"a gang batch of arm {arm}, which this "
+                                 "rank holds no runner of")
+            toks = comm.broadcast_from(
+                torch.zeros((a, b), dtype=torch.int32, device=self.device),
+                0, self._world)
+            self._run_gang(arm, toks, c)
+            self.batches += 1
+        else:
+            raise ValueError(f"a header of unknown op {op}")
+
+    def follow_counts(self) -> dict:
+        """This rank's counts (batches, prefill calls, decode steps; paged
+        prefill chunks, decode dispatches and COW copies over every
+        scheduler, disaggregated and pinned workers included, a worker
+        held elsewhere counting the calls it dropped; with a disaggregated
+        arm, ship waves and blocks shipped) and its ``stream_digest``."""
         scheds = list(self._all_scheds())
         out = {"batches": self.batches, "prefill_calls": self.prefill_calls,
                "decode_steps": self.decode_steps,

@@ -46,6 +46,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.engine.torch_backend import HEADER_LEN  # noqa: E402
 from test_torch_serve_multi import (_rank0_mesh, flat, make_cfg,  # noqa: E402
                                     port, serve_paged, unflat)
 
@@ -376,7 +377,7 @@ def test_disagg_pools_are_the_ranks_slices(world, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_disagg_ship_stays_on_each_rank(world, name):
-    """A relayed ship wave puts its header (six int64s) and its [n_pad, 2]
+    """A relayed ship wave puts its header (seven int64s) and its [n_pad, 2]
     int32 id matrix into two broadcasts and nothing else; the ship itself
     (every rank's copy between its own slices) puts nothing into a
     collective: no pool byte crosses ranks."""
@@ -387,7 +388,7 @@ def test_disagg_ship_stays_on_each_rank(world, name):
     for n, got in lead["waves"]:
         n_pad = 1 << (n - 1).bit_length()
         assert got == {"broadcast_calls": 2,
-                       "broadcast_bytes": 6 * 8 + n_pad * 2 * 4}
+                       "broadcast_bytes": HEADER_LEN * 8 + n_pad * 2 * 4}
     assert all(d == {} for r in ranks for d in r[name]["ship_comm"])
 
 
@@ -417,3 +418,8 @@ def test_block_bytes_on_mesh_are_the_whole_pools(kv):
 
 if __name__ == "__main__":
     _worker(int(sys.argv[1]), pathlib.Path(sys.argv[2]))
+    # the results are written and the group destroyed: leave without the
+    # interpreter's teardown, where a gloo group's destructor racing the
+    # other rank's exit can abort the process
+    sys.stdout.flush()
+    os._exit(0)

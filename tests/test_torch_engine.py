@@ -156,10 +156,11 @@ def test_cuda_without_a_card_raises(tiny_cfg, monkeypatch):
 def test_unported_knobs_raise(tiny_cfg, knob, monkeypatch):
     """Every knob is ported; what still raises is a request the backend
     cannot honour: a fleet device that is not there (nothing falls back to
-    the CPU), and a pool of fleet devices on a process-group mesh (a mesh
+    the CPU), and, on a process-group mesh, a pool of fleet devices whose
+    entries are not ranks of the world (there they name ranks; a mesh
     serves the colocated paged path, as the default ``decode="auto"``
-    shows, the disaggregated one on the runners' views, and the gang
-    path)."""
+    shows, the disaggregated one on the runners' views or pinned to
+    ranks, and the gang path)."""
     from repro_torch.launch.mesh import Mesh, MeshShape
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -176,7 +177,7 @@ def test_unported_knobs_raise(tiny_cfg, knob, monkeypatch):
     assert set(tb._disagg) == {LAYER, SEMANTIC} and not tb._paged
     assert all(isinstance(w.model, PagedView)
                for pf, dc, _ in tb._disagg.values() for w in (pf, dc))
-    with pytest.raises(ValueError, match="queue 4 item 3"):
+    with pytest.raises(ValueError, match="a rank of the world"):
         TorchBackend(port_cfg(tiny_cfg), device="cpu", mesh=ranks, **knob)
 
 

@@ -1339,15 +1339,19 @@ def test_paged_decode_step_passes_only_tokens(world):
                                   dict(arch="whisper-base")])
 def test_engine_mesh_refusals(knob):
     """On a process-group mesh the backend serves the colocated and the
-    disaggregated paged paths and the gang path: a pool of fleet devices
-    and a LAYER arm the stages cannot take (enc-dec) raise, naming the
-    queue that holds them; nothing is served another way."""
+    disaggregated paged paths (workers pinned to ranks too) and the gang
+    path: a pool of fleet devices that are not ranks of the world raises
+    (there ``fleet_devices`` names ranks), and a LAYER arm the stages
+    cannot take (enc-dec) raises naming the queue that holds it; nothing
+    is served another way."""
     from repro_torch.configs.base import get_config
     from repro_torch.engine import TorchBackend
     kw = dict(knob)
     cfg = get_config(kw.pop("arch", "stablelm-1.6b")).reduced()
     kw.setdefault("decode", "legacy")
-    with pytest.raises(ValueError, match="queue 4"):
+    match = "a rank of the world" if "fleet_devices" in kw \
+        else "queue 4 item 4"
+    with pytest.raises(ValueError, match=match):
         TorchBackend(cfg, mesh=_rank0_mesh(), device="cpu", **kw)
 
 
