@@ -294,8 +294,20 @@ raising on failure:
             the one-process run's; ``decode_attention`` launches (zeroed
             before each part) one per held attention layer a step, one
             slab merge per launch under flash-decoding, 24 flash launches
-            for A's prompt.  Reports prefill and decode ms per step, the
-            collectives' bytes and staged ms, cache bytes and peak GB.
+            for A's prompt.  Then whisper-base (enc-dec, full width: 6 + 6
+            layers, d 512, 1500 stub frames, vocab 51872) on the LAYER
+            stages on (1, 2) (the stage layout: 3 encoder and 3 decoder
+            superblocks a rank; the encoder a chain of stages of its own,
+            its output broadcast to every stage), B 4: ``prefill_step`` on
+            a 32-token prompt with the audio, the prompt teacher-forced
+            through ``serve_step`` (each call re-encodes the audio), 16
+            greedy steps; the same logit, token and equal-ranks gates, 3
+            ``decode_attention`` launches a rank a ``serve_step`` and no
+            flash launch, and each ``serve_step``'s bytes sent and
+            broadcast exactly the design's (``whisper_wire``).  Reports
+            prefill and decode ms per step (whisper's beside the one
+            process's), the collectives' bytes and staged ms, cache bytes
+            and peak GB.
             Then the engine across ranks: ``TorchBackend(mesh=<the
             process-group mesh>, decode="legacy")`` on (2, 1) and on
             (1, 2), full-width stablelm-1.6b in f32, each arm's 8
@@ -3304,7 +3316,7 @@ def multi_phase(dev, *, reduced: bool = False):
                 moe_assigned=r["moe_assigned"],
                 moe_dropped_one_process=r["moe_dropped_one_process"],
                 peak_mem_gb=r["peak_mem_gb"]) for r in per])))
-    out["serve"] = serve_multi_gates(ranks, reduced, card)
+    out["serve"] = serve_multi_gates(ranks, reduced, card, serve_refs)
     out["serve_one_process"] = serve_refs
     out["engine"] = engine_gates(ranks, engine_ref, card)
     out["engine_one_process"] = engine_ref
@@ -3344,11 +3356,20 @@ SERVE_ARMS = {"layer": "pipeline", "semantic": "semantic"}
 SERVE_ARM_KW = {"layer": dict(schedule="1f1b")}
 SERVE_ARM_SHAPE = (8, (256, 513), 32)
 SERVE_ARM_SHAPE_REDUCED = (8, (16, 33), 8)
+#: whisper-base (enc-dec) on the LAYER stages on (1, 2), the stage layout:
+#: 3 encoder and 3 decoder superblocks a rank; (batch, prompt tokens,
+#: greedy steps).  Calls: ``prefill_step`` on the prompt with the audio
+#: (1500 stub frames), the prompt teacher-forced through ``serve_step``
+#: (each call re-encodes the audio, as the reference's decode step does),
+#: then the greedy steps
+SERVE_WHISPER = (4, 32, 16)
+SERVE_WHISPER_REDUCED = (4, 8, 4)
 SERVE_SEED = 29
 #: each part's logits against the one-process run, max |diff| over the
 #: run's max |logit|, set from readings (see PERF.md); the same logits
 #: rounded to bf16 (``ctrl_bf16``) must read above it every run
-SERVE_LOGIT_REL = {"A": 1e-4, "B": 1e-4, "layer": 1e-4, "semantic": 1e-4}
+SERVE_LOGIT_REL = {"A": 1e-4, "B": 1e-4, "layer": 1e-4, "semantic": 1e-4,
+                   "whisper": 1e-4}
 
 
 def serve_cfg(name: str, superblocks, reduced: bool,
@@ -3381,12 +3402,21 @@ def serve_inputs(reduced: bool) -> dict:
              for k, (n, s, _, _, _) in fd.items()}
     lengths = rng.integers(lo, hi, b).astype(np.int32)
     arm_vocab = serve_cfg("stablelm-1.6b", None, reduced).vocab_size
-    return {"A_prompt": rng.integers(0, vocab["A"], (1, fd["A"][3]))
-            .astype(np.int32),
-            "B_first": rng.integers(0, vocab["B"], (1, 1)).astype(np.int32),
-            "arm_prompt": rng.integers(0, arm_vocab, (b, int(lengths.max())))
-            .astype(np.int32),
-            "arm_lengths": lengths}
+    inp = {"A_prompt": rng.integers(0, vocab["A"], (1, fd["A"][3]))
+           .astype(np.int32),
+           "B_first": rng.integers(0, vocab["B"], (1, 1)).astype(np.int32),
+           "arm_prompt": rng.integers(0, arm_vocab, (b, int(lengths.max())))
+           .astype(np.int32),
+           "arm_lengths": lengths}
+    wb, wp, ws = SERVE_WHISPER_REDUCED if reduced else SERVE_WHISPER
+    wcfg = serve_cfg("whisper-base", None, reduced)
+    fe = wcfg.frontend
+    inp["whisper_prompt"] = rng.integers(0, wcfg.vocab_size, (wb, wp)) \
+        .astype(np.int32)
+    inp["whisper_audio"] = rng.standard_normal(
+        (wb, fe.n_tokens, fe.d_frontend)).astype(np.float32)
+    inp["whisper_steps"] = np.asarray(ws)
+    return inp
 
 
 def _seeded_cache(cfg, batch: int, cache_len: int, n_pos: int, dev):
@@ -3411,7 +3441,8 @@ def _serve_calls(runner, params, cache, inp, part, *, fd, arm_steps,
                  feed=None, on_logits=None):
     """One part's calls: A a prompt then its decode steps, B decode steps
     from the seeded cache, an arm a right-padded prompt (per-row lengths)
-    then its decode steps.  ``feed`` gives the tokens of each decode step
+    then its decode steps, whisper its audio and prompt
+    (``_whisper_calls``).  ``feed`` gives the tokens of each decode step
     (the one-process run's, teacher-forced); without it the greedy token
     of the last logits.  ``on_logits(i, logits)`` sees each call's [B,
     vocab] logits.  Returns (the tokens fed, per-call ms, cache)."""
@@ -3426,6 +3457,9 @@ def _serve_calls(runner, params, cache, inp, part, *, fd, arm_steps,
         ms.append(1e3 * (time.perf_counter() - t0))
         return out
     t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    if part == "whisper":
+        return _whisper_calls(runner, params, cache, inp, t, timed, feed=feed,
+                              on_logits=on_logits), ms, cache
     if part == "B":
         start, steps = fd["B"][3], fd["B"][4]
         tok = t(inp["B_first"])
@@ -3454,6 +3488,35 @@ def _serve_calls(runner, params, cache, inp, part, *, fd, arm_steps,
     return np.stack(fed), ms, cache
 
 
+def _whisper_calls(runner, params, cache, inp, t, timed, *, feed,
+                   on_logits):
+    """The whisper part's calls (see ``SERVE_WHISPER``), each through
+    ``timed``: the prefill_step's last position's logits are call 0, each
+    serve_step's the next; ``feed`` and ``on_logits`` as in
+    ``_serve_calls``.  Writes ``cache`` in place; returns the tokens
+    fed."""
+    audio, prompt = t(inp["whisper_audio"]), inp["whisper_prompt"]
+    n_prompt, steps = prompt.shape[1], int(inp["whisper_steps"])
+    logits = timed(lambda: runner.prefill_step(
+        params, {"tokens": t(prompt), "audio_embeds": audio}))
+    if on_logits:
+        on_logits(0, logits[:, -1])
+    fed = []
+    for i in range(n_prompt + steps):
+        if i < n_prompt:
+            tok = t(prompt[:, i:i + 1])
+        elif feed is not None:
+            tok = t(feed[i])
+        else:
+            tok = logits.argmax(-1)[:, None].int()
+        fed.append(tok.cpu().numpy())
+        logits, _ = timed(lambda: runner.serve_step(
+            params, cache, {"tokens": tok, "audio_embeds": audio}, i))
+        if on_logits:
+            on_logits(1 + i, logits)
+    return np.stack(fed)
+
+
 def _serve_parts(reduced: bool, dtype: str = "float32"):
     """The serve_multi runs as (part, config, mode, mesh dims, runner
     kwargs, batch, cache slots), with the flash-decoding table, the arms'
@@ -3472,6 +3535,9 @@ def _serve_parts(reduced: bool, dtype: str = "float32"):
         parts.append((part, serve_cfg("stablelm-1.6b", None, reduced,
                                       dtype), mode,
                       (1, 2), SERVE_ARM_KW.get(part, {}), b, arm_cache))
+    wb, wp, ws = SERVE_WHISPER_REDUCED if reduced else SERVE_WHISPER
+    parts.append(("whisper", serve_cfg("whisper-base", None, reduced, dtype),
+                  "pipeline", (1, 2), dict(schedule="1f1b"), wb, wp + ws))
     return parts, fd, steps, inp
 
 
@@ -3548,6 +3614,8 @@ def serve_multi_worker(rank: int, workdir: pathlib.Path, dev, reduced: bool,
         stats = dict(rel=[], ctrl=[], same_token=[], checksum=0.0)
 
         def check(i, logits):
+            if i == 0:          # the collectives of the first call alone
+                stats["comm_first"] = dict(comm.COMM_STATS)
             w = want[i]
             top = w.abs().max().clamp_min(1e-30)
             got = logits.float()
@@ -3575,7 +3643,7 @@ def serve_multi_worker(rank: int, workdir: pathlib.Path, dev, reduced: bool,
             decode_launches=decode_attention.launches,
             flash_launches=FA.flash_attention.launches,
             lse_merges=L.FLASH_STATS["lse_merges"],
-            comm=dict(comm.COMM_STATS),
+            comm=dict(comm.COMM_STATS), comm_first=stats["comm_first"],
             cache_bytes=sum(t.numel() * t.element_size()
                             for t in _leaves_of(cache)),
             peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
@@ -3598,32 +3666,76 @@ def _leaves_of(tree):
     return [tree]
 
 
-def serve_multi_want(part: str, cfg, dims, fd, steps) -> dict:
+def serve_multi_want(part: str, cfg, dims, fd, steps,
+                     reduced: bool = False) -> dict:
     """The launches one rank makes in a part: a decode step runs the decode
     kernel once per attention layer the rank holds (a stage its half; the
     semantic rank its branch, folded into one call), and flash-decoding
     merges the slabs once per such call; a prompt of 2048 tokens or more
     at ``cache_index`` 0 runs the flash forward once per layer (its own
-    causal attention: no merge)."""
+    causal attention: no merge).  Whisper's stages launch the decode
+    kernel for their decoder layers' self-attention only (cross-attention
+    and the encoder's 1500 frames, under the flash threshold, take dense
+    attention), at every serve_step, the prompt's included."""
     n_steps = fd[part][4] if part in fd else steps
+    if part == "whisper":
+        _, n_prompt, n_greedy = SERVE_WHISPER_REDUCED if reduced \
+            else SERVE_WHISPER
+        n_steps = n_prompt + n_greedy
     layers = cfg.n_layers // (dims[1] if SERVE_ARMS.get(part) == "pipeline"
-                              else 1)
+                              or part == "whisper" else 1)
     prompt = fd["A"][3] if part == "A" else 0
     return dict(decode_launches=n_steps * layers,
                 lse_merges=n_steps * layers if part in fd else 0,
                 flash_launches=layers if prompt >= 2048 else 0)
 
 
-def serve_multi_gates(ranks, reduced: bool, card: str) -> dict:
+def whisper_wire(cfg, b: int, seq: int) -> dict:
+    """The bytes one call of whisper's stages on (1, 2) puts into each
+    collective, by the design: stage 0 sends the encoder's [b, F, d]
+    activation and then the decoder's [b, seq, d]; each rank broadcasts
+    (as root or receiver) the encoder's output [b, F, d] and the f32
+    logits [b, seq, vocab]."""
+    act = b * cfg.d_model * _DTYPES[cfg.dtype].itemsize
+    enc = act * cfg.frontend.n_tokens
+    return dict(send=enc + act * seq,
+                broadcast=enc + b * seq * cfg.vocab_size * 4)
+
+
+def _whisper_wire_gates(part, cfg, b, per) -> dict:
+    """Whisper's collectives a serve_step (the run's less its first call's,
+    the prefill_step) against ``whisper_wire``, exactly: rank 0 sends,
+    rank 1 only receives; staged ms a step."""
+    want = whisper_wire(cfg, b, 1)
+    got = []
+    for r, run in enumerate(per):
+        n = run["calls"] - 1
+        step = {k: (run["comm"].get(f"{k}_bytes", 0)
+                    - run["comm_first"].get(f"{k}_bytes", 0)) / n
+                for k in ("send", "broadcast")}
+        step["staged_ms"] = (run["comm"].get("staged_ms", 0.0)
+                             - run["comm_first"].get("staged_ms", 0.0)) / n
+        expect = dict(want, send=want["send"] if r == 0 else 0)
+        if {k: step[k] for k in expect} != expect:
+            raise AssertionError(f"[serve_multi {part} rank {r}] bytes a "
+                                 f"serve_step {step}, want {expect}")
+        got.append(step)
+    return dict(want=want, ranks=got)
+
+
+def serve_multi_gates(ranks, reduced: bool, card: str, refs=None) -> dict:
     """Each part's gates on both ranks' results (see ``serve_multi_worker``):
     logits within ``SERVE_LOGIT_REL`` of the one-process run's, the bf16
     control above it, the ranks' logits equal, the launches and merges the
-    run implies; on the arms every greedy token the one-process run's."""
+    run implies; on the arms and whisper every greedy token the
+    one-process run's; whisper's bytes a step (``_whisper_wire_gates``).
+    ``refs`` (``serve_multi_refs``' record) puts the one-process run's
+    median decode ms beside the ranks' in the log."""
     parts, fd, steps, _ = _serve_parts(reduced)
     out = {}
-    for part, cfg, mode, dims, _, _, _ in parts:
+    for part, cfg, mode, dims, _, b, _ in parts:
         per = [rk["serve"][part] for rk in ranks]
-        want = serve_multi_want(part, cfg, dims, fd, steps)
+        want = serve_multi_want(part, cfg, dims, fd, steps, reduced)
         lim = SERVE_LOGIT_REL[part]
         for r, run in enumerate(per):
             where = f"[serve_multi {part} rank {r}]"
@@ -3637,7 +3749,8 @@ def serve_multi_gates(ranks, reduced: bool, card: str) -> dict:
             got = {k: run[k] for k in want}
             if got != want:
                 raise AssertionError(f"{where} launches {got}, want {want}")
-            if part in SERVE_ARMS and run["tokens_same"] != run["calls"]:
+            if (part in SERVE_ARMS or part == "whisper") \
+                    and run["tokens_same"] != run["calls"]:
                 raise AssertionError(
                     f"{where} greedy tokens equal the one-process run's in "
                     f"{run['tokens_same']} of {run['calls']} calls")
@@ -3645,9 +3758,16 @@ def serve_multi_gates(ranks, reduced: bool, card: str) -> dict:
             raise AssertionError(f"[serve_multi {part}] the ranks' logits "
                                  f"differ ({per[0]['checksum']}, "
                                  f"{per[1]['checksum']})")
+        wire = _whisper_wire_gates(part, cfg, b, per) \
+            if part == "whisper" else None
         out[part] = per
+        # the one-process run's decode calls: all but A's and the arms'
+        # prompt and whisper's prefill_step
+        one = refs[part]["call_ms"][part != "B":] if refs else None
         log(f"[serve_multi {part}] {card} | " + json.dumps(dict(
-            model=cfg.name, mode=mode, mesh=dims, limit=lim, ranks=[dict(
+            model=cfg.name, mode=mode, mesh=dims, limit=lim,
+            one_process_decode_ms_median=statistics.median(one)
+            if one else None, wire=wire, ranks=[dict(
                 prefill_ms=r["prefill_ms"],
                 decode_ms_median=statistics.median(r["decode_ms"]),
                 worst_rel=r["worst_rel"], ctrl_bf16=r["ctrl_bf16"],

@@ -15,9 +15,11 @@ depth, after this process has run the one-process references: flash-
 decoding on (2, 1) (stablelm ``reduced()``, a 512-slot cache, a 250-token
 prompt and 16 steps across the slab boundary; gemma2 ``reduced()``, a
 64-slot cache seeded to position 48 with its 16-slot rings wrapped, 16
-steps) and the LAYER (stage layout) and SEMANTIC arms on (1, 2) (B 8,
-16-32-token prompts, 8 steps), with the same gates (each plain
-``decode_attention`` call counts as a launch).  No time it prints is a
+steps), the LAYER (stage layout) and SEMANTIC arms on (1, 2) (B 8,
+16-32-token prompts, 8 steps) and whisper ``reduced()`` on the LAYER
+stages on (1, 2) (B 4, 16 frames, an 8-token prompt teacher-forced, 4
+greedy steps), with the same gates (each plain ``decode_attention`` call
+counts as a launch; whisper's bytes a step exact).  No time it prints is a
 device time, and no collective it counts is staged.
 """
 from __future__ import annotations

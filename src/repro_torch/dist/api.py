@@ -49,7 +49,9 @@ batch and its own cache slices (what ``init_cache`` returns, under
   branches' logit shards meeting in one all-gather;
 - the pipeline runner, where 'model' splits the superblock stack, runs a
   stage a rank over its cache slice, sends the activation on with
-  ``comm.exchange`` and broadcasts the last stage's logits;
+  ``comm.exchange`` and broadcasts the last stage's logits; an enc-dec
+  model's encoder runs first as a chain of stages of its own, its output
+  broadcast to every stage for its decoder superblocks' cross-attention;
 - under ``shard_cache_len`` the cache length splits over 'data' and every
   attention layer runs flash-decoding (``models.layers``), each rank over
   its slab of every row.
@@ -337,11 +339,19 @@ class BaseRunner:
         """The join of other ranks' branch logits (semantic), or None."""
         return None
 
+    def _audio(self, batch):
+        """An enc-dec batch's frame embeddings, read before any collective
+        of a call on a mesh, so that a batch without them raises
+        ``KeyError`` on every rank alike (as the reference's model does);
+        None for other configs."""
+        return batch["audio_embeds"] if self.cfg.is_encdec else None
+
     def prefill_step(self, params, batch):
         """Full-prompt forward; returns [B, S, vocab] logits."""
         with torch.no_grad():
             if not self.distributed:
                 return self.model.forward(params, batch)[0]
+            self._audio(batch)
             b = batch["tokens"].shape[0]
             if not self._split_rows(b):
                 return self._forward_logits(params, batch)
@@ -453,6 +463,7 @@ class BaseRunner:
                     params, cache, batch["tokens"], cache_index, batch=batch,
                     window_override=window_override)
                 return logits[:, -1], cache
+            self._audio(batch)
             b = batch["tokens"].shape[0]
             if not self._split_rows(b):
                 return self._cached_pass(
@@ -725,12 +736,12 @@ class PipelineRunner(BaseRunner):
 
     def _stage_view(self, params):
         """This stage's view of its slices: embed and norms gathered whole,
-        its superblocks gathered (over the other axes) one at a time when
-        each runs."""
+        its superblocks of the decoder's stack (and of whisper's encoder's)
+        gathered (over the other axes) one at a time when each runs."""
         out = {}
         for k, sub in params.items():
             specs = self.specs[k]
-            if k != "blocks":
+            if k not in ("blocks", "enc_blocks"):
                 out[k] = SH.tree_map(self._gather_leaf, sub, specs)
                 continue
             out[k] = T.StackOnUse(
@@ -741,25 +752,58 @@ class PipelineRunner(BaseRunner):
                     sub, specs))
         return out
 
+    def _stage_encode(self, p, audio_embeds):
+        """Whisper's encoder as its own chain of stages, each over its span
+        of ``enc_blocks``: stage 0 projects the frames, each stage sends
+        its [B, F, d] activation on with ``comm.exchange``, and the last
+        applies ``enc_norm`` and broadcasts the encoder's output to every
+        stage."""
+        st, n = self.mesh.coords["model"], self.n_stages
+        group = self.mesh.group("model")
+        spec = SH.spec_leaves(self.specs["enc_blocks"])[0]
+        if not (len(spec) and spec[0] == "model"):
+            raise ValueError(
+                f"{self.cfg.name}: the stages need the encoder's superblock "
+                f"stack split over 'model' as the decoder's is (specs "
+                f"{tuple(spec)})")
+        b, f = audio_embeds.shape[:2]
+        shape, dtype = (b, f, self.cfg.d_model), L.torch_dtype(self.cfg)
+        if st == 0:
+            x = audio_embeds
+        else:
+            x, = comm.exchange([], [(shape, dtype, st - 1)], group,
+                               self.device)
+        x = self.model.stage_encode(p, p["enc_blocks"], x, first=st == 0,
+                                    last=st == n - 1)
+        if st < n - 1:
+            comm.exchange([(x, st + 1)], [], group, self.device)
+            x = torch.empty(shape, dtype=dtype, device=self.device)
+        return comm.broadcast_from(x, n - 1, group)
+
     def _stage_pass(self, params, tokens, *, positions=None, cache=None,
                     cache_index: Optional[int] = None, window_override=None,
-                    select=None, image_embeds=None,
+                    select=None, image_embeds=None, audio_embeds=None,
                     rows: Optional[RowSplit] = None):
-        """One forward of the LAYER split's stages: stage 0 embeds (a VLM's
-        patch embeddings ahead of the tokens, as its prefix), each stage
-        runs its superblocks over its cache slice and sends the activation
-        [B, S, d] on with ``comm.exchange``; the last stage runs the head on
-        the token positions' ``select(x)`` (all of them without it) and
-        broadcasts the f32 logits to the other stages.  ``positions``
-        defaults to every position of the activation."""
-        if self.cfg.is_encdec:
-            raise ValueError(f"{self.cfg.name}: the stages take decoder "
-                             "stacks (a VLM's patch prefix too), not enc-dec "
-                             "inputs")
+        """One forward of the LAYER split's stages: with ``audio_embeds``
+        (whisper) the encoder's chain of stages first
+        (:meth:`_stage_encode`), each stage then making its decoder
+        superblocks' cross K/V of its output; stage 0 embeds (a VLM's patch
+        embeddings ahead of the tokens, as its prefix), each stage runs its
+        superblocks over its cache slice and sends the activation [B, S, d]
+        on with ``comm.exchange``; the last stage runs the head on the token
+        positions' ``select(x)`` (all of them without it) and broadcasts the
+        f32 logits to the other stages.  ``positions`` defaults to every
+        position of the activation.  Every rank posts the same collectives
+        in the same order: the encoder's sends and broadcast, then the
+        decoder's."""
         st, n = self.mesh.coords["model"], self.n_stages
         group = self.mesh.group("model")
         p = self._stage_view(params)
         b, s = tokens.shape
+        enc_kv = None
+        if audio_embeds is not None:
+            enc_kv = self.model.stage_enc_kv(
+                p["blocks"], self._stage_encode(p, audio_embeds))
         width = s if image_embeds is None else s + image_embeds.shape[1]
         if positions is None:
             positions = torch.arange(width, device=self.device)[None]
@@ -772,7 +816,7 @@ class PipelineRunner(BaseRunner):
         x, _ = self.model.stage_apply(
             p["blocks"], x, positions=positions, caches=cache,
             cache_index=cache_index, cache_axis=self._cache_axis,
-            window_override=window_override, rows=rows)
+            window_override=window_override, rows=rows, enc_kv_stack=enc_kv)
         if st < n - 1:
             comm.exchange([(x, st + 1)], [], group, self.device)
             logits = torch.empty((b, s if select is None else 1,
@@ -789,7 +833,7 @@ class PipelineRunner(BaseRunner):
             return super()._forward_logits(params, batch, rows)
         return self._stage_pass(params, batch["tokens"],
                                 image_embeds=batch.get("image_embeds"),
-                                rows=rows)
+                                audio_embeds=self._audio(batch), rows=rows)
 
     def _pool_split(self) -> bool:
         return self._staged()
@@ -810,12 +854,17 @@ class PipelineRunner(BaseRunner):
             return super()._cached_pass(
                 params, cache, tokens, cache_index, lengths=lengths,
                 batch=batch, window_override=window_override, rows=rows)
+        # a decode step re-encodes the audio each call, as the reference's
+        # decode_step does when it is given no enc_kv; a prompt (no batch)
+        # takes none, as its prefill_cache
+        audio = None if batch is None else self._audio(batch)
         pos = cache_index + torch.arange(tokens.shape[1],
                                          device=self.device)[None, :]
         logits = self._stage_pass(
             params, tokens, positions=pos, cache=cache,
             cache_index=cache_index, window_override=window_override,
-            select=lambda x: MM.last_positions(x, lengths), rows=rows)
+            select=lambda x: MM.last_positions(x, lengths),
+            audio_embeds=audio, rows=rows)
         return logits[:, -1], cache
 
     # -------------------------------------------------------------- layouts

@@ -73,9 +73,11 @@ decode call's tokens; fault responses, timeouts and evictions are host
 work on rank 0 and send nothing.
 
 :meth:`close` on rank 0 stops the followers.  ``decode="auto"`` takes the
-gang path on recurrent and local-window configs, as in one process.  A
-LAYER arm the stages cannot take (enc-dec) raises on a mesh
-(``ROADMAP.md``, queue 4).
+gang path on recurrent and local-window configs, as in one process.  An
+enc-dec config builds both arms on a mesh as in one process (the LAYER
+stages run whisper's encoder as a chain of stages of their own); as in
+the reference, a request carries no audio, so its first gang step raises
+``KeyError: 'audio_embeds'``, on every rank alike.
 
 Each step picks the arm that owes the earliest deadline and runs one step
 of one of two decode paths on it:
@@ -86,8 +88,9 @@ of one of two decode paths on it:
     K-token decode call, immediate retirement.
   * **legacy** (``decode="legacy"``, and ``"auto"`` on recurrent mixers
     and local-window ring buffers; enc-dec and VLM models land here too,
-    but, as in the reference, the backend passes them no frame or patch
-    inputs, so they serve at the model level only): rigid EDF gang
+    but, as in the reference, the backend passes them ``{"tokens": ...}``
+    only, no frame or patch inputs, so they serve at the model level only:
+    an enc-dec step raises ``KeyError: 'audio_embeds'``): rigid EDF gang
     batches — up to ``max_batch`` requests, prompts right-padded to the
     batch's longest, the batch padded to a power of two, one dense cache of
     ``cache_len``; one whole-prompt prefill (token by token for models
@@ -178,7 +181,6 @@ COLOCATED, PREFILL, DECODE = range(3)
 #: a paged device call's op by the scheduler's kind of call
 PAGED_OPS = {"cow": OP_COW, "prefill": OP_PREFILL, "decode": OP_DECODE}
 _PAGED_KINDS = {op: kind for kind, op in PAGED_OPS.items()}
-_ENCDEC_QUEUE = "ROADMAP.md, queue 4 item 4: enc-dec stages on a mesh"
 
 
 def resolve_device(device) -> torch.device:
@@ -465,10 +467,6 @@ class TorchBackend:
         if shared is not None and "runner" in shared:
             runner, view = shared["runner"], shared["view"]
         else:
-            if ARM_MODES[arm] == "pipeline" and self.cfg.is_encdec:
-                raise ValueError(
-                    f"{self.cfg.name}: the LAYER arm's stages take decoder "
-                    f"stacks, not enc-dec inputs ({_ENCDEC_QUEUE})")
             runner = A.build_runner(self.cfg, ARM_MODES[arm], self.ranks,
                                     device=self.device, **MESH_ARM_KW[arm])
             self.params[arm] = runner.init(seed=self.seed + 1)
@@ -775,7 +773,8 @@ class TorchBackend:
             m = self.models[arm]
 
             def step(cache, tok, i):
-                logits, cache = m.decode_step(None, cache, tok, i)
+                logits, cache = m.decode_step(None, cache, tok, i,
+                                              batch={"tokens": tok})
                 return logits[:, -1], cache
             return (m.supports_single_step_prefill,
                     lambda b: m.init_cache(b, self.cache_len),

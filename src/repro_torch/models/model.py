@@ -300,12 +300,13 @@ class _LM(nn.Module):
                                 positions=pos)
         return L.norm_apply(p["enc_norm"], x, self.branch_cfg)
 
-    def _enc_kv_stack(self, p, enc_out: torch.Tensor) -> List[dict]:
-        """Each decoder superblock's cross-attention K, V."""
+    def _enc_kv_stack(self, sbs, enc_out: torch.Tensor) -> List[dict]:
+        """The cross-attention K, V of each decoder superblock of ``sbs``
+        (the whole stack's, or a stage's span)."""
         return [{f"pos{i}": L.cross_kv(sb[f"pos{i}"]["cross"], enc_out,
                                        self.branch_cfg)
                  for i in range(len(self.branch_cfg.pattern))}
-                for sb in map(T.fetched, p["blocks"])]
+                for sb in map(T.fetched, sbs)]
 
     def _is_vlm(self) -> bool:
         fe = self.cfg.frontend
@@ -323,7 +324,7 @@ class _LM(nn.Module):
         enc_kv = None
         if cfg.is_encdec:
             enc_kv = self._enc_kv_stack(
-                p, self._encode(p, batch["audio_embeds"]))
+                p["blocks"], self._encode(p, batch["audio_embeds"]))
         if self._is_vlm():
             prefix = self._frontend(p, batch["image_embeds"])
             x = torch.cat([prefix.to(x.dtype), x], dim=2)
@@ -453,7 +454,7 @@ class _LM(nn.Module):
         x = L.embed_apply(p["embed"], tokens, cfg)
         if cfg.is_encdec and enc_kv is None:
             enc_kv = self._enc_kv_stack(
-                p, self._encode(p, batch["audio_embeds"]))
+                p["blocks"], self._encode(p, batch["audio_embeds"]))
         pos = torch.full((1, 1), cache_index, dtype=torch.long,
                          device=x.device)
         x, _, _ = T.stack_apply(p["blocks"], x, cfg, positions=pos,
@@ -491,11 +492,15 @@ class Model(_LM):
     # ----------------------------------------------------- per-stage surface
     # The explicit stage-graph pipeline (repro_torch.dist.pipeline) calls the
     # model in three pieces: stage 0 embeds, every stage applies its span of
-    # the superblock stack, the last stage runs the head.
+    # the superblock stack, the last stage runs the head.  Serving on the
+    # stages (dist.api.PipelineRunner) also takes a VLM's patch prefix and
+    # whisper's encoder, run as its own chain of stages before the decoder's
+    # (stage_encode), each stage making its span's cross K/V (stage_enc_kv).
     @property
     def supports_stage_split(self) -> bool:
-        """Plain decoder-only stacks only: enc-dec cross inputs and modality
-        frontends are stage-0 side inputs the stage graph does not route."""
+        """Training's test: plain decoder-only stacks only (enc-dec cross
+        inputs and modality frontends are stage-0 side inputs the stage
+        graph's schedules do not route; serving takes both)."""
         return not self.cfg.is_encdec and self.cfg.frontend is None
 
     def stage_embed(self, params, tokens, image_embeds=None):
@@ -509,26 +514,57 @@ class Model(_LM):
         prefix = torch.einsum("bfe,ed->bfd", image_embeds.to(w.dtype), w)
         return torch.cat([prefix.to(x.dtype), x], dim=1)
 
+    @staticmethod
+    def _span(blocks_span) -> List:
+        """A span's superblocks (leaves [n_local, ...], or a
+        :class:`~repro_torch.models.transformer.StackOnUse` of the span),
+        each leaf with a leading group dim of 1."""
+        lead = lambda t: t.unsqueeze(0)
+        return T.superblocks(
+            blocks_span.map(lead) if isinstance(blocks_span, T.StackOnUse)
+            else T.tree_map(lead, blocks_span))
+
     def stage_apply(self, blocks_span, x, *, positions, remat: bool = False,
                     caches=None, cache_index: Optional[int] = None,
                     cache_axis: Optional[L.CacheAxis] = None,
-                    window_override: Optional[int] = None, rows=None):
+                    window_override: Optional[int] = None, rows=None,
+                    enc_kv_stack: Optional[List[dict]] = None):
         """Apply a contiguous span of the superblock stack (leaves carry a
         leading [n_local] dim, or a :class:`~repro_torch.models.transformer.
         StackOnUse` of the span) to x [B, S, d]; ``remat`` checkpoints each
         superblock.  ``caches`` (leaves [n_local, B, ...], the span's decode
         caches) are written in place at ``cache_index``; ``rows`` as in
-        ``_hidden_grouped``.  Returns (x, aux)."""
+        ``_hidden_grouped``; ``enc_kv_stack`` the span's cross K/V
+        (:meth:`stage_enc_kv`).  Returns (x, aux)."""
         lead = lambda t: t.unsqueeze(0)
-        span = blocks_span.map(lead) if isinstance(blocks_span, T.StackOnUse) \
-            else T.tree_map(lead, blocks_span)
         x, _, aux = T.stack_apply(
-            T.superblocks(span), x[None], self.cfg, positions=positions,
+            self._span(blocks_span), x[None], self.cfg, positions=positions,
             remat=remat, caches=None if caches is None
             else T.tree_map(lead, caches), cache_index=cache_index,
             cache_axis=cache_axis, window_override=window_override,
-            rows=rows)
+            rows=rows, enc_kv_stack=enc_kv_stack)
         return x[0], aux[0]
+
+    def stage_encode(self, params, enc_span, x, *, first: bool, last: bool):
+        """One stage's piece of the whisper encoder (``_encode`` cut at the
+        stage boundaries): the first stage projects the stubbed frame
+        embeddings x [B, F, d_frontend] with ``frontend_proj``; every stage
+        applies its span of ``enc_blocks`` (as :meth:`stage_apply`) to [B,
+        F, d]; the last applies ``enc_norm``.  Returns [B, F, d]."""
+        if first:
+            w = params["embed"]["frontend_proj"]
+            x = torch.einsum("bfe,ed->bfd", x.to(w.dtype), w)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        x, _, _ = T.stack_apply(self._span(enc_span), x[None], self.enc_cfg,
+                                positions=pos)
+        x = x[0]
+        return L.norm_apply(params["enc_norm"], x, self.cfg) if last else x
+
+    def stage_enc_kv(self, blocks_span, enc_out) -> List[dict]:
+        """The cross-attention K/V of a span's decoder superblocks over the
+        encoder's output [B, F, d] (each leaf [1, B, F, K, hd]), what
+        :meth:`stage_apply` takes as ``enc_kv_stack``."""
+        return self._enc_kv_stack(self._span(blocks_span), enc_out[None])
 
     def stage_head_logits(self, params, h):
         """Final norm + unembed of the last stage's hidden states [B, S, d]

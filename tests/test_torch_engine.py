@@ -197,7 +197,8 @@ def test_moe_config_raises():
 
 # ------------------------------------------------------------- import rules
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def test_port_imports_neither_jax_nor_repro():

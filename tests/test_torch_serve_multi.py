@@ -30,6 +30,14 @@ and the same numpy-seeded tokens:
   the stage graph's, whole on each stage) and semantic (branches) on
   (1, 2): ``prefill_step``, ``prefill_into_cache`` with per-row lengths
   and four ``serve_step`` calls;
+- tiny whisper (enc-dec: 2 + 2 layers, d 256, 16 frames, vocab 512) on
+  the LAYER stages (``schedule="1f1b"``; the encoder a chain of stages of
+  its own) and the gspmd layout on (1, 2), semantic on (1, 2) and fsdp on
+  (2, 1): ``prefill_step`` with ``audio_embeds``, the prompt
+  teacher-forced through ``serve_step`` (the audio re-encoded each call),
+  then four greedy steps; the greedy tokens JAX's, the follower's logits
+  rank 0's bit for bit; and ``TorchBackend`` on (1, 2) raising the
+  reference's ``KeyError`` at its first gang step on both ranks;
 - the same calls of fsdp on (2, 1) on tiny qwen2-moe at a capacity factor
   whose experts overflow (the reference drops assignments, counted here),
   and the loss and gradients of its ``value_and_grad``: capacity and drops
@@ -90,7 +98,11 @@ CONFIGS = {"tiny": ("stablelm-1.6b", {}),
            "gemma": ("gemma2-27b", {"sliding_window": 8}),
            "xlstm": ("xlstm-125m", {"n_layers": 6}),
            "jamba": ("jamba-1.5-large-398b", {"n_layers": 8}),
-           "vlm": ("internvl2-26b", {})}
+           "vlm": ("internvl2-26b", {}),
+           "whisper": ("whisper-base", {})}
+#: configs served at the reduced width (not shrunk): tiny whisper, 2 + 2
+#: layers, d 256, 16 frames of 128, vocab 512
+UNSHRUNK = ("whisper",)
 #: configs whose weights the port draws (JAX's Mamba init takes seconds)
 PORT_DRAWN = ("xlstm", "jamba")
 # name -> (dims, config, weights, mode, runner kwargs, what runs)
@@ -108,7 +120,17 @@ CASES = {
                "surface"),
     "semantic": ((1, 2), "dense", "sem", "semantic", {}, "surface"),
     "fsdp_moe": ((2, 1), "moe", "moe", "fsdp", {}, "surface"),
+    "stages_whisper": ((1, 2), "whisper", "whisper", "pipeline",
+                       dict(schedule="1f1b"), "encdec"),
+    "pipeline_whisper": ((1, 2), "whisper", "whisper", "pipeline", {},
+                         "encdec"),
+    "semantic_whisper": ((1, 2), "whisper", "whisper_sem", "semantic", {},
+                         "encdec"),
+    "fsdp_whisper": ((2, 1), "whisper", "whisper", "fsdp", {}, "encdec"),
 }
+#: the enc-dec cases: greedy steps after the teacher-forced prompt
+ENCDEC_STEPS = 4
+ENCDEC = [n for n, c in CASES.items() if c[-1] == "encdec"]
 #: the MoE case's capacity factor: at 4 experts and top 2, a call of T
 #: tokens keeps max(2, T / 4) assignments an expert, so experts overflow
 MOE_CF = 0.5
@@ -167,7 +189,10 @@ WORLD_TIMEOUT_S = 120
 
 def make_cfg(get_config, key):
     name, extra = CONFIGS[key]
-    cfg = get_config(name).reduced().replace(**SHRINK).replace(**extra)
+    cfg = get_config(name).reduced()
+    if key not in UNSHRUNK:
+        cfg = cfg.replace(**SHRINK)
+    cfg = cfg.replace(**extra)
     if cfg.moe is not None:
         # no token drops but in the MoE case's
         cfg = cfg.replace(moe=dataclasses.replace(
@@ -222,7 +247,8 @@ def _tokens(key, vocab):
                                            + RECURRENT["steps"]))
             .astype(np.int32),
             "patches": rng.standard_normal((B, 16, 128)).astype(np.float32),
-            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32),
+            "audio": rng.standard_normal((B, 16, 128)).astype(np.float32)}
 
 
 def engine_requests(cls, vocab, n=len(ENGINE_MAX_NEW), seed=8):
@@ -307,6 +333,24 @@ def run_case(runner, params, what, toks, t):
             out[f"step{i}"], cache = runner.serve_step(
                 params, cache, {"tokens": t(toks["steps"][i])}, S + i)
         return out, cache
+    if what == "encdec":
+        # prefill_step with the audio; the prompt teacher-forced through
+        # serve_step (each call re-encodes the audio, as the reference's
+        # decode_step does without enc_kv), then greedy steps
+        audio, prompt = t(toks["audio"]), toks["prompt"]
+        out["prefill_step"] = runner.prefill_step(
+            params, {"tokens": t(prompt), "audio_embeds": audio})
+        cache = runner.init_cache(B, CACHE)
+        greedy = []
+        for i in range(S + ENCDEC_STEPS):
+            tok = prompt[:, i:i + 1] if i < S else greedy[-1][:, None]
+            out[f"step{i}"], cache = runner.serve_step(
+                params, cache, {"tokens": t(tok), "audio_embeds": audio}, i)
+            if i >= S - 1:
+                greedy.append(np.asarray(out[f"step{i}"]).argmax(-1)
+                              .astype(np.int32))
+        out["greedy"] = t(np.stack(greedy))
+        return out, cache
     if what == "vlm":
         out["prefill_step"] = runner.prefill_step(
             params, {"tokens": t(toks["prompt"]),
@@ -354,7 +398,7 @@ def _worker(rank: int, io: pathlib.Path) -> None:
                               timeout_s=60) for dims in ((2, 1), (1, 2))}
     weights = {k: unflat(dict(np.load(io / f"w_{k}.npz")))
                for k in ("dense", "sem", "gemma", "vlm", "moe", "eng0",
-                         "eng1") + PORT_DRAWN}
+                         "eng1", "whisper", "whisper_sem") + PORT_DRAWN}
     for name, (dims, ckey, wkey, mode, kw, what) in CASES.items():
         cfg = make_cfg(get_config, ckey)
         runner = A.build_runner(cfg, mode, meshes[dims], device="cpu", **kw)
@@ -453,8 +497,42 @@ def _engine_worker(rank, io, meshes, weights):
                 tb.close()
             res["headers_after_close"] = tb.headers_sent
         out[name] = res
+    out["engine_whisper"] = _whisper_engine(rank, meshes[(1, 2)])
     out.update(_paged_worker(rank, meshes, weights))
     (io / f"e_{rank}.json").write_text(json.dumps(out))
+
+
+def _whisper_engine(rank, mesh):
+    """Tiny whisper's ``TorchBackend(decode="legacy")`` on (1, 2): both
+    arms build (LAYER on the stages); each arm's first gang step, rank 0's
+    engine and the follower's replay of it, raises ``KeyError`` (a request
+    carries no audio, as in the reference); then rank 0's stop header ends
+    the follower's loop."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,
+                                    PlacementEngine, Request, TorchBackend)
+    cfg = make_cfg(get_config, "whisper")
+    tb = TorchBackend(cfg, mesh=mesh, device="cpu", **ENGINE_KW)
+    res = {"arms": sorted(tb.runners), "staged": tb.runners[LAYER]._staged(),
+           "raised": []}
+    try:
+        for arm in (LAYER, SEMANTIC):
+            try:
+                if rank == 0:
+                    eng = PlacementEngine(FixedPolicy(arm, placement=None),
+                                          tb)
+                    eng.submit(engine_requests(Request, cfg.vocab_size, n=2))
+                    eng.step()
+                else:
+                    tb.follow()
+            except KeyError as e:
+                res["raised"].append([arm, e.args[0]])
+    finally:
+        if rank == 0:
+            tb.close()
+        else:
+            res["stopped"] = bool(tb.follow())
+    return res
 
 
 def _paged_worker(rank, meshes, weights):
@@ -546,8 +624,13 @@ def world(tmp_path_factory):
              "sem": japi.build_runner(cfgs["dense"], "semantic", one),
              "gemma": japi.build_runner(cfgs["gemma"], "fsdp", one),
              "vlm": japi.build_runner(cfgs["vlm"], "fsdp", one),
-             "moe": japi.build_runner(cfgs["moe"], "fsdp", one)}
-    weights = {k: r.init(jax.random.PRNGKey(0)) for k, r in inits.items()}
+             "moe": japi.build_runner(cfgs["moe"], "fsdp", one),
+             "whisper": japi.build_runner(cfgs["whisper"], "fsdp", one),
+             "whisper_sem": japi.build_runner(cfgs["whisper"], "semantic",
+                                              one)}
+    # whisper's eager init takes seconds; the others' as before
+    weights = {k: (jax.jit(r.init) if k.startswith("whisper") else r.init)(
+        jax.random.PRNGKey(0)) for k, r in inits.items()}
     jb = JaxBackend(cfgs["tiny"], one, arms=(LAYER, SEMANTIC), **ENGINE_KW)
     weights.update({f"eng{arm}": jb.params[arm] for arm in (LAYER,
                                                              SEMANTIC)})
@@ -568,7 +651,7 @@ def world(tmp_path_factory):
     refs = {"engine": _engine_refs(jb, cfgs, one)}
     for name, (dims, ckey, wkey, mode, kw, what) in CASES.items():
         runner = japi.build_runner(cfgs[ckey], mode, one)
-        if what == "recurrent":         # eager JAX steps take seconds each
+        if what in ("recurrent", "encdec"):     # eager steps take seconds
             runner = _Jitted(runner)
         with _CountDrops(cfgs[ckey].moe) as drops:
             out, cache = run_case(runner, weights[wkey], what,
@@ -808,6 +891,9 @@ def test_logits_match_jax(world, name):
         got = {k[2:]: v for k, v in s.items() if k.startswith("l/")}
         assert set(got) == set(want)
         for k in want:
+            if k == "greedy":       # the enc-dec cases' greedy tokens
+                np.testing.assert_array_equal(got[k], want[k])
+                continue
             _close_logits(got[k], want[k], LOGIT_TOL.get(name, TOL))
 
 
@@ -824,6 +910,35 @@ def test_rank_caches_match_jax(world, name):
         assert got[k].shape == w.shape, k
         err = float(np.abs(got[k] - w).max())
         assert err <= tol * max(float(np.abs(w).max()), 1e-30), (k, err)
+
+
+@pytest.mark.parametrize("name", ENCDEC)
+def test_encdec_ranks_agree(world, name):
+    """Tiny whisper on every runner across ranks: the follower's logits
+    (and greedy tokens) are rank 0's, bit for bit.  On the stages the
+    encoder runs as its own chain: each call stage 0 sends the [B, F, d]
+    encoder activation and then the decoder's, and each rank takes two
+    broadcasts (the encoder's output, then the logits); the other runners
+    send nothing point to point."""
+    io, cfgs, _ = world
+    lead, follower = _shards(io, name)
+    logits = [k for k in lead if k.startswith("l/")]
+    assert logits == [k for k in follower if k.startswith("l/")]
+    for k in logits:
+        np.testing.assert_array_equal(lead[k], follower[k], err_msg=k)
+    calls = 1 + S + ENCDEC_STEPS
+    cfg = cfgs["whisper"]
+    if CASES[name][3] == "pipeline":
+        frames = cfg.frontend.n_tokens
+        act = lambda s: B * s * cfg.d_model * 4
+        assert int(lead["s/send_calls"]) == 2 * calls
+        assert int(lead["s/send_bytes"]) == calls * act(frames) + act(S) \
+            + (calls - 1) * act(1)
+        assert "s/send_calls" not in follower
+        for s in (lead, follower):
+            assert int(s["s/broadcast_calls"]) == 2 * calls
+    else:
+        assert "s/send_calls" not in lead and "s/send_calls" not in follower
 
 
 def test_flash_decoding_slabs_and_merges(world):
@@ -1335,24 +1450,55 @@ def test_paged_decode_step_passes_only_tokens(world):
         assert nbytes("1", "engine_paged_model", "all_gather") == 4 * 2 * 4
 
 
-@pytest.mark.parametrize("knob", [dict(fleet_devices=("cpu", "cpu")),
-                                  dict(arch="whisper-base")])
+@pytest.mark.parametrize("knob", [dict(fleet_devices=("cpu", "cpu"))])
 def test_engine_mesh_refusals(knob):
     """On a process-group mesh the backend serves the colocated and the
     disaggregated paged paths (workers pinned to ranks too) and the gang
     path: a pool of fleet devices that are not ranks of the world raises
-    (there ``fleet_devices`` names ranks), and a LAYER arm the stages
-    cannot take (enc-dec) raises naming the queue that holds it; nothing
-    is served another way."""
+    (there ``fleet_devices`` names ranks); nothing is served another
+    way."""
     from repro_torch.configs.base import get_config
     from repro_torch.engine import TorchBackend
-    kw = dict(knob)
-    cfg = get_config(kw.pop("arch", "stablelm-1.6b")).reduced()
-    kw.setdefault("decode", "legacy")
-    match = "a rank of the world" if "fleet_devices" in kw \
-        else "queue 4 item 4"
-    with pytest.raises(ValueError, match=match):
-        TorchBackend(cfg, mesh=_rank0_mesh(), device="cpu", **kw)
+    cfg = get_config("stablelm-1.6b").reduced()
+    with pytest.raises(ValueError, match="a rank of the world"):
+        TorchBackend(cfg, mesh=_rank0_mesh(), device="cpu", decode="legacy",
+                     **knob)
+
+
+def test_engine_whisper_on_mesh_raises_as_the_reference(world):
+    """Tiny whisper on a (1, 2) process-group mesh: ``TorchBackend`` builds
+    both arms (LAYER on the stages), and each arm's first gang step raises
+    ``KeyError: 'audio_embeds'`` on both ranks, inside the world's limit,
+    after which rank 0's stop header still reaches the follower.
+    ``JaxBackend`` on a 1 x 1 mesh raises the same at its first step, and
+    so does the port's one-process backend: a ``Request`` carries no
+    audio in either package."""
+    from repro.engine import FixedPolicy as JFixed
+    from repro.engine import PlacementEngine as JPlacement
+    from repro.engine import Request as JRequest
+    from repro.engine.jax_backend import JaxBackend
+    import jax
+
+    from repro_torch.engine import (LAYER, SEMANTIC, FixedPolicy,
+                                    PlacementEngine, Request, TorchBackend)
+    cfg = world[1]["whisper"]
+    for e in _engine(world):
+        got = e["engine_whisper"]
+        assert got["arms"] == [LAYER, SEMANTIC] and got["staged"]
+        assert got["raised"] == [[LAYER, "audio_embeds"],
+                                 [SEMANTIC, "audio_embeds"]]
+    assert _engine(world)[1]["engine_whisper"]["stopped"]
+    one = jax.make_mesh((1, 1), ("data", "model"))
+    for backend, placement, fixed, request in (
+            (JaxBackend(cfg, one, **ENGINE_KW), JPlacement, JFixed,
+             JRequest),
+            (TorchBackend(port(cfg), device="cpu", **ENGINE_KW),
+             PlacementEngine, FixedPolicy, Request)):
+        for arm in (LAYER, SEMANTIC):
+            eng = placement(fixed(arm, placement=None), backend)
+            eng.submit(engine_requests(request, cfg.vocab_size, n=2))
+            with pytest.raises(KeyError, match="audio_embeds"):
+                eng.step()
 
 
 def _rank0_mesh():
