@@ -23,12 +23,20 @@ raising on failure:
             arm: the semantic arm's two branches share a launch.  Every
             prefill launch must take the tensor-core path (bf16 models),
             every decode launch ``decode_split``, and every ``quant_matmul``
-            launch its tensor-core path by the step's rows.
+            launch its tensor-core path by the step's rows.  The MoE
+            expert products go through the grouped GEMM's ragged entry:
+            three ``moe_gmm_ragged`` launches per MoE layer per prefill
+            chunk and per decode step on each arm (gate, up, down; the
+            branches' experts in one launch), each on the tiling its rows
+            (G T k, every assignment) pick (``ragged_decode`` at <= 64,
+            else ``ragged_prefill``), none on a dense model.
 3. model    after the bf16, int8-weight and MoE serves: the served models'
             bf16 logits are finite, and an f32 copy of each arm (its
             projections quantized as the served ones, to the same codes)
             gives the same logits through the kernels as through the plain
-            versions on a small input (1e-3 of the largest logit).
+            versions on a small input (1e-3 of the largest logit; the MoE
+            copy's expert products through the ragged kernel against
+            ``moe_gmm_ragged_plain``, and it must launch).
             qwen2-moe's f32 copy at full depth (57 GB) would not fit beside
             the served model: it is built at full width from the first two
             superblocks' weights.
@@ -110,6 +118,26 @@ raising on failure:
             both readings are reported.  The four new kernels are timed as
             above beside ``torch.bmm`` or masked SDPA where one call
             computes the same function.
+8b. ragged  the grouped GEMM's ragged entry (``moe_gmm_ragged``: the MoE
+            serving path's expert product over the kept assignments
+            compacted by expert, offsets on the device) at qwen2-moe's
+            serve shapes: the LAYER decode step (R 32 over 60 experts, d
+            2048 x f 1408, and the down projection), the SEMANTIC one (R
+            64 over 2 x 30 experts, d 1024 x f 704), a prefill chunk wave
+            (R 4096), routed at random with the capacity's drops; f32 and
+            bf16.  One launch on the tiling R picks, one CUDA kernel a
+            call, within ``QTOL`` (1 + |plain|) of ``moe_gmm_ragged_plain``
+            and zero past offsets[-1]; the same check must reject the
+            plain output with the longest segment's first row tile left
+            out (both readings reported).  Timed beside the plain version
+            and ``torch._grouped_mm`` over the same offsets (where this
+            torch has it and it agrees; else ``torch.bmm`` over the dense
+            capacity buffer), its bound from the bytes and flops the
+            offsets need.  Then one full-width MoE layer through
+            ``moe_apply``'s serving path under
+            ``torch.cuda.set_sync_debug_mode("error")`` (no host read of a
+            device value) at 8 and 1024 tokens, three launches each,
+            within ``QTOL`` of the same call through the plain product.
 
 9. disagg   ``TorchBackend(fleet="disagg")`` at the full width of
             stablelm-1.6b (cache 1024, blocks of 16, prefill chunks of 128):
@@ -294,7 +322,14 @@ raising on failure:
             the one-process run's; ``decode_attention`` launches (zeroed
             before each part) one per held attention layer a step, one
             slab merge per launch under flash-decoding, 24 flash launches
-            for A's prompt.  Then whisper-base (enc-dec, full width: 6 + 6
+            for A's prompt.  Then a row-split MoE: qwen2-moe-a2.7b at
+            full width cut to 2 superblocks, fsdp on (2, 1) at capacity
+            factor 1.0 (experts overflow), every weight whole on each
+            rank, fed the arms' prompts and steps: logits as above, the
+            assignments the ranks drop summing to the one process's (above
+            0), and each rank's ragged expert products taking its own
+            compacted rows, half the one process's, launch for launch.
+            Then whisper-base (enc-dec, full width: 6 + 6
             layers, d 512, 1500 stub frames, vocab 51872) on the LAYER
             stages on (1, 2) (the stage layout: 3 encoder and 3 decoder
             superblocks a rank; the encoder a chain of stages of its own,
@@ -400,14 +435,17 @@ raising on failure:
             and argument bytes a rank.
 
 Phases 9-16 and 21 run after the serves, before training; 23 and 17-20
-after training.  The ``kernels`` line
+after training; 8b after 8.  The ``kernels`` line
 counts ``flash_attention`` launches from the ``train``, ``pipeline`` and
 ``multi`` phases (the ``multi`` ranks' counts summed, ``serve_multi``'s
 prompt included), ``decode_attention``
 launches from the ops, ``legacy``, ``window`` and ``serve_multi`` phases
-(both ranks summed, the engine part's too) and ``block_diag_matmul``
-launches from the ops and ``recurrent`` phases.  Every backend is freed before the next one is
-built.  The last lines are
+(both ranks summed, the engine part's too), ``block_diag_matmul``
+launches from the ops and ``recurrent`` phases, and ``moe_gmm`` launches
+from the ops phase and the ragged entry's on the serves and
+``serve_multi``'s MoE part (both ranks); its row is the ragged entry's
+LAYER decode (``ragged_decode``), the MoE path's.  Every backend is freed
+before the next one is built.  The last lines are
 one JSON object per kernel line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -415,6 +453,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -915,6 +954,21 @@ def _counters():
             "quant_matmul": quant_matmul}
 
 
+#: the ragged entry's tilings (``_gemm_launch.PATH_LAUNCHES`` keys)
+RAGGED_PATHS = ("ragged_decode", "ragged_prefill")
+
+
+def ragged_per_step(cfg) -> int:
+    """Ragged expert-product launches one forward of a branch config makes
+    a prefill chunk or decode step: one a projection (gate, up, down; up,
+    down for gelu) a MoE layer; 0 without MoE."""
+    if cfg.moe is None:
+        return 0
+    moe_layers = sum(ffn == "moe" for _, ffn in cfg.pattern) \
+        * cfg.n_superblocks
+    return (3 if cfg.mlp_type == "swiglu" else 2) * moe_layers
+
+
 def _every_arm_first(policy, arms):
     """Wrap a ``MABPolicy`` so that its first decisions visit each of
     ``arms`` once (the bandit still picks every context, observes every
@@ -959,13 +1013,17 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
     per_wave = -(-n_requests // waves)
     tracer = Tracer()
     old = set_tracer(tracer)
+    from repro_torch.kernels import _gemm_launch as GL
     from repro_torch.kernels import _paged_launch as PL
     from repro_torch.kernels import _quant_launch as QL
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    moe_gmm_ragged.launches = 0
     paths0 = dict(PL.PATH_LAUNCHES)
     qpaths0 = dict(QL.PATH_LAUNCHES)
+    gpaths0 = {k: GL.PATH_LAUNCHES[k] for k in RAGGED_PATHS}
     t0 = time.perf_counter()
     try:
         for w in range(waves):
@@ -978,6 +1036,8 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
     launches = {k: fn.launches for k, fn in counters.items()}
     paths = {k: PL.PATH_LAUNCHES[k] - paths0[k] for k in paths0}
     qpaths = {k: QL.PATH_LAUNCHES[k] - qpaths0[k] for k in qpaths0}
+    ragged = moe_gmm_ragged.launches
+    gpaths = {k: GL.PATH_LAUNCHES[k] - gpaths0[k] for k in gpaths0}
     summary = eng.summary()
 
     for r in reqs:
@@ -996,7 +1056,9 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
     # K steps of T = W rows
     steps = {"prefill": 0, "decode": 0}
     qwant = dict.fromkeys(qpaths, 0)
-    for s in backend._paged.values():
+    gwant = dict.fromkeys(gpaths, 0)
+    for arm, s in backend._paged.items():
+        model = backend.models[arm]
         for bucket, n in s.buckets.items():
             kind, shape = bucket.split(":")
             if kind not in ("prefill", "decode"):
@@ -1011,6 +1073,13 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
             if weight_quant:      # bf16 x, widths that are multiples of 128
                 qwant["mma_skinny" if t <= QL.DECODE_T else "mma_tile"] += \
                     4 * cfg.n_layers * calls
+            # the MoE layers' ragged launches, the branches' in one, on
+            # the tiling their rows (every assignment: G T k) pick
+            per, rows = ragged_per_step(model.branch_cfg), \
+                model.cfg.n_branches * t * (cfg.moe.top_k if cfg.moe else 0)
+            if per:
+                gwant["ragged_decode" if rows <= GL.RAGGED_DECODE_R
+                      else "ragged_prefill"] += per * calls
     layers = cfg.n_layers
     want = {"paged_prefill_attention": layers * steps["prefill"],
             "paged_decode_attention": layers * steps["decode"],
@@ -1032,6 +1101,13 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
     if qpaths != qwant:
         raise AssertionError(f"[{tag}] quant_matmul launches by path "
                              f"{qpaths}, expected {qwant}")
+    # the MoE expert products: the ragged grouped GEMM, one launch a
+    # projection a MoE layer a prefill chunk and a decode step, on its
+    # tiling by rows
+    if ragged != sum(gwant.values()) or gpaths != gwant \
+            or (cfg.moe is not None) != (ragged > 0):
+        raise AssertionError(f"[{tag}] moe_gmm_ragged: {ragged} launches "
+                             f"{gpaths}, dispatches imply {gwant}")
     # a decode step's host time: the call's enqueue and the read of its
     # results (``finish_dispatch``)
     scans = tracer.events("decode_scan") + tracer.events("decode_read")
@@ -1054,6 +1130,7 @@ def serve_phase(dev, cfg, *, kv_dtype: str, n_requests: int, waves: int,
                preemptions=summary["preemptions"],
                per_mode=summary["per_mode"], launches=launches,
                paged_paths=paths, quant_paths=qpaths,
+               moe_gmm_launches=ragged, ragged_paths=gpaths,
                weight_quant_max_err=m.get("weight_quant_max_err"),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                ttft_p50=summary.get("ttft_p50"),
@@ -1708,7 +1785,10 @@ def model_phase(dev, backend, *, superblocks=None):
         paged_decode_attention_plain
     from repro_torch.kernels.paged_prefill_attention import \
         paged_prefill_attention_plain
+    from repro_torch.kernels.moe_gmm import (moe_gmm_ragged,
+                                             moe_gmm_ragged_plain)
     from repro_torch.kernels.quant_matmul import quant_matmul_plain
+    from repro_torch.models import moe as MOE
     rng = np.random.default_rng(3)
     bits = int(backend.weight_quant[3:]) if backend.weight_quant else None
     out = {}
@@ -1745,22 +1825,29 @@ def model_phase(dev, backend, *, superblocks=None):
                 if not torch.equal(a, b):
                     raise AssertionError(f"arm {arm}: f32 copy's {name} "
                                          "codes differ from the served ones")
+        ragged0 = moe_gmm_ragged.launches
         kern = run(f32, params)
+        ragged = moe_gmm_ragged.launches - ragged0
+        if (ragged > 0) != (backend.cfg.moe is not None):
+            raise AssertionError(f"arm {arm}: {ragged} ragged MoE launches "
+                                 "in the f32 kernel run")
         saved = (PM.paged_decode_attention, PM.paged_prefill_attention,
-                 PM.quant_matmul)
+                 PM.quant_matmul, MOE.moe_gmm_ragged)
         PM.paged_decode_attention = paged_decode_attention_plain
         PM.paged_prefill_attention = paged_prefill_attention_plain
         PM.quant_matmul = quant_matmul_plain
+        MOE.moe_gmm_ragged = moe_gmm_ragged_plain
         try:
             ref = run(f32, params)
         finally:
             (PM.paged_decode_attention, PM.paged_prefill_attention,
-             PM.quant_matmul) = saved
+             PM.quant_matmul, MOE.moe_gmm_ragged) = saved
         rel = float((kern - ref).abs().max() / ref.abs().max())
         if not rel <= 1e-3:
             raise AssertionError(f"arm {arm}: f32 kernel vs plain logits "
                                  f"differ by {rel} of the largest")
         out[arm] = dict(rel_err_f32=rel, superblocks=f32.cfg.n_superblocks,
+                        moe_gmm_ragged_launches=ragged,
                         argmax_equal=bool(
                             (kern.argmax(-1) == ref.argmax(-1)).all()))
         log(f"[model] {backend.cfg.name} arm {arm} weights="
@@ -2632,6 +2719,220 @@ def ops_phase(dev):
     return results
 
 
+# ------------------------------------------------------------------- ragged
+#: the ragged entry's checks at qwen2-moe's serving shapes: (label, arm
+#: branches, tokens a branch, projection).  LAYER decode: 8 lanes' top-4
+#: over 60 experts, R 32, d 2048, f 1408; SEMANTIC decode: two branches'
+#: 8 lanes over 30 experts each (d 1024, f 704), R 64 over 60 groups; a
+#: prefill chunk wave: 8 lanes x 128 tokens, R 4096 over 60 experts
+RAGGED_CHECKS = (("layer_decode", 1, 8, "gate_up"),
+                 ("layer_decode", 1, 8, "down"),
+                 ("semantic_decode", 2, 8, "gate_up"),
+                 ("prefill", 1, 1024, "gate_up"))
+
+
+def ragged_offsets(e: int, g: int, t: int, k: int, cf: float, rng):
+    """Offsets [G E + 1] (a list) of G branches' T tokens each routed to k
+    distinct of E experts at random, each expert's count capped at the
+    capacity max(k, ceil(T k cf / E)) (the dropped assignments are the
+    zero tail past offsets[-1])."""
+    cap = max(k, math.ceil(t * k * cf / e))
+    counts = []
+    for _ in range(g):
+        c = np.zeros(e, np.int64)
+        for _ in range(t):
+            c[rng.choice(e, k, replace=False)] += 1
+        counts += np.minimum(c, cap).tolist()
+    return [0] + np.cumsum(counts).tolist()
+
+
+def ragged_library(x, w, off, off_t, want):
+    """(fn, name) of the library yardstick the port never calls: one
+    ``torch._grouped_mm`` over the same offsets where this torch has it and
+    it computes the function (its kept rows within ``QTOL`` of the plain
+    version's), else ``torch.bmm`` over the dense capacity buffer
+    [G, largest segment, K] (what the slot path multiplies)."""
+    gm = getattr(torch, "_grouped_mm", None)
+    kept = off[-1]
+    if gm is not None:
+        ends = off_t[1:]
+        try:
+            out = gm(x, w, offs=ends)
+            torch.cuda.synchronize()
+            ok = out.shape == want.shape and bool((
+                (out[:kept].float() - want[:kept].float()).abs()
+                <= ops_limit(want[:kept], x.dtype)).all())
+            if ok:
+                return (lambda: gm(x, w, offs=ends)), "torch._grouped_mm"
+            log(f"[ragged] torch._grouped_mm differs from the plain "
+                f"version ({x.dtype}): torch.bmm instead")
+        except (RuntimeError, TypeError, ValueError,
+                NotImplementedError) as exc:
+            log(f"[ragged] torch._grouped_mm ({x.dtype}) refused: "
+                f"{str(exc).splitlines()[0][:200]}; torch.bmm instead")
+    cap = max(max(hi - lo for lo, hi in zip(off, off[1:])), 1)
+    buf = x.new_zeros(w.shape[0], cap, x.shape[1])
+    return (lambda: torch.bmm(buf, w)), "torch.bmm"
+
+
+def ragged_phase(dev):
+    """The grouped GEMM's ragged entry (``moe_gmm_ragged``) at
+    ``RAGGED_CHECKS``' shapes, f32 and bf16: one launch on the tiling R
+    picks, one CUDA kernel a call (the profiler's count), the result within
+    ``QTOL`` (1 + |plain|) of ``moe_gmm_ragged_plain`` and zero past
+    offsets[-1] (the output's memory held NaNs before the call); the same
+    check must reject, in every row of the tile, the plain output with the
+    longest segment's first row tile left out; both readings reported.
+    Timed beside the plain version and the library yardstick
+    (``ragged_library``), its bound from the bytes and flops the offsets
+    need (``cost.ragged_data_cost``).  Then the compacted MoE layer with no
+    host sync (``ragged_sync_check``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _gemm_launch as GL
+    from repro_torch.kernels.cost import ragged_data_cost
+    from repro_torch.kernels.moe_gmm import (moe_gmm_ragged,
+                                             moe_gmm_ragged_plain)
+    qwen = get_config("qwen2-moe-a2.7b")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rng = np.random.default_rng(31)
+    rows, offsets = {}, {}
+    for label, branches, t, proj in RAGGED_CHECKS:
+        cfg = qwen.semantic(branches) if branches > 1 else qwen
+        m = cfg.moe
+        if label not in offsets:
+            offsets[label] = ragged_offsets(m.n_experts, branches, t,
+                                            m.top_k, m.capacity_factor, rng)
+        off = offsets[label]
+        off_t = torch.tensor(off, dtype=torch.int32, device=dev)
+        gr, r = branches * m.n_experts, branches * t * m.top_k
+        k, n = (cfg.d_model, m.d_ff) if proj == "gate_up" \
+            else (m.d_ff, cfg.d_model)
+        want_path = "ragged_prefill" if label == "prefill" \
+            else "ragged_decode"
+        for dt in (torch.float32, torch.bfloat16):
+            key = f"ragged/{label}/{proj}/{str(dt)[6:]}"
+            tag = f"moe_gmm_ragged [{key}]"
+            x = torch.randn(r, k, generator=gen, device=dev).to(dt)
+            w = (torch.randn(gr, k, n, generator=gen, device=dev)
+                 / math.sqrt(k)).to(dt)
+            path = GL.ragged_path_for(x, w)
+            if path != want_path:
+                raise AssertionError(f"{tag}: path {path}, not {want_path}")
+            torch.full((r, n), float("nan"), dtype=dt, device=dev)
+            before, paths0 = moe_gmm_ragged.launches, dict(GL.PATH_LAUNCHES)
+            got = moe_gmm_ragged(x, w, off_t)
+            torch.cuda.synchronize()
+            took = [p for p in RAGGED_PATHS
+                    if GL.PATH_LAUNCHES[p] != paths0[p]]
+            if moe_gmm_ragged.launches != before + 1 or took != [path]:
+                raise AssertionError(f"{tag}: launches "
+                                     f"{moe_gmm_ragged.launches - before} "
+                                     f"on {took}")
+            want = moe_gmm_ragged_plain(x, w, off_t)
+            limit = ops_limit(want, dt)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if got.shape != want.shape or not bool(got.isfinite().all()) \
+                    or not bool((diff <= limit).all()) \
+                    or bool(got[off[-1]:].any()):
+                raise AssertionError(f"{tag}: max |kernel - plain| {err} "
+                                     f"beyond {QTOL[dt]} (1 + |plain|), or "
+                                     "a row past offsets[-1] not 0")
+            # the fault: the longest segment's first row tile left out
+            walk = GL.ragged_walk(off, r, n, path, dt)
+            big = max(range(gr), key=lambda i: off[i + 1] - off[i])
+            _, r0, r1, c0, c1 = next(tl for tl in walk if tl[0] == big)
+            bad = want.clone()
+            bad[r0:r1, c0:c1] = 0
+            fault = float(((bad.float() - want.float()).abs() / limit)[
+                r0:r1, c0:c1].amax(-1).min())
+            if fault <= 1:
+                raise AssertionError(f"{tag}: the check passes a dropped "
+                                     f"row tile ({fault:.3g} of its limit)")
+            flops, nbytes = ragged_data_cost(off, r, k, n, x.element_size())
+            bnd, by = _bound(nbytes, flops, dt)
+            lib, lib_name = ragged_library(x, w, off, off_t, want)
+            kern = lambda: moe_gmm_ragged(x, w, off_t)
+            ms, per_call = device_profile(kern)
+            if per_call != 1:
+                raise AssertionError(f"{tag}: {per_call} CUDA kernels per "
+                                     "call, not 1")
+            row = dict(
+                path=path, R=r, groups=gr, K=k, N=n, kept=off[-1],
+                groups_with_rows=sum(hi > lo for lo, hi in zip(off, off[1:])),
+                max_abs_err=err, tol=QTOL[dt],
+                err_over_limit=float((diff / limit).max()),
+                fault_over_limit=fault, ms=ms, kernels_per_call=per_call,
+                call_ms=time_ms(kern),
+                plain_ms=device_ms(lambda: moe_gmm_ragged_plain(x, w, off_t),
+                                   reps=5),
+                bound_ms=bnd, bound_by=by, library=lib_name,
+                library_ms=device_ms(lib))
+            rows[key] = row
+            log(f"[ragged] {tag}: R {r} over {gr} groups "
+                f"({row['groups_with_rows']} with rows, {off[-1]} kept), "
+                f"max_abs_err={err:.3g} ({row['err_over_limit']:.3g} of its "
+                f"limit; the dropped tile {fault:.3g}), kernel {ms:.4f} ms "
+                f"(call {row['call_ms']:.4f}), plain {row['plain_ms']:.4f} "
+                f"ms, {lib_name} {row['library_ms']:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by})")
+            del x, w, got, want, bad, diff, limit, lib
+            torch.cuda.empty_cache()
+    rows["no_host_sync"] = ragged_sync_check(dev, qwen)
+    return rows
+
+
+def ragged_sync_check(dev, cfg):
+    """One MoE layer of full-width qwen2-moe (bf16, seeded random weights)
+    through the compacted serving path (``no_grad``) under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    read of a device value: a LAYER decode step's 8 tokens and a 1024-token
+    prefill chunk, three ragged launches each, the output within ``QTOL``
+    (1 + |plain|) of the same call through the plain product."""
+    from repro_torch.kernels.moe_gmm import (moe_gmm_ragged,
+                                             moe_gmm_ragged_plain)
+    from repro_torch.models import moe as MOE
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def draw(tree):
+        return {k: draw(v) if isinstance(v, dict) else (
+            torch.randn((1,) + tuple(v), generator=gen, device=dev)
+            / math.sqrt(v[-2])).bfloat16() for k, v in tree.items()}
+    params = draw(MOE.moe_shapes(cfg))
+    out = {}
+    for t in (8, 1024):
+        x = torch.randn(1, t, cfg.d_model, generator=gen,
+                        device=dev).bfloat16()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            before = moe_gmm_ragged.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, _ = MOE.moe_apply(params, x, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            launches = moe_gmm_ragged.launches - before
+            saved, MOE.moe_gmm_ragged = MOE.moe_gmm_ragged, \
+                moe_gmm_ragged_plain
+            try:
+                want, _ = MOE.moe_apply(params, x, cfg)
+            finally:
+                MOE.moe_gmm_ragged = saved
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if launches != 3 or not bool(
+                (diff <= ops_limit(want, torch.bfloat16)).all()):
+            raise AssertionError(f"[ragged] moe_apply T {t}: {launches} "
+                                 f"ragged launches, max |kernel - plain| "
+                                 f"{err}")
+        out[f"T{t}"] = dict(launches=launches, max_abs_err=err,
+                            host_syncs=0)
+        log(f"[ragged] compacted moe_apply T {t} under sync debug 'error': "
+            f"no host sync, {launches} ragged launches, max |kernel - "
+            f"plain| {err:.3g}")
+    return out
+
+
 # -------------------------------------------------------------------- train
 TRAIN_RUNS = (("fsdp", 6), ("semantic", 4))
 TRAIN_SHAPE = dict(seq_len=2048, batch=2)
@@ -3369,7 +3670,13 @@ SERVE_SEED = 29
 #: run's max |logit|, set from readings (see PERF.md); the same logits
 #: rounded to bf16 (``ctrl_bf16``) must read above it every run
 SERVE_LOGIT_REL = {"A": 1e-4, "B": 1e-4, "layer": 1e-4, "semantic": 1e-4,
-                   "whisper": 1e-4}
+                   "whisper": 1e-4, "moe": 1e-4}
+#: the row-split MoE part: qwen2-moe-a2.7b at full width cut to this many
+#: superblocks, fsdp on (2, 1) (B 8: 4 rows a rank), every weight whole on
+#: each rank (``zero_data=False``: gathering 2 GB of f32 experts a layer
+#: through the host would be the run), at ``MULTI_MOE_ROWS``' capacity
+#: factor (experts overflow), fed the arms' prompts and decode steps
+SERVE_MOE_SUPERBLOCKS = 2
 
 
 def serve_cfg(name: str, superblocks, reduced: bool,
@@ -3538,7 +3845,42 @@ def _serve_parts(reduced: bool, dtype: str = "float32"):
     wb, wp, ws = SERVE_WHISPER_REDUCED if reduced else SERVE_WHISPER
     parts.append(("whisper", serve_cfg("whisper-base", None, reduced, dtype),
                   "pipeline", (1, 2), dict(schedule="1f1b"), wb, wp + ws))
+    moe = serve_cfg("qwen2-moe-a2.7b", SERVE_MOE_SUPERBLOCKS, reduced, dtype)
+    moe = moe.replace(moe=dataclasses.replace(
+        moe.moe, capacity_factor=MULTI_MOE_ROWS["capacity_factor"]))
+    parts.append(("moe", moe, "fsdp", (2, 1), dict(zero_data=False), b,
+                  arm_cache))
     return parts, fd, steps, inp
+
+
+class _RaggedSpy:
+    """While active: the rows of every ragged expert product this process
+    launches (``rows``, in order) and the assignments the compacted
+    dispatch drops past capacity, summed over its calls (``dropped``: kept
+    on the device, read once on exit)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.rows, self._dropped = [], []
+        self.orig = ragged, dispatch = MOE.moe_gmm_ragged, \
+            MOE._dispatch_compact
+
+        def rows_spy(x, w, offsets):
+            self.rows.append(int(x.shape[0]))
+            return ragged(x, w, offsets)
+
+        def drops_spy(weights, idx, g, t, m, rows=None):
+            tok, w, off = dispatch(weights, idx, g, t, m, rows)
+            self._dropped.append(g * t * m.top_k - off[-1].long())
+            return tok, w, off
+        MOE.moe_gmm_ragged, MOE._dispatch_compact = rows_spy, drops_spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE.moe_gmm_ragged, MOE._dispatch_compact = self.orig
+        self.dropped = int(torch.stack(self._dropped).sum()) \
+            if self._dropped else 0
 
 
 def serve_multi_refs(dev, workdir: pathlib.Path, reduced: bool) -> dict:
@@ -3558,13 +3900,15 @@ def serve_multi_refs(dev, workdir: pathlib.Path, reduced: bool) -> dict:
         cache = _seeded_cache(cfg, b, cache_len, fd["B"][3], dev) \
             if part == "B" else runner.init_cache(b, cache_len)
         logits = []
-        fed, ms, cache = _serve_calls(
-            runner, params, cache, inp, part, fd=fd, arm_steps=steps,
-            on_logits=lambda i, lg: logits.append(lg.float().cpu()))
+        with _RaggedSpy() as spy:
+            fed, ms, cache = _serve_calls(
+                runner, params, cache, inp, part, fd=fd, arm_steps=steps,
+                on_logits=lambda i, lg: logits.append(lg.float().cpu()))
         torch.save({"fed": torch.from_numpy(fed),
                     "logits": torch.stack(logits)},
                    workdir / f"serve_{part}.pt")
-        out[part] = dict(call_ms=ms, calls=len(logits))
+        out[part] = dict(call_ms=ms, calls=len(logits),
+                         ragged_rows=spy.rows, moe_dropped=spy.dropped)
         log(f"[serve_multi {part} one process] {cfg.name} {mode}: "
             f"{len(logits)} calls, first ms {[round(x, 2) for x in ms[:3]]}")
         del runner, params, cache, logits
@@ -3630,9 +3974,10 @@ def serve_multi_worker(rank: int, workdir: pathlib.Path, dev, reduced: bool,
         decode_attention.launches = 0
         FA.flash_attention.launches = 0
         dist.barrier()
-        _, ms, cache = _serve_calls(
-            runner, params, cache, inp, part, fd=fd, arm_steps=steps,
-            feed=ref["fed"].numpy(), on_logits=check)
+        with _RaggedSpy() as spy:
+            _, ms, cache = _serve_calls(
+                runner, params, cache, inp, part, fd=fd, arm_steps=steps,
+                feed=ref["fed"].numpy(), on_logits=check)
         n_prefill = 0 if part == "B" else 1
         out[part] = dict(
             mesh=list(dims), mode=mode, model=cfg.name, calls=len(ms),
@@ -3643,6 +3988,7 @@ def serve_multi_worker(rank: int, workdir: pathlib.Path, dev, reduced: bool,
             decode_launches=decode_attention.launches,
             flash_launches=FA.flash_attention.launches,
             lse_merges=L.FLASH_STATS["lse_merges"],
+            ragged_rows=spy.rows, moe_dropped=spy.dropped,
             comm=dict(comm.COMM_STATS), comm_first=stats["comm_first"],
             cache_bytes=sum(t.numel() * t.element_size()
                             for t in _leaves_of(cache)),
@@ -3723,6 +4069,37 @@ def _whisper_wire_gates(part, cfg, b, per) -> dict:
     return dict(want=want, ranks=got)
 
 
+def _moe_rows_gates(part, cfg, dims, per, one) -> dict:
+    """The row-split MoE part's own gates: the assignments the ranks drop
+    sum to the one process's (above 0: the capacity factor overflows the
+    experts), and each rank's ragged products take its own compacted rows,
+    G T_local k a launch, the one process's G T k over the 'data' ranks,
+    launch for launch."""
+    dropped = [r["moe_dropped"] for r in per]
+    if not sum(dropped) == one["moe_dropped"] > 0:
+        raise AssertionError(f"[serve_multi {part}] the ranks dropped "
+                             f"{dropped} MoE assignments, one process "
+                             f"{one['moe_dropped']} (must sum equal, above "
+                             "0)")
+    want = [n // dims[0] for n in one["ragged_rows"]]
+    if not want or any(n % dims[0] for n in one["ragged_rows"]):
+        raise AssertionError(f"[serve_multi {part}] one process's expert "
+                             f"rows {one['ragged_rows'][:6]} ...")
+    for r, run in enumerate(per):
+        if run["ragged_rows"] != want:
+            raise AssertionError(
+                f"[serve_multi {part} rank {r}] expert rows "
+                f"{run['ragged_rows'][:6]} ... ({len(run['ragged_rows'])} "
+                f"launches), want {want[:6]} ... ({len(want)})")
+    n_proj = ragged_per_step(cfg) // cfg.n_layers
+    return dict(dropped=dropped, dropped_one_process=one["moe_dropped"],
+                launches=[len(r["ragged_rows"]) for r in per],
+                rows_prefill=want[0], rows_decode=want[-1],
+                rows_prefill_one_process=one["ragged_rows"][0],
+                rows_decode_one_process=one["ragged_rows"][-1],
+                projections_a_layer=n_proj)
+
+
 def serve_multi_gates(ranks, reduced: bool, card: str, refs=None) -> dict:
     """Each part's gates on both ranks' results (see ``serve_multi_worker``):
     logits within ``SERVE_LOGIT_REL`` of the one-process run's, the bf16
@@ -3760,6 +4137,11 @@ def serve_multi_gates(ranks, reduced: bool, card: str, refs=None) -> dict:
                                  f"{per[1]['checksum']})")
         wire = _whisper_wire_gates(part, cfg, b, per) \
             if part == "whisper" else None
+        moe = _moe_rows_gates(part, cfg, dims, per, refs[part]) \
+            if part == "moe" and refs else None
+        if part != "moe" and any(r["ragged_rows"] for r in per):
+            raise AssertionError(f"[serve_multi {part}] ragged MoE launches "
+                                 "in a dense model's part")
         out[part] = per
         # the one-process run's decode calls: all but A's and the arms'
         # prompt and whisper's prefill_step
@@ -3767,7 +4149,7 @@ def serve_multi_gates(ranks, reduced: bool, card: str, refs=None) -> dict:
         log(f"[serve_multi {part}] {card} | " + json.dumps(dict(
             model=cfg.name, mode=mode, mesh=dims, limit=lim,
             one_process_decode_ms_median=statistics.median(one)
-            if one else None, wire=wire, ranks=[dict(
+            if one else None, wire=wire, moe=moe, ranks=[dict(
                 prefill_ms=r["prefill_ms"],
                 decode_ms_median=statistics.median(r["decode_ms"]),
                 worst_rel=r["worst_rel"], ctrl_bf16=r["ctrl_bf16"],
@@ -5419,6 +5801,8 @@ def main(argv=None) -> int:
     kernels["flash_attention"] = flash_phase(dev)
     kernels["decode_attention_slab"] = slab_phase(dev)
     op_layer = ops_phase(dev)
+    # the MoE product's main path: the ragged entry at the serve's shapes
+    op_layer["moe_gmm"]["per_dtype"].update(ragged_phase(dev))
     for name in OPS_KERNELS:
         kernels[name] = op_layer[name]
 
@@ -5427,7 +5811,8 @@ def main(argv=None) -> int:
                   "paged_prefill_attention": "prefill_mma",
                   "quant_matmul": "mma_skinny",
                   "flash_attention": "simt",
-                  "block_diag_matmul": "mma_skinny", "moe_gmm": "wgmma"}
+                  "block_diag_matmul": "mma_skinny",
+                  "moe_gmm": "ragged_decode"}
     for label, row in kernels["flash_attention"]["per_dtype"].items():
         want_path = "mma" if label.endswith("bfloat16") else "simt"
         if row["path"] != want_path:
@@ -5438,7 +5823,7 @@ def main(argv=None) -> int:
                  "quant_matmul": "layer/int8/bfloat16/T8",
                  "flash_attention": "layer/float32",
                  "block_diag_matmul": "mlstm/T8/bfloat16",
-                 "moe_gmm": "gate_up/C171/bfloat16",
+                 "moe_gmm": "ragged/layer_decode/gate_up/bfloat16",
                  "ssm_scan": "jamba/float32",
                  "decode_attention": "stablelm-1.6b/bfloat16"}
     sources = {"quant_matmul": "quant_matmul.cu",
@@ -5461,6 +5846,13 @@ def main(argv=None) -> int:
                                 for r in per) \
                     + sum(sum(e["decode_launches"])
                           for e in multi["engine"].values())
+            if name == "moe_gmm":
+                # the ragged entry on the serving paths: the serves and
+                # serve_multi's row-split MoE part (both ranks)
+                launches += sum(s.get("moe_gmm_launches", 0)
+                                for s in serves.values()) \
+                    + sum(len(r["ragged_rows"])
+                          for per in multi["serve"].values() for r in per)
         elif name == "flash_attention":
             launches = sum(train[m]["flash_launches"] for m, _ in TRAIN_RUNS) \
                 + sum(pipeline[s]["flash_launches"] for s, _ in PIPELINE_RUNS) \

@@ -307,6 +307,8 @@ class TorchBackend:
         self.models: Dict[int, object] = {}
         self._paged: Dict[int, PagedArmScheduler] = {}
         self._disagg: Dict[int, tuple] = {}   # arm -> (pf, dc, CacheStore)
+        # device -> a stream nothing else uses (``_idle_stream``)
+        self._idle_streams: Dict[torch.device, torch.cuda.Stream] = {}
         self._ttfts: List[float] = []
         # (abs_deadline, seq, enqueue_t, request) heaps per arm
         self._queues: Dict[int, list] = {}
@@ -731,6 +733,17 @@ class TorchBackend:
                     for lane in done]
         pending = dc.dispatch_async(self.now) \
             if self._dispatch_ok(arm, "decode") else None
+        # on the card, two events on the device's clock: the decode call's
+        # end (recorded after its enqueue, on its stream) and the ship's
+        # start (on an idle stream, so it stamps at once); on the CPU
+        # nothing runs asynchronously and the reference's accounting stands
+        on_card = pending is not None \
+            and torch.device(dc.device).type == "cuda"
+        if on_card:
+            call_end = torch.cuda.Event(enable_timing=True)
+            call_end.record(torch.cuda.current_stream(dc.device))
+            ship_start = torch.cuda.Event(enable_timing=True)
+            ship_start.record(self._idle_stream(dc.device))
         t0 = self.now
         store.ship(pf.take_ready(), self.now)
         store.poll(self.now)
@@ -739,11 +752,29 @@ class TorchBackend:
         finish = self.now
         if pending is not None:
             # hidden: ship/poll host work done while the decode call was in
-            # flight; exposed: the blocking read of its results
-            store.note_overlap(t1 - t0, finish - t1)
+            # flight; exposed: the blocking read of its results.  On the
+            # card only the ship's time before the call's end counts (on a
+            # process-group mesh the call's collectives have waited for most
+            # of it before dispatch_async returns)
+            hidden = t1 - t0
+            if on_card:
+                call_end.synchronize()
+                ship_start.synchronize()
+                hidden = min(hidden, max(
+                    0.0, ship_start.elapsed_time(call_end) / 1e3))
+            store.note_overlap(hidden, finish - t1)
         outcomes += [self._lane_outcome(lane, arm, finish)
                      for lane in retired]
         return outcomes
+
+    def _idle_stream(self, device) -> torch.cuda.Stream:
+        """A stream that nothing else uses on ``device``: an event recorded
+        on it reaches the card at once, so it stamps the device clock at
+        the host's moment (the disaggregated step's ship-overlap mark)."""
+        dev = torch.device(device)
+        if dev not in self._idle_streams:
+            self._idle_streams[dev] = torch.cuda.Stream(device=dev)
+        return self._idle_streams[dev]
 
     # ---------------------------------------------------- legacy gang path
     def _form_batch(self, arm: int) -> list:

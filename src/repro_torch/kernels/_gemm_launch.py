@@ -6,7 +6,9 @@ reaching it, and meta tensors to :func:`dry_launch`, which runs the same
 checks, path and plan (on an H100's SM count) without a launch.
 :func:`path_for` and the planning helpers are pure Python, and
 :func:`wgmma_emulated`, :func:`tiled_emulated` and :func:`skinny_emulated`
-are plain PyTorch on any device."""
+are plain PyTorch on any device.  The ragged entry (``moe_gmm_ragged``)
+has its own checks, path rule, launch and emulation at the end
+(:func:`ragged_launch`, :func:`ragged_emulated`)."""
 from __future__ import annotations
 
 import ctypes
@@ -14,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.cost import add_dryrun, gemm_cost
+from repro_torch.kernels.cost import add_dryrun, gemm_cost, ragged_gemm_cost
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
@@ -35,6 +37,8 @@ _ARGTYPES = {
     "grouped_matmul_wgmma_launch": [_I, _P, _P, _P, _P] + [_I] * 6
     + [_LL] * 4 + [_P],
     "grouped_matmul_skinny_launch": [ctypes.POINTER(_SkinnyArgs)] + [_P] * 4,
+    "grouped_matmul_ragged_launch": [_I] * 3 + [_P] * 4 + [_I] * 4
+    + [_LL] * 3 + [_I, _I, _P],
 }
 #: rows at or below which a call takes a decode-sized tile
 SKINNY_M = 32
@@ -60,9 +64,11 @@ SKINNY_CTAS_PER_SM = 4
 H100_SMS = 132
 #: launches by path since import (``wgmma``: bf16 tensor-core tile;
 #: ``tiled``: CUDA-core tile; ``mma_skinny``: bf16 decode-sized tile on
-#: ``mma.sync``; ``skinny``: the CUDA-core decode-sized tile), so a run can
-#: show which path its calls took
-PATH_LAUNCHES = {"wgmma": 0, "tiled": 0, "mma_skinny": 0, "skinny": 0}
+#: ``mma.sync``; ``skinny``: the CUDA-core decode-sized tile; the ragged
+#: entry's two tilings, ``ragged_decode`` and ``ragged_prefill``), so a run
+#: can show which path its calls took
+PATH_LAUNCHES = {"wgmma": 0, "tiled": 0, "mma_skinny": 0, "skinny": 0,
+                 "ragged_decode": 0, "ragged_prefill": 0}
 #: the same for the launches the dry run predicts on meta tensors
 DRY_PATH_LAUNCHES = dict.fromkeys(PATH_LAUNCHES, 0)
 _FNS = {}
@@ -408,4 +414,213 @@ def skinny_emulated(x: torch.Tensor, w: torch.Tensor,
             k1 = min(end, k0 + step)
             tile += torch.bmm(x[:, :, k0:k1].float(), w[:, k0:k1].float())
         out += tile
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------ ragged entry
+#: R at or below which a ragged call takes the decode-sized tiling (a
+#: decode step's assignments: LAYER 8 lanes x top 4, SEMANTIC twice that)
+RAGGED_DECODE_R = 64
+#: the decode-sized ragged tiling: rows a pass and columns a CTA
+#: (csrc ``RG_BN``, ``RG_BC``)
+RAGGED_PASS_ROWS, RAGGED_COLS = 8, 128
+
+
+def ragged_path_for(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The ragged entry's tiling, from R = x.shape[0] alone (never the
+    offsets): ``ragged_decode`` at R <= ``RAGGED_DECODE_R``, else
+    ``ragged_prefill``; the dtype picks the cores (bf16 the tensor cores,
+    f32 the CUDA cores, no TF32)."""
+    return "ragged_decode" if x.shape[0] <= RAGGED_DECODE_R \
+        else "ragged_prefill"
+
+
+def ragged_tile_rows(r: int, g: int, dtype) -> int:
+    """Rows of a prefill-sized ragged tile: the average segment, ceil(R /
+    G) rows, rounded up to the tile's step, so a typical expert's rows take
+    one tile and its weight tile is read once: bf16 64 a consumer
+    warpgroup, at most 3; f32 64 or 128."""
+    avg = -(-r // max(g, 1))
+    if dtype == torch.bfloat16:
+        return 64 * min(3, max(1, -(-avg // 64)))
+    return 64 if avg <= 64 else 128
+
+
+def ragged_slots(r: int, g: int, bm: int) -> int:
+    """Row-tile slots of a prefill-sized launch: enough for every group's
+    ceil(rows / bm) tiles and the zero tail's, whatever the offsets."""
+    return -(-r // bm) + g + 1
+
+
+def ragged_walk(offsets, r: int, n: int, path: str, dtype):
+    """The output tiles a ragged launch writes, in launch order, as
+    (group, row0, row1, col0, col1) on host ``offsets`` (a list; G + 1
+    entries, clamped to [0, R]); group G writes zeros over rows
+    [offsets[G], R).  Decode-sized: each group's rows in passes of
+    ``RAGGED_PASS_ROWS`` per column tile of ``RAGGED_COLS``, the tail a
+    tile a column tile.  Prefill-sized: slot s is the s-th
+    ``ragged_tile_rows`` block of group 0's rows, group 1's, ..., the
+    tail's (csrc ``ragged_tile``), over 128-column tiles."""
+    off = [min(max(int(o), 0), r) for o in offsets]
+    g = len(off) - 1
+    seg = [(gi, off[gi], off[gi + 1] if gi < g else r) for gi in range(g + 1)]
+    tiles = []
+    if path == "ragged_decode":
+        cols = range(0, n, RAGGED_COLS)
+        for c0 in cols:
+            for gi, lo, hi in seg[:-1]:
+                tiles += [(gi, r0, min(r0 + RAGGED_PASS_ROWS, hi), c0,
+                           min(c0 + RAGGED_COLS, n))
+                          for r0 in range(lo, hi, RAGGED_PASS_ROWS)]
+            if seg[-1][1] < r:
+                tiles.append((g, seg[-1][1], r, c0, min(c0 + RAGGED_COLS, n)))
+        return tiles
+    bm = ragged_tile_rows(r, g, dtype)
+    blocks = [(gi, r0, min(r0 + bm, hi)) for gi, lo, hi in seg
+              for r0 in range(lo, hi, bm)]
+    if len(blocks) > ragged_slots(r, g, bm):
+        raise AssertionError("more tiles than slots")
+    return [(gi, r0, r1, c0, min(c0 + 128, n)) for gi, r0, r1 in blocks
+            for c0 in range(0, n, 128)]
+
+
+def ragged_check(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+                 name: str):
+    """The ragged launch's argument checks (raising ``ValueError``);
+    returns (G, R, K, N)."""
+    if w.device != x.device or offsets.device != x.device:
+        raise ValueError(f"{name}: tensors on {x.device}, {w.device} and "
+                         f"{offsets.device}")
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise ValueError(f"{name}: dtypes {x.dtype} / {w.dtype}; the kernel "
+                         "takes f32 or bf16, the same for both")
+    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} are not [R, K] and [G, K, N]")
+    g, (r, k), n = w.shape[0], x.shape, w.shape[2]
+    if offsets.dtype != torch.int32 or tuple(offsets.shape) != (g + 1,) \
+            or offsets.stride(0) != 1:
+        raise ValueError(f"{name}: offsets {offsets.dtype} "
+                         f"{tuple(offsets.shape)}; want a dense int32 "
+                         f"[{g + 1}]")
+    if k < 1 or (x.stride(-1) != 1 and k > 1) or (w.stride(-1) != 1
+                                                  and n > 1):
+        raise ValueError(f"{name}: K {k} (at least 1) and dense last dims")
+    if x.dtype == torch.bfloat16 and not (_aligned16(x[None])
+                                          and _aligned16(w)):
+        raise ValueError(f"{name}: bf16 pointers and strides must be "
+                         "16-byte aligned")
+    path = ragged_path_for(x, w)
+    rows = g + 1 if path == "ragged_decode" else ragged_slots(
+        r, g, ragged_tile_rows(r, g, x.dtype))
+    if max(r, k, n) >= 2 ** 31 or rows > 65535:
+        raise ValueError(f"{name}: grid too large")
+    return g, r, k, n
+
+
+def ragged_dry_launch(x: torch.Tensor, w: torch.Tensor,
+                      offsets: torch.Tensor, name: str) -> torch.Tensor:
+    """A ragged launch on meta tensors: the checks and path, the output on
+    meta, the predicted launch under its path in ``DRY_PATH_LAUNCHES`` and
+    its worst-case work (``cost.ragged_gemm_cost``: the offsets are not
+    known on meta) in ``cost.DRYRUN``."""
+    g, r, k, n = ragged_check(x, w, offsets, name)
+    out = torch.empty((r, n), dtype=x.dtype, device=x.device)
+    if r * n:
+        DRY_PATH_LAUNCHES[ragged_path_for(x, w)] += 1
+        add_dryrun(ragged_gemm_cost(g, r, k, n, x.element_size()))
+    return out
+
+
+def _ragged_plan(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+                 name: str):
+    """(path, out shape, device index, call) of a ragged call, as
+    :func:`_plan`'s; ``call(x, w, offsets, out, stream) -> rc``."""
+    g, r, k, n = ragged_check(x, w, offsets, name)
+    index, shape = x.device.index, (r, n)
+    if r * n == 0:
+        return None, shape, index, None
+    path = ragged_path_for(x, w)
+    tiling = int(path == "ragged_prefill")
+    tile = ragged_tile_rows(r, g, x.dtype) if tiling else 0
+    if tiling and x.dtype == torch.bfloat16:
+        tile //= 64                      # consumer warpgroups
+    sxm = x.stride(0) if r > 1 else k
+    swg, swk = _strides(w)
+    vec = (int(_vec_ok(x[None])), int(_vec_ok(w)))
+    fn, code = _fn("grouped_matmul_ragged_launch"), _DTYPE_CODE[x.dtype]
+
+    def call(x, w, offsets, out, stream):
+        return fn(code, tiling, tile, x.data_ptr(), w.data_ptr(),
+                  offsets.data_ptr(), out.data_ptr(), g, r, k, n, sxm, swg,
+                  swk, *vec, stream)
+    return path, shape, index, call
+
+
+def ragged_launch(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor,
+                  name: str) -> torch.Tensor:
+    """out [R, N] = rows offsets[g] .. offsets[g + 1] of x [R, K] times w[g]
+    of w [G, K, N], rows at or past offsets[G] zero, on one CUDA device;
+    x, w both f32 or both bf16 (bf16 16-byte aligned), their last dims
+    dense; offsets a dense int32 [G + 1] on the same device, non-decreasing
+    from 0, never read on the host.  One CUDA kernel on
+    :func:`ragged_path_for`'s tiling, counted in ``PATH_LAUNCHES``; a build
+    or launch error raises.  Plans are cached as :func:`launch`'s (the
+    offsets' values are not in the key: no plan depends on them)."""
+    key = ("ragged", x.dtype, w.dtype, x.device, w.device, offsets.device,
+           offsets.dtype, x.shape, w.shape, offsets.shape, x.stride(),
+           w.stride(), offsets.stride(), x.data_ptr() % 16,
+           w.data_ptr() % 16)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _ragged_plan(x, w, offsets, name)
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        _PLANS[key] = plan
+    path, shape, index, call = plan
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if path is None:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if torch.cuda.current_device() == index:
+        rc = call(x, w, offsets, out, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = call(x, w, offsets, out, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with CUDA error {rc} on the "
+                           f"{path} path")
+    PATH_LAUNCHES[path] += 1
+    return out
+
+
+def ragged_emulated(x: torch.Tensor, w: torch.Tensor, offsets, *,
+                    drop_tile=None) -> torch.Tensor:
+    """The ragged entry's numerics in plain PyTorch, walking
+    :func:`ragged_walk`'s tiles on host ``offsets``: each tile's rows of x
+    (its segment's, masked at the segment's end) times its group's column
+    tile of w, the contraction in the kernel's steps (decode-sized:
+    ``mma_skinny``'s k16 steps in bf16, ``skinny``'s 32-deep slabs in f32;
+    prefill-sized: ``wgmma``'s 64-deep slabs in bf16, ``tiled``'s 16-deep
+    slabs in f32) summed in f32 and cast once; the tail's tiles zero.
+    ``drop_tile`` (an index into the walk) leaves that tile unwritten (0),
+    as a faulty kernel would."""
+    g = w.shape[0]
+    r, k = x.shape
+    n = w.shape[2]
+    path = ragged_path_for(x, w)
+    bf = x.dtype == torch.bfloat16
+    if path == "ragged_decode":
+        step = SKINNY_STEP["mma_skinny" if bf else "skinny"]
+    else:
+        step = WGMMA_SLAB if bf else SLAB[ragged_tile_rows(r, g, x.dtype)]
+    out = torch.zeros((r, n), dtype=torch.float32, device=x.device)
+    for i, (gi, r0, r1, c0, c1) in enumerate(
+            ragged_walk(list(offsets), r, n, path, x.dtype)):
+        if i == drop_tile or gi == g:
+            continue
+        acc = out[r0:r1, c0:c1]
+        for k0 in range(0, k, step):
+            acc += x[r0:r1, k0:k0 + step].float() \
+                @ w[gi, k0:k0 + step, c0:c1].float()
     return out.to(x.dtype)

@@ -8,7 +8,10 @@ formulas (``PERF.md`` §6), which ``chip_smoke.py``'s bounds and the dry run
   key's K and V rows read once, q and length read, the output (and with
   the log-sum-exp entry, the f32 lse) written;
 - the grouped GEMM (``block_diag_matmul``, ``moe_gmm``): 2 M K N flops per
-  group; x and w read once, the output written once.
+  group; x and w read once, the output written once;
+- its ragged entry (``moe_gmm_ragged``): 2 K N flops a kept row, the
+  weights of the groups that have rows, the kept rows of x and every
+  output row (on meta, where the offsets are unknown, the worst case).
 
 On the meta device the kernels' wrappers add each call's work to
 :data:`DRYRUN` (the plain versions' aten ops are what ``FlopCounterMode``
@@ -68,3 +71,26 @@ def gemm_cost(g: int, m: int, k: int, n: int,
     """(flops, bytes) of one grouped GEMM [g, m, k] @ [g, k, n]."""
     return 2.0 * g * m * k * n, float((g * m * k + g * k * n + g * m * n)
                                       * itemsize)
+
+
+def ragged_gemm_cost(g: int, r: int, k: int, n: int,
+                     itemsize: int) -> Tuple[float, float]:
+    """(flops, bytes) of one ragged grouped GEMM (x [r, k], w [g, k, n])
+    at its worst case, for the dry run, where the offsets are not known:
+    every row multiplied, min(g, r) groups' weights read, x read and the
+    output written once."""
+    return 2.0 * r * k * n, float((min(g, r) * k * n + r * k + r * n)
+                                  * itemsize)
+
+
+def ragged_data_cost(offsets, r: int, k: int, n: int,
+                     itemsize: int) -> Tuple[float, float]:
+    """(flops, bytes) that one ragged call on host ``offsets`` needs: the
+    kept rows (below offsets[-1]) multiplied, the weights of the groups
+    with rows read once, the kept rows of x read and every output row
+    written."""
+    off = [min(max(int(o), 0), r) for o in offsets]
+    kept = max(off[-1] - off[0], 0)
+    used = sum(hi > lo for lo, hi in zip(off, off[1:]))
+    return 2.0 * kept * k * n, float((used * k * n + kept * k + r * n)
+                                     * itemsize)

@@ -83,6 +83,31 @@
 // split the contraction over CTAs: each split writes f32 partial sums to
 // a workspace [S, G, M, N] and a second kernel adds them in order
 // (deterministic) and casts.
+//
+// The ragged entry (``grouped_matmul_ragged_launch``): out [R, N] = rows
+// offsets[g] .. offsets[g + 1] of x [R, K] times w[g] for each of G groups
+// of w [G, K, N], the rows at or past offsets[G] written as zeros.  It
+// runs the MoE FFN's expert product on the kept assignments compacted by
+// expert (``models/moe.py``): R is static (every assignment of the call),
+// the offsets are on the device and no host reads them, so every CTA
+// reads its own.  Bound by the bytes of the experts that were chosen (an
+// expert no row chose costs nothing) at decode sizes, by them or by the
+// arithmetic at prefill sizes.  Two tilings, picked on the host from the
+// dtype and R alone (``_gemm_launch.ragged_path_for``), one launch each,
+// no split-K and no workspace:
+//   decode-sized R: one CTA per (group, column tile), plus a row of CTAs
+//     for the zero tail.  The CTA reads its two offsets and returns before
+//     any weight load when its segment is empty; otherwise it runs the
+//     segment's rows 8 at a time through the decode-sized tiles above
+//     (``mma_skinny``'s ``mma.sync`` tile in bf16, ``skinny``'s FMAs in
+//     f32), each pass streaming w[g]'s column tile through the cp.async
+//     ring.
+//   prefill-sized R: a static count of row-tile slots, ceil(R / BM) + G +
+//     1, times the column tiles.  Each CTA walks the offsets (a block-wide
+//     scan of the groups' tile counts) to map its slot to (group, row
+//     block), or to the zero tail, or to nothing past the last tile; then
+//     runs the wgmma tile (bf16: TMA over x from the block's first row,
+//     the epilogue masking rows past the segment) or the tiled FMAs (f32).
 #include <cooperative_groups.h>
 #include <cuda.h>          // CUtensorMap (no driver call is linked)
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
@@ -147,12 +172,77 @@ __device__ __forceinline__ void emit(T* out, float* partial, int split,
     store_as(out + i, acc);
 }
 
-template <typename T, int MH>
+// ------------------------------------------------------ the ragged entry
+// A row tile of the ragged entry's walk: rows [row0, min(row0 + BM,
+// row_end)) of group g, whose segment ends at row_end; g = G is the zero
+// tail [offsets[G], R), g = -1 a slot past the last tile.
+struct Seg {
+  int g, row0, row_end;
+};
+
+// The ``slot``-th BM-row tile of the walk over group 0's rows, group 1's,
+// ..., then the zero tail: a block-wide inclusive scan of the groups' tile
+// counts (ceil(rows / BM)), blockDim.x of them a pass.  Every thread of
+// the block calls it and gets the same answer.  Offsets are clamped to
+// [0, R]; a group whose offsets decrease has no tile.
+__device__ Seg ragged_tile(const int* __restrict__ offsets, int G, int R,
+                           int BM, int slot) {
+  __shared__ int warp_sum[32];
+  __shared__ Seg found;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n_warps = blockDim.x / 32;
+  if (tid == 0) found.g = -1;
+  int carry = 0;
+  for (int base = 0; base <= G; base += blockDim.x) {
+    const int gi = base + tid;
+    int lo = 0, hi = 0;
+    if (gi <= G) {
+      lo = min(max(offsets[gi], 0), R);
+      hi = gi < G ? min(max(offsets[gi + 1], 0), R) : R;
+    }
+    const int n = hi > lo ? (hi - lo + BM - 1) / BM : 0;
+    int incl = n;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int start = carry + incl - n, total = carry;
+    for (int i = 0; i < n_warps; ++i) {
+      if (i < warp) start += warp_sum[i];
+      total += warp_sum[i];
+    }
+    if (n > 0 && slot >= start && slot < start + n)
+      found = Seg{gi, lo + (slot - start) * BM, hi};
+    carry = total;
+    __syncthreads();     // warp_sum is rewritten by the next pass; found
+  }
+  return found;
+}
+
+// Zeros over rows [r0, r1) x columns [c0, c0 + cols) of a dense [*, N]
+// out, by every thread of the block.
+template <typename T>
+__device__ __forceinline__ void zero_rows(T* out, int r0, int r1, int c0,
+                                          int cols, int N) {
+  cols = min(cols, N - c0);
+  if (r1 <= r0 || cols <= 0) return;
+  const long long n = (long long)(r1 - r0) * cols;
+  for (long long v = threadIdx.x; v < n; v += blockDim.x)
+    store_as(out + (long long)(r0 + v / cols) * N + c0 + v % cols, 0.f);
+}
+
+// RAGGED: the ragged entry's prefill-sized f32 tiling (G groups of w, x
+// and out [M = R rows], blockIdx.y the slot of ``ragged_tile``, one
+// split); otherwise the grouped GEMM's tiled path.
+template <typename T, int MH, bool RAGGED>
 __global__ void __launch_bounds__(THREADS) gemm_tiled_kernel(
     const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
     float* __restrict__ partial, int splits, int k_per_split, int G, int M,
     int K, int N, long long sxg, long long sxm, long long swg, long long swk,
-    bool vec_x, bool vec_w) {
+    bool vec_x, bool vec_w, const int* __restrict__ offsets) {
   constexpr int BM = 64 * MH, BN = 128, BK = 16, PAD = 4;
   // x slab: BM rows x BK, 4-element chunks, MH per thread; w slab: BK rows
   // x BN, 2 chunks per thread
@@ -161,12 +251,26 @@ __global__ void __launch_bounds__(THREADS) gemm_tiled_kernel(
   __shared__ __align__(16) float As[2][BK][BM + PAD];   // transposed x slab
   __shared__ __align__(16) float Bs[2][BK][BN];
 
-  const int g = blockIdx.z / splits, split = blockIdx.z % splits;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int col0 = blockIdx.x * BN;
+  // g: w's group; og: x's and out's (0 on the ragged entry, whose rows are
+  // global); rows at or past row_end are masked
+  int g, split, row0, row_end, og;
+  if constexpr (RAGGED) {
+    const Seg s = ragged_tile(offsets, G, M, BM, blockIdx.y);
+    if (s.g < 0) return;
+    if (s.g == G) {
+      zero_rows(out, s.row0, min(s.row0 + BM, s.row_end), col0, BN, N);
+      return;
+    }
+    g = s.g, split = 0, row0 = s.row0, row_end = s.row_end, og = 0;
+  } else {
+    g = blockIdx.z / splits, split = blockIdx.z % splits;
+    row0 = blockIdx.y * BM, row_end = M, og = g;
+  }
   const int k_begin = split * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* xg = x + g * sxg;
+  const T* xg = x + og * sxg;
   const T* wg = w + g * swg;
 
   Quad<T> ra[MH], rb[2];
@@ -175,7 +279,8 @@ __global__ void __launch_bounds__(THREADS) gemm_tiled_kernel(
     for (int i = 0; i < MH; ++i) {
       const int c = tid + i * THREADS, row = row0 + c / 4;
       const int k = k0 + (c % 4) * 4;
-      ra[i] = load4(xg + row * sxm + k, row < M ? k_end - k : 0, vec_x);
+      ra[i] = load4(xg + row * sxm + k, row < row_end ? k_end - k : 0,
+                    vec_x);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -243,11 +348,12 @@ __global__ void __launch_bounds__(THREADS) gemm_tiled_kernel(
 #pragma unroll
   for (int i = 0; i < 4 * MH; ++i) {
     const int row = row0 + ty * 4 + 64 * (i / 4) + i % 4;
-    if (row >= M) continue;
+    if (row >= row_end) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = col0 + tx * 4 + 64 * (j / 4) + j % 4;
-      if (col < N) emit(out, partial, split, G, g, M, N, row, col, acc[i][j]);
+      if (col < N)
+        emit(out, partial, split, G, og, M, N, row, col, acc[i][j]);
     }
   }
 }
@@ -276,11 +382,11 @@ int launch_typed(int tile_m, const void* x_, const void* w_, void* out_,
   float* part = splits > 1 ? partial : nullptr;
   const dim3 grid((N + 127) / 128, (M + tile_m - 1) / tile_m, G * splits);
 #define GM_ARGS x, w, out, part, splits, k_per_split, G, M, K, N, sxg, sxm, \
-                swg, swk, vec_x, vec_w
+                swg, swk, vec_x, vec_w, nullptr
   if (tile_m == 64)
-    gemm_tiled_kernel<T, 1><<<grid, THREADS, 0, st>>>(GM_ARGS);
+    gemm_tiled_kernel<T, 1, false><<<grid, THREADS, 0, st>>>(GM_ARGS);
   else if (tile_m == 128)
-    gemm_tiled_kernel<T, 2><<<grid, THREADS, 0, st>>>(GM_ARGS);
+    gemm_tiled_kernel<T, 2, false><<<grid, THREADS, 0, st>>>(GM_ARGS);
   else
     return -3;
 #undef GM_ARGS
@@ -417,13 +523,16 @@ __host__ __device__ constexpr int tc_smem_bytes() {
 // stage holds x rows [m0, m0 + 64 NC) x K [k0, k0 + 64) as 64 NC rows of
 // 128 bytes, then w K rows [k0, k0 + 64) x N [n0, n0 + 128) as two
 // 64-column halves of 64 rows of 128 bytes; both swizzled by the copy
-// engine in 1024-byte atoms of 8 rows.
-template <int NC>
+// engine in 1024-byte atoms of 8 rows.  RAGGED: the ragged entry's
+// prefill-sized bf16 tiling (as gemm_tiled_kernel's; x's map [1, M, K],
+// the tile's copies from its first row, rows past the segment masked).
+template <int NC, bool RAGGED>
 __global__ void __launch_bounds__(128 * (NC + 1), 1) gemm_wgmma_kernel(
     const __grid_constant__ CUtensorMap tmap_x,
     const __grid_constant__ CUtensorMap tmap_w,
     __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int splits,
-    int k_per_split, int G, int M, int K, int N) {
+    int k_per_split, int G, int M, int K, int N,
+    const int* __restrict__ offsets) {
   constexpr int BM = 64 * NC;
   constexpr int A_BYTES = BM * TC_BK * 2;
   constexpr int HALF_B = TC_BK * 64 * 2;            // one 64-column half
@@ -433,8 +542,22 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) gemm_wgmma_kernel(
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + TC_STAGES * STAGE);
   uint64_t* empty = full + TC_STAGES;
 
-  const int g = blockIdx.z / splits, split = blockIdx.z % splits;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * TC_BN;
+  const int n0 = blockIdx.x * TC_BN;
+  // g: w's group; og: x's and out's (0 on the ragged entry); rows at or
+  // past row_end are masked
+  int g, split, m0, row_end, og;
+  if constexpr (RAGGED) {
+    const Seg s = ragged_tile(offsets, G, M, BM, blockIdx.y);
+    if (s.g < 0) return;
+    if (s.g == G) {
+      zero_rows(out, s.row0, min(s.row0 + BM, s.row_end), n0, TC_BN, N);
+      return;
+    }
+    g = s.g, split = 0, m0 = s.row0, row_end = s.row_end, og = 0;
+  } else {
+    g = blockIdx.z / splits, split = blockIdx.z % splits;
+    m0 = blockIdx.y * BM, row_end = M, og = g;
+  }
   const int k_begin = split * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
   const int n_slabs = (k_end - k_begin + TC_BK - 1) / TC_BK;
@@ -457,7 +580,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) gemm_wgmma_kernel(
       uint8_t* a = smem + s * STAGE;
       const int k0 = k_begin + i * TC_BK;
       mbar_expect_tx(&full[s], STAGE);
-      tma_load_3d(a, &tmap_x, &full[s], k0, m0, g);
+      tma_load_3d(a, &tmap_x, &full[s], k0, m0, og);
       tma_load_3d(a + A_BYTES, &tmap_w, &full[s], n0, k0, g);
       tma_load_3d(a + A_BYTES + HALF_B, &tmap_w, &full[s], n0 + 64, k0, g);
     }
@@ -498,9 +621,9 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) gemm_wgmma_kernel(
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row_a + 8 * h;
-      if (row >= M || col >= N) continue;
+      if (row >= row_end || col >= N) continue;
       const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
-      const long long i = ((long long)g * M + row) * N + col;
+      const long long i = ((long long)og * M + row) * N + col;
       if (partial) {
         float* p = partial + (long long)split * G * M * N + i;
         p[0] = v0;
@@ -557,13 +680,16 @@ bool encode_map(CUtensorMap* map, const void* base, long long inner,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int NC>
+// The ragged entry: x [M, K] (one group in its map), w's G groups, the
+// grid's y the ``ragged_tile`` slots, one split.
+template <int NC, bool RAGGED>
 int launch_wgmma(const void* x, const void* w, void* out, float* partial,
                  int splits, int k_per_split, int G, int M, int K, int N,
                  long long sxg, long long sxm, long long swg, long long swk,
-                 cudaStream_t st) {
+                 cudaStream_t st, const int* offsets = nullptr) {
+  constexpr int BM = 64 * NC;
   CUtensorMap mx, mw;
-  if (!encode_map(&mx, x, K, M, G, sxm, sxg, 64 * NC) ||
+  if (!encode_map(&mx, x, K, M, RAGGED ? 1 : G, sxm, sxg, BM) ||
       !encode_map(&mw, w, N, K, G, swk, swg, TC_BK))
     return -4;
   constexpr int smem = tc_smem_bytes<NC>();
@@ -573,17 +699,18 @@ int launch_wgmma(const void* x, const void* w, void* out, float* partial,
   if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return -5;
   if (!(configured >> dev & 1ull)) {
     cudaError_t rc = cudaFuncSetAttribute(
-        gemm_wgmma_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        gemm_wgmma_kernel<NC, RAGGED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     configured |= 1ull << dev;
   }
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   float* part = splits > 1 ? partial : nullptr;
-  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + 64 * NC - 1) / (64 * NC),
-                  G * splits);
-  gemm_wgmma_kernel<NC><<<grid, 128 * (NC + 1), smem, st>>>(
-      mx, mw, o, part, splits, k_per_split, G, M, K, N);
+  const dim3 grid((N + TC_BN - 1) / TC_BN,
+                  RAGGED ? (M + BM - 1) / BM + G + 1 : (M + BM - 1) / BM,
+                  RAGGED ? 1 : G * splits);
+  gemm_wgmma_kernel<NC, RAGGED><<<grid, 128 * (NC + 1), smem, st>>>(
+      mx, mw, o, part, splits, k_per_split, G, M, K, N, offsets);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || splits == 1) return rc;
   const long long n = (long long)G * M * N;
@@ -752,32 +879,28 @@ struct SkinnySmem {
   static_assert(W % 16 == 0 && STAGE % 16 == 0, "16-byte copies");
 };
 
-// BN x rows x BC output columns of group g per CTA; gridDim.x = the
-// slices of the contraction (the CTAs of one cluster), y = column tiles,
-// z = G x row tiles.  Warp w owns output columns [w BC / 4, (w + 1) BC /
-// 4): MI m16 tiles (the A side: w's columns) by NI n8 tiles (the B side:
-// x's rows).  SK_STAGES - 1 slabs are in flight while one is multiplied.
+// One BN x BC output tile of the mma.sync decode tile: x rows [row0,
+// min(row0 + BN, M)) read from xg (row stride sxm) times w's columns
+// [col0, col0 + BC) read from wg (row stride swk) over the contraction
+// rows [k_begin, k_end), merged over the cluster's CTAs (gridDim.x) and
+// written to out's group g ([*, M, N] dense).  Warp w owns output columns
+// [w BC / 4, (w + 1) BC / 4): MI m16 tiles (the A side: w's columns) by NI
+// n8 tiles (the B side: x's rows).  SK_STAGES - 1 slabs are in flight
+// while one is multiplied.  Leaves the ring free (the caller may reuse it
+// after a barrier).
 template <int BN, int BC>
-__global__ void __launch_bounds__(SK_THREADS) gemm_skinny_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    __nv_bfloat16* __restrict__ out, int per_split, int M, int K, int N,
-    long long sxg, long long sxm, long long swg, long long swk) {
+__device__ __forceinline__ void skinny_mma_tile(
+    uint8_t* smem, const __nv_bfloat16* __restrict__ xg,
+    const __nv_bfloat16* __restrict__ wg, __nv_bfloat16* __restrict__ out,
+    int g, int M, int N, int row0, int col0, int k_begin, int k_end,
+    long long sxm, long long swk) {
   using L = SkinnySmem<BN, BC>;
   constexpr int MI = BC / 4 / 16;   // m16 tiles per warp
   constexpr int NI = BN / 8;        // n8 tiles per warp
   static_assert(MI >= 1 && (NI == 1 || NI % 2 == 0), "warp tile");
-  extern __shared__ __align__(16) uint8_t smem[];
-
-  const int row_tiles = (M + BN - 1) / BN;
-  const int g = blockIdx.z / row_tiles, row0 = (blockIdx.z % row_tiles) * BN;
-  const int col0 = blockIdx.y * BC;
-  const int k_begin = blockIdx.x * per_split;
-  const int k_end = min(K, k_begin + per_split);
   const int n_slabs =
       k_end > k_begin ? (k_end - k_begin + SK_BK - 1) / SK_BK : 0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const __nv_bfloat16* xg = x + g * sxg;
-  const __nv_bfloat16* wg = w + g * swg;
 
   // the copies of slab ``i`` into stage ``i % SK_STAGES``: w rows [k0, k0
   // + 64) x columns [col0, col0 + BC), x rows [row0, row0 + BN) x [k0, k0
@@ -875,6 +998,23 @@ __global__ void __launch_bounds__(SK_THREADS) gemm_skinny_mma_kernel(
                                                              N, row0, col0);
 }
 
+// BN x rows x BC output columns of group g per CTA; gridDim.x = the
+// slices of the contraction (the CTAs of one cluster), y = column tiles,
+// z = G x row tiles.
+template <int BN, int BC>
+__global__ void __launch_bounds__(SK_THREADS) gemm_skinny_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    __nv_bfloat16* __restrict__ out, int per_split, int M, int K, int N,
+    long long sxg, long long sxm, long long swg, long long swk) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int row_tiles = (M + BN - 1) / BN;
+  const int g = blockIdx.z / row_tiles, row0 = (blockIdx.z % row_tiles) * BN;
+  const int k_begin = blockIdx.x * per_split;
+  skinny_mma_tile<BN, BC>(smem, x + g * sxg, w + g * swg, out, g, M, N, row0,
+                          blockIdx.y * BC, k_begin,
+                          min(K, k_begin + per_split), sxm, swk);
+}
+
 // The CUDA-core decode tile: FMA_BM x rows x BC output columns per CTA
 // of 2 BC threads (x row tid / (BC / 4), output columns 4 (tid % (BC / 4))
 // .. + 3), BC = 128, 64 or 32.  FMA_BK-deep slabs of w ([FMA_BK, BC])
@@ -936,30 +1076,22 @@ __device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// Grid as gemm_skinny_mma_kernel's, with FMA_BM x BC tiles.
+// One FMA_BM x BC output tile of the CUDA-core decode tile, as
+// skinny_mma_tile's (2 BC threads).
 template <typename T, int BC>
-__global__ void __launch_bounds__(2 * BC) gemm_skinny_fma_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-    int per_split, int M, int K, int N, long long sxg, long long sxm,
-    long long swg, long long swk, bool vec_x, bool vec_w) {
+__device__ __forceinline__ void skinny_fma_tile(
+    uint8_t* smem, const T* __restrict__ xg, const T* __restrict__ wg,
+    T* __restrict__ out, int g, int M, int N, int row0, int col0,
+    int k_begin, int k_end, long long sxm, long long swk, bool vec_x,
+    bool vec_w) {
   using L = FmaSmem<T, BC>;
   constexpr int BK = FMA_BK;
   constexpr int NT = 2 * BC, QPR = BC / 4;        // threads, quads a row
   constexpr int W_QUADS = BK * QPR;                // 4 per thread
   constexpr int X_QUADS = FMA_BM * BK / 4;         // threads 0..63
   static_assert(W_QUADS % NT == 0 && X_QUADS <= NT, "loader");
-  extern __shared__ __align__(16) uint8_t smem[];
-
-  const int row_tiles = (M + FMA_BM - 1) / FMA_BM;
-  const int g = blockIdx.z / row_tiles;
-  const int row0 = (blockIdx.z % row_tiles) * FMA_BM;
-  const int col0 = blockIdx.y * BC;
-  const int k_begin = blockIdx.x * per_split;
-  const int k_end = min(K, k_begin + per_split);
   const int n_slabs = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const int tid = threadIdx.x, tx = tid % QPR, ty = tid / QPR;
-  const T* xg = x + g * sxg;
-  const T* wg = w + g * swg;
 
   // slab ``i`` into stage ``i % SK_STAGES``; past k_end, N or M is zero
   auto issue = [&](int i) {
@@ -1012,6 +1144,56 @@ __global__ void __launch_bounds__(2 * BC) gemm_skinny_fma_kernel(
   *reinterpret_cast<float4*>(Cs + ty * L::CLD + tx * 4) =
       make_float4(acc[0], acc[1], acc[2], acc[3]);
   merge_and_store<T, FMA_BM, BC, L::CLD, NT>(Cs, out, g, M, N, row0, col0);
+}
+
+// Grid as gemm_skinny_mma_kernel's, with FMA_BM x BC tiles.
+template <typename T, int BC>
+__global__ void __launch_bounds__(2 * BC) gemm_skinny_fma_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+    int per_split, int M, int K, int N, long long sxg, long long sxm,
+    long long swg, long long swk, bool vec_x, bool vec_w) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int row_tiles = (M + FMA_BM - 1) / FMA_BM;
+  const int g = blockIdx.z / row_tiles;
+  const int row0 = (blockIdx.z % row_tiles) * FMA_BM;
+  const int k_begin = blockIdx.x * per_split;
+  skinny_fma_tile<T, BC>(smem, x + g * sxg, w + g * swg, out, g, M, N, row0,
+                         blockIdx.y * BC, k_begin, min(K, k_begin + per_split),
+                         sxm, swk, vec_x, vec_w);
+}
+
+// The ragged entry's decode-sized tiling: blockIdx.z = group g (G: the
+// zero tail), y = column tile of RG_BC; the segment's rows RG_BN at a time
+// (each pass streams w[g]'s column tile again), one CTA a cluster.  x and
+// out are [R, *] (R rows), their rows global.  MMA: bf16 on the mma.sync
+// tile, else T's CUDA-core tile.
+constexpr int RG_BN = 8, RG_BC = 128;
+
+template <typename T, bool MMA>
+__global__ void __launch_bounds__(MMA ? SK_THREADS : 2 * RG_BC)
+    gemm_ragged_skinny_kernel(const T* __restrict__ x,
+                              const T* __restrict__ w, T* __restrict__ out,
+                              const int* __restrict__ offsets, int G, int R,
+                              int K, int N, long long sxm, long long swg,
+                              long long swk, bool vec_x, bool vec_w) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int g = blockIdx.z, col0 = blockIdx.y * RG_BC;
+  if (g == G) {
+    zero_rows(out, min(max(offsets[G], 0), R), R, col0, RG_BC, N);
+    return;
+  }
+  const int lo = min(max(offsets[g], 0), R);
+  const int hi = min(max(offsets[g + 1], 0), R);
+  const T* wg = w + g * swg;
+  for (int row0 = lo; row0 < hi; row0 += RG_BN) {
+    if constexpr (MMA)
+      skinny_mma_tile<RG_BN, RG_BC>(smem, x, wg, out, 0, hi, N, row0, col0,
+                                    0, K, sxm, swk);
+    else
+      skinny_fma_tile<T, RG_BC>(smem, x, wg, out, 0, hi, N, row0, col0, 0,
+                                K, sxm, swk, vec_x, vec_w);
+    __syncthreads();                  // the next pass refills the ring
+  }
 }
 
 // One launch of ``kern`` with ``splits`` CTAs along x in a cluster.
@@ -1085,6 +1267,45 @@ int launch_skinny_fma(const void* x, const void* w, void* out, int splits,
                         swg, swk, vec_x, vec_w);
 }
 
+template <typename T, bool MMA>
+int launch_ragged_skinny(const void* x, const void* w, void* out,
+                         const int* offsets, int G, int R, int K, int N,
+                         long long sxm, long long swg, long long swk,
+                         bool vec_x, bool vec_w, cudaStream_t st) {
+  constexpr int smem = MMA ? SkinnySmem<RG_BN, RG_BC>::BYTES
+                           : FmaSmem<T, RG_BC>::BYTES;
+  auto kern = gemm_ragged_skinny_kernel<T, MMA>;
+  // once per instantiation and device
+  static unsigned long long configured = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return -5;
+  if (!(configured >> dev & 1ull)) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    configured |= 1ull << dev;
+  }
+  const dim3 grid(1, (N + RG_BC - 1) / RG_BC, G + 1);
+  return launch_cluster(kern, grid, MMA ? SK_THREADS : 2 * RG_BC, smem, 1,
+                        st, static_cast<const T*>(x), static_cast<const T*>(w),
+                        static_cast<T*>(out), offsets, G, R, K, N, sxm, swg,
+                        swk, vec_x, vec_w);
+}
+
+template <int MH>
+int launch_ragged_tiled(const void* x, const void* w, void* out,
+                        const int* offsets, int G, int R, int K, int N,
+                        long long sxm, long long swg, long long swk,
+                        bool vec_x, bool vec_w, cudaStream_t st) {
+  constexpr int BM = 64 * MH;
+  const dim3 grid((N + 127) / 128, (R + BM - 1) / BM + G + 1, 1);
+  gemm_tiled_kernel<float, MH, true><<<grid, THREADS, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), nullptr, 1, K, G, R, K, N, 0, sxm, swg, swk,
+      vec_x, vec_w, offsets);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // out [G, M, N] dense = x [G, M, K] @ w [G, K, N] in ``dtype`` (0 f32, 1
@@ -1130,9 +1351,9 @@ extern "C" int grouped_matmul_wgmma_launch(
 #define TC_ARGS x, w, out, partial, splits, k_per_split, G, M, K, N, sxg, \
                 sxm, swg, swk, st
   switch (consumers) {
-    case 1: return launch_wgmma<1>(TC_ARGS);
-    case 2: return launch_wgmma<2>(TC_ARGS);
-    case 3: return launch_wgmma<3>(TC_ARGS);
+    case 1: return launch_wgmma<1, false>(TC_ARGS);
+    case 2: return launch_wgmma<2, false>(TC_ARGS);
+    case 3: return launch_wgmma<3, false>(TC_ARGS);
     default: return -3;
   }
 #undef TC_ARGS
@@ -1200,4 +1421,54 @@ extern "C" int grouped_matmul_skinny_launch(const SkinnyArgs* a,
 #undef SK_FMA_AT
 #undef SK_MMA
 #undef SK_ARGS
+}
+
+
+// The ragged entry (see the head of this file): out [R, N] dense; rows
+// offsets[g] .. offsets[g + 1] of x [R, K] (row stride ``sxm``) times w[g]
+// of w [G, K, N] (group and row strides ``swg``, ``swk``; last dims
+// dense), rows at or past offsets[G] zero; ``offsets`` [G + 1] int32 on
+// the device, non-decreasing from 0 to at most R.  ``tiling`` 0:
+// decode-sized (bf16 on mma.sync, f32 on FMAs; ``tile`` unused); 1:
+// prefill-sized, ``tile`` the consumer warpgroups of the bf16 wgmma tile
+// (1-3) or the rows of the f32 tile (64 or 128).  bf16 needs its pointers
+// and strides 16-byte aligned; ``vec_x`` / ``vec_w`` as for
+// grouped_matmul_launch (f32).  One launch.  Returns cudaGetLastError()
+// after it (or the launch's own error), -2 for an unsupported dtype, -3
+// for an unknown tiling or tile, -4 / -5 as grouped_matmul_wgmma_launch.
+extern "C" int grouped_matmul_ragged_launch(
+    int dtype, int tiling, int tile, const void* x, const void* w,
+    const int* offsets, void* out, int G, int R, int K, int N,
+    long long sxm, long long swg, long long swk, int vec_x, int vec_w,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != F32 && dtype != BF16) return -2;
+  const bool bf = dtype == BF16, vx = vec_x != 0, vw = vec_w != 0;
+#define RG_ARGS x, w, out, offsets, G, R, K, N, sxm, swg, swk, vx, vw, st
+  if (tiling == 0)
+    return bf ? launch_ragged_skinny<__nv_bfloat16, true>(RG_ARGS)
+              : launch_ragged_skinny<float, false>(RG_ARGS);
+#undef RG_ARGS
+  if (tiling != 1) return -3;
+#define RG_TC x, w, out, nullptr, 1, K, G, R, K, N, (long long)R * sxm, sxm, \
+              swg, swk, st, offsets
+  if (bf) {
+    switch (tile) {
+      case 1: return launch_wgmma<1, true>(RG_TC);
+      case 2: return launch_wgmma<2, true>(RG_TC);
+      case 3: return launch_wgmma<3, true>(RG_TC);
+      default: return -3;
+    }
+  }
+#undef RG_TC
+  switch (tile) {
+    case 64:
+      return launch_ragged_tiled<1>(x, w, out, offsets, G, R, K, N, sxm, swg,
+                                    swk, vx, vw, st);
+    case 128:
+      return launch_ragged_tiled<2>(x, w, out, offsets, G, R, K, N, sxm, swg,
+                                    swk, vx, vw, st);
+    default:
+      return -3;
+  }
 }

@@ -78,6 +78,7 @@ from repro_torch.kernels import _flash_launch, _gemm_launch, cost
 from repro_torch.kernels.block_diag_matmul import block_diag_matmul
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_gmm import moe_gmm_ragged
 from repro_torch.launch.mesh import fake_mesh, make_production_mesh
 from repro_torch.models.model import INPUT_SHAPES, InputShape, input_specs
 from repro_torch.optim.adamw import AdamWState, adamw_init
@@ -106,7 +107,12 @@ KERNELS = {"flash_attention": (flash_attention,
                                  _flash_launch.DRY_PATH_LAUNCHES),
            "decode_attention": (decode_attention, None),
            "block_diag_matmul": (block_diag_matmul,
-                                 _gemm_launch.DRY_PATH_LAUNCHES)}
+                                 _gemm_launch.DRY_PATH_LAUNCHES),
+           "moe_gmm_ragged": (moe_gmm_ragged,
+                              _gemm_launch.DRY_PATH_LAUNCHES)}
+#: the paths each kernel counts where two share a launcher's counter
+_PATHS_OF = {"block_diag_matmul": ("wgmma", "tiled", "mma_skinny", "skinny"),
+             "moe_gmm_ragged": ("ragged_decode", "ragged_prefill")}
 
 
 def default_mode(arch: str) -> str:
@@ -232,7 +238,7 @@ def _kernel_counts(paths_before: Dict) -> Dict:
         out[name] = {"launches": fn.dry_launches}
         if paths is not None:
             out[name]["paths"] = {p: paths[p] - paths_before[name][p]
-                                  for p in paths
+                                  for p in _PATHS_OF.get(name, paths)
                                   if paths[p] != paths_before[name][p]}
     return out
 

@@ -12,7 +12,8 @@ input shapes and specs, and against counts made by hand.
   of its GEMMs, its flash forwards' unmasked pairs and remat's recompute;
 - each kernel's meta branch returns its plain version's shapes and dtypes
   and counts one predicted launch on the card's path, the real counters
-  untouched;
+  untouched; the ragged MoE product's adds its worst-case work, counted
+  by hand;
 - a full-width production run (stablelm-1.6b ``decode_32k``, one pod)
   completes; the fake world refuses to start inside a running one and
   leaves none behind.
@@ -45,6 +46,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.moe_gmm import moe_gmm_ragged  # noqa: E402
 from repro_torch.launch import dryrun as TDR  # noqa: E402
 from repro_torch.launch.mesh import fake_mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -281,6 +283,35 @@ def test_meta_branches_shape_and_count_like_the_card(dtype, flash_path,
                     block_diag_matmul.launches,
                     dict(_flash_launch.PATH_LAUNCHES),
                     dict(_gemm_launch.PATH_LAUNCHES))
+
+
+@pytest.mark.parametrize("dtype,r,path", [
+    (torch.float32, 32, "ragged_decode"),
+    (torch.bfloat16, 4096, "ragged_prefill"),
+    (torch.bfloat16, 40, "ragged_decode")])
+def test_ragged_meta_branch_counts_its_worst_case(dtype, r, path):
+    """``moe_gmm_ragged`` on meta tensors: the [R, N] output, one predicted
+    launch under its tiling, and the worst case of its work (the offsets
+    are unknown on meta), by hand: 2 R K N flops; the weights of min(G, R)
+    experts, x's R rows and the output's R rows."""
+    g, k, n = 60, 2048, 1408
+    x, w = _meta(r, k, dtype=dtype), _meta(g, k, n, dtype=dtype)
+    off = _meta(g + 1, dtype=torch.int32)
+    real = (moe_gmm_ragged.launches, dict(_gemm_launch.PATH_LAUNCHES))
+    before = (moe_gmm_ragged.dry_launches,
+              dict(_gemm_launch.DRY_PATH_LAUNCHES))
+    cost.reset_dryrun()
+    got = moe_gmm_ragged(x, w, off)
+    assert got.is_meta and _meta_shape(got) == ((r, n), str(dtype)[6:])
+    assert moe_gmm_ragged.dry_launches == before[0] + 1
+    assert _gemm_launch.DRY_PATH_LAUNCHES[path] == before[1][path] + 1
+    item = x.element_size()
+    assert cost.DRYRUN["flops"] == 2 * r * k * n
+    assert cost.DRYRUN["bytes"] == (min(g, r) * k * n + r * k + r * n) * item
+    assert real == (moe_gmm_ragged.launches,
+                    dict(_gemm_launch.PATH_LAUNCHES))
+    with pytest.raises(ValueError, match="offsets"):
+        moe_gmm_ragged(x, w, _meta(g, dtype=torch.int32))
 
 
 # -------------------------------------------------------------- production

@@ -1,7 +1,9 @@
 """Port tests that need the card: the hand-written CUDA kernels (paged
 attention at head dims 32, 64 and 128; the int8/int4 quant GEMM; the flash
 attention forward; the kernel-op layer's decode attention, grouped GEMM and
-scan) against their plain PyTorch versions, the paged serving
+scan; the grouped GEMM's ragged entry, and the MoE's compacted serving
+product through it with no host sync) against their plain PyTorch
+versions, the paged serving
 path on CUDA against the same path on the CPU, with and without weight
 quantization and MoE, and a training step (flash forward, chunked
 backward) on CUDA against the CPU.  Every test is marked ``gpu`` and skips
@@ -673,6 +675,121 @@ def test_grouped_matmul_path_rule(dev, case):
     before[path] += 1
     assert _gemm_launch.PATH_LAUNCHES == before
     _within(got, want, dt)
+
+
+RAGGED_CASES = [
+    # (R, segment rows by group, K, N): the rows past the segments are the
+    # dropped assignments, written as zeros
+    (32, [0] * 50 + [2, 3, 0, 9, 1] + [0] * 5, 2048, 1408),  # LAYER decode
+    (64, [1] * 60 + [4], 1024, 704),                   # SEMANTIC decode
+    (40, [0, 1, 20, 0, 12, 0], 72, 136),    # empty, one-row, long segments
+    (64, [64], 96, 200),                    # one group, 8 passes
+    (300, [0, 1, 150, 0, 100], 72, 136),
+    (4096, [68] * 60, 256, 192),            # a prefill chunk's R
+    (1000, [0, 900, 0, 1], 200, 64),        # one segment of many tiles
+    (129, [0, 0, 0], 64, 64),               # every assignment dropped
+]
+
+
+def _ragged_kernel_name(path, dt):
+    if path == "ragged_decode":
+        return "gemm_ragged_skinny_kernel"
+    return "gemm_wgmma_kernel" if dt == torch.bfloat16 \
+        else "gemm_tiled_kernel"
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", RAGGED_CASES,
+                         ids=lambda c: f"R{c[0]}-G{len(c[1])}-{c[2]}x{c[3]}")
+def test_moe_gmm_ragged_matches_plain(dev, case, dt):
+    """The ragged entry against its plain version: each segment's rows,
+    the zero rows past offsets[-1] (the output's memory holds NaNs before
+    the call), one launch on the path R picks, one CUDA kernel a call."""
+    from repro_torch.kernels.moe_gmm import (moe_gmm_ragged,
+                                             moe_gmm_ragged_plain)
+    r, counts, k, n = case
+    gen = torch.Generator(device=dev).manual_seed(r + k)
+    x = torch.randn(r, k, generator=gen, device=dev).to(dt)
+    w = (torch.randn(len(counts), k, n, generator=gen, device=dev)
+         / k ** 0.5).to(dt)
+    off = torch.tensor([0] + np.cumsum(counts).tolist(), dtype=torch.int32,
+                       device=dev)
+    path = _gemm_launch.ragged_path_for(x, w)
+    before, paths = moe_gmm_ragged.launches, dict(_gemm_launch.PATH_LAUNCHES)
+    torch.full((r, n), float("nan"), dtype=dt, device=dev)   # freed dirty
+    got = moe_gmm_ragged(x, w, off)
+    want = moe_gmm_ragged_plain(x, w, off)
+    torch.cuda.synchronize()
+    assert moe_gmm_ragged.launches == before + 1
+    paths[path] += 1
+    assert _gemm_launch.PATH_LAUNCHES == paths
+    _within(got, want, dt)
+    assert not bool(got[sum(counts):].any())
+    assert _kernels_per_call(lambda: moe_gmm_ragged(x, w, off),
+                             moe_gmm_ragged,
+                             _ragged_kernel_name(path, dt)) == 1
+
+
+def test_moe_gmm_ragged_rejects_what_it_cannot_take(dev):
+    """bf16 rows not 16-byte aligned (the tensor-core tiles' copies), a
+    dense last dim missing, offsets of the wrong type or length, tensors
+    on two devices: each raises before any launch."""
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+    x = torch.randn(40, 64, device=dev)
+    w = torch.randn(3, 64, 130, device=dev)
+    off = torch.tensor([0, 10, 10, 30], dtype=torch.int32, device=dev)
+    before = moe_gmm_ragged.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        moe_gmm_ragged(x.bfloat16(), w.bfloat16(), off)
+    with pytest.raises(ValueError, match="dense"):
+        moe_gmm_ragged(x, w.transpose(1, 2).contiguous().transpose(1, 2),
+                       off)
+    with pytest.raises(ValueError, match="offsets"):
+        moe_gmm_ragged(x, w, off.long())
+    with pytest.raises(ValueError, match="offsets"):
+        moe_gmm_ragged(x, w, off[:3])
+    with pytest.raises(ValueError, match="tensors on"):
+        moe_gmm_ragged(x, w, off.cpu())
+    assert moe_gmm_ragged.launches == before
+
+
+def test_compact_moe_apply_has_no_host_sync(dev):
+    """The MoE serving path on the card (``no_grad``: the compacted
+    dispatch and three ragged launches) under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+    read of a device value, against the same call on the CPU (the plain
+    product); G = 2 branches, a capacity that drops."""
+    import dataclasses
+
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+    from repro_torch.models import moe as MOE
+    cfg = get_config("qwen2-moe-a2.7b").reduced().replace(dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    gen = torch.Generator().manual_seed(4)
+    shapes = MOE.moe_shapes(cfg)
+
+    def draw(tree):
+        return {k: draw(v) if isinstance(v, dict) else torch.randn(
+            (2,) + tuple(v), generator=gen) * 0.1 for k, v in tree.items()}
+    params = draw(shapes)
+    x = torch.randn(2, 24, cfg.d_model, generator=gen)
+    with torch.no_grad():
+        want, _ = MOE.moe_apply(params, x, cfg)
+        on_dev = {k: ({j: t.to(dev) for j, t in v.items()}
+                      if isinstance(v, dict) else v.to(dev))
+                  for k, v in params.items()}
+        xd = x.to(dev)
+        torch.cuda.synchronize()
+        before = moe_gmm_ragged.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, _ = MOE.moe_apply(on_dev, xd, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert moe_gmm_ragged.launches == before + 3
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
 
 
 DECODE_CASES = [

@@ -51,6 +51,16 @@ rules that pick each launch's path.
   f32, scaled once, the splits added in order by the reduce kernel; held as
   |emulated - plain| <= 2e-4 (1 + |plain|) (the chip check's ``QTOL``),
   rejecting a group or a whole split left out in every output row.
+- The grouped GEMM's ragged entry (``_gemm_launch.ragged_emulated``, the
+  MoE's compacted expert product): the walk of its tiles
+  (``_gemm_launch.ragged_walk``: decode-sized, each group's rows in 8-row
+  passes; prefill-sized, slots mapped to (group, row block) over the
+  offsets) covering every output element once, each tile's rows masked at
+  its segment's end and summed in f32 in the kernel's steps, the rows past
+  offsets[-1] zero; held to ``moe_gmm_ragged_plain`` and, segment by
+  segment, to the JAX ``moe_gmm_ref`` as the grouped GEMM is, with empty,
+  one-row and longer-than-a-tile segments, and the same check must reject
+  the output with one row tile left out.
 - ``paged_decode_attention``'s ``decode_split`` kernel
   (``paged_decode_attention.paged_decode_attention_emulated``): pieces of
   the table (``_paged_launch.decode_plan``), token groups each with f32
@@ -75,7 +85,8 @@ from repro_torch.kernels.block_diag_matmul import \
     block_diag_matmul_plain  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_emulated, decode_attention_plain)
-from repro_torch.kernels.moe_gmm import moe_gmm_plain  # noqa: E402
+from repro_torch.kernels.moe_gmm import (moe_gmm_plain,  # noqa: E402
+                                         moe_gmm_ragged_plain)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_decode_attention_emulated, paged_decode_attention_plain)
 from repro_torch.kernels.paged_prefill_attention import (  # noqa: E402
@@ -271,6 +282,102 @@ def test_gemm_path_rule(cut, path):
     """The path depends on dtype, shape and alignment alone, decided before
     any launch (these are CPU tensors: nothing launches)."""
     assert _gemm_launch.path_for(*_gemm_args(cut)) == path
+
+
+#: the ragged entry's cases: (R, segment rows by group); the rows past the
+#: last segment are the dropped assignments (zero rows)
+RAGGED_CASES = {"decode": (40, [0, 1, 20, 0, 12, 0]),
+                "prefill": (300, [0, 1, 150, 0, 100])}
+
+
+def _ragged_case(dt, which, k=72, n=130):
+    r, counts = RAGGED_CASES[which]
+    rng = np.random.default_rng(r + k)
+    x = torch.from_numpy(rng.standard_normal((r, k), np.float32)).to(dt)
+    w = torch.from_numpy(rng.standard_normal((len(counts), k, n), np.float32)
+                         / np.sqrt(k)).to(dt)
+    return x, w, [0] + np.cumsum(counts).tolist()
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("which", ["decode", "prefill"])
+def test_ragged_emulation_matches_plain_and_jax(dt, which):
+    """The ragged entry's tiles, held to ``moe_gmm_ragged_plain`` and to
+    the JAX oracle segment by segment (empty, one-row and
+    longer-than-a-tile segments; zero rows past the last); the check
+    rejects the output with one row tile of the longest segment left out,
+    in every row of that tile."""
+    x, w, off = _ragged_case(dt, which)
+    r, n = x.shape[0], w.shape[2]
+    assert _gemm_launch.ragged_path_for(x, w) == f"ragged_{which}"
+    got = _gemm_launch.ragged_emulated(x, w, off)
+    plain = moe_gmm_ragged_plain(x, w, torch.tensor(off, dtype=torch.int32))
+    assert got.shape == plain.shape == (r, n) and got.dtype == dt
+    limit = lambda want: GEMM_TOL[dt] * (1 + np.abs(want))
+    want = _np(plain)
+    assert (np.abs(_np(got) - want) <= limit(want)).all()
+    assert not _np(got)[off[-1]:].any() and not want[off[-1]:].any()
+    for g, (lo, hi) in enumerate(zip(off, off[1:])):
+        if hi > lo:
+            seg = np.asarray(jref.moe_gmm_ref(_jnp(x[None, lo:hi]),
+                                              _jnp(w[g:g + 1]))[0],
+                             np.float32)
+            assert (np.abs(_np(got)[lo:hi] - seg) <= limit(seg)).all()
+    walk = _gemm_launch.ragged_walk(off, r, n, f"ragged_{which}", dt)
+    drop = next(i for i, t in enumerate(walk) if t[0] == 2)
+    _, r0, r1, c0, c1 = walk[drop]
+    assert r1 - r0 > 1
+    bad = _np(_gemm_launch.ragged_emulated(x, w, off, drop_tile=drop))
+    assert (np.abs(bad - want) > limit(want))[r0:r1, c0:c1].any(-1).all()
+    assert np.array_equal(np.delete(bad, np.s_[r0:r1], 0),
+                          np.delete(_np(got), np.s_[r0:r1], 0))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("r,counts", [
+    (32, [0] * 50 + [2, 3, 0, 9, 1] + [0] * 5), (64, [64] + [0] * 59),
+    (4096, [68] * 60), (4096, [0, 4000, 0, 1]), (130, [1] * 7),
+    (65, [])], ids=["decode32", "decode64-one", "prefill4096",
+                    "prefill-skew", "prefill-ones", "all-dropped"])
+def test_ragged_walk_covers_every_element_once(dt, r, counts):
+    """The walk writes every output element exactly once (products on the
+    segments, zeros past offsets[-1]) within the launch's static slots,
+    each tile inside one segment, whatever the offsets."""
+    n = 300
+    off = [0] + np.cumsum(counts).tolist() if counts else [0]
+    path = "ragged_decode" if r <= _gemm_launch.RAGGED_DECODE_R \
+        else "ragged_prefill"
+    walk = _gemm_launch.ragged_walk(off, r, n, path, dt)
+    seen = np.zeros((r, n), int)
+    g = len(off) - 1
+    for gi, r0, r1, c0, c1 in walk:
+        seen[r0:r1, c0:c1] += 1
+        lo, hi = (off[gi], off[gi + 1]) if gi < g else (off[-1], r)
+        assert lo <= r0 < r1 <= hi
+    assert (seen == 1).all()
+    if path == "ragged_prefill":
+        bm = _gemm_launch.ragged_tile_rows(r, g, dt)
+        assert len({(t[0], t[1]) for t in walk}) <= \
+            _gemm_launch.ragged_slots(r, g, bm)
+
+
+@pytest.mark.parametrize("r,g,dt,path,rows", [
+    (32, 60, torch.bfloat16, "ragged_decode", None),
+    (64, 60, torch.float32, "ragged_decode", None),
+    (65, 60, torch.bfloat16, "ragged_prefill", 64),
+    (4096, 60, torch.bfloat16, "ragged_prefill", 128),
+    (8192, 60, torch.bfloat16, "ragged_prefill", 192),
+    (4096, 60, torch.float32, "ragged_prefill", 128),
+    (1024, 60, torch.float32, "ragged_prefill", 64)])
+def test_ragged_path_rule(r, g, dt, path, rows):
+    """The tiling follows from R alone (never the offsets), the prefill
+    tile's rows from R / G and the dtype."""
+    x, w = torch.zeros(r, 16, dtype=dt), torch.zeros(g, 16, 8, dtype=dt)
+    assert _gemm_launch.ragged_path_for(x, w) == path
+    if rows:
+        assert _gemm_launch.ragged_tile_rows(r, g, dt) == rows
 
 
 @pytest.mark.parametrize("dt,chunk,path", [

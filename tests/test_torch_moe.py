@@ -38,11 +38,21 @@ def _qwen(capacity_factor=None):
     return cfg
 
 
-@pytest.mark.parametrize("case", ["drops", "ties", "branches"])
-def test_moe_apply_matches_jax(case):
-    cfg = _qwen(0.5 if case != "ties" else None)
+def _moe_case(case):
+    """(cfg, JAX params, port params, x [G, B, S, d], JAX's output and
+    aux) of a ``moe_apply`` case: ``drops`` (capacity factor 0.5),
+    ``ties`` (three equal router columns), ``branches`` (a 2-branch
+    semantic split at 0.5), ``gelu`` (the two-projection MLP at 0.5),
+    ``unchosen`` (8 experts, 2 tokens: most experts get no token)."""
+    cfg = _qwen(None if case == "ties" else 0.5)
+    shape = (3, 6)
     if case == "branches":
         cfg = cfg.semantic(2).replace(n_branches=1)
+    elif case == "gelu":
+        cfg = cfg.replace(mlp_type="gelu")
+    elif case == "unchosen":
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=8))
+        shape = (1, 2)
     g = 2 if case == "branches" else 1
     keys = jax.random.split(jax.random.PRNGKey(3), g)
     params = jax.vmap(lambda k: jmoe.moe_init(k, cfg))(keys)
@@ -52,12 +62,20 @@ def test_moe_apply_matches_jax(case):
         r[..., 1] = r[..., 2] = r[..., 0]
         params["router"] = jnp.asarray(r)
     rng = np.random.default_rng(5)
-    x = rng.normal(size=(g, 3, 6, cfg.d_model)).astype(np.float32)
+    x = rng.normal(size=(g, *shape, cfg.d_model)).astype(np.float32)
     want, want_aux = jax.vmap(
         lambda p, xb: jmoe._moe_apply_dense(p, xb, cfg))(
         params, jnp.asarray(x))
     tparams = jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
                            np_tree(params))
+    return cfg, params, tparams, x, want, want_aux
+
+
+@pytest.mark.parametrize("case", ["drops", "ties", "branches"])
+def test_moe_apply_matches_jax(case):
+    """The training path (a gradient recorded: the capacity slots)."""
+    cfg, params, tparams, x, want, want_aux = _moe_case(case)
+    g = x.shape[0]
     got, aux = tmoe.moe_apply(tparams, torch.from_numpy(x).reshape(g, 18, -1),
                               port_cfg(cfg))
     np.testing.assert_allclose(got.reshape(x.shape).numpy(),
@@ -70,6 +88,55 @@ def test_moe_apply_matches_jax(case):
                                    cfg.moe.top_k)
         np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
         assert (idx[:, 0] == 0).any() and (idx[:, :2] != 2).all()
+
+
+@pytest.mark.parametrize("case", ["drops", "ties", "branches", "gelu",
+                                  "unchosen"])
+def test_compact_serving_path_matches_jax(case, monkeypatch):
+    """The serving path (``no_grad``: the kept assignments compacted by
+    expert, one ragged product a projection) against JAX's
+    ``_moe_apply_dense`` within 1e-5; every projection takes R = G T k
+    rows.  Its dispatch against the slot path's buffers on the same
+    routing, exactly: expert e's rows offsets[e] .. offsets[e + 1] are its
+    filled slots (tokens and weights, in slot order), no other slot is
+    filled, and the dropped assignments follow at weight 0."""
+    cfg, _, tparams, x, want, want_aux = _moe_case(case)
+    pcfg, m = port_cfg(cfg), cfg.moe
+    g, t = x.shape[0], x.shape[1] * x.shape[2]
+    xt = torch.from_numpy(x).reshape(g, t, -1)
+    rows = []
+    ragged = tmoe.moe_gmm_ragged
+    monkeypatch.setattr(tmoe, "moe_gmm_ragged", lambda a, w, off: (
+        rows.append(a.shape[0]), ragged(a, w, off))[1])
+    with torch.no_grad():
+        got, aux = tmoe.moe_apply(tparams, xt, pcfg)
+    np.testing.assert_allclose(got.reshape(x.shape).numpy(),
+                               np.asarray(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(aux.numpy(), np.asarray(want_aux), rtol=1e-5)
+    n_proj = 3 if pcfg.mlp_type == "swiglu" else 2
+    assert rows == [g * t * m.top_k] * n_proj
+
+    logits = xt @ tparams["router"]
+    weights, idx = tmoe.router_topk(logits, m.top_k)
+    buf_tok, buf_w = tmoe._dispatch_buffers(weights, idx, g, t, pcfg.moe)
+    tok, w, off = tmoe._dispatch_compact(weights, idx, g, t, pcfg.moe)
+    assert off.dtype == torch.int32 and off.shape == (g * m.n_experts + 1,)
+    assert tok.shape == w.shape == (g * t * m.top_k,)
+    counts = off.diff().tolist()
+    for e, n in enumerate(counts):
+        lo = int(off[e])
+        assert torch.equal(tok[lo:lo + n], buf_tok[e, :n])
+        assert torch.equal(w[lo:lo + n], buf_w[e, :n])
+        assert (buf_w[e, n:] == 0).all()
+    kept = int(off[-1])
+    assert (w[kept:] == 0).all()
+    # every assignment appears once: its token k times over kept + dropped
+    assert torch.equal(torch.bincount(tok, minlength=g * t),
+                       torch.full((g * t,), m.top_k))
+    if case in ("drops", "branches", "gelu"):
+        assert kept < g * t * m.top_k            # assignments dropped
+    if case == "unchosen":
+        assert counts.count(0) >= m.n_experts - 4
 
 
 def test_router_topk_ties_take_lower_expert():

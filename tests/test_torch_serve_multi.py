@@ -41,7 +41,8 @@ and the same numpy-seeded tokens:
 - the same calls of fsdp on (2, 1) on tiny qwen2-moe at a capacity factor
   whose experts overflow (the reference drops assignments, counted here),
   and the loss and gradients of its ``value_and_grad``: capacity and drops
-  are the whole batch's though each rank routes its own rows;
+  are the whole batch's though each rank routes its own rows, and each
+  rank's serving expert product takes its own G T_local k compacted rows;
 - ``TorchBackend`` on the process-group mesh (the gang path through the
   runners, rank 0 driving the engine, rank 1 following its headers) on
   (2, 1) and (1, 2), each arm under ``FixedPolicy`` held token for token
@@ -405,10 +406,12 @@ def _worker(rank: int, io: pathlib.Path) -> None:
         params = runner.shard(bridge.tree_from_numpy(weights[wkey]))
         comm.reset_stats()
         L.FLASH_STATS["lse_merges"] = 0
-        out, cache = run_case(runner, params, what, _tokens(name,
-                                                            cfg.vocab_size),
-                              lambda a: torch.from_numpy(np.asarray(a)))
+        with _RaggedRows() as ragged:
+            out, cache = run_case(runner, params, what,
+                                  _tokens(name, cfg.vocab_size),
+                                  lambda a: torch.from_numpy(np.asarray(a)))
         res = {"l/" + k: v.numpy() for k, v in out.items()}
+        res["x/ragged_rows"] = np.asarray(ragged.rows, np.int64)
         res.update({"c/" + k: v for k, v in
                     flat(bridge.tree_to_numpy(dictify(cache))).items()})
         res.update({"s/" + k: np.asarray(v)
@@ -426,6 +429,25 @@ def _worker(rank: int, io: pathlib.Path) -> None:
         np.savez(io / f"r_{name}_{rank}.npz", **res)
     _engine_worker(rank, io, meshes, weights)
     dist.destroy_process_group()
+
+
+class _RaggedRows:
+    """While active, the rows of every ragged expert product
+    (``models.moe.moe_gmm_ragged``) this process launches, in order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.rows, self.orig = [], MOE.moe_gmm_ragged
+
+        def spy(x, w, offsets):
+            self.rows.append(x.shape[0])
+            return self.orig(x, w, offsets)
+        MOE.moe_gmm_ragged = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE.moe_gmm_ragged = self.orig
 
 
 def _moe_step_collectives(runner, params, toks, t):
@@ -1254,6 +1276,24 @@ def test_moe_row_split_drops_as_the_reference(world):
             assert got[k].shape == w.shape, k
             err = float(np.abs(got[k] - w).max())
             assert err <= TOL * max(float(np.abs(w).max()), 1e-30), (k, err)
+
+
+def test_moe_row_split_expert_rows_are_the_ranks_own(world):
+    """Serving on the row split, each rank's expert product is the ragged
+    one over its own compacted assignments: G T_local k rows a launch
+    (T_local its B / 2 rows' tokens), three launches (gate, up, down) a
+    MoE layer a call, where the slot path ran [E, min(C, T_local)] slots;
+    its logits and drops are held to JAX's in ``test_logits_match_jax``
+    and ``test_moe_row_split_drops_as_the_reference``."""
+    io, cfgs, _ = world
+    cfg = cfgs["moe"]
+    k, per_call = cfg.moe.top_k, 3 * cfg.n_layers
+    local = B // CASES["fsdp_moe"][0][0]
+    want = [local * S * k] * 2 * per_call + [local * k] * 4 * per_call
+    for r, s in enumerate(_shards(io, "fsdp_moe")):
+        assert s["x/ragged_rows"].tolist() == want, r
+    # the cases without an MoE launch none
+    assert not _shards(io, "fsdp")[0]["x/ragged_rows"].size
 
 
 def test_moe_row_split_serving_gathers_once_a_layer(world):
